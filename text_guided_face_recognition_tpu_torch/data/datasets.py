@@ -1,0 +1,278 @@
+"""Datasets for the BERT serving path: caption/identity metadata and images.
+
+Counterpart of text_guided_face_recognition_tpu/data/datasets.py, for BERT
+captions. Samples are dicts of numpy arrays; images are NHWC float32 in
+[-1, 1] (or uint8 with `uint8_images`), the same wire format as the JAX
+package, so the two produce identical batches from identical inputs.
+`synthetic=True` generates a deterministic random image per key, the same
+bytes as the JAX package generates.
+
+Ported: the reference's on-disk formats (filenames/class pickles, per-id
+caption files, the captions_<bert_type>.pickle cache), `TrainDataset` (flat
+samples, as extraction uses it) and `TestDataset` (pair lists). Waiting
+(ROADMAP.md): the native C++ JPEG decode, the LSTM caption path, the
+frozen-feature cache and the `compat_bert_caption_bug` switch.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import pickle
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from text_guided_face_recognition_tpu_torch.data.tokenizers import (
+    get_bert_tokenizer)
+from text_guided_face_recognition_tpu_torch.data.transforms import (
+    decode_image,
+    eval_transform,
+    train_aug_u8,
+    train_transform,
+)
+
+__all__ = ["load_filenames", "load_class_id", "load_text_data_bert",
+           "TrainDataset", "TestDataset"]
+
+
+def load_filenames(data_dir: str, split: str) -> List[str]:
+    path = os.path.join(data_dir, split, "filenames.pickle")
+    if not os.path.isfile(path):
+        return []
+    with open(path, "rb") as f:
+        names = pickle.load(f)
+    print(f"Load {split} filenames from: {path} ({len(names)})")
+    return list(names)
+
+
+def load_class_id(split_dir: str) -> List[int]:
+    path = os.path.join(split_dir, "class_info.pickle")
+    with open(path, "rb") as f:
+        class_id = pickle.load(f, encoding="bytes")
+    print(f"Load class_info from: {path} ({len(class_id)})")
+    return list(class_id)
+
+
+def _read_caption_file(data_dir: str, filename: str) -> List[str]:
+    cap_path = os.path.join(data_dir, "text", filename + ".txt")
+    with open(cap_path, "r") as f:
+        return [c for c in f.read().split("\n") if len(c) > 0]
+
+
+def _as_numpy_caption(x) -> np.ndarray:
+    """Accept torch tensors (reference cache format) or arrays/lists."""
+    if hasattr(x, "numpy"):
+        return np.asarray(x.numpy(), np.int32)
+    return np.asarray(x, np.int32)
+
+
+def load_text_data_bert(data_dir: str, args):
+    """BERT caption cache: the reference's captions_<bert_type>.pickle when
+    present, else captions_<bert_type>-hash.pickle, built with the
+    HashTokenizer on first use. Raises FileNotFoundError when the split
+    metadata is absent."""
+    names = {s: load_filenames(data_dir, s) for s in ("train", "valid", "test")}
+    if not names["train"] and not names["test"]:
+        raise FileNotFoundError(f"no split metadata under {data_dir}")
+    filepath = os.path.join(data_dir, f"captions_{args.bert_type}.pickle")
+    if not os.path.isfile(filepath):
+        encode = get_bert_tokenizer(args)
+        filepath = os.path.join(
+            data_dir, f"captions_{args.bert_type}{encode.cache_tag}.pickle")
+    if not os.path.isfile(filepath):
+        store = []
+        for split in ("train", "valid", "test"):
+            caps, masks = [], []
+            for name in names[split]:
+                cnt = 0
+                for cap in _read_caption_file(data_dir, name):
+                    ids, mask = encode(cap, args.bert_words_num)
+                    caps.append(ids)
+                    masks.append(mask)
+                    cnt += 1
+                    if cnt == args.captions_per_image:
+                        break
+                if cnt < args.captions_per_image:
+                    print(f"ERROR: the captions for {name} less than {cnt}")
+            store += [caps, masks]
+        with open(filepath, "wb") as f:
+            pickle.dump(store, f, protocol=2)
+        print("\nSave to: ", filepath)
+        tr_c, tr_m, va_c, va_m, te_c, te_m = store
+    else:
+        print("Loading ", filepath)
+        with open(filepath, "rb") as f:
+            x = pickle.load(f)
+        tr_c, tr_m, va_c, va_m, te_c, te_m = (
+            [_as_numpy_caption(c) for c in part] for part in x)
+    return (names["train"], tr_c, tr_m, names["valid"], va_c, va_m,
+            names["test"], te_c, te_m)
+
+
+def _synthetic_image(key: str, img_size: int) -> np.ndarray:
+    """Deterministic per-key uint8 image for data-free end-to-end runs."""
+    seed = int.from_bytes(hashlib.sha1(key.encode()).digest()[:4], "little")
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, size=(img_size, img_size, 3), dtype=np.uint8)
+
+
+class _DatasetBase:
+    def _init_common(self, filenames, captions, att_masks, split, args,
+                     synthetic):
+        if args.en_type != "BERT":
+            raise NotImplementedError(
+                f"en_type={args.en_type!r}: the LSTM path is not ported yet "
+                "(ROADMAP.md, Queue 1)")
+        self.filenames = list(filenames)
+        self.captions = captions
+        self.att_masks = att_masks
+        self.split = split
+        self.args = args
+        self.synthetic = synthetic or bool(getattr(args, "synthetic", False))
+        self.embeddings_num = args.captions_per_image
+        self.data_dir = args.data_dir
+        self.model_type = args.model_type
+        self.img_size = args.img_size
+        self.uint8_images = bool(getattr(args, "uint8_images", False))
+
+    def _raw_image(self, path: str, key: str) -> np.ndarray:
+        if self.synthetic:
+            return _synthetic_image(key, self.img_size)
+        return decode_image(path, self.img_size)
+
+    def _eval_image(self, raw: np.ndarray) -> np.ndarray:
+        if self.uint8_images:
+            return np.ascontiguousarray(raw)  # the device normalises
+        return eval_transform(raw, self.model_type)
+
+
+class TrainDataset(_DatasetBase):
+    """Flat (image, caption) samples. Each __getitem__ call derives its RNG
+    from (seed, index, visit#), so concurrent loader threads stay
+    deterministic."""
+
+    def __init__(self, filenames, captions, att_masks=None, split="train",
+                 args=None, synthetic: bool = False, seed: int = 0):
+        self._init_common(filenames, captions, att_masks, split, args,
+                          synthetic)
+        try:
+            self.class_id = load_class_id(os.path.join(self.data_dir, split))
+        except (FileNotFoundError, OSError):
+            if not self.synthetic:
+                raise
+            self.class_id = [i % args.num_classes
+                             for i in range(len(self.filenames))]
+        self.seed = seed
+        self._visits: Dict[int, int] = {}
+        # serving knobs: no augmentation, a pinned caption index
+        self.augment: bool = True
+        self.fixed_sent_ix: Optional[int] = None
+
+    def __len__(self) -> int:
+        return len(self.filenames)
+
+    def _produce_image(self, index: int, rng: np.random.Generator
+                       ) -> np.ndarray:
+        key = self.filenames[index]
+        path = os.path.join(self.data_dir, "images", self.split, key + ".jpg")
+        raw = self._raw_image(path, key)
+        if not self.augment:
+            return self._eval_image(raw)
+        if self.uint8_images:
+            return train_aug_u8(raw, rng)
+        return train_transform(raw, rng, self.model_type)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        key = self.filenames[index]
+        visit = self._visits[index] = self._visits.get(index, -1) + 1
+        rng = np.random.default_rng((self.seed, index, visit))
+        sample = {"img": self._produce_image(index, rng)}
+        sent_ix = (self.fixed_sent_ix if self.fixed_sent_ix is not None
+                   else int(rng.integers(0, self.embeddings_num)))
+        cap_index = index * self.embeddings_num + sent_ix
+        sample.update(caps=_as_numpy_caption(self.captions[cap_index]),
+                      mask=_as_numpy_caption(self.att_masks[cap_index]),
+                      key=key, cls_id=np.int32(self.class_id[index]))
+        return sample
+
+
+class TestDataset(_DatasetBase):
+    """Pair-list verification dataset: pairs from `img1 img2 label` lines
+    (or synthetic identification groups); each side takes the first caption
+    of its key."""
+
+    __test__ = False  # not a pytest class despite the name
+
+    def __init__(self, filenames, captions, att_masks=None, split="test",
+                 args=None, synthetic: bool = False):
+        self._init_common(filenames, captions, att_masks, split, args,
+                          synthetic)
+        self._index = {name: i for i, name in enumerate(self.filenames)}
+        pair_file = (args.test_pair_list if split == "test"
+                     else args.valid_pair_list)
+        # a real pair list wins even over synthetic images
+        self.synthetic_pairs = self.synthetic and not os.path.isfile(pair_file)
+        self.imgs_pair, self.pair_label = self._read_pairs(pair_file)
+
+    def _read_pairs(self, path: str):
+        if self.synthetic_pairs:
+            return self._synthetic_pairs()
+        pairs, labels = [], []
+        with open(path) as fd:
+            for line in fd:
+                parts = line.split(" ")
+                if len(parts) < 3:
+                    continue
+                pairs.append([parts[0], parts[1]])
+                labels.append(int(parts[2]))
+        return pairs, labels
+
+    def _synthetic_pairs(self):
+        """Per subject: 1 genuine pair at column 0 of its 4-pair group, then
+        3 imposters."""
+        n = min(len(self.filenames), 64)
+        pairs, labels = [], []
+        for i in range(n):
+            for j in range(4):
+                a = self.filenames[i] + ".jpg"
+                b = self.filenames[(i + j) % n] + ".jpg"
+                pairs.append([a, b])
+                labels.append(1 if j == 0 else 0)
+        return pairs, labels
+
+    def __len__(self) -> int:
+        return len(self.imgs_pair)
+
+    def pair_sides(self, index: int):
+        """[(img_name, key), (img_name, key)] for pair `index`; bare
+        `<id>_<k>.jpg` names resolve to the on-disk `<id>/<id>_<k>.jpg`
+        layout unless the filename index holds the bare stem."""
+        out = []
+        for n in self.imgs_pair[index]:
+            if n[:-4] not in self._index:
+                joined = os.path.join(n.split("_")[0], n)
+                if joined[:-4] in self._index or not self.synthetic:
+                    n = joined
+            out.append((n, n[:-4]))
+        return out
+
+    def get_sample(self, name: str, key: str) -> Dict[str, np.ndarray]:
+        """One side's sample: eval image + first caption (sent_ix = 0)."""
+        path = os.path.join(self.data_dir, "images", self.split, name)
+        side: Dict[str, np.ndarray] = {
+            "img": self._eval_image(self._raw_image(path, key))}
+        new_sent_ix = self._index.get(key, 0) * self.embeddings_num
+        side["cap"] = _as_numpy_caption(self.captions[new_sent_ix])
+        side["mask"] = _as_numpy_caption(self.att_masks[new_sent_ix])
+        return side
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        sample: Dict[str, np.ndarray] = {
+            "pair_label": np.int32(self.pair_label[index])}
+        for slot, (name, key) in enumerate(self.pair_sides(index), start=1):
+            side = self.get_sample(name, key)
+            sample[f"img{slot}"] = side["img"]
+            sample[f"cap{slot}"] = side["cap"]
+            sample[f"mask{slot}"] = side["mask"]
+        return sample
