@@ -92,3 +92,60 @@ def test_bridge_refuses_incomplete_or_foreign_trees(tiny_arch):
         state_dict_from_jax({"fc1": {"kernel": params["fc1"]["kernel"].T,
                                      "bias": params["fc1"]["bias"]}},
                             module=p_mod)
+
+
+def _stage1_trees(arch):
+    """The JAX stage-1 trainer's params and batch_stats trees (its layout,
+    engine/stage1.py) for the tiny arch, from module inits."""
+    z = jnp.zeros
+    key = jax.random.PRNGKey
+    ih = randomize_stats(JM.ImageHeading().init(key(0), z((1, 512)),
+                                                z((1, 14, 14, 256))), 3)
+    te = JM.TextEncoder(bert_type=arch).init(
+        key(1), z((1, 8), jnp.int32), jnp.ones((1, 8), jnp.int32))
+    th = JM.TextHeading().init(key(2), z((1, 7, 128)))
+    xavier = jax.nn.initializers.xavier_uniform()
+    params = {"image_head": ih["params"], "text_encoder": te["params"],
+              "text_head": th["params"],
+              "image_cls": {"weight": xavier(key(3), (16, 256))},
+              "text_cls": {"weight": xavier(key(4), (16, 256))}}
+    return to_numpy(params), to_numpy({"image_head": ih["batch_stats"]})
+
+
+def _stage1_model(arch):
+    from text_guided_face_recognition_tpu_torch.engine.stage1 import (
+        Stage1Model)
+    return Stage1Model(PM.ImageHeading(), PM.TextEncoder(bert_type=arch),
+                       PM.TextHeading(hidden=128, feat_dim=256), 16, 256)
+
+
+def test_bridge_carries_the_stage1_trees(tiny_arch):
+    params, stats = _stage1_trees(tiny_arch)
+    model = _stage1_model(tiny_arch)
+    sd = state_dict_from_jax(params, stats, module=model)
+    assert len(sd) == len(_leaves(params)) + len(_leaves(stats))
+    assert not any(model.load_state_dict(sd, strict=True))
+    # class weights land unchanged, (num_classes, feat)
+    np.testing.assert_array_equal(sd["image_cls.weight"].numpy(),
+                                  params["image_cls"]["weight"])
+    np.testing.assert_array_equal(sd["text_cls.weight"].numpy(),
+                                  params["text_cls"]["weight"])
+    np.testing.assert_array_equal(
+        sd["image_head.imim.bn_img.running_var"].numpy(),
+        stats["image_head"]["imim"]["bn_img"]["var"])
+
+
+def test_bridge_refuses_incomplete_or_foreign_stage1_trees(tiny_arch):
+    params, stats = _stage1_trees(tiny_arch)
+    model = _stage1_model(tiny_arch)
+    missing = {k: v for k, v in params.items() if k != "text_cls"}
+    with pytest.raises(KeyError, match="no JAX leaf"):
+        state_dict_from_jax(missing, stats, module=model)
+    with pytest.raises(KeyError, match="no JAX leaf"):
+        state_dict_from_jax(params, {}, module=model)
+    extra = {**params, "cmp": {"W": np.zeros((256, 16), np.float32)}}
+    with pytest.raises(KeyError, match="unknown leaf"):
+        state_dict_from_jax(extra, stats, module=model)
+    extra = {**params, "cmp": {"weight": np.zeros((256, 16), np.float32)}}
+    with pytest.raises(KeyError, match="no port key"):
+        state_dict_from_jax(extra, stats, module=model)

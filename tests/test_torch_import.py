@@ -36,6 +36,9 @@ def test_importing_the_port_loads_no_jax():
         f"{PORT}.models, {PORT}.engine.prepare, {PORT}.engine.from_jax, "
         f"{PORT}.engine.evaluate, {PORT}.engine.extract, {PORT}.cli, "
         f"{PORT}.cli.test, {PORT}.cli.extract_embeddings, "
+        f"{PORT}.cli.train_encoders_bert, {PORT}.engine.stage1, "
+        f"{PORT}.engine.optim, {PORT}.engine.checkpoint, {PORT}.ops.damsm, "
+        f"{PORT}.ops.losses, {PORT}.ops.margins, {PORT}.ops.dropout, "
         f"{PORT}.utils.metrics\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

@@ -133,9 +133,10 @@ def test_dropout_and_devices_are_refused():
     p = _params(256)
     args = (t(p["x"]), t(p["w1"]), t(p["c1"]), t(p["w2"]), t(p["c2"]),
             t(p["g"]), t(p["b"]))
-    with pytest.raises(NotImplementedError, match="training slice"):
+    # dropout takes host bits: rate > 0 without them is refused
+    with pytest.raises(ValueError, match="dropout bits"):
         block.ffn_block(*args, rate=0.1)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="dropout bits"):
         block.attn_block(t(p["x"]), t(ragged_mask(B, T)), t(p["wqkv"]),
                          t(p["bqkv"]), t(p["wo"]), t(p["bo"]), t(p["g"]),
                          t(p["b"]), B, T, HEADS, rate=0.1)

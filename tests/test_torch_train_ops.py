@@ -1,0 +1,557 @@
+"""The training slice's kernel modules and losses against the JAX package:
+the plain backwards of K2 (ops/layernorm.py), K4 and K6 (ops/block.py), the
+train-mode forwards of K3 and K5 with their residuals, K9's plain version
+and its gradient (ops/damsm.py), the losses (ops/losses.py), ArcFace
+margins (ops/margins.py), dropout (ops/dropout.py) and train-mode
+BatchNorm / ImageHeading (models/).
+
+On the CPU each port wrapper runs its plain PyTorch version; the JAX
+kernels run in Pallas interpret mode with host dropout bits
+(`use_prng=False`), the same uint32 bits on both sides (int32-held on the
+port's). Gradients are held through the port's autograd Functions against
+`jax.vjp` of the JAX custom VJPs. Tolerances (assert_allclose,
+rtol = atol): f32 5e-5, bf16 2e-2 for the kernels, as tests/test_torch_ops.py
+(summation order, the TPU kernel's A-S erf; in bf16 roundings on the other
+side of a step); a weight or bias gradient, a sum over the 48 rows, is held
+to the same tolerance times its largest element. DAMSM 2e-5 (the Pallas
+kernel's eps clamps against the plain function, as tests/test_pallas.py);
+losses, margins and BatchNorm values 1e-5 (f32), the losses' and margins'
+gradients 1e-4 (times their largest element: f32 sums over B x B terms
+of magnitude up to 500).
+
+The `cuda`-marked cases hold each new CUDA kernel against its plain version
+on a card and skip elsewhere; the JAX package is imported inside fixtures,
+so on a machine with a card and no JAX they run alone:
+  python -m pytest tests/test_torch_train_ops.py -m cuda --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from text_guided_face_recognition_tpu_torch.ops import (
+    attention, block, damsm, dropout, layernorm, losses, margins)
+
+B, T, H, HEADS, I = 4, 12, 256, 4, 512    # d_head = 64, as the kernels take
+R = B * T
+RATE = 0.1
+DTYPES = [("float32", torch.float32, 5e-5), ("bfloat16", torch.bfloat16, 2e-2)]
+
+
+class _Jax:
+    """The JAX side: its Pallas kernels in interpret mode, host bits."""
+
+    def __init__(self):
+        import jax
+        import jax.numpy as jnp
+        from text_guided_face_recognition_tpu.ops import block_pallas
+        from text_guided_face_recognition_tpu.ops.layernorm_pallas import (
+            layernorm_fused)
+        self.jax, self.jnp = jax, jnp
+        self.layernorm = layernorm_fused
+        self.bp = block_pallas
+        self.dummy = jnp.zeros((8, 128), jnp.uint32)
+        self.seed = jnp.zeros((1, 1), jnp.int32)
+
+    def a(self, x, dtype="float32"):
+        return self.jnp.asarray(x, dtype)
+
+
+@pytest.fixture
+def jx():
+    pytest.importorskip("jax")
+    return _Jax()
+
+
+def t(x, dtype=None) -> torch.Tensor:
+    out = torch.from_numpy(np.ascontiguousarray(x))
+    return out if dtype is None else out.to(dtype)
+
+
+def close(port, ref, tol: float, scaled: bool = False, what: str = ""):
+    ref = np.asarray(ref, np.float32)
+    atol = tol * max(1.0, float(np.abs(ref).max())) if scaled else tol
+    np.testing.assert_allclose(port.detach().float().numpy(), ref,
+                               rtol=tol, atol=atol, err_msg=what)
+
+
+def _params(seed=0):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return dict(
+        x=rng.normal(size=(R, H)).astype(f),
+        dy=rng.normal(size=(R, H)).astype(f),
+        wqkv=(rng.normal(size=(H, 3 * H)) / np.sqrt(H)).astype(f),
+        bqkv=rng.normal(0, 0.1, 3 * H).astype(f),
+        wo=(rng.normal(size=(H, H)) / np.sqrt(H)).astype(f),
+        bo=rng.normal(0, 0.1, H).astype(f),
+        w1=(rng.normal(size=(H, I)) / np.sqrt(H)).astype(f),
+        c1=rng.normal(0, 0.1, I).astype(f),
+        w2=(rng.normal(size=(I, H)) / np.sqrt(I)).astype(f),
+        c2=rng.normal(0, 0.1, H).astype(f),
+        g=(1 + rng.normal(0, 0.1, H)).astype(f),
+        b=rng.normal(0, 0.1, H).astype(f),
+        bits_p=rng.integers(0, 1 << 32, (HEADS * B, T, T), dtype=np.uint32),
+        bits_h=rng.integers(0, 1 << 32, (R, H), dtype=np.uint32))
+
+
+def ragged_mask(b: int, t_: int, seed: int = 0) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(2, t_ + 1, size=b)
+    lens[0] = t_
+    return (np.arange(t_)[None, :] < lens[:, None]).astype(np.int32)
+
+
+def bits(u32: np.ndarray) -> torch.Tensor:
+    """uint32 bits as the port holds them: int32 patterns."""
+    return t(u32.view(np.int32))
+
+
+def _grads(out, inputs, cot):
+    return torch.autograd.grad(out, inputs, cot)
+
+
+# ---------------------------------------------------------------- K2 --
+
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
+def test_layernorm_backward_matches_jax(jx, jdt, tdt, tol):
+    p = _params()
+    x = p["x"] * 3.0 + 1.0
+    y, vjp = jx.jax.vjp(lambda x_, g_, b_: jx.layernorm(x_, g_, b_, 1e-12,
+                                                        True),
+                        jx.a(x, jdt), jx.a(p["g"]), jx.a(p["b"]))
+    dx_j, dg_j, db_j = vjp(jx.a(p["dy"], jdt))
+    # the plain backward
+    dx, dg, db = layernorm.layernorm_bwd_ref(t(p["dy"], tdt), t(x, tdt),
+                                             t(p["g"]))
+    close(dx, dx_j, tol)
+    close(dg, dg_j, tol, scaled=True)
+    close(db, db_j, tol, scaled=True)
+    # and through the autograd Function
+    xs, gs, bs = (t(x, tdt).requires_grad_(), t(p["g"]).requires_grad_(),
+                  t(p["b"]).requires_grad_())
+    out = layernorm.layernorm_fused(xs, gs, bs)
+    close(out, y, tol)
+    for a, b in zip(_grads(out, (xs, gs, bs), t(p["dy"], tdt)),
+                    (dx_j, dg_j, db_j)):
+        close(a, b, tol, scaled=True)
+
+
+# ---------------------------------------------------------------- K4 --
+
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
+def test_ffn_block_train_matches_jax(jx, jdt, tdt, tol, rate):
+    p = _params(1)
+    names = ("w1", "c1", "w2", "c2", "g", "b")
+    jb = jx.a(p["bits_h"], "uint32") if rate else jx.dummy
+    tb = bits(p["bits_h"]) if rate else None
+
+    def f(x_, *w):
+        return jx.bp.ffn_block(x_, *w, jb, jx.seed, rate, 1e-12, False, True)
+
+    args_j = (jx.a(p["x"], jdt), *(jx.a(p[k]) for k in names))
+    z_j, vjp = jx.jax.vjp(f, *args_j)
+    grads_j = vjp(jx.a(p["dy"], jdt))
+    _, (_, f_j, r_j, *_) = jx.bp._ffn_fwd(*args_j, jb, jx.seed, rate, 1e-12,
+                                          False, True)
+    # forward residuals: (z, f, act, r)
+    z, f_p, act, r = block.ffn_block_fwd_ref(
+        t(p["x"], tdt), *(t(p[k]) for k in names), tb, rate)
+    for a, b in ((z, z_j), (f_p, f_j), (r, r_j)):
+        close(a, b, tol)
+    # the plain backward and the autograd Function
+    ins = [t(p["x"], tdt).requires_grad_()] + [
+        t(p[k]).requires_grad_() for k in names]
+    out = block.ffn_block(*ins, rate=rate, bits=tb)
+    close(out, z_j, tol)
+    # (on the CPU the Function's backward is ffn_block_bwd_ref)
+    got = _grads(out, ins, t(p["dy"], tdt))
+    for i, (a, b) in enumerate(zip(got, grads_j)):
+        close(a, b, tol, scaled=i > 0, what=f"grad {i}")
+
+
+# ---------------------------------------------------------------- K6 --
+
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
+def test_attn_block_train_matches_jax(jx, jdt, tdt, tol, rate):
+    p = _params(2)
+    mask = ragged_mask(B, T, 2)
+    names = ("wqkv", "bqkv", "wo", "bo", "g", "b")
+    jbp = jx.a(p["bits_p"], "uint32") if rate else jx.dummy
+    jbh = jx.a(p["bits_h"], "uint32") if rate else jx.dummy
+    tbp = bits(p["bits_p"]) if rate else None
+    tbh = bits(p["bits_h"]) if rate else None
+    jmask = jx.a(mask, "int32")
+
+    def f(x_, *w):
+        return jx.bp.attn_block(x_, jmask, *w, jbp, jbh, jx.seed, B, T,
+                                HEADS, rate, 1e-12, False, True)
+
+    args_j = (jx.a(p["x"], jdt), *(jx.a(p[k]) for k in names))
+    y_j, vjp = jx.jax.vjp(f, *args_j)
+    grads_j = vjp(jx.a(p["dy"], jdt))
+    _, (_, _, qkv_j, p_j, o_j, r_j, *_) = jx.bp._attn_fwd(
+        args_j[0], jmask, *args_j[1:], jbp, jbh, jx.seed, B, T, HEADS, rate,
+        1e-12, False, True)
+    y, qkv, pp, o, r = block.attn_block_fwd_ref(
+        t(p["x"], tdt), t(mask), *(t(p[k]) for k in names), B, T, HEADS,
+        tbp, tbh, rate)
+    for a, b in ((y, y_j), (qkv, qkv_j), (pp, p_j), (o, o_j), (r, r_j)):
+        close(a, b, tol)
+    ins = [t(p["x"], tdt).requires_grad_()] + [
+        t(p[k]).requires_grad_() for k in names]
+    out = block.attn_block(ins[0], t(mask), *ins[1:], B, T, HEADS, rate,
+                           bits_p=tbp, bits_h=tbh)
+    close(out, y_j, tol)
+    got = _grads(out, ins, t(p["dy"], tdt))
+    assert len(got) == len(grads_j) == 7
+    for i, (a, b) in enumerate(zip(got, grads_j)):
+        close(a, b, tol, scaled=i > 0, what=f"grad {i}")
+
+
+def test_dropout_matches_the_jax_plan(jx):
+    from text_guided_face_recognition_tpu.models.text_bert import _DropPlan
+    rng = np.random.default_rng(3)
+    u32 = rng.integers(0, 1 << 32, (2, 1000), dtype=np.uint32)
+    x = rng.normal(size=(2, 1000)).astype(np.float32)
+    for jdt, tdt in (("float32", torch.float32),
+                     ("bfloat16", torch.bfloat16)):
+        plan = _DropPlan(jx.a(u32.reshape(-1), "uint32"), RATE)
+        want = np.asarray(plan.take(jx.a(x, jdt)), np.float32)
+        got = dropout.dropout(t(x, tdt), bits(u32), RATE).float().numpy()
+        np.testing.assert_array_equal(got, want)
+    assert dropout.threshold(RATE) == int(plan.threshold)
+
+
+# ---------------------------------------------------------------- K9 --
+
+def _damsm_data(seed=0, b=6, d=32, t_=7, r=49):
+    rng = np.random.default_rng(seed)
+    words = rng.normal(size=(b, d, t_)).astype(np.float32)
+    regions = rng.normal(size=(b, d, r)).astype(np.float32)
+    lens = rng.integers(2, t_ + 1, b)
+    return words, regions, np.arange(t_)[None, :] < lens[:, None]
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_damsm_plain_matches_pallas_kernel(jx, masked):
+    from text_guided_face_recognition_tpu.ops.damsm_pallas import (
+        damsm_similarity_pallas)
+    words, regions, mask = _damsm_data(0)
+    jm = jx.jnp.asarray(mask) if masked else None
+    want = damsm_similarity_pallas(jx.a(words), jx.a(regions), 4.0, 5.0, jm,
+                                   interpret=True)
+    got = attention.damsm_similarity(t(words), t(regions), 4.0, 5.0,
+                                     t(mask) if masked else None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_func_attention_and_plain_damsm_match_jax(jx, masked):
+    """The plain ops of module ops/attention.py against the JAX package's
+    (f32, 1e-5)."""
+    from text_guided_face_recognition_tpu.ops import attention as JA
+    words, regions, mask = _damsm_data(2, r=16)
+    jm = jx.jnp.asarray(mask) if masked else None
+    tm = t(mask) if masked else None
+    regions4 = regions.reshape(*regions.shape[:2], 4, 4)
+    for got, want in zip(
+            attention.func_attention(t(words), t(regions4), 4.0, tm),
+            JA.func_attention(jx.a(words), jx.a(regions4), 4.0, jm)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+    got = attention.damsm_similarity(t(words), t(regions), 4.0, 5.0, tm)
+    want = JA.damsm_similarity(jx.a(words), jx.a(regions), 4.0, 5.0, jm)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_damsm_gradient_matches_jax_custom_vjp(jx, monkeypatch):
+    from text_guided_face_recognition_tpu.ops import damsm_pallas as DP
+    orig = DP.damsm_similarity_pallas
+    monkeypatch.setattr(DP, "damsm_similarity_pallas",
+                        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
+    words, regions, mask = _damsm_data(1)
+    jm = jx.jnp.asarray(mask)
+    tanh = jx.jnp.tanh
+
+    def loss(w, r):
+        return jx.jnp.sum(tanh(DP.damsm_similarity_fused(w, r, 4.0, 5.0,
+                                                         jm)))
+
+    val, (gw, gr) = jx.jax.value_and_grad(loss, argnums=(0, 1))(
+        jx.a(words), jx.a(regions))
+    w, r = t(words).requires_grad_(), t(regions).requires_grad_()
+    out = torch.tanh(damsm.damsm_similarity_fused(w, r, 4.0, 5.0,
+                                                  t(mask))).sum()
+    out.backward()
+    np.testing.assert_allclose(float(out), float(val), rtol=2e-5)
+    np.testing.assert_allclose(w.grad.numpy(), np.asarray(gw), atol=2e-5)
+    np.testing.assert_allclose(r.grad.numpy(), np.asarray(gr), atol=2e-5)
+
+
+# ----------------------------------------------------- losses, margins --
+
+def _loss_inputs(seed=4, b=6, d=16):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, d)).astype(np.float32),
+            rng.normal(size=(b, d)).astype(np.float32),
+            np.array([0, 1, 1, 2, 3, 3], np.int32))
+
+
+def test_losses_match_jax(jx):
+    from text_guided_face_recognition_tpu.ops import losses as JL
+    a, b_, cls = _loss_inputs()
+    labels = np.arange(len(cls))
+    words, regions, mask = _damsm_data(5, b=6, d=16, t_=5, r=16)
+    regions4 = regions.reshape(6, 16, 4, 4)
+    jfns = {
+        "sent": lambda x, y: sum(JL.sent_loss(x, y, jx.jnp.asarray(labels),
+                                              jx.jnp.asarray(cls), 10.0)),
+        "global": lambda x, y: JL.global_loss(x, y),
+        "cosine": lambda x, y: jx.jnp.sum(JL.cosine_similarity(x, y)),
+        "words": lambda x, y: sum(JL.words_loss(
+            x, y, jx.jnp.asarray(labels), 4.0, 5.0, 10.0,
+            word_mask=jx.jnp.asarray(mask))),
+        "focal": lambda x, y: JL.focal_loss(x @ y.T, jx.jnp.asarray(labels)),
+    }
+    tfns = {
+        "sent": lambda x, y: sum(losses.sent_loss(x, y, t(labels), t(cls),
+                                                  10.0)),
+        "global": lambda x, y: losses.global_loss(x, y),
+        "cosine": lambda x, y: losses.cosine_similarity(x, y).sum(),
+        "words": lambda x, y: sum(losses.words_loss(
+            x, y, t(labels), 4.0, 5.0, 10.0, word_mask=t(mask))),
+        "focal": lambda x, y: losses.focal_loss(x @ y.t(), t(labels)),
+    }
+    for name in jfns:
+        xs, ys = (regions4, words) if name == "words" else (a, b_)
+        val, grads = jx.jax.value_and_grad(jfns[name], argnums=(0, 1))(
+            jx.a(xs), jx.a(ys))
+        xt, yt = t(xs).requires_grad_(), t(ys).requires_grad_()
+        out = tfns[name](xt, yt)
+        out.backward()
+        np.testing.assert_allclose(float(out), float(val), rtol=1e-5,
+                                   err_msg=name)
+        for g, want in zip((xt.grad, yt.grad), grads):
+            close(g, want, 1e-4, scaled=True, what=name)
+
+
+def test_arc_margin_matches_jax_and_guards_the_nan_cliff(jx):
+    from text_guided_face_recognition_tpu.ops import margins as JM
+    rng = np.random.default_rng(6)
+    emb = rng.normal(size=(4, 8)).astype(np.float32)
+    weight = rng.normal(size=(5, 8)).astype(np.float32)
+    label = np.array([0, 2, 4, 1], np.int32)
+    for s, m in ((30.0, 0.5), (35.0, 0.5)):
+        def jloss(e, w):
+            return jx.jnp.sum(JM.arc_margin_logits(e, w, jx.jnp.asarray(
+                label), s=s, m=m) ** 2)
+        val, (ge, gw) = jx.jax.value_and_grad(jloss, argnums=(0, 1))(
+            jx.a(emb), jx.a(weight))
+        et, wt = t(emb).requires_grad_(), t(weight).requires_grad_()
+        out = (margins.arc_margin_logits(et, wt, t(label), s=s, m=m) ** 2
+               ).sum()
+        out.backward()
+        np.testing.assert_allclose(float(out), float(val), rtol=1e-5)
+        close(et.grad, ge, 1e-4, scaled=True)
+        close(wt.grad, gw, 1e-4, scaled=True)
+    # a target cosine of exactly 1: without the floor under 1 - cos^2 the
+    # backward would be 0 * inf = NaN
+    weight[2] = emb[1] * 3.0
+    et, wt = t(emb).requires_grad_(), t(weight).requires_grad_()
+    margins.arc_margin_logits(et, wt, t(label)).sum().backward()
+    assert torch.isfinite(et.grad).all() and torch.isfinite(wt.grad).all()
+
+
+# ------------------------------------------------ train-mode BatchNorm --
+
+@pytest.mark.parametrize("jdt,tdt,tol", [("float32", torch.float32, 1e-5),
+                                         ("bfloat16", torch.bfloat16, 2e-2)])
+def test_batchnorm_train_matches_flax(jx, jdt, tdt, tol):
+    from flax import linen as nn
+    from text_guided_face_recognition_tpu_torch.models.layers import (
+        BatchNorm)
+    rng = np.random.default_rng(7)
+    x = (rng.normal(size=(4, 5, 5, 6)) * 2.0 + 0.5).astype(np.float32)
+    bn = nn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5,
+                      dtype=jdt)
+    v = bn.init(jx.jax.random.PRNGKey(0), jx.a(x))
+    scale = (1 + rng.normal(0, 0.1, 6)).astype(np.float32)
+    bias = rng.normal(0, 0.1, 6).astype(np.float32)
+    mean0 = rng.normal(0, 0.2, 6).astype(np.float32)
+    var0 = rng.uniform(0.5, 1.5, 6).astype(np.float32)
+    params = {"scale": jx.a(scale), "bias": jx.a(bias)}
+    stats = {"mean": jx.a(mean0), "var": jx.a(var0)}
+    del v
+
+    def f(prm, xx):
+        y, upd = bn.apply({"params": prm, "batch_stats": stats}, xx,
+                          mutable=["batch_stats"])
+        return jx.jnp.sum(y.astype(jx.jnp.float32) ** 2), (y, upd)
+
+    (val, (y_j, upd)), (gp, gx) = jx.jax.value_and_grad(
+        f, argnums=(0, 1), has_aux=True)(params, jx.a(x))
+    port = BatchNorm(6, dtype=tdt).train()
+    with torch.no_grad():
+        port.weight.copy_(t(scale))
+        port.bias.copy_(t(bias))
+        port.running_mean.copy_(t(mean0))
+        port.running_var.copy_(t(var0))
+    xt = t(x.transpose(0, 3, 1, 2)).requires_grad_()
+    y = port(xt)
+    (y.float() ** 2).sum().backward()
+    close(y.permute(0, 2, 3, 1), y_j, tol)
+    new = upd["batch_stats"]
+    np.testing.assert_allclose(port.running_mean.numpy(),
+                               np.asarray(new["mean"]), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(port.running_var.numpy(),
+                               np.asarray(new["var"]), rtol=1e-5, atol=1e-6)
+    close(port.weight.grad, gp["scale"], tol, scaled=True)
+    close(port.bias.grad, gp["bias"], tol, scaled=True)
+    close(xt.grad.permute(0, 2, 3, 1), gx, tol, scaled=True)
+
+
+def test_image_heading_train_matches_jax(jx):
+    from text_guided_face_recognition_tpu import models as JMod
+    from text_guided_face_recognition_tpu_torch import models as PMod
+    from _torch_port import bridge, randomize_stats
+    head = JMod.ImageHeading(feat_dim=64)
+    z = jx.jnp.zeros
+    v = randomize_stats(head.init(jx.jax.random.PRNGKey(0), z((1, 512)),
+                                  z((1, 7, 7, 32))), 8)
+    rng = np.random.default_rng(9)
+    g = rng.normal(size=(3, 512)).astype(np.float32)
+    l_ = rng.normal(size=(3, 7, 7, 32)).astype(np.float32)
+    (gf, lf), upd = head.apply(v, jx.a(g), jx.a(l_), train=True,
+                               mutable=["batch_stats"])
+    port = bridge(PMod.ImageHeading(feat_dim=64, local_channels=32,
+                                    spatial=7), v).train()
+    pg, pl = port(t(g), t(l_.transpose(0, 3, 1, 2)))
+    close(pg, gf, 1e-5)
+    close(pl.permute(0, 2, 3, 1), lf, 1e-5)
+    bn = port.imim.bn_img
+    new = upd["batch_stats"]["imim"]["bn_img"]
+    np.testing.assert_allclose(bn.running_mean.numpy(),
+                               np.asarray(new["mean"]), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               np.asarray(new["var"]), rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------------------- on a CUDA card --
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _on(dev, p):
+    """p on the card, each weight as the .t() view of a contiguous (out, in)
+    tensor, as the model passes its nn.Linear weights."""
+    out = {k: (bits(v) if v.dtype == np.uint32 else t(v)).to(dev)
+           for k, v in p.items()}
+    for k in ("wqkv", "wo", "w1", "w2"):
+        out[k] = out[k].t().contiguous().t()
+    return out
+
+
+CUDA_DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+
+
+def _close_cuda(a, b, tol, scaled):
+    a, b = a.float(), b.float()
+    if scaled:   # the chip_smoke.py rule for backward outputs
+        assert (a - b).abs().max() <= tol * max(1.0, b.abs().max().item())
+    else:
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt,tol", CUDA_DTYPES)
+def test_cuda_layernorm_bwd_matches_plain(cuda, tdt, tol):
+    p = _on(cuda, _params())
+    x, dy = p["x"].to(tdt), p["dy"].to(tdt)
+    n = layernorm.layernorm_bwd.launches
+    got = layernorm.layernorm_bwd(dy, x, p["g"])
+    assert layernorm.layernorm_bwd.launches == n + 1
+    for a, b in zip(got, layernorm.layernorm_bwd_ref(dy, x, p["g"])):
+        _close_cuda(a, b, tol, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("tdt,tol", CUDA_DTYPES)
+def test_cuda_ffn_block_train_matches_plain(cuda, tdt, tol, rate):
+    p = _on(cuda, _params(1))
+    x, dy = p["x"].to(tdt), p["dy"].to(tdt)
+    w = (p["w1"], p["c1"], p["w2"], p["c2"], p["g"], p["b"])
+    bt = p["bits_h"] if rate else None
+    fwd = block.ffn_block_fwd(x, *w, bt, rate)
+    ref = block.ffn_block_fwd_ref(x, *w, bt, rate)
+    for a, b in zip(fwd, ref):
+        _close_cuda(a, b, tol, False)
+    z, f, act, r = ref
+    got = block.ffn_block_bwd(dy, x, f, act, r, p["w1"], p["w2"], p["g"], bt,
+                              rate)
+    want = block.ffn_block_bwd_ref(dy, x, f, r, p["w1"], p["w2"], p["g"], bt,
+                                   rate)
+    for a, b in zip(got, want):
+        _close_cuda(a, b, tol, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("tdt,tol", CUDA_DTYPES)
+def test_cuda_attn_block_train_matches_plain(cuda, tdt, tol, rate):
+    p = _on(cuda, _params(2))
+    x, dy = p["x"].to(tdt), p["dy"].to(tdt)
+    mask = t(ragged_mask(B, T, 2)).to(cuda)
+    w = (p["wqkv"], p["bqkv"], p["wo"], p["bo"], p["g"], p["b"])
+    bp, bh = (p["bits_p"], p["bits_h"]) if rate else (None, None)
+    fwd = block.attn_block_fwd(x, mask, *w, B, T, HEADS, bp, bh, rate)
+    ref = block.attn_block_fwd_ref(x, mask, *w, B, T, HEADS, bp, bh, rate)
+    for a, b in zip(fwd, ref):
+        _close_cuda(a, b, tol, False)
+    _, qkv, pp, o, r = ref
+    args = (p["wqkv"], p["wo"], p["g"], B, T, HEADS, bp, bh, rate)
+    got = block.attn_block_bwd(dy, x, qkv, pp, o, r, *args)
+    want = block.attn_block_bwd_ref(dy, x, qkv, pp, o, r, *args)
+    for a, b in zip(got, want):
+        _close_cuda(a, b, tol, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False])
+def test_cuda_damsm_matches_plain(cuda, masked):
+    words, regions, mask = _damsm_data(0, b=8, d=64, t_=22, r=196)
+    w, r = t(words).to(cuda), t(regions).to(cuda)
+    m = t(mask).to(cuda) if masked else None
+    got = damsm.damsm_similarity_cuda(w, r, 4.0, 5.0, m)
+    want = attention.damsm_similarity(w, r, 4.0, 5.0, m)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_training_wrappers_refuse_bad_inputs(cuda):
+    p = _on(cuda, _params())
+    x = p["x"]
+    with pytest.raises(ValueError, match="dy"):
+        layernorm.layernorm_bwd(x[:, :128].contiguous(), x, p["g"])
+    with pytest.raises(ValueError, match="bits"):
+        block.ffn_block_fwd(x, p["w1"], p["c1"], p["w2"], p["c2"], p["g"],
+                            p["b"], p["bits_h"][:8], RATE)
+    with pytest.raises(ValueError, match="t <= 64"):
+        block.attn_block_fwd(torch.randn(4 * 96, H, device=cuda),
+                             torch.ones((4, 96), dtype=torch.int32,
+                                        device=cuda), *(
+                                 p[k] for k in ("wqkv", "bqkv", "wo", "bo",
+                                                "g", "b")), 4, 96, HEADS)
+    with pytest.raises(ValueError, match="float32"):
+        damsm.damsm_similarity_cuda(t(np.zeros((2, 4, 3))).to(cuda),
+                                    t(np.zeros((2, 4, 5))).to(cuda), 4.0, 5.0)

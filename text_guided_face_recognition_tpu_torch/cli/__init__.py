@@ -2,8 +2,9 @@
 
   python -m text_guided_face_recognition_tpu_torch.cli.test [--cfg ...]
   python -m text_guided_face_recognition_tpu_torch.cli.extract_embeddings ...
+  python -m text_guided_face_recognition_tpu_torch.cli.train_encoders_bert ...
 
-Both run on the CUDA card unless `--cpu` is given, and fail when no card is
+All run on the CUDA card unless `--cpu` is given, and fail when no card is
 present and the CPU was not asked for.
 """
 

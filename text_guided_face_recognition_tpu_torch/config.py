@@ -1,10 +1,21 @@
 """Typed configuration for the port.
 
 Counterpart of text_guided_face_recognition_tpu/config.py, cut to the fields
-the ported path reads: every cfg/*.yml still loads unchanged, and any key
-without a field here lands in `extras`, attribute-accessible. Values are
-coerced to their declared types at load time; a closed string option with
-an unknown value fails at construction.
+the ported paths read (serving, stage-1 BERT training): every cfg/*.yml
+still loads unchanged, and any key without a field here lands in `extras`,
+attribute-accessible. Values are coerced to their declared types at load
+time; a closed string option with an unknown value fails at construction.
+
+Accepted and ignored (N/A): TPU-only knobs that change how the JAX package
+schedules the same math on a TPU, not the math: `stacked_optimizer`,
+`fused_optimizer`, `stack_max_elems` (how optimizer updates are batched),
+`xla_opts` (XLA compiler options), `prng_impl` (which PRNG draws the
+dropout bits; the keep rule is the same).
+
+Not ported yet, and refused by `check_stage1` with NotImplementedError
+(ROADMAP.md): `is_CMP`, `is_WRA`, `lazy_embedding_adam`,
+`frozen_feature_cache`, an `en_type` other than BERT, and more than one
+device.
 """
 
 from __future__ import annotations
@@ -17,7 +28,8 @@ from typing import Any, Dict, Optional
 
 import yaml
 
-__all__ = ["TGFRConfig", "load_yaml", "merge_args_yaml"]
+__all__ = ["TGFRConfig", "TrainCfg", "TrainSmooth", "check_stage1",
+           "load_yaml", "merge_args_yaml"]
 
 _NUM_PREFIX = re.compile(r"^\s*([+-]?\d+(?:\.\d+)?(?:[eE][+-]?\d+)?)")
 
@@ -59,8 +71,24 @@ def _coerce(name: str, value: Any, typ: type) -> Any:
 
 
 @dataclass
+class TrainSmooth:
+    """DAMSM smoothing temperatures (`TRAIN.SMOOTH` in the YAMLs)."""
+
+    GAMMA1: float = 4.0
+    GAMMA2: float = 5.0
+    GAMMA3: float = 10.0
+
+
+@dataclass
+class TrainCfg:
+    FLAG: bool = True
+    SMOOTH: TrainSmooth = field(default_factory=TrainSmooth)
+
+
+@dataclass
 class TGFRConfig:
-    """The flag surface of the serving path, one namespace."""
+    """The flag surface of the ported paths, one namespace; defaults follow
+    the JAX package's (cfg/train_bert.yml)."""
 
     # --- paths / artifacts ---
     CONFIG_NAME: str = "Train"
@@ -73,11 +101,23 @@ class TGFRConfig:
     text_encoder_path: str = ""
     image_encoder_path: str = ""
     fusion_net_path: str = ""
+    resume_epoch: int = 1
+    resume_model_path: str = ""
 
     # --- machine ---
     num_workers: int = 8
     manual_seed: int = 100
     cpu: bool = False      # run on the CPU; otherwise the CUDA card or an error
+    num_devices: int = 0   # 0 or 1: one device (more are not ported)
+
+    # --- stage-1 losses (graph gates + weights) ---
+    is_DAMSM: bool = True
+    is_CLIP: bool = True
+    is_CMP: bool = False
+    is_WRA: bool = False
+    is_ident_loss: bool = True
+    lambda_clip: float = 2.0
+    lambda_id: float = 100.0
 
     # --- model arch ---
     aux_feat_dim_per_granularity: int = 256
@@ -86,8 +126,20 @@ class TGFRConfig:
     ch_size: int = 3
     num_classes: int = 4500
 
+    # --- optimisation ---
+    init_lr_bert: float = 7e-5
+    min_lr_bert: float = 2e-5
+    lr_head: float = 1e-3
+    weight_decay: float = 0.01
+    clip_max_norm: float = 1.0
+    apply_grad_clip: bool = False          # False: the reference's behaviour, no clip (its clip runs after the step)
+
     # --- schedule ---
     batch_size: int = 32
+    max_epoch: int = 20
+    test_interval: int = 2
+    save_interval: int = 1
+    TRAIN: TrainCfg = field(default_factory=TrainCfg)
 
     # --- encoder selection ---
     en_type: str = "BERT"
@@ -114,6 +166,23 @@ class TGFRConfig:
     fused_block: str = "none"              # text-tower half-layers through the CUDA kernels (ops/block.py): none | ffn | attn | both
     uint8_images: bool = False             # ship uint8 images; the device normalises (ops/images.py)
     eval_table_mode: bool = False          # run_test through a deduplicated per-sample embedding table
+    current_epoch: int = 0
+    len_train_dl: int = 0
+    compat_frozen_text: bool = False       # reproduce the reference's no-grad text path
+    max_steps: int = 0                     # >0: cap steps per epoch (smoke runs)
+    keep_last_ckpts: int = 0               # >0: retain only the newest K epoch artifacts
+    use_pallas: bool = False               # DAMSM similarity through the CUDA kernel (ops/damsm.py)
+    fused_dropout: bool = False            # one flat bit draw per step; the port always draws so (models/text_bert.py)
+    adam_moments_dtype: str = "bfloat16"   # Adam moment storage dtype (engine/optim.py)
+    grads_dtype: str = "float32"           # gradients rounded to this dtype before the optimizers
+    lazy_embedding_adam: bool = False      # not ported (check_stage1)
+    frozen_feature_cache: bool = False     # not ported (check_stage1)
+    # N/A on the card: how the JAX package batches the same math on a TPU
+    stacked_optimizer: bool = True
+    fused_optimizer: bool = False
+    stack_max_elems: int = 32768
+    xla_opts: str = "none"
+    prng_impl: str = "rbg"
 
     # Anything else found in a YAML lands here and is still attribute-accessible.
     extras: Dict[str, Any] = field(default_factory=dict)
@@ -131,6 +200,8 @@ class TGFRConfig:
         _enums = {
             "fused_block": ("none", "ffn", "attn", "both", "tower"),
             "compute_dtype": ("float32", "bfloat16"),
+            "adam_moments_dtype": ("float32", "bfloat16"),
+            "grads_dtype": ("float32", "bfloat16"),
         }
         for name, allowed in _enums.items():
             val = getattr(self, name)
@@ -143,7 +214,16 @@ class TGFRConfig:
         kwargs: Dict[str, Any] = {}
         extras: Dict[str, Any] = {}
         for key, value in d.items():
-            if key in known and key != "extras":
+            if key == "TRAIN" and isinstance(value, dict):
+                smooth = value.get("SMOOTH", {}) or {}
+                kwargs["TRAIN"] = TrainCfg(
+                    FLAG=_coerce("TRAIN.FLAG", value.get("FLAG", True), bool),
+                    SMOOTH=TrainSmooth(**{
+                        g: _coerce(f"TRAIN.SMOOTH.{g}", smooth.get(g, dv),
+                                   float)
+                        for g, dv in (("GAMMA1", 4.0), ("GAMMA2", 5.0),
+                                      ("GAMMA3", 10.0))}))
+            elif key in known and key != "extras":
                 typ = {"int": int, "float": float, "bool": bool,
                        "str": str}.get(str(known[key].type))
                 kwargs[key] = _coerce(key, value, typ) if typ else value
@@ -161,6 +241,21 @@ class TGFRConfig:
         d = dataclasses.asdict(self)
         d.update(d.pop("extras"))
         return d
+
+
+def check_stage1(cfg: TGFRConfig) -> None:
+    """Refuse the stage-1 options the port does not run yet."""
+    refused = [name for name in ("is_CMP", "is_WRA", "lazy_embedding_adam",
+                                 "frozen_feature_cache")
+               if getattr(cfg, name)]
+    if cfg.en_type != "BERT":
+        refused.append(f"en_type={cfg.en_type!r}")
+    if cfg.num_devices > 1:
+        refused.append(f"num_devices={cfg.num_devices}")
+    if refused:
+        raise NotImplementedError(
+            f"stage-1 training with {', '.join(refused)} is not ported yet "
+            "(ROADMAP.md, Queue 1)")
 
 
 def load_yaml(filename: str) -> TGFRConfig:

@@ -1,37 +1,59 @@
-// Post-LN self-attention half-layer forward (K5 of the port):
-//   y = LN(x + (Wo . MHSA(x) + bo))                     (serving: no dropout)
+// Post-LN self-attention half-layer, forward (K5 of the port) and backward
+// (K6):
+//   y = LN(x + drop(Wo . MHSA(x) + bo)),  probabilities dropped before P.V
 //
 // Replaces: text_guided_face_recognition_tpu/ops/block_pallas.py,
 // `_attn_fwd_kernel` with its helper `_attn_heads_fwd`, reached through
-// `_attn_fwd` / `attn_block`.
+// `_attn_fwd` (K5), and `_attn_bwd_kernel` with `_attn_heads_bwd`, reached
+// through `_attn_bwd` (K6): the custom VJP of `attn_block`.
 //
-// Bound on the H100: operations. At R = 768 token rows (B = 32, T = 24),
-// H = 768, 12 heads of 64: the QKV GEMM is 2.72 GFLOP, scores and P.V 0.057,
-// the Wo GEMM 0.91, against ~12 MB moved.
+// Forward. Bound on the H100: operations. At R = 768 token rows (B = 32,
+// T = 24), H = 768, 12 heads of 64: the QKV GEMM is 2.72 GFLOP, scores and
+// P.V 0.057, the Wo GEMM 0.91, against ~12 MB moved.
 // Design, in four launches:
 //   (a) qkv = x . Wqkv + bqkv, q|k|v packed on the output axis, head-major
-//       within each, into a (R, 3H) scratch buffer;
+//       within each, into a (R, 3H) buffer;
 //   (b) one block per (batch row, head): q, k, v of that head staged in
 //       shared memory as f32, scores q.k^T / sqrt(64) plus the additive key
 //       mask (finfo(float32).min on padded keys), an f32 softmax with one
 //       warp per query row, probabilities rounded to the activation type
-//       before P.V, the context rounded into a (R, H) buffer. At T = 24 the
-//       whole head fits one block;
-//   (c) r = x + (ctx . Wo + bo), the residual fused into the GEMM epilogue;
+//       (and saved, before dropout, as p (heads*B, T, T) when the backward
+//       will need them), dropped with bits_p, then P.V, the context o rounded
+//       into a (R, H) buffer. At T = 24 the whole head fits one block;
+//   (c) r = x + drop(o . Wo + bo), dropout (bits_h) and the residual fused
+//       into the GEMM epilogue;
 //   (d) y = LN(r), one warp per row.
-// The serving forward writes none of the residuals the backward needs.
+// The backward's residuals are x, qkv, p, o and r.
+//
+// Backward. Bound: bytes: 32 MB with the f32 weight gradients and the
+// dropout bits (9.6 us at 3.35 TB/s) against 7.4 GFLOP (7.4 us at
+// 989 TFLOP/s), at the shapes above, as chip_smoke.py counts them. Seven
+// launches around one per-head kernel:
+//   (1) the LN backward row pass from r, then the dropout: dr and
+//       dh = drop(dr), with dgamma, dbeta and dbo as per-block partial sums,
+//       (2) reduced in a fixed order;
+//   (3) dWo = dh^T . o, f32;  (4) do = r(dh . Wo);
+//   (5) one block per (batch row, head), everything in shared memory:
+//       dv = p_drop^T . do, dp = do . v^T with the probability mask,
+//       ds = r(p (dp - sum(dp p)) / sqrt(64)), dq = ds . k, dk = ds^T . q,
+//       each rounded into dqkv (R, 3H) at the TPU kernel's rounding points;
+//   (6) dWqkv = dqkv^T . x, f32, and dbqkv = column sums of dqkv;
+//   (7) dx = r(dr + r(dqkv . Wqkv)).
+// Weight gradients are f32, in nn.Linear's (out, in) layout.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kDHead = 64;
-constexpr int kQkvLd = kDHead + 1;  // pad: score loop walks k rows
+constexpr int kQkvLd = kDHead + 1;  // pad: the score loops walk rows
 constexpr int kAttnThreads = 128;
 
 template <typename T>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_core_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
-                      T* __restrict__ ctx, int t, int h, float inv) {
+                      const unsigned* __restrict__ bits_p, unsigned thr,
+                      float scale, T* __restrict__ p_out,
+                      T* __restrict__ ctx, int nb, int t, int h, float inv) {
   extern __shared__ float sm[];
   float* q = sm;
   float* k = q + t * kQkvLd;
@@ -40,6 +62,7 @@ attention_core_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
   const int b = blockIdx.x, head = blockIdx.y;
   const int tid = threadIdx.x;
   const size_t row0 = (size_t)b * t;
+  const size_t pofs = ((size_t)head * nb + b) * t * t;  // [head*B + b]
 
   for (int i = tid; i < t * kDHead; i += kAttnThreads) {
     const int r = i / kDHead, d = i % kDHead;
@@ -73,7 +96,13 @@ attention_core_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
       sum += e;
     }
     sum = tgfr::warp_sum(sum);
-    for (int j = lane; j < t; j += 32) sr[j] = tgfr::round_to<T>(sr[j] / sum);
+    for (int j = lane; j < t; j += 32) {
+      float pj = tgfr::round_to<T>(sr[j] / sum);
+      if (p_out) p_out[pofs + r * t + j] = tgfr::from_f32<T>(pj);
+      if (bits_p)
+        pj = tgfr::drop_to<T>(pj, bits_p[pofs + r * t + j], thr, scale);
+      sr[j] = pj;
+    }
   }
   __syncthreads();
 
@@ -85,31 +114,129 @@ attention_core_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
   }
 }
 
+// One block per (batch row, head): the per-head backward of
+// block_pallas.py `_attn_heads_bwd`, from p (rounded, before dropout) and
+// do = d(context), into that head's slices of dqkv.
 template <typename T>
-int run(const void* x, const int* mask, const float* wqkv, const float* bqkv,
-        const float* wo, const float* bo,
-        const float* gamma, const float* beta, void* qkv, void* ctx,
-        void* resid, void* y, int b, int t, int h, int heads, float eps,
-        cudaStream_t s) {
+__global__ void __launch_bounds__(kAttnThreads)
+attention_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
+                          const T* __restrict__ dout,
+                          const unsigned* __restrict__ bits_p, unsigned thr,
+                          float scale, T* __restrict__ dqkv, int nb, int t,
+                          int h, float inv) {
+  extern __shared__ float sm[];
+  float* q = sm;
+  float* k = q + t * kQkvLd;
+  float* v = k + t * kQkvLd;
+  float* g = v + t * kQkvLd;   // do
+  float* ps = g + t * kQkvLd;  // (t, t) p
+  float* s = ps + t * t;       // (t, t) dp, then ds
+  const int b = blockIdx.x, head = blockIdx.y;
+  const int tid = threadIdx.x;
+  const size_t row0 = (size_t)b * t;
+  const size_t pofs = ((size_t)head * nb + b) * t * t;
+
+  for (int i = tid; i < t * kDHead; i += kAttnThreads) {
+    const int r = i / kDHead, d = i % kDHead;
+    const T* src = qkv + (row0 + r) * 3 * h + head * kDHead + d;
+    q[r * kQkvLd + d] = tgfr::to_f32(src[0]);
+    k[r * kQkvLd + d] = tgfr::to_f32(src[h]);
+    v[r * kQkvLd + d] = tgfr::to_f32(src[2 * h]);
+    g[r * kQkvLd + d] = tgfr::to_f32(dout[(row0 + r) * h + head * kDHead + d]);
+  }
+  for (int i = tid; i < t * t; i += kAttnThreads)
+    ps[i] = tgfr::to_f32(p[pofs + i]);
+  __syncthreads();
+
+  // dv[j] = sum_i p_drop[i, j] do[i]
+  for (int i = tid; i < t * kDHead; i += kAttnThreads) {
+    const int j = i / kDHead, d = i % kDHead;
+    float acc = 0.f;
+    for (int r = 0; r < t; ++r) {
+      float pd = ps[r * t + j];
+      if (bits_p) pd = tgfr::drop_to<T>(pd, bits_p[pofs + r * t + j], thr,
+                                        scale);
+      acc = fmaf(pd, g[r * kQkvLd + d], acc);
+    }
+    dqkv[(row0 + j) * 3 * h + 2 * h + head * kDHead + d] =
+        tgfr::from_f32<T>(acc);
+  }
+  // dp[i, j] = do[i] . v[j], masked like the probabilities (f32 scale)
+  for (int i = tid; i < t * t; i += kAttnThreads) {
+    const int qi = i / t, kj = i % t;
+    float acc = 0.f;
+#pragma unroll 16
+    for (int d = 0; d < kDHead; ++d)
+      acc = fmaf(g[qi * kQkvLd + d], v[kj * kQkvLd + d], acc);
+    if (bits_p) acc = bits_p[pofs + i] >= thr ? acc * scale : 0.f;
+    s[i] = acc;
+  }
+  __syncthreads();
+
+  // ds = r(p (dp - sum_j dp p) / sqrt(d)), one warp per query row
+  const int warp = tid / 32, lane = tid % 32;
+  for (int r = warp; r < t; r += kAttnThreads / 32) {
+    float* sr = s + r * t;
+    const float* pr = ps + r * t;
+    float dot = 0.f;
+    for (int j = lane; j < t; j += 32) dot += sr[j] * pr[j];
+    dot = tgfr::warp_sum(dot);
+    for (int j = lane; j < t; j += 32)
+      sr[j] = tgfr::round_to<T>(pr[j] * (sr[j] - dot) * inv);
+  }
+  __syncthreads();
+
+  // dq[i] = sum_j ds[i, j] k[j];  dk[j] = sum_i ds[i, j] q[i]
+  for (int i = tid; i < t * kDHead; i += kAttnThreads) {
+    const int r = i / kDHead, d = i % kDHead;
+    float aq = 0.f, ak = 0.f;
+    for (int j = 0; j < t; ++j) {
+      aq = fmaf(s[r * t + j], k[j * kQkvLd + d], aq);
+      ak = fmaf(s[j * t + r], q[j * kQkvLd + d], ak);
+    }
+    T* dst = dqkv + (row0 + r) * 3 * h + head * kDHead + d;
+    dst[0] = tgfr::from_f32<T>(aq);
+    dst[h] = tgfr::from_f32<T>(ak);
+  }
+}
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <typename T>
+int run_fwd(const void* x, const int* mask, const float* wqkv,
+            const float* bqkv, const float* wo, const float* bo,
+            const float* gamma, const float* beta, const unsigned* bits_p,
+            const unsigned* bits_h, unsigned thr, float scale, void* qkv,
+            void* p, void* ctx, void* resid, void* y, int b, int t, int h,
+            int heads, float eps, cudaStream_t s) {
   const int rows = b * t;
-  tgfr::GemmArgs proj{x, wqkv, bqkv, nullptr, qkv, rows, 3 * h, h};
+  tgfr::GemmArgs proj = tgfr::gemm_args(x, wqkv, qkv, rows, 3 * h, h);
+  proj.bias = bqkv;
   cudaError_t err = tgfr::launch_gemm<T, tgfr::kEpiBias>(proj, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const size_t smem = (size_t)(3 * t * kQkvLd + t * t) * sizeof(float);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(attention_core_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  err = set_smem(attention_core_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   attention_core_kernel<T><<<dim3(b, heads), kAttnThreads, smem, s>>>(
-      static_cast<const T*>(qkv), mask, static_cast<T*>(ctx), t, h,
+      static_cast<const T*>(qkv), mask, bits_p, thr, scale,
+      static_cast<T*>(p), static_cast<T*>(ctx), b, t, h,
       1.0f / sqrtf(static_cast<float>(kDHead)));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  tgfr::GemmArgs out{ctx, wo, bo, x, resid, rows, h, h};
+  tgfr::GemmArgs out = tgfr::gemm_args(ctx, wo, resid, rows, h, h);
+  out.bias = bo;
+  out.resid = x;
+  out.bits = bits_h;
+  out.thr = thr;
+  out.scale = scale;
   err = tgfr::launch_gemm<T, tgfr::kEpiBiasResidual>(out, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = tgfr::launch_layernorm_rows<T, true>(static_cast<const T*>(resid),
@@ -118,16 +245,67 @@ int run(const void* x, const int* mask, const float* wqkv, const float* bqkv,
   return static_cast<int>(err);
 }
 
+template <typename T>
+int run_bwd(const void* dy, const void* x, const void* qkv, const void* p,
+            const void* o, const void* r, const float* wqkv, const float* wo,
+            const float* gamma, const unsigned* bits_p,
+            const unsigned* bits_h, unsigned thr, float scale, void* dx,
+            float* dwqkv, float* dbqkv, float* dwo, float* dln, void* dr,
+            void* dh, void* dout, void* dqkv, float* part, int b, int t,
+            int h, int heads, float eps, cudaStream_t s) {
+  const int rows = b * t;
+  // (1, 2) dr, dh = drop(dr); dln = [dgamma | dbeta | dbo]
+  T* dh_t = static_cast<T*>(bits_h ? dh : dr);
+  cudaError_t err = tgfr::launch_layernorm_bwd<T, true>(
+      static_cast<const T*>(dy), static_cast<const T*>(r), gamma,
+      static_cast<T*>(dr), bits_h ? dh_t : nullptr, bits_h, thr, scale, part,
+      dln, 3, rows, h, eps, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // (3) dWo (h, h) = dh^T . o
+  err = tgfr::launch_weight_grad<T>(dh_t, o, dwo, h, h, rows, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // (4) do = r(dh . Wo); Wo is (h, h) = (K, N)
+  err = tgfr::launch_gemm<T, tgfr::kEpiBias, tgfr::kARowMajor,
+                          tgfr::kBWeightKN>(
+      tgfr::gemm_args(dh_t, wo, dout, rows, h, h), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // (5) the per-head backward into dqkv
+  const size_t smem = (size_t)(4 * t * kQkvLd + 2 * t * t) * sizeof(float);
+  err = set_smem(attention_core_bwd_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attention_core_bwd_kernel<T><<<dim3(b, heads), kAttnThreads, smem, s>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(p),
+      static_cast<const T*>(dout), bits_p, thr, scale, static_cast<T*>(dqkv),
+      b, t, h, 1.0f / sqrtf(static_cast<float>(kDHead)));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // (6) dWqkv (3h, h) = dqkv^T . x and dbqkv
+  err = tgfr::launch_weight_grad<T>(dqkv, x, dwqkv, 3 * h, h, rows, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = tgfr::launch_colsum<T>(static_cast<const T*>(dqkv), rows, 3 * h,
+                               dbqkv, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // (7) dx = r(dr + r(dqkv . Wqkv)); Wqkv is (3h, h) = (K, N)
+  tgfr::GemmArgs dxa = tgfr::gemm_args(dqkv, wqkv, dx, rows, h, 3 * h);
+  dxa.resid = dr;
+  err = tgfr::launch_gemm<T, tgfr::kEpiBiasResidual, tgfr::kARowMajor,
+                          tgfr::kBWeightKN>(dxa, s);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
+// bits_p: (heads*b, t, t), bits_h: (b*t, h) uint32, or both null (no
+// dropout); p: (heads*b, t, t) or null (not saved).
 extern "C" int tgfr_attn_block_fwd(const void* x, const void* mask,
                                    const void* wqkv, const void* bqkv,
                                    const void* wo, const void* bo,
-                                   const void* gamma,
-                                   const void* beta, void* qkv, void* ctx,
-                                   void* resid, void* y, int b, int t, int h,
-                                   int heads, float eps, int dtype,
-                                   void* stream) {
+                                   const void* gamma, const void* beta,
+                                   const void* bits_p, const void* bits_h,
+                                   unsigned thr, float scale, void* qkv,
+                                   void* p, void* ctx, void* resid, void* y,
+                                   int b, int t, int h, int heads, float eps,
+                                   int dtype, void* stream) {
   if (h != heads * kDHead) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* m = static_cast<const int*>(mask);
@@ -137,11 +315,53 @@ extern "C" int tgfr_attn_block_fwd(const void* x, const void* mask,
   const auto* fbo = static_cast<const float*>(bo);
   const auto* g = static_cast<const float*>(gamma);
   const auto* bt = static_cast<const float*>(beta);
+  const auto* up = static_cast<const unsigned*>(bits_p);
+  const auto* uh = static_cast<const unsigned*>(bits_h);
   if (dtype == tgfr::kBF16)
-    return run<__nv_bfloat16>(x, m, fwqkv, fbqkv, fwo, fbo, g, bt, qkv, ctx,
-                              resid, y, b, t, h, heads, eps, s);
+    return run_fwd<__nv_bfloat16>(x, m, fwqkv, fbqkv, fwo, fbo, g, bt, up, uh,
+                                  thr, scale, qkv, p, ctx, resid, y, b, t, h,
+                                  heads, eps, s);
   if (dtype == tgfr::kF32)
-    return run<float>(x, m, fwqkv, fbqkv, fwo, fbo, g, bt, qkv, ctx, resid, y,
-                      b, t, h, heads, eps, s);
+    return run_fwd<float>(x, m, fwqkv, fbqkv, fwo, fbo, g, bt, up, uh, thr,
+                          scale, qkv, p, ctx, resid, y, b, t, h, heads, eps,
+                          s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// wqkv: (3h, h), wo: (h, h), nn.Linear layout. Outputs dx (b*t, h); dwqkv
+// (3h, h), dbqkv (3h), dwo (h, h), dln (3 h) = [dgamma | dbeta | dbo], all
+// f32. Scratch: dr, dh (b*t, h; dh only with bits), dout (b*t, h), dqkv
+// (b*t, 3h), part (ceil(b*t / 8), 3 h) f32.
+extern "C" int tgfr_attn_block_bwd(const void* dy, const void* x,
+                                   const void* qkv, const void* p,
+                                   const void* o, const void* r,
+                                   const void* wqkv, const void* wo,
+                                   const void* gamma, const void* bits_p,
+                                   const void* bits_h, unsigned thr,
+                                   float scale, void* dx, void* dwqkv,
+                                   void* dbqkv, void* dwo, void* dln,
+                                   void* dr, void* dh, void* dout, void* dqkv,
+                                   void* part, int b, int t, int h, int heads,
+                                   float eps, int dtype, void* stream) {
+  if (h != heads * kDHead) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* fwqkv = static_cast<const float*>(wqkv);
+  const auto* fwo = static_cast<const float*>(wo);
+  const auto* g = static_cast<const float*>(gamma);
+  const auto* up = static_cast<const unsigned*>(bits_p);
+  const auto* uh = static_cast<const unsigned*>(bits_h);
+  auto* o1 = static_cast<float*>(dwqkv);
+  auto* ob = static_cast<float*>(dbqkv);
+  auto* o2 = static_cast<float*>(dwo);
+  auto* oln = static_cast<float*>(dln);
+  auto* pt = static_cast<float*>(part);
+  if (dtype == tgfr::kBF16)
+    return run_bwd<__nv_bfloat16>(dy, x, qkv, p, o, r, fwqkv, fwo, g, up, uh,
+                                  thr, scale, dx, o1, ob, o2, oln, dr, dh,
+                                  dout, dqkv, pt, b, t, h, heads, eps, s);
+  if (dtype == tgfr::kF32)
+    return run_bwd<float>(dy, x, qkv, p, o, r, fwqkv, fwo, g, up, uh, thr,
+                          scale, dx, o1, ob, o2, oln, dr, dh, dout, dqkv, pt,
+                          b, t, h, heads, eps, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

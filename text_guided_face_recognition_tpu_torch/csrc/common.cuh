@@ -1,19 +1,25 @@
 // Device code shared by the port's hand-written Hopper kernels.
 //
 // Element helpers for the two supported activation types (float and
-// __nv_bfloat16), a tiled GEMM with fused epilogues, and a LayerNorm row
-// pass. Each kernel source (layernorm.cu, ffn_block.cu, attn_block.cu)
-// includes this header and is built on its own into a shared library with a
-// plain C interface (ops/_cuda.py).
+// __nv_bfloat16), a tiled GEMM with fused epilogues, the LayerNorm row
+// passes (forward, and backward with per-block partial column sums) and a
+// deterministic column sum. Each kernel source (layernorm.cu, ffn_block.cu,
+// attn_block.cu, damsm.cu) includes this header and is built on its own
+// into a shared library with a plain C interface (ops/_cuda.py).
 //
 // Rounding contract (the one the JAX package's Pallas kernels and flax's
 // nn.Dense(dtype=...) follow): a GEMM accumulates in f32, its result is
 // rounded to the activation type, and only then is the bias (itself
 // rounded from the f32 master) added, with the sum rounded again.
+//
+// Dropout (block_pallas.py `_drop`, models/text_bert.py `_DropPlan`): keep
+// iff the uint32 bit >= thr, thr = min(round(rate 2^32), 2^32 - 1); a kept
+// value v becomes r(v * r(scale)), scale = 1 / (1 - rate), a dropped one 0.
 #pragma once
 
 #include <cfloat>
 #include <cstddef>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -41,6 +47,13 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
+// Dropout of a value held in T: r(v * r(scale)) where kept, else 0.
+template <typename T>
+__device__ __forceinline__ float drop_to(float v, unsigned bit, unsigned thr,
+                                         float scale) {
+  return bit >= thr ? round_to<T>(v * round_to<T>(scale)) : 0.f;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -58,6 +71,12 @@ __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
 }
 
+// Its analytic derivative Phi(x) + x phi(x), as the TPU backward uses it.
+__device__ __forceinline__ float dgelu_erf(float x) {
+  return 0.5f * (1.0f + erff(x * 0.70710678118654752f)) +
+         x * expf(-0.5f * x * x) * 0.39894228040143268f;
+}
+
 // ---------------------------------------------------------------------------
 // LayerNorm over rows of width h <= kLnMaxWidth: one warp per row, the row
 // read once into registers (lane i holds elements i, i + 32, ...), f32
@@ -69,6 +88,7 @@ __device__ __forceinline__ float gelu_erf(float x) {
 // ---------------------------------------------------------------------------
 
 constexpr int kLnThreads = 256;
+constexpr int kLnWarps = kLnThreads / 32;
 constexpr int kLnPerLane = 32;
 constexpr int kLnMaxWidth = 32 * kLnPerLane;
 
@@ -78,7 +98,7 @@ layernorm_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                       const float* __restrict__ beta, T* __restrict__ y,
                       int rows, int h, float eps) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * (kLnThreads / 32) + warp;
+  const int row = blockIdx.x * kLnWarps + warp;
   if (row >= rows) return;
   const T* xr = x + (size_t)row * h;
   T* yr = y + (size_t)row * h;
@@ -115,35 +135,200 @@ template <typename T, bool ROUND_AFFINE>
 cudaError_t launch_layernorm_rows(const T* x, const float* gamma,
                                   const float* beta, T* y, int rows, int h,
                                   float eps, cudaStream_t stream) {
-  const int per_block = kLnThreads / 32;
-  const int blocks = (rows + per_block - 1) / per_block;
+  const int blocks = (rows + kLnWarps - 1) / kLnWarps;
   layernorm_rows_kernel<T, ROUND_AFFINE>
       <<<blocks, kLnThreads, 0, stream>>>(x, gamma, beta, y, rows, h, eps);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// Tiled GEMM: out(M, N) = epilogue(A(M, K) . W(K, N)).
+// LayerNorm backward over rows (block_pallas.py `_ln_bwd_f32`,
+// layernorm_pallas.py `_bwd_kernel`), statistics recomputed from the saved
+// pre-LN input x:
+//   xhat = (x - mean) rs,  dxhat = dy g,
+//   dx = rs (dxhat - mean(dxhat) - xhat mean(dxhat xhat))   (f32)
+// stored rounded to T. With `dxd` (the half-layers with dropout), also
+// dxd = drop(r(dx)). Column sums over rows go out as per-block partials,
+// f32, part (gridDim.x, nq h): [dy xhat | dy | (nq == 3) f32(dxd or dx)];
+// colsum_kernel reduces them. One warp per row, as the forward; blocks run
+// in any order, so nothing is accumulated across blocks and no float atomic
+// is used: the sums are deterministic.
+// ---------------------------------------------------------------------------
+
+template <typename T, bool ROUND_GAMMA>
+__global__ void __launch_bounds__(kLnThreads)
+layernorm_bwd_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                          const float* __restrict__ gamma, T* __restrict__ dx,
+                          T* __restrict__ dxd,
+                          const unsigned* __restrict__ bits, unsigned thr,
+                          float scale, float* __restrict__ part, int nq,
+                          int rows, int h, float eps) {
+  __shared__ float red[kLnWarps][kLnMaxWidth];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kLnWarps + warp;
+  const bool live = row < rows;
+  float v[kLnPerLane], d[kLnPerLane], o[kLnPerLane];
+  if (live) {
+    const T* xr = x + (size_t)row * h;
+    const T* dr = dy + (size_t)row * h;
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLnPerLane; ++j) {
+      const int i = lane + 32 * j;
+      v[j] = i < h ? to_f32(xr[i]) : 0.f;
+      d[j] = i < h ? to_f32(dr[i]) : 0.f;
+      s += v[j];
+    }
+    const float mean = warp_sum(s) / h;
+    float q = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLnPerLane; ++j) {
+      v[j] = lane + 32 * j < h ? v[j] - mean : 0.f;
+      q += v[j] * v[j];
+    }
+    const float rs = rsqrtf(warp_sum(q) / h + eps);
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLnPerLane; ++j) {
+      const int i = lane + 32 * j;
+      v[j] *= rs;                                   // xhat
+      float g = i < h ? gamma[i] : 0.f;
+      if (ROUND_GAMMA) g = round_to<T>(g);
+      o[j] = d[j] * g;                              // dxhat
+      m1 += o[j];
+      m2 += o[j] * v[j];
+    }
+    m1 = warp_sum(m1) / h;
+    m2 = warp_sum(m2) / h;
+    T* xo = dx + (size_t)row * h;
+    T* xdo = dxd ? dxd + (size_t)row * h : nullptr;
+    const unsigned* br = bits ? bits + (size_t)row * h : nullptr;
+#pragma unroll
+    for (int j = 0; j < kLnPerLane; ++j) {
+      const int i = lane + 32 * j;
+      if (i >= h) break;
+      float r = round_to<T>(rs * (o[j] - m1 - v[j] * m2));
+      xo[i] = from_f32<T>(r);
+      if (xdo) {
+        r = br ? drop_to<T>(r, br[i], thr, scale) : r;
+        xdo[i] = from_f32<T>(r);
+      }
+      o[j] = r;                                     // what the 3rd sum adds
+    }
+  }
+  for (int qi = 0; qi < nq; ++qi) {
+#pragma unroll
+    for (int j = 0; j < kLnPerLane; ++j) {
+      const int i = lane + 32 * j;
+      if (i < h) {
+        float c = 0.f;
+        if (live) c = qi == 0 ? d[j] * v[j] : (qi == 1 ? d[j] : o[j]);
+        red[warp][i] = c;
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < h; i += kLnThreads) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kLnWarps; ++w) s += red[w][i];
+      part[(size_t)blockIdx.x * nq * h + qi * h + i] = s;
+    }
+    __syncthreads();
+  }
+}
+
+inline int ln_bwd_blocks(int rows) { return (rows + kLnWarps - 1) / kLnWarps; }
+
+// out[c] = sum over rows of f32(in[row, c]), (rows, cols) row-major. A block
+// sums 32 columns; its 8 warps take every 8th row and are combined in a
+// fixed order, so the result does not depend on scheduling.
+constexpr int kSumCols = 32, kSumRowGroups = 8;
+
+template <typename TIn>
+__global__ void __launch_bounds__(kSumCols * kSumRowGroups)
+colsum_kernel(const TIn* __restrict__ in, int rows, int cols,
+              float* __restrict__ out) {
+  __shared__ float red[kSumRowGroups][kSumCols];
+  const int c = blockIdx.x * kSumCols + threadIdx.x;
+  float s = 0.f;
+  if (c < cols) {
+#pragma unroll 4
+    for (int r = threadIdx.y; r < rows; r += kSumRowGroups)
+      s += to_f32(in[(size_t)r * cols + c]);
+  }
+  red[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < cols) {
+    float t = 0.f;
+#pragma unroll
+    for (int g = 0; g < kSumRowGroups; ++g) t += red[g][threadIdx.x];
+    out[c] = t;
+  }
+}
+
+template <typename TIn>
+cudaError_t launch_colsum(const TIn* in, int rows, int cols, float* out,
+                          cudaStream_t stream) {
+  colsum_kernel<TIn><<<(cols + kSumCols - 1) / kSumCols,
+                       dim3(kSumCols, kSumRowGroups), 0, stream>>>(
+      in, rows, cols, out);
+  return cudaGetLastError();
+}
+
+// The LayerNorm backward row pass and the reduction of its partials into
+// sums (nq h floats).
+template <typename T, bool ROUND_GAMMA>
+cudaError_t launch_layernorm_bwd(const T* dy, const T* x, const float* gamma,
+                                 T* dx, T* dxd, const unsigned* bits,
+                                 unsigned thr, float scale, float* part,
+                                 float* sums, int nq, int rows, int h,
+                                 float eps, cudaStream_t stream) {
+  const int blocks = ln_bwd_blocks(rows);
+  layernorm_bwd_rows_kernel<T, ROUND_GAMMA><<<blocks, kLnThreads, 0, stream>>>(
+      dy, x, gamma, dx, dxd, bits, thr, scale, part, nq, rows, h, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_colsum<float>(part, blocks, nq * h, sums, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Tiled GEMM: out(M, N) = epilogue(A . B), A (M, K), B (K, N).
 //
-// A is the activation (row-major, type T). W is an f32 master weight stored
-// (N, K) row-major, as nn.Linear stores it (the wrappers take its .t() view,
-// which has the JAX (K, N) shape); each tile is transposed and rounded to T
-// as it is staged in shared memory, so no rounded weight copy ever exists in
-// device memory. 64x64 output tile per block, K in steps of
-// 32, 4 warps. For bf16 each warp runs 2x2 wmma 16x16x16 tiles with f32
-// accumulators; for f32 every thread runs an 8x4 FMA micro-tile (full f32,
-// no TF32), which keeps the f32 variant usable for tight checks.
-// Tiles move as 16-byte vectors, and the next K-tile is loaded into
-// registers while the current one is multiplied, so the loads' latency
-// hides behind the tensor-core work. Shapes: N and K multiples of 64, any M
-// (the wrappers check).
+// Operand layouts (the forward uses the first of each; the backward the
+// others):
+//   A  kARowMajor    (M, K) row-major, type T: an activation;
+//      kATransposed  stored (K, M) row-major, type T: A is the transpose of
+//                    an activation, for the weight gradients dW = G^T X
+//                    that contract over token rows;
+//   B  kBWeightNK    f32 master stored (N, K) row-major, as nn.Linear keeps
+//                    its weight (out = A . W^T, the forward);
+//      kBWeightKN    f32 master stored (K, N) row-major (out = A . W, the
+//                    backward's dX = dY . W);
+//      kBActKN       stored (K, N) row-major, type T: an activation.
+// A weight tile is rounded to T as it is staged in shared memory, so no
+// rounded weight copy ever exists in device memory. 64x64 output tile per
+// block, K in steps of 32, 4 warps. For bf16 each warp runs 2x2 wmma
+// 16x16x16 tiles with f32 accumulators; for f32 every thread runs an 8x4
+// FMA micro-tile (full f32, no TF32), which keeps the f32 variant usable
+// for tight checks. Tiles move as 16-byte vectors, and the next K-tile is
+// loaded into registers while the current one is multiplied. Shapes: N a
+// multiple of 64; M a multiple of 64 for kATransposed; K a multiple of 32
+// for kARowMajor (the wrappers check); K may be ragged for the operands
+// stored (K, .), whose rows past K load as zeros.
 // ---------------------------------------------------------------------------
 
 enum Epilogue {
-  kEpiBias = 0,          // out = r(r(acc) + r(bias))
-  kEpiBiasGelu = 1,      // out = r(gelu(r(r(acc) + r(bias))))
-  kEpiBiasResidual = 2,  // out = r(resid + r(r(acc) + r(bias)))
+  kEpiBias = 0,          // out = r(r(acc) + r(bias)); no bias: r(acc)
+  kEpiBiasGelu = 1,      // f = r(r(acc) + r(bias)); out = r(gelu(f));
+                         //   out2 = f when given
+  kEpiBiasResidual = 2,  // g = r(r(acc) + r(bias)), dropped with `bits`
+                         //   when given; out = r(resid + g)
+  kEpiDgelu = 3,         // out = r(r(acc) * gelu'(aux))
+  kEpiF32 = 4,           // out (f32) = acc
 };
+
+enum ALayout { kARowMajor = 0, kATransposed = 1 };
+enum BLayout { kBWeightNK = 0, kBWeightKN = 1, kBActKN = 2 };
 
 constexpr int kBM = 64, kBN = 64, kBK = 32, kGemmThreads = 128;
 constexpr int kALd = kBK + 8;  // padded leading dims (wmma wants multiples
@@ -151,13 +336,30 @@ constexpr int kBLd = kBN + 8;  // of 8 elements and 32-byte aligned rows)
 constexpr int kCLd = kBN + 4;
 
 struct GemmArgs {
-  const void* a;       // (M, K), type T
-  const float* w;      // (N, K) f32
-  const float* bias;   // (N,) f32
-  const void* resid;   // (M, N), type T; kEpiBiasResidual only
-  void* out;           // (M, N), type T
+  const void* a;          // see ALayout, type T
+  const void* b;          // see BLayout
+  const float* bias;      // (N,) f32 or null
+  const void* resid;      // (M, N) type T: kEpiBiasResidual
+  const void* aux;        // (M, N) type T: kEpiDgelu's pre-activation
+  const unsigned* bits;   // (M, N) dropout bits of kEpiBiasResidual, or null
+  void* out;              // (M, N) type T, f32 for kEpiF32
+  void* out2;             // (M, N) type T: kEpiBiasGelu's f, or null
   int m, n, k;
+  unsigned thr;           // keep iff bits >= thr
+  float scale;            // 1 / (1 - rate)
 };
+
+inline GemmArgs gemm_args(const void* a, const void* b, void* out, int m,
+                          int n, int k) {
+  GemmArgs p{};
+  p.a = a;
+  p.b = b;
+  p.out = out;
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  return p;
+}
 
 template <typename T> struct TileMma;
 
@@ -244,57 +446,96 @@ template <> struct TileMma<float> {
   }
 };
 
-template <typename T, int EPI>
+template <typename T, int EPI, int AL, int BL>
 __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs p) {
   __shared__ __align__(32) T As[kBM * kALd];
   __shared__ __align__(32) T Bs[kBK * kBLd];
   __shared__ __align__(32) float Cs[kBM * kCLd];
   const T* __restrict__ A = static_cast<const T*>(p.a);
-  const float* __restrict__ W = p.w;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   const int tid = threadIdx.x;
 
-  // per thread and K-tile: kAVecs 16-byte vectors of A, kBVecs float4 of W
-  constexpr int kAPer = 16 / sizeof(T);                  // elements / vector
-  constexpr int kAVecs = kBM * kBK / kAPer / kGemmThreads;
-  constexpr int kBVecs = kBK * kBN / 4 / kGemmThreads;
+  // per thread and K-tile: kAVecs 16-byte vectors of A, kBVecs of B
+  constexpr int kVec = 16 / sizeof(T);                   // T per vector
+  constexpr int kAVecs = kBM * kBK / kVec / kGemmThreads;
+  constexpr int kBPer = BL == kBActKN ? kVec : 4;        // elements / vector
+  constexpr int kBVecs = kBK * kBN / kBPer / kGemmThreads;
   uint4 a_reg[kAVecs];
-  float4 b_reg[kBVecs];
+  uint4 b_reg[kBVecs];
+  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
 
   auto load = [&](int k0) {
 #pragma unroll
     for (int l = 0; l < kAVecs; ++l) {
       const int idx = tid + l * kGemmThreads;
-      const int r = idx / (kBK / kAPer), c = (idx % (kBK / kAPer)) * kAPer;
-      const int gm = m0 + r;
-      a_reg[l] = gm < p.m ? *reinterpret_cast<const uint4*>(
-                                A + (size_t)gm * p.k + k0 + c)
-                          : make_uint4(0u, 0u, 0u, 0u);
+      if (AL == kARowMajor) {    // vectors along k
+        const int r = idx / (kBK / kVec), c = (idx % (kBK / kVec)) * kVec;
+        const int gm = m0 + r;
+        a_reg[l] = gm < p.m ? *reinterpret_cast<const uint4*>(
+                                  A + (size_t)gm * p.k + k0 + c)
+                            : zero4;
+      } else {                   // stored (K, M): vectors along m
+        const int r = idx / (kBM / kVec), c = (idx % (kBM / kVec)) * kVec;
+        const int gk = k0 + r;
+        a_reg[l] = gk < p.k ? *reinterpret_cast<const uint4*>(
+                                  A + (size_t)gk * p.m + m0 + c)
+                            : zero4;
+      }
     }
 #pragma unroll
-    for (int l = 0; l < kBVecs; ++l) {  // 4 consecutive k of one n
+    for (int l = 0; l < kBVecs; ++l) {
       const int idx = tid + l * kGemmThreads;
-      const int c = idx / (kBK / 4), r = (idx % (kBK / 4)) * 4;
-      b_reg[l] = *reinterpret_cast<const float4*>(
-          W + (size_t)(n0 + c) * p.k + k0 + r);
+      if (BL == kBWeightNK) {    // 4 consecutive k of one n
+        const float* W = static_cast<const float*>(p.b);
+        const int c = idx / (kBK / 4), r = (idx % (kBK / 4)) * 4;
+        b_reg[l] = *reinterpret_cast<const uint4*>(
+            W + (size_t)(n0 + c) * p.k + k0 + r);
+      } else {                   // stored (K, N): vectors along n
+        const int r = idx / (kBN / kBPer), c = (idx % (kBN / kBPer)) * kBPer;
+        const int gk = k0 + r;
+        const char* base = static_cast<const char*>(p.b);
+        const size_t es = BL == kBActKN ? sizeof(T) : sizeof(float);
+        b_reg[l] = gk < p.k ? *reinterpret_cast<const uint4*>(
+                                  base + ((size_t)gk * p.n + n0 + c) * es)
+                            : zero4;
+      }
     }
   };
   auto store = [&]() {
 #pragma unroll
     for (int l = 0; l < kAVecs; ++l) {
       const int idx = tid + l * kGemmThreads;
-      const int r = idx / (kBK / kAPer), c = (idx % (kBK / kAPer)) * kAPer;
-      *reinterpret_cast<uint4*>(&As[r * kALd + c]) = a_reg[l];
+      if (AL == kARowMajor) {
+        const int r = idx / (kBK / kVec), c = (idx % (kBK / kVec)) * kVec;
+        *reinterpret_cast<uint4*>(&As[r * kALd + c]) = a_reg[l];
+      } else {                   // transposed into As (m, k)
+        const int r = idx / (kBM / kVec), c = (idx % (kBM / kVec)) * kVec;
+        const T* e = reinterpret_cast<const T*>(&a_reg[l]);
+#pragma unroll
+        for (int q = 0; q < kVec; ++q) As[(c + q) * kALd + r] = e[q];
+      }
     }
 #pragma unroll
-    for (int l = 0; l < kBVecs; ++l) {  // transposed into Bs (k, n)
+    for (int l = 0; l < kBVecs; ++l) {
       const int idx = tid + l * kGemmThreads;
-      const int c = idx / (kBK / 4), r = (idx % (kBK / 4)) * 4;
-      const float4 v = b_reg[l];
-      Bs[(r + 0) * kBLd + c] = from_f32<T>(v.x);
-      Bs[(r + 1) * kBLd + c] = from_f32<T>(v.y);
-      Bs[(r + 2) * kBLd + c] = from_f32<T>(v.z);
-      Bs[(r + 3) * kBLd + c] = from_f32<T>(v.w);
+      if (BL == kBWeightNK) {    // transposed into Bs (k, n)
+        const int c = idx / (kBK / 4), r = (idx % (kBK / 4)) * 4;
+        const float4 v = *reinterpret_cast<const float4*>(&b_reg[l]);
+        Bs[(r + 0) * kBLd + c] = from_f32<T>(v.x);
+        Bs[(r + 1) * kBLd + c] = from_f32<T>(v.y);
+        Bs[(r + 2) * kBLd + c] = from_f32<T>(v.z);
+        Bs[(r + 3) * kBLd + c] = from_f32<T>(v.w);
+      } else if (BL == kBWeightKN) {
+        const int r = idx / (kBN / 4), c = (idx % (kBN / 4)) * 4;
+        const float4 v = *reinterpret_cast<const float4*>(&b_reg[l]);
+        Bs[r * kBLd + c + 0] = from_f32<T>(v.x);
+        Bs[r * kBLd + c + 1] = from_f32<T>(v.y);
+        Bs[r * kBLd + c + 2] = from_f32<T>(v.z);
+        Bs[r * kBLd + c + 3] = from_f32<T>(v.w);
+      } else {
+        const int r = idx / (kBN / kVec), c = (idx % (kBN / kVec)) * kVec;
+        *reinterpret_cast<uint4*>(&Bs[r * kBLd + c]) = b_reg[l];
+      }
     }
   };
 
@@ -316,25 +557,50 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs p) {
   acc.store(Cs);
   __syncthreads();
 
-  T* __restrict__ out = static_cast<T*>(p.out);
-  const T* __restrict__ resid = static_cast<const T*>(p.resid);
   for (int i = tid; i < kBM * kBN; i += kGemmThreads) {
     const int r = i / kBN, c = i % kBN;
     const int gm = m0 + r, gn = n0 + c;
     if (gm >= p.m || gn >= p.n) continue;
-    float v = round_to<T>(round_to<T>(Cs[r * kCLd + c]) +
-                          round_to<T>(p.bias[gn]));
-    if (EPI == kEpiBiasGelu) v = gelu_erf(v);
-    if (EPI == kEpiBiasResidual) v = to_f32(resid[(size_t)gm * p.n + gn]) + v;
-    out[(size_t)gm * p.n + gn] = from_f32<T>(v);
+    const size_t o = (size_t)gm * p.n + gn;
+    const float a = Cs[r * kCLd + c];
+    if constexpr (EPI == kEpiF32) {
+      static_cast<float*>(p.out)[o] = a;
+    } else {
+      T* __restrict__ out = static_cast<T*>(p.out);
+      float v = round_to<T>(a);
+      if constexpr (EPI == kEpiDgelu) {
+        v *= dgelu_erf(to_f32(static_cast<const T*>(p.aux)[o]));
+      } else {
+        if (p.bias) v = round_to<T>(v + round_to<T>(p.bias[gn]));
+        if constexpr (EPI == kEpiBiasGelu) {
+          if (p.out2) static_cast<T*>(p.out2)[o] = from_f32<T>(v);
+          v = gelu_erf(v);
+        }
+        if constexpr (EPI == kEpiBiasResidual) {
+          if (p.bits) v = drop_to<T>(v, p.bits[o], p.thr, p.scale);
+          v = to_f32(static_cast<const T*>(p.resid)[o]) + v;
+        }
+      }
+      out[o] = from_f32<T>(v);
+    }
   }
 }
 
-template <typename T, int EPI>
+template <typename T, int EPI, int AL = kARowMajor, int BL = kBWeightNK>
 cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
   const dim3 grid((p.n + kBN - 1) / kBN, (p.m + kBM - 1) / kBM);
-  gemm_kernel<T, EPI><<<grid, kGemmThreads, 0, stream>>>(p);
+  gemm_kernel<T, EPI, AL, BL><<<grid, kGemmThreads, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+// dW (M, N) f32 = G^T X: G stored (K, M), X stored (K, N), both type T; the
+// weight gradient of a Linear with output G and input X in nn.Linear's
+// (out, in) layout, contracting over the K token rows.
+template <typename T>
+cudaError_t launch_weight_grad(const void* g, const void* x, float* dw, int m,
+                               int n, int k, cudaStream_t stream) {
+  return launch_gemm<T, kEpiF32, kATransposed, kBActKN>(
+      gemm_args(g, x, dw, m, n, k), stream);
 }
 
 }  // namespace tgfr

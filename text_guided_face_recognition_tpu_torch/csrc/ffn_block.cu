@@ -1,33 +1,60 @@
-// Post-LN FFN half-layer forward (K3 of the port):
-//   z = LN(x + (W2 . gelu(W1 . x + c1) + c2))          (serving: no dropout)
+// Post-LN FFN half-layer, forward (K3 of the port) and backward (K4):
+//   z = LN(x + drop(W2 . gelu(W1 . x + c1) + c2))
 //
 // Replaces: text_guided_face_recognition_tpu/ops/block_pallas.py,
-// `_ffn_fwd_kernel` reached through `_ffn_fwd` / `ffn_block`.
+// `_ffn_fwd_kernel` reached through `_ffn_fwd` (K3) and `_ffn_bwd_kernel`
+// reached through `_ffn_bwd` (K4), the custom VJP of `ffn_block`.
 //
-// Bound on the H100: operations. At R = 768 token rows, H = 768, I = 3072
-// the two GEMMs are 7.25 GFLOP against ~21 MB of f32 master weights and
-// activations, so the tensor cores are the limit.
+// Forward. Bound on the H100: operations. At R = 768 token rows, H = 768,
+// I = 3072 the two GEMMs are 7.25 GFLOP against ~21 MB of f32 master
+// weights and activations, so the tensor cores are the limit.
 // Design: the TPU kernel carries an f32 accumulator across a sequential grid
 // over I; CUDA blocks run in parallel and in no order, so the sum over I
 // becomes the K loop of the second GEMM instead, in three launches:
-//   (a) act = gelu(x . W1 + c1), rounded to the activation type, into a
-//       (R, I) scratch buffer (4.7 MB in bf16, L2-resident on the card);
-//   (b) r = x + (act . W2 + c2), the residual fused into the GEMM epilogue;
+//   (a) f = x . W1 + c1 and act = gelu(f), both rounded to the activation
+//       type, into (R, I) buffers (4.7 MB each in bf16, L2-resident); f is
+//       written only when the backward will need it;
+//   (b) r = x + drop(act . W2 + c2), dropout (host bits, given when
+//       rate > 0) and the residual fused into the GEMM epilogue;
 //   (c) z = LN(r), one warp per row.
-// The serving forward writes none of the residuals the backward needs.
+// The backward's residuals are x, f, act and r.
+//
+// Backward. Bound: bytes, narrowly: 49.6 MB with the f32 weight gradients
+// and the dropout bits (14.8 us at 3.35 TB/s) against the four GEMMs'
+// 14.5 GFLOP (14.7 us at 989 TFLOP/s), at the shapes above, as
+// chip_smoke.py counts them. The TPU kernel streams over I with an f32 dx
+// accumulator; here it becomes seven launches:
+//   (1) the LN backward row pass from r (statistics recomputed), then the
+//       dropout: dr and dgg = drop(dr), rounded; dgamma, dbeta and dc2 as
+//       per-block partial sums, (2) reduced in a fixed order;
+//   (3) dW2 = dgg^T . act, f32;
+//   (4) df = r(r(dgg . W2) * gelu'(f)), the GELU derivative in the epilogue;
+//   (5) dW1 = df^T . x, f32;  (6) dc1 = column sums of df;
+//   (7) dx = r(dr + r(df . W1)).
+// dW1 and dW2 are written in nn.Linear's (out, in) layout; the weight
+// gradients are never rounded to bf16 (the TPU kernel's outputs are in the
+// master dtype).
 #include "common.cuh"
 
 namespace {
 
 template <typename T>
-int run(const void* x, const float* w1, const float* c1, const float* w2,
-        const float* c2, const float* gamma,
-        const float* beta, void* act, void* resid, void* z, int rows, int h,
-        int inter, float eps, cudaStream_t s) {
-  tgfr::GemmArgs up{x, w1, c1, nullptr, act, rows, inter, h};
+int run_fwd(const void* x, const float* w1, const float* c1, const float* w2,
+            const float* c2, const float* gamma, const float* beta,
+            const unsigned* bits, unsigned thr, float scale, void* act,
+            void* f, void* resid, void* z, int rows, int h, int inter,
+            float eps, cudaStream_t s) {
+  tgfr::GemmArgs up = tgfr::gemm_args(x, w1, act, rows, inter, h);
+  up.bias = c1;
+  up.out2 = f;
   cudaError_t err = tgfr::launch_gemm<T, tgfr::kEpiBiasGelu>(up, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  tgfr::GemmArgs down{act, w2, c2, x, resid, rows, h, inter};
+  tgfr::GemmArgs down = tgfr::gemm_args(act, w2, resid, rows, h, inter);
+  down.bias = c2;
+  down.resid = x;
+  down.bits = bits;
+  down.thr = thr;
+  down.scale = scale;
   err = tgfr::launch_gemm<T, tgfr::kEpiBiasResidual>(down, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = tgfr::launch_layernorm_rows<T, true>(static_cast<const T*>(resid),
@@ -36,14 +63,55 @@ int run(const void* x, const float* w1, const float* c1, const float* w2,
   return static_cast<int>(err);
 }
 
+template <typename T>
+int run_bwd(const void* dz, const void* x, const void* f, const void* act,
+            const void* r, const float* w1, const float* w2,
+            const float* gamma, const unsigned* bits, unsigned thr,
+            float scale, void* dx, float* dw1, float* dc1, float* dw2,
+            float* dln, void* dr, void* dgg, void* df, float* part, int rows,
+            int h, int inter, float eps, cudaStream_t s) {
+  // (1, 2) dr, dgg = drop(dr); dln = [dgamma | dbeta | dc2]
+  T* dgg_t = static_cast<T*>(bits ? dgg : dr);
+  cudaError_t err = tgfr::launch_layernorm_bwd<T, true>(
+      static_cast<const T*>(dz), static_cast<const T*>(r), gamma,
+      static_cast<T*>(dr), bits ? dgg_t : nullptr, bits, thr, scale, part,
+      dln, 3, rows, h, eps, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // (3) dW2 (h, inter) = dgg^T . act
+  err = tgfr::launch_weight_grad<T>(dgg_t, act, dw2, h, inter, rows, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // (4) df = r(r(dgg . W2) * gelu'(f)); W2 is (h, inter) = (K, N)
+  tgfr::GemmArgs da = tgfr::gemm_args(dgg_t, w2, df, rows, inter, h);
+  da.aux = f;
+  err = tgfr::launch_gemm<T, tgfr::kEpiDgelu, tgfr::kARowMajor,
+                          tgfr::kBWeightKN>(da, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // (5) dW1 (inter, h) = df^T . x
+  err = tgfr::launch_weight_grad<T>(df, x, dw1, inter, h, rows, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // (6) dc1
+  err = tgfr::launch_colsum<T>(static_cast<const T*>(df), rows, inter, dc1,
+                               s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // (7) dx = r(dr + r(df . W1)); W1 is (inter, h) = (K, N)
+  tgfr::GemmArgs dxa = tgfr::gemm_args(df, w1, dx, rows, h, inter);
+  dxa.resid = dr;
+  err = tgfr::launch_gemm<T, tgfr::kEpiBiasResidual, tgfr::kARowMajor,
+                          tgfr::kBWeightKN>(dxa, s);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
+// bits: (rows, h) uint32 or null (no dropout); f: (rows, inter) or null.
 extern "C" int tgfr_ffn_block_fwd(const void* x, const void* w1,
                                   const void* c1, const void* w2,
                                   const void* c2, const void* gamma,
-                                  const void* beta, void* act, void* resid,
-                                  void* z, int rows, int h, int inter,
-                                  float eps, int dtype, void* stream) {
+                                  const void* beta, const void* bits,
+                                  unsigned thr, float scale, void* act,
+                                  void* f, void* resid, void* z, int rows,
+                                  int h, int inter, float eps, int dtype,
+                                  void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* fw1 = static_cast<const float*>(w1);
   const auto* fc1 = static_cast<const float*>(c1);
@@ -51,11 +119,46 @@ extern "C" int tgfr_ffn_block_fwd(const void* x, const void* w1,
   const auto* fc2 = static_cast<const float*>(c2);
   const auto* g = static_cast<const float*>(gamma);
   const auto* b = static_cast<const float*>(beta);
+  const auto* u = static_cast<const unsigned*>(bits);
   if (dtype == tgfr::kBF16)
-    return run<__nv_bfloat16>(x, fw1, fc1, fw2, fc2, g, b, act, resid, z,
-                              rows, h, inter, eps, s);
+    return run_fwd<__nv_bfloat16>(x, fw1, fc1, fw2, fc2, g, b, u, thr, scale,
+                                  act, f, resid, z, rows, h, inter, eps, s);
   if (dtype == tgfr::kF32)
-    return run<float>(x, fw1, fc1, fw2, fc2, g, b, act, resid, z, rows, h,
-                      inter, eps, s);
+    return run_fwd<float>(x, fw1, fc1, fw2, fc2, g, b, u, thr, scale, act, f,
+                          resid, z, rows, h, inter, eps, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// w1: (inter, h), w2: (h, inter), nn.Linear layout. Outputs dx (rows, h);
+// dw1 (inter, h), dc1 (inter), dw2 (h, inter), dln (3 h) = [dgamma | dbeta
+// | dc2], all f32. Scratch: dr, dgg (rows, h; dgg only with bits), df
+// (rows, inter), part (ceil(rows / 8), 3 h) f32.
+extern "C" int tgfr_ffn_block_bwd(const void* dz, const void* x,
+                                  const void* f, const void* act,
+                                  const void* r, const void* w1,
+                                  const void* w2, const void* gamma,
+                                  const void* bits, unsigned thr, float scale,
+                                  void* dx, void* dw1, void* dc1, void* dw2,
+                                  void* dln, void* dr, void* dgg, void* df,
+                                  void* part, int rows, int h, int inter,
+                                  float eps, int dtype, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* fw1 = static_cast<const float*>(w1);
+  const auto* fw2 = static_cast<const float*>(w2);
+  const auto* g = static_cast<const float*>(gamma);
+  const auto* u = static_cast<const unsigned*>(bits);
+  auto* o1 = static_cast<float*>(dw1);
+  auto* oc1 = static_cast<float*>(dc1);
+  auto* o2 = static_cast<float*>(dw2);
+  auto* oln = static_cast<float*>(dln);
+  auto* pt = static_cast<float*>(part);
+  if (dtype == tgfr::kBF16)
+    return run_bwd<__nv_bfloat16>(dz, x, f, act, r, fw1, fw2, g, u, thr,
+                                  scale, dx, o1, oc1, o2, oln, dr, dgg, df,
+                                  pt, rows, h, inter, eps, s);
+  if (dtype == tgfr::kF32)
+    return run_bwd<float>(dz, x, f, act, r, fw1, fw2, g, u, thr, scale, dx,
+                          o1, oc1, o2, oln, dr, dgg, df, pt, rows, h, inter,
+                          eps, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

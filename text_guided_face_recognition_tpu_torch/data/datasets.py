@@ -9,7 +9,8 @@ bytes as the JAX package generates.
 
 Ported: the reference's on-disk formats (filenames/class pickles, per-id
 caption files, the captions_<bert_type>.pickle cache), `TrainDataset` (flat
-samples, as extraction uses it) and `TestDataset` (pair lists). Waiting
+samples, as training and extraction use them) and `TestDataset` (pair
+lists). Waiting
 (ROADMAP.md): the native C++ JPEG decode, the LSTM caption path, the
 frozen-feature cache and the `compat_bert_caption_bug` switch.
 """
@@ -168,6 +169,17 @@ class TrainDataset(_DatasetBase):
         # serving knobs: no augmentation, a pinned caption index
         self.augment: bool = True
         self.fixed_sent_ix: Optional[int] = None
+
+    def check_classifier_coverage(self, num_classes: int) -> None:
+        """Fail when the identity count outgrows the classifier: a label
+        >= num_classes would make the margin cross-entropy index past its
+        logits. Called by the trainers, where a classifier exists."""
+        nc = int(num_classes or 0)
+        if nc and self.class_id and max(self.class_id) >= nc:
+            raise ValueError(
+                f"dataset '{self.split}' class ids reach "
+                f"{max(self.class_id)} but num_classes is {nc}; raise "
+                "num_classes to cover the dataset's identity count")
 
     def __len__(self) -> int:
         return len(self.filenames)

@@ -5,11 +5,13 @@ device: encode both sides of each caption pair, run the frozen backbone and
 the image head, fuse (concat | linear | fcfm), score the pair by cosine, and
 report AUC/EER/TPR@FPR (+ rank-1 identification). Pair mode runs every pair
 batch; table mode (`eval_table_mode`) embeds each distinct sample once and
-scores pairs from the table. The mesh-sharded eval of the JAX package waits
-for the parallel slice (ROADMAP.md).
+scores pairs from the table. `validate_concat` is stage 1's validation:
+concat fusion on the valid split, modules put in eval mode for its length.
+The mesh-sharded eval of the JAX package waits for the parallel slice
+(ROADMAP.md).
 
 Batches arrive as numpy from the data layer, images NHWC (the wire format);
-`_backbone_feats` normalises uint8 on the device and permutes to NCHW.
+`backbone_features` normalises uint8 on the device and permutes to NCHW.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from text_guided_face_recognition_tpu_torch.utils.metrics import (
     calculate_scores,
 )
 
-__all__ = ["cosine_pairs", "run_test", "embed_batch", "pair_scores"]
+__all__ = ["cosine_pairs", "run_test", "embed_batch", "pair_scores",
+           "backbone_features", "validate_concat"]
 
 
 def cosine_pairs(out1: torch.Tensor, out2: torch.Tensor,
@@ -38,7 +41,9 @@ def cosine_pairs(out1: torch.Tensor, out2: torch.Tensor,
     return (out1 * out2).sum(dim=1) / (n1.clamp_min(eps) * n2.clamp_min(eps))
 
 
-def _backbone_feats(backbone: nn.Module, model_type: str, img: torch.Tensor):
+def backbone_features(backbone: nn.Module, model_type: str,
+                      img: torch.Tensor):
+    """(global (B, 512) f32, local (B, C, S, S)) of NHWC images."""
     img = device_normalize(img, model_type)            # NHWC
     return backbone(img.permute(0, 3, 1, 2))           # NCHW inside
 
@@ -55,7 +60,7 @@ def _fused_embed(backbone, image_head, text_encoder, text_head, fusion_net,
             "(ROADMAP.md, Queue 1)")
     words_raw, _ = text_encoder(caps, extra)
     w, s = text_head(words_raw)
-    g, l = _backbone_feats(backbone, model_type, img)
+    g, l = backbone_features(backbone, model_type, img)
     p, q = image_head(g, l)
     if fusion_type == "concat":
         return torch.cat([p, s], dim=1)
@@ -163,4 +168,26 @@ def run_test(args, test_dl, backbone, image_head, fusion_net, text_encoder,
         preds, labels = _score_loop(test_dl, models)
     if args.is_ident:
         calculate_identification_acc(preds, args)
+    return calculate_scores(preds, labels, args)
+
+
+def validate_concat(args, valid_dl, backbone, image_head, text_encoder,
+                    text_head) -> Dict[str, float]:
+    """Stage-1 validation: concat(global image projection, sentence)
+    cosine verification on the valid split (reference: Train.test,
+    src/train_encoders_bert.py:348-395), the modules in eval mode."""
+    mods = (image_head, text_encoder, text_head)
+    modes = [m.training for m in mods]
+    for m in mods:
+        m.eval()
+    try:
+        models = _Models(args.replace(fusion_type="concat"), backbone,
+                         image_head, None, text_encoder, text_head)
+        if args.eval_table_mode:
+            preds, labels = _table_score_loop(args, valid_dl.dataset, models)
+        else:
+            preds, labels = _score_loop(valid_dl, models)
+    finally:
+        for m, mode in zip(mods, modes):
+            m.train(mode)
     return calculate_scores(preds, labels, args)

@@ -11,8 +11,13 @@ transforms:
   LayerNormCHW (H, W, C)        -> (C, H, W), scale and bias alike
   batch_stats `mean` / `var`    -> `running_mean` / `running_var`
   PReLU `alpha`                 -> `alpha`
+  a bare `weight` (the stage-1
+  trainer's image_cls/text_cls) -> `weight`, unchanged
 
-The scale-free `features` BN has no scale on either side. Inputs are nested
+The scale-free `features` BN has no scale on either side. A whole trainer
+bridges at once: the stage-1 params tree {image_head, text_encoder,
+text_head, image_cls, text_cls} with batch_stats {image_head} onto
+engine/stage1.Stage1Model. Inputs are nested
 dicts of numpy arrays (the tests get them with `jax.device_get`); this module
 imports nothing of JAX.
 """
@@ -31,7 +36,7 @@ from text_guided_face_recognition_tpu_torch.models.layers import LayerNormCHW
 __all__ = ["state_dict_from_jax"]
 
 _PARAM_LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight",
-               "bias": "bias", "alpha": "alpha"}
+               "weight": "weight", "bias": "bias", "alpha": "alpha"}
 _STATS_LEAF = {"mean": "running_mean", "var": "running_var"}
 
 

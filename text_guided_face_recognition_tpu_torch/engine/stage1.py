@@ -1,0 +1,316 @@
+"""Stage-1 FCAM pretraining (encoder alignment) with a BERT text encoder.
+
+Counterpart of text_guided_face_recognition_tpu/engine/stage1.py
+(`Stage1Trainer`, en_type BERT, one device):
+
+  * the frozen backbone (eval-mode BN, no gradient) -> ImageHeading in
+    train mode (batch statistics; running statistics updated in place);
+  * the BERT tower in train mode (dropout from one flat bit draw per step,
+    on the device, from a torch.Generator seeded with manual_seed + 1) ->
+    TextHeading;
+  * the loss cocktail gated by is_DAMSM / is_CLIP / is_ident_loss with the
+    reference's weights (DAMSM word + sentence terms, ArcFace focal identity
+    losses on both sides, the CLIP-style global loss);
+  * the three optimizer groups of engine/optim.py and the reference's
+    epoch-edge learning-rate schedule, applied from the host.
+
+A training step is one forward, one backward and one optimizer step; the
+epoch loop keeps running metric sums on the device and syncs with the host
+once per epoch. `build_loss_fn` is the step's loss as a function of a batch
+on the device; a batch may carry precomputed backbone features (`img_gl`
+(B, 512) and `img_lc` (B, 256, S, S), NCHW) instead of `img`, which skips
+the backbone, as the JAX loss function allows.
+
+Reference quirks kept as the JAX package keeps them: the text side trains
+by default (`compat_frozen_text: true` reproduces the reference's
+no-gradient text path), and no gradient clip by default
+(`apply_grad_clip`).
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from text_guided_face_recognition_tpu_torch import ops
+from text_guided_face_recognition_tpu_torch.config import check_stage1
+from text_guided_face_recognition_tpu_torch.engine import optim
+from text_guided_face_recognition_tpu_torch.engine import prepare as prep
+from text_guided_face_recognition_tpu_torch.engine.checkpoint import (
+    load_checkpoint, prune_checkpoints, save_checkpoint)
+from text_guided_face_recognition_tpu_torch.engine.evaluate import (
+    backbone_features, validate_concat)
+from text_guided_face_recognition_tpu_torch.models.text_bert import (
+    TEXT_ARCHS, drop_elems)
+from text_guided_face_recognition_tpu_torch.ops.dropout import draw
+
+__all__ = ["ClassWeight", "Stage1Model", "Stage1Trainer"]
+
+
+class ClassWeight(nn.Module):
+    """A margin classifier's class weights, (num_classes, feat)."""
+
+    def __init__(self, num_classes: int, feat: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_classes, feat))
+
+
+class Stage1Model(nn.Module):
+    """The trained modules, named as the JAX trainer's param tree:
+    image_head, text_encoder, text_head, image_cls, text_cls."""
+
+    def __init__(self, image_head: nn.Module, text_encoder: nn.Module,
+                 text_head: nn.Module, num_classes: int, feat: int):
+        super().__init__()
+        self.image_head = image_head
+        self.text_encoder = text_encoder
+        self.text_head = text_head
+        self.image_cls = ClassWeight(num_classes, feat)
+        self.text_cls = ClassWeight(num_classes, feat)
+
+
+def _nan_guard(metrics: Dict[str, float], step: int) -> None:
+    for k, v in metrics.items():
+        if not math.isfinite(v):
+            raise FloatingPointError(
+                f"non-finite metric {k!r}={v} at step {step}")
+
+
+class Stage1Trainer:
+    """Stage-1 trainer for en_type BERT on one device (the CUDA card unless
+    `device` is the CPU)."""
+
+    def __init__(self, args, device: Optional[torch.device] = None):
+        check_stage1(args)
+        self.args = args
+        self.device = device if device is not None else \
+            prep.resolve_device(bool(args.cpu))
+        dev = self.device
+
+        self.train_dl, self.train_ds = prep.prepare_dataloader(args, "train")
+        self.train_ds.check_classifier_coverage(args.num_classes)
+        self.valid_dl, self.valid_ds = prep.prepare_dataloader(args, "valid")
+        args.len_train_dl = len(self.train_dl)
+
+        self.backbone = prep.prepare_backbone(args, dev)
+        self.backbone.requires_grad_(False)
+        image_head = prep.prepare_image_head(args, dev)
+        text_encoder, text_head = prep.prepare_text_encoder(args, dev)
+        feat = args.aux_feat_dim_per_granularity
+        self.model = Stage1Model(image_head, text_encoder, text_head,
+                                 args.num_classes, feat)
+        # class weights: xavier uniform (reference margins: image s=30,
+        # text s=35, both m=0.5), from the manual_seed generator
+        gen = torch.Generator().manual_seed(int(args.manual_seed))
+        bound = math.sqrt(6.0 / (args.num_classes + feat))
+        with torch.no_grad():
+            for cls in (self.model.image_cls, self.model.text_cls):
+                cls.weight.copy_((torch.rand(cls.weight.shape, generator=gen)
+                                  * 2.0 - 1.0) * bound)
+        self.model.to(dev).train()
+
+        self.opt = optim.make_stage1_bert_tx(
+            args, {name: getattr(self.model, name) for name in optim.GROUPS})
+        # initial LRs (reference: src/train_encoders_bert.py:212-222)
+        self.lr = {"head": float(args.lr_head),
+                   "encoder": float(args.min_lr_bert), "cls": 0.1}
+        self._apply_lrs()
+        self.arch = TEXT_ARCHS[args.bert_type]
+        self.drop_gen = torch.Generator(device=dev).manual_seed(
+            int(args.manual_seed) + 1)
+        self.loss_fn = self.build_loss_fn()
+        self.start_epoch = 1
+        self.steps = 0
+
+    # ------------------------------------------------------------- helpers --
+
+    def _apply_lrs(self) -> None:
+        for group, lr in self.lr.items():
+            self.opt.set_lr(group, lr)
+
+    def to_device(self, batch) -> Dict[str, torch.Tensor]:
+        """A loader batch (numpy) on the device; string fields dropped."""
+        return {k: torch.as_tensor(np.asarray(v)).to(self.device,
+                                                     non_blocking=True)
+                for k, v in batch.items() if k != "key"}
+
+    def draw_bits(self, b: int, t: int) -> Optional[torch.Tensor]:
+        """One step's dropout bits for the text tower (None without
+        dropout)."""
+        if not self.arch.dropout:
+            return None
+        return draw(drop_elems(self.arch, b, t), self.drop_gen, self.device)
+
+    @torch.no_grad()
+    def image_features(self, img: torch.Tensor):
+        """The frozen backbone's (global, local) features."""
+        return backbone_features(self.backbone, self.args.model_type, img)
+
+    # ---------------------------------------------------------- train step --
+
+    def build_loss_fn(self):
+        """The stage-1 loss cocktail: loss_fn(batch, drop_bits) ->
+        (total, metrics), a batch of device tensors."""
+        args = self.args
+        g = args.TRAIN.SMOOTH
+        m = self.model
+
+        def loss_fn(batch, drop_bits=None):
+            class_ids = batch["cls_id"].long()
+            words_raw, _ = m.text_encoder(batch["caps"], batch["mask"],
+                                          drop_bits)
+            words_emb, sent_emb = m.text_head(words_raw)
+            if args.compat_frozen_text:
+                words_emb, sent_emb = words_emb.detach(), sent_emb.detach()
+            if "img_gl" in batch:     # precomputed backbone features
+                gl, lc = batch["img_gl"], batch["img_lc"]
+            else:
+                gl, lc = self.image_features(batch["img"])
+            img_f, words_f = m.image_head(gl, lc)
+            labels = torch.arange(img_f.shape[0], device=img_f.device)
+            total = torch.zeros((), dtype=torch.float32, device=img_f.device)
+            metrics: Dict[str, torch.Tensor] = {}
+            if args.is_DAMSM:
+                w0, w1 = ops.words_loss(words_f, words_emb, labels, g.GAMMA1,
+                                        g.GAMMA2, g.GAMMA3, word_mask=None,
+                                        use_pallas=bool(args.use_pallas))
+                s0, s1 = ops.sent_loss(img_f, sent_emb, labels, class_ids,
+                                       gamma3=g.GAMMA3)
+                damsm = w0 + w1 + s0 + s1   # ref bert :272-283
+                total = total + damsm
+                metrics.update(w_loss=w0 + w1, s_loss=s0 + s1,
+                               damsm_loss=damsm)
+            if args.is_ident_loss:
+                t_logits = ops.arc_margin_logits(
+                    sent_emb, m.text_cls.weight, class_ids, s=35.0, m=0.5)
+                i_logits = ops.arc_margin_logits(
+                    img_f, m.image_cls.weight, class_ids, s=30.0, m=0.5)
+                idn = args.lambda_id * (ops.focal_loss(t_logits, class_ids)
+                                        + ops.focal_loss(i_logits, class_ids))
+                total = total + idn
+                metrics["idn_loss"] = idn
+            if args.is_CLIP:             # global_loss (ref bert :309-312)
+                cl = args.lambda_clip * ops.global_loss(img_f, sent_emb)
+                total = total + cl
+                metrics["clip_loss"] = cl
+            metrics["total_loss"] = total
+            return total, metrics
+
+        return loss_fn
+
+    def compute_grads(self, batch, drop_bits=None):
+        """Forward and backward of one step: the gradients land in the
+        parameters' .grad. Returns (total, metrics)."""
+        if drop_bits is None:
+            drop_bits = self.draw_bits(*batch["caps"].shape)
+        self.opt.zero_grad()
+        total, metrics = self.loss_fn(batch, drop_bits)
+        total.backward()
+        return total.detach(), {k: v.detach() for k, v in metrics.items()}
+
+    def train_step(self, batch, drop_bits=None, acc=None
+                   ) -> Dict[str, torch.Tensor]:
+        """One training step on a device batch; returns its metrics (added
+        to `acc` on the device when given)."""
+        _, metrics = self.compute_grads(batch, drop_bits)
+        self.opt.step()
+        self.steps += 1
+        if acc is not None:
+            metrics = {k: acc[k] + v for k, v in metrics.items()}
+        return metrics
+
+    # -------------------------------------------------------------- epochs --
+
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        args = self.args
+        n = 0
+        t0 = time.time()
+        acc = None
+        for batch in self.train_dl:
+            acc = self.train_step(self.to_device(batch), acc=acc)
+            n += 1
+            if args.max_steps and n >= args.max_steps:
+                break
+        agg = {k: float(v) for k, v in (acc or {}).items()}  # one sync
+        _nan_guard(agg, n)
+        dt = time.time() - t0
+        total_len = n * args.batch_size
+        out = {k: v / total_len for k, v in agg.items()}
+        out.update(epoch=epoch, steps=n,
+                   pairs_per_sec=total_len / dt if dt > 0 else 0.0)
+        print(json.dumps(out))
+        return out
+
+    def schedule_epoch_end(self, epoch: int) -> None:
+        """The reference's LR edits: head ExponentialLR(0.98) per epoch
+        (src/train_encoders_bert.py:225-226, :406), cls /10 at epochs 3
+        and 8 (:398-411)."""
+        self.lr["head"] *= 0.98
+        if epoch in (3, 8):
+            self.lr["cls"] *= 0.1
+            print("Learning Rate change to: {:0.5f}".format(self.lr["cls"]))
+        self._apply_lrs()
+
+    def validate(self) -> Dict[str, float]:
+        """Concat-fusion cosine verification on the valid split
+        (reference: Train.test, src/train_encoders_bert.py:348-395)."""
+        m = self.model
+        return validate_concat(self.args, self.valid_dl, self.backbone,
+                               m.image_head, m.text_encoder, m.text_head)
+
+    def save_dir(self) -> str:
+        a = self.args
+        return os.path.join(a.checkpoints_path, a.dataset_name,
+                            a.CONFIG_NAME, f"{a.en_type}_{a.model_type}",
+                            a.bert_type)
+
+    def save_encoders(self, save_dir: str, epoch: int) -> None:
+        """Two artifacts (reference: src/train_encoders_bert.py:59-80)."""
+        a, m = self.args, self.model
+        save_checkpoint(f"{save_dir}/{a.model_type}_image_encoder_{epoch}",
+                        {"image_head": m.image_head.state_dict()})
+        save_checkpoint(f"{save_dir}/{a.bert_type}_text_encoder_{epoch}",
+                        {"model": m.text_encoder.state_dict(),
+                         "head": m.text_head.state_dict()})
+
+    def save_state(self, save_dir: str, epoch: int) -> None:
+        """The resumable third artifact: model, optimizer, epoch, LRs."""
+        save_checkpoint(f"{save_dir}/train_state_{epoch}", {
+            "model": self.model.state_dict(),
+            "optimizer": self.opt.state_dict(),
+            "meta": {"epoch": epoch, "lr": dict(self.lr)}})
+
+    def resume_from(self, path: str) -> None:
+        tree = load_checkpoint(path, map_location=self.device)
+        self.model.load_state_dict(tree["model"])
+        self.opt.load_state_dict(tree["optimizer"])
+        self.lr = {k: float(v) for k, v in tree["meta"]["lr"].items()}
+        self._apply_lrs()
+        self.start_epoch = int(tree["meta"]["epoch"]) + 1
+        print("resumed from", path, "at epoch", self.start_epoch)
+
+    def main(self) -> None:
+        """Epoch loop (reference: src/train_encoders_bert.py:398-421)."""
+        args = self.args
+        if args.resume_model_path and args.resume_epoch > 1:
+            self.resume_from(args.resume_model_path)
+        save_dir = self.save_dir()
+        for epoch in range(self.start_epoch, args.max_epoch + 1):
+            args.current_epoch = epoch
+            self.train_epoch(epoch)
+            self.schedule_epoch_end(epoch)
+            if epoch % args.save_interval == 0 or epoch == args.max_epoch:
+                print("saving image and text encoder\n")
+                self.save_encoders(save_dir, epoch)
+                self.save_state(save_dir, epoch)
+                prune_checkpoints(save_dir, args.keep_last_ckpts)
+            if epoch > 12 and epoch % args.test_interval == 0:
+                print("start validating")
+                self.validate()

@@ -54,10 +54,17 @@ class PReLU(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over dim 1 from running statistics, computed in
-    f32 and cast to `dtype` (flax nn.BatchNorm(use_running_average=True)).
-    `use_scale=False` gives the scale-free BN of the iResNet `features`
-    layer. Train-mode statistics come with the training slice."""
+    """BatchNorm over dim 1 with flax nn.BatchNorm semantics, computed in
+    f32 and cast to `dtype`. `use_scale=False` gives the scale-free BN of
+    the iResNet `features` layer.
+
+    Eval mode normalises with the running statistics. Train mode normalises
+    with the batch's: mean and the biased variance E[x^2] - E[x]^2 (floored
+    at 0) over every axis but dim 1, in f32, differentiable; and it updates
+    the running statistics in place, running = (1 - momentum) running +
+    momentum batch with the biased variance, as flax's
+    `mutable=["batch_stats"]` returns them (flax's momentum 0.9 is this
+    momentum 0.1)."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1,
                  use_scale: bool = True, dtype: torch.dtype = torch.float32):
@@ -70,13 +77,24 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm: train-mode statistics come with the training "
-                "slice (ROADMAP.md); call .eval()")
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var,
-                         self.weight, self.bias, False, 0.0, self.eps)
-        return y.to(self.dtype)
+        if not self.training:
+            y = F.batch_norm(x.float(), self.running_mean, self.running_var,
+                             self.weight, self.bias, False, 0.0, self.eps)
+            return y.to(self.dtype)
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xf = x.float()
+        mean = xf.mean(dims)
+        var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape)
+        return (y + self.bias.reshape(shape)).to(self.dtype)
 
 
 def _channels_last_dense(dense: Dense, x: torch.Tensor) -> torch.Tensor:

@@ -29,11 +29,13 @@ from text_guided_face_recognition_tpu_torch.models.layers import (
     Dense, l2_normalize)
 from text_guided_face_recognition_tpu_torch.ops.block import (
     D_HEAD, attn_block, ffn_block, gelu)
+from text_guided_face_recognition_tpu_torch.ops.dropout import (
+    DropBits, dropout, total_elems)
 from text_guided_face_recognition_tpu_torch.ops.layernorm import (
     layernorm_fused)
 
 __all__ = ["TextArch", "TEXT_ARCHS", "TransformerEncoder", "TextEncoder",
-           "BertWordMapping", "TextHeading", "LayerNorm"]
+           "BertWordMapping", "TextHeading", "LayerNorm", "drop_elems"]
 
 FUSED_BLOCK_MODES = ("none", "ffn", "attn", "both")
 
@@ -73,6 +75,11 @@ TEXT_ARCHS = {
 }
 
 
+def drop_elems(arch: TextArch, b: int, t: int) -> int:
+    """Dropout bits one training forward of the tower takes."""
+    return total_elems(arch.hidden, arch.layers, arch.heads, b, t)
+
+
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis with f32 parameters, output in `dtype`.
     `fused` runs ops/layernorm.layernorm_fused (the CUDA kernel on a card);
@@ -97,7 +104,8 @@ class LayerNorm(nn.Module):
 class SelfAttention(nn.Module):
     """Multi-head self-attention with one packed q|k|v projection; f32
     scores, additive finfo(float32).min key mask, probabilities rounded to
-    `dtype` before P.V."""
+    `dtype`, then dropped with bits_p (heads*B, T, T) when rate > 0, before
+    P.V."""
 
     def __init__(self, arch: TextArch, dtype: torch.dtype):
         super().__init__()
@@ -105,7 +113,9 @@ class SelfAttention(nn.Module):
         self.qkv = Dense(arch.hidden, 3 * arch.hidden, dtype)
         self.out = Dense(arch.hidden, arch.hidden, dtype)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                bits_p: Optional[torch.Tensor] = None,
+                rate: float = 0.0) -> torch.Tensor:
         a = self.arch
         b, t, _ = x.shape
         d = a.hidden // a.heads
@@ -115,12 +125,16 @@ class SelfAttention(nn.Module):
         neg = torch.finfo(torch.float32).min
         score = score.masked_fill(~mask[:, None, None, :], neg)
         probs = torch.softmax(score, dim=-1).to(self.dtype)
+        if rate > 0.0:   # bits in the kernels' (heads*B, T, T) layout
+            bits = bits_p.view(a.heads, b, t, t).transpose(0, 1)
+            probs = dropout(probs, bits, rate)
         out = torch.matmul(probs.float(), v).to(self.dtype)  # (B, heads, T, d)
         return self.out(out.transpose(1, 2).reshape(b, t, a.hidden))
 
 
 class Block(nn.Module):
-    """One post-LN layer: LN(x + attn(x)), then LN(y + W2 gelu(W1 y))."""
+    """One post-LN layer: LN(x + drop(attn(x))), then
+    LN(y + drop(W2 gelu(W1 y)))."""
 
     def __init__(self, arch: TextArch, dtype: torch.dtype, fused_ln: bool,
                  fused_block: str):
@@ -134,28 +148,39 @@ class Block(nn.Module):
         self.ffn_ln = LayerNorm(h, arch.ln_eps, dtype, fused_ln)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
-                mask_i32: torch.Tensor) -> torch.Tensor:
+                mask_i32: torch.Tensor, plan: Optional[DropBits] = None,
+                rate: float = 0.0) -> torch.Tensor:
         """mask: (B, T) bool; mask_i32: the same as contiguous int32, the
-        kernel's form."""
+        kernel's form. plan: this step's dropout bits when rate > 0."""
         a = self.arch
         b, t, h = x.shape
         eps = a.ln_eps
+        bits_p = bits_h = bits_f = None
+        if rate > 0.0:
+            bits_p = plan.take((a.heads * b, t, t))
+            bits_h = plan.take((b * t, h))
+            bits_f = plan.take((b * t, h))
         if self.fused_block in ("attn", "both"):
             y = attn_block(
                 x.reshape(b * t, h).contiguous(), mask_i32,
                 self.attn.qkv.weight.t(), self.attn.qkv.bias,
                 self.attn.out.weight.t(), self.attn.out.bias,
-                self.attn_ln.weight, self.attn_ln.bias, b, t, a.heads, 0.0,
-                eps).reshape(b, t, h)
+                self.attn_ln.weight, self.attn_ln.bias, b, t, a.heads, rate,
+                eps, bits_p, bits_h).reshape(b, t, h)
         else:
-            y = self.attn_ln(x + self.attn(x, mask))
+            att = self.attn(x, mask, bits_p, rate)
+            if rate > 0.0:
+                att = dropout(att, bits_h.view(b, t, h), rate)
+            y = self.attn_ln(x + att)
         if self.fused_block in ("ffn", "both"):
             return ffn_block(
                 y.reshape(b * t, h).contiguous(), self.ffn_in.weight.t(),
                 self.ffn_in.bias, self.ffn_out.weight.t(), self.ffn_out.bias,
-                self.ffn_ln.weight, self.ffn_ln.bias, 0.0,
-                eps).reshape(b, t, h)
+                self.ffn_ln.weight, self.ffn_ln.bias, rate, eps,
+                bits_f).reshape(b, t, h)
         f = self.ffn_out(gelu(self.ffn_in(y).float()).to(self.dtype))
+        if rate > 0.0:
+            f = dropout(f, bits_f.view(b, t, h), rate)
         return self.ffn_ln(y + f)
 
 
@@ -195,10 +220,22 @@ class TransformerEncoder(nn.Module):
             self.add_module(f"layer_{i}",
                             Block(arch, dtype, fused_ln, fused_block))
 
-    def forward(self, input_ids: torch.Tensor,
-                attention_mask: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        t = input_ids.shape[1]
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                drop_bits: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """drop_bits: in train mode, a flat int32 tensor of
+        `drop_elems(arch, B, T)` random bit patterns on the input's device
+        (ignored in eval mode)."""
+        a, dt = self.arch, self.dtype
+        b, t = input_ids.shape
+        rate = float(a.dropout) if self.training else 0.0
+        plan = None
+        if rate > 0.0:
+            n = drop_elems(a, b, t)
+            if drop_bits is None or drop_bits.numel() != n:
+                raise ValueError(
+                    f"TransformerEncoder in train mode takes drop_bits: {n} "
+                    "int32 bit patterns (ops/dropout.draw)")
+            plan = DropBits(drop_bits)
         ids = input_ids.long()
         pos = torch.arange(t, device=ids.device)[None, :]
         x = self.tok_emb(ids).to(dt) + self.pos_emb(pos).to(dt)
@@ -206,10 +243,12 @@ class TransformerEncoder(nn.Module):
             x = x + self.type_emb(torch.zeros_like(ids)).to(dt)
         if self.emb_ln is not None:
             x = self.emb_ln(x)
+        if rate > 0.0:
+            x = dropout(x, plan.take(x.shape), rate)
         mask = attention_mask.bool()
         mask_i32 = attention_mask.to(torch.int32).contiguous()
-        for i in range(self.arch.layers):
-            x = getattr(self, f"layer_{i}")(x, mask, mask_i32)
+        for i in range(a.layers):
+            x = getattr(self, f"layer_{i}")(x, mask, mask_i32, plan, rate)
         return x
 
 
@@ -224,9 +263,10 @@ class TextEncoder(nn.Module):
         self.model = TransformerEncoder(TEXT_ARCHS[bert_type], dtype,
                                         fused_ln, fused_block)
 
-    def forward(self, captions: torch.Tensor, mask: torch.Tensor
+    def forward(self, captions: torch.Tensor, mask: torch.Tensor,
+                drop_bits: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        hidden = self.model(captions, mask)
+        hidden = self.model(captions, mask, drop_bits)
         return hidden[:, 1:], hidden[:, 0]
 
 

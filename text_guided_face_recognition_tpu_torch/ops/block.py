@@ -1,56 +1,84 @@
-"""Post-LN transformer half-layers, forward: hand-written CUDA kernels (K3,
-K5) and their plain PyTorch versions.
+"""Post-LN transformer half-layers: hand-written CUDA kernels for the
+forwards (K3, K5) and the backwards (K4, K6), and their plain PyTorch
+versions.
 
 Counterpart of text_guided_face_recognition_tpu/ops/block_pallas.py:
 
-  attn_block: y = LN(x + (Wo . MHSA(x) + bo))         csrc/attn_block.cu
-  ffn_block:  z = LN(x + (W2 . gelu(W1 . x + c1) + c2))  csrc/ffn_block.cu
+  attn_block: y = LN(x + drop(Wo . MHSA(x) + bo))           csrc/attn_block.cu
+  ffn_block:  z = LN(x + drop(W2 . gelu(W1 . x + c1) + c2))  csrc/ffn_block.cu
 
-Same argument order and layouts as the JAX functions, minus the dropout
-bits and seed (dropout comes with the training slice: `rate > 0` raises).
-Weights, biases and LayerNorm parameters are f32 masters, rounded to the
-activation dtype inside the kernel, as flax rounds them at each use.
-A weight has the JAX (in, out) shape; the kernel takes it as the
-transposed view `linear.weight.t()` of a contiguous (out, in) nn.Linear
-weight, the layout the port's modules store (the plain version takes any
-layout).
+Same argument order and layouts as the JAX functions. Dropout takes host
+bits only (the JAX kernels' `use_prng=False` contract; in-kernel random
+bits are not ported): int32 tensors holding uint32 patterns, bits_p
+(heads*B, T, T) on the attention probabilities, bits_h / bits (R, H) on the
+half-layer's output, with the keep rule of ops/dropout.py. Weights, biases
+and LayerNorm parameters are f32 masters, rounded to the activation dtype
+inside the kernel, as flax rounds them at each use. A weight has the JAX
+(in, out) shape; the kernel takes it as the transposed view
+`linear.weight.t()` of a contiguous (out, in) nn.Linear weight, the layout
+the port's modules store (the plain version takes any layout).
 
-Rounding points (block_pallas.py `_attn_heads_fwd`, `_ffn_fwd_kernel`):
-every GEMM accumulates in f32, is rounded to the activation dtype, and then
-gets its rounded bias; attention probabilities are rounded before P.V; the
-key mask is an additive finfo(float32).min; LayerNorm statistics are f32.
-GELU is the exact erf GELU.
+Rounding points (block_pallas.py `_attn_heads_fwd`, `_attn_heads_bwd`,
+`_ffn_fwd_kernel`, `_ffn_bwd_kernel`): every GEMM accumulates in f32, is
+rounded to the activation dtype, and then gets its rounded bias;
+attention probabilities are rounded before dropout and P.V; the key mask
+is an additive finfo(float32).min; LayerNorm statistics are f32. GELU is
+the exact erf GELU, and the backward uses its analytic derivative. In the
+backwards every activation gradient (dr, the dropped dr, da, df, do, the
+per-head ds/dq/dk/dv) is rounded to the activation dtype, dx is
+r(dr + r(acc)), and weight and bias gradients stay f32.
 
+`ffn_block` and `attn_block` are torch.autograd.Functions. Their forward
+saves the residuals the backward reads (ffn: x, f, act, r; attn: x, qkv,
+p, o, r) only when a gradient is needed; the serving path saves nothing.
 Each wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor; it never falls back from one to the other. Each kernel call
-adds one to the wrapper's `launches`.
+adds one to its wrapper's `launches`: `ffn_block.launches` (K3),
+`ffn_block_bwd.launches` (K4), `attn_block.launches` (K5),
+`attn_block_bwd.launches` (K6).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
 from text_guided_face_recognition_tpu_torch.ops import _cuda
+from text_guided_face_recognition_tpu_torch.ops.dropout import (
+    dropout, threshold)
 from text_guided_face_recognition_tpu_torch.ops.layernorm import (
-    LN_MAX_WIDTH, ln_f32)
+    LN_MAX_WIDTH, LN_ROWS_PER_BLOCK, ln_bwd_f32, ln_f32)
 
-__all__ = ["attn_block", "attn_block_ref", "ffn_block", "ffn_block_ref",
-           "dense_ref", "gelu"]
+__all__ = ["attn_block", "attn_block_ref", "attn_block_fwd",
+           "attn_block_fwd_ref", "attn_block_bwd", "attn_block_bwd_ref",
+           "ffn_block", "ffn_block_ref", "ffn_block_fwd", "ffn_block_fwd_ref",
+           "ffn_block_bwd", "ffn_block_bwd_ref", "dense_ref", "gelu", "dgelu"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FFN_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                 _I, _I, _I, _F, _I, _P)
-_ATTN_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                  _I, _I, _I, _I, _F, _I, _P)
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+_FFN_FWD_ARGTYPES = (_P,) * 8 + (_U, _F) + (_P,) * 4 + (_I, _I, _I, _F, _I,
+                                                         _P)
+_FFN_BWD_ARGTYPES = (_P,) * 9 + (_U, _F) + (_P,) * 9 + (_I, _I, _I, _F, _I,
+                                                        _P)
+_ATTN_FWD_ARGTYPES = (_P,) * 10 + (_U, _F) + (_P,) * 5 + (_I, _I, _I, _I, _F,
+                                                          _I, _P)
+_ATTN_BWD_ARGTYPES = (_P,) * 11 + (_U, _F) + (_P,) * 10 + (_I, _I, _I, _I,
+                                                           _F, _I, _P)
 D_HEAD = 64
+MAX_T_BWD = 64   # the backward's per-head block holds 4 (T, 64) + 2 (T, T)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU."""
     return 0.5 * x * (1.0 + torch.erf(x * (1.0 / math.sqrt(2.0))))
+
+
+def dgelu(x: torch.Tensor) -> torch.Tensor:
+    """Analytic derivative of the exact GELU: Phi(x) + x phi(x)."""
+    return 0.5 * (1.0 + torch.erf(x * (1.0 / math.sqrt(2.0)))) + \
+        x * torch.exp(-0.5 * x * x) * (1.0 / math.sqrt(2.0 * math.pi))
 
 
 def dense_ref(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor
@@ -63,56 +91,154 @@ def dense_ref(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor
     return y + bias.to(dt)
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """a . b of dt-valued operands, accumulated in f32, rounded to dt."""
+    return torch.matmul(a.float(), b.float()).to(dt)
+
+
 def _ln_rounded_affine(r, gamma, beta, eps):
     dt = r.dtype
     return ln_f32(r.float(), gamma.to(dt).float(), beta.to(dt).float(),
                   eps).to(dt)
 
 
-def ffn_block_ref(x, w1, c1, w2, c2, gamma, beta, rate: float = 0.0,
-                  eps: float = 1e-12) -> torch.Tensor:
-    """Plain PyTorch version of `ffn_block`."""
-    _no_dropout(rate, "ffn_block_ref")
+def _ln_bwd_rounded(dy, r, gamma, eps):
+    """(dr rounded to the activation dtype, dgamma, dbeta)."""
+    dt = dy.dtype
+    dr, dg, db = ln_bwd_f32(dy.float(), r.float(), gamma.to(dt).float(), eps)
+    return dr.to(dt), dg, db
+
+
+def _maybe_drop(x, bits, rate):
+    return dropout(x, bits, rate) if rate > 0.0 else x
+
+
+# ------------------------------------------------------------- plain FFN --
+
+def ffn_block_fwd_ref(x, w1, c1, w2, c2, gamma, beta, bits=None,
+                      rate: float = 0.0, eps: float = 1e-12):
+    """Plain forward with the backward's residuals: (z, f, act, r)."""
     dt = x.dtype
-    a = gelu(dense_ref(x, w1, c1).float()).to(dt)
-    r = x + dense_ref(a, w2, c2)
-    return _ln_rounded_affine(r, gamma, beta, eps)
+    f = dense_ref(x, w1, c1)
+    a = gelu(f.float()).to(dt)
+    r = x + _maybe_drop(dense_ref(a, w2, c2), bits, rate)
+    return _ln_rounded_affine(r, gamma, beta, eps), f, a, r
 
 
-def attn_block_ref(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
-                   heads: int = 12, rate: float = 0.0,
-                   eps: float = 1e-12) -> torch.Tensor:
-    """Plain PyTorch version of `attn_block`."""
-    _no_dropout(rate, "attn_block_ref")
+def ffn_block_ref(x, w1, c1, w2, c2, gamma, beta, rate: float = 0.0,
+                  eps: float = 1e-12, bits=None) -> torch.Tensor:
+    """Plain PyTorch version of `ffn_block`."""
+    return ffn_block_fwd_ref(x, w1, c1, w2, c2, gamma, beta, bits, rate,
+                             eps)[0]
+
+
+def ffn_block_bwd_ref(dz, x, f, r, w1, w2, gamma, bits=None,
+                      rate: float = 0.0, eps: float = 1e-12):
+    """Plain backward (block_pallas.py `_ffn_bwd_kernel`): (dx, dw1, dc1,
+    dw2, dc2, dgamma, dbeta), weight gradients (in, out) f32."""
+    dt = dz.dtype
+    dr, dg, db = _ln_bwd_rounded(dz, r, gamma, eps)
+    dgg = _maybe_drop(dr, bits, rate)
+    a = gelu(f.float()).to(dt)
+    dw2 = a.float().t() @ dgg.float()
+    da = _mm(dgg, w2.to(dt).t(), dt)
+    df = (da.float() * dgelu(f.float())).to(dt)
+    dw1 = x.float().t() @ df.float()
+    dx = dr + _mm(df, w1.to(dt).t(), dt)
+    return (dx, dw1, df.float().sum(0), dw2, dgg.float().sum(0), dg, db)
+
+
+# ------------------------------------------------------- plain attention --
+
+def _heads(m: torch.Tensor, b: int, t: int, heads: int) -> torch.Tensor:
+    """(R, H) -> (B, heads, T, d) f32."""
+    return m.float().reshape(b, t, heads, -1).permute(0, 2, 1, 3)
+
+
+def _unheads(m: torch.Tensor) -> torch.Tensor:
+    """(B, heads, T, d) -> (R, H)."""
+    b, heads, t, d = m.shape
+    return m.permute(0, 2, 1, 3).reshape(b * t, heads * d)
+
+
+def _bhtt(p: torch.Tensor, b: int, heads: int) -> torch.Tensor:
+    """(heads*B, T, T), the kernels' layout -> (B, heads, T, T)."""
+    return p.reshape(heads, b, *p.shape[1:]).transpose(0, 1)
+
+
+def attn_block_fwd_ref(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int,
+                       t: int, heads: int = 12, bits_p=None, bits_h=None,
+                       rate: float = 0.0, eps: float = 1e-12):
+    """Plain forward with the backward's residuals: (y, qkv, p, o, r), p
+    (heads*B, T, T) rounded, before dropout."""
     dt = x.dtype
     h = x.shape[1]
-    d = h // heads
-    qkv = dense_ref(x, wqkv, bqkv).float()            # (R, 3H), values in dt
-
-    def split(i):                                      # (B, heads, T, d)
-        return qkv[:, i * h:(i + 1) * h].reshape(b, t, heads, d
-                                                 ).permute(0, 2, 1, 3)
-
-    q, k, v = split(0), split(1), split(2)
+    qkv = dense_ref(x, wqkv, bqkv)                     # (R, 3H)
+    q, k, v = (_heads(qkv[:, i * h:(i + 1) * h], b, t, heads)
+               for i in range(3))
     neg = torch.finfo(torch.float32).min
     mbias = torch.where(mask.reshape(b, 1, 1, t) > 0,
                         torch.zeros((), device=x.device),
                         torch.full((), neg, device=x.device))
-    s = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(d)) + mbias
+    s = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(h // heads))
+    s = s + mbias
     s = s - s.amax(dim=-1, keepdim=True)
     e = torch.exp(s)
-    p = (e / e.sum(dim=-1, keepdim=True)).to(dt)
-    o = torch.matmul(p.float(), v).to(dt)              # (B, heads, T, d)
-    o = o.permute(0, 2, 1, 3).reshape(b * t, h)
-    r = x + dense_ref(o, wo, bo)
-    return _ln_rounded_affine(r, gamma, beta, eps)
+    p = (e / e.sum(dim=-1, keepdim=True)).to(dt)     # (B, heads, T, T)
+    pd = p if rate <= 0.0 else dropout(p, _bhtt(bits_p, b, heads), rate)
+    o = _unheads(_mm(pd, v, dt))
+    r = x + _maybe_drop(dense_ref(o, wo, bo), bits_h, rate)
+    p_all = p.transpose(0, 1).reshape(heads * b, t, t)
+    return _ln_rounded_affine(r, gamma, beta, eps), qkv, p_all, o, r
 
 
-def _no_dropout(rate: float, name: str) -> None:
+def attn_block_ref(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
+                   heads: int = 12, rate: float = 0.0, eps: float = 1e-12,
+                   bits_p=None, bits_h=None) -> torch.Tensor:
+    """Plain PyTorch version of `attn_block`."""
+    return attn_block_fwd_ref(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b, t,
+                              heads, bits_p, bits_h, rate, eps)[0]
+
+
+def attn_block_bwd_ref(dy, x, qkv, p, o, r, wqkv, wo, gamma, b: int, t: int,
+                       heads: int = 12, bits_p=None, bits_h=None,
+                       rate: float = 0.0, eps: float = 1e-12):
+    """Plain backward (block_pallas.py `_attn_bwd_kernel`): (dx, dwqkv,
+    dbqkv, dwo, dbo, dgamma, dbeta), weight gradients (in, out) f32."""
+    dt = dy.dtype
+    h = x.shape[1]
+    inv = 1.0 / math.sqrt(h // heads)
+    dr, dg, db = _ln_bwd_rounded(dy, r, gamma, eps)
+    dh = _maybe_drop(dr, bits_h, rate)
+    dwo = o.float().t() @ dh.float()
+    do = _heads(_mm(dh, wo.to(dt).t(), dt), b, t, heads)
+    q, k, v = (_heads(qkv[:, i * h:(i + 1) * h], b, t, heads)
+               for i in range(3))
+    pb = _bhtt(p, b, heads)                            # (B, heads, T, T)
+    pd = pb if rate <= 0.0 else dropout(pb, _bhtt(bits_p, b, heads), rate)
+    dv = _mm(pd.transpose(-1, -2), do, dt)
+    dp = torch.matmul(do, v.transpose(-1, -2))
     if rate > 0.0:
-        raise NotImplementedError(
-            f"{name}: dropout (rate > 0) comes with the training slice "
-            "(ROADMAP.md, Queue 1)")
+        dp = dropout(dp, _bhtt(bits_p, b, heads), rate)
+    p32 = pb.float()
+    ds = p32 * (dp - (dp * p32).sum(dim=-1, keepdim=True))
+    ds = (ds * inv).to(dt)
+    dq = _mm(ds, k, dt)
+    dk = _mm(ds.transpose(-1, -2), q, dt)
+    dqkv = torch.cat([_unheads(dq), _unheads(dk), _unheads(dv)], dim=-1)
+    dwqkv = x.float().t() @ dqkv.float()
+    dx = dr + _mm(dqkv, wqkv.to(dt).t(), dt)
+    return (dx, dwqkv, dqkv.float().sum(0), dwo, dh.float().sum(0), dg, db)
+
+
+# ---------------------------------------------------------------- checks --
+
+def _check_rate(name: str, rate: float, bits) -> None:
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"{name}: rate must be in [0, 1), got {rate}")
+    if rate > 0.0 and any(bt is None for bt in bits):
+        raise ValueError(f"{name}: rate > 0 needs its dropout bits (host "
+                         "bits; in-kernel random bits are not ported)")
 
 
 def _check_act(name: str, x: torch.Tensor, widths) -> None:
@@ -129,6 +255,24 @@ def _check_act(name: str, x: torch.Tensor, widths) -> None:
     if any(w % 64 for w in widths) or x.shape[1] > LN_MAX_WIDTH:
         raise ValueError(f"{name}: the kernel takes widths {widths} that are "
                          f"multiples of 64, and H <= {LN_MAX_WIDTH}")
+
+
+def _check_like(name: str, what: str, a: torch.Tensor, shape, x) -> None:
+    """a: a contiguous, 16-byte aligned tensor of x's dtype and device."""
+    if tuple(a.shape) != tuple(shape) or a.dtype != x.dtype or \
+            a.device != x.device or not a.is_contiguous() or a.data_ptr() % 16:
+        raise ValueError(f"{name}: {what} must be a contiguous, 16-byte "
+                         f"aligned {x.dtype} {tuple(shape)} tensor on "
+                         f"{x.device}")
+
+
+def _check_bits(name: str, what: str, bits, shape, device) -> None:
+    if bits is None:
+        return
+    if tuple(bits.shape) != tuple(shape) or bits.dtype != torch.int32 or \
+            bits.device != device or not bits.is_contiguous():
+        raise ValueError(f"{name}: {what} must be a contiguous int32 "
+                         f"{tuple(shape)} tensor on {device}")
 
 
 def _check_master(name: str, what: str, p: torch.Tensor, shape, device
@@ -153,18 +297,31 @@ def _check_weight(name: str, what: str, w: torch.Tensor, shape, device
                          "nn.Linear.weight.t() is")
 
 
-def ffn_block(x, w1, c1, w2, c2, gamma, beta, rate: float = 0.0,
-              eps: float = 1e-12) -> torch.Tensor:
-    """Fused post-LN FFN half-layer, forward.
+def _ptr(a: Optional[torch.Tensor]) -> Optional[int]:
+    return None if a is None else a.data_ptr()
 
-    x: (R, H) float32 or bfloat16. w1: (H, I), c1: (I,), w2: (I, H),
-    c2: (H,), gamma/beta: (H,), all float32 masters. The kernel takes H and
-    I multiples of 64, H <= 1024, and w1, w2 as .t() views of contiguous
-    (out, in) tensors. Returns z: (R, H).
-    """
-    _no_dropout(rate, "ffn_block")
+
+def _drop_args(rate: float) -> Tuple[int, float]:
+    return ((threshold(rate), float(1.0 / (1.0 - rate))) if rate > 0.0
+            else (0, 1.0))
+
+
+def _ln_part(rows: int, h: int, dev) -> torch.Tensor:
+    return torch.empty((-(-rows // LN_ROWS_PER_BLOCK), 3 * h),
+                       dtype=torch.float32, device=dev)
+
+
+# ---------------------------------------------------------- FFN kernels --
+
+def ffn_block_fwd(x, w1, c1, w2, c2, gamma, beta, bits=None,
+                  rate: float = 0.0, eps: float = 1e-12, save: bool = True):
+    """K3: the forward of `ffn_block` with the backward's residuals:
+    (z, f = W1 x + c1, act = gelu(f), r = the pre-LN sum); on a card f is
+    written only when `save`, else None."""
+    _check_rate("ffn_block", rate, (bits,))
     if x.device.type == "cpu":
-        return ffn_block_ref(x, w1, c1, w2, c2, gamma, beta, rate, eps)
+        return ffn_block_fwd_ref(x, w1, c1, w2, c2, gamma, beta, bits, rate,
+                                 eps)
     name = "ffn_block"
     inter = w1.shape[1] if w1.dim() == 2 else -1
     _check_act(name, x, (x.shape[-1], inter))
@@ -175,35 +332,114 @@ def ffn_block(x, w1, c1, w2, c2, gamma, beta, rate: float = 0.0,
     _check_master(name, "c1", c1, (inter,), dev)
     for what, p in (("c2", c2), ("gamma", gamma), ("beta", beta)):
         _check_master(name, what, p, (h,), dev)
+    _check_bits(name, "bits", bits, (rows, h), dev)
     act = torch.empty((rows, inter), dtype=x.dtype, device=dev)
+    f = torch.empty_like(act) if save else None
     resid = torch.empty_like(x)
     z = torch.empty_like(x)
-    fn = _cuda.function("ffn_block", "tgfr_ffn_block_fwd", _FFN_ARGTYPES)
+    thr, scale = _drop_args(rate)
+    fn = _cuda.function("ffn_block", "tgfr_ffn_block_fwd", _FFN_FWD_ARGTYPES)
     _cuda.launch(fn, x.data_ptr(), w1.data_ptr(), c1.data_ptr(),
                  w2.data_ptr(), c2.data_ptr(), gamma.data_ptr(),
-                 beta.data_ptr(), act.data_ptr(), resid.data_ptr(),
-                 z.data_ptr(), rows, h, inter, float(eps),
-                 _cuda.dtype_code(x.dtype))
+                 beta.data_ptr(), _ptr(bits), thr, scale, act.data_ptr(),
+                 _ptr(f), resid.data_ptr(), z.data_ptr(), rows, h, inter,
+                 float(eps), _cuda.dtype_code(x.dtype))
     ffn_block.launches += 1
-    return z
+    return z, f, act, resid
 
 
-def attn_block(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
-               heads: int = 12, rate: float = 0.0,
-               eps: float = 1e-12) -> torch.Tensor:
-    """Fused post-LN self-attention half-layer, forward.
+def ffn_block_bwd(dz, x, f, act, r, w1, w2, gamma, bits=None,
+                  rate: float = 0.0, eps: float = 1e-12):
+    """K4: the gradients of `ffn_block` at its saved residuals (x, f =
+    W1 x + c1, act = gelu(f), r = the pre-LN sum) for the cotangent dz.
+    Returns (dx, dw1, dc1, dw2, dc2, dgamma, dbeta); weight gradients in
+    the (in, out) shape of w1, w2, f32. On the CPU, act is not read."""
+    _check_rate("ffn_block_bwd", rate, (bits,))
+    if dz.device.type == "cpu":
+        return ffn_block_bwd_ref(dz, x, f, r, w1, w2, gamma, bits, rate, eps)
+    name = "ffn_block_bwd"
+    inter = w1.shape[1] if w1.dim() == 2 else -1
+    _check_act(name, x, (x.shape[-1], inter))
+    rows, h = x.shape
+    dev = x.device
+    for what, a, shape in (("dz", dz, (rows, h)), ("r", r, (rows, h)),
+                           ("f", f, (rows, inter)),
+                           ("act", act, (rows, inter))):
+        _check_like(name, what, a, shape, x)
+    _check_weight(name, "w1", w1, (h, inter), dev)
+    _check_weight(name, "w2", w2, (inter, h), dev)
+    _check_master(name, "gamma", gamma, (h,), dev)
+    _check_bits(name, "bits", bits, (rows, h), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    dw1 = torch.empty((inter, h), **f32)       # nn.Linear (out, in)
+    dw2 = torch.empty((h, inter), **f32)
+    dc1 = torch.empty(inter, **f32)
+    dln = torch.empty(3 * h, **f32)
+    dr = torch.empty_like(x)
+    dgg = torch.empty_like(x) if bits is not None else None
+    df = torch.empty_like(act)
+    thr, scale = _drop_args(rate)
+    fn = _cuda.function("ffn_block", "tgfr_ffn_block_bwd", _FFN_BWD_ARGTYPES)
+    _cuda.launch(fn, dz.data_ptr(), x.data_ptr(), f.data_ptr(),
+                 act.data_ptr(), r.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                 gamma.data_ptr(), _ptr(bits), thr, scale, dx.data_ptr(),
+                 dw1.data_ptr(), dc1.data_ptr(), dw2.data_ptr(),
+                 dln.data_ptr(), dr.data_ptr(), _ptr(dgg), df.data_ptr(),
+                 _ln_part(rows, h, dev).data_ptr(), rows, h, inter,
+                 float(eps), _cuda.dtype_code(x.dtype))
+    ffn_block_bwd.launches += 1
+    return (dx, dw1.t(), dc1, dw2.t(), dln[2 * h:], dln[:h], dln[h:2 * h])
 
-    x: (R, H) = (b*t, H) float32 or bfloat16; mask: (b, t) int32, nonzero
-    = valid key; wqkv: (H, 3H) with [q|k|v] packed on the output axis,
-    head-major within each; bqkv: (3H,); wo: (H, H); bo, gamma, beta: (H,);
-    all float32 masters. The kernel takes heads of width 64 (H = 64 * heads),
-    H <= 1024, t <= 128, and wqkv, wo as .t() views of contiguous (out, in)
-    tensors. Returns y: (R, H).
+
+class _FfnBlockFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, c1, w2, c2, gamma, beta, bits, rate, eps):
+        save = any(ctx.needs_input_grad[:7])
+        z, f, act, r = ffn_block_fwd(x, w1, c1, w2, c2, gamma, beta, bits,
+                                     rate, eps, save)
+        ctx.rate, ctx.eps = rate, eps
+        if save:
+            ctx.save_for_backward(x, f, act, r, w1, w2, gamma, bits)
+        return z
+
+    @staticmethod
+    def backward(ctx, dz):
+        x, f, act, r, w1, w2, gamma, bits = ctx.saved_tensors
+        grads = ffn_block_bwd(dz.contiguous(), x, f, act, r, w1, w2, gamma,
+                              bits, ctx.rate, ctx.eps)
+        return (*grads, None, None, None)
+
+
+def ffn_block(x, w1, c1, w2, c2, gamma, beta, rate: float = 0.0,
+              eps: float = 1e-12, bits=None) -> torch.Tensor:
+    """Fused post-LN FFN half-layer with its gradient: K3 forward, K4
+    backward.
+
+    x: (R, H) float32 or bfloat16. w1: (H, I), c1: (I,), w2: (I, H),
+    c2: (H,), gamma/beta: (H,), all float32 masters. bits: (R, H) int32,
+    needed when rate > 0. The kernels take H and I multiples of 64,
+    H <= 1024, and w1, w2 as .t() views of contiguous (out, in) tensors.
+    Returns z: (R, H).
     """
-    _no_dropout(rate, "attn_block")
+    _check_rate("ffn_block", rate, (bits,))
+    return _FfnBlockFn.apply(x, w1, c1, w2, c2, gamma, beta,
+                             bits if rate > 0.0 else None, rate, eps)
+
+
+# ---------------------------------------------------- attention kernels --
+
+def attn_block_fwd(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
+                   heads: int = 12, bits_p=None, bits_h=None,
+                   rate: float = 0.0, eps: float = 1e-12, save: bool = True):
+    """K5: the forward of `attn_block` with the backward's residuals:
+    (y, qkv, p = the rounded probabilities before dropout (heads*B, T, T),
+    o = the context rows, r = the pre-LN sum); on a card p is written only
+    when `save`, else None."""
+    _check_rate("attn_block", rate, (bits_p, bits_h))
     if x.device.type == "cpu":
-        return attn_block_ref(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b, t,
-                              heads, rate, eps)
+        return attn_block_fwd_ref(x, mask, wqkv, bqkv, wo, bo, gamma, beta,
+                                  b, t, heads, bits_p, bits_h, rate, eps)
     name = "attn_block"
     _check_act(name, x, (x.shape[-1],))
     rows, h = x.shape
@@ -213,8 +449,10 @@ def attn_block(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
     if h != heads * D_HEAD:
         raise ValueError(f"{name}: the kernel takes heads of width {D_HEAD}; "
                          f"got H={h}, heads={heads}")
-    if not 0 < t <= 128:
-        raise ValueError(f"{name}: the kernel takes 1 <= t <= 128, got {t}")
+    t_max = MAX_T_BWD if save else 128
+    if not 0 < t <= t_max:
+        raise ValueError(f"{name}: the kernel takes 1 <= t <= {t_max}"
+                         f"{' when training' if save else ''}, got {t}")
     if tuple(mask.shape) != (b, t) or mask.dtype != torch.int32 or \
             mask.device != dev or not mask.is_contiguous():
         raise ValueError(f"{name}: mask must be a contiguous int32 ({b}, {t})"
@@ -224,19 +462,131 @@ def attn_block(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
     _check_master(name, "bqkv", bqkv, (3 * h,), dev)
     for what, p in (("bo", bo), ("gamma", gamma), ("beta", beta)):
         _check_master(name, what, p, (h,), dev)
+    _check_bits(name, "bits_p", bits_p, (heads * b, t, t), dev)
+    _check_bits(name, "bits_h", bits_h, (rows, h), dev)
     qkv = torch.empty((rows, 3 * h), dtype=x.dtype, device=dev)
+    p = (torch.empty((heads * b, t, t), dtype=x.dtype, device=dev) if save
+         else None)
     ctx = torch.empty_like(x)
     resid = torch.empty_like(x)
     y = torch.empty_like(x)
-    fn = _cuda.function("attn_block", "tgfr_attn_block_fwd", _ATTN_ARGTYPES)
+    thr, scale = _drop_args(rate)
+    fn = _cuda.function("attn_block", "tgfr_attn_block_fwd",
+                        _ATTN_FWD_ARGTYPES)
     _cuda.launch(fn, x.data_ptr(), mask.data_ptr(), wqkv.data_ptr(),
                  bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-                 gamma.data_ptr(), beta.data_ptr(), qkv.data_ptr(),
+                 gamma.data_ptr(), beta.data_ptr(), _ptr(bits_p),
+                 _ptr(bits_h), thr, scale, qkv.data_ptr(), _ptr(p),
                  ctx.data_ptr(), resid.data_ptr(), y.data_ptr(), b, t, h,
                  heads, float(eps), _cuda.dtype_code(x.dtype))
     attn_block.launches += 1
-    return y
+    return y, qkv, p, ctx, resid
+
+
+def attn_block_bwd(dy, x, qkv, p, o, r, wqkv, wo, gamma, b: int, t: int,
+                   heads: int = 12, bits_p=None, bits_h=None,
+                   rate: float = 0.0, eps: float = 1e-12):
+    """K6: the gradients of `attn_block` at its saved residuals (x, qkv,
+    p = the rounded probabilities before dropout (heads*B, T, T), o = the
+    context rows, r = the pre-LN sum) for the cotangent dy. Returns (dx,
+    dwqkv, dbqkv, dwo, dbo, dgamma, dbeta); weight gradients in the
+    (in, out) shape of wqkv, wo, f32."""
+    _check_rate("attn_block_bwd", rate, (bits_p, bits_h))
+    if dy.device.type == "cpu":
+        return attn_block_bwd_ref(dy, x, qkv, p, o, r, wqkv, wo, gamma, b, t,
+                                  heads, bits_p, bits_h, rate, eps)
+    name = "attn_block_bwd"
+    _check_act(name, x, (x.shape[-1],))
+    rows, h = x.shape
+    dev = x.device
+    if rows != b * t or h != heads * D_HEAD or not 0 < t <= MAX_T_BWD:
+        raise ValueError(f"{name}: the kernel takes x (b*t, heads*{D_HEAD}) "
+                         f"with 1 <= t <= {MAX_T_BWD}; got {tuple(x.shape)}, "
+                         f"b={b}, t={t}, heads={heads}")
+    for what, a, shape in (("dy", dy, (rows, h)), ("o", o, (rows, h)),
+                           ("r", r, (rows, h)), ("qkv", qkv, (rows, 3 * h))):
+        _check_like(name, what, a, shape, x)
+    if tuple(p.shape) != (heads * b, t, t) or p.dtype != x.dtype or \
+            p.device != dev or not p.is_contiguous():
+        raise ValueError(f"{name}: p must be a contiguous {x.dtype} "
+                         f"({heads * b}, {t}, {t}) tensor on {dev}")
+    _check_weight(name, "wqkv", wqkv, (h, 3 * h), dev)
+    _check_weight(name, "wo", wo, (h, h), dev)
+    _check_master(name, "gamma", gamma, (h,), dev)
+    _check_bits(name, "bits_p", bits_p, (heads * b, t, t), dev)
+    _check_bits(name, "bits_h", bits_h, (rows, h), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    dwqkv = torch.empty((3 * h, h), **f32)     # nn.Linear (out, in)
+    dbqkv = torch.empty(3 * h, **f32)
+    dwo = torch.empty((h, h), **f32)
+    dln = torch.empty(3 * h, **f32)
+    dr = torch.empty_like(x)
+    dh = torch.empty_like(x) if bits_h is not None else None
+    dout = torch.empty_like(x)
+    dqkv = torch.empty_like(qkv)
+    thr, scale = _drop_args(rate)
+    fn = _cuda.function("attn_block", "tgfr_attn_block_bwd",
+                        _ATTN_BWD_ARGTYPES)
+    _cuda.launch(fn, dy.data_ptr(), x.data_ptr(), qkv.data_ptr(),
+                 p.data_ptr(), o.data_ptr(), r.data_ptr(), wqkv.data_ptr(),
+                 wo.data_ptr(), gamma.data_ptr(), _ptr(bits_p), _ptr(bits_h),
+                 thr, scale, dx.data_ptr(), dwqkv.data_ptr(),
+                 dbqkv.data_ptr(), dwo.data_ptr(), dln.data_ptr(),
+                 dr.data_ptr(), _ptr(dh), dout.data_ptr(), dqkv.data_ptr(),
+                 _ln_part(rows, h, dev).data_ptr(), b, t, h, heads,
+                 float(eps), _cuda.dtype_code(x.dtype))
+    attn_block_bwd.launches += 1
+    return (dx, dwqkv.t(), dbqkv, dwo.t(), dln[2 * h:], dln[:h],
+            dln[h:2 * h])
+
+
+class _AttnBlockFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mask, wqkv, bqkv, wo, bo, gamma, beta, bits_p,
+                bits_h, b, t, heads, rate, eps):
+        save = any(ctx.needs_input_grad[:8])
+        y, qkv, p, o, r = attn_block_fwd(x, mask, wqkv, bqkv, wo, bo, gamma,
+                                         beta, b, t, heads, bits_p, bits_h,
+                                         rate, eps, save)
+        ctx.shape, ctx.rate, ctx.eps = (b, t, heads), rate, eps
+        if save:
+            ctx.save_for_backward(x, qkv, p, o, r, wqkv, wo, gamma, bits_p,
+                                  bits_h)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, qkv, p, o, r, wqkv, wo, gamma, bits_p, bits_h = ctx.saved_tensors
+        dx, dwqkv, dbqkv, dwo, dbo, dg, db = attn_block_bwd(
+            dy.contiguous(), x, qkv, p, o, r, wqkv, wo, gamma, *ctx.shape,
+            bits_p, bits_h, ctx.rate, ctx.eps)
+        return (dx, None, dwqkv, dbqkv, dwo, dbo, dg, db) + (None,) * 7
+
+
+def attn_block(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
+               heads: int = 12, rate: float = 0.0, eps: float = 1e-12,
+               bits_p=None, bits_h=None) -> torch.Tensor:
+    """Fused post-LN self-attention half-layer with its gradient: K5
+    forward, K6 backward.
+
+    x: (R, H) = (b*t, H) float32 or bfloat16; mask: (b, t) int32, nonzero
+    = valid key; wqkv: (H, 3H) with [q|k|v] packed on the output axis,
+    head-major within each; bqkv: (3H,); wo: (H, H); bo, gamma, beta: (H,);
+    all float32 masters. bits_p (heads*b, t, t) and bits_h (R, H) int32,
+    needed when rate > 0. The kernels take heads of width 64
+    (H = 64 * heads), H <= 1024, t <= 128 (t <= 64 when a gradient is
+    needed), and wqkv, wo as .t() views of contiguous (out, in) tensors.
+    Returns y: (R, H).
+    """
+    _check_rate("attn_block", rate, (bits_p, bits_h))
+    if rate <= 0.0:
+        bits_p = bits_h = None
+    return _AttnBlockFn.apply(x, mask, wqkv, bqkv, wo, bo, gamma, beta,
+                              bits_p, bits_h, b, t, heads, rate, eps)
 
 
 ffn_block.launches = 0
+ffn_block_bwd.launches = 0
 attn_block.launches = 0
+attn_block_bwd.launches = 0
