@@ -69,11 +69,12 @@ def _cfg(**kw):
                 compute_dtype="float32", bert_type="tiny",
                 captions_per_image=2, manual_seed=0, num_classes=CLASSES,
                 bert_words_num=T, checkpoints_path="", fused_block="both",
-                fused_ln=True, fused_dropout=True, use_pallas=True,
+                fused_ln=True, use_pallas=True,
                 adam_moments_dtype="float32", lr_head=LR["head"],
                 min_lr_bert=LR["encoder"])
     base.update(kw)
-    return JConfig().replace(**base, num_devices=1), PConfig().replace(**base)
+    return (JConfig().replace(**base, fused_dropout=True, num_devices=1),
+            PConfig().replace(**base))
 
 
 def _batch():

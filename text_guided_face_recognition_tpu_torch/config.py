@@ -6,11 +6,13 @@ still loads unchanged, and any key without a field here lands in `extras`,
 attribute-accessible. Values are coerced to their declared types at load
 time; a closed string option with an unknown value fails at construction.
 
-Accepted and ignored (N/A): TPU-only knobs that change how the JAX package
-schedules the same math on a TPU, not the math: `stacked_optimizer`,
-`fused_optimizer`, `stack_max_elems` (how optimizer updates are batched),
-`xla_opts` (XLA compiler options), `prng_impl` (which PRNG draws the
-dropout bits; the keep rule is the same).
+Accepted and ignored (N/A; they land in `extras`): TPU-only knobs that
+change how the JAX package schedules the same math on a TPU, not the math:
+`stacked_optimizer`, `fused_optimizer`, `stack_max_elems` (how optimizer
+updates are batched), `xla_opts` (XLA compiler options), `prng_impl`
+(which PRNG draws the dropout bits; the keep rule is the same), and
+`fused_dropout` (the port always draws one flat bit array per step and
+slices it in the JAX plan's site order, models/text_bert.py).
 
 Not ported yet, and refused by `check_stage1` with NotImplementedError
 (ROADMAP.md): `is_CMP`, `is_WRA`, `lazy_embedding_adam`,
@@ -172,17 +174,10 @@ class TGFRConfig:
     max_steps: int = 0                     # >0: cap steps per epoch (smoke runs)
     keep_last_ckpts: int = 0               # >0: retain only the newest K epoch artifacts
     use_pallas: bool = False               # DAMSM similarity through the CUDA kernel (ops/damsm.py)
-    fused_dropout: bool = False            # one flat bit draw per step; the port always draws so (models/text_bert.py)
     adam_moments_dtype: str = "bfloat16"   # Adam moment storage dtype (engine/optim.py)
     grads_dtype: str = "float32"           # gradients rounded to this dtype before the optimizers
     lazy_embedding_adam: bool = False      # not ported (check_stage1)
     frozen_feature_cache: bool = False     # not ported (check_stage1)
-    # N/A on the card: how the JAX package batches the same math on a TPU
-    stacked_optimizer: bool = True
-    fused_optimizer: bool = False
-    stack_max_elems: int = 32768
-    xla_opts: str = "none"
-    prng_impl: str = "rbg"
 
     # Anything else found in a YAML lands here and is still attribute-accessible.
     extras: Dict[str, Any] = field(default_factory=dict)

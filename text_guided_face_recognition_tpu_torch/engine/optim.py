@@ -12,10 +12,10 @@ three torch optimizers (src/train_encoders_bert.py:212-222):
   cls      image_cls, text_cls     SGD(momentum 0.9, weight decay 5e-5)
 
 Learning rates are set per group from the host between epochs
-(`set_lr` / `get_lr`). With `adam_moments_dtype: float32` the Adam groups
-are torch.optim.Adam, the math of optax.scale_by_adam; with `bfloat16` they
-are `CastAdam`, which stores both moments in bf16 and does the update in
-f32 (the JAX package's `_scale_by_adam_cast`). Every parameter steps every
+(`set_lr` / `get_lr`). Both Adam groups are `CastAdam`, which stores its
+two moments in `adam_moments_dtype` and does the update in f32: with
+float32 the math of optax.scale_by_adam, with bfloat16 that of the JAX
+package's `_scale_by_adam_cast`. Every parameter steps every
 time: a parameter without a gradient gets a zero one, as the JAX package's
 gradient tree holds zeros where no loss term reaches (Adam's moments keep
 decaying there). With `compat_frozen_text` the encoder group does not step
@@ -126,13 +126,14 @@ class Stage1Optimizer:
     def __init__(self, args, modules: Dict[str, torch.nn.Module]):
         md = args.adam_moments_dtype
 
+        # optax.scale_by_adam's f32 moments promote the update to f32;
+        # `_scale_by_adam_cast` returns it in the gradients' dtype
+        upd = "float32" if md == "float32" else args.grads_dtype
+
         def adam(params, betas, wd=0.0):
-            if md == "float32":
-                return torch.optim.Adam(params, lr=0.0, betas=betas,
-                                        eps=1e-8, weight_decay=wd)
             return CastAdam(params, lr=0.0, betas=betas, eps=1e-8,
                             weight_decay=wd, moment_dtype=_DTYPES[md],
-                            grad_dtype=_DTYPES[args.grads_dtype])
+                            grad_dtype=_DTYPES[upd])
 
         self.params = {g: [] for g in ("head", "encoder", "cls")}
         for name, mod in modules.items():
