@@ -149,3 +149,74 @@ def test_bridge_refuses_incomplete_or_foreign_stage1_trees(tiny_arch):
     extra = {**params, "cmp": {"weight": np.zeros((256, 16), np.float32)}}
     with pytest.raises(KeyError, match="no port key"):
         state_dict_from_jax(extra, stats, module=model)
+
+
+def _stage2_trees(arch):
+    """The JAX stage-2 trainer's trees: params {text_encoder, text_head,
+    image_head, fusion_net, metric_fc} and batch_stats {image_head,
+    fusion_net}, the fusion net's statistics as train mode updates them."""
+    z = jnp.zeros
+    key = jax.random.PRNGKey
+    ih = randomize_stats(JM.ImageHeading().init(key(0), z((1, 512)),
+                                                z((1, 14, 14, 256))), 3)
+    fn = randomize_stats(JM.FCFM(channel_dim=36).init(
+        key(5), z((1, 14, 14, 256)), z((1, 256, 10)), z((1, 256)),
+        z((1, 256))), 4)
+    te = JM.TextEncoder(bert_type=arch).init(
+        key(1), z((1, 8), jnp.int32), jnp.ones((1, 8), jnp.int32))
+    th = JM.TextHeading().init(key(2), z((1, 7, 128)))
+    xavier = jax.nn.initializers.xavier_uniform()
+    params = {"image_head": ih["params"], "text_encoder": te["params"],
+              "text_head": th["params"], "fusion_net": fn["params"],
+              "metric_fc": {"weight": xavier(key(3), (16, 640))}}
+    stats = {"image_head": ih["batch_stats"], "fusion_net": fn["batch_stats"]}
+    return to_numpy(params), to_numpy(stats)
+
+
+def _stage2_model(arch):
+    from text_guided_face_recognition_tpu_torch.engine.stage2 import (
+        FusionModel)
+    return FusionModel(PM.TextEncoder(bert_type=arch),
+                       PM.TextHeading(hidden=128, feat_dim=256),
+                       PM.ImageHeading(), PM.FCFM(channel_dim=36),
+                       PM.ArcMarginProduct(640, 16))
+
+
+def test_bridge_carries_the_stage2_trees(tiny_arch):
+    params, stats = _stage2_trees(tiny_arch)
+    model = _stage2_model(tiny_arch)
+    sd = state_dict_from_jax(params, stats, module=model)
+    assert len(sd) == len(_leaves(params)) + len(_leaves(stats))
+    assert not any(model.load_state_dict(sd, strict=True))
+    np.testing.assert_array_equal(sd["metric_fc.weight"].numpy(),
+                                  params["metric_fc"]["weight"])
+    for bn in ("bn_img", "bn_word"):
+        np.testing.assert_array_equal(
+            sd[f"fusion_net.{bn}.running_mean"].numpy(),
+            stats["fusion_net"][bn]["mean"])
+        np.testing.assert_array_equal(
+            sd[f"fusion_net.{bn}.running_var"].numpy(),
+            stats["fusion_net"][bn]["var"])
+    # FCFM's convolution: HWIO -> OIHW
+    np.testing.assert_array_equal(
+        sd["fusion_net.conv.weight"].numpy(),
+        params["fusion_net"]["conv"]["kernel"].transpose(3, 2, 0, 1))
+
+
+def test_bridge_refuses_incomplete_or_foreign_stage2_trees(tiny_arch):
+    params, stats = _stage2_trees(tiny_arch)
+    model = _stage2_model(tiny_arch)
+    with pytest.raises(KeyError, match="no JAX leaf"):
+        state_dict_from_jax({k: v for k, v in params.items()
+                             if k != "metric_fc"}, stats, module=model)
+    with pytest.raises(KeyError, match="no JAX leaf"):      # train mode's
+        state_dict_from_jax(params, {"image_head": stats["image_head"]},
+                            module=model)                   # fusion stats
+    extra = {**params, "image_cls": {"weight": np.zeros((16, 256),
+                                                        np.float32)}}
+    with pytest.raises(KeyError, match="no port key"):
+        state_dict_from_jax(extra, stats, module=model)
+    wrong = {**params, "metric_fc": {"weight": np.zeros((640, 16),
+                                                        np.float32)}}
+    with pytest.raises(ValueError, match="shape"):
+        state_dict_from_jax(wrong, stats, module=model)

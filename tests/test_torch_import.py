@@ -39,7 +39,9 @@ def test_importing_the_port_loads_no_jax():
         f"{PORT}.cli.train_encoders_bert, {PORT}.engine.stage1, "
         f"{PORT}.engine.optim, {PORT}.engine.checkpoint, {PORT}.ops.damsm, "
         f"{PORT}.ops.losses, {PORT}.ops.margins, {PORT}.ops.dropout, "
-        f"{PORT}.utils.metrics\n"
+        f"{PORT}.utils.metrics, {PORT}.engine.stage2, "
+        f"{PORT}.engine.trainer, {PORT}.models.margins, "
+        f"{PORT}.cli.fusion_bert\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = str(ROOT)

@@ -65,14 +65,18 @@ def test_text_encoder_and_heading_match_jax(tiny_arch, fused_block, fused_ln):
 
 
 def test_text_encoder_refuses_unported_archs():
+    # the whole-tower kernel is ported: `tower` constructs, with the tree of
+    # every other mode; heads of another width than 64 (blip: 96) still raise
+    enc = PM.TextEncoder(bert_type="bert", fused_block="tower")
+    assert enc.model.fused_block == "tower"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PM.TextEncoder(bert_type="bert", fused_block="tower")
+        PM.TextEncoder(bert_type="blip", fused_block="tower")
     for arch in ("clip", "groupvit", "falva"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PM.TextEncoder(bert_type=arch)
 
 
-@pytest.mark.parametrize("fused_block", ["ffn", "attn", "both"])
+@pytest.mark.parametrize("fused_block", ["ffn", "attn", "both", "tower"])
 def test_fused_block_refuses_other_head_widths(fused_block):
     # blip has 8 heads of 96: the kernels take heads of 64, and the port
     # raises where the JAX package would quietly run the unfused tower

@@ -3,6 +3,7 @@
   python -m text_guided_face_recognition_tpu_torch.cli.test [--cfg ...]
   python -m text_guided_face_recognition_tpu_torch.cli.extract_embeddings ...
   python -m text_guided_face_recognition_tpu_torch.cli.train_encoders_bert ...
+  python -m text_guided_face_recognition_tpu_torch.cli.fusion_bert ...
 
 All run on the CUDA card unless `--cpu` is given, and fail when no card is
 present and the CPU was not asked for.
@@ -28,8 +29,10 @@ def parser(default_cfg: str, description: str) -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true", default=None,
                    help="run on the CPU instead of the CUDA card")
     p.add_argument("--fused_block", type=str, default=None,
-                   choices=("none", "ffn", "attn", "both"),
-                   help="text-tower half-layers through the CUDA kernels")
+                   choices=("none", "ffn", "attn", "both", "tower"),
+                   help="text tower through the CUDA kernels: half-layers "
+                        "(ffn, attn, both) or all layers in one launch "
+                        "each way (tower)")
     p.add_argument("--fused_ln", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="text-tower LayerNorms through the CUDA kernel")

@@ -1,7 +1,8 @@
 """Typed configuration for the port.
 
 Counterpart of text_guided_face_recognition_tpu/config.py, cut to the fields
-the ported paths read (serving, stage-1 BERT training): every cfg/*.yml
+the ported paths read (serving, stage-1 BERT training, stage-2 fusion
+training): every cfg/*.yml
 still loads unchanged, and any key without a field here lands in `extras`,
 attribute-accessible. Values are coerced to their declared types at load
 time; a closed string option with an unknown value fails at construction.
@@ -9,7 +10,8 @@ time; a closed string option with an unknown value fails at construction.
 Accepted and ignored (N/A; they land in `extras`): TPU-only knobs that
 change how the JAX package schedules the same math on a TPU, not the math:
 `stacked_optimizer`, `fused_optimizer`, `stack_max_elems` (how optimizer
-updates are batched), `xla_opts` (XLA compiler options), `prng_impl`
+updates are batched), `xla_opts`, `xla_opts_stage2` (XLA compiler options),
+`prng_impl`
 (which PRNG draws the dropout bits; the keep rule is the same), and
 `fused_dropout` (the port always draws one flat bit array per step and
 slices it in the JAX plan's site order, models/text_bert.py).
@@ -17,7 +19,9 @@ slices it in the JAX plan's site order, models/text_bert.py).
 Not ported yet, and refused by `check_stage1` with NotImplementedError
 (ROADMAP.md): `is_CMP`, `is_WRA`, `lazy_embedding_adam`,
 `frozen_feature_cache`, an `en_type` other than BERT, and more than one
-device.
+device; and by `check_stage2`: `frozen_feature_cache`,
+`lazy_embedding_adam`, the LSTM path, `fusion_type: concat` (nothing to
+train, as the JAX trainer refuses it too) and more than one device.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from typing import Any, Dict, Optional
 import yaml
 
 __all__ = ["TGFRConfig", "TrainCfg", "TrainSmooth", "check_stage1",
-           "load_yaml", "merge_args_yaml"]
+           "check_stage2", "load_yaml", "merge_args_yaml"]
 
 _NUM_PREFIX = re.compile(r"^\s*([+-]?\d+(?:\.\d+)?(?:[eE][+-]?\d+)?)")
 
@@ -132,7 +136,8 @@ class TGFRConfig:
     init_lr_bert: float = 7e-5
     min_lr_bert: float = 2e-5
     lr_head: float = 1e-3
-    weight_decay: float = 0.01
+    lr_image_train: float = 0.1            # stage 2: metric_fc's SGD
+    weight_decay: float = 0.01             # stage 1: encoder Adam; stage 2: metric_fc's SGD
     clip_max_norm: float = 1.0
     apply_grad_clip: bool = False          # False: the reference's behaviour, no clip (its clip runs after the step)
 
@@ -153,6 +158,9 @@ class TGFRConfig:
     # --- fusion arch ---
     fusion_type: str = "fcfm"  # fcfm | linear | concat
     fusion_final_dim: int = 640
+    easy_margin: bool = False              # stage 2: ArcFace easy margin
+    loss: str = "focal_loss"               # stage 2: focal_loss (arcface) | anything else: cross entropy
+    do_test: bool = False                  # stage 2: run_test on the valid split after epoch 20
 
     # --- eval / dumps ---
     roc_file: str = "roc"
@@ -165,7 +173,7 @@ class TGFRConfig:
     synthetic: bool = False                # generated images/captions
     compute_dtype: str = "bfloat16"        # activation dtype of every model
     fused_ln: bool = False                 # text-tower LayerNorms through the CUDA kernel (ops/layernorm.py)
-    fused_block: str = "none"              # text-tower half-layers through the CUDA kernels (ops/block.py): none | ffn | attn | both
+    fused_block: str = "none"              # text tower through the CUDA kernels (ops/block.py): none | ffn | attn | both (half-layers) | tower (all layers, one launch each way)
     uint8_images: bool = False             # ship uint8 images; the device normalises (ops/images.py)
     eval_table_mode: bool = False          # run_test through a deduplicated per-sample embedding table
     current_epoch: int = 0
@@ -190,8 +198,7 @@ class TGFRConfig:
 
     def __post_init__(self) -> None:
         # Closed string options: a typo must fail here, not select another
-        # path silently. "tower" is a valid value of the JAX package's
-        # config; the port's text encoder rejects it until it is ported.
+        # path silently.
         _enums = {
             "fused_block": ("none", "ffn", "attn", "both", "tower"),
             "compute_dtype": ("float32", "bfloat16"),
@@ -251,6 +258,23 @@ def check_stage1(cfg: TGFRConfig) -> None:
         raise NotImplementedError(
             f"stage-1 training with {', '.join(refused)} is not ported yet "
             "(ROADMAP.md, Queue 1)")
+
+
+def check_stage2(cfg: TGFRConfig) -> None:
+    """Refuse the stage-2 options the port does not run yet."""
+    refused = [name for name in ("lazy_embedding_adam",
+                                 "frozen_feature_cache")
+               if getattr(cfg, name)]
+    if cfg.en_type != "BERT":
+        refused.append(f"en_type={cfg.en_type!r}")
+    if cfg.num_devices > 1:
+        refused.append(f"num_devices={cfg.num_devices}")
+    if refused:
+        raise NotImplementedError(
+            f"stage-2 training with {', '.join(refused)} is not ported yet "
+            "(ROADMAP.md, Queue 1)")
+    if cfg.fusion_type == "concat":
+        raise ValueError("stage-2 training requires fusion_type linear|fcfm")
 
 
 def load_yaml(filename: str) -> TGFRConfig:

@@ -44,162 +44,6 @@
 
 namespace {
 
-constexpr int kDHead = 64;
-constexpr int kQkvLd = kDHead + 1;  // pad: the score loops walk rows
-constexpr int kAttnThreads = 128;
-
-template <typename T>
-__global__ void __launch_bounds__(kAttnThreads)
-attention_core_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
-                      const unsigned* __restrict__ bits_p, unsigned thr,
-                      float scale, T* __restrict__ p_out,
-                      T* __restrict__ ctx, int nb, int t, int h, float inv) {
-  extern __shared__ float sm[];
-  float* q = sm;
-  float* k = q + t * kQkvLd;
-  float* v = k + t * kQkvLd;
-  float* s = v + t * kQkvLd;  // (t, t)
-  const int b = blockIdx.x, head = blockIdx.y;
-  const int tid = threadIdx.x;
-  const size_t row0 = (size_t)b * t;
-  const size_t pofs = ((size_t)head * nb + b) * t * t;  // [head*B + b]
-
-  for (int i = tid; i < t * kDHead; i += kAttnThreads) {
-    const int r = i / kDHead, d = i % kDHead;
-    const T* src = qkv + (row0 + r) * 3 * h + head * kDHead + d;
-    q[r * kQkvLd + d] = tgfr::to_f32(src[0]);
-    k[r * kQkvLd + d] = tgfr::to_f32(src[h]);
-    v[r * kQkvLd + d] = tgfr::to_f32(src[2 * h]);
-  }
-  __syncthreads();
-
-  for (int i = tid; i < t * t; i += kAttnThreads) {
-    const int qi = i / t, kj = i % t;
-    float acc = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < kDHead; ++d)
-      acc = fmaf(q[qi * kQkvLd + d], k[kj * kQkvLd + d], acc);
-    s[i] = acc * inv + (mask[row0 + kj] != 0 ? 0.f : -FLT_MAX);
-  }
-  __syncthreads();
-
-  const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < t; r += kAttnThreads / 32) {
-    float* sr = s + r * t;
-    float mx = -FLT_MAX;
-    for (int j = lane; j < t; j += 32) mx = fmaxf(mx, sr[j]);
-    mx = tgfr::warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < t; j += 32) {
-      const float e = expf(sr[j] - mx);
-      sr[j] = e;
-      sum += e;
-    }
-    sum = tgfr::warp_sum(sum);
-    for (int j = lane; j < t; j += 32) {
-      float pj = tgfr::round_to<T>(sr[j] / sum);
-      if (p_out) p_out[pofs + r * t + j] = tgfr::from_f32<T>(pj);
-      if (bits_p)
-        pj = tgfr::drop_to<T>(pj, bits_p[pofs + r * t + j], thr, scale);
-      sr[j] = pj;
-    }
-  }
-  __syncthreads();
-
-  for (int i = tid; i < t * kDHead; i += kAttnThreads) {
-    const int r = i / kDHead, d = i % kDHead;
-    float acc = 0.f;
-    for (int j = 0; j < t; ++j) acc = fmaf(s[r * t + j], v[j * kQkvLd + d], acc);
-    ctx[(row0 + r) * h + head * kDHead + d] = tgfr::from_f32<T>(acc);
-  }
-}
-
-// One block per (batch row, head): the per-head backward of
-// block_pallas.py `_attn_heads_bwd`, from p (rounded, before dropout) and
-// do = d(context), into that head's slices of dqkv.
-template <typename T>
-__global__ void __launch_bounds__(kAttnThreads)
-attention_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
-                          const T* __restrict__ dout,
-                          const unsigned* __restrict__ bits_p, unsigned thr,
-                          float scale, T* __restrict__ dqkv, int nb, int t,
-                          int h, float inv) {
-  extern __shared__ float sm[];
-  float* q = sm;
-  float* k = q + t * kQkvLd;
-  float* v = k + t * kQkvLd;
-  float* g = v + t * kQkvLd;   // do
-  float* ps = g + t * kQkvLd;  // (t, t) p
-  float* s = ps + t * t;       // (t, t) dp, then ds
-  const int b = blockIdx.x, head = blockIdx.y;
-  const int tid = threadIdx.x;
-  const size_t row0 = (size_t)b * t;
-  const size_t pofs = ((size_t)head * nb + b) * t * t;
-
-  for (int i = tid; i < t * kDHead; i += kAttnThreads) {
-    const int r = i / kDHead, d = i % kDHead;
-    const T* src = qkv + (row0 + r) * 3 * h + head * kDHead + d;
-    q[r * kQkvLd + d] = tgfr::to_f32(src[0]);
-    k[r * kQkvLd + d] = tgfr::to_f32(src[h]);
-    v[r * kQkvLd + d] = tgfr::to_f32(src[2 * h]);
-    g[r * kQkvLd + d] = tgfr::to_f32(dout[(row0 + r) * h + head * kDHead + d]);
-  }
-  for (int i = tid; i < t * t; i += kAttnThreads)
-    ps[i] = tgfr::to_f32(p[pofs + i]);
-  __syncthreads();
-
-  // dv[j] = sum_i p_drop[i, j] do[i]
-  for (int i = tid; i < t * kDHead; i += kAttnThreads) {
-    const int j = i / kDHead, d = i % kDHead;
-    float acc = 0.f;
-    for (int r = 0; r < t; ++r) {
-      float pd = ps[r * t + j];
-      if (bits_p) pd = tgfr::drop_to<T>(pd, bits_p[pofs + r * t + j], thr,
-                                        scale);
-      acc = fmaf(pd, g[r * kQkvLd + d], acc);
-    }
-    dqkv[(row0 + j) * 3 * h + 2 * h + head * kDHead + d] =
-        tgfr::from_f32<T>(acc);
-  }
-  // dp[i, j] = do[i] . v[j], masked like the probabilities (f32 scale)
-  for (int i = tid; i < t * t; i += kAttnThreads) {
-    const int qi = i / t, kj = i % t;
-    float acc = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < kDHead; ++d)
-      acc = fmaf(g[qi * kQkvLd + d], v[kj * kQkvLd + d], acc);
-    if (bits_p) acc = bits_p[pofs + i] >= thr ? acc * scale : 0.f;
-    s[i] = acc;
-  }
-  __syncthreads();
-
-  // ds = r(p (dp - sum_j dp p) / sqrt(d)), one warp per query row
-  const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < t; r += kAttnThreads / 32) {
-    float* sr = s + r * t;
-    const float* pr = ps + r * t;
-    float dot = 0.f;
-    for (int j = lane; j < t; j += 32) dot += sr[j] * pr[j];
-    dot = tgfr::warp_sum(dot);
-    for (int j = lane; j < t; j += 32)
-      sr[j] = tgfr::round_to<T>(pr[j] * (sr[j] - dot) * inv);
-  }
-  __syncthreads();
-
-  // dq[i] = sum_j ds[i, j] k[j];  dk[j] = sum_i ds[i, j] q[i]
-  for (int i = tid; i < t * kDHead; i += kAttnThreads) {
-    const int r = i / kDHead, d = i % kDHead;
-    float aq = 0.f, ak = 0.f;
-    for (int j = 0; j < t; ++j) {
-      aq = fmaf(s[r * t + j], k[j * kQkvLd + d], aq);
-      ak = fmaf(s[j * t + r], q[j * kQkvLd + d], ak);
-    }
-    T* dst = dqkv + (row0 + r) * 3 * h + head * kDHead + d;
-    dst[0] = tgfr::from_f32<T>(aq);
-    dst[h] = tgfr::from_f32<T>(ak);
-  }
-}
-
 template <typename K>
 cudaError_t set_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -221,13 +65,14 @@ int run_fwd(const void* x, const int* mask, const float* wqkv,
   cudaError_t err = tgfr::launch_gemm<T, tgfr::kEpiBias>(proj, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const size_t smem = (size_t)(3 * t * kQkvLd + t * t) * sizeof(float);
-  err = set_smem(attention_core_kernel<T>, smem);
+  const size_t smem = tgfr::attn_fwd_smem_bytes(t);
+  err = set_smem(tgfr::attention_core_kernel<T>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_core_kernel<T><<<dim3(b, heads), kAttnThreads, smem, s>>>(
+  tgfr::attention_core_kernel<T>
+      <<<dim3(b, heads), tgfr::kAttnThreads, smem, s>>>(
       static_cast<const T*>(qkv), mask, bits_p, thr, scale,
       static_cast<T*>(p), static_cast<T*>(ctx), b, t, h,
-      1.0f / sqrtf(static_cast<float>(kDHead)));
+      1.0f / sqrtf(static_cast<float>(tgfr::kDHead)));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -270,13 +115,14 @@ int run_bwd(const void* dy, const void* x, const void* qkv, const void* p,
       tgfr::gemm_args(dh_t, wo, dout, rows, h, h), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   // (5) the per-head backward into dqkv
-  const size_t smem = (size_t)(4 * t * kQkvLd + 2 * t * t) * sizeof(float);
-  err = set_smem(attention_core_bwd_kernel<T>, smem);
+  const size_t smem = tgfr::attn_bwd_smem_bytes(t);
+  err = set_smem(tgfr::attention_core_bwd_kernel<T>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_core_bwd_kernel<T><<<dim3(b, heads), kAttnThreads, smem, s>>>(
+  tgfr::attention_core_bwd_kernel<T>
+      <<<dim3(b, heads), tgfr::kAttnThreads, smem, s>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(p),
       static_cast<const T*>(dout), bits_p, thr, scale, static_cast<T*>(dqkv),
-      b, t, h, 1.0f / sqrtf(static_cast<float>(kDHead)));
+      b, t, h, 1.0f / sqrtf(static_cast<float>(tgfr::kDHead)));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // (6) dWqkv (3h, h) = dqkv^T . x and dbqkv
@@ -306,7 +152,8 @@ extern "C" int tgfr_attn_block_fwd(const void* x, const void* mask,
                                    void* p, void* ctx, void* resid, void* y,
                                    int b, int t, int h, int heads, float eps,
                                    int dtype, void* stream) {
-  if (h != heads * kDHead) return static_cast<int>(cudaErrorInvalidValue);
+  if (h != heads * tgfr::kDHead)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* m = static_cast<const int*>(mask);
   const auto* fwqkv = static_cast<const float*>(wqkv);
@@ -343,7 +190,8 @@ extern "C" int tgfr_attn_block_bwd(const void* dy, const void* x,
                                    void* dr, void* dh, void* dout, void* dqkv,
                                    void* part, int b, int t, int h, int heads,
                                    float eps, int dtype, void* stream) {
-  if (h != heads * kDHead) return static_cast<int>(cudaErrorInvalidValue);
+  if (h != heads * tgfr::kDHead)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* fwqkv = static_cast<const float*>(wqkv);
   const auto* fwo = static_cast<const float*>(wo);

@@ -3,9 +3,18 @@
 // Element helpers for the two supported activation types (float and
 // __nv_bfloat16), a tiled GEMM with fused epilogues, the LayerNorm row
 // passes (forward, and backward with per-block partial column sums) and a
-// deterministic column sum. Each kernel source (layernorm.cu, ffn_block.cu,
-// attn_block.cu, damsm.cu) includes this header and is built on its own
+// deterministic column sum, and the per-(caption, head) attention blocks.
+// Each kernel source (layernorm.cu, ffn_block.cu, attn_block.cu,
+// tower_block.cu, damsm.cu) includes this header and is built on its own
 // into a shared library with a plain C interface (ops/_cuda.py).
+//
+// The work of every pass is a `__device__` function of a tile index
+// (`*_tile`), so that one pass can be a kernel of its own (the `__global__`
+// kernels below, one tile per block: K1-K6) or a phase of the persistent
+// whole-tower kernels (tower_block.cu: K7, K8), whose blocks loop over the
+// tiles of a phase between grid-wide barriers. A tile function uses the
+// shared memory it is handed and ends without a barrier: a block that runs
+// several tiles puts __syncthreads() between them.
 //
 // Rounding contract (the one the JAX package's Pallas kernels and flax's
 // nn.Dense(dtype=...) follow): a GEMM accumulates in f32, its result is
@@ -92,13 +101,15 @@ constexpr int kLnWarps = kLnThreads / 32;
 constexpr int kLnPerLane = 32;
 constexpr int kLnMaxWidth = 32 * kLnPerLane;
 
-template <typename T, bool ROUND_AFFINE>
-__global__ void __launch_bounds__(kLnThreads)
-layernorm_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                      const float* __restrict__ beta, T* __restrict__ y,
-                      int rows, int h, float eps) {
+// Rows tile * WARPS .. tile * WARPS + WARPS - 1, one warp each. G is the type
+// of gamma and beta: f32 masters, or T where the caller holds them rounded.
+template <typename T, typename G, bool ROUND_AFFINE, int WARPS>
+__device__ __forceinline__ void
+layernorm_rows_tile(const T* x, const G* __restrict__ gamma,
+                    const G* __restrict__ beta, T* y, int rows, int h,
+                    float eps, int tile) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kLnWarps + warp;
+  const int row = tile * WARPS + warp;
   if (row >= rows) return;
   const T* xr = x + (size_t)row * h;
   T* yr = y + (size_t)row * h;
@@ -122,13 +133,23 @@ layernorm_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   for (int j = 0; j < kLnPerLane; ++j) {
     const int i = lane + 32 * j;
     if (i >= h) break;
-    float g = gamma[i], b = beta[i];
+    float g = to_f32(gamma[i]), b = to_f32(beta[i]);
     if (ROUND_AFFINE) {
       g = round_to<T>(g);
       b = round_to<T>(b);
     }
     yr[i] = from_f32<T>((v[j] - mean) * rs * g + b);
   }
+}
+
+template <typename T, bool ROUND_AFFINE>
+__global__ void __launch_bounds__(kLnThreads)
+layernorm_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                      const float* __restrict__ beta, T* __restrict__ y,
+                      int rows, int h, float eps) {
+  layernorm_rows_tile<T, float, ROUND_AFFINE, kLnWarps>(x, gamma, beta, y,
+                                                        rows, h, eps,
+                                                        blockIdx.x);
 }
 
 template <typename T, bool ROUND_AFFINE>
@@ -155,17 +176,16 @@ cudaError_t launch_layernorm_rows(const T* x, const float* gamma,
 // is used: the sums are deterministic.
 // ---------------------------------------------------------------------------
 
-template <typename T, bool ROUND_GAMMA>
-__global__ void __launch_bounds__(kLnThreads)
-layernorm_bwd_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x,
-                          const float* __restrict__ gamma, T* __restrict__ dx,
-                          T* __restrict__ dxd,
-                          const unsigned* __restrict__ bits, unsigned thr,
-                          float scale, float* __restrict__ part, int nq,
-                          int rows, int h, float eps) {
-  __shared__ float red[kLnWarps][kLnMaxWidth];
+// Rows tile * WARPS .. + WARPS - 1; `red` is WARPS * kLnMaxWidth floats of
+// shared memory; the tile's partial sums go to row `tile` of part.
+template <typename T, typename G, bool ROUND_GAMMA, int WARPS>
+__device__ __forceinline__ void
+layernorm_bwd_rows_tile(const T* dy, const T* x, const G* __restrict__ gamma,
+                        T* dx, T* dxd, const unsigned* __restrict__ bits,
+                        unsigned thr, float scale, float* part, int nq,
+                        int rows, int h, float eps, int tile, float* red) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kLnWarps + warp;
+  const int row = tile * WARPS + warp;
   const bool live = row < rows;
   float v[kLnPerLane], d[kLnPerLane], o[kLnPerLane];
   if (live) {
@@ -192,7 +212,7 @@ layernorm_bwd_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x,
     for (int j = 0; j < kLnPerLane; ++j) {
       const int i = lane + 32 * j;
       v[j] *= rs;                                   // xhat
-      float g = i < h ? gamma[i] : 0.f;
+      float g = i < h ? to_f32(gamma[i]) : 0.f;
       if (ROUND_GAMMA) g = round_to<T>(g);
       o[j] = d[j] * g;                              // dxhat
       m1 += o[j];
@@ -223,18 +243,32 @@ layernorm_bwd_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x,
       if (i < h) {
         float c = 0.f;
         if (live) c = qi == 0 ? d[j] * v[j] : (qi == 1 ? d[j] : o[j]);
-        red[warp][i] = c;
+        red[warp * kLnMaxWidth + i] = c;
       }
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < h; i += kLnThreads) {
+    for (int i = threadIdx.x; i < h; i += WARPS * 32) {
       float s = 0.f;
 #pragma unroll
-      for (int w = 0; w < kLnWarps; ++w) s += red[w][i];
-      part[(size_t)blockIdx.x * nq * h + qi * h + i] = s;
+      for (int w = 0; w < WARPS; ++w) s += red[w * kLnMaxWidth + i];
+      part[(size_t)tile * nq * h + qi * h + i] = s;
     }
     __syncthreads();
   }
+}
+
+template <typename T, bool ROUND_GAMMA>
+__global__ void __launch_bounds__(kLnThreads)
+layernorm_bwd_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                          const float* __restrict__ gamma, T* __restrict__ dx,
+                          T* __restrict__ dxd,
+                          const unsigned* __restrict__ bits, unsigned thr,
+                          float scale, float* __restrict__ part, int nq,
+                          int rows, int h, float eps) {
+  __shared__ float red[kLnWarps * kLnMaxWidth];
+  layernorm_bwd_rows_tile<T, float, ROUND_GAMMA, kLnWarps>(
+      dy, x, gamma, dx, dxd, bits, thr, scale, part, nq, rows, h, eps,
+      blockIdx.x, red);
 }
 
 inline int ln_bwd_blocks(int rows) { return (rows + kLnWarps - 1) / kLnWarps; }
@@ -244,26 +278,38 @@ inline int ln_bwd_blocks(int rows) { return (rows + kLnWarps - 1) / kLnWarps; }
 // fixed order, so the result does not depend on scheduling.
 constexpr int kSumCols = 32, kSumRowGroups = 8;
 
+// Columns c0 .. c0 + 31 of `in` (rows, cols), summed into out[0 .. 31] as
+// TOut; thread (tx, ty) of 32 x GROUPS; `red` is GROUPS * 32 floats.
+template <typename TIn, typename TOut, int GROUPS>
+__device__ __forceinline__ void
+colsum_tile(const TIn* in, int rows, int cols, int c0, TOut* out, int tx,
+            int ty, float* red) {
+  const int c = c0 + tx;
+  float s = 0.f;
+  if (c < cols) {
+#pragma unroll 4
+    for (int r = ty; r < rows; r += GROUPS)
+      s += to_f32(in[(size_t)r * cols + c]);
+  }
+  red[ty * kSumCols + tx] = s;
+  __syncthreads();
+  if (ty == 0 && c < cols) {
+    float t = 0.f;
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g) t += red[g * kSumCols + tx];
+    out[tx] = from_f32<TOut>(t);
+  }
+}
+
 template <typename TIn>
 __global__ void __launch_bounds__(kSumCols * kSumRowGroups)
 colsum_kernel(const TIn* __restrict__ in, int rows, int cols,
               float* __restrict__ out) {
-  __shared__ float red[kSumRowGroups][kSumCols];
-  const int c = blockIdx.x * kSumCols + threadIdx.x;
-  float s = 0.f;
-  if (c < cols) {
-#pragma unroll 4
-    for (int r = threadIdx.y; r < rows; r += kSumRowGroups)
-      s += to_f32(in[(size_t)r * cols + c]);
-  }
-  red[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < cols) {
-    float t = 0.f;
-#pragma unroll
-    for (int g = 0; g < kSumRowGroups; ++g) t += red[g][threadIdx.x];
-    out[c] = t;
-  }
+  __shared__ float red[kSumRowGroups * kSumCols];
+  colsum_tile<TIn, float, kSumRowGroups>(in, rows, cols,
+                                         blockIdx.x * kSumCols,
+                                         out + blockIdx.x * kSumCols,
+                                         threadIdx.x, threadIdx.y, red);
 }
 
 template <typename TIn>
@@ -304,8 +350,11 @@ cudaError_t launch_layernorm_bwd(const T* dy, const T* x, const float* gamma,
 //                    its weight (out = A . W^T, the forward);
 //      kBWeightKN    f32 master stored (K, N) row-major (out = A . W, the
 //                    backward's dX = dY . W);
-//      kBActKN       stored (K, N) row-major, type T: an activation.
-// A weight tile is rounded to T as it is staged in shared memory, so no
+//      kBActKN       stored (K, N) row-major, type T: an activation, or a
+//                    weight the caller holds rounded to T (the tower);
+//      kBActNK       stored (N, K) row-major, type T: such a weight in
+//                    nn.Linear's layout (the tower's forward).
+// An f32 weight tile is rounded to T as it is staged in shared memory, so no
 // rounded weight copy ever exists in device memory. 64x64 output tile per
 // block, K in steps of 32, 4 warps. For bf16 each warp runs 2x2 wmma
 // 16x16x16 tiles with f32 accumulators; for f32 every thread runs an 8x4
@@ -328,17 +377,24 @@ enum Epilogue {
 };
 
 enum ALayout { kARowMajor = 0, kATransposed = 1 };
-enum BLayout { kBWeightNK = 0, kBWeightKN = 1, kBActKN = 2 };
+enum BLayout { kBWeightNK = 0, kBWeightKN = 1, kBActKN = 2, kBActNK = 3 };
 
 constexpr int kBM = 64, kBN = 64, kBK = 32, kGemmThreads = 128;
 constexpr int kALd = kBK + 8;  // padded leading dims (wmma wants multiples
 constexpr int kBLd = kBN + 8;  // of 8 elements and 32-byte aligned rows)
 constexpr int kCLd = kBN + 4;
 
+// Shared memory of one GEMM tile: As | Bs | Cs.
+template <typename T>
+__host__ __device__ constexpr size_t gemm_smem_bytes() {
+  return (kBM * kALd + kBK * kBLd) * sizeof(T) + kBM * kCLd * sizeof(float);
+}
+
 struct GemmArgs {
   const void* a;          // see ALayout, type T
   const void* b;          // see BLayout
-  const float* bias;      // (N,) f32 or null
+  const float* bias;      // (N,) f32 master or null
+  const void* bias_t;     // (N,) type T, read when bias is null, or null
   const void* resid;      // (M, N) type T: kEpiBiasResidual
   const void* aux;        // (M, N) type T: kEpiDgelu's pre-activation
   const unsigned* bits;   // (M, N) dropout bits of kEpiBiasResidual, or null
@@ -349,7 +405,7 @@ struct GemmArgs {
   float scale;            // 1 / (1 - rate)
 };
 
-inline GemmArgs gemm_args(const void* a, const void* b, void* out, int m,
+inline __host__ __device__ GemmArgs gemm_args(const void* a, const void* b, void* out, int m,
                           int n, int k) {
   GemmArgs p{};
   p.a = a;
@@ -446,19 +502,29 @@ template <> struct TileMma<float> {
   }
 };
 
+inline __host__ __device__ int gemm_tiles(const GemmArgs& p) {
+  return ((p.m + kBM - 1) / kBM) * ((p.n + kBN - 1) / kBN);
+}
+
+// Output tile `tile` (row-major over the (M / 64, N / 64) tile grid) of the
+// GEMM p, by the kGemmThreads threads of a block; smem: gemm_smem_bytes<T>()
+// bytes, 32-byte aligned.
 template <typename T, int EPI, int AL, int BL>
-__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs p) {
-  __shared__ __align__(32) T As[kBM * kALd];
-  __shared__ __align__(32) T Bs[kBK * kBLd];
-  __shared__ __align__(32) float Cs[kBM * kCLd];
-  const T* __restrict__ A = static_cast<const T*>(p.a);
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+__device__ __forceinline__ void gemm_tile(const GemmArgs& p, int tile,
+                                          unsigned char* smem) {
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + kBM * kALd;
+  float* Cs = reinterpret_cast<float*>(Bs + kBK * kBLd);
+  const T* A = static_cast<const T*>(p.a);
+  const int tiles_n = (p.n + kBN - 1) / kBN;
+  const int m0 = (tile / tiles_n) * kBM, n0 = (tile % tiles_n) * kBN;
   const int tid = threadIdx.x;
 
   // per thread and K-tile: kAVecs 16-byte vectors of A, kBVecs of B
   constexpr int kVec = 16 / sizeof(T);                   // T per vector
   constexpr int kAVecs = kBM * kBK / kVec / kGemmThreads;
-  constexpr int kBPer = BL == kBActKN ? kVec : 4;        // elements / vector
+  constexpr bool kBIsT = BL == kBActKN || BL == kBActNK;
+  constexpr int kBPer = kBIsT ? kVec : 4;                // elements / vector
   constexpr int kBVecs = kBK * kBN / kBPer / kGemmThreads;
   uint4 a_reg[kAVecs];
   uint4 b_reg[kBVecs];
@@ -490,11 +556,16 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs p) {
         const int c = idx / (kBK / 4), r = (idx % (kBK / 4)) * 4;
         b_reg[l] = *reinterpret_cast<const uint4*>(
             W + (size_t)(n0 + c) * p.k + k0 + r);
+      } else if (BL == kBActNK) {  // kVec consecutive k of one n
+        const T* W = static_cast<const T*>(p.b);
+        const int c = idx / (kBK / kVec), r = (idx % (kBK / kVec)) * kVec;
+        b_reg[l] = *reinterpret_cast<const uint4*>(
+            W + (size_t)(n0 + c) * p.k + k0 + r);
       } else {                   // stored (K, N): vectors along n
         const int r = idx / (kBN / kBPer), c = (idx % (kBN / kBPer)) * kBPer;
         const int gk = k0 + r;
         const char* base = static_cast<const char*>(p.b);
-        const size_t es = BL == kBActKN ? sizeof(T) : sizeof(float);
+        const size_t es = kBIsT ? sizeof(T) : sizeof(float);
         b_reg[l] = gk < p.k ? *reinterpret_cast<const uint4*>(
                                   base + ((size_t)gk * p.n + n0 + c) * es)
                             : zero4;
@@ -525,6 +596,11 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs p) {
         Bs[(r + 1) * kBLd + c] = from_f32<T>(v.y);
         Bs[(r + 2) * kBLd + c] = from_f32<T>(v.z);
         Bs[(r + 3) * kBLd + c] = from_f32<T>(v.w);
+      } else if (BL == kBActNK) {  // transposed into Bs (k, n)
+        const int c = idx / (kBK / kVec), r = (idx % (kBK / kVec)) * kVec;
+        const T* e = reinterpret_cast<const T*>(&b_reg[l]);
+#pragma unroll
+        for (int q = 0; q < kVec; ++q) Bs[(r + q) * kBLd + c] = e[q];
       } else if (BL == kBWeightKN) {
         const int r = idx / (kBN / 4), c = (idx % (kBN / 4)) * 4;
         const float4 v = *reinterpret_cast<const float4*>(&b_reg[l]);
@@ -566,12 +642,15 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs p) {
     if constexpr (EPI == kEpiF32) {
       static_cast<float*>(p.out)[o] = a;
     } else {
-      T* __restrict__ out = static_cast<T*>(p.out);
+      T* out = static_cast<T*>(p.out);
       float v = round_to<T>(a);
       if constexpr (EPI == kEpiDgelu) {
         v *= dgelu_erf(to_f32(static_cast<const T*>(p.aux)[o]));
       } else {
-        if (p.bias) v = round_to<T>(v + round_to<T>(p.bias[gn]));
+        if (p.bias)
+          v = round_to<T>(v + round_to<T>(p.bias[gn]));
+        else if (p.bias_t)
+          v = round_to<T>(v + to_f32(static_cast<const T*>(p.bias_t)[gn]));
         if constexpr (EPI == kEpiBiasGelu) {
           if (p.out2) static_cast<T*>(p.out2)[o] = from_f32<T>(v);
           v = gelu_erf(v);
@@ -584,6 +663,12 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs p) {
       out[o] = from_f32<T>(v);
     }
   }
+}
+
+template <typename T, int EPI, int AL, int BL>
+__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs p) {
+  __shared__ __align__(32) unsigned char smem[gemm_smem_bytes<T>()];
+  gemm_tile<T, EPI, AL, BL>(p, blockIdx.y * gridDim.x + blockIdx.x, smem);
 }
 
 template <typename T, int EPI, int AL = kARowMajor, int BL = kBWeightNK>
@@ -601,6 +686,200 @@ cudaError_t launch_weight_grad(const void* g, const void* x, float* dw, int m,
                                int n, int k, cudaStream_t stream) {
   return launch_gemm<T, kEpiF32, kATransposed, kBActKN>(
       gemm_args(g, x, dw, m, n, k), stream);
+}
+
+// ---------------------------------------------------------------------------
+// Multi-head self-attention, one block of work per (caption, head), heads of
+// width 64, everything of the head in shared memory as f32 (block_pallas.py
+// `_attn_heads_fwd`, `_attn_heads_bwd`). qkv is (B t, 3 h) with q | k | v
+// packed on the output axis, head-major within each; probabilities and their
+// dropout bits are (heads * B, t, t).
+// ---------------------------------------------------------------------------
+
+constexpr int kDHead = 64;
+constexpr int kQkvLd = kDHead + 1;  // pad: the score loops walk rows
+constexpr int kAttnThreads = 128;
+
+// Shared memory of the forward block: q, k, v (t, 65) and scores (t, t), f32.
+inline __host__ __device__ size_t attn_fwd_smem_bytes(int t) {
+  return (size_t)(3 * t * kQkvLd + t * t) * sizeof(float);
+}
+
+// Caption b, head `head`: scores, softmax, the probabilities' dropout and
+// P.V, by kAttnThreads threads.
+template <typename T>
+__device__ __forceinline__ void
+attention_core_tile(const T* qkv, const int* __restrict__ mask,
+                    const unsigned* __restrict__ bits_p, unsigned thr,
+                    float scale, T* p_out, T* ctx, int nb, int t, int h,
+                    float inv, int b, int head, float* sm) {
+  float* q = sm;
+  float* k = q + t * kQkvLd;
+  float* v = k + t * kQkvLd;
+  float* s = v + t * kQkvLd;  // (t, t)
+  const int tid = threadIdx.x;
+  const size_t row0 = (size_t)b * t;
+  const size_t pofs = ((size_t)head * nb + b) * t * t;  // [head*B + b]
+
+  for (int i = tid; i < t * kDHead; i += kAttnThreads) {
+    const int r = i / kDHead, d = i % kDHead;
+    const T* src = qkv + (row0 + r) * 3 * h + head * kDHead + d;
+    q[r * kQkvLd + d] = to_f32(src[0]);
+    k[r * kQkvLd + d] = to_f32(src[h]);
+    v[r * kQkvLd + d] = to_f32(src[2 * h]);
+  }
+  __syncthreads();
+
+  for (int i = tid; i < t * t; i += kAttnThreads) {
+    const int qi = i / t, kj = i % t;
+    float acc = 0.f;
+#pragma unroll 16
+    for (int d = 0; d < kDHead; ++d)
+      acc = fmaf(q[qi * kQkvLd + d], k[kj * kQkvLd + d], acc);
+    s[i] = acc * inv + (mask[row0 + kj] != 0 ? 0.f : -FLT_MAX);
+  }
+  __syncthreads();
+
+  const int warp = tid / 32, lane = tid % 32;
+  for (int r = warp; r < t; r += kAttnThreads / 32) {
+    float* sr = s + r * t;
+    float mx = -FLT_MAX;
+    for (int j = lane; j < t; j += 32) mx = fmaxf(mx, sr[j]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < t; j += 32) {
+      const float e = expf(sr[j] - mx);
+      sr[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < t; j += 32) {
+      float pj = round_to<T>(sr[j] / sum);
+      if (p_out) p_out[pofs + r * t + j] = from_f32<T>(pj);
+      if (bits_p)
+        pj = drop_to<T>(pj, bits_p[pofs + r * t + j], thr, scale);
+      sr[j] = pj;
+    }
+  }
+  __syncthreads();
+
+  for (int i = tid; i < t * kDHead; i += kAttnThreads) {
+    const int r = i / kDHead, d = i % kDHead;
+    float acc = 0.f;
+    for (int j = 0; j < t; ++j) acc = fmaf(s[r * t + j], v[j * kQkvLd + d], acc);
+    ctx[(row0 + r) * h + head * kDHead + d] = from_f32<T>(acc);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kAttnThreads)
+attention_core_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
+                      const unsigned* __restrict__ bits_p, unsigned thr,
+                      float scale, T* __restrict__ p_out,
+                      T* __restrict__ ctx, int nb, int t, int h, float inv) {
+  extern __shared__ float attn_sm[];
+  attention_core_tile<T>(qkv, mask, bits_p, thr, scale, p_out, ctx, nb, t, h,
+                         inv, blockIdx.x, blockIdx.y, attn_sm);
+}
+
+// Shared memory of the backward block: q, k, v, do (t, 65), p and dp (t, t).
+inline __host__ __device__ size_t attn_bwd_smem_bytes(int t) {
+  return (size_t)(4 * t * kQkvLd + 2 * t * t) * sizeof(float);
+}
+
+// Caption b, head `head`: the per-head backward of block_pallas.py
+// `_attn_heads_bwd`, from p (rounded, before dropout) and do = d(context),
+// into that head's slices of dqkv.
+template <typename T>
+__device__ __forceinline__ void
+attention_core_bwd_tile(const T* qkv, const T* p, const T* dout,
+                        const unsigned* __restrict__ bits_p, unsigned thr,
+                        float scale, T* dqkv, int nb, int t, int h, float inv,
+                        int b, int head, float* sm) {
+  float* q = sm;
+  float* k = q + t * kQkvLd;
+  float* v = k + t * kQkvLd;
+  float* g = v + t * kQkvLd;   // do
+  float* ps = g + t * kQkvLd;  // (t, t) p
+  float* s = ps + t * t;       // (t, t) dp, then ds
+  const int tid = threadIdx.x;
+  const size_t row0 = (size_t)b * t;
+  const size_t pofs = ((size_t)head * nb + b) * t * t;
+
+  for (int i = tid; i < t * kDHead; i += kAttnThreads) {
+    const int r = i / kDHead, d = i % kDHead;
+    const T* src = qkv + (row0 + r) * 3 * h + head * kDHead + d;
+    q[r * kQkvLd + d] = to_f32(src[0]);
+    k[r * kQkvLd + d] = to_f32(src[h]);
+    v[r * kQkvLd + d] = to_f32(src[2 * h]);
+    g[r * kQkvLd + d] = to_f32(dout[(row0 + r) * h + head * kDHead + d]);
+  }
+  for (int i = tid; i < t * t; i += kAttnThreads)
+    ps[i] = to_f32(p[pofs + i]);
+  __syncthreads();
+
+  // dv[j] = sum_i p_drop[i, j] do[i]
+  for (int i = tid; i < t * kDHead; i += kAttnThreads) {
+    const int j = i / kDHead, d = i % kDHead;
+    float acc = 0.f;
+    for (int r = 0; r < t; ++r) {
+      float pd = ps[r * t + j];
+      if (bits_p) pd = drop_to<T>(pd, bits_p[pofs + r * t + j], thr,
+                                        scale);
+      acc = fmaf(pd, g[r * kQkvLd + d], acc);
+    }
+    dqkv[(row0 + j) * 3 * h + 2 * h + head * kDHead + d] =
+        from_f32<T>(acc);
+  }
+  // dp[i, j] = do[i] . v[j], masked like the probabilities (f32 scale)
+  for (int i = tid; i < t * t; i += kAttnThreads) {
+    const int qi = i / t, kj = i % t;
+    float acc = 0.f;
+#pragma unroll 16
+    for (int d = 0; d < kDHead; ++d)
+      acc = fmaf(g[qi * kQkvLd + d], v[kj * kQkvLd + d], acc);
+    if (bits_p) acc = bits_p[pofs + i] >= thr ? acc * scale : 0.f;
+    s[i] = acc;
+  }
+  __syncthreads();
+
+  // ds = r(p (dp - sum_j dp p) / sqrt(d)), one warp per query row
+  const int warp = tid / 32, lane = tid % 32;
+  for (int r = warp; r < t; r += kAttnThreads / 32) {
+    float* sr = s + r * t;
+    const float* pr = ps + r * t;
+    float dot = 0.f;
+    for (int j = lane; j < t; j += 32) dot += sr[j] * pr[j];
+    dot = warp_sum(dot);
+    for (int j = lane; j < t; j += 32)
+      sr[j] = round_to<T>(pr[j] * (sr[j] - dot) * inv);
+  }
+  __syncthreads();
+
+  // dq[i] = sum_j ds[i, j] k[j];  dk[j] = sum_i ds[i, j] q[i]
+  for (int i = tid; i < t * kDHead; i += kAttnThreads) {
+    const int r = i / kDHead, d = i % kDHead;
+    float aq = 0.f, ak = 0.f;
+    for (int j = 0; j < t; ++j) {
+      aq = fmaf(s[r * t + j], k[j * kQkvLd + d], aq);
+      ak = fmaf(s[j * t + r], q[j * kQkvLd + d], ak);
+    }
+    T* dst = dqkv + (row0 + r) * 3 * h + head * kDHead + d;
+    dst[0] = from_f32<T>(aq);
+    dst[h] = from_f32<T>(ak);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kAttnThreads)
+attention_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
+                          const T* __restrict__ dout,
+                          const unsigned* __restrict__ bits_p, unsigned thr,
+                          float scale, T* __restrict__ dqkv, int nb, int t,
+                          int h, float inv) {
+  extern __shared__ float attn_sm[];
+  attention_core_bwd_tile<T>(qkv, p, dout, bits_p, thr, scale, dqkv, nb, t, h,
+                             inv, blockIdx.x, blockIdx.y, attn_sm);
 }
 
 }  // namespace tgfr

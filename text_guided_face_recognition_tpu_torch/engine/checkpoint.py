@@ -1,10 +1,15 @@
 """Checkpoint artifacts of the trainers, written with torch.save.
 
-Counterpart of text_guided_face_recognition_tpu/engine/checkpoint.py for
-the stage-1 artifacts, in the JAX package's naming: under one save
-directory, `{model_type}_image_encoder_{epoch}`, `{bert_type}_text_encoder_
-{epoch}` and `train_state_{epoch}`, each one file holding a nested dict of
-tensors (state_dicts, optimizer state, metadata). `prune_checkpoints` keeps
+Counterpart of text_guided_face_recognition_tpu/engine/checkpoint.py, in
+the JAX package's naming. Under one save directory, stage 1 writes
+`{model_type}_image_encoder_{epoch}` ({"image_head"}),
+`{bert_type}_text_encoder_{epoch}` ({"model", "head"}) and
+`train_state_{epoch}`; stage 2 writes
+`fusion_{fusion_type}_{model_type}_{epoch}` ({"net", "image_head"}),
+`encoder_{en_type}_{fusion_type}_{epoch}` ({"model", "head"}) and
+`train_state_{epoch}`. Each is one file holding a nested dict of tensors
+(state_dicts, optimizer state, metadata); engine/prepare.py loads the
+encoder and fusion artifacts back by these keys. `prune_checkpoints` keeps
 the newest epochs of each artifact family.
 """
 

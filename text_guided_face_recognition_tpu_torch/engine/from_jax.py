@@ -11,13 +11,17 @@ transforms:
   LayerNormCHW (H, W, C)        -> (C, H, W), scale and bias alike
   batch_stats `mean` / `var`    -> `running_mean` / `running_var`
   PReLU `alpha`                 -> `alpha`
-  a bare `weight` (the stage-1
-  trainer's image_cls/text_cls) -> `weight`, unchanged
+  a bare `weight` (the trainers'
+  image_cls / text_cls /
+  metric_fc class weights)      -> `weight`, unchanged
 
 The scale-free `features` BN has no scale on either side. A whole trainer
 bridges at once: the stage-1 params tree {image_head, text_encoder,
 text_head, image_cls, text_cls} with batch_stats {image_head} onto
-engine/stage1.Stage1Model. Inputs are nested
+engine/stage1.Stage1Model, and the stage-2 tree {text_encoder, text_head,
+image_head, fusion_net, metric_fc} with batch_stats {image_head,
+fusion_net} onto engine/stage2.FusionModel. The text tower's tree is the
+same under every `fused_block`, `tower` included. Inputs are nested
 dicts of numpy arrays (the tests get them with `jax.device_get`); this module
 imports nothing of JAX.
 """

@@ -1,15 +1,24 @@
-"""The stage-1 optimizer groups and their learning rates.
+"""The trainers' optimizer groups and their learning rates.
 
-Counterpart of the stage-1 BERT part of
-text_guided_face_recognition_tpu/engine/optim.py (`make_stage1_bert_tx`):
-three groups over the trainer's top-level modules, as the reference drives
-three torch optimizers (src/train_encoders_bert.py:212-222):
+Counterpart of the BERT parts of
+text_guided_face_recognition_tpu/engine/optim.py (`make_stage1_bert_tx`,
+`make_stage2_tx`): three groups over the trainer's top-level modules, as
+the reference drives three torch optimizers. Stage 1
+(src/train_encoders_bert.py:212-222):
 
   head     image_head, text_head   Adam(betas (0.5, 0.999))
   encoder  text_encoder            Adam(betas (0.9, 0.999)), coupled L2
                                    `weight_decay` (added to the gradient),
                                    an optional clip first
   cls      image_cls, text_cls     SGD(momentum 0.9, weight decay 5e-5)
+
+Stage 2 (src/fusion_bert.py:118-141):
+
+  cls      metric_fc               plain SGD (momentum 0), weight decay
+                                   `weight_decay`
+  encoder  text_encoder            Adam(betas (0.9, 0.999)), coupled L2 0.01
+  head     text_head, image_head,  Adam(betas (0.9, 0.999)), coupled L2 5e-5
+           fusion_net
 
 Learning rates are set per group from the host between epochs
 (`set_lr` / `get_lr`). Both Adam groups are `CastAdam`, which stores its
@@ -28,12 +37,17 @@ from typing import Dict, Iterable, List
 
 import torch
 
-__all__ = ["CastAdam", "Stage1Optimizer", "make_stage1_bert_tx",
-           "cast_grads", "clip_grad_norm", "effective_clip", "GROUPS"]
+__all__ = ["CastAdam", "GroupedOptimizer", "Stage1Optimizer",
+           "Stage2Optimizer", "make_stage1_bert_tx", "make_stage2_tx",
+           "cast_grads", "clip_grad_norm", "effective_clip", "GROUPS",
+           "STAGE2_GROUPS"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 GROUPS = {"image_head": "head", "text_head": "head",
           "text_encoder": "encoder", "image_cls": "cls", "text_cls": "cls"}
+STAGE2_GROUPS = {"text_encoder": "encoder", "text_head": "head",
+                 "image_head": "head", "fusion_net": "head",
+                 "metric_fc": "cls"}
 
 
 class CastAdam(torch.optim.Optimizer):
@@ -120,12 +134,18 @@ def effective_clip(args) -> float:
     return float(args.clip_max_norm) if args.apply_grad_clip else 0.0
 
 
-class Stage1Optimizer:
-    """The three groups, stepped together; `lr` per group."""
+class GroupedOptimizer:
+    """Three groups (head, encoder, cls) over named modules, stepped
+    together; `lr` per group. A subclass names the module -> group map and
+    builds the three torch optimizers in `_make`."""
+
+    groups: Dict[str, str] = {}
 
     def __init__(self, args, modules: Dict[str, torch.nn.Module]):
+        missing = sorted(set(self.groups) - set(modules))
+        if missing:
+            raise ValueError(f"{type(self).__name__}: no module for {missing}")
         md = args.adam_moments_dtype
-
         # optax.scale_by_adam's f32 moments promote the update to f32;
         # `_scale_by_adam_cast` returns it in the gradients' dtype
         upd = "float32" if md == "float32" else args.grads_dtype
@@ -137,17 +157,14 @@ class Stage1Optimizer:
 
         self.params = {g: [] for g in ("head", "encoder", "cls")}
         for name, mod in modules.items():
-            self.params[GROUPS[name]] += [p for p in mod.parameters()]
+            self.params[self.groups[name]] += [p for p in mod.parameters()]
         self.frozen_encoder = bool(args.compat_frozen_text)
         self.clip = effective_clip(args)
         self.grads_dtype = args.grads_dtype
-        self.opts = {
-            "head": adam(self.params["head"], (0.5, 0.999)),
-            "encoder": adam(self.params["encoder"], (0.9, 0.999),
-                            float(args.weight_decay)),
-            "cls": torch.optim.SGD(self.params["cls"], lr=0.0, momentum=0.9,
-                                   weight_decay=5e-5),
-        }
+        self.opts = self._make(args, adam)
+
+    def _make(self, args, adam) -> Dict[str, torch.optim.Optimizer]:
+        raise NotImplementedError
 
     def set_lr(self, group: str, lr: float) -> None:
         for pg in self.opts[group].param_groups:
@@ -184,13 +201,43 @@ class Stage1Optimizer:
             opt.load_state_dict(state[g])
 
 
+class Stage1Optimizer(GroupedOptimizer):
+    groups = GROUPS
+
+    def _make(self, args, adam):
+        return {
+            "head": adam(self.params["head"], (0.5, 0.999)),
+            "encoder": adam(self.params["encoder"], (0.9, 0.999),
+                            float(args.weight_decay)),
+            "cls": torch.optim.SGD(self.params["cls"], lr=0.0, momentum=0.9,
+                                   weight_decay=5e-5),
+        }
+
+
+class Stage2Optimizer(GroupedOptimizer):
+    groups = STAGE2_GROUPS
+
+    def _make(self, args, adam):
+        self.clip = 0.0     # the JAX package's stage-2 encoder Adam has none
+        return {
+            "cls": torch.optim.SGD(self.params["cls"], lr=0.0, momentum=0.0,
+                                   weight_decay=float(args.weight_decay)),
+            "encoder": adam(self.params["encoder"], (0.9, 0.999), 0.01),
+            "head": adam(self.params["head"], (0.9, 0.999), 5e-5),
+        }
+
+
 def make_stage1_bert_tx(args, modules: Dict[str, torch.nn.Module]
                         ) -> Stage1Optimizer:
     """The stage-1 BERT optimizer over {image_head, text_encoder,
     text_head, image_cls, text_cls}; all learning rates start at 0 until
     `set_lr`."""
-    missing = sorted(set(GROUPS) - set(modules))
-    if missing:
-        raise ValueError(f"make_stage1_bert_tx: no module for {missing}")
     return Stage1Optimizer(args, modules)
+
+
+def make_stage2_tx(args, modules: Dict[str, torch.nn.Module]
+                   ) -> Stage2Optimizer:
+    """The stage-2 optimizer over {text_encoder, text_head, image_head,
+    fusion_net, metric_fc}; all learning rates start at 0 until `set_lr`."""
+    return Stage2Optimizer(args, modules)
 

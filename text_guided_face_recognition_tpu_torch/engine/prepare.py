@@ -1,12 +1,15 @@
-"""Model factories and the data loader for the serving path.
+"""Model factories and the data loader.
 
 Counterpart of text_guided_face_recognition_tpu/engine/prepare.py. Each
 factory returns port modules in eval mode on the requested device, with
 weights drawn from a `torch.Generator` seeded with `manual_seed` (on the
-CPU, so a seed gives the same weights on every device). Loading Orbax
-checkpoints and reference `.pth` files is not ported yet: a weight path that
-exists raises NotImplementedError, and an absent one warns and random-inits,
-as the JAX factories do when no weights are found.
+CPU, so a seed gives the same weights on every device). A weight path that
+names a file written by the port's own trainers (engine/checkpoint.py: the
+stage-1 `*_image_encoder_N` / `*_text_encoder_N` and the stage-2
+`fusion_*_N` / `encoder_*_N` artifacts) is loaded, strictly. Loading Orbax
+checkpoints (directories) and reference `.pth` files is not ported yet and
+raises NotImplementedError; an absent path warns and random-inits, as the
+JAX factories do when no weights are found.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from text_guided_face_recognition_tpu_torch.data import (
     TrainDataset,
     load_text_data_bert,
 )
+from text_guided_face_recognition_tpu_torch.engine.checkpoint import (
+    load_checkpoint)
 from text_guided_face_recognition_tpu_torch.models.layers import (
     BatchNorm, LayerNormCHW, PReLU)
 from text_guided_face_recognition_tpu_torch.models.text_bert import LayerNorm
@@ -82,15 +87,35 @@ def random_init_(module: nn.Module, seed: int) -> nn.Module:
     return module
 
 
+def _load_port_checkpoint(parts, path: str, what: str) -> bool:
+    """Load the port's own artifact at `path` into `parts` ({key of the
+    saved tree: module}), strictly. False when nothing is there."""
+    if not path or not os.path.exists(path):
+        return False
+    unported = NotImplementedError(
+        f"{what}: {path!r} is not an artifact of this package's trainers; "
+        "loading Orbax checkpoints and reference .pth files is not ported "
+        "yet (ROADMAP.md, Queue 1); remove the path to use random weights")
+    if not os.path.isfile(path):
+        raise unported
+    try:
+        tree = load_checkpoint(path)
+        for key, module in parts.items():
+            module.load_state_dict(tree[key], strict=True)
+    except Exception as e:   # not a torch file, or another tree
+        raise unported from e
+    print(f"loading {what}:", path)
+    return True
+
+
 def _finish(module: nn.Module, path: str, what: str, args,
-            device: torch.device) -> nn.Module:
-    if path and os.path.exists(path):
-        raise NotImplementedError(
-            f"{what}: loading weights from {path!r} is not ported yet "
-            "(ROADMAP.md, Queue 1); remove the path to serve random weights")
-    warnings.warn(f"{what}: no weights at {path!r}; using random init "
-                  "(synthetic/e2e mode)")
+            device: torch.device, parts=None) -> nn.Module:
+    """Random init, then the port's artifact at `path` when there is one
+    (`parts`: which saved sub-tree goes into which module)."""
     random_init_(module, args.manual_seed)
+    if not _load_port_checkpoint(parts or {}, path, what):
+        warnings.warn(f"{what}: no weights at {path!r}; using random init "
+                      "(synthetic/e2e mode)")
     return module.to(device).eval()
 
 
@@ -101,7 +126,9 @@ def prepare_backbone(args, device: torch.device) -> nn.Module:
             f"model_type={args.model_type!r}: only the arcface iresnet18 "
             "backbone is ported yet (ROADMAP.md, Queue 1)")
     net = M.iresnet18(dtype=compute_dtype(args), img_size=args.img_size)
-    return _finish(net, args.weights_arcface, "arcface backbone", args, device)
+    # the pretrained backbone is a reference .pth: not ported, see _finish
+    return _finish(net, args.weights_arcface, "arcface backbone", args, device,
+                   {"backbone": net})
 
 
 def prepare_text_encoder(args, device: torch.device
@@ -119,7 +146,8 @@ def prepare_text_encoder(args, device: torch.device
                          feat_dim=args.aux_feat_dim_per_granularity,
                          dtype=dtype)
     both = nn.ModuleDict({"model": enc, "head": head})
-    _finish(both, args.text_encoder_path, "text encoder", args, device)
+    _finish(both, args.text_encoder_path, "text encoder", args, device,
+            {"model": enc, "head": head})
     return enc, head
 
 
@@ -127,10 +155,14 @@ def prepare_image_head(args, device: torch.device) -> nn.Module:
     spatial = args.img_size // 8
     head = M.ImageHeading(feat_dim=args.aux_feat_dim_per_granularity,
                           spatial=spatial, dtype=compute_dtype(args))
-    return _finish(head, args.image_encoder_path, "image head", args, device)
+    return _finish(head, args.image_encoder_path, "image head", args, device,
+                   {"image_head": head})
 
 
-def prepare_fusion_net(args, device: torch.device) -> Optional[nn.Module]:
+def prepare_fusion_net(args, device: torch.device, load: bool = True
+                       ) -> Optional[nn.Module]:
+    """The fusion net (None for concat); `load=False` (the stage-2 trainer)
+    ignores `fusion_net_path`."""
     dtype = compute_dtype(args)
     feat = args.aux_feat_dim_per_granularity
     if args.fusion_type == "concat":
@@ -143,7 +175,8 @@ def prepare_fusion_net(args, device: torch.device) -> Optional[nn.Module]:
         net = M.FCFM(channel_dim=36, feat_dim=feat, dtype=dtype)
     else:
         raise ValueError(f"unknown fusion_type {args.fusion_type!r}")
-    return _finish(net, args.fusion_net_path, "fusion net", args, device)
+    return _finish(net, args.fusion_net_path if load else "", "fusion net",
+                   args, device, {"net": net})
 
 
 # --------------------------------------------------------------- dataloader --

@@ -30,12 +30,10 @@ no-gradient text path), and no gradient clip by default
 from __future__ import annotations
 
 import json
-import math
 import os
 import time
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -44,12 +42,14 @@ from text_guided_face_recognition_tpu_torch.config import check_stage1
 from text_guided_face_recognition_tpu_torch.engine import optim
 from text_guided_face_recognition_tpu_torch.engine import prepare as prep
 from text_guided_face_recognition_tpu_torch.engine.checkpoint import (
-    load_checkpoint, prune_checkpoints, save_checkpoint)
+    prune_checkpoints, save_checkpoint)
 from text_guided_face_recognition_tpu_torch.engine.evaluate import (
-    backbone_features, validate_concat)
-from text_guided_face_recognition_tpu_torch.models.text_bert import (
-    TEXT_ARCHS, drop_elems)
-from text_guided_face_recognition_tpu_torch.ops.dropout import draw
+    validate_concat)
+from text_guided_face_recognition_tpu_torch.engine.trainer import (
+    TrainerBase, nan_guard)
+from text_guided_face_recognition_tpu_torch.models.margins import (
+    xavier_uniform_)
+from text_guided_face_recognition_tpu_torch.models.text_bert import TEXT_ARCHS
 
 __all__ = ["ClassWeight", "Stage1Model", "Stage1Trainer"]
 
@@ -76,14 +76,7 @@ class Stage1Model(nn.Module):
         self.text_cls = ClassWeight(num_classes, feat)
 
 
-def _nan_guard(metrics: Dict[str, float], step: int) -> None:
-    for k, v in metrics.items():
-        if not math.isfinite(v):
-            raise FloatingPointError(
-                f"non-finite metric {k!r}={v} at step {step}")
-
-
-class Stage1Trainer:
+class Stage1Trainer(TrainerBase):
     """Stage-1 trainer for en_type BERT on one device (the CUDA card unless
     `device` is the CPU)."""
 
@@ -109,11 +102,8 @@ class Stage1Trainer:
         # class weights: xavier uniform (reference margins: image s=30,
         # text s=35, both m=0.5), from the manual_seed generator
         gen = torch.Generator().manual_seed(int(args.manual_seed))
-        bound = math.sqrt(6.0 / (args.num_classes + feat))
-        with torch.no_grad():
-            for cls in (self.model.image_cls, self.model.text_cls):
-                cls.weight.copy_((torch.rand(cls.weight.shape, generator=gen)
-                                  * 2.0 - 1.0) * bound)
+        for cls in (self.model.image_cls, self.model.text_cls):
+            xavier_uniform_(cls.weight, gen)
         self.model.to(dev).train()
 
         self.opt = optim.make_stage1_bert_tx(
@@ -128,30 +118,6 @@ class Stage1Trainer:
         self.loss_fn = self.build_loss_fn()
         self.start_epoch = 1
         self.steps = 0
-
-    # ------------------------------------------------------------- helpers --
-
-    def _apply_lrs(self) -> None:
-        for group, lr in self.lr.items():
-            self.opt.set_lr(group, lr)
-
-    def to_device(self, batch) -> Dict[str, torch.Tensor]:
-        """A loader batch (numpy) on the device; string fields dropped."""
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device,
-                                                     non_blocking=True)
-                for k, v in batch.items() if k != "key"}
-
-    def draw_bits(self, b: int, t: int) -> Optional[torch.Tensor]:
-        """One step's dropout bits for the text tower (None without
-        dropout)."""
-        if not self.arch.dropout:
-            return None
-        return draw(drop_elems(self.arch, b, t), self.drop_gen, self.device)
-
-    @torch.no_grad()
-    def image_features(self, img: torch.Tensor):
-        """The frozen backbone's (global, local) features."""
-        return backbone_features(self.backbone, self.args.model_type, img)
 
     # ---------------------------------------------------------- train step --
 
@@ -205,27 +171,6 @@ class Stage1Trainer:
 
         return loss_fn
 
-    def compute_grads(self, batch, drop_bits=None):
-        """Forward and backward of one step: the gradients land in the
-        parameters' .grad. Returns (total, metrics)."""
-        if drop_bits is None:
-            drop_bits = self.draw_bits(*batch["caps"].shape)
-        self.opt.zero_grad()
-        total, metrics = self.loss_fn(batch, drop_bits)
-        total.backward()
-        return total.detach(), {k: v.detach() for k, v in metrics.items()}
-
-    def train_step(self, batch, drop_bits=None, acc=None
-                   ) -> Dict[str, torch.Tensor]:
-        """One training step on a device batch; returns its metrics (added
-        to `acc` on the device when given)."""
-        _, metrics = self.compute_grads(batch, drop_bits)
-        self.opt.step()
-        self.steps += 1
-        if acc is not None:
-            metrics = {k: acc[k] + v for k, v in metrics.items()}
-        return metrics
-
     # -------------------------------------------------------------- epochs --
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
@@ -239,7 +184,7 @@ class Stage1Trainer:
             if args.max_steps and n >= args.max_steps:
                 break
         agg = {k: float(v) for k, v in (acc or {}).items()}  # one sync
-        _nan_guard(agg, n)
+        nan_guard(agg, n)
         dt = time.time() - t0
         total_len = n * args.batch_size
         out = {k: v / total_len for k, v in agg.items()}
@@ -279,22 +224,6 @@ class Stage1Trainer:
         save_checkpoint(f"{save_dir}/{a.bert_type}_text_encoder_{epoch}",
                         {"model": m.text_encoder.state_dict(),
                          "head": m.text_head.state_dict()})
-
-    def save_state(self, save_dir: str, epoch: int) -> None:
-        """The resumable third artifact: model, optimizer, epoch, LRs."""
-        save_checkpoint(f"{save_dir}/train_state_{epoch}", {
-            "model": self.model.state_dict(),
-            "optimizer": self.opt.state_dict(),
-            "meta": {"epoch": epoch, "lr": dict(self.lr)}})
-
-    def resume_from(self, path: str) -> None:
-        tree = load_checkpoint(path, map_location=self.device)
-        self.model.load_state_dict(tree["model"])
-        self.opt.load_state_dict(tree["optimizer"])
-        self.lr = {k: float(v) for k, v in tree["meta"]["lr"].items()}
-        self._apply_lrs()
-        self.start_epoch = int(tree["meta"]["epoch"]) + 1
-        print("resumed from", path, "at epoch", self.start_epoch)
 
     def main(self) -> None:
         """Epoch loop (reference: src/train_encoders_bert.py:398-421)."""

@@ -1,0 +1,96 @@
+"""What the stage-1 and stage-2 trainers share: moving a batch to the
+device, the step's dropout bits, the frozen backbone, one training step
+(forward, backward, optimizer), the per-group learning rates, and the
+resumable train-state artifact.
+
+A subclass sets `args`, `device`, `backbone`, `model` (an nn.Module whose
+children are the optimizer's named modules), `opt` (engine/optim.
+GroupedOptimizer), `lr` ({group: rate}), `arch`, `drop_gen`, `loss_fn`
+(batch, drop_bits) -> (total, metrics), `start_epoch` and `steps`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from text_guided_face_recognition_tpu_torch.engine.checkpoint import (
+    load_checkpoint, save_checkpoint)
+from text_guided_face_recognition_tpu_torch.engine.evaluate import (
+    backbone_features)
+from text_guided_face_recognition_tpu_torch.models.text_bert import (
+    drop_elems)
+from text_guided_face_recognition_tpu_torch.ops.dropout import draw
+
+__all__ = ["TrainerBase", "nan_guard"]
+
+
+def nan_guard(metrics: Dict[str, float], step: int) -> None:
+    for k, v in metrics.items():
+        if not math.isfinite(v):
+            raise FloatingPointError(
+                f"non-finite metric {k!r}={v} at step {step}")
+
+
+class TrainerBase:
+    def _apply_lrs(self) -> None:
+        for group, lr in self.lr.items():
+            self.opt.set_lr(group, lr)
+
+    def to_device(self, batch) -> Dict[str, torch.Tensor]:
+        """A loader batch (numpy) on the device; string fields dropped."""
+        return {k: torch.as_tensor(np.asarray(v)).to(self.device,
+                                                     non_blocking=True)
+                for k, v in batch.items() if k != "key"}
+
+    def draw_bits(self, b: int, t: int) -> Optional[torch.Tensor]:
+        """One step's dropout bits for the text tower (None without
+        dropout)."""
+        if not self.arch.dropout:
+            return None
+        return draw(drop_elems(self.arch, b, t), self.drop_gen, self.device)
+
+    @torch.no_grad()
+    def image_features(self, img: torch.Tensor):
+        """The frozen backbone's (global, local) features."""
+        return backbone_features(self.backbone, self.args.model_type, img)
+
+    def compute_grads(self, batch, drop_bits=None):
+        """Forward and backward of one step: the gradients land in the
+        parameters' .grad. Returns (total, metrics)."""
+        if drop_bits is None:
+            drop_bits = self.draw_bits(*batch["caps"].shape)
+        self.opt.zero_grad()
+        total, metrics = self.loss_fn(batch, drop_bits)
+        total.backward()
+        return total.detach(), {k: v.detach() for k, v in metrics.items()}
+
+    def train_step(self, batch, drop_bits=None, acc=None
+                   ) -> Dict[str, torch.Tensor]:
+        """One training step on a device batch; returns its metrics (added
+        to `acc` on the device when given)."""
+        _, metrics = self.compute_grads(batch, drop_bits)
+        self.opt.step()
+        self.steps += 1
+        if acc is not None:
+            metrics = {k: acc[k] + v for k, v in metrics.items()}
+        return metrics
+
+    def save_state(self, save_dir: str, epoch: int) -> None:
+        """The resumable third artifact: model, optimizer, epoch, LRs."""
+        save_checkpoint(f"{save_dir}/train_state_{epoch}", {
+            "model": self.model.state_dict(),
+            "optimizer": self.opt.state_dict(),
+            "meta": {"epoch": epoch, "lr": dict(self.lr)}})
+
+    def resume_from(self, path: str) -> None:
+        tree = load_checkpoint(path, map_location=self.device)
+        self.model.load_state_dict(tree["model"])
+        self.opt.load_state_dict(tree["optimizer"])
+        self.lr = {k: float(v) for k, v in tree["meta"]["lr"].items()}
+        self._apply_lrs()
+        self.start_epoch = int(tree["meta"]["epoch"]) + 1
+        print("resumed from", path, "at epoch", self.start_epoch)

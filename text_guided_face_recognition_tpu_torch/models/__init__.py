@@ -17,6 +17,9 @@ from text_guided_face_recognition_tpu_torch.models.layers import (  # noqa: F401
     SelfAttention2D,
     l2_normalize,
 )
+from text_guided_face_recognition_tpu_torch.models.margins import (  # noqa: F401
+    ArcMarginProduct,
+)
 from text_guided_face_recognition_tpu_torch.models.text_bert import (  # noqa: F401
     TEXT_ARCHS,
     BertWordMapping,

@@ -7,12 +7,14 @@ other); q|k|v are packed on the output axis of one `qkv` projection,
 head-major within each. Serving only: no dropout, token-type ids all zero.
 
 `fused_block` routes the tower's half-layers through the hand-written CUDA
-kernels of ops/block.py ("attn", "ffn" or "both"); `fused_ln` routes the
-remaining LayerNorms through ops/layernorm.py. With both off the tower runs
-ordinary PyTorch modules, as the JAX package runs flax modules. The
-whole-tower kernel ("tower"), the half-layer kernels at head widths other
-than 64 (blip under any fused_block), pre-LN blocks, causal masks and
-quick-GELU (the clip/groupvit/falva archs) are not ported yet and raise
+kernels of ops/block.py ("attn", "ffn" or "both"), or all of its layers
+through the whole-tower kernels, one launch each way ("tower"); `fused_ln`
+routes the remaining LayerNorms through ops/layernorm.py. With both off the
+tower runs ordinary PyTorch modules, as the JAX package runs flax modules.
+The module tree and the state_dict keys are the same under every
+`fused_block`. The kernels at head widths other than 64 (blip under any
+fused_block), pre-LN blocks, causal masks and quick-GELU (the
+clip/groupvit/falva archs) are not ported yet and raise
 NotImplementedError.
 """
 
@@ -28,7 +30,7 @@ from torch import nn
 from text_guided_face_recognition_tpu_torch.models.layers import (
     Dense, l2_normalize)
 from text_guided_face_recognition_tpu_torch.ops.block import (
-    D_HEAD, attn_block, ffn_block, gelu)
+    D_HEAD, attn_block, ffn_block, gelu, tower_block)
 from text_guided_face_recognition_tpu_torch.ops.dropout import (
     DropBits, dropout, total_elems)
 from text_guided_face_recognition_tpu_torch.ops.layernorm import (
@@ -37,7 +39,7 @@ from text_guided_face_recognition_tpu_torch.ops.layernorm import (
 __all__ = ["TextArch", "TEXT_ARCHS", "TransformerEncoder", "TextEncoder",
            "BertWordMapping", "TextHeading", "LayerNorm", "drop_elems"]
 
-FUSED_BLOCK_MODES = ("none", "ffn", "attn", "both")
+FUSED_BLOCK_MODES = ("none", "ffn", "attn", "both", "tower")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,10 +192,6 @@ class TransformerEncoder(nn.Module):
     def __init__(self, arch: TextArch, dtype: torch.dtype = torch.float32,
                  fused_ln: bool = False, fused_block: str = "none"):
         super().__init__()
-        if fused_block == "tower":
-            raise NotImplementedError(
-                "fused_block='tower': the whole-tower kernel is not ported "
-                "yet (ROADMAP.md, Queue 2)")
         if fused_block not in FUSED_BLOCK_MODES:
             raise ValueError(f"fused_block={fused_block!r} is not one of "
                              f"{FUSED_BLOCK_MODES}")
@@ -204,11 +202,11 @@ class TransformerEncoder(nn.Module):
                 " blip) are ported yet (ROADMAP.md, Queue 1)")
         if fused_block != "none" and arch.hidden // arch.heads != D_HEAD:
             raise NotImplementedError(
-                f"fused_block={fused_block!r}: the half-layer kernels take "
+                f"fused_block={fused_block!r}: the block kernels take "
                 f"heads of width {D_HEAD}, this arch has "
                 f"{arch.hidden // arch.heads} (blip); other head widths are "
                 "not ported yet (ROADMAP.md, Queue 1). Use fused_block='none'.")
-        self.arch, self.dtype = arch, dtype
+        self.arch, self.dtype, self.fused_block = arch, dtype, fused_block
         h = arch.hidden
         self.tok_emb = nn.Embedding(arch.vocab_size, h)
         self.pos_emb = nn.Embedding(arch.max_positions, h)
@@ -219,6 +217,44 @@ class TransformerEncoder(nn.Module):
         for i in range(arch.layers):
             self.add_module(f"layer_{i}",
                             Block(arch, dtype, fused_ln, fused_block))
+
+    def _tower(self, x: torch.Tensor, mask_i32: torch.Tensor,
+               plan: Optional[DropBits], rate: float) -> torch.Tensor:
+        """All layers through ops/block.tower_block (fused_block="tower"):
+        the 12 leaves of every layer stacked and cast once to the compute
+        dtype; autograd's stack/cast backward hands each f32 parameter its
+        gradient, the kernel's bf16 value widened. The step's flat bit draw
+        already has the tower's order (per layer: probabilities, attention
+        output, FFN output), so the kernel gets strided views of it."""
+        a, dt = self.arch, self.dtype
+        b, t, h = x.shape
+        layers = [getattr(self, f"layer_{i}") for i in range(a.layers)]
+
+        def stack(get, weight=False):
+            s = torch.stack([get(lyr) for lyr in layers]).to(dt)
+            return s.transpose(1, 2) if weight else s.unsqueeze(1)
+
+        leaves = (
+            stack(lambda m: m.attn.qkv.weight, True),
+            stack(lambda m: m.attn.qkv.bias),
+            stack(lambda m: m.attn.out.weight, True),
+            stack(lambda m: m.attn.out.bias),
+            stack(lambda m: m.attn_ln.weight), stack(lambda m: m.attn_ln.bias),
+            stack(lambda m: m.ffn_in.weight, True),
+            stack(lambda m: m.ffn_in.bias),
+            stack(lambda m: m.ffn_out.weight, True),
+            stack(lambda m: m.ffn_out.bias),
+            stack(lambda m: m.ffn_ln.weight), stack(lambda m: m.ffn_ln.bias))
+        bits_p = bits_h = bits_f = None
+        if rate > 0.0:
+            n_p, n_h = a.heads * b * t * t, b * t * h
+            per = plan.take((a.layers, n_p + 2 * n_h))
+            bits_p = per[:, :n_p].unflatten(1, (a.heads * b, t, t))
+            bits_h = per[:, n_p:n_p + n_h].unflatten(1, (b * t, h))
+            bits_f = per[:, n_p + n_h:].unflatten(1, (b * t, h))
+        z = tower_block(x.reshape(b * t, h).contiguous(), mask_i32, *leaves,
+                        b, t, a.heads, rate, a.ln_eps, bits_p, bits_h, bits_f)
+        return z.reshape(b, t, h)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 drop_bits: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -247,6 +283,8 @@ class TransformerEncoder(nn.Module):
             x = dropout(x, plan.take(x.shape), rate)
         mask = attention_mask.bool()
         mask_i32 = attention_mask.to(torch.int32).contiguous()
+        if self.fused_block == "tower":
+            return self._tower(x, mask_i32, plan, rate)
         for i in range(a.layers):
             x = getattr(self, f"layer_{i}")(x, mask, mask_i32, plan, rate)
         return x

@@ -9,6 +9,9 @@ from text_guided_face_recognition_tpu_torch.ops.block import (  # noqa: F401
     ffn_block,
     ffn_block_bwd,
     ffn_block_ref,
+    tower_block,
+    tower_block_bwd,
+    tower_block_ref,
 )
 from text_guided_face_recognition_tpu_torch.ops.damsm import (  # noqa: F401
     damsm_similarity_cuda,

@@ -1,11 +1,13 @@
-"""Post-LN transformer half-layers: hand-written CUDA kernels for the
-forwards (K3, K5) and the backwards (K4, K6), and their plain PyTorch
-versions.
+"""Post-LN transformer half-layers and the whole tower: hand-written CUDA
+kernels for the forwards (K3, K5, K7) and the backwards (K4, K6, K8), and
+their plain PyTorch versions.
 
 Counterpart of text_guided_face_recognition_tpu/ops/block_pallas.py:
 
-  attn_block: y = LN(x + drop(Wo . MHSA(x) + bo))           csrc/attn_block.cu
-  ffn_block:  z = LN(x + drop(W2 . gelu(W1 . x + c1) + c2))  csrc/ffn_block.cu
+  attn_block:  y = LN(x + drop(Wo . MHSA(x) + bo))           csrc/attn_block.cu
+  ffn_block:   z = LN(x + drop(W2 . gelu(W1 . x + c1) + c2))  csrc/ffn_block.cu
+  tower_block: L layers of attn_block then ffn_block, one kernel launch
+               each way                                      csrc/tower_block.cu
 
 Same argument order and layouts as the JAX functions. Dropout takes host
 bits only (the JAX kernels' `use_prng=False` contract; in-kernel random
@@ -35,7 +37,20 @@ Each wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor; it never falls back from one to the other. Each kernel call
 adds one to its wrapper's `launches`: `ffn_block.launches` (K3),
 `ffn_block_bwd.launches` (K4), `attn_block.launches` (K5),
-`attn_block_bwd.launches` (K6).
+`attn_block_bwd.launches` (K6), `tower_block.launches` (K7),
+`tower_block_bwd.launches` (K8).
+
+The tower (`tower_block`) takes its 12 per-layer leaves stacked (L, ...) and
+ALREADY rounded to the activation dtype (the model stacks and casts once
+per step; autograd's stack/cast backward hands each f32 parameter its
+gradient), weights as the transposed view of a contiguous (L, out, in)
+stack, biases and LayerNorm parameters (L, 1, n). Its arithmetic is the
+half-layers' at every rounding point, with two differences in the
+backward, both the TPU kernel's: gelu(f) and y = LN(r1) are recomputed, not
+saved, and every gradient is rounded to the stacked leaves' dtype (K4 and K6
+return f32 weight gradients), so in bf16 `tower` and `both` differ by that
+rounding. Dropout bits are stacked (L, ...) views of the step's one flat
+draw; a layer's slice must be contiguous, the layer stride is free.
 """
 
 from __future__ import annotations
@@ -55,7 +70,10 @@ from text_guided_face_recognition_tpu_torch.ops.layernorm import (
 __all__ = ["attn_block", "attn_block_ref", "attn_block_fwd",
            "attn_block_fwd_ref", "attn_block_bwd", "attn_block_bwd_ref",
            "ffn_block", "ffn_block_ref", "ffn_block_fwd", "ffn_block_fwd_ref",
-           "ffn_block_bwd", "ffn_block_bwd_ref", "dense_ref", "gelu", "dgelu"]
+           "ffn_block_bwd", "ffn_block_bwd_ref", "tower_block",
+           "tower_block_ref", "tower_block_fwd", "tower_block_fwd_ref",
+           "tower_block_bwd", "tower_block_bwd_ref", "TOWER_LEAVES",
+           "dense_ref", "gelu", "dgelu"]
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _FFN_FWD_ARGTYPES = (_P,) * 8 + (_U, _F) + (_P,) * 4 + (_I, _I, _I, _F, _I,
@@ -66,7 +84,11 @@ _ATTN_FWD_ARGTYPES = (_P,) * 10 + (_U, _F) + (_P,) * 5 + (_I, _I, _I, _I, _F,
                                                           _I, _P)
 _ATTN_BWD_ARGTYPES = (_P,) * 11 + (_U, _F) + (_P,) * 10 + (_I, _I, _I, _I,
                                                            _F, _I, _P)
+_TOWER_ARGTYPES = (_P,) * 4 + (_U, _F, _F, _I, _P)
 D_HEAD = 64
+# the tower's stacked leaves, in the JAX package's `_BlockP` order
+TOWER_LEAVES = ("wqkv", "bqkv", "wo", "bo", "g1", "b1", "w1", "c1", "w2",
+                "c2", "g2", "b2")
 MAX_T_BWD = 64   # the backward's per-head block holds 4 (T, 64) + 2 (T, T)
 
 
@@ -229,6 +251,71 @@ def attn_block_bwd_ref(dy, x, qkv, p, o, r, wqkv, wo, gamma, b: int, t: int,
     dwqkv = x.float().t() @ dqkv.float()
     dx = dr + _mm(dqkv, wqkv.to(dt).t(), dt)
     return (dx, dwqkv, dqkv.float().sum(0), dwo, dh.float().sum(0), dg, db)
+
+
+# ------------------------------------------------------------ plain tower --
+
+def _layer_bits(bits, j):
+    return None if bits is None else bits[j]
+
+
+def tower_block_fwd_ref(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2,
+                        g2, b2, b: int, t: int, heads: int = 12, bits_p=None,
+                        bits_h=None, bits_f=None, rate: float = 0.0,
+                        eps: float = 1e-12):
+    """Plain forward of the tower with the backward's residuals: (z, xin,
+    qkv, p, o, r1, f, r2), each residual stacked (L, ...). The half-layers'
+    plain forwards compose it: their rounding points are the tower's
+    (block_pallas.py `_tower_fwd_kernel`)."""
+    res = [[] for _ in range(7)]
+    for j in range(wqkv.shape[0]):
+        y, qkv, p, o, r1 = attn_block_fwd_ref(
+            x, mask, wqkv[j], bqkv[j, 0], wo[j], bo[j, 0], g1[j, 0], b1[j, 0],
+            b, t, heads, _layer_bits(bits_p, j), _layer_bits(bits_h, j), rate,
+            eps)
+        z, f, _, r2 = ffn_block_fwd_ref(y, w1[j], c1[j, 0], w2[j], c2[j, 0],
+                                        g2[j, 0], b2[j, 0],
+                                        _layer_bits(bits_f, j), rate, eps)
+        for acc, v in zip(res, (x, qkv, p, o, r1, f, r2)):
+            acc.append(v)
+        x = z
+    return (x, *(torch.stack(v) for v in res))
+
+
+def tower_block_ref(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2,
+                    b2, b: int, t: int, heads: int = 12, rate: float = 0.0,
+                    eps: float = 1e-12, bits_p=None, bits_h=None,
+                    bits_f=None) -> torch.Tensor:
+    """Plain PyTorch version of `tower_block`."""
+    return tower_block_fwd_ref(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1,
+                               w2, c2, g2, b2, b, t, heads, bits_p, bits_h,
+                               bits_f, rate, eps)[0]
+
+
+def tower_block_bwd_ref(dz, mask, xin, qkv, p, o, r1, f, r2, wqkv, wo, g1,
+                        b1, w1, w2, g2, b: int, t: int, heads: int = 12,
+                        bits_p=None, bits_h=None, bits_f=None,
+                        rate: float = 0.0, eps: float = 1e-12):
+    """Plain backward of the tower (block_pallas.py `_tower_bwd_kernel`):
+    (dx, dwqkv, dbqkv, dwo, dbo, dg1, db1, dw1, dc1, dw2, dc2, dg2, db2),
+    the 12 gradients stacked like their leaves and rounded to the leaves'
+    dtype. Layers run in reverse; y = LN(r1), the FFN half's input, is
+    recomputed (gelu(f) too, inside the half-layer's plain backward)."""
+    lt = wqkv.dtype
+    grads = [[] for _ in range(12)]
+    for j in reversed(range(wqkv.shape[0])):
+        y = _ln_rounded_affine(r1[j], g1[j, 0], b1[j, 0], eps)
+        dy, dw1, dc1, dw2, dc2, dg2, db2 = ffn_block_bwd_ref(
+            dz, y, f[j], r2[j], w1[j], w2[j], g2[j, 0],
+            _layer_bits(bits_f, j), rate, eps)
+        dz, dwqkv, dbqkv, dwo, dbo, dg1, db1 = attn_block_bwd_ref(
+            dy, xin[j], qkv[j], p[j], o[j], r1[j], wqkv[j], wo[j], g1[j, 0],
+            b, t, heads, _layer_bits(bits_p, j), _layer_bits(bits_h, j), rate,
+            eps)
+        for acc, v in zip(grads, (dwqkv, dbqkv, dwo, dbo, dg1, db1, dw1, dc1,
+                                  dw2, dc2, dg2, db2)):
+            acc.append(v.to(lt) if v.dim() == 2 else v.to(lt)[None])
+    return (dz, *(torch.stack(v[::-1]) for v in grads))
 
 
 # ---------------------------------------------------------------- checks --
@@ -586,7 +673,217 @@ def attn_block(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
                               bits_p, bits_h, b, t, heads, rate, eps)
 
 
+# -------------------------------------------------------- tower kernels --
+
+def _check_tower(name, x, mask, leaves, b, t, heads, bits, rate, t_max):
+    """The tower kernels' contract; returns (L, rows, h, inter)."""
+    _check_rate(name, rate, bits)
+    wqkv, w1 = leaves["wqkv"], leaves["w1"]
+    inter = w1.shape[2] if w1.dim() == 3 else -1
+    _check_act(name, x, (x.shape[-1], inter))
+    rows, h = x.shape
+    dev = x.device
+    n_layers = wqkv.shape[0]
+    if rows != b * t or h != heads * D_HEAD or not 0 < t <= t_max:
+        raise ValueError(f"{name}: the kernel takes x (b*t, heads*{D_HEAD}) "
+                         f"with 1 <= t <= {t_max}; got {tuple(x.shape)}, "
+                         f"b={b}, t={t}, heads={heads}")
+    if tuple(mask.shape) != (b, t) or mask.dtype != torch.int32 or \
+            mask.device != dev or not mask.is_contiguous():
+        raise ValueError(f"{name}: mask must be a contiguous int32 ({b}, {t})"
+                         f" tensor on {dev}")
+    shapes = {"wqkv": (h, 3 * h), "bqkv": (1, 3 * h), "wo": (h, h),
+              "bo": (1, h), "g1": (1, h), "b1": (1, h), "w1": (h, inter),
+              "c1": (1, inter), "w2": (inter, h), "c2": (1, h), "g2": (1, h),
+              "b2": (1, h)}
+    for what, a in leaves.items():
+        shape = (n_layers,) + shapes[what]
+        if tuple(a.shape) != shape or a.dtype != x.dtype or a.device != dev:
+            raise ValueError(f"{name}: {what} must be a {x.dtype} {shape} "
+                             f"tensor on {dev} (stacked, already rounded to "
+                             "the activation dtype)")
+        stored = a.transpose(1, 2) if what.startswith("w") else a
+        if not stored.is_contiguous() or a.data_ptr() % 16:
+            raise ValueError(
+                f"{name}: {what} must be "
+                + ("the .transpose(1, 2) view of a contiguous, 16-byte "
+                   "aligned (L, out, in) stack" if what.startswith("w")
+                   else "contiguous and 16-byte aligned"))
+    for what, bt, shape in (("bits_p", bits[0], (heads * b, t, t)),
+                            ("bits_h", bits[1], (rows, h)),
+                            ("bits_f", bits[2], (rows, h))):
+        if bt is None:
+            continue
+        if tuple(bt.shape) != (n_layers,) + shape or \
+                bt.dtype != torch.int32 or bt.device != dev or \
+                not bt[0].is_contiguous():
+            raise ValueError(f"{name}: {what} must be an int32 "
+                             f"{(n_layers,) + shape} tensor on {dev} whose "
+                             "per-layer slices are contiguous")
+    return n_layers, rows, h, inter
+
+
+def _tower_launch(fn_name, ptrs, bits, dims, rate, eps, dtype):
+    """Call a tower launcher; returns (grid, blocks per SM, shared bytes)."""
+    arr = (ctypes.c_void_p * len(ptrs))(*[_ptr(a) for a in ptrs])
+    strides = (ctypes.c_longlong * 3)(*[0 if bt is None else bt.stride(0)
+                                        for bt in bits])
+    cdims = (ctypes.c_int * len(dims))(*dims)
+    info = (ctypes.c_int * 3)()
+    thr, scale = _drop_args(rate)
+    fn = _cuda.function("tower_block", fn_name, _TOWER_ARGTYPES)
+    _cuda.launch(fn, arr, strides, cdims, info, thr, scale, float(eps),
+                 _cuda.dtype_code(dtype))
+    return tuple(info)
+
+
+def tower_block_fwd(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2,
+                    b2, b: int, t: int, heads: int = 12, bits_p=None,
+                    bits_h=None, bits_f=None, rate: float = 0.0,
+                    eps: float = 1e-12, save: bool = True):
+    """K7: the forward of `tower_block` in ONE kernel launch, with the
+    backward's residuals: (z, xin, qkv, p, o, r1, f, r2), each residual
+    stacked (L, ...); on a card they are allocated and written only when
+    `save`, else None."""
+    bits = (bits_p, bits_h, bits_f)
+    _check_rate("tower_block", rate, bits)
+    leaves = dict(zip(TOWER_LEAVES, (wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2,
+                                     c2, g2, b2)))
+    if x.device.type == "cpu":
+        return tower_block_fwd_ref(x, mask, *leaves.values(), b, t, heads,
+                                   *bits, rate, eps)
+    if rate <= 0.0:
+        bits = (None, None, None)
+    n, rows, h, inter = _check_tower("tower_block", x, mask, leaves, b, t,
+                                     heads, bits, rate,
+                                     MAX_T_BWD if save else 128)
+
+    def buf(*shape):
+        return torch.empty(shape, dtype=x.dtype, device=x.device)
+
+    z = torch.empty_like(x)
+    k = n if save else 1                   # residual slots
+    xin = buf(n if save else 2, rows, h)   # saved inputs, or the ping-pong
+    qkv, o, r1, r2 = (buf(k, rows, 3 * h), buf(k, rows, h), buf(k, rows, h),
+                      buf(k, rows, h))
+    p = buf(n, heads * b, t, t) if save else None
+    f = buf(n, rows, inter) if save else None
+    y, act = buf(rows, h), buf(rows, inter)
+    tower_block_fwd.info = _tower_launch(
+        "tgfr_tower_fwd",
+        (x, mask, *leaves.values(), *bits, z, xin, qkv, p, o, r1, f, r2, y,
+         act), bits, (n, b, t, h, heads, inter, int(save)), rate, eps,
+        x.dtype)
+    tower_block.launches += 1
+    if not save:
+        return z, None, None, None, None, None, None, None
+    return z, xin, qkv, p, o, r1, f, r2
+
+
+def tower_block_bwd(dz, mask, xin, qkv, p, o, r1, f, r2, wqkv, wo, g1, b1,
+                    w1, w2, g2, b: int, t: int, heads: int = 12, bits_p=None,
+                    bits_h=None, bits_f=None, rate: float = 0.0,
+                    eps: float = 1e-12):
+    """K8: the gradients of `tower_block` in ONE kernel launch, at its saved
+    residuals for the cotangent dz. Returns (dx, dwqkv, dbqkv, dwo, dbo,
+    dg1, db1, dw1, dc1, dw2, dc2, dg2, db2), the 12 gradients stacked like
+    their leaves, in the leaves' dtype and layout."""
+    bits = (bits_p, bits_h, bits_f)
+    _check_rate("tower_block_bwd", rate, bits)
+    if dz.device.type == "cpu":
+        return tower_block_bwd_ref(dz, mask, xin, qkv, p, o, r1, f, r2, wqkv,
+                                   wo, g1, b1, w1, w2, g2, b, t, heads, *bits,
+                                   rate, eps)
+    if rate <= 0.0:
+        bits = (None, None, None)
+    name = "tower_block_bwd"
+    leaves = dict(wqkv=wqkv, wo=wo, g1=g1, b1=b1, w1=w1, w2=w2, g2=g2)
+    n, rows, h, inter = _check_tower(name, dz, mask, leaves, b, t, heads,
+                                     bits, rate, MAX_T_BWD)
+    for what, a, shape in (("xin", xin, (rows, h)), ("qkv", qkv,
+                                                     (rows, 3 * h)),
+                           ("p", p, (heads * b, t, t)), ("o", o, (rows, h)),
+                           ("r1", r1, (rows, h)), ("f", f, (rows, inter)),
+                           ("r2", r2, (rows, h))):
+        _check_like(name, what, a, (n,) + shape, dz)
+
+    def buf(*shape, dtype=dz.dtype):
+        return torch.empty(shape, dtype=dtype, device=dz.device)
+
+    dx = torch.empty_like(dz)
+    # gradients in nn.Linear's (L, out, in) layout, biases (L, 1, n)
+    dwqkv, dwo = buf(n, 3 * h, h), buf(n, h, h)
+    dw1, dw2 = buf(n, inter, h), buf(n, h, inter)
+    dbqkv, dc1 = buf(n, 1, 3 * h), buf(n, 1, inter)
+    dbo, dg1, db1, dc2, dg2, db2 = (buf(n, 1, h) for _ in range(6))
+    dd = buf(rows, h) if rate > 0.0 else None
+    scratch = (buf(rows, h), dd, buf(rows, inter), buf(rows, h),
+               buf(rows, inter), buf(rows, h), buf(rows, h),
+               buf(rows, 3 * h),
+               buf(-(-rows // 4), 3 * h, dtype=torch.float32))
+    tower_block_bwd.info = _tower_launch(
+        "tgfr_tower_bwd",
+        (dz, mask, xin, qkv, p, o, r1, f, r2, wqkv, wo, g1, b1, w1, w2, g2,
+         *bits, dx, dwqkv, dbqkv, dwo, dbo, dg1, db1, dw1, dc1, dw2, dc2,
+         dg2, db2, *scratch), bits, (n, b, t, h, heads, inter, 1), rate, eps,
+        dz.dtype)
+    tower_block_bwd.launches += 1
+    return (dx, dwqkv.transpose(1, 2), dbqkv, dwo.transpose(1, 2), dbo, dg1,
+            db1, dw1.transpose(1, 2), dc1, dw2.transpose(1, 2), dc2, dg2, db2)
+
+
+class _TowerBlockFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2,
+                b2, bits_p, bits_h, bits_f, b, t, heads, rate, eps):
+        needs = ctx.needs_input_grad
+        save = needs[0] or any(needs[2:14])
+        z, *res = tower_block_fwd(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1,
+                                  w2, c2, g2, b2, b, t, heads, bits_p, bits_h,
+                                  bits_f, rate, eps, save)
+        ctx.shape, ctx.rate, ctx.eps = (b, t, heads), rate, eps
+        if save:
+            ctx.save_for_backward(mask, *res, wqkv, wo, g1, b1, w1, w2, g2,
+                                  bits_p, bits_h, bits_f)
+        return z
+
+    @staticmethod
+    def backward(ctx, dz):
+        *saved, bits_p, bits_h, bits_f = ctx.saved_tensors
+        grads = tower_block_bwd(dz.contiguous(), *saved, *ctx.shape, bits_p,
+                                bits_h, bits_f, ctx.rate, ctx.eps)
+        return (grads[0], None, *grads[1:]) + (None,) * 8
+
+
+def tower_block(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2, b2,
+                b: int, t: int, heads: int = 12, rate: float = 0.0,
+                eps: float = 1e-12, bits_p=None, bits_h=None, bits_f=None
+                ) -> torch.Tensor:
+    """The whole post-LN tower with its gradient, one kernel launch each
+    way: K7 forward, K8 backward.
+
+    x: (R, H) = (b*t, H) float32 or bfloat16; mask: (b, t) int32. The 12
+    leaves stacked over L layers and already in x's dtype: wqkv (L, H, 3H),
+    wo (L, H, H), w1 (L, H, I), w2 (L, I, H), each the .transpose(1, 2)
+    view of a contiguous (L, out, in) stack; bqkv (L, 1, 3H), c1 (L, 1, I),
+    bo, c2, g1, b1, g2, b2 (L, 1, H). bits_p (L, heads*b, t, t), bits_h and
+    bits_f (L, R, H) int32, needed when rate > 0. The kernels take heads of
+    width 64, H <= 1024, H and I multiples of 64, t <= 128 (t <= 64 when a
+    gradient is needed). Returns z: (R, H); gradients arrive in the leaves'
+    dtype.
+    """
+    _check_rate("tower_block", rate, (bits_p, bits_h, bits_f))
+    if rate <= 0.0:
+        bits_p = bits_h = bits_f = None
+    return _TowerBlockFn.apply(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1,
+                               w2, c2, g2, b2, bits_p, bits_h, bits_f, b, t,
+                               heads, rate, eps)
+
+
 ffn_block.launches = 0
 ffn_block_bwd.launches = 0
 attn_block.launches = 0
 attn_block_bwd.launches = 0
+tower_block.launches = 0
+tower_block_bwd.launches = 0
+tower_block_fwd.info = tower_block_bwd.info = None
