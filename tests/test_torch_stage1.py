@@ -7,9 +7,10 @@ port.
 Small sizes: the tiny post-LN BERT of _torch_port.py (2 layers, H 128,
 heads 64 wide, I 256) with T = 12, batch 4, 16 classes, the full
 ImageHeading and the 14 x 14 x 256 local map. f32 compute. Both trainers
-run the flagship switches (fused_block both, fused_ln, use_pallas,
-fused_dropout): JAX its Pallas kernels in interpret mode with the plan's
-host bits, the port its kernels' plain versions. The batch carries
+run the flagship switches (fused_block both, fused_ln, use_pallas) with
+fused_dropout, so every dropout site takes host bits: JAX its Pallas
+kernels in interpret mode with the plan's bits, the port its kernels'
+plain versions (prng mode: tests/test_torch_prng_train.py). The batch carries
 precomputed backbone features (img_gl, img_lc), so the frozen backbone
 (already held against JAX in the serving tests) is skipped on both sides.
 Dropout is on (rate 0.1): the JAX loss function runs eagerly, a recording
@@ -74,7 +75,7 @@ def _cfg(**kw):
                 min_lr_bert=LR["encoder"])
     base.update(kw)
     return (JConfig().replace(**base, fused_dropout=True, num_devices=1),
-            PConfig().replace(**base))
+            PConfig().replace(**base, fused_dropout=True))
 
 
 def _batch():
@@ -300,6 +301,9 @@ def test_train_cli_runs_on_cpu_saves_and_resumes(small_train_cli):
     want = tr.opt.state_dict()["head"]["state"]
     assert state.keys() == want.keys() and all(
         torch.equal(state[i]["exp_avg"], want[i]["exp_avg"]) for i in state)
+    # the resumed Adam moments keep their storage dtype (bf16 here)
+    assert all(state[i][k].dtype == want[i][k].dtype == torch.bfloat16
+               for i in state for k in ("exp_avg", "exp_avg_sq"))
 
     prune_checkpoints(save_dir, 1)
     assert set(os.listdir(save_dir)) == {n for n in names if n.endswith("_3")}

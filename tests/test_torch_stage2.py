@@ -10,9 +10,11 @@ ImageHeading and FCFM on the 14 x 14 x 256 local map. f32 compute. JAX runs
 its Pallas tower in interpret mode with the plan's host bits, the port its
 kernels' plain versions. The batch carries precomputed backbone features
 (img_gl, img_lc), so the frozen backbone (already held against JAX in the
-serving tests) is skipped on both sides. Dropout is on (rate 0.1): the JAX
-loss function runs eagerly, a recording `_DropPlan` captures its concrete
-bits, and the port takes the same bits.
+serving tests) is skipped on both sides. Dropout is on (rate 0.1) with
+fused_dropout on both sides, so every site takes host bits (prng mode:
+tests/test_torch_prng_train.py): the JAX loss function runs eagerly, a
+recording `_DropPlan` captures its concrete bits, and the port takes the
+same bits.
 
 Tolerances (each stated where it is checked): loss rtol 1e-5 (f32,
 summation order); gradients |g_p - g_j| <= 1e-4 max |g_j| + 1e-6 G per
@@ -84,7 +86,7 @@ def _cfg(**kw):
                 image_encoder_path="")
     base.update(kw)
     return (JConfig().replace(**base, fused_dropout=True, num_devices=1),
-            PConfig().replace(**base))
+            PConfig().replace(**base, fused_dropout=True))
 
 
 def _batch():

@@ -198,7 +198,8 @@ def _encoders(jx, fused, dtype):
     tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
     jenc = jx.tb.TransformerEncoder(jarch, jdt, False, True, fused,
                                     name="model")
-    penc = ptb.TransformerEncoder(parch, tdt, False, fused)
+    penc = ptb.TransformerEncoder(parch, tdt, False, fused,
+                                  fused_dropout=True)
     return jenc, penc
 
 
@@ -222,7 +223,7 @@ def _bridge(jx, penc, params):
 def test_encoder_tower_matches_jax(jx, monkeypatch, train):
     """TransformerEncoder(fused_block="tower"), values and every parameter
     gradient, eval mode and train mode (dropout 0.1 from the JAX plan's
-    recorded bits)."""
+    recorded bits, fused_dropout on both sides)."""
     jax, jnp = jx.jax, jx.jnp
     recorded = []
 
@@ -265,15 +266,17 @@ def test_encoder_tower_matches_jax(jx, monkeypatch, train):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_tower_equals_both_in_port(dtype):
-    """Same weights, same bits: `tower` reproduces `both`, values and
-    gradients. In f32 to summation noise; in bf16 the tower's gradients
+    """Same weights, same host bits (fused_dropout): `tower` reproduces
+    `both`, values and gradients. In f32 to summation noise; in bf16 the tower's gradients
     are the half-layers' f32 ones rounded to bf16 (one bf16 step)."""
     tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
     arch = ptb.TextArch(**ARCH)
     ids, mask = _ids()
     torch.manual_seed(0)
-    both = ptb.TransformerEncoder(arch, tdt, False, "both").train()
-    tower = ptb.TransformerEncoder(arch, tdt, False, "tower").train()
+    both = ptb.TransformerEncoder(arch, tdt, False, "both",
+                                  fused_dropout=True).train()
+    tower = ptb.TransformerEncoder(arch, tdt, False, "tower",
+                                   fused_dropout=True).train()
     with torch.no_grad():
         for p in both.parameters():
             p.copy_(torch.randn_like(p) * (0.05 if p.dim() > 1 else 0.1))

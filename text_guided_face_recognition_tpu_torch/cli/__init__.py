@@ -36,6 +36,11 @@ def parser(default_cfg: str, description: str) -> argparse.ArgumentParser:
     p.add_argument("--fused_ln", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="text-tower LayerNorms through the CUDA kernel")
+    p.add_argument("--fused_dropout", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="training: every dropout site from the step's host "
+                        "bits (default: the fused kernels draw their own "
+                        "from seeds)")
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--compute_dtype", type=str, default=None,
                    choices=("float32", "bfloat16"))

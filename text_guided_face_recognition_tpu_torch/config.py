@@ -11,10 +11,8 @@ Accepted and ignored (N/A; they land in `extras`): TPU-only knobs that
 change how the JAX package schedules the same math on a TPU, not the math:
 `stacked_optimizer`, `fused_optimizer`, `stack_max_elems` (how optimizer
 updates are batched), `xla_opts`, `xla_opts_stage2` (XLA compiler options),
-`prng_impl`
-(which PRNG draws the dropout bits; the keep rule is the same), and
-`fused_dropout` (the port always draws one flat bit array per step and
-slices it in the JAX plan's site order, models/text_bert.py).
+and `prng_impl`
+(which PRNG draws the host dropout bits; the keep rule is the same).
 
 Not ported yet, and refused by `check_stage1` with NotImplementedError
 (ROADMAP.md): `is_CMP`, `is_WRA`, `lazy_embedding_adam`,
@@ -174,6 +172,7 @@ class TGFRConfig:
     compute_dtype: str = "bfloat16"        # activation dtype of every model
     fused_ln: bool = False                 # text-tower LayerNorms through the CUDA kernel (ops/layernorm.py)
     fused_block: str = "none"              # text tower through the CUDA kernels (ops/block.py): none | ffn | attn | both (half-layers) | tower (all layers, one launch each way)
+    fused_dropout: bool = False            # true: every dropout site from the step's host bits; false: the fused kernels draw theirs in-kernel from seeds (ops/philox.py)
     uint8_images: bool = False             # ship uint8 images; the device normalises (ops/images.py)
     eval_table_mode: bool = False          # run_test through a deduplicated per-sample embedding table
     current_epoch: int = 0

@@ -18,10 +18,16 @@
 //       mask (finfo(float32).min on padded keys), an f32 softmax with one
 //       warp per query row, probabilities rounded to the activation type
 //       (and saved, before dropout, as p (heads*B, T, T) when the backward
-//       will need them), dropped with bits_p, then P.V, the context o rounded
-//       into a (R, H) buffer. At T = 24 the whole head fits one block;
-//   (c) r = x + drop(o . Wo + bo), dropout (bits_h) and the residual fused
-//       into the GEMM epilogue;
+//       will need them), dropped, then P.V, the context o rounded into a
+//       (R, H) buffer. At T = 24 the whole head fits one block;
+//   (c) r = x + drop(o . Wo + bo), dropout and the residual fused into the
+//       GEMM epilogue.
+// Dropout bits: host-drawn (bits_p, bits_h), or (prng mode) the stream of
+// the layer seed the wrapper hands over as a device pointer, words
+// [0, heads B T^2) for the probabilities and the next R H for the output
+// (ops/philox.py), each element computing its own Philox block (4x the ALU
+// work of a dump; no bits in device memory). The backward regenerates
+// them from the same seed.
 //   (d) y = LN(r), one warp per row.
 // The backward's residuals are x, qkv, p, o and r.
 //
@@ -55,8 +61,8 @@ cudaError_t set_smem(K kernel, size_t smem) {
 template <typename T>
 int run_fwd(const void* x, const int* mask, const float* wqkv,
             const float* bqkv, const float* wo, const float* bo,
-            const float* gamma, const float* beta, const unsigned* bits_p,
-            const unsigned* bits_h, unsigned thr, float scale, void* qkv,
+            const float* gamma, const float* beta, const tgfr::DropSrc& drop_p,
+            const tgfr::DropSrc& drop_h, unsigned thr, float scale, void* qkv,
             void* p, void* ctx, void* resid, void* y, int b, int t, int h,
             int heads, float eps, cudaStream_t s) {
   const int rows = b * t;
@@ -70,7 +76,7 @@ int run_fwd(const void* x, const int* mask, const float* wqkv,
   if (err != cudaSuccess) return static_cast<int>(err);
   tgfr::attention_core_kernel<T>
       <<<dim3(b, heads), tgfr::kAttnThreads, smem, s>>>(
-      static_cast<const T*>(qkv), mask, bits_p, thr, scale,
+      static_cast<const T*>(qkv), mask, drop_p, thr, scale,
       static_cast<T*>(p), static_cast<T*>(ctx), b, t, h,
       1.0f / sqrtf(static_cast<float>(tgfr::kDHead)));
   err = cudaGetLastError();
@@ -79,7 +85,7 @@ int run_fwd(const void* x, const int* mask, const float* wqkv,
   tgfr::GemmArgs out = tgfr::gemm_args(ctx, wo, resid, rows, h, h);
   out.bias = bo;
   out.resid = x;
-  out.bits = bits_h;
+  out.drop = drop_h;
   out.thr = thr;
   out.scale = scale;
   err = tgfr::launch_gemm<T, tgfr::kEpiBiasResidual>(out, s);
@@ -93,18 +99,18 @@ int run_fwd(const void* x, const int* mask, const float* wqkv,
 template <typename T>
 int run_bwd(const void* dy, const void* x, const void* qkv, const void* p,
             const void* o, const void* r, const float* wqkv, const float* wo,
-            const float* gamma, const unsigned* bits_p,
-            const unsigned* bits_h, unsigned thr, float scale, void* dx,
+            const float* gamma, const tgfr::DropSrc& drop_p,
+            const tgfr::DropSrc& drop_h, unsigned thr, float scale, void* dx,
             float* dwqkv, float* dbqkv, float* dwo, float* dln, void* dr,
             void* dh, void* dout, void* dqkv, float* part, int b, int t,
             int h, int heads, float eps, cudaStream_t s) {
   const int rows = b * t;
   // (1, 2) dr, dh = drop(dr); dln = [dgamma | dbeta | dbo]
-  T* dh_t = static_cast<T*>(bits_h ? dh : dr);
+  T* dh_t = static_cast<T*>(drop_h.on() ? dh : dr);
   cudaError_t err = tgfr::launch_layernorm_bwd<T, true>(
       static_cast<const T*>(dy), static_cast<const T*>(r), gamma,
-      static_cast<T*>(dr), bits_h ? dh_t : nullptr, bits_h, thr, scale, part,
-      dln, 3, rows, h, eps, s);
+      static_cast<T*>(dr), drop_h.on() ? dh_t : nullptr, drop_h, thr, scale,
+      part, dln, 3, rows, h, eps, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   // (3) dWo (h, h) = dh^T . o
   err = tgfr::launch_weight_grad<T>(dh_t, o, dwo, h, h, rows, s);
@@ -121,7 +127,7 @@ int run_bwd(const void* dy, const void* x, const void* qkv, const void* p,
   tgfr::attention_core_bwd_kernel<T>
       <<<dim3(b, heads), tgfr::kAttnThreads, smem, s>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(p),
-      static_cast<const T*>(dout), bits_p, thr, scale, static_cast<T*>(dqkv),
+      static_cast<const T*>(dout), drop_p, thr, scale, static_cast<T*>(dqkv),
       b, t, h, 1.0f / sqrtf(static_cast<float>(tgfr::kDHead)));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -141,14 +147,16 @@ int run_bwd(const void* dy, const void* x, const void* qkv, const void* p,
 
 }  // namespace
 
-// bits_p: (heads*b, t, t), bits_h: (b*t, h) uint32, or both null (no
-// dropout); p: (heads*b, t, t) or null (not saved).
+// Dropout: bits_p (heads*b, t, t) and bits_h (b*t, h) uint32, or seed (1,)
+// int32 on the device (the layer's stream), or none of them (no dropout);
+// p: (heads*b, t, t) or null (not saved).
 extern "C" int tgfr_attn_block_fwd(const void* x, const void* mask,
                                    const void* wqkv, const void* bqkv,
                                    const void* wo, const void* bo,
                                    const void* gamma, const void* beta,
                                    const void* bits_p, const void* bits_h,
-                                   unsigned thr, float scale, void* qkv,
+                                   const void* seed, unsigned thr,
+                                   float scale, void* qkv,
                                    void* p, void* ctx, void* resid, void* y,
                                    int b, int t, int h, int heads, float eps,
                                    int dtype, void* stream) {
@@ -162,8 +170,9 @@ extern "C" int tgfr_attn_block_fwd(const void* x, const void* mask,
   const auto* fbo = static_cast<const float*>(bo);
   const auto* g = static_cast<const float*>(gamma);
   const auto* bt = static_cast<const float*>(beta);
-  const auto* up = static_cast<const unsigned*>(bits_p);
-  const auto* uh = static_cast<const unsigned*>(bits_h);
+  const tgfr::DropSrc up = tgfr::drop_src(bits_p, seed);
+  const tgfr::DropSrc uh = tgfr::drop_src(
+      bits_h, seed, 0, static_cast<unsigned long long>(heads) * b * t * t);
   if (dtype == tgfr::kBF16)
     return run_fwd<__nv_bfloat16>(x, m, fwqkv, fbqkv, fwo, fbo, g, bt, up, uh,
                                   thr, scale, qkv, p, ctx, resid, y, b, t, h,
@@ -177,15 +186,16 @@ extern "C" int tgfr_attn_block_fwd(const void* x, const void* mask,
 
 // wqkv: (3h, h), wo: (h, h), nn.Linear layout. Outputs dx (b*t, h); dwqkv
 // (3h, h), dbqkv (3h), dwo (h, h), dln (3 h) = [dgamma | dbeta | dbo], all
-// f32. Scratch: dr, dh (b*t, h; dh only with bits), dout (b*t, h), dqkv
-// (b*t, 3h), part (ceil(b*t / 8), 3 h) f32.
+// f32. Dropout as the forward's. Scratch: dr, dh (b*t, h; dh only with
+// dropout), dout (b*t, h), dqkv (b*t, 3h), part (ceil(b*t / 8), 3 h) f32.
 extern "C" int tgfr_attn_block_bwd(const void* dy, const void* x,
                                    const void* qkv, const void* p,
                                    const void* o, const void* r,
                                    const void* wqkv, const void* wo,
                                    const void* gamma, const void* bits_p,
-                                   const void* bits_h, unsigned thr,
-                                   float scale, void* dx, void* dwqkv,
+                                   const void* bits_h, const void* seed,
+                                   unsigned thr, float scale, void* dx,
+                                   void* dwqkv,
                                    void* dbqkv, void* dwo, void* dln,
                                    void* dr, void* dh, void* dout, void* dqkv,
                                    void* part, int b, int t, int h, int heads,
@@ -196,8 +206,9 @@ extern "C" int tgfr_attn_block_bwd(const void* dy, const void* x,
   const auto* fwqkv = static_cast<const float*>(wqkv);
   const auto* fwo = static_cast<const float*>(wo);
   const auto* g = static_cast<const float*>(gamma);
-  const auto* up = static_cast<const unsigned*>(bits_p);
-  const auto* uh = static_cast<const unsigned*>(bits_h);
+  const tgfr::DropSrc up = tgfr::drop_src(bits_p, seed);
+  const tgfr::DropSrc uh = tgfr::drop_src(
+      bits_h, seed, 0, static_cast<unsigned long long>(heads) * b * t * t);
   auto* o1 = static_cast<float*>(dwqkv);
   auto* ob = static_cast<float*>(dbqkv);
   auto* o2 = static_cast<float*>(dwo);

@@ -5,8 +5,8 @@
 // passes (forward, and backward with per-block partial column sums) and a
 // deterministic column sum, and the per-(caption, head) attention blocks.
 // Each kernel source (layernorm.cu, ffn_block.cu, attn_block.cu,
-// tower_block.cu, damsm.cu) includes this header and is built on its own
-// into a shared library with a plain C interface (ops/_cuda.py).
+// tower_block.cu, damsm.cu, philox.cu) includes this header and is built on
+// its own into a shared library with a plain C interface (ops/_cuda.py).
 //
 // The work of every pass is a `__device__` function of a tile index
 // (`*_tile`), so that one pass can be a kernel of its own (the `__global__`
@@ -24,6 +24,9 @@
 // Dropout (block_pallas.py `_drop`, models/text_bert.py `_DropPlan`): keep
 // iff the uint32 bit >= thr, thr = min(round(rate 2^32), 2^32 - 1); a kept
 // value v becomes r(v * r(scale)), scale = 1 / (1 - rate), a dropped one 0.
+// A site's bits come from a `DropSrc`: host-drawn bits in device memory, or
+// the in-kernel Philox stream of a seed read through a device pointer (the
+// stream contract is written out in ops/philox.py).
 #pragma once
 
 #include <cfloat>
@@ -61,6 +64,70 @@ template <typename T>
 __device__ __forceinline__ float drop_to(float v, unsigned bit, unsigned thr,
                                          float scale) {
   return bit >= thr ? round_to<T>(v * round_to<T>(scale)) : 0.f;
+}
+
+// Philox4x32-10 (Random123's philox4x32, 10 rounds) of counter c, key
+// (k0, k1).
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0,
+                                               unsigned k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+// Word i of the stream `key`: word i & 3 of the block of counter
+// (lo32(i >> 2), hi32(i >> 2), 0, 0) under the key (key, 0). Each element
+// computes its own block and keeps one of its four words: 4x the ALU work
+// of a dump, in exchange for no state shared between threads.
+__device__ __forceinline__ unsigned philox_word(unsigned key,
+                                                unsigned long long i) {
+  const unsigned long long q = i >> 2;
+  const uint4 r = philox4x32_10(
+      make_uint4(static_cast<unsigned>(q), static_cast<unsigned>(q >> 32),
+                 0u, 0u), key, 0u);
+  switch (i & 3) {
+    case 0: return r.x;
+    case 1: return r.y;
+    case 2: return r.z;
+    default: return r.w;
+  }
+}
+
+// The dropout bits of one site, element i of the site's row-major layout:
+// bits[i] when the host drew them, else word base + i of the stream
+// *seed + key_add (the tower's layer j adds j). Neither: no dropout.
+struct DropSrc {
+  const unsigned* bits;
+  const int* seed;
+  unsigned key_add;
+  unsigned long long base;
+
+  __host__ __device__ bool on() const { return bits || seed; }
+  __device__ unsigned bit(size_t i) const {
+    return bits ? bits[i]
+                : philox_word(static_cast<unsigned>(__ldg(seed)) + key_add,
+                              base + i);
+  }
+};
+
+// Exactly one of bits and seed, or neither (no dropout).
+inline __host__ __device__ DropSrc drop_src(const void* bits, const void* seed,
+                                            unsigned key_add = 0,
+                                            unsigned long long base = 0) {
+  DropSrc d;
+  d.bits = static_cast<const unsigned*>(bits);
+  d.seed = bits ? nullptr : static_cast<const int*>(seed);
+  d.key_add = key_add;
+  d.base = base;
+  return d;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -169,8 +236,9 @@ cudaError_t launch_layernorm_rows(const T* x, const float* gamma,
 //   xhat = (x - mean) rs,  dxhat = dy g,
 //   dx = rs (dxhat - mean(dxhat) - xhat mean(dxhat xhat))   (f32)
 // stored rounded to T. With `dxd` (the half-layers with dropout), also
-// dxd = drop(r(dx)). Column sums over rows go out as per-block partials,
-// f32, part (gridDim.x, nq h): [dy xhat | dy | (nq == 3) f32(dxd or dx)];
+// dxd = drop(r(dx)), its bits from `drop`. Column sums over rows go out as
+// per-block partials, f32, part (gridDim.x, nq h):
+// [dy xhat | dy | (nq == 3) f32(dxd or dx)];
 // colsum_kernel reduces them. One warp per row, as the forward; blocks run
 // in any order, so nothing is accumulated across blocks and no float atomic
 // is used: the sums are deterministic.
@@ -181,9 +249,9 @@ cudaError_t launch_layernorm_rows(const T* x, const float* gamma,
 template <typename T, typename G, bool ROUND_GAMMA, int WARPS>
 __device__ __forceinline__ void
 layernorm_bwd_rows_tile(const T* dy, const T* x, const G* __restrict__ gamma,
-                        T* dx, T* dxd, const unsigned* __restrict__ bits,
-                        unsigned thr, float scale, float* part, int nq,
-                        int rows, int h, float eps, int tile, float* red) {
+                        T* dx, T* dxd, const DropSrc& drop, unsigned thr,
+                        float scale, float* part, int nq, int rows, int h,
+                        float eps, int tile, float* red) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row = tile * WARPS + warp;
   const bool live = row < rows;
@@ -222,7 +290,7 @@ layernorm_bwd_rows_tile(const T* dy, const T* x, const G* __restrict__ gamma,
     m2 = warp_sum(m2) / h;
     T* xo = dx + (size_t)row * h;
     T* xdo = dxd ? dxd + (size_t)row * h : nullptr;
-    const unsigned* br = bits ? bits + (size_t)row * h : nullptr;
+    const size_t r0 = (size_t)row * h;
 #pragma unroll
     for (int j = 0; j < kLnPerLane; ++j) {
       const int i = lane + 32 * j;
@@ -230,7 +298,7 @@ layernorm_bwd_rows_tile(const T* dy, const T* x, const G* __restrict__ gamma,
       float r = round_to<T>(rs * (o[j] - m1 - v[j] * m2));
       xo[i] = from_f32<T>(r);
       if (xdo) {
-        r = br ? drop_to<T>(r, br[i], thr, scale) : r;
+        if (drop.on()) r = drop_to<T>(r, drop.bit(r0 + i), thr, scale);
         xdo[i] = from_f32<T>(r);
       }
       o[j] = r;                                     // what the 3rd sum adds
@@ -261,13 +329,12 @@ template <typename T, bool ROUND_GAMMA>
 __global__ void __launch_bounds__(kLnThreads)
 layernorm_bwd_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x,
                           const float* __restrict__ gamma, T* __restrict__ dx,
-                          T* __restrict__ dxd,
-                          const unsigned* __restrict__ bits, unsigned thr,
+                          T* __restrict__ dxd, DropSrc drop, unsigned thr,
                           float scale, float* __restrict__ part, int nq,
                           int rows, int h, float eps) {
   __shared__ float red[kLnWarps * kLnMaxWidth];
   layernorm_bwd_rows_tile<T, float, ROUND_GAMMA, kLnWarps>(
-      dy, x, gamma, dx, dxd, bits, thr, scale, part, nq, rows, h, eps,
+      dy, x, gamma, dx, dxd, drop, thr, scale, part, nq, rows, h, eps,
       blockIdx.x, red);
 }
 
@@ -325,13 +392,13 @@ cudaError_t launch_colsum(const TIn* in, int rows, int cols, float* out,
 // sums (nq h floats).
 template <typename T, bool ROUND_GAMMA>
 cudaError_t launch_layernorm_bwd(const T* dy, const T* x, const float* gamma,
-                                 T* dx, T* dxd, const unsigned* bits,
+                                 T* dx, T* dxd, const DropSrc& drop,
                                  unsigned thr, float scale, float* part,
                                  float* sums, int nq, int rows, int h,
                                  float eps, cudaStream_t stream) {
   const int blocks = ln_bwd_blocks(rows);
   layernorm_bwd_rows_kernel<T, ROUND_GAMMA><<<blocks, kLnThreads, 0, stream>>>(
-      dy, x, gamma, dx, dxd, bits, thr, scale, part, nq, rows, h, eps);
+      dy, x, gamma, dx, dxd, drop, thr, scale, part, nq, rows, h, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_colsum<float>(part, blocks, nq * h, sums, stream);
@@ -370,8 +437,8 @@ enum Epilogue {
   kEpiBias = 0,          // out = r(r(acc) + r(bias)); no bias: r(acc)
   kEpiBiasGelu = 1,      // f = r(r(acc) + r(bias)); out = r(gelu(f));
                          //   out2 = f when given
-  kEpiBiasResidual = 2,  // g = r(r(acc) + r(bias)), dropped with `bits`
-                         //   when given; out = r(resid + g)
+  kEpiBiasResidual = 2,  // g = r(r(acc) + r(bias)), dropped with `drop`
+                         //   when on; out = r(resid + g)
   kEpiDgelu = 3,         // out = r(r(acc) * gelu'(aux))
   kEpiF32 = 4,           // out (f32) = acc
 };
@@ -397,11 +464,11 @@ struct GemmArgs {
   const void* bias_t;     // (N,) type T, read when bias is null, or null
   const void* resid;      // (M, N) type T: kEpiBiasResidual
   const void* aux;        // (M, N) type T: kEpiDgelu's pre-activation
-  const unsigned* bits;   // (M, N) dropout bits of kEpiBiasResidual, or null
+  DropSrc drop;           // (M, N) dropout of kEpiBiasResidual, or off
   void* out;              // (M, N) type T, f32 for kEpiF32
   void* out2;             // (M, N) type T: kEpiBiasGelu's f, or null
   int m, n, k;
-  unsigned thr;           // keep iff bits >= thr
+  unsigned thr;           // keep iff bit >= thr
   float scale;            // 1 / (1 - rate)
 };
 
@@ -656,7 +723,7 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, int tile,
           v = gelu_erf(v);
         }
         if constexpr (EPI == kEpiBiasResidual) {
-          if (p.bits) v = drop_to<T>(v, p.bits[o], p.thr, p.scale);
+          if (p.drop.on()) v = drop_to<T>(v, p.drop.bit(o), p.thr, p.scale);
           v = to_f32(static_cast<const T*>(p.resid)[o]) + v;
         }
       }
@@ -705,14 +772,15 @@ inline __host__ __device__ size_t attn_fwd_smem_bytes(int t) {
   return (size_t)(3 * t * kQkvLd + t * t) * sizeof(float);
 }
 
-// Caption b, head `head`: scores, softmax, the probabilities' dropout and
-// P.V, by kAttnThreads threads.
+// Caption b, head `head`: scores, softmax, the probabilities' dropout (bits
+// of `drop_p`, element [head*B + b, i, j]) and P.V, by kAttnThreads
+// threads.
 template <typename T>
 __device__ __forceinline__ void
 attention_core_tile(const T* qkv, const int* __restrict__ mask,
-                    const unsigned* __restrict__ bits_p, unsigned thr,
-                    float scale, T* p_out, T* ctx, int nb, int t, int h,
-                    float inv, int b, int head, float* sm) {
+                    const DropSrc& drop_p, unsigned thr, float scale,
+                    T* p_out, T* ctx, int nb, int t, int h, float inv, int b,
+                    int head, float* sm) {
   float* q = sm;
   float* k = q + t * kQkvLd;
   float* v = k + t * kQkvLd;
@@ -756,8 +824,8 @@ attention_core_tile(const T* qkv, const int* __restrict__ mask,
     for (int j = lane; j < t; j += 32) {
       float pj = round_to<T>(sr[j] / sum);
       if (p_out) p_out[pofs + r * t + j] = from_f32<T>(pj);
-      if (bits_p)
-        pj = drop_to<T>(pj, bits_p[pofs + r * t + j], thr, scale);
+      if (drop_p.on())
+        pj = drop_to<T>(pj, drop_p.bit(pofs + r * t + j), thr, scale);
       sr[j] = pj;
     }
   }
@@ -774,11 +842,11 @@ attention_core_tile(const T* qkv, const int* __restrict__ mask,
 template <typename T>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_core_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
-                      const unsigned* __restrict__ bits_p, unsigned thr,
-                      float scale, T* __restrict__ p_out,
-                      T* __restrict__ ctx, int nb, int t, int h, float inv) {
+                      DropSrc drop_p, unsigned thr, float scale,
+                      T* __restrict__ p_out, T* __restrict__ ctx, int nb,
+                      int t, int h, float inv) {
   extern __shared__ float attn_sm[];
-  attention_core_tile<T>(qkv, mask, bits_p, thr, scale, p_out, ctx, nb, t, h,
+  attention_core_tile<T>(qkv, mask, drop_p, thr, scale, p_out, ctx, nb, t, h,
                          inv, blockIdx.x, blockIdx.y, attn_sm);
 }
 
@@ -789,13 +857,15 @@ inline __host__ __device__ size_t attn_bwd_smem_bytes(int t) {
 
 // Caption b, head `head`: the per-head backward of block_pallas.py
 // `_attn_heads_bwd`, from p (rounded, before dropout) and do = d(context),
-// into that head's slices of dqkv.
+// into that head's slices of dqkv. With dropout each probability's bit is
+// read once: the dropped probabilities go into the dp buffer first (a
+// dropped one as -1, since p >= 0), where dv reads them and dp its mask.
 template <typename T>
 __device__ __forceinline__ void
 attention_core_bwd_tile(const T* qkv, const T* p, const T* dout,
-                        const unsigned* __restrict__ bits_p, unsigned thr,
-                        float scale, T* dqkv, int nb, int t, int h, float inv,
-                        int b, int head, float* sm) {
+                        const DropSrc& drop_p, unsigned thr, float scale,
+                        T* dqkv, int nb, int t, int h, float inv, int b,
+                        int head, float* sm) {
   float* q = sm;
   float* k = q + t * kQkvLd;
   float* v = k + t * kQkvLd;
@@ -817,20 +887,26 @@ attention_core_bwd_tile(const T* qkv, const T* p, const T* dout,
   for (int i = tid; i < t * t; i += kAttnThreads)
     ps[i] = to_f32(p[pofs + i]);
   __syncthreads();
+  const bool drop = drop_p.on();
+  if (drop) {
+    const float sc = round_to<T>(scale);
+    for (int i = tid; i < t * t; i += kAttnThreads)
+      s[i] = drop_p.bit(pofs + i) >= thr ? round_to<T>(ps[i] * sc) : -1.f;
+    __syncthreads();
+  }
 
   // dv[j] = sum_i p_drop[i, j] do[i]
   for (int i = tid; i < t * kDHead; i += kAttnThreads) {
     const int j = i / kDHead, d = i % kDHead;
     float acc = 0.f;
     for (int r = 0; r < t; ++r) {
-      float pd = ps[r * t + j];
-      if (bits_p) pd = drop_to<T>(pd, bits_p[pofs + r * t + j], thr,
-                                        scale);
+      const float pd = drop ? fmaxf(s[r * t + j], 0.f) : ps[r * t + j];
       acc = fmaf(pd, g[r * kQkvLd + d], acc);
     }
     dqkv[(row0 + j) * 3 * h + 2 * h + head * kDHead + d] =
         from_f32<T>(acc);
   }
+  if (drop) __syncthreads();   // s is overwritten with dp below
   // dp[i, j] = do[i] . v[j], masked like the probabilities (f32 scale)
   for (int i = tid; i < t * t; i += kAttnThreads) {
     const int qi = i / t, kj = i % t;
@@ -838,7 +914,7 @@ attention_core_bwd_tile(const T* qkv, const T* p, const T* dout,
 #pragma unroll 16
     for (int d = 0; d < kDHead; ++d)
       acc = fmaf(g[qi * kQkvLd + d], v[kj * kQkvLd + d], acc);
-    if (bits_p) acc = bits_p[pofs + i] >= thr ? acc * scale : 0.f;
+    if (drop) acc = s[i] >= 0.f ? acc * scale : 0.f;
     s[i] = acc;
   }
   __syncthreads();
@@ -873,12 +949,11 @@ attention_core_bwd_tile(const T* qkv, const T* p, const T* dout,
 template <typename T>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
-                          const T* __restrict__ dout,
-                          const unsigned* __restrict__ bits_p, unsigned thr,
-                          float scale, T* __restrict__ dqkv, int nb, int t,
-                          int h, float inv) {
+                          const T* __restrict__ dout, DropSrc drop_p,
+                          unsigned thr, float scale, T* __restrict__ dqkv,
+                          int nb, int t, int h, float inv) {
   extern __shared__ float attn_sm[];
-  attention_core_bwd_tile<T>(qkv, p, dout, bits_p, thr, scale, dqkv, nb, t, h,
+  attention_core_bwd_tile<T>(qkv, p, dout, drop_p, thr, scale, dqkv, nb, t, h,
                              inv, blockIdx.x, blockIdx.y, attn_sm);
 }
 

@@ -14,8 +14,12 @@
 //   (a) f = x . W1 + c1 and act = gelu(f), both rounded to the activation
 //       type, into (R, I) buffers (4.7 MB each in bf16, L2-resident); f is
 //       written only when the backward will need it;
-//   (b) r = x + drop(act . W2 + c2), dropout (host bits, given when
-//       rate > 0) and the residual fused into the GEMM epilogue;
+//   (b) r = x + drop(act . W2 + c2), dropout and the residual fused into
+//       the GEMM epilogue; the bits are host-drawn, or (prng mode) words
+//       [0, R H) of the stream of the seed the wrapper hands over, already
+//       the layer seed ^ 0x5BD1E995 (ops/philox.py), each element computing
+//       its own Philox block: 4x the ALU work of a dump, and no bits in
+//       device memory;
 //   (c) z = LN(r), one warp per row.
 // The backward's residuals are x, f, act and r.
 //
@@ -25,8 +29,9 @@
 // chip_smoke.py counts them. The TPU kernel streams over I with an f32 dx
 // accumulator; here it becomes seven launches:
 //   (1) the LN backward row pass from r (statistics recomputed), then the
-//       dropout: dr and dgg = drop(dr), rounded; dgamma, dbeta and dc2 as
-//       per-block partial sums, (2) reduced in a fixed order;
+//       dropout (the forward's bits, or its stream regenerated from the
+//       same seed): dr and dgg = drop(dr), rounded; dgamma, dbeta and dc2
+//       as per-block partial sums, (2) reduced in a fixed order;
 //   (3) dW2 = dgg^T . act, f32;
 //   (4) df = r(r(dgg . W2) * gelu'(f)), the GELU derivative in the epilogue;
 //   (5) dW1 = df^T . x, f32;  (6) dc1 = column sums of df;
@@ -41,7 +46,7 @@ namespace {
 template <typename T>
 int run_fwd(const void* x, const float* w1, const float* c1, const float* w2,
             const float* c2, const float* gamma, const float* beta,
-            const unsigned* bits, unsigned thr, float scale, void* act,
+            const tgfr::DropSrc& drop, unsigned thr, float scale, void* act,
             void* f, void* resid, void* z, int rows, int h, int inter,
             float eps, cudaStream_t s) {
   tgfr::GemmArgs up = tgfr::gemm_args(x, w1, act, rows, inter, h);
@@ -52,7 +57,7 @@ int run_fwd(const void* x, const float* w1, const float* c1, const float* w2,
   tgfr::GemmArgs down = tgfr::gemm_args(act, w2, resid, rows, h, inter);
   down.bias = c2;
   down.resid = x;
-  down.bits = bits;
+  down.drop = drop;
   down.thr = thr;
   down.scale = scale;
   err = tgfr::launch_gemm<T, tgfr::kEpiBiasResidual>(down, s);
@@ -66,16 +71,16 @@ int run_fwd(const void* x, const float* w1, const float* c1, const float* w2,
 template <typename T>
 int run_bwd(const void* dz, const void* x, const void* f, const void* act,
             const void* r, const float* w1, const float* w2,
-            const float* gamma, const unsigned* bits, unsigned thr,
+            const float* gamma, const tgfr::DropSrc& drop, unsigned thr,
             float scale, void* dx, float* dw1, float* dc1, float* dw2,
             float* dln, void* dr, void* dgg, void* df, float* part, int rows,
             int h, int inter, float eps, cudaStream_t s) {
   // (1, 2) dr, dgg = drop(dr); dln = [dgamma | dbeta | dc2]
-  T* dgg_t = static_cast<T*>(bits ? dgg : dr);
+  T* dgg_t = static_cast<T*>(drop.on() ? dgg : dr);
   cudaError_t err = tgfr::launch_layernorm_bwd<T, true>(
       static_cast<const T*>(dz), static_cast<const T*>(r), gamma,
-      static_cast<T*>(dr), bits ? dgg_t : nullptr, bits, thr, scale, part,
-      dln, 3, rows, h, eps, s);
+      static_cast<T*>(dr), drop.on() ? dgg_t : nullptr, drop, thr, scale,
+      part, dln, 3, rows, h, eps, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   // (3) dW2 (h, inter) = dgg^T . act
   err = tgfr::launch_weight_grad<T>(dgg_t, act, dw2, h, inter, rows, s);
@@ -103,12 +108,14 @@ int run_bwd(const void* dz, const void* x, const void* f, const void* act,
 
 }  // namespace
 
-// bits: (rows, h) uint32 or null (no dropout); f: (rows, inter) or null.
+// Dropout: bits (rows, h) uint32, or seed (1,) int32 on the device (the
+// FFN stream's seed), or neither (no dropout); f: (rows, inter) or null.
 extern "C" int tgfr_ffn_block_fwd(const void* x, const void* w1,
                                   const void* c1, const void* w2,
                                   const void* c2, const void* gamma,
                                   const void* beta, const void* bits,
-                                  unsigned thr, float scale, void* act,
+                                  const void* seed, unsigned thr,
+                                  float scale, void* act,
                                   void* f, void* resid, void* z, int rows,
                                   int h, int inter, float eps, int dtype,
                                   void* stream) {
@@ -119,7 +126,7 @@ extern "C" int tgfr_ffn_block_fwd(const void* x, const void* w1,
   const auto* fc2 = static_cast<const float*>(c2);
   const auto* g = static_cast<const float*>(gamma);
   const auto* b = static_cast<const float*>(beta);
-  const auto* u = static_cast<const unsigned*>(bits);
+  const tgfr::DropSrc u = tgfr::drop_src(bits, seed);
   if (dtype == tgfr::kBF16)
     return run_fwd<__nv_bfloat16>(x, fw1, fc1, fw2, fc2, g, b, u, thr, scale,
                                   act, f, resid, z, rows, h, inter, eps, s);
@@ -131,22 +138,24 @@ extern "C" int tgfr_ffn_block_fwd(const void* x, const void* w1,
 
 // w1: (inter, h), w2: (h, inter), nn.Linear layout. Outputs dx (rows, h);
 // dw1 (inter, h), dc1 (inter), dw2 (h, inter), dln (3 h) = [dgamma | dbeta
-// | dc2], all f32. Scratch: dr, dgg (rows, h; dgg only with bits), df
-// (rows, inter), part (ceil(rows / 8), 3 h) f32.
+// | dc2], all f32. Dropout as the forward's. Scratch: dr, dgg (rows, h;
+// dgg only with dropout), df (rows, inter), part (ceil(rows / 8), 3 h)
+// f32.
 extern "C" int tgfr_ffn_block_bwd(const void* dz, const void* x,
                                   const void* f, const void* act,
                                   const void* r, const void* w1,
                                   const void* w2, const void* gamma,
-                                  const void* bits, unsigned thr, float scale,
-                                  void* dx, void* dw1, void* dc1, void* dw2,
-                                  void* dln, void* dr, void* dgg, void* df,
-                                  void* part, int rows, int h, int inter,
-                                  float eps, int dtype, void* stream) {
+                                  const void* bits, const void* seed,
+                                  unsigned thr, float scale, void* dx,
+                                  void* dw1, void* dc1, void* dw2, void* dln,
+                                  void* dr, void* dgg, void* df, void* part,
+                                  int rows, int h, int inter, float eps,
+                                  int dtype, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* fw1 = static_cast<const float*>(w1);
   const auto* fw2 = static_cast<const float*>(w2);
   const auto* g = static_cast<const float*>(gamma);
-  const auto* u = static_cast<const unsigned*>(bits);
+  const tgfr::DropSrc u = tgfr::drop_src(bits, seed);
   auto* o1 = static_cast<float*>(dw1);
   auto* oc1 = static_cast<float*>(dc1);
   auto* o2 = static_cast<float*>(dw2);

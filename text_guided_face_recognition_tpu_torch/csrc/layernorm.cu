@@ -57,13 +57,13 @@ extern "C" int tgfr_layernorm_bwd(const void* dy, const void* x,
     using T = __nv_bfloat16;
     err = tgfr::launch_layernorm_bwd<T, false>(
         static_cast<const T*>(dy), static_cast<const T*>(x), g,
-        static_cast<T*>(dx), nullptr, nullptr, 0u, 1.f, pt, sums, 2, rows, h,
-        eps, s);
+        static_cast<T*>(dx), nullptr, tgfr::DropSrc{}, 0u, 1.f, pt, sums, 2,
+        rows, h, eps, s);
   } else if (dtype == tgfr::kF32) {
     err = tgfr::launch_layernorm_bwd<float, false>(
         static_cast<const float*>(dy), static_cast<const float*>(x), g,
-        static_cast<float*>(dx), nullptr, nullptr, 0u, 1.f, pt, sums, 2,
-        rows, h, eps, s);
+        static_cast<float*>(dx), nullptr, tgfr::DropSrc{}, 0u, 1.f, pt, sums,
+        2, rows, h, eps, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

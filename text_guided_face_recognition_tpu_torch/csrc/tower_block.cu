@@ -30,6 +30,12 @@
 //   (6) r2 = y + drop(a . W2 + c2);  (7) z = LN(r2), written straight into
 //   the next layer's input slot (or the output), so no tile reads a row that
 //   another block is overwriting.
+// Dropout bits: host-drawn (L, ...) stacks, or (prng mode) in-kernel
+// Philox from the one seed read through a device pointer: layer j draws
+// stream seed + j, its probabilities at words [0, heads B T^2), the
+// attention output next and the FFN output after it (ops/philox.py, the
+// TPU kernel's prng_seed(seed + j) and draw order); the backward
+// regenerates the same words.
 // When a gradient is needed the per-layer residuals xin, qkv, p, o, r1, f,
 // r2 are kept as (L, ...) buffers; a and y are not (the backward recomputes
 // them). Otherwise one layer's worth of scratch is reused and the input
@@ -77,12 +83,13 @@ static_assert(kThreads == kGemmThreads && kThreads == kAttnThreads, "");
 // Pointer slots of the C interface (see tgfr_tower_fwd / tgfr_tower_bwd).
 enum FwdPtr {
   F_X, F_MASK, F_WQKV, F_BQKV, F_WO, F_BO, F_G1, F_B1, F_W1, F_C1, F_W2, F_C2,
-  F_G2, F_B2, F_BITS_P, F_BITS_H, F_BITS_F, F_Z, F_XIN, F_QKV, F_P, F_O, F_R1,
-  F_F, F_R2, F_Y, F_A, F_COUNT
+  F_G2, F_B2, F_BITS_P, F_BITS_H, F_BITS_F, F_SEED, F_Z, F_XIN, F_QKV, F_P,
+  F_O, F_R1, F_F, F_R2, F_Y, F_A, F_COUNT
 };
 enum BwdPtr {
   B_DZ, B_MASK, B_XIN, B_QKV, B_P, B_O, B_R1, B_F, B_R2, B_WQKV, B_WO, B_G1,
-  B_B1, B_W1, B_W2, B_G2, B_BITS_P, B_BITS_H, B_BITS_F, B_DX, B_DWQKV,
+  B_B1, B_W1, B_W2, B_G2, B_BITS_P, B_BITS_H, B_BITS_F, B_SEED, B_DX,
+  B_DWQKV,
   B_DBQKV, B_DWO, B_DBO, B_DG1, B_DB1, B_DW1, B_DC1, B_DW2, B_DC2, B_DG2,
   B_DB2, B_DR, B_DD, B_A, B_Y, B_DF, B_DY, B_DOUT, B_DQKV, B_PART, B_COUNT
 };
@@ -99,8 +106,26 @@ template <typename T> __device__ __forceinline__ T* at(void* base, size_t ofs) {
   return base ? static_cast<T*>(base) + ofs : nullptr;
 }
 
-__device__ __forceinline__ const unsigned* bits_at(void* base, long long ofs) {
-  return base ? static_cast<const unsigned*>(base) + ofs : nullptr;
+// Layer j's three dropout sources (probabilities, attention output, FFN
+// output): the host bits at the layer's stride, or stream seed + j at word
+// offsets 0, n_p and n_p + R H.
+struct LayerDrop {
+  DropSrc p, h, f;
+};
+
+__device__ __forceinline__ LayerDrop layer_drop(const TowerArgs& a,
+                                                void* const* bits, void* seed,
+                                                int j) {
+  const unsigned long long n_p = (unsigned long long)a.heads * a.b * a.t * a.t;
+  const unsigned long long n_h = (unsigned long long)a.b * a.t * a.h;
+  const unsigned long long base[3] = {0, n_p, n_p + n_h};
+  DropSrc d[3];
+  for (int k = 0; k < 3; ++k)
+    d[k] = drop_src(bits[k] ? static_cast<const unsigned*>(bits[k]) +
+                                  j * a.bits_stride[k]
+                            : nullptr,
+                    seed, static_cast<unsigned>(j), base[k]);
+  return {d[0], d[1], d[2]};
 }
 
 template <typename T, int EPI, int AL, int BL>
@@ -176,9 +201,7 @@ __global__ void __launch_bounds__(kThreads) tower_fwd_kernel(TowerArgs a) {
     T* r1 = at<T>(a.p[F_R1], slot * act);
     T* f = at<T>(a.p[F_F], slot * rows * inter);
     T* r2 = at<T>(a.p[F_R2], slot * act);
-    const unsigned* bp = bits_at(a.p[F_BITS_P], j * a.bits_stride[0]);
-    const unsigned* bh = bits_at(a.p[F_BITS_H], j * a.bits_stride[1]);
-    const unsigned* bf = bits_at(a.p[F_BITS_F], j * a.bits_stride[2]);
+    const LayerDrop ld = layer_drop(a, a.p + F_BITS_P, a.p[F_SEED], j);
 
     // (1) qkv = x . Wqkv + bqkv; layer 0 also files x as its saved input
     {
@@ -196,8 +219,8 @@ __global__ void __launch_bounds__(kThreads) tower_fwd_kernel(TowerArgs a) {
     grid.sync();
     // (2) attention per (caption, head)
     for (int w = blockIdx.x; w < a.b * a.heads; w += gridDim.x) {
-      attention_core_tile<T>(qkv, mask, bp, a.thr, a.scale, p, o, a.b, a.t, h,
-                             inv, w / a.heads, w % a.heads,
+      attention_core_tile<T>(qkv, mask, ld.p, a.thr, a.scale, p, o, a.b, a.t,
+                             h, inv, w / a.heads, w % a.heads,
                              reinterpret_cast<float*>(smem));
       __syncthreads();
     }
@@ -208,7 +231,7 @@ __global__ void __launch_bounds__(kThreads) tower_fwd_kernel(TowerArgs a) {
                              h, h);
       g.bias_t = at<T>(a.p[F_BO], (size_t)j * h);
       g.resid = x;
-      g.bits = bh;
+      g.drop = ld.h;
       g.thr = a.thr;
       g.scale = a.scale;
       run_gemm<T, kEpiBiasResidual, kARowMajor, kBActNK>(g, 0, smem);
@@ -235,7 +258,7 @@ __global__ void __launch_bounds__(kThreads) tower_fwd_kernel(TowerArgs a) {
                              rows, h, inter);
       g.bias_t = at<T>(a.p[F_C2], (size_t)j * h);
       g.resid = y;
-      g.bits = bf;
+      g.drop = ld.f;
       g.thr = a.thr;
       g.scale = a.scale;
       run_gemm<T, kEpiBiasResidual, kARowMajor, kBActNK>(g, 0, smem);
@@ -286,18 +309,16 @@ __global__ void __launch_bounds__(kThreads) tower_bwd_kernel(TowerArgs a) {
     const T* g1 = at<T>(a.p[B_G1], (size_t)j * h);
     const T* b1 = at<T>(a.p[B_B1], (size_t)j * h);
     const T* g2 = at<T>(a.p[B_G2], (size_t)j * h);
-    const unsigned* bp = bits_at(a.p[B_BITS_P], j * a.bits_stride[0]);
-    const unsigned* bh = bits_at(a.p[B_BITS_H], j * a.bits_stride[1]);
-    const unsigned* bf = bits_at(a.p[B_BITS_F], j * a.bits_stride[2]);
-    // the dropped gradients: a buffer of their own with bits, else dr itself
-    T* dd_f = bf ? static_cast<T*>(a.p[B_DD]) : dr;
-    T* dd_h = bh ? static_cast<T*>(a.p[B_DD]) : dr;
+    const LayerDrop ld = layer_drop(a, a.p + B_BITS_P, a.p[B_SEED], j);
+    // the dropped gradients: a buffer of their own with dropout, else dr
+    T* dd_f = ld.f.on() ? static_cast<T*>(a.p[B_DD]) : dr;
+    T* dd_h = ld.h.on() ? static_cast<T*>(a.p[B_DD]) : dr;
 
     // (1) LN2 backward rows; a = gelu(f) and y = LN(r1) recomputed
     for (int w = blockIdx.x; w < ln_tiles; w += gridDim.x)
       layernorm_bwd_rows_tile<T, T, false, kWarps>(
-          dz, r2, g2, dr, bf ? dd_f : nullptr, bf, a.thr, a.scale, part, 3,
-          rows, h, a.eps, w, red);
+          dz, r2, g2, dr, ld.f.on() ? dd_f : nullptr, ld.f, a.thr, a.scale,
+          part, 3, rows, h, a.eps, w, red);
     for (int w = blockIdx.x; w < ln_tiles; w += gridDim.x)
       layernorm_rows_tile<T, T, false, kWarps>(r1, g1, b1, y, rows, h, a.eps,
                                                w);
@@ -338,8 +359,8 @@ __global__ void __launch_bounds__(kThreads) tower_bwd_kernel(TowerArgs a) {
     // (4) LN1 backward rows
     for (int w = blockIdx.x; w < ln_tiles; w += gridDim.x)
       layernorm_bwd_rows_tile<T, T, false, kWarps>(
-          dy, r1, g1, dr, bh ? dd_h : nullptr, bh, a.thr, a.scale, part, 3,
-          rows, h, a.eps, w, red);
+          dy, r1, g1, dr, ld.h.on() ? dd_h : nullptr, ld.h, a.thr, a.scale,
+          part, 3, rows, h, a.eps, w, red);
     grid.sync();
     // (5) dgamma1, dbeta1, dbo; dWo (h, h) = dh^T . o; do = r(dh . Wo)
     {
@@ -356,8 +377,9 @@ __global__ void __launch_bounds__(kThreads) tower_bwd_kernel(TowerArgs a) {
     grid.sync();
     // (6) the attention backward per (caption, head)
     for (int w = blockIdx.x; w < a.b * a.heads; w += gridDim.x) {
-      attention_core_bwd_tile<T>(qkv, p, dout, bp, a.thr, a.scale, dqkv, a.b,
-                                 a.t, h, inv, w / a.heads, w % a.heads, red);
+      attention_core_bwd_tile<T>(qkv, p, dout, ld.p, a.thr, a.scale, dqkv,
+                                 a.b, a.t, h, inv, w / a.heads, w % a.heads,
+                                 red);
       __syncthreads();
     }
     grid.sync();
@@ -443,7 +465,8 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // ptrs: F_COUNT device pointers in FwdPtr order (null where absent): x
 // (b t, h), mask (b, t) int32, the 12 stacked leaves of type T with weights
-// (L, out, in), bits p / h / f (layer 0's, uint32; null without dropout), z
+// (L, out, in), bits p / h / f (layer 0's, uint32; null without dropout or
+// in prng mode), seed ((1,) int32: prng mode; else null), z
 // (b t, h), then the residuals xin, qkv, p, o, r1, f, r2 ((L, ...) with
 // save; else xin (2, b t, h), one layer of qkv, o, r1, r2, and p, f null),
 // and scratch y (b t, h), a (b t, inter). strides: elements between two
@@ -471,7 +494,7 @@ extern "C" int tgfr_tower_fwd(void* const* ptrs, const long long* strides,
 
 // ptrs: B_COUNT device pointers in BwdPtr order: dz (b t, h), mask, the
 // saved residuals xin, qkv, p, o, r1, f, r2 (L, ...), the stacked leaves
-// wqkv, wo, g1, b1, w1, w2, g2 of type T, bits p / h / f; outputs dx
+// wqkv, wo, g1, b1, w1, w2, g2 of type T, bits p / h / f, seed; outputs dx
 // (b t, h) and the 12 stacked gradients of type T in the leaves' shapes;
 // scratch dr, dd (b t, h; dd only with bits), a (b t, inter), y (b t, h),
 // df (b t, inter), dy, dout (b t, h), dqkv (b t, 3h), part

@@ -65,6 +65,16 @@ class CastAdam(torch.optim.Optimizer):
         self.moment_dtype = moment_dtype
         self.grad_dtype = grad_dtype
 
+    def load_state_dict(self, state_dict) -> None:
+        """torch's loader casts floating-point state to each parameter's
+        dtype; the moments go back to `moment_dtype` (exactly: they were
+        stored in it), so a resumed optimizer runs as the saved one."""
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            for k in ("exp_avg", "exp_avg_sq"):
+                if k in st:
+                    st[k] = st[k].to(self.moment_dtype)
+
     @torch.no_grad()
     def step(self, closure=None):
         for group in self.param_groups:

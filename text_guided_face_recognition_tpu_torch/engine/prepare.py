@@ -141,7 +141,8 @@ def prepare_text_encoder(args, device: torch.device
     dtype = compute_dtype(args)
     enc = M.TextEncoder(bert_type=args.bert_type, dtype=dtype,
                         fused_ln=bool(args.fused_ln),
-                        fused_block=str(args.fused_block))
+                        fused_block=str(args.fused_block),
+                        fused_dropout=bool(args.fused_dropout))
     head = M.TextHeading(hidden=M.TEXT_ARCHS[args.bert_type].hidden,
                          feat_dim=args.aux_feat_dim_per_granularity,
                          dtype=dtype)

@@ -5,8 +5,9 @@ Counterpart of text_guided_face_recognition_tpu/engine/stage1.py
 
   * the frozen backbone (eval-mode BN, no gradient) -> ImageHeading in
     train mode (batch statistics; running statistics updated in place);
-  * the BERT tower in train mode (dropout from one flat bit draw per step,
-    on the device, from a torch.Generator seeded with manual_seed + 1) ->
+  * the BERT tower in train mode (dropout from one flat bit draw per step
+    and, unless fused_dropout, the fused kernels' int32 seeds, on the
+    device, from a torch.Generator seeded with manual_seed + 1) ->
     TextHeading;
   * the loss cocktail gated by is_DAMSM / is_CLIP / is_ident_loss with the
     reference's weights (DAMSM word + sentence terms, ArcFace focal identity
@@ -122,16 +123,16 @@ class Stage1Trainer(TrainerBase):
     # ---------------------------------------------------------- train step --
 
     def build_loss_fn(self):
-        """The stage-1 loss cocktail: loss_fn(batch, drop_bits) ->
-        (total, metrics), a batch of device tensors."""
+        """The stage-1 loss cocktail: loss_fn(batch, drop_bits,
+        drop_seeds) -> (total, metrics), a batch of device tensors."""
         args = self.args
         g = args.TRAIN.SMOOTH
         m = self.model
 
-        def loss_fn(batch, drop_bits=None):
+        def loss_fn(batch, drop_bits=None, drop_seeds=None):
             class_ids = batch["cls_id"].long()
             words_raw, _ = m.text_encoder(batch["caps"], batch["mask"],
-                                          drop_bits)
+                                          drop_bits, drop_seeds)
             words_emb, sent_emb = m.text_head(words_raw)
             if args.compat_frozen_text:
                 words_emb, sent_emb = words_emb.detach(), sent_emb.detach()

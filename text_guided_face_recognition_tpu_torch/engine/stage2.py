@@ -10,8 +10,9 @@ focal loss (`model_type: arcface` and `loss: focal_loss`) or cross entropy.
 
   * the frozen backbone (eval-mode BN, no gradient) -> ImageHeading in
     train mode (batch statistics; running statistics updated in place);
-  * the BERT tower in train mode (dropout from one flat bit draw per step,
-    on the device, from a torch.Generator seeded with manual_seed + 2) ->
+  * the BERT tower in train mode (dropout from one flat bit draw per step
+    and, unless fused_dropout, the fused kernels' int32 seeds, on the
+    device, from a torch.Generator seeded with manual_seed + 2) ->
     TextHeading;
   * fusion: FCFM(local map, word features, global feature, sentence
     feature) in train mode (its two BatchNorms take batch statistics), or
@@ -116,13 +117,13 @@ class FusionTrainer(TrainerBase):
 
     def build_embed_fn(self):
         """The fused-embedding forward, everything up to the margin head:
-        embed_fn(batch, drop_bits) -> (B, fusion_final_dim) (reference:
-        get_fusion_output, src/fusion_bert.py:144-155)."""
+        embed_fn(batch, drop_bits, drop_seeds) -> (B, fusion_final_dim)
+        (reference: get_fusion_output, src/fusion_bert.py:144-155)."""
         args, m = self.args, self.model
 
-        def embed_fn(batch, drop_bits=None):
+        def embed_fn(batch, drop_bits=None, drop_seeds=None):
             words_raw, _ = m.text_encoder(batch["caps"], batch["mask"],
-                                          drop_bits)
+                                          drop_bits, drop_seeds)
             words_emb, sent_emb = m.text_head(words_raw)
             if args.compat_frozen_text:
                 words_emb, sent_emb = words_emb.detach(), sent_emb.detach()
@@ -138,15 +139,16 @@ class FusionTrainer(TrainerBase):
         return embed_fn
 
     def build_loss_fn(self):
-        """The stage-2 margin loss: loss_fn(batch, drop_bits) ->
-        (loss, {"loss": loss}), a batch of device tensors."""
+        """The stage-2 margin loss: loss_fn(batch, drop_bits, drop_seeds)
+        -> (loss, {"loss": loss}), a batch of device tensors."""
         args, m = self.args, self.model
         use_focal = args.model_type == "arcface" and args.loss == "focal_loss"
         embed_fn = self.build_embed_fn()
 
-        def loss_fn(batch, drop_bits=None):
+        def loss_fn(batch, drop_bits=None, drop_seeds=None):
             label = batch["cls_id"].long()
-            logits = m.metric_fc(embed_fn(batch, drop_bits), label)
+            logits = m.metric_fc(embed_fn(batch, drop_bits, drop_seeds),
+                                 label)
             if use_focal:
                 loss = ops.focal_loss(logits, label, gamma=2.0)
             else:

@@ -1,18 +1,20 @@
 """What the stage-1 and stage-2 trainers share: moving a batch to the
-device, the step's dropout bits, the frozen backbone, one training step
+device, the step's dropout bits and seeds, the frozen backbone, one
+training step
 (forward, backward, optimizer), the per-group learning rates, and the
 resumable train-state artifact.
 
 A subclass sets `args`, `device`, `backbone`, `model` (an nn.Module whose
 children are the optimizer's named modules), `opt` (engine/optim.
 GroupedOptimizer), `lr` ({group: rate}), `arch`, `drop_gen`, `loss_fn`
-(batch, drop_bits) -> (total, metrics), `start_epoch` and `steps`.
+(batch, drop_bits, drop_seeds) -> (total, metrics), `start_epoch` and
+`steps`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,9 +23,8 @@ from text_guided_face_recognition_tpu_torch.engine.checkpoint import (
     load_checkpoint, save_checkpoint)
 from text_guided_face_recognition_tpu_torch.engine.evaluate import (
     backbone_features)
-from text_guided_face_recognition_tpu_torch.models.text_bert import (
-    drop_elems)
-from text_guided_face_recognition_tpu_torch.ops.dropout import draw
+from text_guided_face_recognition_tpu_torch.ops.dropout import (
+    draw, draw_seeds)
 
 __all__ = ["TrainerBase", "nan_guard"]
 
@@ -46,33 +47,42 @@ class TrainerBase:
                                                      non_blocking=True)
                 for k, v in batch.items() if k != "key"}
 
-    def draw_bits(self, b: int, t: int) -> Optional[torch.Tensor]:
-        """One step's dropout bits for the text tower (None without
-        dropout)."""
-        if not self.arch.dropout:
-            return None
-        return draw(drop_elems(self.arch, b, t), self.drop_gen, self.device)
+    def draw_drop(self, b: int, t: int
+                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """One step's dropout for the text tower, drawn on the device from
+        drop_gen: (host bits, kernel seeds). In host mode (fused_dropout)
+        the bits of every site and no seeds; in prng mode the bits of the
+        sites the kernels do not draw, then their int32 seeds. (None, None)
+        without dropout."""
+        n_bits, n_seeds = self.model.text_encoder.model.drop_counts(b, t)
+        if not n_bits:
+            return None, None
+        bits = draw(n_bits, self.drop_gen, self.device)
+        seeds = (draw_seeds(n_seeds, self.drop_gen, self.device) if n_seeds
+                 else None)
+        return bits, seeds
 
     @torch.no_grad()
     def image_features(self, img: torch.Tensor):
         """The frozen backbone's (global, local) features."""
         return backbone_features(self.backbone, self.args.model_type, img)
 
-    def compute_grads(self, batch, drop_bits=None):
+    def compute_grads(self, batch, drop_bits=None, drop_seeds=None):
         """Forward and backward of one step: the gradients land in the
-        parameters' .grad. Returns (total, metrics)."""
-        if drop_bits is None:
-            drop_bits = self.draw_bits(*batch["caps"].shape)
+        parameters' .grad. Returns (total, metrics). The step draws its
+        dropout (`draw_drop`) unless the caller replays one."""
+        if drop_bits is None and drop_seeds is None:
+            drop_bits, drop_seeds = self.draw_drop(*batch["caps"].shape)
         self.opt.zero_grad()
-        total, metrics = self.loss_fn(batch, drop_bits)
+        total, metrics = self.loss_fn(batch, drop_bits, drop_seeds)
         total.backward()
         return total.detach(), {k: v.detach() for k, v in metrics.items()}
 
-    def train_step(self, batch, drop_bits=None, acc=None
+    def train_step(self, batch, drop_bits=None, acc=None, drop_seeds=None
                    ) -> Dict[str, torch.Tensor]:
         """One training step on a device batch; returns its metrics (added
         to `acc` on the device when given)."""
-        _, metrics = self.compute_grads(batch, drop_bits)
+        _, metrics = self.compute_grads(batch, drop_bits, drop_seeds)
         self.opt.step()
         self.steps += 1
         if acc is not None:

@@ -4,7 +4,7 @@ Counterpart of text_guided_face_recognition_tpu/models/text_bert.py, for the
 post-LN, erf-GELU archs (bert, align, blip). Submodule and parameter names
 follow the JAX package's flax tree (engine/from_jax.py maps one onto the
 other); q|k|v are packed on the output axis of one `qkv` projection,
-head-major within each. Serving only: no dropout, token-type ids all zero.
+head-major within each. Token-type ids are all zero.
 
 `fused_block` routes the tower's half-layers through the hand-written CUDA
 kernels of ops/block.py ("attn", "ffn" or "both"), or all of its layers
@@ -16,11 +16,20 @@ The module tree and the state_dict keys are the same under every
 fused_block), pre-LN blocks, causal masks and quick-GELU (the
 clip/groupvit/falva archs) are not ported yet and raise
 NotImplementedError.
+
+Dropout in train mode follows the JAX package's two modes. With
+`fused_dropout` (host mode) every site takes bits from the step's one flat
+host draw, in the plan's site order. Without it (prng mode, the JAX
+package's default and its `use_prng` on the chip) the fused half-layers'
+kernels draw their bits in-kernel from int32 seeds, one per layer for
+attn / ffn / both and one for tower (ops/philox.py), and the host draw holds
+only the other sites: the embeddings and the unfused halves.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -32,7 +41,7 @@ from text_guided_face_recognition_tpu_torch.models.layers import (
 from text_guided_face_recognition_tpu_torch.ops.block import (
     D_HEAD, attn_block, ffn_block, gelu, tower_block)
 from text_guided_face_recognition_tpu_torch.ops.dropout import (
-    DropBits, dropout, total_elems)
+    DropBits, dropout, layer_sites, prng_sites, total_elems)
 from text_guided_face_recognition_tpu_torch.ops.layernorm import (
     layernorm_fused)
 
@@ -77,9 +86,11 @@ TEXT_ARCHS = {
 }
 
 
-def drop_elems(arch: TextArch, b: int, t: int) -> int:
-    """Dropout bits one training forward of the tower takes."""
-    return total_elems(arch.hidden, arch.layers, arch.heads, b, t)
+def drop_elems(arch: TextArch, b: int, t: int, fused_block: str = "none",
+               fused_dropout: bool = True) -> int:
+    """Host dropout bits one training forward of the tower takes."""
+    return total_elems(arch.hidden, arch.layers, arch.heads, b, t,
+                       prng_sites(fused_block, fused_dropout))
 
 
 class LayerNorm(nn.Module):
@@ -151,35 +162,44 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 mask_i32: torch.Tensor, plan: Optional[DropBits] = None,
-                rate: float = 0.0) -> torch.Tensor:
+                rate: float = 0.0,
+                seed: Optional[torch.Tensor] = None) -> torch.Tensor:
         """mask: (B, T) bool; mask_i32: the same as contiguous int32, the
-        kernel's form. plan: this step's dropout bits when rate > 0."""
+        kernel's form. plan: this step's host dropout bits when rate > 0;
+        seed: the layer's (1,) int32 seed in prng mode, which the fused
+        halves draw from (the FFN half from stream seed ^ 0x5BD1E995) while
+        the unfused ones take host bits."""
         a = self.arch
         b, t, h = x.shape
         eps = a.ln_eps
+        fused_attn = self.fused_block in ("attn", "both")
+        fused_ffn = self.fused_block in ("ffn", "both")
+        seed_attn = seed if fused_attn else None
+        seed_ffn = seed if fused_ffn else None
         bits_p = bits_h = bits_f = None
         if rate > 0.0:
-            bits_p = plan.take((a.heads * b, t, t))
-            bits_h = plan.take((b * t, h))
-            bits_f = plan.take((b * t, h))
-        if self.fused_block in ("attn", "both"):
+            drawn = {"attn": seed_attn, "ffn": seed_ffn}
+            bits_p, bits_h, bits_f = (
+                None if drawn[half] is not None else plan.take(shape)
+                for half, shape in layer_sites(h, a.heads, b, t))
+        if fused_attn:
             y = attn_block(
                 x.reshape(b * t, h).contiguous(), mask_i32,
                 self.attn.qkv.weight.t(), self.attn.qkv.bias,
                 self.attn.out.weight.t(), self.attn.out.bias,
                 self.attn_ln.weight, self.attn_ln.bias, b, t, a.heads, rate,
-                eps, bits_p, bits_h).reshape(b, t, h)
+                eps, bits_p, bits_h, seed_attn).reshape(b, t, h)
         else:
             att = self.attn(x, mask, bits_p, rate)
             if rate > 0.0:
                 att = dropout(att, bits_h.view(b, t, h), rate)
             y = self.attn_ln(x + att)
-        if self.fused_block in ("ffn", "both"):
+        if fused_ffn:
             return ffn_block(
                 y.reshape(b * t, h).contiguous(), self.ffn_in.weight.t(),
                 self.ffn_in.bias, self.ffn_out.weight.t(), self.ffn_out.bias,
                 self.ffn_ln.weight, self.ffn_ln.bias, rate, eps,
-                bits_f).reshape(b, t, h)
+                bits_f, seed_ffn).reshape(b, t, h)
         f = self.ffn_out(gelu(self.ffn_in(y).float()).to(self.dtype))
         if rate > 0.0:
             f = dropout(f, bits_f.view(b, t, h), rate)
@@ -190,7 +210,8 @@ class TransformerEncoder(nn.Module):
     """Post-LN BERT-style tower; returns the last hidden states (B, T, H)."""
 
     def __init__(self, arch: TextArch, dtype: torch.dtype = torch.float32,
-                 fused_ln: bool = False, fused_block: str = "none"):
+                 fused_ln: bool = False, fused_block: str = "none",
+                 fused_dropout: bool = False):
         super().__init__()
         if fused_block not in FUSED_BLOCK_MODES:
             raise ValueError(f"fused_block={fused_block!r} is not one of "
@@ -207,6 +228,7 @@ class TransformerEncoder(nn.Module):
                 f"{arch.hidden // arch.heads} (blip); other head widths are "
                 "not ported yet (ROADMAP.md, Queue 1). Use fused_block='none'.")
         self.arch, self.dtype, self.fused_block = arch, dtype, fused_block
+        self.fused_dropout = fused_dropout
         h = arch.hidden
         self.tok_emb = nn.Embedding(arch.vocab_size, h)
         self.pos_emb = nn.Embedding(arch.max_positions, h)
@@ -218,14 +240,29 @@ class TransformerEncoder(nn.Module):
             self.add_module(f"layer_{i}",
                             Block(arch, dtype, fused_ln, fused_block))
 
+    def drop_counts(self, b: int, t: int) -> Tuple[int, int]:
+        """(host bits, kernel seeds) one training forward at (b, t) takes:
+        prng mode draws one seed per layer (attn / ffn / both) or one
+        (tower) and the host bits of the other sites only."""
+        if not self.arch.dropout:
+            return 0, 0
+        sites = prng_sites(self.fused_block, self.fused_dropout)
+        seeds = (0 if not sites else
+                 1 if self.fused_block == "tower" else self.arch.layers)
+        return drop_elems(self.arch, b, t, self.fused_block,
+                          self.fused_dropout), seeds
+
     def _tower(self, x: torch.Tensor, mask_i32: torch.Tensor,
-               plan: Optional[DropBits], rate: float) -> torch.Tensor:
+               plan: Optional[DropBits], rate: float,
+               seed: Optional[torch.Tensor] = None) -> torch.Tensor:
         """All layers through ops/block.tower_block (fused_block="tower"):
         the 12 leaves of every layer stacked and cast once to the compute
         dtype; autograd's stack/cast backward hands each f32 parameter its
-        gradient, the kernel's bf16 value widened. The step's flat bit draw
-        already has the tower's order (per layer: probabilities, attention
-        output, FFN output), so the kernel gets strided views of it."""
+        gradient, the kernel's bf16 value widened. In prng mode the kernels
+        draw layer j's bits from stream seed + j; in host mode the step's
+        flat bit draw already has the tower's order (per layer:
+        probabilities, attention output, FFN output), so the kernel gets
+        strided views of it."""
         a, dt = self.arch, self.dtype
         b, t, h = x.shape
         layers = [getattr(self, f"layer_{i}") for i in range(a.layers)]
@@ -246,32 +283,44 @@ class TransformerEncoder(nn.Module):
             stack(lambda m: m.ffn_out.bias),
             stack(lambda m: m.ffn_ln.weight), stack(lambda m: m.ffn_ln.bias))
         bits_p = bits_h = bits_f = None
-        if rate > 0.0:
-            n_p, n_h = a.heads * b * t * t, b * t * h
-            per = plan.take((a.layers, n_p + 2 * n_h))
-            bits_p = per[:, :n_p].unflatten(1, (a.heads * b, t, t))
-            bits_h = per[:, n_p:n_p + n_h].unflatten(1, (b * t, h))
-            bits_f = per[:, n_p + n_h:].unflatten(1, (b * t, h))
+        if rate > 0.0 and seed is None:
+            sites = layer_sites(h, a.heads, b, t)
+            sizes = [math.prod(shape) for _, shape in sites]
+            per = plan.take((a.layers, sum(sizes)))
+            bits_p, bits_h, bits_f = (
+                c.unflatten(1, shape) for c, (_, shape)
+                in zip(per.split(sizes, dim=1), sites))
         z = tower_block(x.reshape(b * t, h).contiguous(), mask_i32, *leaves,
-                        b, t, a.heads, rate, a.ln_eps, bits_p, bits_h, bits_f)
+                        b, t, a.heads, rate, a.ln_eps, bits_p, bits_h, bits_f,
+                        seed)
         return z.reshape(b, t, h)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                drop_bits: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """drop_bits: in train mode, a flat int32 tensor of
-        `drop_elems(arch, B, T)` random bit patterns on the input's device
-        (ignored in eval mode)."""
+                drop_bits: Optional[torch.Tensor] = None,
+                drop_seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """In train mode: drop_bits, a flat int32 tensor of random bit
+        patterns on the input's device for the host-drawn sites, and in
+        prng mode drop_seeds, the kernels' int32 seeds, as many as
+        `drop_counts(B, T)` says (both ignored in eval mode)."""
         a, dt = self.arch, self.dtype
         b, t = input_ids.shape
         rate = float(a.dropout) if self.training else 0.0
-        plan = None
+        plan = seeds = None
         if rate > 0.0:
-            n = drop_elems(a, b, t)
+            n, k = self.drop_counts(b, t)
             if drop_bits is None or drop_bits.numel() != n:
                 raise ValueError(
                     f"TransformerEncoder in train mode takes drop_bits: {n} "
                     "int32 bit patterns (ops/dropout.draw)")
+            got = 0 if drop_seeds is None else drop_seeds.numel()
+            if got != k or (k and (drop_seeds.dim() != 1 or
+                                   drop_seeds.dtype != torch.int32)):
+                raise ValueError(
+                    f"TransformerEncoder(fused_block={self.fused_block!r}, "
+                    f"fused_dropout={self.fused_dropout}) in train mode "
+                    f"takes {k} int32 drop_seeds (ops/dropout.draw_seeds)")
             plan = DropBits(drop_bits)
+            seeds = drop_seeds if k else None
         ids = input_ids.long()
         pos = torch.arange(t, device=ids.device)[None, :]
         x = self.tok_emb(ids).to(dt) + self.pos_emb(pos).to(dt)
@@ -284,9 +333,12 @@ class TransformerEncoder(nn.Module):
         mask = attention_mask.bool()
         mask_i32 = attention_mask.to(torch.int32).contiguous()
         if self.fused_block == "tower":
-            return self._tower(x, mask_i32, plan, rate)
+            return self._tower(x, mask_i32, plan, rate,
+                               None if seeds is None else seeds[:1])
         for i in range(a.layers):
-            x = getattr(self, f"layer_{i}")(x, mask, mask_i32, plan, rate)
+            x = getattr(self, f"layer_{i}")(
+                x, mask, mask_i32, plan, rate,
+                None if seeds is None else seeds[i:i + 1])
         return x
 
 
@@ -296,15 +348,16 @@ class TextEncoder(nn.Module):
 
     def __init__(self, bert_type: str = "bert",
                  dtype: torch.dtype = torch.float32, fused_ln: bool = False,
-                 fused_block: str = "none"):
+                 fused_block: str = "none", fused_dropout: bool = False):
         super().__init__()
         self.model = TransformerEncoder(TEXT_ARCHS[bert_type], dtype,
-                                        fused_ln, fused_block)
+                                        fused_ln, fused_block, fused_dropout)
 
     def forward(self, captions: torch.Tensor, mask: torch.Tensor,
-                drop_bits: Optional[torch.Tensor] = None
+                drop_bits: Optional[torch.Tensor] = None,
+                drop_seeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        hidden = self.model(captions, mask, drop_bits)
+        hidden = self.model(captions, mask, drop_bits, drop_seeds)
         return hidden[:, 1:], hidden[:, 0]
 
 

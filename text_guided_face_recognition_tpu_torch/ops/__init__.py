@@ -37,3 +37,8 @@ from text_guided_face_recognition_tpu_torch.ops.margins import (  # noqa: F401
     arc_margin_logits,
     normalized_cosine,
 )
+from text_guided_face_recognition_tpu_torch.ops.philox import (  # noqa: F401
+    attn_stream_bits,
+    ffn_stream_bits,
+    tower_stream_bits,
+)

@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each source in `csrc/` (`layernorm.cu`, `ffn_block.cu`, `attn_block.cu`,
-`tower_block.cu`, `damsm.cu`) compiles on its own with `nvcc` into a shared library with a plain C
-interface, loaded with `ctypes`. Libraries are built at first use into
-`_build/` beside this package (listed in `.gitignore`), named by a digest of
-their sources and flags, so an edited source never loads a stale library.
+`tower_block.cu`, `damsm.cu`, `philox.cu`) compiles on its own with `nvcc`
+into a shared library with a plain C interface, loaded with `ctypes`.
+Libraries are built at first use into `_build/` beside this package (listed
+in `.gitignore`), named by a digest of their sources and flags, so an
+edited source never loads a stale library.
 `build()` compiles several sources in parallel, one `nvcc` process each.
 
 Nothing here runs at import time: this module imports on hosts with no CUDA
@@ -30,7 +31,8 @@ __all__ = ["SOURCES", "build", "function", "dtype_code", "launch"]
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-SOURCES = ("layernorm", "ffn_block", "attn_block", "tower_block", "damsm")
+SOURCES = ("layernorm", "ffn_block", "attn_block", "tower_block", "damsm",
+           "philox")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -9,11 +9,20 @@ Counterpart of text_guided_face_recognition_tpu/ops/block_pallas.py:
   tower_block: L layers of attn_block then ffn_block, one kernel launch
                each way                                      csrc/tower_block.cu
 
-Same argument order and layouts as the JAX functions. Dropout takes host
-bits only (the JAX kernels' `use_prng=False` contract; in-kernel random
-bits are not ported): int32 tensors holding uint32 patterns, bits_p
-(heads*B, T, T) on the attention probabilities, bits_h / bits (R, H) on the
-half-layer's output, with the keep rule of ops/dropout.py. Weights, biases
+Same argument order and layouts as the JAX functions. Dropout (rate > 0)
+takes its bits from exactly one of two sources, with the keep rule of
+ops/dropout.py:
+- host bits (the JAX kernels' `use_prng=False`): int32 tensors holding
+  uint32 patterns, bits_p (heads*B, T, T) on the attention probabilities,
+  bits_h / bits (R, H) on the half-layer's output;
+- `seed=` (the JAX kernels' `use_prng=True`): an int32 (1,) tensor on the
+  input's device, from which the kernels draw the stream of ops/philox.py
+  in-kernel, the forward and the backward alike; `ffn_block` takes the
+  layer seed and draws its stream seed ^ 0x5BD1E995, `tower_block` the one
+  seed s and draws stream s + j in layer j. The plain versions call
+  ops/philox.py's plain dumps, so the plain and kernel forms of prng mode
+  see the same masks, and prng mode equals host mode fed the dump of the
+  same seed (K10-K12). Weights, biases
 and LayerNorm parameters are f32 masters, rounded to the activation dtype
 inside the kernel, as flax rounds them at each use. A weight has the JAX
 (in, out) shape; the kernel takes it as the transposed view
@@ -32,7 +41,8 @@ r(dr + r(acc)), and weight and bias gradients stay f32.
 
 `ffn_block` and `attn_block` are torch.autograd.Functions. Their forward
 saves the residuals the backward reads (ffn: x, f, act, r; attn: x, qkv,
-p, o, r) only when a gradient is needed; the serving path saves nothing.
+p, o, r), and the bits or the seed, only when a gradient is needed; the
+serving path saves nothing.
 Each wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor; it never falls back from one to the other. Each kernel call
 adds one to its wrapper's `launches`: `ffn_block.launches` (K3),
@@ -49,8 +59,8 @@ half-layers' at every rounding point, with two differences in the
 backward, both the TPU kernel's: gelu(f) and y = LN(r1) are recomputed, not
 saved, and every gradient is rounded to the stacked leaves' dtype (K4 and K6
 return f32 weight gradients), so in bf16 `tower` and `both` differ by that
-rounding. Dropout bits are stacked (L, ...) views of the step's one flat
-draw; a layer's slice must be contiguous, the layer stride is free.
+rounding. Host dropout bits are stacked (L, ...) views of the step's one
+flat draw; a layer's slice must be contiguous, the layer stride is free.
 """
 
 from __future__ import annotations
@@ -66,6 +76,9 @@ from text_guided_face_recognition_tpu_torch.ops.dropout import (
     dropout, threshold)
 from text_guided_face_recognition_tpu_torch.ops.layernorm import (
     LN_MAX_WIDTH, LN_ROWS_PER_BLOCK, ln_bwd_f32, ln_f32)
+from text_guided_face_recognition_tpu_torch.ops.philox import (
+    attn_stream_bits_ref, check_seed, ffn_seed, ffn_stream_bits_ref,
+    tower_stream_bits_ref)
 
 __all__ = ["attn_block", "attn_block_ref", "attn_block_fwd",
            "attn_block_fwd_ref", "attn_block_bwd", "attn_block_bwd_ref",
@@ -76,13 +89,13 @@ __all__ = ["attn_block", "attn_block_ref", "attn_block_fwd",
            "dense_ref", "gelu", "dgelu"]
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-_FFN_FWD_ARGTYPES = (_P,) * 8 + (_U, _F) + (_P,) * 4 + (_I, _I, _I, _F, _I,
+_FFN_FWD_ARGTYPES = (_P,) * 9 + (_U, _F) + (_P,) * 4 + (_I, _I, _I, _F, _I,
                                                          _P)
-_FFN_BWD_ARGTYPES = (_P,) * 9 + (_U, _F) + (_P,) * 9 + (_I, _I, _I, _F, _I,
-                                                        _P)
-_ATTN_FWD_ARGTYPES = (_P,) * 10 + (_U, _F) + (_P,) * 5 + (_I, _I, _I, _I, _F,
+_FFN_BWD_ARGTYPES = (_P,) * 10 + (_U, _F) + (_P,) * 9 + (_I, _I, _I, _F, _I,
+                                                         _P)
+_ATTN_FWD_ARGTYPES = (_P,) * 11 + (_U, _F) + (_P,) * 5 + (_I, _I, _I, _I, _F,
                                                           _I, _P)
-_ATTN_BWD_ARGTYPES = (_P,) * 11 + (_U, _F) + (_P,) * 10 + (_I, _I, _I, _I,
+_ATTN_BWD_ARGTYPES = (_P,) * 12 + (_U, _F) + (_P,) * 10 + (_I, _I, _I, _I,
                                                            _F, _I, _P)
 _TOWER_ARGTYPES = (_P,) * 4 + (_U, _F, _F, _I, _P)
 D_HEAD = 64
@@ -138,8 +151,10 @@ def _maybe_drop(x, bits, rate):
 # ------------------------------------------------------------- plain FFN --
 
 def ffn_block_fwd_ref(x, w1, c1, w2, c2, gamma, beta, bits=None,
-                      rate: float = 0.0, eps: float = 1e-12):
+                      rate: float = 0.0, eps: float = 1e-12, seed=None):
     """Plain forward with the backward's residuals: (z, f, act, r)."""
+    if rate > 0.0 and seed is not None:
+        bits = ffn_stream_bits_ref(seed, *x.shape)
     dt = x.dtype
     f = dense_ref(x, w1, c1)
     a = gelu(f.float()).to(dt)
@@ -148,16 +163,18 @@ def ffn_block_fwd_ref(x, w1, c1, w2, c2, gamma, beta, bits=None,
 
 
 def ffn_block_ref(x, w1, c1, w2, c2, gamma, beta, rate: float = 0.0,
-                  eps: float = 1e-12, bits=None) -> torch.Tensor:
+                  eps: float = 1e-12, bits=None, seed=None) -> torch.Tensor:
     """Plain PyTorch version of `ffn_block`."""
     return ffn_block_fwd_ref(x, w1, c1, w2, c2, gamma, beta, bits, rate,
-                             eps)[0]
+                             eps, seed)[0]
 
 
 def ffn_block_bwd_ref(dz, x, f, r, w1, w2, gamma, bits=None,
-                      rate: float = 0.0, eps: float = 1e-12):
+                      rate: float = 0.0, eps: float = 1e-12, seed=None):
     """Plain backward (block_pallas.py `_ffn_bwd_kernel`): (dx, dw1, dc1,
     dw2, dc2, dgamma, dbeta), weight gradients (in, out) f32."""
+    if rate > 0.0 and seed is not None:
+        bits = ffn_stream_bits_ref(seed, *x.shape)
     dt = dz.dtype
     dr, dg, db = _ln_bwd_rounded(dz, r, gamma, eps)
     dgg = _maybe_drop(dr, bits, rate)
@@ -190,11 +207,13 @@ def _bhtt(p: torch.Tensor, b: int, heads: int) -> torch.Tensor:
 
 def attn_block_fwd_ref(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int,
                        t: int, heads: int = 12, bits_p=None, bits_h=None,
-                       rate: float = 0.0, eps: float = 1e-12):
+                       rate: float = 0.0, eps: float = 1e-12, seed=None):
     """Plain forward with the backward's residuals: (y, qkv, p, o, r), p
     (heads*B, T, T) rounded, before dropout."""
     dt = x.dtype
     h = x.shape[1]
+    if rate > 0.0 and seed is not None:
+        bits_p, bits_h = attn_stream_bits_ref(seed, b, t, h, heads)
     qkv = dense_ref(x, wqkv, bqkv)                     # (R, 3H)
     q, k, v = (_heads(qkv[:, i * h:(i + 1) * h], b, t, heads)
                for i in range(3))
@@ -216,19 +235,21 @@ def attn_block_fwd_ref(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int,
 
 def attn_block_ref(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
                    heads: int = 12, rate: float = 0.0, eps: float = 1e-12,
-                   bits_p=None, bits_h=None) -> torch.Tensor:
+                   bits_p=None, bits_h=None, seed=None) -> torch.Tensor:
     """Plain PyTorch version of `attn_block`."""
     return attn_block_fwd_ref(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b, t,
-                              heads, bits_p, bits_h, rate, eps)[0]
+                              heads, bits_p, bits_h, rate, eps, seed)[0]
 
 
 def attn_block_bwd_ref(dy, x, qkv, p, o, r, wqkv, wo, gamma, b: int, t: int,
                        heads: int = 12, bits_p=None, bits_h=None,
-                       rate: float = 0.0, eps: float = 1e-12):
+                       rate: float = 0.0, eps: float = 1e-12, seed=None):
     """Plain backward (block_pallas.py `_attn_bwd_kernel`): (dx, dwqkv,
     dbqkv, dwo, dbo, dgamma, dbeta), weight gradients (in, out) f32."""
     dt = dy.dtype
     h = x.shape[1]
+    if rate > 0.0 and seed is not None:
+        bits_p, bits_h = attn_stream_bits_ref(seed, b, t, h, heads)
     inv = 1.0 / math.sqrt(h // heads)
     dr, dg, db = _ln_bwd_rounded(dy, r, gamma, eps)
     dh = _maybe_drop(dr, bits_h, rate)
@@ -259,14 +280,25 @@ def _layer_bits(bits, j):
     return None if bits is None else bits[j]
 
 
+def _tower_bits(seed, bits, rate, n_layers, b, t, h, heads):
+    """The tower's (bits_p, bits_h, bits_f): the host bits, or the plain
+    dump of stream seed + j for layer j."""
+    if rate > 0.0 and seed is not None:
+        return tower_stream_bits_ref(seed, n_layers, b, t, h, heads)
+    return bits
+
+
 def tower_block_fwd_ref(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2,
                         g2, b2, b: int, t: int, heads: int = 12, bits_p=None,
                         bits_h=None, bits_f=None, rate: float = 0.0,
-                        eps: float = 1e-12):
+                        eps: float = 1e-12, seed=None):
     """Plain forward of the tower with the backward's residuals: (z, xin,
     qkv, p, o, r1, f, r2), each residual stacked (L, ...). The half-layers'
     plain forwards compose it: their rounding points are the tower's
     (block_pallas.py `_tower_fwd_kernel`)."""
+    bits_p, bits_h, bits_f = _tower_bits(seed, (bits_p, bits_h, bits_f),
+                                         rate, wqkv.shape[0], b, t,
+                                         x.shape[1], heads)
     res = [[] for _ in range(7)]
     for j in range(wqkv.shape[0]):
         y, qkv, p, o, r1 = attn_block_fwd_ref(
@@ -285,22 +317,25 @@ def tower_block_fwd_ref(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2,
 def tower_block_ref(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2,
                     b2, b: int, t: int, heads: int = 12, rate: float = 0.0,
                     eps: float = 1e-12, bits_p=None, bits_h=None,
-                    bits_f=None) -> torch.Tensor:
+                    bits_f=None, seed=None) -> torch.Tensor:
     """Plain PyTorch version of `tower_block`."""
     return tower_block_fwd_ref(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1,
                                w2, c2, g2, b2, b, t, heads, bits_p, bits_h,
-                               bits_f, rate, eps)[0]
+                               bits_f, rate, eps, seed)[0]
 
 
 def tower_block_bwd_ref(dz, mask, xin, qkv, p, o, r1, f, r2, wqkv, wo, g1,
                         b1, w1, w2, g2, b: int, t: int, heads: int = 12,
                         bits_p=None, bits_h=None, bits_f=None,
-                        rate: float = 0.0, eps: float = 1e-12):
+                        rate: float = 0.0, eps: float = 1e-12, seed=None):
     """Plain backward of the tower (block_pallas.py `_tower_bwd_kernel`):
     (dx, dwqkv, dbqkv, dwo, dbo, dg1, db1, dw1, dc1, dw2, dc2, dg2, db2),
     the 12 gradients stacked like their leaves and rounded to the leaves'
     dtype. Layers run in reverse; y = LN(r1), the FFN half's input, is
     recomputed (gelu(f) too, inside the half-layer's plain backward)."""
+    bits_p, bits_h, bits_f = _tower_bits(seed, (bits_p, bits_h, bits_f),
+                                         rate, wqkv.shape[0], b, t,
+                                         dz.shape[1], heads)
     lt = wqkv.dtype
     grads = [[] for _ in range(12)]
     for j in reversed(range(wqkv.shape[0])):
@@ -320,12 +355,20 @@ def tower_block_bwd_ref(dz, mask, xin, qkv, p, o, r1, f, r2, wqkv, wo, g1,
 
 # ---------------------------------------------------------------- checks --
 
-def _check_rate(name: str, rate: float, bits) -> None:
+def _check_rate(name: str, rate: float, bits, seed=None) -> None:
+    """rate in [0, 1); with rate > 0 exactly one dropout source: every one
+    of the site's host bits, or the seed."""
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"{name}: rate must be in [0, 1), got {rate}")
-    if rate > 0.0 and any(bt is None for bt in bits):
+    if rate <= 0.0:
+        return
+    given = [bt is not None for bt in bits]
+    if seed is not None and any(given):
+        raise ValueError(f"{name}: dropout takes host bits or a seed, not "
+                         "both")
+    if seed is None and not all(given):
         raise ValueError(f"{name}: rate > 0 needs its dropout bits (host "
-                         "bits; in-kernel random bits are not ported)")
+                         "bits) or a seed (in-kernel bits)")
 
 
 def _check_act(name: str, x: torch.Tensor, widths) -> None:
@@ -388,6 +431,16 @@ def _ptr(a: Optional[torch.Tensor]) -> Optional[int]:
     return None if a is None else a.data_ptr()
 
 
+def _sources(name: str, rate: float, bits, seed, device):
+    """The kernel's dropout sources: (bits..., seed), all None at rate 0;
+    the seed checked for the kernel."""
+    if rate <= 0.0:
+        return (None,) * len(bits) + (None,)
+    if seed is not None:
+        check_seed(name, seed, device)
+    return (*bits, seed)
+
+
 def _drop_args(rate: float) -> Tuple[int, float]:
     return ((threshold(rate), float(1.0 / (1.0 - rate))) if rate > 0.0
             else (0, 1.0))
@@ -401,14 +454,16 @@ def _ln_part(rows: int, h: int, dev) -> torch.Tensor:
 # ---------------------------------------------------------- FFN kernels --
 
 def ffn_block_fwd(x, w1, c1, w2, c2, gamma, beta, bits=None,
-                  rate: float = 0.0, eps: float = 1e-12, save: bool = True):
+                  rate: float = 0.0, eps: float = 1e-12, save: bool = True,
+                  seed=None):
     """K3: the forward of `ffn_block` with the backward's residuals:
     (z, f = W1 x + c1, act = gelu(f), r = the pre-LN sum); on a card f is
-    written only when `save`, else None."""
-    _check_rate("ffn_block", rate, (bits,))
+    written only when `save`, else None. seed: the layer seed (prng mode);
+    the kernel draws stream seed ^ 0x5BD1E995."""
+    _check_rate("ffn_block", rate, (bits,), seed)
     if x.device.type == "cpu":
         return ffn_block_fwd_ref(x, w1, c1, w2, c2, gamma, beta, bits, rate,
-                                 eps)
+                                 eps, seed)
     name = "ffn_block"
     inter = w1.shape[1] if w1.dim() == 2 else -1
     _check_act(name, x, (x.shape[-1], inter))
@@ -419,7 +474,9 @@ def ffn_block_fwd(x, w1, c1, w2, c2, gamma, beta, bits=None,
     _check_master(name, "c1", c1, (inter,), dev)
     for what, p in (("c2", c2), ("gamma", gamma), ("beta", beta)):
         _check_master(name, what, p, (h,), dev)
+    bits, seed = _sources(name, rate, (bits,), seed, dev)
     _check_bits(name, "bits", bits, (rows, h), dev)
+    stream = None if seed is None else ffn_seed(seed)
     act = torch.empty((rows, inter), dtype=x.dtype, device=dev)
     f = torch.empty_like(act) if save else None
     resid = torch.empty_like(x)
@@ -428,22 +485,26 @@ def ffn_block_fwd(x, w1, c1, w2, c2, gamma, beta, bits=None,
     fn = _cuda.function("ffn_block", "tgfr_ffn_block_fwd", _FFN_FWD_ARGTYPES)
     _cuda.launch(fn, x.data_ptr(), w1.data_ptr(), c1.data_ptr(),
                  w2.data_ptr(), c2.data_ptr(), gamma.data_ptr(),
-                 beta.data_ptr(), _ptr(bits), thr, scale, act.data_ptr(),
-                 _ptr(f), resid.data_ptr(), z.data_ptr(), rows, h, inter,
+                 beta.data_ptr(), _ptr(bits), _ptr(stream), thr, scale,
+                 act.data_ptr(), _ptr(f), resid.data_ptr(), z.data_ptr(),
+                 rows, h, inter,
                  float(eps), _cuda.dtype_code(x.dtype))
     ffn_block.launches += 1
     return z, f, act, resid
 
 
 def ffn_block_bwd(dz, x, f, act, r, w1, w2, gamma, bits=None,
-                  rate: float = 0.0, eps: float = 1e-12):
+                  rate: float = 0.0, eps: float = 1e-12, seed=None):
     """K4: the gradients of `ffn_block` at its saved residuals (x, f =
-    W1 x + c1, act = gelu(f), r = the pre-LN sum) for the cotangent dz.
-    Returns (dx, dw1, dc1, dw2, dc2, dgamma, dbeta); weight gradients in
-    the (in, out) shape of w1, w2, f32. On the CPU, act is not read."""
-    _check_rate("ffn_block_bwd", rate, (bits,))
+    W1 x + c1, act = gelu(f), r = the pre-LN sum) for the cotangent dz,
+    with the forward's dropout source (bits, or the layer seed whose stream
+    the kernel regenerates). Returns (dx, dw1, dc1, dw2, dc2, dgamma,
+    dbeta); weight gradients in the (in, out) shape of w1, w2, f32. On the
+    CPU, act is not read."""
+    _check_rate("ffn_block_bwd", rate, (bits,), seed)
     if dz.device.type == "cpu":
-        return ffn_block_bwd_ref(dz, x, f, r, w1, w2, gamma, bits, rate, eps)
+        return ffn_block_bwd_ref(dz, x, f, r, w1, w2, gamma, bits, rate, eps,
+                                 seed)
     name = "ffn_block_bwd"
     inter = w1.shape[1] if w1.dim() == 2 else -1
     _check_act(name, x, (x.shape[-1], inter))
@@ -456,7 +517,9 @@ def ffn_block_bwd(dz, x, f, act, r, w1, w2, gamma, bits=None,
     _check_weight(name, "w1", w1, (h, inter), dev)
     _check_weight(name, "w2", w2, (inter, h), dev)
     _check_master(name, "gamma", gamma, (h,), dev)
+    bits, seed = _sources(name, rate, (bits,), seed, dev)
     _check_bits(name, "bits", bits, (rows, h), dev)
+    stream = None if seed is None else ffn_seed(seed)
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     dw1 = torch.empty((inter, h), **f32)       # nn.Linear (out, in)
@@ -464,14 +527,14 @@ def ffn_block_bwd(dz, x, f, act, r, w1, w2, gamma, bits=None,
     dc1 = torch.empty(inter, **f32)
     dln = torch.empty(3 * h, **f32)
     dr = torch.empty_like(x)
-    dgg = torch.empty_like(x) if bits is not None else None
+    dgg = torch.empty_like(x) if rate > 0.0 else None
     df = torch.empty_like(act)
     thr, scale = _drop_args(rate)
     fn = _cuda.function("ffn_block", "tgfr_ffn_block_bwd", _FFN_BWD_ARGTYPES)
     _cuda.launch(fn, dz.data_ptr(), x.data_ptr(), f.data_ptr(),
                  act.data_ptr(), r.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                 gamma.data_ptr(), _ptr(bits), thr, scale, dx.data_ptr(),
-                 dw1.data_ptr(), dc1.data_ptr(), dw2.data_ptr(),
+                 gamma.data_ptr(), _ptr(bits), _ptr(stream), thr, scale,
+                 dx.data_ptr(), dw1.data_ptr(), dc1.data_ptr(), dw2.data_ptr(),
                  dln.data_ptr(), dr.data_ptr(), _ptr(dgg), df.data_ptr(),
                  _ln_part(rows, h, dev).data_ptr(), rows, h, inter,
                  float(eps), _cuda.dtype_code(x.dtype))
@@ -481,52 +544,57 @@ def ffn_block_bwd(dz, x, f, act, r, w1, w2, gamma, bits=None,
 
 class _FfnBlockFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w1, c1, w2, c2, gamma, beta, bits, rate, eps):
+    def forward(ctx, x, w1, c1, w2, c2, gamma, beta, bits, seed, rate, eps):
         save = any(ctx.needs_input_grad[:7])
         z, f, act, r = ffn_block_fwd(x, w1, c1, w2, c2, gamma, beta, bits,
-                                     rate, eps, save)
+                                     rate, eps, save, seed=seed)
         ctx.rate, ctx.eps = rate, eps
         if save:
-            ctx.save_for_backward(x, f, act, r, w1, w2, gamma, bits)
+            ctx.save_for_backward(x, f, act, r, w1, w2, gamma, bits, seed)
         return z
 
     @staticmethod
     def backward(ctx, dz):
-        x, f, act, r, w1, w2, gamma, bits = ctx.saved_tensors
+        x, f, act, r, w1, w2, gamma, bits, seed = ctx.saved_tensors
         grads = ffn_block_bwd(dz.contiguous(), x, f, act, r, w1, w2, gamma,
-                              bits, ctx.rate, ctx.eps)
-        return (*grads, None, None, None)
+                              bits, ctx.rate, ctx.eps, seed=seed)
+        return (*grads, None, None, None, None)
 
 
 def ffn_block(x, w1, c1, w2, c2, gamma, beta, rate: float = 0.0,
-              eps: float = 1e-12, bits=None) -> torch.Tensor:
+              eps: float = 1e-12, bits=None, seed=None) -> torch.Tensor:
     """Fused post-LN FFN half-layer with its gradient: K3 forward, K4
     backward.
 
     x: (R, H) float32 or bfloat16. w1: (H, I), c1: (I,), w2: (I, H),
-    c2: (H,), gamma/beta: (H,), all float32 masters. bits: (R, H) int32,
-    needed when rate > 0. The kernels take H and I multiples of 64,
-    H <= 1024, and w1, w2 as .t() views of contiguous (out, in) tensors.
-    Returns z: (R, H).
+    c2: (H,), gamma/beta: (H,), all float32 masters. When rate > 0, one
+    dropout source: bits (R, H) int32, or seed (1,) int32, the layer seed
+    (ops/philox.py). The kernels take H and I multiples of 64, H <= 1024,
+    and w1, w2 as .t() views of contiguous (out, in) tensors. Returns
+    z: (R, H).
     """
-    _check_rate("ffn_block", rate, (bits,))
-    return _FfnBlockFn.apply(x, w1, c1, w2, c2, gamma, beta,
-                             bits if rate > 0.0 else None, rate, eps)
+    _check_rate("ffn_block", rate, (bits,), seed)
+    if rate <= 0.0:
+        bits = seed = None
+    return _FfnBlockFn.apply(x, w1, c1, w2, c2, gamma, beta, bits, seed,
+                             rate, eps)
 
 
 # ---------------------------------------------------- attention kernels --
 
 def attn_block_fwd(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
                    heads: int = 12, bits_p=None, bits_h=None,
-                   rate: float = 0.0, eps: float = 1e-12, save: bool = True):
+                   rate: float = 0.0, eps: float = 1e-12, save: bool = True,
+                   seed=None):
     """K5: the forward of `attn_block` with the backward's residuals:
     (y, qkv, p = the rounded probabilities before dropout (heads*B, T, T),
     o = the context rows, r = the pre-LN sum); on a card p is written only
-    when `save`, else None."""
-    _check_rate("attn_block", rate, (bits_p, bits_h))
+    when `save`, else None. seed: the layer seed (prng mode)."""
+    _check_rate("attn_block", rate, (bits_p, bits_h), seed)
     if x.device.type == "cpu":
         return attn_block_fwd_ref(x, mask, wqkv, bqkv, wo, bo, gamma, beta,
-                                  b, t, heads, bits_p, bits_h, rate, eps)
+                                  b, t, heads, bits_p, bits_h, rate, eps,
+                                  seed)
     name = "attn_block"
     _check_act(name, x, (x.shape[-1],))
     rows, h = x.shape
@@ -549,6 +617,7 @@ def attn_block_fwd(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
     _check_master(name, "bqkv", bqkv, (3 * h,), dev)
     for what, p in (("bo", bo), ("gamma", gamma), ("beta", beta)):
         _check_master(name, what, p, (h,), dev)
+    bits_p, bits_h, seed = _sources(name, rate, (bits_p, bits_h), seed, dev)
     _check_bits(name, "bits_p", bits_p, (heads * b, t, t), dev)
     _check_bits(name, "bits_h", bits_h, (rows, h), dev)
     qkv = torch.empty((rows, 3 * h), dtype=x.dtype, device=dev)
@@ -563,7 +632,7 @@ def attn_block_fwd(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
     _cuda.launch(fn, x.data_ptr(), mask.data_ptr(), wqkv.data_ptr(),
                  bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
                  gamma.data_ptr(), beta.data_ptr(), _ptr(bits_p),
-                 _ptr(bits_h), thr, scale, qkv.data_ptr(), _ptr(p),
+                 _ptr(bits_h), _ptr(seed), thr, scale, qkv.data_ptr(), _ptr(p),
                  ctx.data_ptr(), resid.data_ptr(), y.data_ptr(), b, t, h,
                  heads, float(eps), _cuda.dtype_code(x.dtype))
     attn_block.launches += 1
@@ -572,16 +641,17 @@ def attn_block_fwd(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
 
 def attn_block_bwd(dy, x, qkv, p, o, r, wqkv, wo, gamma, b: int, t: int,
                    heads: int = 12, bits_p=None, bits_h=None,
-                   rate: float = 0.0, eps: float = 1e-12):
+                   rate: float = 0.0, eps: float = 1e-12, seed=None):
     """K6: the gradients of `attn_block` at its saved residuals (x, qkv,
     p = the rounded probabilities before dropout (heads*B, T, T), o = the
-    context rows, r = the pre-LN sum) for the cotangent dy. Returns (dx,
-    dwqkv, dbqkv, dwo, dbo, dgamma, dbeta); weight gradients in the
-    (in, out) shape of wqkv, wo, f32."""
-    _check_rate("attn_block_bwd", rate, (bits_p, bits_h))
+    context rows, r = the pre-LN sum) for the cotangent dy, with the
+    forward's dropout source (bits, or the seed whose stream the kernel
+    regenerates). Returns (dx, dwqkv, dbqkv, dwo, dbo, dgamma, dbeta);
+    weight gradients in the (in, out) shape of wqkv, wo, f32."""
+    _check_rate("attn_block_bwd", rate, (bits_p, bits_h), seed)
     if dy.device.type == "cpu":
         return attn_block_bwd_ref(dy, x, qkv, p, o, r, wqkv, wo, gamma, b, t,
-                                  heads, bits_p, bits_h, rate, eps)
+                                  heads, bits_p, bits_h, rate, eps, seed)
     name = "attn_block_bwd"
     _check_act(name, x, (x.shape[-1],))
     rows, h = x.shape
@@ -600,6 +670,7 @@ def attn_block_bwd(dy, x, qkv, p, o, r, wqkv, wo, gamma, b: int, t: int,
     _check_weight(name, "wqkv", wqkv, (h, 3 * h), dev)
     _check_weight(name, "wo", wo, (h, h), dev)
     _check_master(name, "gamma", gamma, (h,), dev)
+    bits_p, bits_h, seed = _sources(name, rate, (bits_p, bits_h), seed, dev)
     _check_bits(name, "bits_p", bits_p, (heads * b, t, t), dev)
     _check_bits(name, "bits_h", bits_h, (rows, h), dev)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -609,7 +680,7 @@ def attn_block_bwd(dy, x, qkv, p, o, r, wqkv, wo, gamma, b: int, t: int,
     dwo = torch.empty((h, h), **f32)
     dln = torch.empty(3 * h, **f32)
     dr = torch.empty_like(x)
-    dh = torch.empty_like(x) if bits_h is not None else None
+    dh = torch.empty_like(x) if rate > 0.0 else None
     dout = torch.empty_like(x)
     dqkv = torch.empty_like(qkv)
     thr, scale = _drop_args(rate)
@@ -618,7 +689,7 @@ def attn_block_bwd(dy, x, qkv, p, o, r, wqkv, wo, gamma, b: int, t: int,
     _cuda.launch(fn, dy.data_ptr(), x.data_ptr(), qkv.data_ptr(),
                  p.data_ptr(), o.data_ptr(), r.data_ptr(), wqkv.data_ptr(),
                  wo.data_ptr(), gamma.data_ptr(), _ptr(bits_p), _ptr(bits_h),
-                 thr, scale, dx.data_ptr(), dwqkv.data_ptr(),
+                 _ptr(seed), thr, scale, dx.data_ptr(), dwqkv.data_ptr(),
                  dbqkv.data_ptr(), dwo.data_ptr(), dln.data_ptr(),
                  dr.data_ptr(), _ptr(dh), dout.data_ptr(), dqkv.data_ptr(),
                  _ln_part(rows, h, dev).data_ptr(), b, t, h, heads,
@@ -631,53 +702,56 @@ def attn_block_bwd(dy, x, qkv, p, o, r, wqkv, wo, gamma, b: int, t: int,
 class _AttnBlockFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mask, wqkv, bqkv, wo, bo, gamma, beta, bits_p,
-                bits_h, b, t, heads, rate, eps):
+                bits_h, seed, b, t, heads, rate, eps):
         save = any(ctx.needs_input_grad[:8])
         y, qkv, p, o, r = attn_block_fwd(x, mask, wqkv, bqkv, wo, bo, gamma,
                                          beta, b, t, heads, bits_p, bits_h,
-                                         rate, eps, save)
+                                         rate, eps, save, seed=seed)
         ctx.shape, ctx.rate, ctx.eps = (b, t, heads), rate, eps
         if save:
             ctx.save_for_backward(x, qkv, p, o, r, wqkv, wo, gamma, bits_p,
-                                  bits_h)
+                                  bits_h, seed)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, qkv, p, o, r, wqkv, wo, gamma, bits_p, bits_h = ctx.saved_tensors
+        (x, qkv, p, o, r, wqkv, wo, gamma, bits_p, bits_h,
+         seed) = ctx.saved_tensors
         dx, dwqkv, dbqkv, dwo, dbo, dg, db = attn_block_bwd(
             dy.contiguous(), x, qkv, p, o, r, wqkv, wo, gamma, *ctx.shape,
-            bits_p, bits_h, ctx.rate, ctx.eps)
-        return (dx, None, dwqkv, dbqkv, dwo, dbo, dg, db) + (None,) * 7
+            bits_p, bits_h, ctx.rate, ctx.eps, seed=seed)
+        return (dx, None, dwqkv, dbqkv, dwo, dbo, dg, db) + (None,) * 8
 
 
 def attn_block(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
                heads: int = 12, rate: float = 0.0, eps: float = 1e-12,
-               bits_p=None, bits_h=None) -> torch.Tensor:
+               bits_p=None, bits_h=None, seed=None) -> torch.Tensor:
     """Fused post-LN self-attention half-layer with its gradient: K5
     forward, K6 backward.
 
     x: (R, H) = (b*t, H) float32 or bfloat16; mask: (b, t) int32, nonzero
     = valid key; wqkv: (H, 3H) with [q|k|v] packed on the output axis,
     head-major within each; bqkv: (3H,); wo: (H, H); bo, gamma, beta: (H,);
-    all float32 masters. bits_p (heads*b, t, t) and bits_h (R, H) int32,
-    needed when rate > 0. The kernels take heads of width 64
+    all float32 masters. When rate > 0, one dropout source: bits_p
+    (heads*b, t, t) and bits_h (R, H) int32, or seed (1,) int32, the layer
+    seed (ops/philox.py). The kernels take heads of width 64
     (H = 64 * heads), H <= 1024, t <= 128 (t <= 64 when a gradient is
     needed), and wqkv, wo as .t() views of contiguous (out, in) tensors.
     Returns y: (R, H).
     """
-    _check_rate("attn_block", rate, (bits_p, bits_h))
+    _check_rate("attn_block", rate, (bits_p, bits_h), seed)
     if rate <= 0.0:
-        bits_p = bits_h = None
+        bits_p = bits_h = seed = None
     return _AttnBlockFn.apply(x, mask, wqkv, bqkv, wo, bo, gamma, beta,
-                              bits_p, bits_h, b, t, heads, rate, eps)
+                              bits_p, bits_h, seed, b, t, heads, rate, eps)
 
 
 # -------------------------------------------------------- tower kernels --
 
-def _check_tower(name, x, mask, leaves, b, t, heads, bits, rate, t_max):
+def _check_tower(name, x, mask, leaves, b, t, heads, bits, seed, rate,
+                 t_max):
     """The tower kernels' contract; returns (L, rows, h, inter)."""
-    _check_rate(name, rate, bits)
+    _check_rate(name, rate, bits, seed)
     wqkv, w1 = leaves["wqkv"], leaves["w1"]
     inter = w1.shape[2] if w1.dim() == 3 else -1
     _check_act(name, x, (x.shape[-1], inter))
@@ -724,7 +798,9 @@ def _check_tower(name, x, mask, leaves, b, t, heads, bits, rate, t_max):
 
 
 def _tower_launch(fn_name, ptrs, bits, dims, rate, eps, dtype):
-    """Call a tower launcher; returns (grid, blocks per SM, shared bytes)."""
+    """Call a tower launcher. ptrs: the C interface's pointer slots in order
+    (None where absent); bits: the three host-bit stacks or Nones, for
+    their layer strides. Returns (grid, blocks per SM, shared bytes)."""
     arr = (ctypes.c_void_p * len(ptrs))(*[_ptr(a) for a in ptrs])
     strides = (ctypes.c_longlong * 3)(*[0 if bt is None else bt.stride(0)
                                         for bt in bits])
@@ -740,22 +816,22 @@ def _tower_launch(fn_name, ptrs, bits, dims, rate, eps, dtype):
 def tower_block_fwd(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2,
                     b2, b: int, t: int, heads: int = 12, bits_p=None,
                     bits_h=None, bits_f=None, rate: float = 0.0,
-                    eps: float = 1e-12, save: bool = True):
+                    eps: float = 1e-12, save: bool = True, seed=None):
     """K7: the forward of `tower_block` in ONE kernel launch, with the
     backward's residuals: (z, xin, qkv, p, o, r1, f, r2), each residual
     stacked (L, ...); on a card they are allocated and written only when
-    `save`, else None."""
+    `save`, else None. seed: the tower's one seed (prng mode); layer j
+    draws stream seed + j."""
     bits = (bits_p, bits_h, bits_f)
-    _check_rate("tower_block", rate, bits)
+    _check_rate("tower_block", rate, bits, seed)
     leaves = dict(zip(TOWER_LEAVES, (wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2,
                                      c2, g2, b2)))
     if x.device.type == "cpu":
         return tower_block_fwd_ref(x, mask, *leaves.values(), b, t, heads,
-                                   *bits, rate, eps)
-    if rate <= 0.0:
-        bits = (None, None, None)
+                                   *bits, rate, eps, seed)
+    *bits, seed = _sources("tower_block", rate, bits, seed, x.device)
     n, rows, h, inter = _check_tower("tower_block", x, mask, leaves, b, t,
-                                     heads, bits, rate,
+                                     heads, bits, seed, rate,
                                      MAX_T_BWD if save else 128)
 
     def buf(*shape):
@@ -771,8 +847,8 @@ def tower_block_fwd(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2,
     y, act = buf(rows, h), buf(rows, inter)
     tower_block_fwd.info = _tower_launch(
         "tgfr_tower_fwd",
-        (x, mask, *leaves.values(), *bits, z, xin, qkv, p, o, r1, f, r2, y,
-         act), bits, (n, b, t, h, heads, inter, int(save)), rate, eps,
+        (x, mask, *leaves.values(), *bits, seed, z, xin, qkv, p, o, r1, f,
+         r2, y, act), bits, (n, b, t, h, heads, inter, int(save)), rate, eps,
         x.dtype)
     tower_block.launches += 1
     if not save:
@@ -783,23 +859,23 @@ def tower_block_fwd(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2,
 def tower_block_bwd(dz, mask, xin, qkv, p, o, r1, f, r2, wqkv, wo, g1, b1,
                     w1, w2, g2, b: int, t: int, heads: int = 12, bits_p=None,
                     bits_h=None, bits_f=None, rate: float = 0.0,
-                    eps: float = 1e-12):
+                    eps: float = 1e-12, seed=None):
     """K8: the gradients of `tower_block` in ONE kernel launch, at its saved
-    residuals for the cotangent dz. Returns (dx, dwqkv, dbqkv, dwo, dbo,
-    dg1, db1, dw1, dc1, dw2, dc2, dg2, db2), the 12 gradients stacked like
-    their leaves, in the leaves' dtype and layout."""
+    residuals for the cotangent dz, with the forward's dropout source.
+    Returns (dx, dwqkv, dbqkv, dwo, dbo, dg1, db1, dw1, dc1, dw2, dc2, dg2,
+    db2), the 12 gradients stacked like their leaves, in the leaves' dtype
+    and layout."""
     bits = (bits_p, bits_h, bits_f)
-    _check_rate("tower_block_bwd", rate, bits)
+    _check_rate("tower_block_bwd", rate, bits, seed)
     if dz.device.type == "cpu":
         return tower_block_bwd_ref(dz, mask, xin, qkv, p, o, r1, f, r2, wqkv,
                                    wo, g1, b1, w1, w2, g2, b, t, heads, *bits,
-                                   rate, eps)
-    if rate <= 0.0:
-        bits = (None, None, None)
+                                   rate, eps, seed)
     name = "tower_block_bwd"
+    *bits, seed = _sources(name, rate, bits, seed, dz.device)
     leaves = dict(wqkv=wqkv, wo=wo, g1=g1, b1=b1, w1=w1, w2=w2, g2=g2)
     n, rows, h, inter = _check_tower(name, dz, mask, leaves, b, t, heads,
-                                     bits, rate, MAX_T_BWD)
+                                     bits, seed, rate, MAX_T_BWD)
     for what, a, shape in (("xin", xin, (rows, h)), ("qkv", qkv,
                                                      (rows, 3 * h)),
                            ("p", p, (heads * b, t, t)), ("o", o, (rows, h)),
@@ -824,9 +900,9 @@ def tower_block_bwd(dz, mask, xin, qkv, p, o, r1, f, r2, wqkv, wo, g1, b1,
     tower_block_bwd.info = _tower_launch(
         "tgfr_tower_bwd",
         (dz, mask, xin, qkv, p, o, r1, f, r2, wqkv, wo, g1, b1, w1, w2, g2,
-         *bits, dx, dwqkv, dbqkv, dwo, dbo, dg1, db1, dw1, dc1, dw2, dc2,
-         dg2, db2, *scratch), bits, (n, b, t, h, heads, inter, 1), rate, eps,
-        dz.dtype)
+         *bits, seed, dx, dwqkv, dbqkv, dwo, dbo, dg1, db1, dw1, dc1, dw2,
+         dc2, dg2, db2, *scratch), bits, (n, b, t, h, heads, inter, 1), rate,
+        eps, dz.dtype)
     tower_block_bwd.launches += 1
     return (dx, dwqkv.transpose(1, 2), dbqkv, dwo.transpose(1, 2), dbo, dg1,
             db1, dw1.transpose(1, 2), dc1, dw2.transpose(1, 2), dc2, dg2, db2)
@@ -835,30 +911,30 @@ def tower_block_bwd(dz, mask, xin, qkv, p, o, r1, f, r2, wqkv, wo, g1, b1,
 class _TowerBlockFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2,
-                b2, bits_p, bits_h, bits_f, b, t, heads, rate, eps):
+                b2, bits_p, bits_h, bits_f, seed, b, t, heads, rate, eps):
         needs = ctx.needs_input_grad
         save = needs[0] or any(needs[2:14])
         z, *res = tower_block_fwd(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1,
                                   w2, c2, g2, b2, b, t, heads, bits_p, bits_h,
-                                  bits_f, rate, eps, save)
+                                  bits_f, rate, eps, save, seed=seed)
         ctx.shape, ctx.rate, ctx.eps = (b, t, heads), rate, eps
         if save:
             ctx.save_for_backward(mask, *res, wqkv, wo, g1, b1, w1, w2, g2,
-                                  bits_p, bits_h, bits_f)
+                                  bits_p, bits_h, bits_f, seed)
         return z
 
     @staticmethod
     def backward(ctx, dz):
-        *saved, bits_p, bits_h, bits_f = ctx.saved_tensors
+        *saved, bits_p, bits_h, bits_f, seed = ctx.saved_tensors
         grads = tower_block_bwd(dz.contiguous(), *saved, *ctx.shape, bits_p,
-                                bits_h, bits_f, ctx.rate, ctx.eps)
-        return (grads[0], None, *grads[1:]) + (None,) * 8
+                                bits_h, bits_f, ctx.rate, ctx.eps, seed=seed)
+        return (grads[0], None, *grads[1:]) + (None,) * 9
 
 
 def tower_block(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2, b2,
                 b: int, t: int, heads: int = 12, rate: float = 0.0,
-                eps: float = 1e-12, bits_p=None, bits_h=None, bits_f=None
-                ) -> torch.Tensor:
+                eps: float = 1e-12, bits_p=None, bits_h=None, bits_f=None,
+                seed=None) -> torch.Tensor:
     """The whole post-LN tower with its gradient, one kernel launch each
     way: K7 forward, K8 backward.
 
@@ -866,18 +942,19 @@ def tower_block(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2, b2,
     leaves stacked over L layers and already in x's dtype: wqkv (L, H, 3H),
     wo (L, H, H), w1 (L, H, I), w2 (L, I, H), each the .transpose(1, 2)
     view of a contiguous (L, out, in) stack; bqkv (L, 1, 3H), c1 (L, 1, I),
-    bo, c2, g1, b1, g2, b2 (L, 1, H). bits_p (L, heads*b, t, t), bits_h and
-    bits_f (L, R, H) int32, needed when rate > 0. The kernels take heads of
+    bo, c2, g1, b1, g2, b2 (L, 1, H). When rate > 0, one dropout source:
+    bits_p (L, heads*b, t, t), bits_h and bits_f (L, R, H) int32, or seed
+    (1,) int32, the tower's seed (ops/philox.py). The kernels take heads of
     width 64, H <= 1024, H and I multiples of 64, t <= 128 (t <= 64 when a
     gradient is needed). Returns z: (R, H); gradients arrive in the leaves'
     dtype.
     """
-    _check_rate("tower_block", rate, (bits_p, bits_h, bits_f))
+    _check_rate("tower_block", rate, (bits_p, bits_h, bits_f), seed)
     if rate <= 0.0:
-        bits_p = bits_h = bits_f = None
+        bits_p = bits_h = bits_f = seed = None
     return _TowerBlockFn.apply(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1,
-                               w2, c2, g2, b2, bits_p, bits_h, bits_f, b, t,
-                               heads, rate, eps)
+                               w2, c2, g2, b2, bits_p, bits_h, bits_f, seed, b,
+                               t, heads, rate, eps)
 
 
 ffn_block.launches = 0

@@ -1,4 +1,4 @@
-"""Dropout from host-made random bits.
+"""Dropout from random bits: the keep rule, the host draw and its sites.
 
 The semantics of the JAX package's `_DropPlan` (models/text_bert.py) and
 of block_pallas.py `_drop`: keep iff the uint32 bit >= round(rate * 2^32)
@@ -9,20 +9,24 @@ does.
 
 Bits are int32 tensors holding the uint32 bit patterns (PyTorch's uint32
 dtype has few kernels); the CUDA kernels read the same memory as uint32.
-A training step draws all of its bits at once (`draw`) and `DropBits` hands
-out consecutive slices in the JAX plan's site order: the embeddings
-(B*T, H), then per layer the attention probabilities (heads*B, T, T), the
-attention output (B*T, H) and the FFN output (B*T, H).
+A training step draws all of its host bits at once (`draw`) and `DropBits`
+hands out consecutive slices in the JAX plan's site order: the embeddings
+(B*T, H), then per layer the sites of `layer_sites`. In prng mode (the JAX
+package's `use_prng`, its default on the chip) the fused half-layers'
+kernels draw their own bits from a seed (ops/philox.py); the host draw
+then holds only the other sites, in the same order, and the step draws the
+kernels' int32 seeds beside it (`draw_seeds`).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Sequence, Tuple
 
 import torch
 
-__all__ = ["threshold", "keep_mask", "dropout", "total_elems", "draw",
-           "DropBits"]
+__all__ = ["threshold", "keep_mask", "dropout", "layer_sites", "prng_sites",
+           "total_elems", "draw", "draw_seeds", "DropBits"]
 
 
 def threshold(rate: float) -> int:
@@ -42,15 +46,46 @@ def dropout(x: torch.Tensor, bits: torch.Tensor, rate: float
     return torch.where(keep_mask(bits, rate), x * scale, torch.zeros_like(x))
 
 
-def total_elems(hidden: int, layers: int, heads: int, b: int, t: int) -> int:
-    """Bits one training step of a post-LN tower takes (`_DropPlan`)."""
-    return b * t * hidden + layers * (b * heads * t * t + 2 * b * t * hidden)
+def layer_sites(hidden: int, heads: int, b: int, t: int
+                ) -> Tuple[Tuple[str, Tuple[int, ...]], ...]:
+    """One layer's dropout sites in the plan's order, as (half-layer, bit
+    shape): the attention half's probabilities (heads*B, T, T) and output
+    (B*T, H), then the FFN half's output (B*T, H)."""
+    out = (b * t, hidden)
+    return (("attn", (heads * b, t, t)), ("attn", out), ("ffn", out))
+
+
+def prng_sites(fused_block: str, fused_dropout: bool) -> Sequence[str]:
+    """The half-layers whose kernels draw their own dropout bits: every
+    fused half, unless fused_dropout (the JAX package's use_prng)."""
+    if fused_dropout or fused_block == "none":
+        return ()
+    return {"attn": ("attn",), "ffn": ("ffn",)}.get(fused_block,
+                                                     ("attn", "ffn"))
+
+
+def total_elems(hidden: int, layers: int, heads: int, b: int, t: int,
+                in_kernel: Sequence[str] = ()) -> int:
+    """Host bits one training step of a post-LN tower takes (`_DropPlan`):
+    the embeddings and every layer's `layer_sites`, less those of the
+    halves named in `in_kernel` ("attn", "ffn"), whose kernels draw their
+    own bits."""
+    per = sum(math.prod(shape) for half, shape
+              in layer_sites(hidden, heads, b, t) if half not in in_kernel)
+    return b * t * hidden + layers * per
 
 
 def draw(n: int, generator: torch.Generator, device) -> torch.Tensor:
     """n uniform 32-bit patterns as int32, made on `device` from
     `generator` (which must live on that device)."""
     return torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int32,
+                         generator=generator, device=device)
+
+
+def draw_seeds(n: int, generator: torch.Generator, device) -> torch.Tensor:
+    """n int32 stream seeds in [0, 2^31 - 1), as the JAX package draws them
+    (jax.random.randint(key, (1, 1), 0, int32 max)), made on `device`."""
+    return torch.randint(0, (1 << 31) - 1, (n,), dtype=torch.int32,
                          generator=generator, device=device)
 
 
