@@ -19,7 +19,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      the card. A time is the device time per call of a CUDA graph of
      back-to-back calls (no host work in the timed span), with a warm L2
      (`ms`) and with the L2 flushed before each call (`ms_cold_l2`: a
-     graph of flush + call less a graph of the flushes). K3 and K5 are
+     graph of flush + call less a graph of the flushes). K1 and K2 are
+     also held at (rows, H) = (37, 389), (768, 768), (50, 1024), (9, 8)
+     and with rows one element into their storage (the scalar path), f32
+     and bf16; at R = H = 768 in bf16 one call of each is one device
+     operation (torch.profiler), and K2's outputs are bit for bit the same
+     over repeated calls and from a CUDA graph's replay; so are the LN sums
+     of K4 and K6 over two calls. K3 and K5 are
      held and timed twice: serving (rate 0, no residuals) and train mode
      (rate 0.1, the residuals the backward reads, `*_train` keys); K3-K6
      once more in prng mode (`seed=`: the bits drawn in-kernel from the
@@ -325,6 +331,130 @@ def _tower_bounds(layers, b, t, h, heads, inter, es):
 
 SRC = "text_guided_face_recognition_tpu_torch/csrc/"
 JAX = "text_guided_face_recognition_tpu/ops/"
+# (rows, H) of the LayerNorm kernels' other paths: H not a multiple of the
+# 16-byte vector (the scalar path), the flagship, the widest row, a row
+# narrower than a warp's vectors
+LN_SHAPES = ((37, 389), (768, 768), (50, 1024), (9, 8))
+
+
+def _device_ops(fn) -> int:
+    """Device operations (kernels, memsets, copies) one call of fn runs, as
+    torch.profiler records them, after one call to warm up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def _graph_outputs(fn):
+    """fn's outputs from a CUDA graph of one call, captured after a warm-up
+    call on a side stream and replayed twice."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def ln_checks(dev, gen, eps: float) -> dict:
+    """K1 and K2 beyond the main path's shape: each against its plain
+    version at LN_SHAPES and with rows one element into their storage (the
+    scalar path), f32 and bf16; the part rows the wrappers allocate against
+    the kernel's own count; and at R = H = 768 in bf16 the device
+    operations of one call (1 each, from torch.profiler), and K2's outputs
+    bit for bit over repeated calls and from a CUDA graph's replay, with the
+    arrival counters back at 0. Returns extra keys for the two rows."""
+    import ctypes
+
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.ops import _cuda, layernorm
+
+    def data(rows, h):
+        x = torch.randn(rows, h, generator=gen) * 3.0 + 1.0
+        dy = torch.randn(rows, h, generator=gen)
+        g = 1.0 + 0.1 * torch.randn(h, generator=gen)
+        b = 0.1 * torch.randn(h, generator=gen)
+        return x.to(dev), dy.to(dev), g.to(dev), b.to(dev)
+
+    def hold(what, x, dy, g, b, tol):
+        err, ok = _close(layernorm.layernorm_fused(x, g, b, eps),
+                         layernorm.layernorm_ref(x, g, b, eps), tol)
+        if not ok:
+            raise AssertionError(f"layernorm_fused {what}: kernel disagrees "
+                                 f"with its plain version ({err})")
+        errs = []
+        for k, (o, p) in enumerate(zip(
+                layernorm.layernorm_bwd(dy, x, g, eps),
+                layernorm.layernorm_bwd_ref(dy, x, g, eps))):
+            e, ok = _close_scaled(o, p, tol)
+            errs.append(e)
+            if not ok:
+                raise AssertionError(f"layernorm_bwd {what} output {k}: "
+                                     f"kernel disagrees with its plain "
+                                     f"version ({e})")
+        return err, max(errs)
+
+    fwd, bwd = {}, {}
+    for rows, h in LN_SHAPES + ((64, 768),):
+        x, dy, g, b = data(rows, h)
+        for dt in (torch.bfloat16, torch.float32):
+            key = f"{rows}x{h}_{str(dt)[6:]}"
+            xd, dyd = x.to(dt), dy.to(dt)
+            if (rows, h) == (64, 768):      # one element into the storage
+                key = "unaligned_" + key
+                xd, dyd = (torch.empty(rows * h + 1, dtype=dt, device=dev)[
+                    1:].view(rows, h).copy_(a) for a in (xd, dyd))
+            fwd[key], bwd[key] = hold(key, xd, dyd, g, b,
+                                      TOL[str(dt)[6:]])
+    parts = _cuda.function("layernorm", "tgfr_ln_bwd_parts", (ctypes.c_int,))
+    for rows in (1, 9, 37, 64, 65, 384, 768, 1024, 1025, 100000):
+        if parts(rows) != layernorm.ln_bwd_parts(rows):
+            raise AssertionError(f"ln_bwd_parts({rows}): the wrapper "
+                                 f"allocates {layernorm.ln_bwd_parts(rows)} "
+                                 f"part rows, the kernel needs {parts(rows)}")
+    x, dy, g, b = data(768, 768)
+    x, dy = x.bfloat16(), dy.bfloat16()
+    ops = {"layernorm_fused": _device_ops(
+               lambda: layernorm.layernorm_fused(x, g, b, eps)),
+           "layernorm_bwd": _device_ops(
+               lambda: layernorm.layernorm_bwd(dy, x, g, eps))}
+    if ops != {"layernorm_fused": 1, "layernorm_bwd": 1}:
+        raise AssertionError(f"device operations per call: {ops}, not 1")
+    first = layernorm.layernorm_bwd(dy, x, g, eps)
+    others = [layernorm.layernorm_bwd(dy, x, g, eps) for _ in range(3)]
+    others.append(_graph_outputs(
+        lambda: layernorm.layernorm_bwd(dy, x, g, eps)))
+    for k, other in enumerate(others):
+        if not all(torch.equal(a, o) for a, o in zip(first, other)):
+            raise AssertionError(f"layernorm_bwd: call {k + 1} ("
+                                 f"{'graph' if k == 3 else 'eager'}) is not "
+                                 "bit for bit the first")
+    if layernorm.ln_bwd_counter(dev).any():
+        raise AssertionError("layernorm_bwd: arrival counters not reset")
+    print(f"LN checks: device ops per call {ops}; max |err| K1 {fwd}, K2 "
+          f"{bwd}; K2 bit for bit over 4 calls and a graph replay",
+          flush=True)
+    return {"layernorm_fused": {"device_ops_per_call": 1,
+                                "max_abs_err_shapes": fwd},
+            "layernorm_bwd": {"device_ops_per_call": 1,
+                              "max_abs_err_shapes": bwd,
+                              "bitwise_repeat_and_graph": True}}
 
 
 def kernel_phase(args):
@@ -355,6 +485,8 @@ def kernel_phase(args):
         return (torch.randn(*shape, generator=gen) * std).to(dev)
 
     x32, dy32 = rn(R, H), rn(R, H)
+    # dy in each type, made once: no cast inside a timed call
+    dys = {torch.float32: dy32, torch.bfloat16: dy32.bfloat16()}
     ln_g, ln_b = 1.0 + rn(H, std=0.1), rn(H, std=0.1)
     # weights (in, out) as the .t() view of (out, in), as the model has them
     wqkv, bqkv = rn(3 * H, H, std=H ** -0.5).t(), rn(3 * H, std=0.1)
@@ -396,11 +528,11 @@ def kernel_phase(args):
         dict(name="layernorm_bwd", fn=layernorm.layernorm_bwd, bwd=True,
              source=SRC + "layernorm.cu",
              replaces=JAX + "layernorm_pallas.py:120",
-             run=lambda x: layernorm.layernorm_bwd(dy32.to(x.dtype), x, ln_g,
+             run=lambda x: layernorm.layernorm_bwd(dys[x.dtype], x, ln_g,
                                                    eps),
-             ref=lambda x: layernorm.layernorm_bwd_ref(dy32.to(x.dtype), x,
+             ref=lambda x: layernorm.layernorm_bwd_ref(dys[x.dtype], x,
                                                        ln_g, eps),
-             library=lambda x: ln_library(x, dy32.to(x.dtype))),
+             library=lambda x: ln_library(x, dys[x.dtype])),
         dict(name="attn_block", fn=block.attn_block,
              source=SRC + "attn_block.cu",
              replaces=JAX + "block_pallas.py:626",
@@ -424,19 +556,19 @@ def kernel_phase(args):
              res=lambda x: block.attn_block_fwd_ref(
                  x, mask, *attn_w, B, T, heads, bits_p, bits_h, RATE, eps),
              run=lambda x, res: block.attn_block_bwd(
-                 dy32.to(x.dtype), x, *res[1:], wqkv, wo, ln_g, B, T, heads,
+                 dys[x.dtype], x, *res[1:], wqkv, wo, ln_g, B, T, heads,
                  bits_p, bits_h, RATE, eps),
              ref=lambda x, res: block.attn_block_bwd_ref(
-                 dy32.to(x.dtype), x, *res[1:], wqkv, wo, ln_g, B, T, heads,
+                 dys[x.dtype], x, *res[1:], wqkv, wo, ln_g, B, T, heads,
                  bits_p, bits_h, RATE, eps),
              prng_res=lambda x: block.attn_block_fwd_ref(
                  x, mask, *attn_w, B, T, heads, rate=RATE, eps=eps,
                  seed=seed),
              prng_run=lambda x, res: block.attn_block_bwd(
-                 dy32.to(x.dtype), x, *res[1:], wqkv, wo, ln_g, B, T, heads,
+                 dys[x.dtype], x, *res[1:], wqkv, wo, ln_g, B, T, heads,
                  rate=RATE, eps=eps, seed=seed),
              prng_ref=lambda x, res: block.attn_block_bwd_ref(
-                 dy32.to(x.dtype), x, *res[1:], wqkv, wo, ln_g, B, T, heads,
+                 dys[x.dtype], x, *res[1:], wqkv, wo, ln_g, B, T, heads,
                  rate=RATE, eps=eps, seed=seed)),
         dict(name="ffn_block", fn=block.ffn_block,
              source=SRC + "ffn_block.cu",
@@ -457,18 +589,18 @@ def kernel_phase(args):
              res=lambda x: block.ffn_block_fwd_ref(x, *ffn_w, bits_f, RATE,
                                                    eps),
              run=lambda x, res: block.ffn_block_bwd(
-                 dy32.to(x.dtype), x, res[1], res[2], res[3], w1, w2, ln_g,
+                 dys[x.dtype], x, res[1], res[2], res[3], w1, w2, ln_g,
                  bits_f, RATE, eps),
              ref=lambda x, res: block.ffn_block_bwd_ref(
-                 dy32.to(x.dtype), x, res[1], res[3], w1, w2, ln_g, bits_f,
+                 dys[x.dtype], x, res[1], res[3], w1, w2, ln_g, bits_f,
                  RATE, eps),
              prng_res=lambda x: block.ffn_block_fwd_ref(
                  x, *ffn_w, rate=RATE, eps=eps, seed=seed),
              prng_run=lambda x, res: block.ffn_block_bwd(
-                 dy32.to(x.dtype), x, res[1], res[2], res[3], w1, w2, ln_g,
+                 dys[x.dtype], x, res[1], res[2], res[3], w1, w2, ln_g,
                  rate=RATE, eps=eps, seed=seed),
              prng_ref=lambda x, res: block.ffn_block_bwd_ref(
-                 dy32.to(x.dtype), x, res[1], res[3], w1, w2, ln_g,
+                 dys[x.dtype], x, res[1], res[3], w1, w2, ln_g,
                  rate=RATE, eps=eps, seed=seed)),
         dict(name="damsm_similarity", fn=damsm.damsm_similarity_cuda,
              source=SRC + "damsm.cu",
@@ -580,6 +712,21 @@ def kernel_phase(args):
                  f"{row['plain_ms_prng']:.4f}, bound "
                  f"{row['bound_ms_prng']:.4f}, max|err| "
                  f"{row['max_abs_err_prng']:.3g})"), flush=True)
+    ln_gen = torch.Generator().manual_seed(args.manual_seed + 5)
+    for row, extra in ln_checks(dev, ln_gen, eps).items():
+        rows[[r["name"] for r in rows].index(row)].update(extra)
+    # the half-layer backwards' LN sums (the bias gradient, dgamma, dbeta)
+    # are bit for bit the same over two calls
+    for s in specs:
+        if s["name"] in ("ffn_block_bwd", "attn_block_bwd"):
+            x = x32.to(torch.bfloat16)
+            res = s["res"](x)
+            one, two = s["run"](x, res), s["run"](x, res)
+            if not all(torch.equal(a, b) for a, b in zip(one[4:], two[4:])):
+                raise AssertionError(f"{s['name']}: LN sums differ between "
+                                     "two calls")
+            rows[[r["name"] for r in rows].index(s["name"])][
+                "ln_sums_bitwise_repeat"] = True
     towers = tower_kernels(dev, B, T, H, heads, I, mask, x32, dy32, gen,
                            flush, seed)
     return rows[:6] + towers + rows[6:]
@@ -842,9 +989,16 @@ def tower_kernels(dev, B, T, H, heads, I, mask, x32, dz32, gen, flush,
                     rel, ok = _one_bf16_step(a, c)
                     worst = max(worst, rel)
                     if not ok:
+                        af, cf = a.float(), c.float()
+                        over = (af - cf).abs() > 2.0 ** -7 * cf.abs() + 1e-30
+                        i = int(((af - cf).abs() * over).argmax())
                         raise AssertionError(
                             f"tower_block_bwd d{name}: more than one bf16 "
-                            f"step from the chain's f32 gradient ({rel})")
+                            f"step from the chain's f32 gradient ({rel}): "
+                            f"{int(over.sum())} of {over.numel()} elements,"
+                            f" the worst {af.flatten()[i].item()} against "
+                            f"{cf.flatten()[i].item()}, max |chain| "
+                            f"{cf.abs().max().item()}")
             k8["weight_grad_rel_vs_chain_f32"] = worst
         del res, g_c, got, ref, grads, want, own
 
@@ -1046,7 +1200,8 @@ def _profile(step, reps: int = 3, what: str = "pair batch") -> dict:
     def group(name):
         for key in ("tower_fwd_kernel", "tower_bwd_kernel", "gemm_kernel",
                     "attention_core_bwd", "attention_core",
-                    "layernorm_bwd_rows", "layernorm_rows", "colsum",
+                    "layernorm_bwd_kernel", "layernorm_fwd_kernel",
+                    "colsum",
                     "damsm_kernel", "philox_dump"):
             if key in name:
                 return "port kernels: " + key

@@ -64,9 +64,23 @@ def t(x, dtype=None) -> torch.Tensor:
 
 
 def close(port, ref, tol: float) -> None:
-    np.testing.assert_allclose(port.float().numpy(),
-                               np.asarray(ref, np.float32), rtol=tol,
-                               atol=tol)
+    """port against ref at rtol = atol = tol. A failure names the worst
+    |port - ref|, where it lies, and the torch thread count."""
+    got = port.float().numpy()
+    want = np.asarray(ref, np.float32)
+    err = np.abs(got - want)
+    at = np.unravel_index(int(np.argmax(err)), err.shape)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol, err_msg=(
+        f"worst |port - ref| {err[at]:.3g} at {tuple(map(int, at))} (port "
+        f"{got[at]:.7g}, ref {want[at]:.7g}); torch threads "
+        f"{torch.get_num_threads()}"))
+
+
+def done(ref) -> np.ndarray:
+    """A JAX result as numpy, computed to the end before the port runs:
+    JAX dispatches asynchronously, and its CPU work must not overlap the
+    port's under test."""
+    return np.asarray(ref, np.float32)
 
 
 def _params(i_dim, seed=0):
@@ -90,9 +104,36 @@ def _params(i_dim, seed=0):
 def test_layernorm_matches_jax(jx, jdt, tdt, tol):
     p = _params(512)
     x = p["x"].reshape(B, T, H) * 3.0 + 1.0
-    ref = jx.layernorm(jx.a(x, jdt), jx.a(p["g"]), jx.a(p["b"]), 1e-12, True)
+    ref = done(jx.layernorm(jx.a(x, jdt), jx.a(p["g"]), jx.a(p["b"]), 1e-12,
+                            True))
     out = layernorm.layernorm_fused(t(x, tdt), t(p["g"]), t(p["b"]), 1e-12)
     assert out.dtype == tdt and out.shape == (B, T, H)
+    close(out, ref, tol)
+
+
+# (rows, H) the LayerNorm kernels' paths serve: H not a multiple of the
+# 16-byte vector (389: the scalar path), the flagship 768 x 768, the widest
+# row (1024), a row narrower than a warp's vectors (8)
+LN_SHAPES = [(37, 389), (768, 768), (50, 1024), (9, 8)]
+
+
+def ln_data(rows: int, h: int, seed: int = 0):
+    """x (rows, h) off zero mean and unit scale, gamma, beta, dy."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return (rng.normal(size=(rows, h)).astype(f) * 3.0 + 1.0,
+            (1 + rng.normal(0, 0.1, h)).astype(f),
+            rng.normal(0, 0.1, h).astype(f),
+            rng.normal(size=(rows, h)).astype(f))
+
+
+@pytest.mark.parametrize("rows,h", LN_SHAPES)
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
+def test_layernorm_matches_jax_at_kernel_shapes(jx, jdt, tdt, tol, rows, h):
+    x, g, b, _ = ln_data(rows, h)
+    ref = done(jx.layernorm(jx.a(x, jdt), jx.a(g), jx.a(b), 1e-12, True))
+    out = layernorm.layernorm_fused(t(x, tdt), t(g), t(b), 1e-12)
+    assert out.dtype == tdt and out.shape == (rows, h)
     close(out, ref, tol)
 
 
@@ -102,9 +143,9 @@ def test_layernorm_matches_jax(jx, jdt, tdt, tol):
 @pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
 def test_ffn_block_matches_jax(jx, jdt, tdt, tol, i_dim):
     p = _params(i_dim)
-    ref = jx.ffn_block(jx.a(p["x"], jdt), *(jx.a(p[k]) for k in (
+    ref = done(jx.ffn_block(jx.a(p["x"], jdt), *(jx.a(p[k]) for k in (
         "w1", "c1", "w2", "c2", "g", "b")), jx.bits, jx.seed, 0.0, 1e-12,
-        False, True)
+        False, True))
     out = block.ffn_block(t(p["x"], tdt), t(p["w1"]), t(p["c1"]), t(p["w2"]),
                           t(p["c2"]), t(p["g"]), t(p["b"]), 0.0, 1e-12)
     close(out, ref, tol)
@@ -123,6 +164,7 @@ def test_attn_block_matches_jax(jx, jdt, tdt, tol, seed):
     ref = jx.attn_block(jx.a(p["x"], jdt), jx.a(mask, "int32"), *(
         jx.a(p[k]) for k in ("wqkv", "bqkv", "wo", "bo", "g", "b")),
         jx.bits, jx.bits, jx.seed, B, T, HEADS, 0.0, 1e-12, False, True)
+    ref = done(ref)
     out = block.attn_block(t(p["x"], tdt), t(mask), t(p["wqkv"]),
                            t(p["bqkv"]), t(p["wo"]), t(p["bo"]), t(p["g"]),
                            t(p["b"]), B, T, HEADS, 0.0, 1e-12)
@@ -191,6 +233,32 @@ def test_cuda_layernorm_matches_plain(cuda, tdt, tol):
     assert layernorm.layernorm_fused.launches == n + 1
     torch.testing.assert_close(out.float(), layernorm.layernorm_ref(
         x, p["g"], p["b"]).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,h", LN_SHAPES)
+@pytest.mark.parametrize("tdt,tol", CUDA_DTYPES)
+def test_cuda_layernorm_matches_plain_at_kernel_shapes(cuda, tdt, tol, rows,
+                                                       h):
+    x, g, b, _ = (t(a).to(cuda) for a in ln_data(rows, h))
+    x = x.to(tdt)
+    n = layernorm.layernorm_fused.launches
+    out = layernorm.layernorm_fused(x, g, b)
+    assert layernorm.layernorm_fused.launches == n + 1
+    torch.testing.assert_close(out.float(), layernorm.layernorm_ref(
+        x, g, b).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt,tol", CUDA_DTYPES)
+def test_cuda_layernorm_takes_unaligned_rows(cuda, tdt, tol):
+    # x one element into its storage: not 16-byte aligned, the scalar path
+    x, g, b, _ = (t(a).to(cuda) for a in ln_data(64, 768))
+    xs = torch.empty(64 * 768 + 1, dtype=tdt, device=cuda)[1:].view(64, 768)
+    xs.copy_(x)
+    torch.testing.assert_close(
+        layernorm.layernorm_fused(xs, g, b).float(),
+        layernorm.layernorm_ref(xs, g, b).float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda

@@ -137,6 +137,44 @@ def test_layernorm_backward_matches_jax(jx, jdt, tdt, tol):
         close(a, b, tol, scaled=True)
 
 
+# (rows, H) the LayerNorm kernels' paths serve: H not a multiple of the
+# 16-byte vector (389: the scalar path), the flagship 768 x 768, the widest
+# row (1024), a row narrower than a warp's vectors (8)
+LN_SHAPES = [(37, 389), (768, 768), (50, 1024), (9, 8)]
+
+
+def ln_data(rows: int, h: int, seed: int = 0):
+    """x (rows, h) off zero mean and unit scale, gamma, dy."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return (rng.normal(size=(rows, h)).astype(f) * 3.0 + 1.0,
+            (1 + rng.normal(0, 0.1, h)).astype(f),
+            rng.normal(size=(rows, h)).astype(f))
+
+
+@pytest.mark.parametrize("rows,h", LN_SHAPES)
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
+def test_layernorm_backward_matches_jax_at_kernel_shapes(jx, jdt, tdt, tol,
+                                                         rows, h):
+    x, g, dy = ln_data(rows, h)
+    beta = np.zeros(h, np.float32)
+    _, vjp = jx.jax.vjp(lambda x_, g_, b_: jx.layernorm(x_, g_, b_, 1e-12,
+                                                        True),
+                        jx.a(x, jdt), jx.a(g), jx.a(beta))
+    want = [np.asarray(a, np.float32) for a in vjp(jx.a(dy, jdt))]
+    dx, dg, db = layernorm.layernorm_bwd_ref(t(dy, tdt), t(x, tdt), t(g))
+    assert dx.dtype == tdt and dg.dtype == db.dtype == torch.float32
+    close(dx, want[0], tol, what="dx")
+    close(dg, want[1], tol, scaled=True, what="dgamma")
+    close(db, want[2], tol, scaled=True, what="dbeta")
+
+
+def test_ln_bwd_parts_counts_blocks_and_groups():
+    # a partial row per block of 8 rows, then one per group of blocks
+    assert [layernorm.ln_bwd_parts(r) for r in (1, 8, 9, 384, 768, 1025)] \
+        == [9, 9, 10, 56, 104, 137]
+
+
 # ---------------------------------------------------------------- K4 --
 
 @pytest.mark.parametrize("rate", [0.0, RATE])
@@ -482,6 +520,93 @@ def test_cuda_layernorm_bwd_matches_plain(cuda, tdt, tol):
     assert layernorm.layernorm_bwd.launches == n + 1
     for a, b in zip(got, layernorm.layernorm_bwd_ref(dy, x, p["g"])):
         _close_cuda(a, b, tol, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,h", LN_SHAPES)
+@pytest.mark.parametrize("tdt,tol", CUDA_DTYPES)
+def test_cuda_layernorm_bwd_matches_plain_at_kernel_shapes(cuda, tdt, tol,
+                                                           rows, h):
+    x, g, dy = (t(a).to(cuda) for a in ln_data(rows, h))
+    x, dy = x.to(tdt), dy.to(tdt)
+    for a, b in zip(layernorm.layernorm_bwd(dy, x, g),
+                    layernorm.layernorm_bwd_ref(dy, x, g)):
+        _close_cuda(a, b, tol, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt,tol", CUDA_DTYPES)
+def test_cuda_layernorm_bwd_takes_unaligned_rows(cuda, tdt, tol):
+    # x and dy one element into their storage: the scalar path
+    x, g, dy = (t(a).to(cuda) for a in ln_data(64, 768))
+    xs, dys = (torch.empty(64 * 768 + 1, dtype=tdt, device=cuda)[1:].view(
+        64, 768).copy_(a) for a in (x, dy))
+    for a, b in zip(layernorm.layernorm_bwd(dys, xs, g),
+                    layernorm.layernorm_bwd_ref(dys, xs, g)):
+        _close_cuda(a, b, tol, True)
+
+
+@pytest.mark.cuda
+def test_cuda_ln_bwd_parts_match_the_kernel(cuda):
+    import ctypes
+    from text_guided_face_recognition_tpu_torch.ops import _cuda
+    fn = _cuda.function("layernorm", "tgfr_ln_bwd_parts", (ctypes.c_int,))
+    for rows in (1, 9, 37, 64, 65, 384, 768, 1024, 1025, 100000):
+        assert fn(rows) == layernorm.ln_bwd_parts(rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_cuda_layernorm_bwd_sums_are_deterministic(cuda, tdt):
+    # two calls, and the FFN half-layer's three LN sums twice: bit for bit
+    x, g, dy = (t(a).to(cuda) for a in ln_data(768, 768))
+    x, dy = x.to(tdt), dy.to(tdt)
+    first, second = (layernorm.layernorm_bwd(dy, x, g) for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    p = _on(cuda, _params(1))
+    w = (p["w1"], p["c1"], p["w2"], p["c2"], p["g"], p["b"])
+    xh, dyh = p["x"].to(tdt), p["dy"].to(tdt)
+    _, f, act, r = block.ffn_block_fwd_ref(xh, *w, p["bits_h"], RATE)
+    one, two = (block.ffn_block_bwd(dyh, xh, f, act, r, p["w1"], p["w2"],
+                                    p["g"], p["bits_h"], RATE)
+                for _ in range(2))
+    for a, b in zip(one[4:], two[4:]):      # dc2, dgamma, dbeta
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt,tol", CUDA_DTYPES)
+def test_cuda_layernorm_bwd_back_to_back_row_counts(cuda, tdt, tol):
+    # the arrival counter is back at 0 after every call
+    for rows in (768, 37, 768, 9, 1500):
+        x, g, dy = (t(a).to(cuda) for a in ln_data(rows, 768, seed=rows))
+        x, dy = x.to(tdt), dy.to(tdt)
+        for a, b in zip(layernorm.layernorm_bwd(dy, x, g),
+                        layernorm.layernorm_bwd_ref(dy, x, g)):
+            _close_cuda(a, b, tol, True)
+    assert not layernorm.ln_bwd_counter(cuda).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_cuda_layernorm_bwd_graph_replay_equals_eager(cuda, tdt):
+    x, g, dy = (t(a).to(cuda) for a in ln_data(768, 768))
+    x, dy = x.to(tdt), dy.to(tdt)
+    eager = layernorm.layernorm_bwd(dy, x, g)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        layernorm.layernorm_bwd(dy, x, g)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = layernorm.layernorm_bwd(dy, x, g)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, eager):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

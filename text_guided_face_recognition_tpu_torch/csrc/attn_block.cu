@@ -28,23 +28,23 @@
 // (ops/philox.py), each element computing its own Philox block (4x the ALU
 // work of a dump; no bits in device memory). The backward regenerates
 // them from the same seed.
-//   (d) y = LN(r), one warp per row.
+//   (d) y = LN(r), common.cuh's vector LayerNorm row kernel (K1's).
 // The backward's residuals are x, qkv, p, o and r.
 //
 // Backward. Bound: bytes: 32 MB with the f32 weight gradients and the
 // dropout bits (9.6 us at 3.35 TB/s) against 7.4 GFLOP (7.4 us at
-// 989 TFLOP/s), at the shapes above, as chip_smoke.py counts them. Seven
+// 989 TFLOP/s), at the shapes above, as chip_smoke.py counts them. Six
 // launches around one per-head kernel:
-//   (1) the LN backward row pass from r, then the dropout: dr and
-//       dh = drop(dr), with dgamma, dbeta and dbo as per-block partial sums,
-//       (2) reduced in a fixed order;
-//   (3) dWo = dh^T . o, f32;  (4) do = r(dh . Wo);
-//   (5) one block per (batch row, head), everything in shared memory:
+//   (1) the LN backward row pass from r (K2's kernel in common.cuh), then
+//       the dropout: dr and dh = drop(dr), with dgamma, dbeta and dbo
+//       summed over the rows in the same launch, in a fixed order;
+//   (2) dWo = dh^T . o, f32;  (3) do = r(dh . Wo);
+//   (4) one block per (batch row, head), everything in shared memory:
 //       dv = p_drop^T . do, dp = do . v^T with the probability mask,
 //       ds = r(p (dp - sum(dp p)) / sqrt(64)), dq = ds . k, dk = ds^T . q,
 //       each rounded into dqkv (R, 3H) at the TPU kernel's rounding points;
-//   (6) dWqkv = dqkv^T . x, f32, and dbqkv = column sums of dqkv;
-//   (7) dx = r(dr + r(dqkv . Wqkv)).
+//   (5) dWqkv = dqkv^T . x, f32, and dbqkv = column sums of dqkv;
+//   (6) dx = r(dr + r(dqkv . Wqkv)).
 // Weight gradients are f32, in nn.Linear's (out, in) layout.
 #include "common.cuh"
 
@@ -102,25 +102,25 @@ int run_bwd(const void* dy, const void* x, const void* qkv, const void* p,
             const float* gamma, const tgfr::DropSrc& drop_p,
             const tgfr::DropSrc& drop_h, unsigned thr, float scale, void* dx,
             float* dwqkv, float* dbqkv, float* dwo, float* dln, void* dr,
-            void* dh, void* dout, void* dqkv, float* part, int b, int t,
-            int h, int heads, float eps, cudaStream_t s) {
+            void* dh, void* dout, void* dqkv, float* part, unsigned* counter,
+            int b, int t, int h, int heads, float eps, cudaStream_t s) {
   const int rows = b * t;
-  // (1, 2) dr, dh = drop(dr); dln = [dgamma | dbeta | dbo]
+  // (1) dr, dh = drop(dr); dln = [dgamma | dbeta | dbo]
   T* dh_t = static_cast<T*>(drop_h.on() ? dh : dr);
-  cudaError_t err = tgfr::launch_layernorm_bwd<T, true>(
+  cudaError_t err = tgfr::launch_layernorm_bwd<T, true, 3>(
       static_cast<const T*>(dy), static_cast<const T*>(r), gamma,
       static_cast<T*>(dr), drop_h.on() ? dh_t : nullptr, drop_h, thr, scale,
-      part, dln, 3, rows, h, eps, s);
+      part, dln, counter, rows, h, eps, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // (3) dWo (h, h) = dh^T . o
+  // (2) dWo (h, h) = dh^T . o
   err = tgfr::launch_weight_grad<T>(dh_t, o, dwo, h, h, rows, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // (4) do = r(dh . Wo); Wo is (h, h) = (K, N)
+  // (3) do = r(dh . Wo); Wo is (h, h) = (K, N)
   err = tgfr::launch_gemm<T, tgfr::kEpiBias, tgfr::kARowMajor,
                           tgfr::kBWeightKN>(
       tgfr::gemm_args(dh_t, wo, dout, rows, h, h), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // (5) the per-head backward into dqkv
+  // (4) the per-head backward into dqkv
   const size_t smem = tgfr::attn_bwd_smem_bytes(t);
   err = set_smem(tgfr::attention_core_bwd_kernel<T>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -131,13 +131,13 @@ int run_bwd(const void* dy, const void* x, const void* qkv, const void* p,
       b, t, h, 1.0f / sqrtf(static_cast<float>(tgfr::kDHead)));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // (6) dWqkv (3h, h) = dqkv^T . x and dbqkv
+  // (5) dWqkv (3h, h) = dqkv^T . x and dbqkv
   err = tgfr::launch_weight_grad<T>(dqkv, x, dwqkv, 3 * h, h, rows, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = tgfr::launch_colsum<T>(static_cast<const T*>(dqkv), rows, 3 * h,
                                dbqkv, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // (7) dx = r(dr + r(dqkv . Wqkv)); Wqkv is (3h, h) = (K, N)
+  // (6) dx = r(dr + r(dqkv . Wqkv)); Wqkv is (3h, h) = (K, N)
   tgfr::GemmArgs dxa = tgfr::gemm_args(dqkv, wqkv, dx, rows, h, 3 * h);
   dxa.resid = dr;
   err = tgfr::launch_gemm<T, tgfr::kEpiBiasResidual, tgfr::kARowMajor,
@@ -187,7 +187,8 @@ extern "C" int tgfr_attn_block_fwd(const void* x, const void* mask,
 // wqkv: (3h, h), wo: (h, h), nn.Linear layout. Outputs dx (b*t, h); dwqkv
 // (3h, h), dbqkv (3h), dwo (h, h), dln (3 h) = [dgamma | dbeta | dbo], all
 // f32. Dropout as the forward's. Scratch: dr, dh (b*t, h; dh only with
-// dropout), dout (b*t, h), dqkv (b*t, 3h), part (ceil(b*t / 8), 3 h) f32.
+// dropout), dout (b*t, h), dqkv (b*t, 3h), part (tgfr_ln_bwd_parts(b*t),
+// 3 * 1024) f32; counter: the device's LN arrival counters (layernorm.cu).
 extern "C" int tgfr_attn_block_bwd(const void* dy, const void* x,
                                    const void* qkv, const void* p,
                                    const void* o, const void* r,
@@ -198,8 +199,9 @@ extern "C" int tgfr_attn_block_bwd(const void* dy, const void* x,
                                    void* dwqkv,
                                    void* dbqkv, void* dwo, void* dln,
                                    void* dr, void* dh, void* dout, void* dqkv,
-                                   void* part, int b, int t, int h, int heads,
-                                   float eps, int dtype, void* stream) {
+                                   void* part, void* counter, int b, int t,
+                                   int h, int heads, float eps, int dtype,
+                                   void* stream) {
   if (h != heads * tgfr::kDHead)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -214,13 +216,14 @@ extern "C" int tgfr_attn_block_bwd(const void* dy, const void* x,
   auto* o2 = static_cast<float*>(dwo);
   auto* oln = static_cast<float*>(dln);
   auto* pt = static_cast<float*>(part);
+  auto* ctr = static_cast<unsigned*>(counter);
   if (dtype == tgfr::kBF16)
     return run_bwd<__nv_bfloat16>(dy, x, qkv, p, o, r, fwqkv, fwo, g, up, uh,
                                   thr, scale, dx, o1, ob, o2, oln, dr, dh,
-                                  dout, dqkv, pt, b, t, h, heads, eps, s);
+                                  dout, dqkv, pt, ctr, b, t, h, heads, eps, s);
   if (dtype == tgfr::kF32)
     return run_bwd<float>(dy, x, qkv, p, o, r, fwqkv, fwo, g, up, uh, thr,
                           scale, dx, o1, ob, o2, oln, dr, dh, dout, dqkv, pt,
-                          b, t, h, heads, eps, s);
+                          ctr, b, t, h, heads, eps, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

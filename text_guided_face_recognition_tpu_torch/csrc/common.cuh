@@ -2,7 +2,8 @@
 //
 // Element helpers for the two supported activation types (float and
 // __nv_bfloat16), a tiled GEMM with fused epilogues, the LayerNorm row
-// passes (forward, and backward with per-block partial column sums) and a
+// passes (the whole-tower kernels' tiles, and the vector row kernels of
+// K1-K6, whose backward adds its column sums in the same launch), a
 // deterministic column sum, and the per-(caption, head) attention blocks.
 // Each kernel source (layernorm.cu, ffn_block.cu, attn_block.cu,
 // tower_block.cu, damsm.cu, philox.cu) includes this header and is built on
@@ -10,7 +11,7 @@
 //
 // The work of every pass is a `__device__` function of a tile index
 // (`*_tile`), so that one pass can be a kernel of its own (the `__global__`
-// kernels below, one tile per block: K1-K6) or a phase of the persistent
+// kernels below, one tile per block: K3-K6) or a phase of the persistent
 // whole-tower kernels (tower_block.cu: K7, K8), whose blocks loop over the
 // tiles of a phase between grid-wide barriers. A tile function uses the
 // shared memory it is handed and ends without a barrier: a block that runs
@@ -31,7 +32,9 @@
 
 #include <cfloat>
 #include <cstddef>
+#include <cstdint>
 #include <type_traits>
+#include <cuda/atomic>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -154,17 +157,16 @@ __device__ __forceinline__ float dgelu_erf(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// LayerNorm over rows of width h <= kLnMaxWidth: one warp per row, the row
-// read once into registers (lane i holds elements i, i + 32, ...), f32
-// statistics (mean, then the centred sum of squares), y = (x - mean) *
-// rsqrt(var + eps) * gamma + beta. gamma/beta are f32 masters; ROUND_AFFINE
-// rounds them to T first, as the half-layer kernels do (block_pallas.py
-// casts them to the caller dtype), while the stand-alone LayerNorm uses them
-// as they are.
+// LayerNorm tiles of the whole-tower kernels (tower_block.cu: K7, K8), over
+// rows of width h <= kLnMaxWidth: one warp per row, the row read once into
+// registers (lane i holds elements i, i + 32, ...), f32 statistics (mean,
+// then the centred sum of squares), y = (x - mean) * rsqrt(var + eps) *
+// gamma + beta. ROUND_AFFINE rounds gamma/beta to T first, as the
+// half-layer kernels do (block_pallas.py casts them to the caller dtype),
+// while the stand-alone LayerNorm uses them as they are. K1-K6 run the
+// vector row kernels further down (after the column sum).
 // ---------------------------------------------------------------------------
 
-constexpr int kLnThreads = 256;
-constexpr int kLnWarps = kLnThreads / 32;
 constexpr int kLnPerLane = 32;
 constexpr int kLnMaxWidth = 32 * kLnPerLane;
 
@@ -209,26 +211,6 @@ layernorm_rows_tile(const T* x, const G* __restrict__ gamma,
   }
 }
 
-template <typename T, bool ROUND_AFFINE>
-__global__ void __launch_bounds__(kLnThreads)
-layernorm_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                      const float* __restrict__ beta, T* __restrict__ y,
-                      int rows, int h, float eps) {
-  layernorm_rows_tile<T, float, ROUND_AFFINE, kLnWarps>(x, gamma, beta, y,
-                                                        rows, h, eps,
-                                                        blockIdx.x);
-}
-
-template <typename T, bool ROUND_AFFINE>
-cudaError_t launch_layernorm_rows(const T* x, const float* gamma,
-                                  const float* beta, T* y, int rows, int h,
-                                  float eps, cudaStream_t stream) {
-  const int blocks = (rows + kLnWarps - 1) / kLnWarps;
-  layernorm_rows_kernel<T, ROUND_AFFINE>
-      <<<blocks, kLnThreads, 0, stream>>>(x, gamma, beta, y, rows, h, eps);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // LayerNorm backward over rows (block_pallas.py `_ln_bwd_f32`,
 // layernorm_pallas.py `_bwd_kernel`), statistics recomputed from the saved
@@ -236,12 +218,10 @@ cudaError_t launch_layernorm_rows(const T* x, const float* gamma,
 //   xhat = (x - mean) rs,  dxhat = dy g,
 //   dx = rs (dxhat - mean(dxhat) - xhat mean(dxhat xhat))   (f32)
 // stored rounded to T. With `dxd` (the half-layers with dropout), also
-// dxd = drop(r(dx)), its bits from `drop`. Column sums over rows go out as
-// per-block partials, f32, part (gridDim.x, nq h):
-// [dy xhat | dy | (nq == 3) f32(dxd or dx)];
-// colsum_kernel reduces them. One warp per row, as the forward; blocks run
-// in any order, so nothing is accumulated across blocks and no float atomic
-// is used: the sums are deterministic.
+// dxd = drop(r(dx)), its bits from `drop`. The whole-tower tile below
+// writes its column sums [dy xhat | dy | (nq == 3) f32(dxd or dx)] as
+// per-tile partials, f32, part (tiles, nq h), which colsum_tile reduces in
+// a fixed order; K2, K4 and K6 run `layernorm_bwd_kernel` further down.
 // ---------------------------------------------------------------------------
 
 // Rows tile * WARPS .. + WARPS - 1; `red` is WARPS * kLnMaxWidth floats of
@@ -325,21 +305,6 @@ layernorm_bwd_rows_tile(const T* dy, const T* x, const G* __restrict__ gamma,
   }
 }
 
-template <typename T, bool ROUND_GAMMA>
-__global__ void __launch_bounds__(kLnThreads)
-layernorm_bwd_rows_kernel(const T* __restrict__ dy, const T* __restrict__ x,
-                          const float* __restrict__ gamma, T* __restrict__ dx,
-                          T* __restrict__ dxd, DropSrc drop, unsigned thr,
-                          float scale, float* __restrict__ part, int nq,
-                          int rows, int h, float eps) {
-  __shared__ float red[kLnWarps * kLnMaxWidth];
-  layernorm_bwd_rows_tile<T, float, ROUND_GAMMA, kLnWarps>(
-      dy, x, gamma, dx, dxd, drop, thr, scale, part, nq, rows, h, eps,
-      blockIdx.x, red);
-}
-
-inline int ln_bwd_blocks(int rows) { return (rows + kLnWarps - 1) / kLnWarps; }
-
 // out[c] = sum over rows of f32(in[row, c]), (rows, cols) row-major. A block
 // sums 32 columns; its 8 warps take every 8th row and are combined in a
 // fixed order, so the result does not depend on scheduling.
@@ -388,20 +353,536 @@ cudaError_t launch_colsum(const TIn* in, int rows, int cols, float* out,
   return cudaGetLastError();
 }
 
-// The LayerNorm backward row pass and the reduction of its partials into
-// sums (nq h floats).
-template <typename T, bool ROUND_GAMMA>
+// ---------------------------------------------------------------------------
+// LayerNorm row kernels for Hopper: the forward (K1, and the last phase of
+// K3 and K5) and the backward with its column sums (K2, and the first phase
+// of K4 and K6), one launch each.
+//
+// Replace: layernorm_pallas.py `_fwd_kernel` and `_bwd_kernel` (reached
+// through `_fwd_call` :103 and `_bwd_call` :120), and the LN epilogue and
+// prologue of block_pallas.py's four half-layer kernels.
+//
+// Bound on the H100: bytes, and below that the launch. At R = H = 768 in
+// bf16 the forward moves 2.4 MB (0.71 us at 3.35 TB/s) and the backward
+// 3.5 MB (1.06 us); both sit below the cost of a launch, so what a call
+// costs is the launch, one warp's chain of latencies over its row (loads,
+// two rounds of shuffles, stores) and, in the backward, the steps that add
+// the column sums across blocks.
+//
+// What held the earlier warp-per-row design back (K1 7.06 us, K2 12.04 us
+// with a cast of dy in the timed call, against F.layer_norm 4.38 us and
+// aten native_layer_norm_backward 7.50 us, bf16 at R = H = 768, NVIDIA H100
+// 80GB HBM3 at 700 W, chip_smoke.py): every
+// element was its own 2-byte load (24 a lane at H = 768); gamma and beta
+// were f32 scalar loads issued only after the statistics, a second memory
+// round trip in every row; 8 rows a 256-thread block gave 96 blocks at
+// R = 768 on 132 SMs; and the backward was three device operations (a
+// memset of its output, the row pass with two __syncthreads round trips
+// through 24 KB of shared memory per partial sum, and a second launch that
+// added 96 partial rows).
+//
+// This design:
+// - Device memory moves as 16-byte vectors (8 bf16 or 4 f32): lane l loads
+//   vectors l, l + 32, ... of its warp's row (VPL of them, a template
+//   argument the launcher picks from h: 3 uint4 a lane for bf16 at
+//   H = 768), all issued before anything waits on them, and computes and
+//   stores its outputs in that layout. Where h is not a multiple of the
+//   vector or a pointer is not 16-byte aligned, the kernel runs with
+//   VEC = 1: element by element, 32 a lane (h <= 1024).
+// - The row sums are the whole-tower kernels' tiles' (above), in their
+//   order: lane l adds elements l, l + 32, ..., read back from a copy of
+//   the row in a staging buffer in shared memory (no bank conflicts), the
+//   mean first, then the centred variance (the backward then sum dxhat and
+//   sum dxhat xhat), and each output is the tile's expression, rounded
+//   once: the arithmetic of K7 and K8 (chip_smoke.py holds the K5/K3
+//   chain against K7: equal bit for bit) and of the earlier K1 and K2.
+//   Adding in another order would move bf16 outputs by a rounding step
+//   here and there, and the chains apart from the towers.
+// - gamma and beta are read as float4 (rounded to T first with
+//   ROUND_AFFINE / ROUND_GAMMA), issued beside the row's loads; the
+//   forward keeps them in registers across every row its warp walks, the
+//   backward (one row a warp) also reads the tiles' layout of gamma.
+// - Forward grid: two warps (64 threads) a block, one row a warp, a
+//   grid-stride loop past kLnFwdMaxBlocks blocks: R = 768 gives 384 blocks
+//   and R = 384 192, both more than the 132 SMs.
+// - The backward's column sums come in the same launch, deterministic, with no
+//   float atomics, and in the earlier kernels' order (there: 8-row blocks'
+//   partial rows, then a column-sum launch adding them in 8 groups by block
+//   index mod 8, each group in block order, then the groups in order). Blocks
+//   are the earlier kernels' (8 warps, a row each: 96 at R = 768, 48 at R =
+//   384); each adds its warps' rows in warp order through shared memory once
+//   (lane-minor slots: no bank conflicts) into its partial row in `part`. Then
+//   two levels of tickets on integer arrival counters (acquire-release, one a
+//   block): the block that takes its group's last ticket adds the group's rows
+//   in block order into the group's row, and the group block that takes the
+//   last of the 8 group tickets adds the group rows in order into the sums;
+//   each resets its counter to 0. Both read with 16-byte loads, a whole
+//   group's rows in flight. So the sums add in the earlier kernels' order,
+//   and training reads as before. (With the blocks' rows added in another
+//   order, cluster by cluster, the 22 training steps before chip_smoke.py's
+//   f32 kernels on/off comparison ended on other weights, and that comparison
+//   failed in the text head, which routes gradients through maxima.)
+// - The counters (a device's 16 words, 0 between calls; ops/layernorm.py
+//   makes them) are shared by every LN backward launch on the device:
+//   concurrent LN backward calls (K2, K4, K6) on two streams of one device
+//   are not supported.
+//
+// Times of this design (bf16, R = H = 768, warm / cold L2, CUDA graph of
+// 20 calls, chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W): K1 3.0 / 4.0
+// us against F.layer_norm 4.2 us warm; K2 7.9 / 8.9 us against
+// native_layer_norm_backward 7.4 us warm (PERF.md has the runs).
+// ---------------------------------------------------------------------------
+
+constexpr int kLnFwdWarps = 2, kLnFwdThreads = 32 * kLnFwdWarps;
+constexpr int kLnFwdMaxBlocks = 1024;
+constexpr int kLnBwdWarps = 8, kLnBwdThreads = 32 * kLnBwdWarps;
+constexpr int kLnGroups = 8;
+
+inline int ln_fwd_blocks(int rows) {
+  const int b = (rows + kLnFwdWarps - 1) / kLnFwdWarps;
+  return b < kLnFwdMaxBlocks ? b : kLnFwdMaxBlocks;
+}
+
+// The backward's blocks: the earlier kernels', 8 rows each, one a warp.
+inline int ln_bwd_blocks(int rows) {
+  return (rows + kLnBwdWarps - 1) / kLnBwdWarps;
+}
+
+// Rows of the backward's `part` scratch: one a block, then one a group of
+// blocks (by block index mod kLnGroups) (ops/layernorm.py `ln_bwd_parts`
+// mirrors this).
+inline int ln_bwd_parts(int rows) { return ln_bwd_blocks(rows) + kLnGroups; }
+
+// The backward's sums a warp holds: NQ sums of VPL vectors of VEC
+// columns a lane, lane-minor (conflict-free in shared memory). At most
+// NQ kLnMaxWidth: `part` rows are that wide.
+template <int NQ, int VPL, int VEC>
+__host__ __device__ constexpr int ln_bwd_slots() {
+  return NQ * VPL * VEC * 32;
+}
+
+// The VEC elements of T in the 16-byte vector u, as f32.
+template <int VEC, typename T>
+__device__ __forceinline__ void unpack_vec(const uint4& u, float (&v)[VEC]) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (std::is_same<T, float>::value) {
+      v[j] = __uint_as_float(w[j]);
+    } else {                     // bf16: the high half of an f32, low first
+      v[2 * j] = __uint_as_float(w[j] << 16);
+      v[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
+    }
+  }
+}
+
+// v rounded to T and stored at p: one 16-byte store where VEC elements
+// fill 16 bytes (p 16-byte aligned), else VEC scalar ones.
+template <int VEC, typename T>
+__device__ __forceinline__ void st_vec(T* p, const float (&v)[VEC]) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    unsigned w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (std::is_same<T, float>::value) {
+        w[j] = __float_as_uint(v[j]);
+      } else {
+        w[j] = static_cast<unsigned>(
+                   __bfloat16_as_ushort(__float2bfloat16(v[2 * j]))) |
+               static_cast<unsigned>(
+                   __bfloat16_as_ushort(__float2bfloat16(v[2 * j + 1])))
+                   << 16;
+      }
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) p[j] = from_f32<T>(v[j]);
+  }
+}
+
+// VEC f32 values at p (an affine parameter), rounded to T with ROUND: as
+// float4 loads where VEC is a multiple of 4 (p 16-byte aligned).
+template <int VEC, typename T, bool ROUND>
+__device__ __forceinline__ void ld_param(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < VEC; j += 4) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(p + j));
+      v[j] = f.x;
+      v[j + 1] = f.y;
+      v[j + 2] = f.z;
+      v[j + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v[j] = __ldg(p + j);
+  }
+  if (ROUND) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v[j] = round_to<T>(v[j]);
+  }
+}
+
+// Lane l's share of a row: vectors l, l + 32, ... (VPL of them, those
+// below nv live; VEC elements each). ln_fetch issues the loads (16-byte
+// vectors into u; with VEC = 1 the elements straight into v, 0 where not
+// live); ln_put then stores the vectors into the warp's staging buffer in
+// shared memory, from which the statistics read the tiles' layout, and
+// unpacks them into v (the caller syncs the warp before and after).
+template <int VEC, int VPL, typename T>
+__device__ __forceinline__ void ln_fetch(const T* row, uint4 (&u)[VPL],
+                                         float (&v)[VPL][VEC], int lane,
+                                         int nv) {
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    const int c = (lane + 32 * k) * VEC;
+    if constexpr (VEC > 1) {
+      if (lane + 32 * k < nv) u[k] = *reinterpret_cast<const uint4*>(row + c);
+    } else {
+      v[k][0] = lane + 32 * k < nv ? to_f32(row[c]) : 0.f;
+    }
+  }
+}
+
+template <int VEC, int VPL, typename T>
+__device__ __forceinline__ void ln_put(T* buf, const uint4 (&u)[VPL],
+                                       float (&v)[VPL][VEC], int lane,
+                                       int nv) {
+  if constexpr (VEC > 1) {
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int c = (lane + 32 * k) * VEC;
+      if (lane + 32 * k < nv) {
+        *reinterpret_cast<uint4*>(buf + c) = u[k];
+        unpack_vec<VEC, T>(u[k], v[k]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) v[k][j] = 0.f;
+      }
+    }
+  }
+}
+
+// Element j of lane l in the tiles' layout (element l + 32 j of the row,
+// 0 past h): from the staging buffer, or from v where the two layouts are
+// one (VEC = 1).
+template <int VEC, int VPL, typename T>
+__device__ __forceinline__ float ln_tile(const T* buf,
+                                         const float (&v)[VPL][VEC], int j,
+                                         int lane, int h) {
+  if constexpr (VEC > 1) {
+    const int i = lane + 32 * j;
+    return i < h ? to_f32(buf[i]) : 0.f;
+  } else {
+    return v[j][0];
+  }
+}
+
+// K1's kernel. Device memory moves as 16-byte vectors (lane l: vectors l,
+// l + 32, ...); the row statistics are layernorm_rows_tile's sums, in its
+// order (lane l adds elements l, l + 32, ... read back from the staging
+// buffer), and y is its expression.
+template <typename T, bool ROUND_AFFINE, int VEC, int VPL>
+__global__ void __launch_bounds__(kLnFwdThreads)
+layernorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                     const float* __restrict__ beta, T* __restrict__ y,
+                     int rows, int h, float eps) {
+  constexpr int J = VEC * VPL;
+  __shared__ __align__(16) T stage[kLnFwdWarps][32 * J];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nv = h / VEC;
+  float g[VPL][VEC], b[VPL][VEC];
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    if (lane + 32 * k < nv) {
+      ld_param<VEC, T, ROUND_AFFINE>(gamma + (lane + 32 * k) * VEC, g[k]);
+      ld_param<VEC, T, ROUND_AFFINE>(beta + (lane + 32 * k) * VEC, b[k]);
+    }
+  }
+  T* buf = stage[warp];
+  for (int row = blockIdx.x * kLnFwdWarps + warp; row < rows;
+       row += gridDim.x * kLnFwdWarps) {
+    float v[VPL][VEC];
+    uint4 u[VPL];
+    ln_fetch<VEC, VPL>(x + (size_t)row * h, u, v, lane, nv);
+    __syncwarp();
+    ln_put<VEC, VPL>(buf, u, v, lane, nv);
+    __syncwarp();
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) s += ln_tile<VEC, VPL>(buf, v, j, lane, h);
+    const float mean = warp_sum(s) / h;
+    float q = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float d = lane + 32 * j < h
+                          ? ln_tile<VEC, VPL>(buf, v, j, lane, h) - mean
+                          : 0.f;
+      q += d * d;
+    }
+    const float rs = rsqrtf(warp_sum(q) / h + eps);
+    T* yr = y + (size_t)row * h;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      if (lane + 32 * k < nv) {
+        float o[VEC];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          o[j] = (v[k][j] - mean) * rs * g[k][j] + b[k][j];
+        st_vec<VEC>(yr + (lane + 32 * k) * VEC, o);
+      }
+    }
+  }
+}
+
+// K2's kernel (block_pallas.py `_ln_bwd_f32`, layernorm_pallas.py
+// `_bwd_kernel`), statistics recomputed from the pre-LN input x:
+//   xhat = (x - mean) rs,  dxhat = dy g,
+//   dx = rs (dxhat - mean(dxhat) - xhat mean(dxhat xhat))   (f32)
+// stored rounded to T; with `dxd` (the half-layers with dropout) also
+// dxd = drop(r(dx)), the bit of element (row, i) being drop.bit(row h + i).
+// As in K1's kernel, the four row sums are layernorm_bwd_rows_tile's, in
+// its order, and dx is its expression. sums (NQ h) f32 = [sum dy xhat |
+// sum dy | (NQ == 3) sum f32(dxd or dx)] over the rows, by way of part
+// (ln_bwd_parts(rows), NQ kLnMaxWidth) f32 and the arrival counters (see
+// the section note); 4 kLnBwdWarps ln_bwd_slots<NQ, VPL, VEC>() bytes of
+// dynamic shared memory, a row a warp: its staging buffers, then its
+// row's sums.
+template <typename T, bool ROUND_GAMMA, int VEC, int VPL, int NQ>
+__global__ void __launch_bounds__(kLnBwdThreads)
+layernorm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                     const float* __restrict__ gamma, T* __restrict__ dx,
+                     T* __restrict__ dxd, DropSrc drop, unsigned thr,
+                     float scale, float* __restrict__ part,
+                     float* __restrict__ sums, unsigned* counter, int rows,
+                     int h, float eps) {
+  constexpr int J = VEC * VPL, n = ln_bwd_slots<NQ, VPL, VEC>();
+  extern __shared__ __align__(16) float red[];
+  __shared__ unsigned ticket;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nv = h / VEC;
+  const int b = blockIdx.x, row = b * kLnBwdWarps + warp;
+  const int nb = gridDim.x, grp = b % kLnGroups;
+  float* mine = red + warp * n;                 // this warp's row
+  T* xbuf = reinterpret_cast<T*>(mine);
+  T* dbuf = xbuf + 32 * J;
+  if (row < rows) {
+    const size_t r0 = (size_t)row * h;
+    float v[VPL][VEC], d[VPL][VEC];
+    uint4 ux[VPL], ud[VPL];
+    ln_fetch<VEC, VPL>(x + r0, ux, v, lane, nv);
+    ln_fetch<VEC, VPL>(dy + r0, ud, d, lane, nv);
+    ln_put<VEC, VPL>(xbuf, ux, v, lane, nv);
+    ln_put<VEC, VPL>(dbuf, ud, d, lane, nv);
+    __syncwarp();
+    // the tile's sums, in its order and with its expressions: (sum x,
+    // sum dxhat), sum (x - mean)^2, sum dxhat xhat
+    float xt[J], ot[J], s = 0.f, m1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int i = lane + 32 * j;
+      float g = i < h ? __ldg(gamma + i) : 0.f;
+      if (ROUND_GAMMA) g = round_to<T>(g);
+      xt[j] = ln_tile<VEC, VPL>(xbuf, v, j, lane, h);
+      ot[j] = ln_tile<VEC, VPL>(dbuf, d, j, lane, h) * g;    // dxhat
+      s += xt[j];
+      m1 += ot[j];
+    }
+    const float mean = warp_sum(s) / h;
+    m1 = warp_sum(m1) / h;
+    float q2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      xt[j] = lane + 32 * j < h ? xt[j] - mean : 0.f;
+      q2 += xt[j] * xt[j];
+    }
+    const float rs = rsqrtf(warp_sum(q2) / h + eps);
+    float m2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) m2 += ot[j] * (xt[j] * rs);
+    m2 = warp_sum(m2) / h;        // the warp's staging reads are done
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int col = (lane + 32 * k) * VEC;
+      const bool live = lane + 32 * k < nv;
+      float g[VEC], r[VEC];
+      if (live) ld_param<VEC, T, ROUND_GAMMA>(gamma + col, g);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float xh = (v[k][j] - mean) * rs;
+        r[j] = live ? round_to<T>(rs * (d[k][j] * g[j] - m1 - xh * m2))
+                    : 0.f;
+        mine[((0 * VPL + k) * VEC + j) * 32 + lane] = live ? d[k][j] * xh
+                                                           : 0.f;
+        mine[((1 * VPL + k) * VEC + j) * 32 + lane] = live ? d[k][j] : 0.f;
+      }
+      if (live) {
+        st_vec<VEC>(dx + r0 + col, r);
+        if (dxd) {
+          if (drop.on()) {
+#pragma unroll
+            for (int j = 0; j < VEC; ++j)
+              r[j] = drop_to<T>(r[j], drop.bit(r0 + col + j), thr, scale);
+          }
+          st_vec<VEC>(dxd + r0 + col, r);
+        }
+      }
+      if constexpr (NQ == 3) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          mine[((2 * VPL + k) * VEC + j) * 32 + lane] = r[j];
+      }
+    }
+  } else {
+    for (int p = lane; p < n; p += 32) mine[p] = 0.f;
+  }
+  // (1) the block's row of sums, slot ((q VPL + k) VEC + j) 32 + lane
+  // holding column (lane + 32 k) VEC + j of sum q: the warps added in warp
+  // order, into part's row b
+  constexpr size_t ld = (size_t)NQ * kLnMaxWidth;   // a row of part
+  __syncthreads();
+  for (int p = threadIdx.x; p < n; p += kLnBwdThreads) {
+    float t = red[p];
+#pragma unroll
+    for (int w = 1; w < kLnBwdWarps; ++w) t += red[w * n + p];
+    part[b * ld + p] = t;
+  }
+  // (2) the group's row: the block that takes its group's last ticket
+  // (acquire-release, one a block) adds the group's block rows b % 8 = grp
+  // in block order into part's row nb + grp
+  __syncthreads();
+  const int members = (nb - grp + kLnGroups - 1) / kLnGroups;
+  if (threadIdx.x == 0)
+    ticket = cuda::atomic_ref<unsigned, cuda::thread_scope_device>(
+                 counter[1 + grp]).fetch_add(1u, cuda::memory_order_acq_rel);
+  __syncthreads();
+  if (ticket != static_cast<unsigned>(members - 1)) return;
+  if (threadIdx.x == 0) counter[1 + grp] = 0u;
+  const float4* rows4 = reinterpret_cast<const float4*>(part);
+  constexpr int ld4 = static_cast<int>(ld / 4);
+  for (int p4 = threadIdx.x; p4 < n / 4; p4 += kLnBwdThreads) {
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j0 = 0; j0 < members; j0 += 16) {      // 16 loads in flight
+      float4 t[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        t[i] = j0 + i < members
+                   ? __ldcg(rows4 + (size_t)(kLnGroups * (j0 + i) + grp) *
+                                        ld4 + p4)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        sum.x += t[i].x;
+        sum.y += t[i].y;
+        sum.z += t[i].z;
+        sum.w += t[i].w;
+      }
+    }
+    reinterpret_cast<float4*>(part)[(size_t)(nb + grp) * ld4 + p4] = sum;
+  }
+  // (3) the sums: the group block that takes the last ticket of the
+  // groups adds the group rows in group order and writes them
+  __syncthreads();
+  const int groups = nb < kLnGroups ? nb : kLnGroups;
+  if (threadIdx.x == 0)
+    ticket = cuda::atomic_ref<unsigned, cuda::thread_scope_device>(
+                 counter[0]).fetch_add(1u, cuda::memory_order_acq_rel);
+  __syncthreads();
+  if (ticket != static_cast<unsigned>(groups - 1)) return;
+  if (threadIdx.x == 0) counter[0] = 0u;
+  for (int p4 = threadIdx.x; p4 < n / 4; p4 += kLnBwdThreads) {
+    float4 t[kLnGroups];
+#pragma unroll
+    for (int g = 0; g < kLnGroups; ++g)
+      t[g] = g < groups ? __ldcg(rows4 + (size_t)(nb + g) * ld4 + p4)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int g = 0; g < kLnGroups; ++g) {
+      sum[0] += t[g].x;
+      sum[1] += t[g].y;
+      sum[2] += t[g].z;
+      sum[3] += t[g].w;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = 4 * p4 + e;                      // slot p's column
+      const int col = (p % 32 + 32 * (p / 32 / VEC % VPL)) * VEC +
+                      p / 32 % VEC;
+      if (col < h) sums[p / (32 * J) * h + col] = sum[e];
+    }
+  }
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Calls f(VEC, VPL) (as std::integral_constant) for the vectors per lane
+// that cover h: VEC = 16 / sizeof(T) where `vec` holds, else the scalar
+// path VEC = 1, VPL = kLnPerLane.
+template <int V, int N, typename F>
+cudaError_t ln_dispatch_vpl(int vpl, F& f) {
+  if constexpr (N * 32 * V > kLnMaxWidth) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (vpl == N)
+      return f(std::integral_constant<int, V>{},
+               std::integral_constant<int, N>{});
+    return ln_dispatch_vpl<V, N + 1>(vpl, f);
+  }
+}
+
+template <typename T, typename F>
+cudaError_t ln_dispatch(int h, bool vec, F&& f) {
+  constexpr int V = 16 / sizeof(T);
+  if (h < 1 || h > kLnMaxWidth) return cudaErrorInvalidValue;
+  if (vec && h % V == 0)
+    return ln_dispatch_vpl<V, 1>((h / V + 31) / 32, f);
+  return f(std::integral_constant<int, 1>{},
+           std::integral_constant<int, kLnPerLane>{});
+}
+
+template <typename T, bool ROUND_AFFINE>
+cudaError_t launch_layernorm_rows(const T* x, const float* gamma,
+                                  const float* beta, T* y, int rows, int h,
+                                  float eps, cudaStream_t stream) {
+  const bool vec = aligned16(x) && aligned16(y) && aligned16(gamma) &&
+                   aligned16(beta);
+  return ln_dispatch<T>(h, vec, [&](auto v, auto n) {
+    layernorm_fwd_kernel<T, ROUND_AFFINE, decltype(v)::value,
+                         decltype(n)::value>
+        <<<ln_fwd_blocks(rows), kLnFwdThreads, 0, stream>>>(x, gamma, beta,
+                                                            y, rows, h, eps);
+    return cudaGetLastError();
+  });
+}
+
+// The LayerNorm backward row pass with its NQ column sums into sums (NQ h
+// f32), in one launch. part: (ln_bwd_parts(rows), NQ kLnMaxWidth) f32
+// scratch;
+// counter: the device's arrival counter, 0 on entry and on exit.
+template <typename T, bool ROUND_GAMMA, int NQ>
 cudaError_t launch_layernorm_bwd(const T* dy, const T* x, const float* gamma,
                                  T* dx, T* dxd, const DropSrc& drop,
                                  unsigned thr, float scale, float* part,
-                                 float* sums, int nq, int rows, int h,
-                                 float eps, cudaStream_t stream) {
-  const int blocks = ln_bwd_blocks(rows);
-  layernorm_bwd_rows_kernel<T, ROUND_GAMMA><<<blocks, kLnThreads, 0, stream>>>(
-      dy, x, gamma, dx, dxd, drop, thr, scale, part, nq, rows, h, eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_colsum<float>(part, blocks, nq * h, sums, stream);
+                                 float* sums, unsigned* counter, int rows,
+                                 int h, float eps, cudaStream_t stream) {
+  const bool vec = aligned16(dy) && aligned16(x) && aligned16(gamma) &&
+                   aligned16(dx) && aligned16(dxd);
+  return ln_dispatch<T>(h, vec, [&](auto v, auto n) {
+    constexpr int VEC = decltype(v)::value, VPL = decltype(n)::value;
+    const auto kernel = layernorm_bwd_kernel<T, ROUND_GAMMA, VEC, VPL, NQ>;
+    const size_t smem =
+        sizeof(float) * kLnBwdWarps * ln_bwd_slots<NQ, VPL, VEC>();
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<ln_bwd_blocks(rows), kLnBwdThreads, smem, stream>>>(
+        dy, x, gamma, dx, dxd, drop, thr, scale, part, sums, counter, rows, h,
+        eps);
+    return cudaGetLastError();
+  });
 }
 
 // ---------------------------------------------------------------------------

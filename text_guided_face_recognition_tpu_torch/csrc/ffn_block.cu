@@ -20,22 +20,23 @@
 //       the layer seed ^ 0x5BD1E995 (ops/philox.py), each element computing
 //       its own Philox block: 4x the ALU work of a dump, and no bits in
 //       device memory;
-//   (c) z = LN(r), one warp per row.
+//   (c) z = LN(r), common.cuh's vector LayerNorm row kernel (K1's).
 // The backward's residuals are x, f, act and r.
 //
 // Backward. Bound: bytes, narrowly: 49.6 MB with the f32 weight gradients
 // and the dropout bits (14.8 us at 3.35 TB/s) against the four GEMMs'
 // 14.5 GFLOP (14.7 us at 989 TFLOP/s), at the shapes above, as
 // chip_smoke.py counts them. The TPU kernel streams over I with an f32 dx
-// accumulator; here it becomes seven launches:
-//   (1) the LN backward row pass from r (statistics recomputed), then the
-//       dropout (the forward's bits, or its stream regenerated from the
-//       same seed): dr and dgg = drop(dr), rounded; dgamma, dbeta and dc2
-//       as per-block partial sums, (2) reduced in a fixed order;
-//   (3) dW2 = dgg^T . act, f32;
-//   (4) df = r(r(dgg . W2) * gelu'(f)), the GELU derivative in the epilogue;
-//   (5) dW1 = df^T . x, f32;  (6) dc1 = column sums of df;
-//   (7) dx = r(dr + r(df . W1)).
+// accumulator; here it becomes six launches:
+//   (1) the LN backward row pass from r (statistics recomputed; K2's
+//       kernel in common.cuh), then the dropout (the forward's bits, or its
+//       stream regenerated from the same seed): dr and dgg = drop(dr),
+//       rounded; dgamma, dbeta and dc2 summed over the rows in the same
+//       launch, in a fixed order;
+//   (2) dW2 = dgg^T . act, f32;
+//   (3) df = r(r(dgg . W2) * gelu'(f)), the GELU derivative in the epilogue;
+//   (4) dW1 = df^T . x, f32;  (5) dc1 = column sums of df;
+//   (6) dx = r(dr + r(df . W1)).
 // dW1 and dW2 are written in nn.Linear's (out, in) layout; the weight
 // gradients are never rounded to bf16 (the TPU kernel's outputs are in the
 // master dtype).
@@ -73,32 +74,33 @@ int run_bwd(const void* dz, const void* x, const void* f, const void* act,
             const void* r, const float* w1, const float* w2,
             const float* gamma, const tgfr::DropSrc& drop, unsigned thr,
             float scale, void* dx, float* dw1, float* dc1, float* dw2,
-            float* dln, void* dr, void* dgg, void* df, float* part, int rows,
-            int h, int inter, float eps, cudaStream_t s) {
-  // (1, 2) dr, dgg = drop(dr); dln = [dgamma | dbeta | dc2]
+            float* dln, void* dr, void* dgg, void* df, float* part,
+            unsigned* counter, int rows, int h, int inter, float eps,
+            cudaStream_t s) {
+  // (1) dr, dgg = drop(dr); dln = [dgamma | dbeta | dc2]
   T* dgg_t = static_cast<T*>(drop.on() ? dgg : dr);
-  cudaError_t err = tgfr::launch_layernorm_bwd<T, true>(
+  cudaError_t err = tgfr::launch_layernorm_bwd<T, true, 3>(
       static_cast<const T*>(dz), static_cast<const T*>(r), gamma,
       static_cast<T*>(dr), drop.on() ? dgg_t : nullptr, drop, thr, scale,
-      part, dln, 3, rows, h, eps, s);
+      part, dln, counter, rows, h, eps, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // (3) dW2 (h, inter) = dgg^T . act
+  // (2) dW2 (h, inter) = dgg^T . act
   err = tgfr::launch_weight_grad<T>(dgg_t, act, dw2, h, inter, rows, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // (4) df = r(r(dgg . W2) * gelu'(f)); W2 is (h, inter) = (K, N)
+  // (3) df = r(r(dgg . W2) * gelu'(f)); W2 is (h, inter) = (K, N)
   tgfr::GemmArgs da = tgfr::gemm_args(dgg_t, w2, df, rows, inter, h);
   da.aux = f;
   err = tgfr::launch_gemm<T, tgfr::kEpiDgelu, tgfr::kARowMajor,
                           tgfr::kBWeightKN>(da, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // (5) dW1 (inter, h) = df^T . x
+  // (4) dW1 (inter, h) = df^T . x
   err = tgfr::launch_weight_grad<T>(df, x, dw1, inter, h, rows, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // (6) dc1
+  // (5) dc1
   err = tgfr::launch_colsum<T>(static_cast<const T*>(df), rows, inter, dc1,
                                s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // (7) dx = r(dr + r(df . W1)); W1 is (inter, h) = (K, N)
+  // (6) dx = r(dr + r(df . W1)); W1 is (inter, h) = (K, N)
   tgfr::GemmArgs dxa = tgfr::gemm_args(df, w1, dx, rows, h, inter);
   dxa.resid = dr;
   err = tgfr::launch_gemm<T, tgfr::kEpiBiasResidual, tgfr::kARowMajor,
@@ -139,8 +141,8 @@ extern "C" int tgfr_ffn_block_fwd(const void* x, const void* w1,
 // w1: (inter, h), w2: (h, inter), nn.Linear layout. Outputs dx (rows, h);
 // dw1 (inter, h), dc1 (inter), dw2 (h, inter), dln (3 h) = [dgamma | dbeta
 // | dc2], all f32. Dropout as the forward's. Scratch: dr, dgg (rows, h;
-// dgg only with dropout), df (rows, inter), part (ceil(rows / 8), 3 h)
-// f32.
+// dgg only with dropout), df (rows, inter), part (tgfr_ln_bwd_parts(rows),
+// 3 * 1024) f32; counter: the device's LN arrival counters (layernorm.cu).
 extern "C" int tgfr_ffn_block_bwd(const void* dz, const void* x,
                                   const void* f, const void* act,
                                   const void* r, const void* w1,
@@ -149,8 +151,8 @@ extern "C" int tgfr_ffn_block_bwd(const void* dz, const void* x,
                                   unsigned thr, float scale, void* dx,
                                   void* dw1, void* dc1, void* dw2, void* dln,
                                   void* dr, void* dgg, void* df, void* part,
-                                  int rows, int h, int inter, float eps,
-                                  int dtype, void* stream) {
+                                  void* counter, int rows, int h, int inter,
+                                  float eps, int dtype, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* fw1 = static_cast<const float*>(w1);
   const auto* fw2 = static_cast<const float*>(w2);
@@ -161,13 +163,14 @@ extern "C" int tgfr_ffn_block_bwd(const void* dz, const void* x,
   auto* o2 = static_cast<float*>(dw2);
   auto* oln = static_cast<float*>(dln);
   auto* pt = static_cast<float*>(part);
+  auto* ctr = static_cast<unsigned*>(counter);
   if (dtype == tgfr::kBF16)
     return run_bwd<__nv_bfloat16>(dz, x, f, act, r, fw1, fw2, g, u, thr,
                                   scale, dx, o1, oc1, o2, oln, dr, dgg, df,
-                                  pt, rows, h, inter, eps, s);
+                                  pt, ctr, rows, h, inter, eps, s);
   if (dtype == tgfr::kF32)
     return run_bwd<float>(dz, x, f, act, r, fw1, fw2, g, u, thr, scale, dx,
-                          o1, oc1, o2, oln, dr, dgg, df, pt, rows, h, inter,
-                          eps, s);
+                          o1, oc1, o2, oln, dr, dgg, df, pt, ctr, rows, h,
+                          inter, eps, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

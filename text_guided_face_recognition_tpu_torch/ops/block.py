@@ -75,7 +75,7 @@ from text_guided_face_recognition_tpu_torch.ops import _cuda
 from text_guided_face_recognition_tpu_torch.ops.dropout import (
     dropout, threshold)
 from text_guided_face_recognition_tpu_torch.ops.layernorm import (
-    LN_MAX_WIDTH, LN_ROWS_PER_BLOCK, ln_bwd_f32, ln_f32)
+    LN_MAX_WIDTH, ln_bwd_counter, ln_bwd_f32, ln_bwd_parts, ln_f32)
 from text_guided_face_recognition_tpu_torch.ops.philox import (
     attn_stream_bits_ref, check_seed, ffn_seed, ffn_stream_bits_ref,
     tower_stream_bits_ref)
@@ -91,11 +91,11 @@ __all__ = ["attn_block", "attn_block_ref", "attn_block_fwd",
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _FFN_FWD_ARGTYPES = (_P,) * 9 + (_U, _F) + (_P,) * 4 + (_I, _I, _I, _F, _I,
                                                          _P)
-_FFN_BWD_ARGTYPES = (_P,) * 10 + (_U, _F) + (_P,) * 9 + (_I, _I, _I, _F, _I,
-                                                         _P)
+_FFN_BWD_ARGTYPES = (_P,) * 10 + (_U, _F) + (_P,) * 10 + (_I, _I, _I, _F, _I,
+                                                          _P)
 _ATTN_FWD_ARGTYPES = (_P,) * 11 + (_U, _F) + (_P,) * 5 + (_I, _I, _I, _I, _F,
                                                           _I, _P)
-_ATTN_BWD_ARGTYPES = (_P,) * 12 + (_U, _F) + (_P,) * 10 + (_I, _I, _I, _I,
+_ATTN_BWD_ARGTYPES = (_P,) * 12 + (_U, _F) + (_P,) * 11 + (_I, _I, _I, _I,
                                                            _F, _I, _P)
 _TOWER_ARGTYPES = (_P,) * 4 + (_U, _F, _F, _I, _P)
 D_HEAD = 64
@@ -446,9 +446,12 @@ def _drop_args(rate: float) -> Tuple[int, float]:
             else (0, 1.0))
 
 
-def _ln_part(rows: int, h: int, dev) -> torch.Tensor:
-    return torch.empty((-(-rows // LN_ROWS_PER_BLOCK), 3 * h),
+def _ln_part(rows: int, dev) -> Tuple[int, int]:
+    """The LN backward's scratch (its partial column sums) and the
+    device's arrival counters, as pointers (ops/layernorm.py)."""
+    part = torch.empty((ln_bwd_parts(rows), 3 * LN_MAX_WIDTH),
                        dtype=torch.float32, device=dev)
+    return part.data_ptr(), ln_bwd_counter(dev).data_ptr()
 
 
 # ---------------------------------------------------------- FFN kernels --
@@ -536,7 +539,7 @@ def ffn_block_bwd(dz, x, f, act, r, w1, w2, gamma, bits=None,
                  gamma.data_ptr(), _ptr(bits), _ptr(stream), thr, scale,
                  dx.data_ptr(), dw1.data_ptr(), dc1.data_ptr(), dw2.data_ptr(),
                  dln.data_ptr(), dr.data_ptr(), _ptr(dgg), df.data_ptr(),
-                 _ln_part(rows, h, dev).data_ptr(), rows, h, inter,
+                 *_ln_part(rows, dev), rows, h, inter,
                  float(eps), _cuda.dtype_code(x.dtype))
     ffn_block_bwd.launches += 1
     return (dx, dw1.t(), dc1, dw2.t(), dln[2 * h:], dln[:h], dln[h:2 * h])
@@ -692,7 +695,7 @@ def attn_block_bwd(dy, x, qkv, p, o, r, wqkv, wo, gamma, b: int, t: int,
                  _ptr(seed), thr, scale, dx.data_ptr(), dwqkv.data_ptr(),
                  dbqkv.data_ptr(), dwo.data_ptr(), dln.data_ptr(),
                  dr.data_ptr(), _ptr(dh), dout.data_ptr(), dqkv.data_ptr(),
-                 _ln_part(rows, h, dev).data_ptr(), b, t, h, heads,
+                 *_ln_part(rows, dev), b, t, h, heads,
                  float(eps), _cuda.dtype_code(x.dtype))
     attn_block_bwd.launches += 1
     return (dx, dwqkv.t(), dbqkv, dwo.t(), dln[2 * h:], dln[:h],

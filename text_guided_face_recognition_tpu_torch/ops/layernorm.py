@@ -12,27 +12,60 @@ recomputes the row statistics: dx in x's dtype, dgamma and dbeta in f32.
 Each wrapper runs the plain version for a CPU tensor and the kernel
 (csrc/layernorm.cu) for a CUDA tensor; it never falls back from one to the
 other. Each K1 launch adds one to `layernorm_fused.launches`, each K2
-launch one to `layernorm_bwd.launches`.
+launch one to `layernorm_bwd.launches`. K2 (and the LN phase of the
+half-layer backwards, ops/block.py) adds its column sums in the same
+launch, through a `part` scratch of `ln_bwd_parts(rows)` rows of
+`LN_MAX_WIDTH` floats a sum and the device's arrival counters
+(`ln_bwd_counter`): concurrent LN backward calls on two streams of one
+device are not supported.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from text_guided_face_recognition_tpu_torch.ops import _cuda
 
 __all__ = ["layernorm_fused", "layernorm_bwd",
-           "layernorm_ref", "layernorm_bwd_ref", "ln_f32", "LN_MAX_WIDTH"]
+           "layernorm_ref", "layernorm_bwd_ref", "ln_f32", "ln_bwd_parts",
+           "ln_bwd_counter", "LN_MAX_WIDTH"]
 
 LN_MAX_WIDTH = 1024  # csrc/common.cuh kLnMaxWidth: a row held in registers
-LN_ROWS_PER_BLOCK = 8  # csrc/common.cuh kLnWarps: rows per partial sum
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGTYPES = (_P, _P, _P, _P, _I, _I, _F, _I, _P)
-_BWD_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P)
+_BWD_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P)
+_COUNTERS: Dict[int, torch.Tensor] = {}
+
+
+def ln_bwd_parts(rows: int) -> int:
+    """Rows of the LN backward's `part` scratch for `rows` token rows: one
+    a block of 8 rows, then one a group of blocks (8 groups; csrc/common.cuh
+    `ln_bwd_parts`)."""
+    return -(-rows // 8) + 8
+
+
+def ln_bwd_counter(device: torch.device) -> torch.Tensor:
+    """The LN backward's arrival counters on `device`: int32 words, 0
+    between launches (the blocks that take the last tickets reset them).
+    Made with torch.zeros at the first LN backward on the device, which
+    therefore must not run inside a CUDA graph capture."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    counter = _COUNTERS.get(idx)
+    if counter is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "LayerNorm backward: its arrival counters are made at the "
+                "first call on a device; run one LN backward on cuda:"
+                f"{idx} before capturing a CUDA graph")
+        counter = torch.zeros(16, dtype=torch.int32, device=f"cuda:{idx}")
+        _COUNTERS[idx] = counter
+    return counter
 
 
 def ln_f32(r: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -130,16 +163,18 @@ def layernorm_bwd(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
     h = x.shape[-1]
     rows = x.numel() // h
     dx = torch.empty_like(x)
-    dgb = torch.zeros(2 * h, dtype=torch.float32, device=x.device)
-    if rows:
-        blocks = -(-rows // LN_ROWS_PER_BLOCK)
-        part = torch.empty((blocks, 2 * h), dtype=torch.float32,
-                           device=x.device)
-        fn = _cuda.function("layernorm", "tgfr_layernorm_bwd", _BWD_ARGTYPES)
-        _cuda.launch(fn, dy.data_ptr(), x.data_ptr(), gamma.data_ptr(),
-                     dx.data_ptr(), dgb.data_ptr(), part.data_ptr(), rows, h,
-                     float(eps), _cuda.dtype_code(x.dtype))
-        layernorm_bwd.launches += 1
+    if not rows:
+        dgb = torch.zeros(2 * h, dtype=torch.float32, device=x.device)
+        return dx, dgb[:h], dgb[h:]
+    dgb = torch.empty(2 * h, dtype=torch.float32, device=x.device)
+    part = torch.empty((ln_bwd_parts(rows), 2 * LN_MAX_WIDTH),
+                       dtype=torch.float32, device=x.device)
+    fn = _cuda.function("layernorm", "tgfr_layernorm_bwd", _BWD_ARGTYPES)
+    _cuda.launch(fn, dy.data_ptr(), x.data_ptr(), gamma.data_ptr(),
+                 dx.data_ptr(), dgb.data_ptr(), part.data_ptr(),
+                 ln_bwd_counter(x.device).data_ptr(), rows, h, float(eps),
+                 _cuda.dtype_code(x.dtype))
+    layernorm_bwd.launches += 1
     return dx, dgb[:h], dgb[h:]
 
 
