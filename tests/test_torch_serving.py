@@ -176,12 +176,17 @@ def test_cli_without_cpu_needs_cuda(small_cli, monkeypatch):
 
 
 def test_caption_cache_round_trip(tmp_path):
-    """On-disk captions: the first load tokenises with the HashTokenizer and
-    writes captions_bert-hash.pickle; the second reads it back unchanged."""
+    """On-disk captions: the first load tokenises with the tokenizer that
+    get_bert_tokenizer resolves (here, with no HF cache, the WordPiece
+    vocabulary trained on these captions, or the HashTokenizer where the
+    `tokenizers` package is missing) and writes
+    captions_bert<cache tag>.pickle; the second reads it back unchanged."""
     import pickle
 
     from text_guided_face_recognition_tpu_torch.data.datasets import (
         load_text_data_bert)
+    from text_guided_face_recognition_tpu_torch.data.tokenizers import (
+        get_bert_tokenizer)
     names = ["1_0", "2_0"]
     for split in ("train", "test"):
         (tmp_path / split).mkdir()
@@ -193,10 +198,15 @@ def test_caption_cache_round_trip(tmp_path):
             "a smiling man with glasses\nshort dark hair\nthird\n")
     _, pargs = _cfg(data_dir=str(tmp_path), bert_type="bert")
     first = load_text_data_bert(str(tmp_path), pargs)
-    assert (tmp_path / "captions_bert-hash.pickle").is_file()
+    encode = get_bert_tokenizer(pargs)
+    assert encode.cache_tag in ("-wordpiece", "-hash")
+    assert (tmp_path / f"captions_bert{encode.cache_tag}.pickle").is_file()
     second = load_text_data_bert(str(tmp_path), pargs)
     tr_names, tr_caps, tr_masks = first[:3]
     assert tr_names == names and len(tr_caps) == 2 * 2   # 2 captions each
-    assert tr_caps[0][0] == 101 and tr_masks[0].sum() == 2 + 5
+    ids, mask = encode("a smiling man with glasses", pargs.bert_words_num)
+    np.testing.assert_array_equal(tr_caps[0], ids)
+    np.testing.assert_array_equal(tr_masks[0], mask)
+    assert tr_masks[0].sum() >= 2 + 5                    # [CLS] 5 words [SEP]
     for a, b in zip(first[1] + first[7], second[1] + second[7]):
         np.testing.assert_array_equal(a, b)

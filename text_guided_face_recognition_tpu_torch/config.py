@@ -152,6 +152,13 @@ class TGFRConfig:
     lstm_words_num: int = 18
     captions_per_image: int = 4
     bert_type: str = "bert"
+    # the HF tokenizer of each bert_type (data/tokenizers.get_bert_tokenizer)
+    bert_config: str = "bert-base-uncased"
+    align_config: str = "kakaobrain/align-base"
+    clip_config: str = "openai/clip-vit-base-patch32"
+    blip_config: str = "Salesforce/blip-image-captioning-base"
+    falva_config: str = "facebook/flava-full"  # (sic) the reference's name
+    groupvit_config: str = "nvidia/groupvit-gcc-yfcc"
 
     # --- fusion arch ---
     fusion_type: str = "fcfm"  # fcfm | linear | concat
