@@ -32,6 +32,9 @@ import pytest
 import torch
 
 from text_guided_face_recognition_tpu_torch.config import TGFRConfig as PConfig
+from text_guided_face_recognition_tpu_torch.data import native as pnative
+from text_guided_face_recognition_tpu_torch.data.datasets import (
+    load_text_data_bert)
 from text_guided_face_recognition_tpu_torch.engine import prepare as pprep
 
 SIZES = (112, 128, 250, 112, 250, 128, 112, 250)
@@ -86,6 +89,16 @@ def jx():
     return _Jax()
 
 
+@pytest.fixture
+def disk_set(tmp_path, jx):
+    """(JAX's data dir, the port's data dir): two copies of one set."""
+    if not jx.native.available():  # builds native/ with make where absent
+        pytest.skip("the native dataio library does not build here")
+    _write_set(tmp_path / "j")
+    shutil.copytree(tmp_path / "j", tmp_path / "p")
+    return tmp_path / "j", tmp_path / "p"
+
+
 def _cfg(data_dir, **kw):
     base = dict(en_type="BERT", synthetic=False, data_dir=str(data_dir),
                 test_pair_list=str(data_dir / "pairs.txt"), bert_type="bert",
@@ -95,6 +108,92 @@ def _cfg(data_dir, **kw):
                 uint8_images=False)
     base.update(kw)
     return base
+
+
+def _batches(prep, args, split):
+    dl, ds = prep.prepare_dataloader(args, split)
+    return ds, list(dl)
+
+
+def test_on_disk_batches_match_jax(disk_set, tmp_path, jx):
+    jdir, pdir = disk_set
+    shutil.copytree(pdir, tmp_path / "own")
+    jargs = jx.Config().replace(**_cfg(jdir), num_devices=1)
+    pargs = PConfig().replace(**_cfg(pdir))
+    jbatches = {s: _batches(jx.prep, jargs, s) for s in ("train", "test")}
+    vocab = jdir / "wordpiece_vocab.txt"
+    if vocab.is_file():                   # the JAX package trained one
+        shutil.copy(vocab, pdir / vocab.name)
+    for split in ("train", "test"):
+        jds, jb = jbatches[split]
+        pds, pb = _batches(pprep, pargs, split)
+        assert jds._native_ok() and pds._native_ok(), split
+        assert len(jb) == len(pb) > 0, split
+        for j, p in zip(jb, pb):
+            assert sorted(j) == sorted(p), split
+            for k in p:
+                np.testing.assert_array_equal(p[k], j[k],
+                                              err_msg=f"{split} {k}")
+    # the caches: the same resolved tokenizer's, on both sides
+    jc = sorted(f for f in os.listdir(jdir) if f.startswith("captions_"))
+    pc = sorted(f for f in os.listdir(pdir) if f.startswith("captions_"))
+    assert jc == pc and len(pc) == 1, (jc, pc)
+    with open(jdir / jc[0], "rb") as f:
+        jcache = pickle.load(f)
+    with open(pdir / pc[0], "rb") as f:
+        pcache = pickle.load(f)
+    assert [len(a) for a in jcache] == [len(b) for b in pcache]
+    for a, b in zip(jcache, pcache):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(y, x)
+    if vocab.is_file():
+        # the port trains its own vocabulary: as many pieces, specials
+        # first, and the cache named alike (which pieces win a tie in the
+        # trainer differs between runs of either package)
+        assert pc == ["captions_bert-wordpiece.pickle"]
+        own = tmp_path / "own"
+        load_text_data_bert(str(own), PConfig().replace(**_cfg(own)))
+        assert (own / pc[0]).is_file()
+        lj = vocab.read_text().split("\n")
+        lp = (own / vocab.name).read_text().split("\n")
+        assert lp[:5] == lj[:5] == ["[PAD]", "[UNK]", "[CLS]", "[SEP]",
+                                    "[MASK]"]
+        assert len(lp) == len(lj)
+
+
+def test_on_disk_images_take_the_native_path(disk_set):
+    """The port's eval image of a 250-pixel JPEG is the native library's
+    (bilinear, no antialias), not PIL's, and a train image depends on the
+    seed drawn for it."""
+    from text_guided_face_recognition_tpu_torch.data.datasets import (
+        TrainDataset)
+    from text_guided_face_recognition_tpu_torch.data.transforms import (
+        decode_image, eval_transform)
+    _, pdir = disk_set
+    pargs = PConfig().replace(**_cfg(pdir))
+    _, ds = pprep.prepare_dataloader(pargs, "test")
+    name = "5_0.jpg"                                  # stored at 250
+    path = str(pdir / "images" / "test" / name)
+    side = ds.get_sample(name, name[:-4])
+    np.testing.assert_array_equal(side["img"],
+                                  pnative.decode_batch([path], 112, 112)[0])
+    assert np.abs(side["img"] - eval_transform(decode_image(path, 112))
+                  ).max() > 0
+    ds.use_native = False                             # the PIL path
+    np.testing.assert_array_equal(
+        ds.get_sample(name, name[:-4])["img"],
+        eval_transform(decode_image(path, 112)))
+    tr = TrainDataset(TRAIN, *_captions(pargs), args=pargs, seed=0)
+    a = tr._produce_image(0, np.random.default_rng(1))
+    b = tr._produce_image(0, np.random.default_rng(1))
+    c = tr._produce_image(0, np.random.default_rng(2))
+    np.testing.assert_array_equal(a, b)
+    assert np.abs(a - c).max() > 0
+
+
+def _captions(args):
+    out = load_text_data_bert(args.data_dir, args)
+    return out[1], out[2]
 
 
 def test_tokenizer_resolution_matches_jax(tmp_path, monkeypatch, jx):

@@ -42,8 +42,8 @@ def test_importing_the_port_loads_no_jax():
         f"{PORT}.utils.metrics, {PORT}.engine.stage2, "
         f"{PORT}.engine.trainer, {PORT}.models.margins, "
         f"{PORT}.cli.fusion_bert, {PORT}.ops.philox, {PORT}.tools, "
-        f"{PORT}.tools.verify_block_prng, {PORT}.data.wordpiece, "
-        f"{PORT}.data.tokenizers\n"
+        f"{PORT}.tools.verify_block_prng, {PORT}.data.native, "
+        f"{PORT}.data.wordpiece, {PORT}.data.tokenizers\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = str(ROOT)

@@ -3,16 +3,20 @@
 Counterpart of text_guided_face_recognition_tpu/data/datasets.py, for BERT
 captions. Samples are dicts of numpy arrays; images are NHWC float32 in
 [-1, 1] (or uint8 with `uint8_images`), the same wire format as the JAX
-package, so the two produce identical batches from identical inputs.
-`synthetic=True` generates a deterministic random image per key, the same
-bytes as the JAX package generates.
+package. Images on disk take the JAX package's paths: the fused native
+decode + resize + augment (data/native.py, native/tgfr_dataio.cpp; one
+uint64 seed drawn per train image, where the JAX package draws it) when the
+library loads, else PIL (data/transforms.py), with the JAX package's
+warning. So the two packages make the same batches from the same files,
+seed and tokenizer, and from `synthetic=True`, which generates a
+deterministic random image per key, the same bytes as the JAX package
+generates (tests/test_torch_data.py holds both).
 
 Ported: the reference's on-disk formats (filenames/class pickles, per-id
-caption files, the captions_<bert_type>.pickle cache), `TrainDataset` (flat
-samples, as training and extraction use them) and `TestDataset` (pair
-lists). Waiting
-(ROADMAP.md): the native C++ JPEG decode, the LSTM caption path, the
-frozen-feature cache and the `compat_bert_caption_bug` switch.
+caption files, the caption caches named by the tokenizer's cache tag),
+`TrainDataset` (flat samples, as training and extraction use them) and
+`TestDataset` (pair lists). Waiting (ROADMAP.md): the LSTM caption path,
+the frozen-feature cache and the `compat_bert_caption_bug` switch.
 """
 
 from __future__ import annotations
@@ -70,9 +74,10 @@ def _as_numpy_caption(x) -> np.ndarray:
 
 def load_text_data_bert(data_dir: str, args):
     """BERT caption cache: the reference's captions_<bert_type>.pickle when
-    present, else captions_<bert_type>-hash.pickle, built with the
-    HashTokenizer on first use. Raises FileNotFoundError when the split
-    metadata is absent."""
+    present, else captions_<bert_type><tag>.pickle, built on first use by
+    the tokenizer that data/tokenizers.get_bert_tokenizer resolves, <tag>
+    its cache tag ("", "-wordpiece" or "-hash"). Raises FileNotFoundError
+    when the split metadata is absent."""
     names = {s: load_filenames(data_dir, s) for s in ("train", "valid", "test")}
     if not names["train"] and not names["test"]:
         raise FileNotFoundError(f"no split metadata under {data_dir}")
@@ -119,6 +124,8 @@ def _synthetic_image(key: str, img_size: int) -> np.ndarray:
 
 
 class _DatasetBase:
+    use_native: bool = True  # the fused C++ decode + transform when it loads
+
     def _init_common(self, filenames, captions, att_masks, split, args,
                      synthetic):
         if args.en_type != "BERT":
@@ -136,6 +143,33 @@ class _DatasetBase:
         self.model_type = args.model_type
         self.img_size = args.img_size
         self.uint8_images = bool(getattr(args, "uint8_images", False))
+
+    def _native_ok(self) -> bool:
+        if not self.use_native or self.synthetic:
+            return False
+        from text_guided_face_recognition_tpu_torch.data import native
+        if self.uint8_images:
+            return native.supports_u8()  # a v1 library cannot emit uint8
+        return native.available()
+
+    def _load_transformed(self, path: str, train: bool,
+                          rng: Optional[np.random.Generator]
+                          ) -> Optional[np.ndarray]:
+        """The fused native decode + resize + augment + normalise of one
+        image (native/tgfr_dataio.cpp), with one uint64 seed from `rng` for
+        a train image; None: the caller takes the PIL path."""
+        if not self._native_ok():
+            return None
+        from text_guided_face_recognition_tpu_torch.data import native
+        seeds = (np.asarray([rng.integers(0, 2**63)], np.uint64) if train
+                 else None)
+        try:
+            return native.decode_batch(
+                [path], self.img_size, self.img_size, seeds=seeds,
+                train_aug=train, bgr=self.model_type == "adaface",
+                n_threads=1, u8_out=self.uint8_images)[0]
+        except Exception:
+            return None
 
     def _raw_image(self, path: str, key: str) -> np.ndarray:
         if self.synthetic:
@@ -188,6 +222,10 @@ class TrainDataset(_DatasetBase):
                        ) -> np.ndarray:
         key = self.filenames[index]
         path = os.path.join(self.data_dir, "images", self.split, key + ".jpg")
+        if not self.synthetic:
+            img = self._load_transformed(path, train=self.augment, rng=rng)
+            if img is not None:
+                return img
         raw = self._raw_image(path, key)
         if not self.augment:
             return self._eval_image(raw)
@@ -272,8 +310,11 @@ class TestDataset(_DatasetBase):
     def get_sample(self, name: str, key: str) -> Dict[str, np.ndarray]:
         """One side's sample: eval image + first caption (sent_ix = 0)."""
         path = os.path.join(self.data_dir, "images", self.split, name)
-        side: Dict[str, np.ndarray] = {
-            "img": self._eval_image(self._raw_image(path, key))}
+        img = (None if self.synthetic
+               else self._load_transformed(path, train=False, rng=None))
+        if img is None:
+            img = self._eval_image(self._raw_image(path, key))
+        side: Dict[str, np.ndarray] = {"img": img}
         new_sent_ix = self._index.get(key, 0) * self.embeddings_num
         side["cap"] = _as_numpy_caption(self.captions[new_sent_ix])
         side["mask"] = _as_numpy_caption(self.att_masks[new_sent_ix])
