@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from text_guided_face_recognition_tpu_torch import config as pconfig
 from text_guided_face_recognition_tpu_torch.config import TGFRConfig as PConfig
 from text_guided_face_recognition_tpu_torch.data import native as pnative
 from text_guided_face_recognition_tpu_torch.data.datasets import (
@@ -225,3 +226,45 @@ def test_tokenizer_resolution_matches_jax(tmp_path, monkeypatch, jx):
     with pytest.warns(UserWarning, match="HashTokenizer"):
         q = pget(PConfig().replace(**_cfg(tmp_path / "corpus")))
     assert q.cache_tag == "-hash"
+
+
+@pytest.mark.parametrize("fused_block", ["both", "tower", "ffn", "attn"])
+def test_long_captions_refused_at_the_config_check(fused_block):
+    """The block kernels take at most 64 tokens with a gradient and 128
+    without; a longer bert_words_num is refused where the configuration is
+    checked, before any step, and the message names the limit."""
+    cfg = PConfig().replace(fused_block=fused_block, bert_words_num=64)
+    pconfig.check_stage1(cfg)
+    pconfig.check_stage2(cfg.replace(fusion_type="fcfm"))
+    for check in (pconfig.check_stage1, pconfig.check_stage2):
+        with pytest.raises(NotImplementedError, match="at most 64 tokens"):
+            check(cfg.replace(bert_words_num=65))
+    pconfig.check_serving(cfg.replace(bert_words_num=128))
+    with pytest.raises(NotImplementedError, match="at most 128 tokens"):
+        pconfig.check_serving(cfg.replace(bert_words_num=129))
+    # unfused, any length
+    off = cfg.replace(fused_block="none", bert_words_num=200)
+    pconfig.check_stage1(off)
+    pconfig.check_serving(off)
+
+
+def test_long_captions_refused_before_the_first_step(monkeypatch, tmp_path):
+    """The serving entries refuse before they load data or build a
+    model."""
+    from text_guided_face_recognition_tpu_torch.cli import test as cli
+    from text_guided_face_recognition_tpu_torch.engine import prepare
+    from text_guided_face_recognition_tpu_torch.engine.extract import (
+        extract_embeddings)
+
+    def no_data(*a, **k):
+        raise AssertionError("data loaded before the configuration check")
+
+    monkeypatch.setattr(prepare, "prepare_dataloader", no_data)
+    cfg = tmp_path / "long.yml"
+    cfg.write_text("bert_words_num: 130\nfused_block: both\n")
+    with pytest.raises(NotImplementedError, match="at most 128 tokens"):
+        cli.main(["--cfg", str(cfg), "--synthetic", "--cpu"])
+    with pytest.raises(NotImplementedError, match="at most 128 tokens"):
+        extract_embeddings(PConfig().replace(
+            fused_block="tower", bert_words_num=130, cpu=True,
+            synthetic=True))

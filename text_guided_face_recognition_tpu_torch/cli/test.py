@@ -14,9 +14,11 @@ from text_guided_face_recognition_tpu_torch.cli import parser, setup
 
 def main(argv=None):
     args = setup(parser("test.yml", "Testing TGFR model").parse_args(argv))
+    from text_guided_face_recognition_tpu_torch.config import check_serving
     from text_guided_face_recognition_tpu_torch.engine import prepare as prep
     from text_guided_face_recognition_tpu_torch.engine.evaluate import run_test
 
+    check_serving(args)
     device = prep.resolve_device(bool(args.cpu))
     test_dl, _ = prep.prepare_dataloader(args, "test")
     text_encoder, text_head = prep.prepare_text_encoder(args, device)

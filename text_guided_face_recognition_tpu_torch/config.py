@@ -19,7 +19,10 @@ Not ported yet, and refused by `check_stage1` with NotImplementedError
 `frozen_feature_cache`, an `en_type` other than BERT, and more than one
 device; and by `check_stage2`: `frozen_feature_cache`,
 `lazy_embedding_adam`, the LSTM path, `fusion_type: concat` (nothing to
-train, as the JAX trainer refuses it too) and more than one device.
+train, as the JAX trainer refuses it too) and more than one device. Both,
+and `check_serving` at the serving entries, refuse a `fused_block` other
+than none with captions longer than the block kernels take
+(`check_caption_length`).
 """
 
 from __future__ import annotations
@@ -32,8 +35,9 @@ from typing import Any, Dict, Optional
 
 import yaml
 
-__all__ = ["TGFRConfig", "TrainCfg", "TrainSmooth", "check_stage1",
-           "check_stage2", "load_yaml", "merge_args_yaml"]
+__all__ = ["TGFRConfig", "TrainCfg", "TrainSmooth", "check_caption_length",
+           "check_serving", "check_stage1", "check_stage2", "load_yaml",
+           "merge_args_yaml"]
 
 _NUM_PREFIX = re.compile(r"^\s*([+-]?\d+(?:\.\d+)?(?:[eE][+-]?\d+)?)")
 
@@ -251,6 +255,35 @@ class TGFRConfig:
         return d
 
 
+def check_caption_length(cfg: TGFRConfig, grad: bool) -> None:
+    """Refuse captions longer than the block kernels take, before any step:
+    with `fused_block` other than none, the attention kernels K5-K8
+    (ops/block.py) hold a caption's heads in shared memory and take at most
+    MAX_T_BWD (64) tokens when a gradient is needed, MAX_T_FWD (128)
+    otherwise; the JAX kernels have no such limit. Widening it waits for the
+    attention kernels' rework (ROADMAP.md, Queue 2)."""
+    if cfg.fused_block == "none":
+        return
+    from text_guided_face_recognition_tpu_torch.ops.block import (
+        MAX_T_BWD, MAX_T_FWD)
+    limit = MAX_T_BWD if grad else MAX_T_FWD
+    if cfg.bert_words_num > limit:
+        raise NotImplementedError(
+            f"fused_block={cfg.fused_block!r} with bert_words_num="
+            f"{cfg.bert_words_num}: the block kernels take captions of at "
+            f"most {limit} tokens "
+            + ("when a gradient is needed" if grad else "in serving")
+            + " (ops/block.py); longer captions wait for the attention "
+            "kernels' rework (ROADMAP.md, Queue 2). Use fused_block='none' "
+            f"or bert_words_num <= {limit}.")
+
+
+def check_serving(cfg: TGFRConfig) -> None:
+    """Refuse the serving options the port does not run yet (evaluation
+    and embedding extraction)."""
+    check_caption_length(cfg, grad=False)
+
+
 def check_stage1(cfg: TGFRConfig) -> None:
     """Refuse the stage-1 options the port does not run yet."""
     refused = [name for name in ("is_CMP", "is_WRA", "lazy_embedding_adam",
@@ -264,6 +297,7 @@ def check_stage1(cfg: TGFRConfig) -> None:
         raise NotImplementedError(
             f"stage-1 training with {', '.join(refused)} is not ported yet "
             "(ROADMAP.md, Queue 1)")
+    check_caption_length(cfg, grad=True)
 
 
 def check_stage2(cfg: TGFRConfig) -> None:
@@ -279,6 +313,7 @@ def check_stage2(cfg: TGFRConfig) -> None:
         raise NotImplementedError(
             f"stage-2 training with {', '.join(refused)} is not ported yet "
             "(ROADMAP.md, Queue 1)")
+    check_caption_length(cfg, grad=True)
     if cfg.fusion_type == "concat":
         raise ValueError("stage-2 training requires fusion_type linear|fcfm")
 

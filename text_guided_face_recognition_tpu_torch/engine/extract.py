@@ -25,10 +25,13 @@ def extract_embeddings(args, split: str = "test", out: Optional[str] = None,
     Returns {"keys": (N,) str, "embeddings": (N, fusion_dim) float32,
     "class_ids": (N,)} and writes them as an .npz when `out` is given.
     """
+    from text_guided_face_recognition_tpu_torch.config import check_serving
     from text_guided_face_recognition_tpu_torch.data import (
         DataLoader, TrainDataset)
     from text_guided_face_recognition_tpu_torch.engine import prepare as prep
     from text_guided_face_recognition_tpu_torch.engine.evaluate import _Models
+
+    check_serving(args)
 
     if device is None:
         device = prep.resolve_device(bool(args.cpu))

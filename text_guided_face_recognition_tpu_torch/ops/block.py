@@ -103,6 +103,7 @@ D_HEAD = 64
 TOWER_LEAVES = ("wqkv", "bqkv", "wo", "bo", "g1", "b1", "w1", "c1", "w2",
                 "c2", "g2", "b2")
 MAX_T_BWD = 64   # the backward's per-head block holds 4 (T, 64) + 2 (T, T)
+MAX_T_FWD = 128  # the forward's, without residuals: 3 (T, 64) + (T, T)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -607,7 +608,7 @@ def attn_block_fwd(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
     if h != heads * D_HEAD:
         raise ValueError(f"{name}: the kernel takes heads of width {D_HEAD}; "
                          f"got H={h}, heads={heads}")
-    t_max = MAX_T_BWD if save else 128
+    t_max = MAX_T_BWD if save else MAX_T_FWD
     if not 0 < t <= t_max:
         raise ValueError(f"{name}: the kernel takes 1 <= t <= {t_max}"
                          f"{' when training' if save else ''}, got {t}")
@@ -835,7 +836,7 @@ def tower_block_fwd(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2,
     *bits, seed = _sources("tower_block", rate, bits, seed, x.device)
     n, rows, h, inter = _check_tower("tower_block", x, mask, leaves, b, t,
                                      heads, bits, seed, rate,
-                                     MAX_T_BWD if save else 128)
+                                     MAX_T_BWD if save else MAX_T_FWD)
 
     def buf(*shape):
         return torch.empty(shape, dtype=x.dtype, device=x.device)
