@@ -195,7 +195,9 @@ def _graph_ms(fn, calls: int = 20, reps: int = 9) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured on the warm-up stream: per-stream state made at a first call
+    # (the LN backward's arrival counters) exists before the capture
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -354,8 +356,8 @@ def _device_ops(fn) -> int:
 
 
 def _graph_outputs(fn):
-    """fn's outputs from a CUDA graph of one call, captured after a warm-up
-    call on a side stream and replayed twice."""
+    """fn's outputs from a CUDA graph of one call, captured on a side
+    stream after a warm-up call there, and replayed twice."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -363,7 +365,7 @@ def _graph_outputs(fn):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         out = fn()
     graph.replay()
     graph.replay()
@@ -377,8 +379,9 @@ def ln_checks(dev, gen, eps: float) -> dict:
     scalar path), f32 and bf16; the part rows the wrappers allocate against
     the kernel's own count; and at R = H = 768 in bf16 the device
     operations of one call (1 each, from torch.profiler), and K2's outputs
-    bit for bit over repeated calls and from a CUDA graph's replay, with the
-    arrival counters back at 0. Returns extra keys for the two rows."""
+    bit for bit over repeated calls, from a CUDA graph's replay (arrival
+    counters back at 0) and on two streams at once. Returns extra keys for
+    the two rows."""
     import ctypes
 
     import torch
@@ -447,14 +450,32 @@ def ln_checks(dev, gen, eps: float) -> dict:
                                  "bit for bit the first")
     if layernorm.ln_bwd_counter(dev).any():
         raise AssertionError("layernorm_bwd: arrival counters not reset")
+    # two streams at once, each with its own arrival counters: every call
+    # bit for bit its serial twin
+    x2, dy2 = (a.bfloat16() for a in data(768, 768)[:2])
+    serial = (first, layernorm.layernorm_bwd(dy2, x2, g, eps))
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = ([], [])
+    for _ in range(20):
+        for s, out, args in zip(streams, outs, ((dy, x), (dy2, x2))):
+            with torch.cuda.stream(s):
+                out.append(layernorm.layernorm_bwd(*args, g, eps))
+    torch.cuda.synchronize()
+    for k, (out, want) in enumerate(zip(outs, serial)):
+        if not all(torch.equal(a, b) for o in out for a, b in zip(o, want)):
+            raise AssertionError(f"layernorm_bwd on stream {k} of two at "
+                                 "once is not bit for bit the serial call")
     print(f"LN checks: device ops per call {ops}; max |err| K1 {fwd}, K2 "
-          f"{bwd}; K2 bit for bit over 4 calls and a graph replay",
-          flush=True)
+          f"{bwd}; K2 bit for bit over 4 calls, a graph replay and on two "
+          "streams at once", flush=True)
     return {"layernorm_fused": {"device_ops_per_call": 1,
                                 "max_abs_err_shapes": fwd},
             "layernorm_bwd": {"device_ops_per_call": 1,
                               "max_abs_err_shapes": bwd,
-                              "bitwise_repeat_and_graph": True}}
+                              "bitwise_repeat_and_graph": True,
+                              "bitwise_two_streams_at_once": True}}
 
 
 def kernel_phase(args):

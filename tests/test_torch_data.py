@@ -268,3 +268,42 @@ def test_long_captions_refused_before_the_first_step(monkeypatch, tmp_path):
         extract_embeddings(PConfig().replace(
             fused_block="tower", bert_words_num=130, cpu=True,
             synthetic=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_cuda_layernorm_bwd_two_streams_at_once(tdt):
+    """K2 on two streams at once, each with its own arrival counters,
+    equals K2 run serially, bit for bit; the counters are 0 after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from text_guided_face_recognition_tpu_torch.ops import layernorm
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    rows, h = 768, 768
+    ins = [tuple(torch.randn(rows, h, generator=g).to(dev, tdt)
+                 for _ in range(2)) for _ in range(2)]
+    gamma = (1 + 0.1 * torch.randn(h, generator=g)).to(dev)
+    serial = [layernorm.layernorm_bwd(dy, x, gamma) for dy, x in ins]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):                    # interleaved, to overlap
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(layernorm.layernorm_bwd(*ins[i], gamma))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for got in outs[i]:
+            for a, b in zip(got, serial[i]):
+                assert torch.equal(a, b)
+        with torch.cuda.stream(streams[i]):
+            counter = layernorm.ln_bwd_counter(dev)
+        assert not counter.any()
+    with torch.cuda.stream(streams[0]):
+        c0 = layernorm.ln_bwd_counter(dev)
+    with torch.cuda.stream(streams[1]):
+        c1 = layernorm.ln_bwd_counter(dev)
+    assert c0.data_ptr() != c1.data_ptr()

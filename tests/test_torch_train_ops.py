@@ -600,7 +600,8 @@ def test_cuda_layernorm_bwd_graph_replay_equals_eager(cuda, tdt):
         layernorm.layernorm_bwd(dy, x, g)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured on the warm-up stream, which has its arrival counters
+    with torch.cuda.graph(graph, stream=side):
         out = layernorm.layernorm_bwd(dy, x, g)
     for _ in range(2):
         graph.replay()

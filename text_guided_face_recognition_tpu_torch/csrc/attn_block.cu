@@ -188,7 +188,7 @@ extern "C" int tgfr_attn_block_fwd(const void* x, const void* mask,
 // (3h, h), dbqkv (3h), dwo (h, h), dln (3 h) = [dgamma | dbeta | dbo], all
 // f32. Dropout as the forward's. Scratch: dr, dh (b*t, h; dh only with
 // dropout), dout (b*t, h), dqkv (b*t, 3h), part (tgfr_ln_bwd_parts(b*t),
-// 3 * 1024) f32; counter: the device's LN arrival counters (layernorm.cu).
+// 3 * 1024) f32; counter: the stream's LN arrival counters (layernorm.cu).
 extern "C" int tgfr_attn_block_bwd(const void* dy, const void* x,
                                    const void* qkv, const void* p,
                                    const void* o, const void* r,

@@ -142,7 +142,7 @@ extern "C" int tgfr_ffn_block_fwd(const void* x, const void* w1,
 // dw1 (inter, h), dc1 (inter), dw2 (h, inter), dln (3 h) = [dgamma | dbeta
 // | dc2], all f32. Dropout as the forward's. Scratch: dr, dgg (rows, h;
 // dgg only with dropout), df (rows, inter), part (tgfr_ln_bwd_parts(rows),
-// 3 * 1024) f32; counter: the device's LN arrival counters (layernorm.cu).
+// 3 * 1024) f32; counter: the stream's LN arrival counters (layernorm.cu).
 extern "C" int tgfr_ffn_block_bwd(const void* dz, const void* x,
                                   const void* f, const void* act,
                                   const void* r, const void* w1,

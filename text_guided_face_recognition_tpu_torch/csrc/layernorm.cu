@@ -65,7 +65,7 @@ extern "C" int tgfr_layernorm_fwd(const void* x, const void* gamma,
 }
 
 // dgb: (2 h) f32 = [dgamma | dbeta], every element written; part:
-// (tgfr_ln_bwd_parts(rows), 2 * 1024) f32 scratch; counter: the device's
+// (tgfr_ln_bwd_parts(rows), 2 * 1024) f32 scratch; counter: the stream's
 // LN arrival counters (16 uint32, 0 between calls).
 extern "C" int tgfr_layernorm_bwd(const void* dy, const void* x,
                                   const void* gamma, void* dx, void* dgb,

@@ -104,6 +104,7 @@ TOWER_LEAVES = ("wqkv", "bqkv", "wo", "bo", "g1", "b1", "w1", "c1", "w2",
                 "c2", "g2", "b2")
 MAX_T_BWD = 64   # the backward's per-head block holds 4 (T, 64) + 2 (T, T)
 MAX_T_FWD = 128  # the forward's, without residuals: 3 (T, 64) + (T, T)
+MAX_T_FWD = 128  # the forward's, without residuals: 3 (T, 64) + (T, T)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -448,8 +449,8 @@ def _drop_args(rate: float) -> Tuple[int, float]:
 
 
 def _ln_part(rows: int, dev) -> Tuple[int, int]:
-    """The LN backward's scratch (its partial column sums) and the
-    device's arrival counters, as pointers (ops/layernorm.py)."""
+    """The LN backward's scratch (its partial column sums) and the current
+    stream's arrival counters, as pointers (ops/layernorm.py)."""
     part = torch.empty((ln_bwd_parts(rows), 3 * LN_MAX_WIDTH),
                        dtype=torch.float32, device=dev)
     return part.data_ptr(), ln_bwd_counter(dev).data_ptr()

@@ -15,9 +15,9 @@ other. Each K1 launch adds one to `layernorm_fused.launches`, each K2
 launch one to `layernorm_bwd.launches`. K2 (and the LN phase of the
 half-layer backwards, ops/block.py) adds its column sums in the same
 launch, through a `part` scratch of `ln_bwd_parts(rows)` rows of
-`LN_MAX_WIDTH` floats a sum and the device's arrival counters
-(`ln_bwd_counter`): concurrent LN backward calls on two streams of one
-device are not supported.
+`LN_MAX_WIDTH` floats a sum and the arrival counters of the stream it
+launches on (`ln_bwd_counter`): LN backward calls on two streams of one
+device may run at once, each counting its own tickets.
 """
 
 from __future__ import annotations
@@ -38,7 +38,8 @@ LN_MAX_WIDTH = 1024  # csrc/common.cuh kLnMaxWidth: a row held in registers
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGTYPES = (_P, _P, _P, _P, _I, _I, _F, _I, _P)
 _BWD_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P)
-_COUNTERS: Dict[int, torch.Tensor] = {}
+# (device index, stream handle) -> that stream's arrival counters
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def ln_bwd_parts(rows: int) -> int:
@@ -49,22 +50,25 @@ def ln_bwd_parts(rows: int) -> int:
 
 
 def ln_bwd_counter(device: torch.device) -> torch.Tensor:
-    """The LN backward's arrival counters on `device`: int32 words, 0
-    between launches (the blocks that take the last tickets reset them).
-    Made with torch.zeros at the first LN backward on the device, which
-    therefore must not run inside a CUDA graph capture."""
+    """The LN backward's arrival counters for the current stream of
+    `device`: int32 words, 0 between launches (the blocks that take the
+    last tickets reset them). Launches on one stream run in order, so they
+    never meet in the counters; each stream has its own. Made with
+    torch.zeros at the first LN backward on the stream, which therefore
+    must not run inside a CUDA graph capture."""
     idx = torch.device(device).index
     if idx is None:
         idx = torch.cuda.current_device()
-    counter = _COUNTERS.get(idx)
+    stream = torch.cuda.current_stream(idx).cuda_stream
+    counter = _COUNTERS.get((idx, stream))
     if counter is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
                 "LayerNorm backward: its arrival counters are made at the "
-                "first call on a device; run one LN backward on cuda:"
-                f"{idx} before capturing a CUDA graph")
+                "first call on a stream; run one LN backward on this stream "
+                f"of cuda:{idx} before capturing a CUDA graph on it")
         counter = torch.zeros(16, dtype=torch.int32, device=f"cuda:{idx}")
-        _COUNTERS[idx] = counter
+        _COUNTERS[(idx, stream)] = counter
     return counter
 
 
