@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (one NVIDIA GPU).
 
-  python3 chip_smoke.py [--only kernels|prng|serving|train|stage2]
+  python3 chip_smoke.py [--only kernels|phases|prng|serving|train|stage2]
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel:
-     six sources, twelve kernels);
+     six sources, twelve kernels, and the measurement build of the tower
+     kernels, `tower_block_phases`, used by the phase table alone);
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main paths' shapes (R = 768 token rows of B = 32 captions x
      T = 24, H = 768, 12 heads, I = 3072; ragged key masks from the
@@ -24,8 +25,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      and with rows one element into their storage (the scalar path), f32
      and bf16; at R = H = 768 in bf16 one call of each is one device
      operation (torch.profiler), and K2's outputs are bit for bit the same
-     over repeated calls and from a CUDA graph's replay; so are the LN sums
-     of K4 and K6 over two calls. K3 and K5 are
+     over repeated calls, from a CUDA graph's replay and on two streams at
+     once (each with its own arrival counters); so are the LN sums of K4
+     and K6 over two calls. K3 and K5 are
      held and timed twice: serving (rate 0, no residuals) and train mode
      (rate 0.1, the residuals the backward reads, `*_train` keys); K3-K6
      once more in prng mode (`seed=`: the bits drawn in-kernel from the
@@ -49,7 +51,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      events around 20 back-to-back calls (`timing: cuda_events`), not a
      graph: a cooperative launch that a stream capture refused would leave
      the capture half-open; a call is milliseconds long, so the host's
-     launch work hides behind the queue. The chain is timed both ways;
+     launch work hides behind the queue. The chain is timed both ways.
+     Then the phase table: from the measurement build (%globaltimer
+     stamps at every grid barrier), the time of each of the 7 phases a
+     layer and of the barriers, K7 in eval and prng mode and K8 in prng
+     mode, with each block's SM and the compiler's register and spill
+     report of the tower kernels (`--only phases` runs this alone);
   4. prng: the port's tools/verify_block_prng at full width (B 32, T 24,
      12 layers of H 768, I 3072), f32 and bf16, with the counts zeroed
      before and read after: for K3/K4, K5/K6 and K7/K8 in prng mode,
@@ -801,6 +808,158 @@ def _one_bf16_step(a, c) -> tuple:
     return rel, bool((err <= 2.0 ** -7 * c.abs() + 1e-30).all())
 
 
+# The phases of the tower kernels, in a layer's order (csrc/tower_block.cu)
+TOWER_PHASES = {
+    0: ("qkv", "attention", "wo_resid", "ln1", "w1_gelu", "w2_resid",
+        "ln2"),
+    1: ("ln2_bwd", "dw2_df_sums", "dy_dw1_dc1", "ln1_bwd", "dwo_do_sums",
+        "attention_bwd", "dx_dwqkv_dbqkv")}
+
+
+def _ptxas(lib: str, pattern: str) -> list:
+    """Registers and spills of the entry functions of built library `lib`
+    whose mangled name holds `pattern`, from nvcc's -Xptxas -v report."""
+    from text_guided_face_recognition_tpu_torch.ops import _cuda
+    out, cur = [], None
+    log = _cuda._target(lib).with_suffix(".so.log")
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            cur = {"function": line.split("'")[1]}
+            if pattern in cur["function"]:
+                out.append(cur)
+        elif cur is not None and "spill stores" in line:
+            w = line.replace(",", "").split()
+            cur["stack_bytes"] = int(w[0])
+            cur["spill_store_bytes"] = int(w[4])
+            cur["spill_load_bytes"] = int(w[8])
+        elif cur is not None and "Used" in line and "registers" in line:
+            w = line.replace(",", "").split()
+            cur["registers"] = int(w[w.index("Used") + 1])
+    return out
+
+
+def tower_phases(dev, B, T, H, heads, I, mask, gen, seed, reps: int = 5
+                 ) -> dict:
+    """Device time of each phase and each grid barrier of K7 (eval and prng
+    mode) and K8 (prng mode), 12 layers at R = B T, bf16, from the
+    measurement build of csrc/tower_block.cu (TGFR_PHASE_TIMES: %globaltimer
+    stamps at every barrier; loaded here only). Per phase name: its time
+    summed over the layers (ms) and per layer (us), the median of `reps`
+    calls; the barriers' total and mean; the stamped span."""
+    import ctypes
+
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.ops import _cuda, block
+
+    lib = "tower_block_phases"
+    _cuda.build([lib])
+    reset = _cuda.function(lib, "tgfr_tower_phase_reset",
+                           (ctypes.c_void_p,))
+    read = _cuda.function(lib, "tgfr_tower_phase_read",
+                          (ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_int, ctypes.c_void_p))
+    L, R, eps = 12, B * T, 1e-12
+
+    def rn(*shape, std=1.0, mean=0.0):
+        return (mean + torch.randn(*shape, generator=gen) * std).to(dev)
+
+    m = dict(
+        wqkv=rn(L, 3 * H, H, std=H ** -0.5), bqkv=rn(L, 1, 3 * H, std=0.1),
+        wo=rn(L, H, H, std=H ** -0.5), bo=rn(L, 1, H, std=0.1),
+        g1=rn(L, 1, H, std=0.1, mean=1.0), b1=rn(L, 1, H, std=0.1),
+        w1=rn(L, I, H, std=H ** -0.5), c1=rn(L, 1, I, std=0.1),
+        w2=rn(L, H, I, std=I ** -0.5), c2=rn(L, 1, H, std=0.1),
+        g2=rn(L, 1, H, std=0.1, mean=1.0), b2=rn(L, 1, H, std=0.1))
+    lv = {k: (v.bfloat16().transpose(1, 2) if k.startswith("w")
+              else v.bfloat16()) for k, v in m.items()}
+    x, dz = rn(R, H).bfloat16(), rn(R, H).bfloat16()
+    args7 = (x, mask, *lv.values(), B, T, heads)
+    w8 = [lv[k] for k in ("wqkv", "wo", "g1", "b1", "w1", "w2", "g2")]
+    res = block.tower_block_fwd(*args7, rate=RATE, eps=eps, seed=seed)
+    runs = {
+        "k7_eval": (0, lambda: block.tower_block_fwd(
+            *args7, rate=0.0, eps=eps, save=False)),
+        "k7_prng": (0, lambda: block.tower_block_fwd(
+            *args7, rate=RATE, eps=eps, seed=seed)),
+        "k8_prng": (1, lambda: block.tower_block_bwd(
+            dz, mask, *res[1:], *w8, B, T, heads, rate=RATE, eps=eps,
+            seed=seed))}
+    n = 7 * L
+    stamps = (ctypes.c_ulonglong * (1 + 2 * n))()
+    smid = (ctypes.c_uint * 1024)()
+    out = {}
+    before, block._TOWER_LIB = block._TOWER_LIB, lib
+    try:
+        for key, (d, fn) in runs.items():
+            fn()
+            torch.cuda.synchronize()
+            per = []
+            for _ in range(reps):
+                _cuda.launch(reset)
+                fn()
+                _cuda.launch(read, d, ctypes.addressof(stamps),
+                             ctypes.addressof(smid), n)
+                t = [int(v) for v in stamps]
+                start, arrive, release = t[0], t[1:1 + n], t[1 + n:]
+                work = [arrive[i] - (start if i == 0 else release[i - 1])
+                        for i in range(n)]
+                bars = [release[i] - arrive[i] for i in range(n - 1)]
+                per.append((work, bars, arrive[-1] - start))
+            phases = {}
+            for k, name in enumerate(TOWER_PHASES[d]):
+                tot = statistics.median(
+                    sum(w[j * 7 + k] for j in range(L)) for w, _, _ in per)
+                phases[name] = {"ms_total": tot / 1e6,
+                                "us_per_layer": tot / 1e3 / L}
+            bar = statistics.median(sum(b) for _, b, _ in per)
+            out[key] = {
+                "phases": phases, "barriers": n - 1,
+                "barriers_ms_total": bar / 1e6,
+                "barrier_us_mean": bar / 1e3 / (n - 1),
+                "stamped_ms": statistics.median(s for _, _, s in per) / 1e6,
+                "grid": dict(zip(("blocks", "per_sm", "smem_bytes"),
+                                 (block.tower_block_bwd if d else
+                                  block.tower_block_fwd).info))}
+            grid = out[key]["grid"]["blocks"]
+            first = [smid[i] for i in range(min(grid, 1024))]
+            # how many SMs the first of every `sms` blocks spread over
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            out[key]["sms_of_first_blocks"] = len(set(first[:sms]))
+            print(f"phases {key}: grid {out[key]['grid']}, the first "
+                  f"{min(sms, len(first))} blocks on "
+                  f"{out[key]['sms_of_first_blocks']} SMs; "
+                  f"stamped {out[key]['stamped_ms']:.4f} ms, "
+                  f"{n - 1} barriers {out[key]['barriers_ms_total']:.4f} ms "
+                  f"(mean {out[key]['barrier_us_mean']:.2f} us); "
+                  + ", ".join(f"{p} {v['us_per_layer']:.2f} us"
+                              for p, v in phases.items()), flush=True)
+    finally:
+        block._TOWER_LIB = before
+    out["ptxas"] = _ptxas("tower_block", "tower_")
+    print(f"ptxas tower_block: {json.dumps(out['ptxas'])}", flush=True)
+    return out
+
+
+def _tower_inputs(args) -> tuple:
+    """(dev, B, T, H, heads, I, mask, gen, seed) of the flagship tower, as
+    kernel_phase makes them."""
+    import numpy as np
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.engine.prepare import (
+        _synthetic_bert)
+    dev = torch.device("cuda")
+    B = 32
+    _, _, masks = _synthetic_bert(args, B)
+    mask = torch.from_numpy(np.stack(masks[::args.captions_per_image][:B]))
+    seed = torch.tensor([args.manual_seed + 3], dtype=torch.int32,
+                        device=dev)
+    return (dev, B, args.bert_words_num, 768, 12, 3072,
+            mask.to(dev, torch.int32).contiguous(),
+            torch.Generator().manual_seed(args.manual_seed), seed)
+
+
 def tower_kernels(dev, B, T, H, heads, I, mask, x32, dz32, gen, flush,
                   seed):
     """K7 and K8 at the flagship tower (12 layers) against their plain
@@ -1080,6 +1239,12 @@ def tower_kernels(dev, B, T, H, heads, I, mask, x32, dz32, gen, flush,
                                        f.info))
                               for f in (block.tower_block_fwd,
                                         block.tower_block_bwd))
+    # the phase table (the measurement build) and the compiler's report
+    phases = tower_phases(dev, B, T, H, heads, I, mask, gen, seed)
+    k7["phases"] = {k: phases[k] for k in ("k7_eval", "k7_prng")}
+    k8["phases"] = phases["k8_prng"]
+    k7["ptxas"] = [r for r in phases["ptxas"] if "fwd" in r["function"]]
+    k8["ptxas"] = [r for r in phases["ptxas"] if "bwd" in r["function"]]
     for row in (k7, k8):
         print(f"kernel {row['name']}: max|err| {row['max_abs_err']:.3g}, f32 "
               f"{row['max_abs_err_f32']:.3g}, vs chain "
@@ -1922,8 +2087,8 @@ def main(argv=None) -> int:
               "runs the port on an NVIDIA GPU", file=sys.stderr)
         return 1
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels", "prng", "serving", "train",
-                                       "stage2"))
+    ap.add_argument("--only", choices=("kernels", "phases", "prng",
+                                       "serving", "train", "stage2"))
     only = ap.parse_args(argv).only
     sys.path.insert(0, ROOT)
     from text_guided_face_recognition_tpu_torch.config import load_yaml
@@ -1937,7 +2102,8 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    per_source = _cuda.build()
+    # the sources and the measurement build of the tower kernels, all at once
+    per_source = _cuda.build(_cuda.SOURCES + tuple(_cuda.VARIANTS))
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{k} {v:.2f} s' for k, v in per_source.items())})",
           flush=True)
@@ -1959,6 +2125,8 @@ def main(argv=None) -> int:
                "ffn_stream_bits": philox.ffn_stream_bits,
                "tower_stream_bits": philox.tower_stream_bits}
 
+    if only == "phases":
+        tower_phases(*_tower_inputs(args))
     rows = kernel_phase(args) if only in (None, "kernels") else []
     prng = prng_phase(args, kernels) if only in (None, "prng") else None
     rows += [] if prng is None else prng[2]

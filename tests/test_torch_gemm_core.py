@@ -1,0 +1,173 @@
+"""The GEMM core of the port's kernels (csrc/common.cuh) on its own, on a
+card: every operand layout the kernels use, at every tile width, against
+torch.matmul of the same (rounded) operands.
+
+bf16 runs the wgmma core (128-byte-swizzled shared memory, K-major and
+MN-major operands, a cp.async ring, f32 weights rounded as they are
+staged); f32 the FMA tile. The shapes are ragged against every tile: M 72
+rows (a partial 64-row tile), N 200 (no width divides it), K 200 (a
+partial 64-deep step), and K 72 token rows for the weight gradients, whose
+A is stored (K, M). Tolerance: the products of bf16 operands are exact in
+f32 and only the order of the f32 sums differs, so 1e-4 of the output's
+largest element (f32: the same, full f32 both sides, TF32 off).
+
+The cases carry the `cuda` marker and skip without a card; they import no
+JAX, so on the card:
+  python -m pytest tests/test_torch_gemm_core.py -m cuda --noconftest -q
+"""
+
+import ctypes
+
+import pytest
+import torch
+
+from text_guided_face_recognition_tpu_torch.ops import _cuda
+
+# common.cuh ALayout / BLayout
+A_ROW, A_TRANS = 0, 1
+B_WEIGHT_NK, B_WEIGHT_KN, B_ACT_KN, B_ACT_NK = 0, 1, 2, 3
+LAYOUTS = [(A_ROW, B_WEIGHT_NK), (A_ROW, B_WEIGHT_KN), (A_ROW, B_ACT_NK),
+           (A_ROW, B_ACT_KN), (A_TRANS, B_ACT_KN)]
+WIDTHS = [48, 96]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def gemm(a, b, m, n, k, al, bl, bn, lib="gemm"):
+    """out (m, n) f32 = A . B through csrc/gemm.cu, the operands stored as
+    the layouts al, bl say."""
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    fn = _cuda.function(lib, "tgfr_gemm", (_P,) * 3 + (_I,) * 7 + (_P,))
+    _cuda.launch(fn, a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, al,
+                 bl, bn, _cuda.dtype_code(a.dtype))
+    return out
+
+
+def operands(m, n, k, al, bl, dt, dev, seed=0):
+    """(A stored, B stored, reference A . B in f32) for the layouts."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(m, k, generator=g).to(dev, dt)
+    w = torch.randn(k, n, generator=g).to(dev)         # logical B (K, N)
+    if bl in (B_ACT_KN, B_ACT_NK):
+        w = w.to(dt)
+    b = {B_WEIGHT_NK: w.t(), B_WEIGHT_KN: w, B_ACT_KN: w,
+         B_ACT_NK: w.t()}[bl].contiguous()
+    stored_a = a if al == A_ROW else a.t().contiguous()
+    ref = a.float() @ w.to(dt).float()
+    return stored_a, b, ref
+
+
+def shape(al):
+    # (m, n, k): the weight gradients contract over 72 token rows
+    return (192, 200, 72) if al == A_TRANS else (72, 200, 200)
+
+
+def check(out, ref):
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-4 * max(1.0, ref.abs().max().item()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", WIDTHS)
+@pytest.mark.parametrize("al,bl", LAYOUTS)
+def test_cuda_wgmma_core_matches_matmul(cuda, al, bl, bn):
+    m, n, k = shape(al)
+    a, b, ref = operands(m, n, k, al, bl, torch.bfloat16, cuda)
+    check(gemm(a, b, m, n, k, al, bl, bn), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("al,bl", LAYOUTS)
+def test_cuda_fma_core_matches_matmul(cuda, al, bl):
+    m, n, k = shape(al)
+    if al == A_TRANS:
+        m = 192                                   # the FMA tile: M % 64
+    a, b, ref = operands(m, n, k, al, bl, torch.float32, cuda)
+    check(gemm(a, b, m, n, k, al, bl, 0), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("al,bl", LAYOUTS)
+def test_cuda_wgmma_core_at_flagship_shapes(cuda, al, bl):
+    """R = 768 and 384 token rows, H 768, I 3072, the width gemm_width
+    picks on this card."""
+    for m, n, k in ((768, 2304, 768), (384, 768, 3072)):
+        if al == A_TRANS:
+            m, k = n // 3 if n == 2304 else n, m
+        a, b, ref = operands(m, n, k, al, bl, torch.bfloat16, cuda)
+        check(gemm(a, b, m, n, k, al, bl, 0), ref)
+
+
+# -- the whole-tower kernels at a ragged size: R = 72 token rows, one full
+# and one partial 64-row tile in every GEMM, and N = 3 H = 384 and I = 512,
+# which no tile width divides evenly
+TB, TT, TH, THEADS, TI, TL = 3, 24, 128, 2, 512, 2
+
+
+def _tower_inputs(dt, dev, rate):
+    g = torch.Generator().manual_seed(1)
+
+    def rn(*shape, std=1.0, mean=0.0):
+        return mean + torch.randn(*shape, generator=g) * std
+
+    h, i, n = TH, TI, TL
+    m = dict(wqkv=rn(n, 3 * h, h, std=h ** -0.5), bqkv=rn(n, 1, 3 * h,
+                                                          std=0.1),
+             wo=rn(n, h, h, std=h ** -0.5), bo=rn(n, 1, h, std=0.1),
+             g1=rn(n, 1, h, std=0.1, mean=1.0), b1=rn(n, 1, h, std=0.1),
+             w1=rn(n, i, h, std=h ** -0.5), c1=rn(n, 1, i, std=0.1),
+             w2=rn(n, h, i, std=i ** -0.5), c2=rn(n, 1, h, std=0.1),
+             g2=rn(n, 1, h, std=0.1, mean=1.0), b2=rn(n, 1, h, std=0.1))
+    lv = {k: (v.to(dev, dt).transpose(1, 2) if k.startswith("w")
+              else v.to(dev, dt)) for k, v in m.items()}
+    r = TB * TT
+    x, dz = rn(r, h).to(dev, dt), rn(r, h).to(dev, dt)
+    mask = torch.ones(TB, TT, dtype=torch.int32)
+    mask[1, 17:] = 0
+    mask[2, 5:] = 0
+    bits = (None, None, None)
+    if rate:
+        bits = tuple(torch.randint(-2 ** 31, 2 ** 31 - 1, (n,) + s,
+                                   generator=g, dtype=torch.int32).to(dev)
+                     for s in ((THEADS * TB, TT, TT), (r, h), (r, h)))
+    return lv, x, dz, mask.to(dev), bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4),
+                                    (torch.bfloat16, 2e-2)])
+def test_cuda_tower_at_a_ragged_size(cuda, dt, tol, rate):
+    """K7 and K8 against their plain versions at B 3, T 24, H 128, 2 heads,
+    I 512, 2 layers. Forward outputs element-wise (bf16: the residual sums
+    and z to the tolerance times their largest element, as chip_smoke.py
+    holds them over layers), gradients to the tolerance times their
+    largest element."""
+    from text_guided_face_recognition_tpu_torch.ops import block
+    lv, x, dz, mask, bits = _tower_inputs(dt, cuda, rate)
+    args = (x, mask, *lv.values(), TB, TT, THEADS, *bits, rate)
+    got = block.tower_block_fwd(*args)
+    ref = block.tower_block_fwd_ref(*args)
+    for name, a, b in zip(("z", "xin", "qkv", "p", "o", "r1", "f", "r2"),
+                          got, ref):
+        a, b = a.float(), b.float()
+        if dt == torch.bfloat16 and name in ("z", "r1", "r2"):
+            err = (a - b).abs().max().item()
+            assert err <= tol * max(1.0, b.abs().max().item()), (name, err)
+        else:
+            torch.testing.assert_close(a, b, rtol=tol, atol=tol, msg=name)
+    w = [lv[k] for k in ("wqkv", "wo", "g1", "b1", "w1", "w2", "g2")]
+    bargs = (dz, mask, *ref[1:], *w, TB, TT, THEADS, *bits, rate)
+    grads = block.tower_block_bwd(*bargs)
+    want = block.tower_block_bwd_ref(*bargs)
+    for name, a, b in zip(("dx",) + block.TOWER_LEAVES, grads, want):
+        a, b = a.float(), b.float()
+        err = (a - b).abs().max().item()
+        assert err <= tol * max(1.0, b.abs().max().item()), (name, err)

@@ -150,7 +150,7 @@ int run_bwd(const void* dy, const void* x, const void* qkv, const void* p,
 // Dropout: bits_p (heads*b, t, t) and bits_h (b*t, h) uint32, or seed (1,)
 // int32 on the device (the layer's stream), or none of them (no dropout);
 // p: (heads*b, t, t) or null (not saved).
-extern "C" int tgfr_attn_block_fwd(const void* x, const void* mask,
+TGFR_API int tgfr_attn_block_fwd(const void* x, const void* mask,
                                    const void* wqkv, const void* bqkv,
                                    const void* wo, const void* bo,
                                    const void* gamma, const void* beta,
@@ -189,7 +189,7 @@ extern "C" int tgfr_attn_block_fwd(const void* x, const void* mask,
 // f32. Dropout as the forward's. Scratch: dr, dh (b*t, h; dh only with
 // dropout), dout (b*t, h), dqkv (b*t, 3h), part (tgfr_ln_bwd_parts(b*t),
 // 3 * 1024) f32; counter: the stream's LN arrival counters (layernorm.cu).
-extern "C" int tgfr_attn_block_bwd(const void* dy, const void* x,
+TGFR_API int tgfr_attn_block_bwd(const void* dy, const void* x,
                                    const void* qkv, const void* p,
                                    const void* o, const void* r,
                                    const void* wqkv, const void* wo,

@@ -1,10 +1,11 @@
 // Device code shared by the port's hand-written Hopper kernels.
 //
 // Element helpers for the two supported activation types (float and
-// __nv_bfloat16), a tiled GEMM with fused epilogues, the LayerNorm row
-// passes (the whole-tower kernels' tiles, and the vector row kernels of
-// K1-K6, whose backward adds its column sums in the same launch), a
-// deterministic column sum, and the per-(caption, head) attention blocks.
+// __nv_bfloat16), the LayerNorm row passes (the vector row kernels of K1-K6,
+// whose backward adds its column sums in the same launch, and the
+// whole-tower kernels' tiles on the same rows), a deterministic column sum,
+// the GEMM core with fused epilogues (wgmma for bf16), and the
+// per-(caption, head) attention blocks.
 // Each kernel source (layernorm.cu, ffn_block.cu, attn_block.cu,
 // tower_block.cu, damsm.cu, philox.cu) includes this header and is built on
 // its own into a shared library with a plain C interface (ops/_cuda.py).
@@ -37,7 +38,12 @@
 #include <cuda/atomic>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+// The C entry points of each library: the one symbol set it exports. Every
+// source is built with hidden visibility (ops/_cuda.py), so the template
+// kernels that two libraries both instantiate never resolve to the other
+// library's copy once both are loaded into one process.
+#define TGFR_API extern "C" __attribute__((visibility("default")))
 
 namespace tgfr {
 
@@ -86,22 +92,31 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0,
   return c;
 }
 
-// Word i of the stream `key`: word i & 3 of the block of counter
-// (lo32(i >> 2), hi32(i >> 2), 0, 0) under the key (key, 0). Each element
-// computes its own block and keeps one of its four words: 4x the ALU work
-// of a dump, in exchange for no state shared between threads.
-__device__ __forceinline__ unsigned philox_word(unsigned key,
-                                                unsigned long long i) {
-  const unsigned long long q = i >> 2;
-  const uint4 r = philox4x32_10(
+// Block q of the stream `key`: Philox of counter (lo32(q), hi32(q), 0, 0)
+// under the key (key, 0), words 4 q .. 4 q + 3; and word k of a block.
+__device__ __forceinline__ uint4 philox_block(unsigned key,
+                                              unsigned long long q) {
+  return philox4x32_10(
       make_uint4(static_cast<unsigned>(q), static_cast<unsigned>(q >> 32),
                  0u, 0u), key, 0u);
-  switch (i & 3) {
+}
+
+__device__ __forceinline__ unsigned block_word(const uint4& r, unsigned k) {
+  switch (k & 3) {
     case 0: return r.x;
     case 1: return r.y;
     case 2: return r.z;
     default: return r.w;
   }
+}
+
+// Word i of the stream `key`: word i & 3 of block i >> 2. An element that
+// computes its own block keeps one of its four words: 4x the ALU work of a
+// dump, in exchange for no state shared between threads (DropSrc::bits_run
+// shares a block between the consecutive words one thread reads).
+__device__ __forceinline__ unsigned philox_word(unsigned key,
+                                                unsigned long long i) {
+  return block_word(philox_block(key, i >> 2), static_cast<unsigned>(i));
 }
 
 // The dropout bits of one site, element i of the site's row-major layout:
@@ -118,6 +133,26 @@ struct DropSrc {
     return bits ? bits[i]
                 : philox_word(static_cast<unsigned>(__ldg(seed)) + key_add,
                               base + i);
+  }
+  // bit(i) .. bit(i + N - 1), one Philox block for every four words of the
+  // stream they span (the same words as bit()).
+  template <int N>
+  __device__ __forceinline__ void bits_run(size_t i,
+                                           unsigned (&out)[N]) const {
+    if (bits) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) out[j] = bits[i + j];
+      return;
+    }
+    const unsigned key = static_cast<unsigned>(__ldg(seed)) + key_add;
+    const unsigned long long w0 = base + i;
+    uint4 r = philox_block(key, w0 >> 2);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const unsigned long long w = w0 + j;
+      if (j > 0 && (w & 3) == 0) r = philox_block(key, w >> 2);
+      out[j] = block_word(r, static_cast<unsigned>(w));
+    }
   }
 };
 
@@ -156,154 +191,8 @@ __device__ __forceinline__ float dgelu_erf(float x) {
          x * expf(-0.5f * x * x) * 0.39894228040143268f;
 }
 
-// ---------------------------------------------------------------------------
-// LayerNorm tiles of the whole-tower kernels (tower_block.cu: K7, K8), over
-// rows of width h <= kLnMaxWidth: one warp per row, the row read once into
-// registers (lane i holds elements i, i + 32, ...), f32 statistics (mean,
-// then the centred sum of squares), y = (x - mean) * rsqrt(var + eps) *
-// gamma + beta. ROUND_AFFINE rounds gamma/beta to T first, as the
-// half-layer kernels do (block_pallas.py casts them to the caller dtype),
-// while the stand-alone LayerNorm uses them as they are. K1-K6 run the
-// vector row kernels further down (after the column sum).
-// ---------------------------------------------------------------------------
-
 constexpr int kLnPerLane = 32;
-constexpr int kLnMaxWidth = 32 * kLnPerLane;
-
-// Rows tile * WARPS .. tile * WARPS + WARPS - 1, one warp each. G is the type
-// of gamma and beta: f32 masters, or T where the caller holds them rounded.
-template <typename T, typename G, bool ROUND_AFFINE, int WARPS>
-__device__ __forceinline__ void
-layernorm_rows_tile(const T* x, const G* __restrict__ gamma,
-                    const G* __restrict__ beta, T* y, int rows, int h,
-                    float eps, int tile) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = tile * WARPS + warp;
-  if (row >= rows) return;
-  const T* xr = x + (size_t)row * h;
-  T* yr = y + (size_t)row * h;
-  float v[kLnPerLane];
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < kLnPerLane; ++j) {
-    const int i = lane + 32 * j;
-    v[j] = i < h ? to_f32(xr[i]) : 0.f;
-    s += v[j];
-  }
-  const float mean = warp_sum(s) / h;
-  float q = 0.f;
-#pragma unroll
-  for (int j = 0; j < kLnPerLane; ++j) {
-    const float d = lane + 32 * j < h ? v[j] - mean : 0.f;
-    q += d * d;
-  }
-  const float rs = rsqrtf(warp_sum(q) / h + eps);
-#pragma unroll
-  for (int j = 0; j < kLnPerLane; ++j) {
-    const int i = lane + 32 * j;
-    if (i >= h) break;
-    float g = to_f32(gamma[i]), b = to_f32(beta[i]);
-    if (ROUND_AFFINE) {
-      g = round_to<T>(g);
-      b = round_to<T>(b);
-    }
-    yr[i] = from_f32<T>((v[j] - mean) * rs * g + b);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// LayerNorm backward over rows (block_pallas.py `_ln_bwd_f32`,
-// layernorm_pallas.py `_bwd_kernel`), statistics recomputed from the saved
-// pre-LN input x:
-//   xhat = (x - mean) rs,  dxhat = dy g,
-//   dx = rs (dxhat - mean(dxhat) - xhat mean(dxhat xhat))   (f32)
-// stored rounded to T. With `dxd` (the half-layers with dropout), also
-// dxd = drop(r(dx)), its bits from `drop`. The whole-tower tile below
-// writes its column sums [dy xhat | dy | (nq == 3) f32(dxd or dx)] as
-// per-tile partials, f32, part (tiles, nq h), which colsum_tile reduces in
-// a fixed order; K2, K4 and K6 run `layernorm_bwd_kernel` further down.
-// ---------------------------------------------------------------------------
-
-// Rows tile * WARPS .. + WARPS - 1; `red` is WARPS * kLnMaxWidth floats of
-// shared memory; the tile's partial sums go to row `tile` of part.
-template <typename T, typename G, bool ROUND_GAMMA, int WARPS>
-__device__ __forceinline__ void
-layernorm_bwd_rows_tile(const T* dy, const T* x, const G* __restrict__ gamma,
-                        T* dx, T* dxd, const DropSrc& drop, unsigned thr,
-                        float scale, float* part, int nq, int rows, int h,
-                        float eps, int tile, float* red) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = tile * WARPS + warp;
-  const bool live = row < rows;
-  float v[kLnPerLane], d[kLnPerLane], o[kLnPerLane];
-  if (live) {
-    const T* xr = x + (size_t)row * h;
-    const T* dr = dy + (size_t)row * h;
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < kLnPerLane; ++j) {
-      const int i = lane + 32 * j;
-      v[j] = i < h ? to_f32(xr[i]) : 0.f;
-      d[j] = i < h ? to_f32(dr[i]) : 0.f;
-      s += v[j];
-    }
-    const float mean = warp_sum(s) / h;
-    float q = 0.f;
-#pragma unroll
-    for (int j = 0; j < kLnPerLane; ++j) {
-      v[j] = lane + 32 * j < h ? v[j] - mean : 0.f;
-      q += v[j] * v[j];
-    }
-    const float rs = rsqrtf(warp_sum(q) / h + eps);
-    float m1 = 0.f, m2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kLnPerLane; ++j) {
-      const int i = lane + 32 * j;
-      v[j] *= rs;                                   // xhat
-      float g = i < h ? to_f32(gamma[i]) : 0.f;
-      if (ROUND_GAMMA) g = round_to<T>(g);
-      o[j] = d[j] * g;                              // dxhat
-      m1 += o[j];
-      m2 += o[j] * v[j];
-    }
-    m1 = warp_sum(m1) / h;
-    m2 = warp_sum(m2) / h;
-    T* xo = dx + (size_t)row * h;
-    T* xdo = dxd ? dxd + (size_t)row * h : nullptr;
-    const size_t r0 = (size_t)row * h;
-#pragma unroll
-    for (int j = 0; j < kLnPerLane; ++j) {
-      const int i = lane + 32 * j;
-      if (i >= h) break;
-      float r = round_to<T>(rs * (o[j] - m1 - v[j] * m2));
-      xo[i] = from_f32<T>(r);
-      if (xdo) {
-        if (drop.on()) r = drop_to<T>(r, drop.bit(r0 + i), thr, scale);
-        xdo[i] = from_f32<T>(r);
-      }
-      o[j] = r;                                     // what the 3rd sum adds
-    }
-  }
-  for (int qi = 0; qi < nq; ++qi) {
-#pragma unroll
-    for (int j = 0; j < kLnPerLane; ++j) {
-      const int i = lane + 32 * j;
-      if (i < h) {
-        float c = 0.f;
-        if (live) c = qi == 0 ? d[j] * v[j] : (qi == 1 ? d[j] : o[j]);
-        red[warp * kLnMaxWidth + i] = c;
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < h; i += WARPS * 32) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) s += red[w * kLnMaxWidth + i];
-      part[(size_t)tile * nq * h + qi * h + i] = s;
-    }
-    __syncthreads();
-  }
-}
+constexpr int kLnMaxWidth = 32 * kLnPerLane;   // a row a warp, <= 32 a lane
 
 // out[c] = sum over rows of f32(in[row, c]), (rows, cols) row-major. A block
 // sums 32 columns; its 8 warps take every 8th row and are combined in a
@@ -389,15 +278,16 @@ cudaError_t launch_colsum(const TIn* in, int rows, int cols, float* out,
 //   stores its outputs in that layout. Where h is not a multiple of the
 //   vector or a pointer is not 16-byte aligned, the kernel runs with
 //   VEC = 1: element by element, 32 a lane (h <= 1024).
-// - The row sums are the whole-tower kernels' tiles' (above), in their
-//   order: lane l adds elements l, l + 32, ..., read back from a copy of
+// - The row sums are those of the earlier warp-per-row tiles (lane l held
+//   elements l, l + 32, ... in registers), in their order: lane l adds
+//   elements l, l + 32, ..., read back from a copy of
 //   the row in a staging buffer in shared memory (no bank conflicts), the
 //   mean first, then the centred variance (the backward then sum dxhat and
 //   sum dxhat xhat), and each output is the tile's expression, rounded
-//   once: the arithmetic of K7 and K8 (chip_smoke.py holds the K5/K3
-//   chain against K7: equal bit for bit) and of the earlier K1 and K2.
-//   Adding in another order would move bf16 outputs by a rounding step
-//   here and there, and the chains apart from the towers.
+//   once: the arithmetic of K7 and K8, whose LN tiles (below) run these
+//   rows too (chip_smoke.py holds the K5/K3 chain against K7), and of the
+//   earlier K1 and K2. Adding in another order would move bf16 outputs by
+//   a rounding step here and there, and the chains apart from the towers.
 // - gamma and beta are read as float4 (rounded to T first with
 //   ROUND_AFFINE / ROUND_GAMMA), issued beside the row's loads; the
 //   forward keeps them in registers across every row its warp walks, the
@@ -501,11 +391,12 @@ __device__ __forceinline__ void st_vec(T* p, const float (&v)[VEC]) {
   }
 }
 
-// VEC f32 values at p (an affine parameter), rounded to T with ROUND: as
-// float4 loads where VEC is a multiple of 4 (p 16-byte aligned).
-template <int VEC, typename T, bool ROUND>
-__device__ __forceinline__ void ld_param(const float* p, float (&v)[VEC]) {
-  if constexpr (VEC % 4 == 0) {
+// VEC values at p (an affine parameter: f32 masters, or G = T where the
+// caller holds them rounded) as f32, rounded to T with ROUND: as 16-byte
+// loads where VEC elements of G fill them (p 16-byte aligned).
+template <int VEC, typename T, bool ROUND, typename G>
+__device__ __forceinline__ void ld_param(const G* p, float (&v)[VEC]) {
+  if constexpr (std::is_same<G, float>::value && VEC % 4 == 0) {
 #pragma unroll
     for (int j = 0; j < VEC; j += 4) {
       const float4 f = __ldg(reinterpret_cast<const float4*>(p + j));
@@ -514,9 +405,11 @@ __device__ __forceinline__ void ld_param(const float* p, float (&v)[VEC]) {
       v[j + 2] = f.z;
       v[j + 3] = f.w;
     }
+  } else if constexpr (VEC * sizeof(G) == 16) {
+    unpack_vec<VEC, G>(__ldg(reinterpret_cast<const uint4*>(p)), v);
   } else {
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) v[j] = __ldg(p + j);
+    for (int j = 0; j < VEC; ++j) v[j] = to_f32(p[j]);
   }
   if (ROUND) {
 #pragma unroll
@@ -579,10 +472,53 @@ __device__ __forceinline__ float ln_tile(const T* buf,
   }
 }
 
-// K1's kernel. Device memory moves as 16-byte vectors (lane l: vectors l,
-// l + 32, ...); the row statistics are layernorm_rows_tile's sums, in its
-// order (lane l adds elements l, l + 32, ... read back from the staging
-// buffer), and y is its expression.
+// One row of K1 (and of the tower's LN tiles) by one warp: y = LN(x) with
+// gamma and beta in registers, VPL vectors of VEC elements a lane. Device
+// memory moves as 16-byte vectors (lane l: vectors l, l + 32, ...); the row
+// statistics are the earlier warp-per-row tile's sums, in its order (lane l
+// adds elements l, l + 32, ... read back from the warp's staging buffer
+// `buf`, 32 VEC VPL elements), and y is its expression.
+template <typename T, int VEC, int VPL>
+__device__ __forceinline__ void ln_fwd_row(const T* xr,
+                                           const float (&g)[VPL][VEC],
+                                           const float (&b)[VPL][VEC],
+                                           T* yr, int h, float eps, int lane,
+                                           T* buf) {
+  constexpr int J = VEC * VPL;
+  const int nv = h / VEC;
+  float v[VPL][VEC];
+  uint4 u[VPL];
+  ln_fetch<VEC, VPL>(xr, u, v, lane, nv);
+  __syncwarp();
+  ln_put<VEC, VPL>(buf, u, v, lane, nv);
+  __syncwarp();
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < J; ++j) s += ln_tile<VEC, VPL>(buf, v, j, lane, h);
+  const float mean = warp_sum(s) / h;
+  float q = 0.f;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const float d = lane + 32 * j < h
+                        ? ln_tile<VEC, VPL>(buf, v, j, lane, h) - mean
+                        : 0.f;
+    q += d * d;
+  }
+  const float rs = rsqrtf(warp_sum(q) / h + eps);
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    if (lane + 32 * k < nv) {
+      float o[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        o[j] = (v[k][j] - mean) * rs * g[k][j] + b[k][j];
+      st_vec<VEC>(yr + (lane + 32 * k) * VEC, o);
+    }
+  }
+}
+
+// K1's kernel: two-warp blocks, a row a warp, gamma and beta loaded once
+// into registers for every row the warp walks.
 template <typename T, bool ROUND_AFFINE, int VEC, int VPL>
 __global__ void __launch_bounds__(kLnFwdThreads)
 layernorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
@@ -599,40 +535,10 @@ layernorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
       ld_param<VEC, T, ROUND_AFFINE>(beta + (lane + 32 * k) * VEC, b[k]);
     }
   }
-  T* buf = stage[warp];
   for (int row = blockIdx.x * kLnFwdWarps + warp; row < rows;
-       row += gridDim.x * kLnFwdWarps) {
-    float v[VPL][VEC];
-    uint4 u[VPL];
-    ln_fetch<VEC, VPL>(x + (size_t)row * h, u, v, lane, nv);
-    __syncwarp();
-    ln_put<VEC, VPL>(buf, u, v, lane, nv);
-    __syncwarp();
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < J; ++j) s += ln_tile<VEC, VPL>(buf, v, j, lane, h);
-    const float mean = warp_sum(s) / h;
-    float q = 0.f;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const float d = lane + 32 * j < h
-                          ? ln_tile<VEC, VPL>(buf, v, j, lane, h) - mean
-                          : 0.f;
-      q += d * d;
-    }
-    const float rs = rsqrtf(warp_sum(q) / h + eps);
-    T* yr = y + (size_t)row * h;
-#pragma unroll
-    for (int k = 0; k < VPL; ++k) {
-      if (lane + 32 * k < nv) {
-        float o[VEC];
-#pragma unroll
-        for (int j = 0; j < VEC; ++j)
-          o[j] = (v[k][j] - mean) * rs * g[k][j] + b[k][j];
-        st_vec<VEC>(yr + (lane + 32 * k) * VEC, o);
-      }
-    }
-  }
+       row += gridDim.x * kLnFwdWarps)
+    ln_fwd_row<T, VEC, VPL>(x + (size_t)row * h, g, b, y + (size_t)row * h,
+                            h, eps, lane, stage[warp]);
 }
 
 // K2's kernel (block_pallas.py `_ln_bwd_f32`, layernorm_pallas.py
@@ -641,8 +547,8 @@ layernorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 //   dx = rs (dxhat - mean(dxhat) - xhat mean(dxhat xhat))   (f32)
 // stored rounded to T; with `dxd` (the half-layers with dropout) also
 // dxd = drop(r(dx)), the bit of element (row, i) being drop.bit(row h + i).
-// As in K1's kernel, the four row sums are layernorm_bwd_rows_tile's, in
-// its order, and dx is its expression. sums (NQ h) f32 = [sum dy xhat |
+// As in K1's kernel, the four row sums are the earlier warp-per-row tile's,
+// in its order, and dx is its expression. sums (NQ h) f32 = [sum dy xhat |
 // sum dy | (NQ == 3) sum f32(dxd or dx)] over the rows, by way of part
 // (ln_bwd_parts(rows), NQ kLnMaxWidth) f32 and the arrival counters (see
 // the section note); 4 kLnBwdWarps ln_bwd_slots<NQ, VPL, VEC>() bytes of
@@ -886,7 +792,212 @@ cudaError_t launch_layernorm_bwd(const T* dy, const T* x, const float* gamma,
 }
 
 // ---------------------------------------------------------------------------
-// Tiled GEMM: out(M, N) = epilogue(A . B), A (M, K), B (K, N).
+// LayerNorm tiles of the whole-tower kernels (tower_block.cu: K7, K8), on
+// the vector rows of K1/K2: tile t is rows t WARPS .. t WARPS + WARPS - 1,
+// one a warp, gamma and beta of type T as the tower holds them (rounded
+// once, so no ROUND here). Rows, gamma and beta 16-byte aligned with h a
+// multiple of 16 / sizeof(T) and h <= kLnMaxWidth (the tower's h is a
+// multiple of 64). The sums are the earlier warp-per-row tiles', in their
+// order (the staging buffers), so the tiles give the half-layer kernels'
+// values bit for bit.
+// ---------------------------------------------------------------------------
+
+// Calls f(VPL) (as std::integral_constant) for the 16-byte vectors a lane
+// that cover h, in device code.
+template <typename T, int N = 1, typename F>
+__device__ __forceinline__ void ln_vec_dispatch(int h, F&& f) {
+  constexpr int V = 16 / sizeof(T);
+  if constexpr (N * 32 * V >= kLnMaxWidth) {
+    f(std::integral_constant<int, N>{});
+  } else {
+    if ((h / V + 31) / 32 <= N)
+      f(std::integral_constant<int, N>{});
+    else
+      ln_vec_dispatch<T, N + 1>(h, f);
+  }
+}
+
+// Shared memory of the tiles' staging buffers: WARPS rows of x and of dy
+// at the widest h.
+template <typename T, int WARPS>
+__host__ __device__ constexpr size_t ln_tile_stage_bytes() {
+  return (size_t)WARPS * 2 * kLnMaxWidth * sizeof(T);
+}
+
+// y = LN(x) over the tile's rows; stage: ln_tile_stage_bytes bytes.
+template <typename T, int WARPS>
+__device__ __forceinline__ void
+layernorm_rows_tile(const T* x, const T* __restrict__ gamma,
+                    const T* __restrict__ beta, T* y, int rows, int h,
+                    float eps, int tile, T* stage) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = tile * WARPS + warp;
+  if (row >= rows) return;
+  ln_vec_dispatch<T>(h, [&](auto n) {
+    constexpr int VEC = 16 / sizeof(T), VPL = decltype(n)::value;
+    const int nv = h / VEC;
+    float g[VPL][VEC], b[VPL][VEC];
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      if (lane + 32 * k < nv) {
+        ld_param<VEC, T, false>(gamma + (lane + 32 * k) * VEC, g[k]);
+        ld_param<VEC, T, false>(beta + (lane + 32 * k) * VEC, b[k]);
+      }
+    }
+    ln_fwd_row<T, VEC, VPL>(x + (size_t)row * h, g, b, y + (size_t)row * h,
+                            h, eps, lane, stage + warp * 2 * 32 * VEC * VPL);
+  });
+}
+
+// The LN backward over the tile's rows (block_pallas.py `_ln_bwd_f32`),
+// statistics recomputed from x: dx = rs (dxhat - mean(dxhat) - xhat
+// mean(dxhat xhat)) rounded to T; with `dxd` also dxd = drop(r(dx)). The
+// tile's column sums [dy xhat | dy | (nq == 3) f32(dxd or dx)] go to row
+// `tile` of part (tiles, nq h), f32, its warps added in warp order through
+// `red` (3 WARPS kLnMaxWidth floats, all sums at once), for colsum_tile to
+// reduce in a fixed order. The row sums re-read the staging buffers in the
+// earlier tile's layout rather than hold it in registers. stage:
+// ln_tile_stage_bytes bytes.
+template <typename T, int WARPS>
+__device__ __forceinline__ void
+layernorm_bwd_rows_tile(const T* dy, const T* x, const T* __restrict__ gamma,
+                        T* dx, T* dxd, const DropSrc& drop, unsigned thr,
+                        float scale, float* part, int nq, int rows, int h,
+                        float eps, int tile, float* red, T* stage) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = tile * WARPS + warp;
+  const bool live = row < rows;
+  ln_vec_dispatch<T>(h, [&](auto n) {
+    constexpr int VEC = 16 / sizeof(T), VPL = decltype(n)::value;
+    constexpr int J = VEC * VPL;
+    const int nv = h / VEC;
+    T* xbuf = stage + warp * 2 * 32 * J;
+    T* dbuf = xbuf + 32 * J;
+    float v[VPL][VEC], d[VPL][VEC], r[VPL][VEC];
+    float mean = 0.f, rs = 0.f;
+    if (live) {
+      const size_t r0 = (size_t)row * h;
+      uint4 ux[VPL], ud[VPL];
+      ln_fetch<VEC, VPL>(x + r0, ux, v, lane, nv);
+      ln_fetch<VEC, VPL>(dy + r0, ud, d, lane, nv);
+      ln_put<VEC, VPL>(xbuf, ux, v, lane, nv);
+      ln_put<VEC, VPL>(dbuf, ud, d, lane, nv);
+      __syncwarp();
+      // the earlier tile's sums, in its order and with its expressions:
+      // (sum x, sum dxhat), sum (x - mean)^2, sum dxhat xhat
+      float s = 0.f, m1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int i = lane + 32 * j;
+        const float g = i < h ? to_f32(gamma[i]) : 0.f;
+        s += ln_tile<VEC, VPL>(xbuf, v, j, lane, h);
+        m1 += ln_tile<VEC, VPL>(dbuf, d, j, lane, h) * g;
+      }
+      mean = warp_sum(s) / h;
+      m1 = warp_sum(m1) / h;
+      float q2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const float c = lane + 32 * j < h
+                            ? ln_tile<VEC, VPL>(xbuf, v, j, lane, h) - mean
+                            : 0.f;
+        q2 += c * c;
+      }
+      rs = rsqrtf(warp_sum(q2) / h + eps);
+      float m2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int i = lane + 32 * j;
+        const float g = i < h ? to_f32(gamma[i]) : 0.f;
+        const float c = lane + 32 * j < h
+                            ? ln_tile<VEC, VPL>(xbuf, v, j, lane, h) - mean
+                            : 0.f;
+        m2 += (ln_tile<VEC, VPL>(dbuf, d, j, lane, h) * g) * (c * rs);
+      }
+      m2 = warp_sum(m2) / h;
+      __syncwarp();                 // the staging reads are done
+#pragma unroll
+      for (int k = 0; k < VPL; ++k) {
+        const int col = (lane + 32 * k) * VEC;
+        const bool lv = lane + 32 * k < nv;
+        float g[VEC];
+        if (lv) ld_param<VEC, T, false>(gamma + col, g);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float xh = (v[k][j] - mean) * rs;
+          r[k][j] = lv ? round_to<T>(rs * (d[k][j] * g[j] - m1 - xh * m2))
+                       : 0.f;
+        }
+        if (lv) {
+          st_vec<VEC>(dx + r0 + col, r[k]);
+          if (dxd) {
+            if (drop.on()) {
+              unsigned bits[VEC];
+              drop.bits_run<VEC>(r0 + col, bits);
+#pragma unroll
+              for (int j = 0; j < VEC; ++j)
+                r[k][j] = drop_to<T>(r[k][j], bits[j], thr, scale);
+            }
+            st_vec<VEC>(dxd + r0 + col, r[k]);
+          }
+        }
+      }
+    }
+    // the sums' terms [dy xhat | dy | r] of the row (0 where dead), all nq
+    // sums at once through `red`, then the warps added in warp order
+#pragma unroll
+    for (int qi = 0; qi < 3; ++qi) {
+      if (qi >= nq) break;
+      float* mine = red + (qi * WARPS + warp) * kLnMaxWidth;
+#pragma unroll
+      for (int k = 0; k < VPL; ++k) {
+        if (lane + 32 * k < nv) {
+          float c[VEC];
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            c[j] = 0.f;
+            if (live)
+              c[j] = qi == 0 ? d[k][j] * ((v[k][j] - mean) * rs)
+                             : (qi == 1 ? d[k][j] : r[k][j]);
+          }
+#pragma unroll
+          for (int j = 0; j < VEC; j += 4)     // 16-byte stores
+            *reinterpret_cast<float4*>(mine + (lane + 32 * k) * VEC + j) =
+                make_float4(c[j], c[j + 1], c[j + 2], c[j + 3]);
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < nq * h; i += WARPS * 32) {
+      const int qi = i / h, col = i - qi * h;
+      const float* sq = red + qi * WARPS * kLnMaxWidth + col;
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) s += sq[w * kLnMaxWidth];
+      part[(size_t)tile * nq * h + i] = s;
+    }
+    __syncthreads();
+  });
+}
+
+// a = gelu(f) over n elements (n a multiple of 16 / sizeof(T), both 16-byte
+// aligned), grid-stride over 16-byte vectors.
+template <typename T>
+__device__ __forceinline__ void gelu_rows(const T* f, T* a, size_t n) {
+  constexpr int V = 16 / sizeof(T);
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n / V;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float v[V];
+    unpack_vec<V, T>(reinterpret_cast<const uint4*>(f)[i], v);
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = gelu_erf(v[j]);
+    st_vec<V>(a + i * V, v);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// GEMM: out(M, N) = epilogue(A . B), A (M, K), B (K, N), one output tile per
+// call of gemm_tile by the kGemmThreads (one warpgroup) threads of a block.
 //
 // Operand layouts (the forward uses the first of each; the backward the
 // others):
@@ -902,16 +1013,38 @@ cudaError_t launch_layernorm_bwd(const T* dy, const T* x, const float* gamma,
 //                    weight the caller holds rounded to T (the tower);
 //      kBActNK       stored (N, K) row-major, type T: such a weight in
 //                    nn.Linear's layout (the tower's forward).
-// An f32 weight tile is rounded to T as it is staged in shared memory, so no
-// rounded weight copy ever exists in device memory. 64x64 output tile per
-// block, K in steps of 32, 4 warps. For bf16 each warp runs 2x2 wmma
-// 16x16x16 tiles with f32 accumulators; for f32 every thread runs an 8x4
-// FMA micro-tile (full f32, no TF32), which keeps the f32 variant usable
-// for tight checks. Tiles move as 16-byte vectors, and the next K-tile is
-// loaded into registers while the current one is multiplied. Shapes: N a
-// multiple of 64; M a multiple of 64 for kATransposed; K a multiple of 32
-// for kARowMajor (the wrappers check); K may be ragged for the operands
-// stored (K, .), whose rows past K load as zeros.
+// An f32 weight is rounded to T as it is staged in shared memory, so no
+// rounded weight copy ever exists in device memory. Shapes: N a multiple of
+// 8 and K of 8 for the K-major operands (the wrappers ask for multiples of
+// 64); M, N and K may be ragged against the tile: what lies past them loads
+// as zeros and is not stored.
+//
+// bf16 runs on Hopper's warpgroup MMA (`wgmma.mma_async`, the only way to
+// the card's full tensor-core rate), one core for every caller (the
+// half-layer kernels K3-K6 through launch_gemm, the tower kernels K7/K8
+// through their phases), so the tower and the chains of half-layers add the
+// same products in the same order:
+// - a 64 x BN output tile, BN 48 or 96 (gemm_width), the whole K in each
+//   tile, no split-K; at R = 384 token rows the N = 768 GEMMs take 96
+//   tiles of 48 columns, where 64-wide tiles gave 72 and left 60 of 132
+//   SMs idle;
+// - K in steps of 64 (one 128-byte row of bf16), staged in shared memory in
+//   wgmma's 128-byte-swizzled layout, K-major for A row-major and for B
+//   stored (N, K), MN-major (the descriptor's transpose bit) for A stored
+//   (K, M) and for B stored (K, N);
+// - a ring of kWgStages stages fed by cp.async (16 bytes a copy, zeros past
+//   the edges), all but one in flight while the tensor cores multiply the
+//   current one. f32 masters cannot be copied as they are: a thread loads
+//   its share of the next stage's f32 weights into registers before the
+//   MMAs are issued and stores them rounded while they run. (TMA is not
+//   used: the f32 masters of K3-K6 must be rounded on the way in, and the
+//   tower would need a tensor map per operand and layer; cp.async covers
+//   every layout with one path.)
+// - the accumulators stay in registers and the epilogue reads them there.
+// f32 runs an FMA tile (64 x 64, K in steps of 32, every thread an 8x4
+// micro-tile, full f32, no TF32) that keeps the f32 variant usable for
+// tight checks: wgmma has no full-f32 input.
+// Every epilogue keeps the rounding contract at the top of this file.
 // ---------------------------------------------------------------------------
 
 enum Epilogue {
@@ -927,16 +1060,8 @@ enum Epilogue {
 enum ALayout { kARowMajor = 0, kATransposed = 1 };
 enum BLayout { kBWeightNK = 0, kBWeightKN = 1, kBActKN = 2, kBActNK = 3 };
 
-constexpr int kBM = 64, kBN = 64, kBK = 32, kGemmThreads = 128;
-constexpr int kALd = kBK + 8;  // padded leading dims (wmma wants multiples
-constexpr int kBLd = kBN + 8;  // of 8 elements and 32-byte aligned rows)
-constexpr int kCLd = kBN + 4;
-
-// Shared memory of one GEMM tile: As | Bs | Cs.
-template <typename T>
-__host__ __device__ constexpr size_t gemm_smem_bytes() {
-  return (kBM * kALd + kBK * kBLd) * sizeof(T) + kBM * kCLd * sizeof(float);
-}
+constexpr int kGemmThreads = 128;
+constexpr int kBM = 64;        // output rows of a tile (wgmma's M)
 
 struct GemmArgs {
   const void* a;          // see ALayout, type T
@@ -949,12 +1074,14 @@ struct GemmArgs {
   void* out;              // (M, N) type T, f32 for kEpiF32
   void* out2;             // (M, N) type T: kEpiBiasGelu's f, or null
   int m, n, k;
+  int bn;                 // the tile's width (gemm_width)
   unsigned thr;           // keep iff bit >= thr
   float scale;            // 1 / (1 - rate)
 };
 
-inline __host__ __device__ GemmArgs gemm_args(const void* a, const void* b, void* out, int m,
-                          int n, int k) {
+inline __host__ __device__ GemmArgs gemm_args(const void* a, const void* b,
+                                              void* out, int m, int n,
+                                              int k) {
   GemmArgs p{};
   p.a = a;
   p.b = b;
@@ -965,115 +1092,56 @@ inline __host__ __device__ GemmArgs gemm_args(const void* a, const void* b, void
   return p;
 }
 
-template <typename T> struct TileMma;
-
-template <> struct TileMma<__nv_bfloat16> {
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> c[2][2];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(c[i][j], 0.f);
-  }
-
-  __device__ void run(const __nv_bfloat16* As, const __nv_bfloat16* Bs) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x / 32;
-    const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm + 16 * i) * kALd + kk, kALd);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * kBLd + wn + 16 * j, kBLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
+// The epilogue of output element (gm, gn) from its f32 accumulator.
+template <typename T, int EPI>
+__device__ __forceinline__ void gemm_epilogue(const GemmArgs& p, int gm,
+                                              int gn, float a) {
+  const size_t o = (size_t)gm * p.n + gn;
+  if constexpr (EPI == kEpiF32) {
+    static_cast<float*>(p.out)[o] = a;
+  } else {
+    float v = round_to<T>(a);
+    if constexpr (EPI == kEpiDgelu) {
+      v *= dgelu_erf(to_f32(static_cast<const T*>(p.aux)[o]));
+    } else {
+      if (p.bias)
+        v = round_to<T>(v + round_to<T>(p.bias[gn]));
+      else if (p.bias_t)
+        v = round_to<T>(v + to_f32(static_cast<const T*>(p.bias_t)[gn]));
+      if constexpr (EPI == kEpiBiasGelu) {
+        if (p.out2) static_cast<T*>(p.out2)[o] = from_f32<T>(v);
+        v = gelu_erf(v);
+      }
+      if constexpr (EPI == kEpiBiasResidual) {
+        if (p.drop.on()) v = drop_to<T>(v, p.drop.bit(o), p.thr, p.scale);
+        v = to_f32(static_cast<const T*>(p.resid)[o]) + v;
+      }
     }
+    static_cast<T*>(p.out)[o] = from_f32<T>(v);
   }
-
-  __device__ void store(float* Cs) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x / 32;
-    const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(Cs + (wm + 16 * i) * kCLd + wn + 16 * j,
-                                c[i][j], kCLd, wmma::mem_row_major);
-  }
-};
-
-template <> struct TileMma<float> {
-  // thread (tr, tc) owns rows tr + 8 i (i < 8) and columns 4 tc + j (j < 4)
-  float c[8][4];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
-  }
-
-  __device__ void run(const float* As, const float* Bs) {
-    const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[8], b[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[(tr + 8 * i) * kALd + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk * kBLd + 4 * tc + j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
-    }
-  }
-
-  __device__ void store(float* Cs) {
-    const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Cs[(tr + 8 * i) * kCLd + 4 * tc + j] = c[i][j];
-  }
-};
-
-inline __host__ __device__ int gemm_tiles(const GemmArgs& p) {
-  return ((p.m + kBM - 1) / kBM) * ((p.n + kBN - 1) / kBN);
 }
 
-// Output tile `tile` (row-major over the (M / 64, N / 64) tile grid) of the
-// GEMM p, by the kGemmThreads threads of a block; smem: gemm_smem_bytes<T>()
-// bytes, 32-byte aligned.
-template <typename T, int EPI, int AL, int BL>
-__device__ __forceinline__ void gemm_tile(const GemmArgs& p, int tile,
-                                          unsigned char* smem) {
+// --- f32: the FMA tile -----------------------------------------------------
+
+constexpr int kFmaBN = 64, kFmaBK = 32;
+constexpr int kALd = kFmaBK + 8;  // padded leading dims
+constexpr int kBLd = kFmaBN + 8;
+constexpr int kCLd = kFmaBN + 4;
+
+template <int EPI, int AL, int BL>
+__device__ __forceinline__ void gemm_tile_fma(const GemmArgs& p, int tile,
+                                              unsigned char* smem) {
+  using T = float;
   T* As = reinterpret_cast<T*>(smem);
   T* Bs = As + kBM * kALd;
-  float* Cs = reinterpret_cast<float*>(Bs + kBK * kBLd);
+  float* Cs = Bs + kFmaBK * kBLd;
   const T* A = static_cast<const T*>(p.a);
-  const int tiles_n = (p.n + kBN - 1) / kBN;
-  const int m0 = (tile / tiles_n) * kBM, n0 = (tile % tiles_n) * kBN;
+  const int tiles_n = (p.n + kFmaBN - 1) / kFmaBN;
+  const int m0 = (tile / tiles_n) * kBM, n0 = (tile % tiles_n) * kFmaBN;
   const int tid = threadIdx.x;
-
   // per thread and K-tile: kAVecs 16-byte vectors of A, kBVecs of B
-  constexpr int kVec = 16 / sizeof(T);                   // T per vector
-  constexpr int kAVecs = kBM * kBK / kVec / kGemmThreads;
-  constexpr bool kBIsT = BL == kBActKN || BL == kBActNK;
-  constexpr int kBPer = kBIsT ? kVec : 4;                // elements / vector
-  constexpr int kBVecs = kBK * kBN / kBPer / kGemmThreads;
+  constexpr int kAVecs = kBM * kFmaBK / 4 / kGemmThreads;
+  constexpr int kBVecs = kFmaBK * kFmaBN / 4 / kGemmThreads;
   uint4 a_reg[kAVecs];
   uint4 b_reg[kBVecs];
   const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
@@ -1083,13 +1151,14 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, int tile,
     for (int l = 0; l < kAVecs; ++l) {
       const int idx = tid + l * kGemmThreads;
       if (AL == kARowMajor) {    // vectors along k
-        const int r = idx / (kBK / kVec), c = (idx % (kBK / kVec)) * kVec;
+        const int r = idx / (kFmaBK / 4), c = (idx % (kFmaBK / 4)) * 4;
         const int gm = m0 + r;
-        a_reg[l] = gm < p.m ? *reinterpret_cast<const uint4*>(
-                                  A + (size_t)gm * p.k + k0 + c)
-                            : zero4;
+        a_reg[l] = gm < p.m && k0 + c < p.k
+                       ? *reinterpret_cast<const uint4*>(
+                             A + (size_t)gm * p.k + k0 + c)
+                       : zero4;
       } else {                   // stored (K, M): vectors along m
-        const int r = idx / (kBM / kVec), c = (idx % (kBM / kVec)) * kVec;
+        const int r = idx / (kBM / 4), c = (idx % (kBM / 4)) * 4;
         const int gk = k0 + r;
         a_reg[l] = gk < p.k ? *reinterpret_cast<const uint4*>(
                                   A + (size_t)gk * p.m + m0 + c)
@@ -1099,24 +1168,20 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, int tile,
 #pragma unroll
     for (int l = 0; l < kBVecs; ++l) {
       const int idx = tid + l * kGemmThreads;
-      if (BL == kBWeightNK) {    // 4 consecutive k of one n
-        const float* W = static_cast<const float*>(p.b);
-        const int c = idx / (kBK / 4), r = (idx % (kBK / 4)) * 4;
-        b_reg[l] = *reinterpret_cast<const uint4*>(
-            W + (size_t)(n0 + c) * p.k + k0 + r);
-      } else if (BL == kBActNK) {  // kVec consecutive k of one n
-        const T* W = static_cast<const T*>(p.b);
-        const int c = idx / (kBK / kVec), r = (idx % (kBK / kVec)) * kVec;
-        b_reg[l] = *reinterpret_cast<const uint4*>(
-            W + (size_t)(n0 + c) * p.k + k0 + r);
+      const float* B = static_cast<const float*>(p.b);
+      if (BL == kBWeightNK || BL == kBActNK) {  // 4 consecutive k of one n
+        const int c = idx / (kFmaBK / 4), r = (idx % (kFmaBK / 4)) * 4;
+        b_reg[l] = n0 + c < p.n && k0 + r < p.k
+                       ? *reinterpret_cast<const uint4*>(
+                             B + (size_t)(n0 + c) * p.k + k0 + r)
+                       : zero4;
       } else {                   // stored (K, N): vectors along n
-        const int r = idx / (kBN / kBPer), c = (idx % (kBN / kBPer)) * kBPer;
+        const int r = idx / (kFmaBN / 4), c = (idx % (kFmaBN / 4)) * 4;
         const int gk = k0 + r;
-        const char* base = static_cast<const char*>(p.b);
-        const size_t es = kBIsT ? sizeof(T) : sizeof(float);
-        b_reg[l] = gk < p.k ? *reinterpret_cast<const uint4*>(
-                                  base + ((size_t)gk * p.n + n0 + c) * es)
-                            : zero4;
+        b_reg[l] = gk < p.k && n0 + c < p.n
+                       ? *reinterpret_cast<const uint4*>(
+                             B + (size_t)gk * p.n + n0 + c)
+                       : zero4;
       }
     }
   };
@@ -1125,104 +1190,636 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, int tile,
     for (int l = 0; l < kAVecs; ++l) {
       const int idx = tid + l * kGemmThreads;
       if (AL == kARowMajor) {
-        const int r = idx / (kBK / kVec), c = (idx % (kBK / kVec)) * kVec;
+        const int r = idx / (kFmaBK / 4), c = (idx % (kFmaBK / 4)) * 4;
         *reinterpret_cast<uint4*>(&As[r * kALd + c]) = a_reg[l];
       } else {                   // transposed into As (m, k)
-        const int r = idx / (kBM / kVec), c = (idx % (kBM / kVec)) * kVec;
+        const int r = idx / (kBM / 4), c = (idx % (kBM / 4)) * 4;
         const T* e = reinterpret_cast<const T*>(&a_reg[l]);
 #pragma unroll
-        for (int q = 0; q < kVec; ++q) As[(c + q) * kALd + r] = e[q];
+        for (int q = 0; q < 4; ++q) As[(c + q) * kALd + r] = e[q];
       }
     }
 #pragma unroll
     for (int l = 0; l < kBVecs; ++l) {
       const int idx = tid + l * kGemmThreads;
-      if (BL == kBWeightNK) {    // transposed into Bs (k, n)
-        const int c = idx / (kBK / 4), r = (idx % (kBK / 4)) * 4;
-        const float4 v = *reinterpret_cast<const float4*>(&b_reg[l]);
-        Bs[(r + 0) * kBLd + c] = from_f32<T>(v.x);
-        Bs[(r + 1) * kBLd + c] = from_f32<T>(v.y);
-        Bs[(r + 2) * kBLd + c] = from_f32<T>(v.z);
-        Bs[(r + 3) * kBLd + c] = from_f32<T>(v.w);
-      } else if (BL == kBActNK) {  // transposed into Bs (k, n)
-        const int c = idx / (kBK / kVec), r = (idx % (kBK / kVec)) * kVec;
-        const T* e = reinterpret_cast<const T*>(&b_reg[l]);
+      const T* e = reinterpret_cast<const T*>(&b_reg[l]);
+      if (BL == kBWeightNK || BL == kBActNK) {  // transposed into Bs (k, n)
+        const int c = idx / (kFmaBK / 4), r = (idx % (kFmaBK / 4)) * 4;
 #pragma unroll
-        for (int q = 0; q < kVec; ++q) Bs[(r + q) * kBLd + c] = e[q];
-      } else if (BL == kBWeightKN) {
-        const int r = idx / (kBN / 4), c = (idx % (kBN / 4)) * 4;
-        const float4 v = *reinterpret_cast<const float4*>(&b_reg[l]);
-        Bs[r * kBLd + c + 0] = from_f32<T>(v.x);
-        Bs[r * kBLd + c + 1] = from_f32<T>(v.y);
-        Bs[r * kBLd + c + 2] = from_f32<T>(v.z);
-        Bs[r * kBLd + c + 3] = from_f32<T>(v.w);
+        for (int q = 0; q < 4; ++q) Bs[(r + q) * kBLd + c] = e[q];
       } else {
-        const int r = idx / (kBN / kVec), c = (idx % (kBN / kVec)) * kVec;
+        const int r = idx / (kFmaBN / 4), c = (idx % (kFmaBN / 4)) * 4;
         *reinterpret_cast<uint4*>(&Bs[r * kBLd + c]) = b_reg[l];
       }
     }
   };
 
-  TileMma<T> acc;
-  acc.zero();
+  // thread (tr, tc) owns rows tr + 8 i (i < 8) and columns 4 tc + j (j < 4)
+  const int tr = tid / 16, tc = tid % 16;
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   load(0);
   store();
   __syncthreads();
-  for (int k0 = 0; k0 < p.k; k0 += kBK) {
-    const bool more = k0 + kBK < p.k;
-    if (more) load(k0 + kBK);  // in flight while the tile below multiplies
-    acc.run(As, Bs);
+  for (int k0 = 0; k0 < p.k; k0 += kFmaBK) {
+    const bool more = k0 + kFmaBK < p.k;
+    if (more) load(k0 + kFmaBK);  // in flight while the tile below multiplies
+#pragma unroll 4
+    for (int kk = 0; kk < kFmaBK; ++kk) {
+      float a[8], b[4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = As[(tr + 8 * i) * kALd + kk];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[kk * kBLd + 4 * tc + j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
     __syncthreads();
     if (more) {
       store();
       __syncthreads();
     }
   }
-  acc.store(Cs);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      Cs[(tr + 8 * i) * kCLd + 4 * tc + j] = acc[i][j];
   __syncthreads();
-
-  for (int i = tid; i < kBM * kBN; i += kGemmThreads) {
-    const int r = i / kBN, c = i % kBN;
+  for (int i = tid; i < kBM * kFmaBN; i += kGemmThreads) {
+    const int r = i / kFmaBN, c = i % kFmaBN;
     const int gm = m0 + r, gn = n0 + c;
-    if (gm >= p.m || gn >= p.n) continue;
-    const size_t o = (size_t)gm * p.n + gn;
-    const float a = Cs[r * kCLd + c];
-    if constexpr (EPI == kEpiF32) {
-      static_cast<float*>(p.out)[o] = a;
-    } else {
-      T* out = static_cast<T*>(p.out);
-      float v = round_to<T>(a);
-      if constexpr (EPI == kEpiDgelu) {
-        v *= dgelu_erf(to_f32(static_cast<const T*>(p.aux)[o]));
-      } else {
-        if (p.bias)
-          v = round_to<T>(v + round_to<T>(p.bias[gn]));
-        else if (p.bias_t)
-          v = round_to<T>(v + to_f32(static_cast<const T*>(p.bias_t)[gn]));
-        if constexpr (EPI == kEpiBiasGelu) {
-          if (p.out2) static_cast<T*>(p.out2)[o] = from_f32<T>(v);
-          v = gelu_erf(v);
-        }
-        if constexpr (EPI == kEpiBiasResidual) {
-          if (p.drop.on()) v = drop_to<T>(v, p.drop.bit(o), p.thr, p.scale);
-          v = to_f32(static_cast<const T*>(p.resid)[o]) + v;
+    if (gm < p.m && gn < p.n)
+      gemm_epilogue<T, EPI>(p, gm, gn, Cs[r * kCLd + c]);
+  }
+}
+
+// --- bf16: the wgmma core --------------------------------------------------
+
+// Two consecutive bf16 at p (4-byte aligned) as f32, and two f32 rounded to
+// bf16 as the 4 bytes that hold them, low first.
+__device__ __forceinline__ void unpack_pair(const unsigned* p, float (&v)[2]) {
+  const unsigned w = *p;
+  v[0] = __uint_as_float(w << 16);
+  v[1] = __uint_as_float(w & 0xFFFF0000u);
+}
+
+__device__ __forceinline__ unsigned pack_pair(const float (&v)[2]) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(v[0]))) |
+         static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(v[1])))
+             << 16;
+}
+
+constexpr int kWgBK = 64;              // K step: one 128-byte row of bf16
+constexpr int kWgStages = 3;           // the cp.async ring
+constexpr int kWgAtom = 64 * 128;      // 64 swizzled rows of 128 bytes
+// The tile widths, widest first: 96 and 48. (72 and 128 were tried too, and
+// 128's 64 accumulators a thread add to the register pressure of the
+// whole-tower kernels.)
+__host__ __device__ constexpr int wg_width(int i) { return i == 0 ? 96 : 48; }
+
+template <int BN> __host__ __device__ constexpr int wg_stage_bytes() {
+  return kWgAtom + ((BN + 63) / 64) * kWgAtom;   // A, then B
+}
+
+// Dynamic shared memory of a tile of width bn: the ring, and 1 KB to align
+// it to the swizzle's 1024-byte period.
+inline __host__ __device__ size_t wg_smem_bytes(int bn) {
+  return 1024 + (size_t)kWgStages * (kWgAtom + ((bn + 63) / 64) * kWgAtom);
+}
+
+template <typename T> inline __host__ __device__ size_t gemm_smem_bytes(
+    int bn) {
+  if constexpr (std::is_same<T, float>::value) {
+    return (kBM * kALd + kFmaBK * kBLd + kBM * kCLd) * sizeof(float);
+  } else {
+    return wg_smem_bytes(bn);
+  }
+}
+
+// The widest tile any GEMM of T may take (the tower sizes its memory so).
+template <typename T> inline __host__ __device__ size_t gemm_smem_bytes() {
+  return gemm_smem_bytes<T>(wg_width(0));
+}
+
+// The tile width of an (m, n) GEMM of T: for bf16 48 columns, and 96 where
+// the output is at least twice as tall as wide (the weight gradients of
+// Wqkv and W1, whose 2304 or 3072 rows the narrower tiles would read twice
+// as often); f32: 64. Chosen from the whole-tower kernels' phase table on
+// the H100 (chip_smoke.py; PERF.md, PR 6): 48-wide tiles took 25 us of the
+// W1 phase where widths chosen by wave counts took 41, and 96 took 44.5 us
+// of the dx + dWqkv phase where 48 took 53.9.
+template <typename T>
+inline __host__ __device__ int gemm_width(int m, int n) {
+  if constexpr (std::is_same<T, float>::value) {
+    return kFmaBN;
+  } else {
+    return m >= 2 * n ? wg_width(0) : wg_width(1);
+  }
+}
+
+inline __host__ __device__ int gemm_tiles(const GemmArgs& p) {
+  return ((p.m + kBM - 1) / kBM) * ((p.n + p.bn - 1) / p.bn);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zeros where !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory writes of this thread made visible to the async proxy
+// (wgmma reads its operands through it).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Byte offset of 16-byte chunk c of row r in a 128-byte-swizzled atom (rows
+// of 128 bytes, chunk c stored at c ^ (r % 8); the atom 1024-byte aligned).
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return static_cast<uint32_t>(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// wgmma's shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (K-major: the stride between 8-row groups
+// in sbo, lbo unused; MN-major: the stride between 64-element atoms along
+// M or N in lbo, between 8-row groups along K in sbo).
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// D (64 x N, f32, in registers) += A (64 x 16) . B (16 x N), bf16 operands
+// from shared memory; TA / TB: 1 where the operand is MN-major.
+template <int N> struct Wgmma;
+
+template <> struct Wgmma<48> {
+  template <int TA, int TB>
+  __device__ static void mma(float (&d)[24], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, %24, %25, p, 1, 1, %27, %28;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <> struct Wgmma<72> {
+  template <int TA, int TB>
+  __device__ static void mma(float (&d)[36], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35"
+        "}, %36, %37, p, 1, 1, %39, %40;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35])
+        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <> struct Wgmma<96> {
+  template <int TA, int TB>
+  __device__ static void mma(float (&d)[48], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47"
+        "}, %48, %49, p, 1, 1, %51, %52;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <> struct Wgmma<128> {
+  template <int TA, int TB>
+  __device__ static void mma(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+// Output tile `tile` (row-major over the (M / 64, N / BN) tile grid) of the
+// bf16 GEMM p. smem: wg_smem_bytes(BN) bytes. See the section note.
+template <int EPI, int AL, int BL, int BN>
+__device__ __forceinline__ void gemm_tile_wg(const GemmArgs& p, int tile,
+                                             unsigned char* smem) {
+  using T = __nv_bfloat16;
+  constexpr bool kAK = AL == kARowMajor;                     // A K-major
+  constexpr bool kBK = BL == kBWeightNK || BL == kBActNK;    // B K-major
+  constexpr bool kBF32 = BL == kBWeightNK || BL == kBWeightKN;
+  constexpr int kSB = wg_stage_bytes<BN>();
+  // B's 16-byte chunks a stage: K-major BN rows of 8, MN-major 64 rows of
+  // BN / 8
+  constexpr int kBChunks = kBK ? BN * 8 : 64 * (BN / 8);
+  constexpr int kBPer = (kBChunks + kGemmThreads - 1) / kGemmThreads;
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem + (base - raw);
+  const T* A = static_cast<const T*>(p.a);
+  const int tiles_n = (p.n + BN - 1) / BN;
+  const int m0 = (tile / tiles_n) * kBM, n0 = (tile % tiles_n) * BN;
+  const int tid = threadIdx.x;
+  const int nk = (p.k + kWgBK - 1) / kWgBK;
+
+  auto load_a = [&](int kt) {
+    const uint32_t dst = base + (kt % kWgStages) * kSB;
+    const int k0 = kt * kWgBK;
+#pragma unroll
+    for (int i = 0; i < kBM * 8 / kGemmThreads; ++i) {
+      const int q = tid + i * kGemmThreads, r = q >> 3, c = q & 7;
+      if constexpr (kAK) {       // rows m, chunks along k
+        const int gm = m0 + r, gk = k0 + c * 8;
+        const bool v = gm < p.m && gk < p.k;
+        cp_async16(dst + swz(r, c), v ? A + (size_t)gm * p.k + gk : A, v);
+      } else {                   // stored (K, M): rows k, chunks along m
+        const int gk = k0 + r, gm = m0 + c * 8;
+        const bool v = gk < p.k && gm < p.m;
+        cp_async16(dst + swz(r, c), v ? A + (size_t)gk * p.m + gm : A, v);
+      }
+    }
+  };
+  // chunk q of B's stage: its (row, chunk) in the stage and its element
+  // (n, k) in B; B MN-major lies in 64-column atoms
+  auto b_chunk = [&](int q, int k0, uint32_t& ofs, int& gn, int& gk) {
+    if constexpr (kBK) {         // rows n, chunks along k
+      const int r = q >> 3, c = q & 7;
+      ofs = swz(r, c);
+      gn = n0 + r;
+      gk = k0 + c * 8;
+    } else {                     // rows k, chunks along n
+      const int r = q / (BN / 8), cc = q % (BN / 8);
+      ofs = (cc >> 3) * kWgAtom + swz(r, cc & 7);
+      gn = n0 + cc * 8;
+      gk = k0 + r;
+    }
+  };
+  auto b_index = [&](int gn, int gk) -> size_t {
+    return kBK ? (size_t)gn * p.k + gk : (size_t)gk * p.n + gn;
+  };
+  auto load_b = [&](int kt) {    // type T: cp.async
+    const T* B = static_cast<const T*>(p.b);
+    const uint32_t dst = base + (kt % kWgStages) * kSB + kWgAtom;
+#pragma unroll
+    for (int i = 0; i < kBPer; ++i) {
+      const int q = tid + i * kGemmThreads;
+      if (kBChunks % kGemmThreads == 0 || q < kBChunks) {
+        uint32_t ofs;
+        int gn, gk;
+        b_chunk(q, kt * kWgBK, ofs, gn, gk);
+        const bool v = gn < p.n && gk < p.k;
+        cp_async16(dst + ofs, v ? B + b_index(gn, gk) : B, v);
+      }
+    }
+  };
+  // f32 masters: 8 floats a chunk into registers, then rounded into smem
+  float4 breg[kBF32 ? 2 * kBPer : 1];
+  auto fetch_b = [&](int kt) {
+    const float* W = static_cast<const float*>(p.b);
+#pragma unroll
+    for (int i = 0; i < kBPer; ++i) {
+      const int q = tid + i * kGemmThreads;
+      breg[2 * i] = breg[2 * i + 1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (kBChunks % kGemmThreads == 0 || q < kBChunks) {
+        uint32_t ofs;
+        int gn, gk;
+        b_chunk(q, kt * kWgBK, ofs, gn, gk);
+        if (gn < p.n && gk < p.k) {
+          const float4* src =
+              reinterpret_cast<const float4*>(W + b_index(gn, gk));
+          breg[2 * i] = __ldg(src);
+          breg[2 * i + 1] = __ldg(src + 1);
         }
       }
-      out[o] = from_f32<T>(v);
     }
+  };
+  auto put_b = [&](int kt) {
+    unsigned char* dst = gbase + (kt % kWgStages) * kSB + kWgAtom;
+#pragma unroll
+    for (int i = 0; i < kBPer; ++i) {
+      const int q = tid + i * kGemmThreads;
+      if (kBChunks % kGemmThreads == 0 || q < kBChunks) {
+        uint32_t ofs;
+        int gn, gk;
+        b_chunk(q, kt * kWgBK, ofs, gn, gk);
+        const float4 lo = breg[2 * i], hi = breg[2 * i + 1];
+        const __nv_bfloat162 w0 = __floats2bfloat162_rn(lo.x, lo.y);
+        const __nv_bfloat162 w1 = __floats2bfloat162_rn(lo.z, lo.w);
+        const __nv_bfloat162 w2 = __floats2bfloat162_rn(hi.x, hi.y);
+        const __nv_bfloat162 w3 = __floats2bfloat162_rn(hi.z, hi.w);
+        uint4 u;
+        u.x = *reinterpret_cast<const unsigned*>(&w0);
+        u.y = *reinterpret_cast<const unsigned*>(&w1);
+        u.z = *reinterpret_cast<const unsigned*>(&w2);
+        u.w = *reinterpret_cast<const unsigned*>(&w3);
+        *reinterpret_cast<uint4*>(dst + ofs) = u;
+      }
+    }
+  };
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  // the ring's first kWgStages - 1 stages; one commit group a stage, empty
+  // past the last, so that wait_group counts stages
+#pragma unroll
+  for (int s = 0; s < kWgStages - 1; ++s) {
+    if (s < nk) {
+      load_a(s);
+      if constexpr (!kBF32) load_b(s);
+    }
+    cp_async_commit();
+  }
+  if constexpr (kBF32) {
+    fetch_b(0);
+    put_b(0);
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kWgStages - 2>();   // stage kt has landed (this thread's)
+    fence_proxy_async();
+    __syncthreads();                  // ... and every thread's; the stage
+                                      // read at kt - 1 is free again
+    const int kn = kt + kWgStages - 1;
+    if (kn < nk) {
+      load_a(kn);
+      if constexpr (!kBF32) load_b(kn);
+    }
+    cp_async_commit();
+    if constexpr (kBF32) {
+      if (kt + 1 < nk) fetch_b(kt + 1);
+    }
+    const uint32_t a0 = base + (kt % kWgStages) * kSB, b0 = a0 + kWgAtom;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgBK / 16; ++kk) {
+      const uint64_t da = kAK ? wg_desc(a0 + kk * 32, 16, 1024)
+                              : wg_desc(a0 + kk * 2048, kWgAtom, 1024);
+      const uint64_t db = kBK ? wg_desc(b0 + kk * 32, 16, 1024)
+                              : wg_desc(b0 + kk * 2048, kWgAtom, 1024);
+      Wgmma<BN>::template mma<kAK ? 0 : 1, kBK ? 0 : 1>(acc, da, db);
+    }
+    wgmma_commit();
+    if constexpr (kBF32) {
+      if (kt + 1 < nk) put_b(kt + 1);   // while the MMAs run
+    }
+    wgmma_wait0();
+  }
+
+  // accumulator j of thread (warp w, lane l): row 16 w + l / 4 (+ 8 for
+  // j % 4 >= 2), column 8 (j / 4) + 2 (l % 4) + j % 2: the thread owns
+  // column pairs (c, c + 1) of two rows. The epilogue runs in chunks of 2
+  // column groups: the chunk's operands (bias, residual, pre-activation,
+  // dropout bits) are all loaded before any of its outputs is stored, so
+  // the loads are in flight together; the arithmetic is gemm_epilogue's.
+  const int warp = tid / 32, lane = tid % 32;
+  const int r0 = m0 + warp * 16 + lane / 4;
+  constexpr int kGroups = BN / 8, kChunk = 2;
+#pragma unroll
+  for (int j0 = 0; j0 < kGroups; j0 += kChunk) {
+    float bias[kChunk][2], pre[kChunk][2][2];
+    unsigned bit[kChunk][2][2];
+    bool hasb = false;
+    // in-kernel bits with the stream's blocks aligned to the column groups
+    // (base % 4 == 0, N % 4 == 0): lanes l and l ^ 1 own the two halves of
+    // one Philox block in each of their two rows, so each computes one
+    // row's block and takes the other's from its partner
+    bool shared_bits = false;
+    if constexpr (EPI == kEpiBiasResidual) {
+      shared_bits = p.drop.seed && !p.drop.bits && (p.drop.base & 3) == 0;
+      if (shared_bits) {
+        const unsigned key =
+            static_cast<unsigned>(__ldg(p.drop.seed)) + p.drop.key_add;
+#pragma unroll
+        for (int jj = 0; jj < kChunk; ++jj) {
+          const int j = j0 + jj;
+          if (j >= kGroups) break;
+          const int c = n0 + j * 8 + 2 * (lane % 4), hm = lane & 1;
+          const uint4 mine = philox_block(
+              key, (p.drop.base + (unsigned long long)(r0 + 8 * hm) * p.n +
+                    (c & ~3)) >> 2);
+          uint4 other;
+          other.x = __shfl_xor_sync(0xffffffffu, mine.x, 1);
+          other.y = __shfl_xor_sync(0xffffffffu, mine.y, 1);
+          other.z = __shfl_xor_sync(0xffffffffu, mine.z, 1);
+          other.w = __shfl_xor_sync(0xffffffffu, mine.w, 1);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint4& blk = h == hm ? mine : other;
+            bit[jj][h][0] = block_word(blk, static_cast<unsigned>(c));
+            bit[jj][h][1] = block_word(blk, static_cast<unsigned>(c) + 1u);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kChunk; ++jj) {
+      const int j = j0 + jj;
+      if (j >= kGroups) break;
+      const int c = n0 + j * 8 + 2 * (lane % 4);
+      if (c >= p.n) continue;
+      if constexpr (EPI == kEpiBias || EPI == kEpiBiasGelu ||
+                    EPI == kEpiBiasResidual) {
+        if (p.bias) {
+          const float2 b2 = *reinterpret_cast<const float2*>(p.bias + c);
+          bias[jj][0] = round_to<T>(b2.x);
+          bias[jj][1] = round_to<T>(b2.y);
+          hasb = true;
+        } else if (p.bias_t) {
+          float b2[2];
+          unpack_pair(reinterpret_cast<const unsigned*>(
+                          static_cast<const T*>(p.bias_t) + c), b2);
+          bias[jj][0] = b2[0];
+          bias[jj][1] = b2[1];
+          hasb = true;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gm = r0 + 8 * h;
+        if (gm >= p.m) continue;
+        const size_t o = (size_t)gm * p.n + c;
+        if constexpr (EPI == kEpiBiasResidual || EPI == kEpiDgelu) {
+          const T* src = static_cast<const T*>(
+              EPI == kEpiDgelu ? p.aux : p.resid);
+          unpack_pair(reinterpret_cast<const unsigned*>(src + o), pre[jj][h]);
+        }
+        if constexpr (EPI == kEpiBiasResidual) {
+          if (p.drop.on() && !shared_bits) p.drop.bits_run<2>(o, bit[jj][h]);
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kChunk; ++jj) {
+      const int j = j0 + jj;
+      if (j >= kGroups) break;
+      const int c = n0 + j * 8 + 2 * (lane % 4);
+      if (c >= p.n) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gm = r0 + 8 * h;
+        if (gm >= p.m) continue;
+        const size_t o = (size_t)gm * p.n + c;
+        float v[2], f[2];             // f: kEpiBiasGelu's pre-activation
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float a = acc[4 * j + 2 * h + e];
+          if constexpr (EPI == kEpiF32) {
+            v[e] = a;
+          } else {
+            v[e] = round_to<T>(a);
+            if constexpr (EPI == kEpiDgelu) {
+              v[e] *= dgelu_erf(pre[jj][h][e]);
+            } else {
+              if (hasb) v[e] = round_to<T>(v[e] + bias[jj][e]);
+              if constexpr (EPI == kEpiBiasGelu) {
+                if (p.out2) f[e] = v[e];
+                v[e] = gelu_erf(v[e]);
+              }
+              if constexpr (EPI == kEpiBiasResidual) {
+                if (p.drop.on())
+                  v[e] = drop_to<T>(v[e], bit[jj][h][e], p.thr, p.scale);
+                v[e] = pre[jj][h][e] + v[e];
+              }
+            }
+          }
+        }
+        if constexpr (EPI == kEpiBiasGelu) {
+          if (p.out2)
+            *reinterpret_cast<unsigned*>(static_cast<T*>(p.out2) + o) =
+                pack_pair(f);
+        }
+        if constexpr (EPI == kEpiF32) {
+          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) =
+              make_float2(v[0], v[1]);
+        } else {
+          *reinterpret_cast<unsigned*>(static_cast<T*>(p.out) + o) =
+              pack_pair(v);
+        }
+      }
+    }
+  }
+}
+
+// Output tile `tile` of the GEMM p (p.bn set by gemm_width), by the
+// kGemmThreads threads of a block; smem: gemm_smem_bytes<T>(p.bn) bytes.
+template <typename T, int EPI, int AL, int BL>
+__device__ __forceinline__ void gemm_tile(const GemmArgs& p, int tile,
+                                          unsigned char* smem) {
+  if constexpr (std::is_same<T, float>::value) {
+    gemm_tile_fma<EPI, AL, BL>(p, tile, smem);
+  } else {
+    if (p.bn == wg_width(1))
+      gemm_tile_wg<EPI, AL, BL, wg_width(1)>(p, tile, smem);
+    else
+      gemm_tile_wg<EPI, AL, BL, wg_width(0)>(p, tile, smem);
   }
 }
 
 template <typename T, int EPI, int AL, int BL>
 __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs p) {
-  __shared__ __align__(32) unsigned char smem[gemm_smem_bytes<T>()];
-  gemm_tile<T, EPI, AL, BL>(p, blockIdx.y * gridDim.x + blockIdx.x, smem);
+  extern __shared__ __align__(128) unsigned char gemm_sm[];
+  gemm_tile<T, EPI, AL, BL>(p, blockIdx.x, gemm_sm);
 }
 
 template <typename T, int EPI, int AL = kARowMajor, int BL = kBWeightNK>
-cudaError_t launch_gemm(const GemmArgs& p, cudaStream_t stream) {
-  const dim3 grid((p.n + kBN - 1) / kBN, (p.m + kBM - 1) / kBM);
-  gemm_kernel<T, EPI, AL, BL><<<grid, kGemmThreads, 0, stream>>>(p);
+cudaError_t launch_gemm(GemmArgs p, cudaStream_t stream) {
+  const auto kernel = gemm_kernel<T, EPI, AL, BL>;
+  p.bn = gemm_width<T>(p.m, p.n);
+  const size_t smem = gemm_smem_bytes<T>(p.bn);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<gemm_tiles(p), kGemmThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -174,7 +174,7 @@ damsm_kernel(const float* __restrict__ words, const float* __restrict__ regions,
 
 // words (b, d, t), regions (b, d, r), mask (b, t) f32 (1 = valid word) or
 // null (all valid); sim (b, b), sim[j, i] for image j and caption i.
-extern "C" int tgfr_damsm_similarity(const void* words, const void* regions,
+TGFR_API int tgfr_damsm_similarity(const void* words, const void* regions,
                                      const void* mask, void* sim, int b,
                                      int d, int t, int r, float gamma1,
                                      float gamma2, float eps, void* stream) {

@@ -112,7 +112,7 @@ int run_bwd(const void* dz, const void* x, const void* f, const void* act,
 
 // Dropout: bits (rows, h) uint32, or seed (1,) int32 on the device (the
 // FFN stream's seed), or neither (no dropout); f: (rows, inter) or null.
-extern "C" int tgfr_ffn_block_fwd(const void* x, const void* w1,
+TGFR_API int tgfr_ffn_block_fwd(const void* x, const void* w1,
                                   const void* c1, const void* w2,
                                   const void* c2, const void* gamma,
                                   const void* beta, const void* bits,
@@ -143,7 +143,7 @@ extern "C" int tgfr_ffn_block_fwd(const void* x, const void* w1,
 // | dc2], all f32. Dropout as the forward's. Scratch: dr, dgg (rows, h;
 // dgg only with dropout), df (rows, inter), part (tgfr_ln_bwd_parts(rows),
 // 3 * 1024) f32; counter: the stream's LN arrival counters (layernorm.cu).
-extern "C" int tgfr_ffn_block_bwd(const void* dz, const void* x,
+TGFR_API int tgfr_ffn_block_bwd(const void* dz, const void* x,
                                   const void* f, const void* act,
                                   const void* r, const void* w1,
                                   const void* w2, const void* gamma,

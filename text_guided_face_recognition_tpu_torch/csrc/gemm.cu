@@ -1,0 +1,57 @@
+// The GEMM core of common.cuh on its own, for its tests: out (m, n) f32 =
+// A . B, A and B in one of the layouts the kernels use, at a given tile
+// width. Built on demand (ops/_cuda.py); the port's paths never call it.
+#include "common.cuh"
+
+namespace {
+
+template <typename T, int AL, int BL>
+cudaError_t run(const tgfr::GemmArgs& p, cudaStream_t s) {
+  const auto kernel = tgfr::gemm_kernel<T, tgfr::kEpiF32, AL, BL>;
+  const size_t smem = tgfr::gemm_smem_bytes<T>(p.bn);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<tgfr::gemm_tiles(p), tgfr::kGemmThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const tgfr::GemmArgs& p, int al, int bl,
+                     cudaStream_t s) {
+  using namespace tgfr;
+  if (al == kARowMajor && bl == kBWeightNK)
+    return run<T, kARowMajor, kBWeightNK>(p, s);
+  if (al == kARowMajor && bl == kBWeightKN)
+    return run<T, kARowMajor, kBWeightKN>(p, s);
+  if (al == kARowMajor && bl == kBActNK)
+    return run<T, kARowMajor, kBActNK>(p, s);
+  if (al == kARowMajor && bl == kBActKN)
+    return run<T, kARowMajor, kBActKN>(p, s);
+  if (al == kATransposed && bl == kBActKN)
+    return run<T, kATransposed, kBActKN>(p, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// al, bl: common.cuh ALayout / BLayout; bn: the tile width (bf16: one of
+// the widths wg_width, 0 for gemm_width's choice; f32: 64).
+TGFR_API int tgfr_gemm(const void* a, const void* b, void* out, int m,
+                         int n, int k, int al, int bl, int bn, int dtype,
+                         void* stream) {
+  tgfr::GemmArgs p = tgfr::gemm_args(a, b, out, m, n, k);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == tgfr::kBF16) {
+    if (bn != 0 && bn != tgfr::wg_width(0) && bn != tgfr::wg_width(1))
+      return static_cast<int>(cudaErrorInvalidValue);
+    p.bn = bn ? bn : tgfr::gemm_width<__nv_bfloat16>(m, n);
+    return static_cast<int>(dispatch<__nv_bfloat16>(p, al, bl, s));
+  }
+  if (dtype == tgfr::kF32) {
+    p.bn = tgfr::gemm_width<float>(m, n);
+    return static_cast<int>(dispatch<float>(p, al, bl, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

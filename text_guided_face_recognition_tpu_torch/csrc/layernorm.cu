@@ -39,11 +39,11 @@
 
 // Rows of the `part` scratch that tgfr_layernorm_bwd and the half-layer
 // backwards take for `rows` token rows (ops/layernorm.py mirrors it).
-extern "C" int tgfr_ln_bwd_parts(int rows) {
+TGFR_API int tgfr_ln_bwd_parts(int rows) {
   return tgfr::ln_bwd_parts(rows);
 }
 
-extern "C" int tgfr_layernorm_fwd(const void* x, const void* gamma,
+TGFR_API int tgfr_layernorm_fwd(const void* x, const void* gamma,
                                   const void* beta, void* y, int rows, int h,
                                   float eps, int dtype, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
@@ -67,7 +67,7 @@ extern "C" int tgfr_layernorm_fwd(const void* x, const void* gamma,
 // dgb: (2 h) f32 = [dgamma | dbeta], every element written; part:
 // (tgfr_ln_bwd_parts(rows), 2 * 1024) f32 scratch; counter: the stream's
 // LN arrival counters (16 uint32, 0 between calls).
-extern "C" int tgfr_layernorm_bwd(const void* dy, const void* x,
+TGFR_API int tgfr_layernorm_bwd(const void* dy, const void* x,
                                   const void* gamma, void* dx, void* dgb,
                                   void* part, void* counter, int rows, int h,
                                   float eps, int dtype, void* stream) {

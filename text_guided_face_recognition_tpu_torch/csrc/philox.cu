@@ -51,7 +51,7 @@ philox_dump_kernel(const int* __restrict__ seed, int layers, long long per,
 
 // seed: (1,) int32 on the device; out: (layers, per) uint32, 16-byte
 // aligned.
-extern "C" int tgfr_philox_dump(const void* seed, int layers, long long per,
+TGFR_API int tgfr_philox_dump(const void* seed, int layers, long long per,
                                 void* out, void* stream) {
   if (layers < 1 || per < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long total = (per + 3) / 4 * layers;

@@ -11,17 +11,23 @@
 // kernel crossing each way for the tower instead of one per half-layer.
 //
 // Design. One launch per pass: a persistent cooperative kernel whose grid
-// is no larger than what is resident on the card at once (occupancy of this
-// kernel x SM count, asked of the runtime at launch), launched with
-// cudaLaunchCooperativeKernel. Every block loops over the tiles of the
+// fills the card (the occupancy of this kernel x SM count, asked of the
+// runtime at launch: 3 blocks a SM in bf16, so the 384 caption-head items
+// of the attention phase at B 32 take one round), launched with
+// cudaLaunchCooperativeKernel. The blocks take the work items of the
 // current phase (the `*_tile` device functions of common.cuh, the same ones
-// the half-layer kernels K1-K6 launch one per block) and the blocks meet at
-// a grid-wide barrier between phases. No on-chip memory spans SMs, so the
-// carried activation lives in device memory (1.2 MB in bf16 at 768 rows: it
-// stays in the 50 MB L2), and so do the phase outputs; a phase reads what
-// other blocks wrote before the barrier with ordinary (coherent) loads. The
-// weights arrive stacked (L, ...) and already rounded to the activation
-// type T, in nn.Linear's (out, in) layout.
+// the half-layer kernels K1-K6 launch one per block) from a counter and
+// meet at a grid-wide barrier between phases. No on-chip memory spans SMs,
+// so the carried activation lives in device memory (1.2 MB in bf16 at 768
+// rows: it stays in the 50 MB L2), and so do the phase outputs; a phase
+// reads what other blocks wrote before the barrier with ordinary (coherent)
+// loads. The weights arrive stacked (L, ...) and already rounded to the
+// activation type T, in nn.Linear's (out, in) layout; before each barrier
+// the blocks ask the next phase's weight (and the next layer's Wqkv) into
+// L2. The GEMMs run on common.cuh's wgmma core, the LayerNorm phases on
+// the vector rows of K1/K2. A layer's buffers are recomputed from the
+// kernel's parameters in each phase, so that none stays in registers
+// across the barriers.
 //
 // Forward, 7 phases and barriers a layer:
 //   (1) qkv = x . Wqkv + bqkv;  (2) per (caption, head): softmax, the
@@ -62,8 +68,12 @@
 // Bound on the H100 at R = 768 rows, H = 768, I = 3072, 12 layers, bf16:
 // operations. Forward 12 x 10.9 GFLOP = 131 GFLOP (0.13 ms at 989 TFLOP/s)
 // against 170 MB of weights and about as much of residuals; backward twice
-// the operations. The tiles are the half-layer kernels' 64 x 64 wmma tiles,
-// far from that rate; what this kernel removes is the launches between them.
+// the operations. Measured (PERF.md, PR 6, NVIDIA H100 80GB HBM3 at 700 W):
+// the forward 1.8 ms (eval), the backward 3.4 ms (host-bits dropout),
+// each below the 12 x half-layer chain on the same core; the phase table
+// (chip_smoke.py, the TGFR_PHASE_TIMES build) puts most of what is left in
+// the GEMM phases, slower than the same GEMMs launched alone, the
+// attention phases and the LN backward rows.
 #include <algorithm>
 
 #include <cooperative_groups.h>
@@ -78,6 +88,12 @@ using namespace tgfr;
 
 constexpr int kThreads = 128;  // = kGemmThreads = kAttnThreads
 constexpr int kWarps = kThreads / 32;
+constexpr int kLnRed = 3 * kWarps * kLnMaxWidth;  // floats: the LN tiles' sums
+// Blocks a SM the compiler sizes registers for: bf16 three (the attention
+// phase's 384 caption-head items at B 32 take one round on 396 blocks, and
+// the GEMM ring is sized for three), f32 one (its checks need no speed).
+template <typename T> constexpr int kMinBlocks = 3;
+template <> constexpr int kMinBlocks<float> = 1;
 static_assert(kThreads == kGemmThreads && kThreads == kAttnThreads, "");
 
 // Pointer slots of the C interface (see tgfr_tower_fwd / tgfr_tower_bwd).
@@ -128,161 +144,338 @@ __device__ __forceinline__ LayerDrop layer_drop(const TowerArgs& a,
   return {d[0], d[1], d[2]};
 }
 
-template <typename T, int EPI, int AL, int BL>
-__device__ __forceinline__ void run_gemm(const GemmArgs& g, int first,
-                                         unsigned char* smem) {
-  // this block's share of the phase's work items [first, first + tiles)
-  const int n = gemm_tiles(g);
-  int w = blockIdx.x;
-  if (w < first) w += ((first - w + gridDim.x - 1) / gridDim.x) * gridDim.x;
-  for (; w < first + n; w += gridDim.x) {
-    gemm_tile<T, EPI, AL, BL>(g, w - first, smem);
+// The GEMM p with its tile width (common.cuh gemm_width).
+template <typename T>
+__device__ __forceinline__ GemmArgs planned(GemmArgs p) {
+  p.bn = gemm_width<T>(p.m, p.n);
+  return p;
+}
+
+// This block's share of [p, p + bytes) asked into L2, 128-byte lines: the
+// next phase's weight, requested before the barrier in front of it, so its
+// first tiles find it in L2 (a layer's weights, 14 MB in bf16, come from
+// device memory once a pass: the 12 layers' 170 MB exceed the 50 MB L2).
+__device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
+  const char* c = static_cast<const char*>(p);
+  for (size_t o = ((size_t)blockIdx.x * kThreads + threadIdx.x) * 128;
+       o < bytes; o += (size_t)gridDim.x * kThreads * 128)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(c + o));
+}
+
+// The work items of a phase go to the blocks in order from a counter, one
+// counter a phase (g_items, per direction), so that a block that finishes
+// early takes the next item: the runtime does not spread the first blocks
+// over distinct SMs (132 blocks of a 264-block grid sat on 124 SMs of an
+// H100), so a fixed split by block index doubled the load of some SMs
+// while others idled. Block 0 zeroes the counters before its first item;
+// a block that reads a counter before that only finds its items taken by
+// others, and a counter read twice hands an item out twice, which writes
+// the same values again: every item is computed, none half. The grid fills
+// the card, so no two launches of one direction run at once.
+constexpr int kMaxPhases = 1024;
+__device__ unsigned g_items[2][kMaxPhases];
+
+// Runs f(w) for the items w < n of the phase whose counter is ctr that
+// this block takes: thread 0 asks for the next item while the block works
+// on the current one, so the atomic's round trip is hidden; `slot` is
+// shared memory. Ends after a barrier, with shared memory free.
+template <typename F>
+__device__ __forceinline__ void for_items(unsigned* ctr, int n, int* slot,
+                                          F&& f) {
+  __syncthreads();
+  if (threadIdx.x == 0) *slot = static_cast<int>(atomicAdd(ctr, 1u));
+  __syncthreads();
+  int w = *slot;
+  while (w < n) {
+    unsigned next = 0u;
+    if (threadIdx.x == 0) next = atomicAdd(ctr, 1u);
+    f(w);
     __syncthreads();
+    if (threadIdx.x == 0) *slot = static_cast<int>(next);
+    __syncthreads();
+    w = *slot;
   }
 }
 
-template <typename TIn, typename T>
-__device__ __forceinline__ void run_colsum(const TIn* in, int rows, int cols,
-                                           T* out, int first,
+template <int DIR>
+__device__ __forceinline__ void zero_items(int phases) {
+  if (blockIdx.x == 0) {
+    for (int i = threadIdx.x; i < phases; i += kThreads) g_items[DIR][i] = 0u;
+    __threadfence();
+  }
+}
+
+// One work item of each kind: a tile function of common.cuh.
+template <typename T, int EPI, int AL, int BL>
+__device__ __forceinline__ void gemm_item(const GemmArgs& g, int tile,
+                                       unsigned char* smem) {
+  gemm_tile<T, EPI, AL, BL>(g, tile, smem);
+}
+
+template <typename T>
+__device__ __forceinline__ void attn_fwd_item(const T* qkv, const int* mask,
+                                           const DropSrc& drop, unsigned thr,
+                                           float scale, T* p, T* o, int nb,
+                                           int t, int h, float inv, int b,
+                                           int head, unsigned char* smem) {
+  attention_core_tile<T>(qkv, mask, drop, thr, scale, p, o, nb, t, h, inv, b,
+                         head, reinterpret_cast<float*>(smem));
+}
+
+template <typename T>
+__device__ __forceinline__ void attn_bwd_item(const T* qkv, const T* p,
+                                           const T* dout, const DropSrc& drop,
+                                           unsigned thr, float scale, T* dqkv,
+                                           int nb, int t, int h, float inv,
+                                           int b, int head,
                                            unsigned char* smem) {
-  const int n = cols / kSumCols;
-  int w = blockIdx.x;
-  if (w < first) w += ((first - w + gridDim.x - 1) / gridDim.x) * gridDim.x;
-  for (; w < first + n; w += gridDim.x) {
-    const int c0 = (w - first) * kSumCols;
-    colsum_tile<TIn, T, kWarps>(in, rows, cols, c0, out + c0,
+  attention_core_bwd_tile<T>(qkv, p, dout, drop, thr, scale, dqkv, nb, t, h,
+                             inv, b, head, reinterpret_cast<float*>(smem));
+}
+
+template <typename T>
+__device__ __forceinline__ void ln_item(const T* x, const T* gamma,
+                                     const T* beta, T* y, int rows, int h,
+                                     float eps, int tile, T* stage) {
+  layernorm_rows_tile<T, kWarps>(x, gamma, beta, y, rows, h, eps, tile,
+                                 stage);
+}
+
+template <typename T>
+__device__ __forceinline__ void ln_bwd_item(const T* dy, const T* x,
+                                         const T* gamma, T* dx, T* dxd,
+                                         const DropSrc& drop, unsigned thr,
+                                         float scale, float* part, int rows,
+                                         int h, float eps, int tile,
+                                         float* red, T* stage) {
+  layernorm_bwd_rows_tile<T, kWarps>(dy, x, gamma, dx, dxd, drop, thr, scale,
+                                     part, 3, rows, h, eps, tile, red, stage);
+}
+
+// Column-sum item w of a phase: 32 columns of `in` (rows, cols) into out.
+template <typename TIn, typename T>
+__device__ __forceinline__ void colsum_item(const TIn* in, int rows, int cols,
+                                            T* out, int w,
+                                            unsigned char* smem) {
+  const int c0 = w * kSumCols;
+  colsum_tile<TIn, T, kWarps>(in, rows, cols, c0, out + c0, threadIdx.x % 32,
+                              threadIdx.x / 32,
+                              reinterpret_cast<float*>(smem));
+}
+
+// Item w of the LN sums: part (tiles, 3 h) f32 -> s0, s1, s2 (h each), T.
+template <typename T>
+__device__ __forceinline__ void ln_sums_item(const float* part, int tiles,
+                                             int h, T* s0, T* s1, T* s2,
+                                             int w, unsigned char* smem) {
+  const int per = h / kSumCols;
+  const int q = w / per, c0 = (w % per) * kSumCols;
+  T* out = (q == 0 ? s0 : (q == 1 ? s1 : s2)) + c0;
+  colsum_tile<float, T, kWarps>(part, tiles, 3 * h, q * h + c0, out,
                                 threadIdx.x % 32, threadIdx.x / 32,
                                 reinterpret_cast<float*>(smem));
-    __syncthreads();
-  }
 }
 
-// part (tiles, 3 h) f32 -> s0, s1, s2 (h each) of type T
-template <typename T>
-__device__ __forceinline__ void run_ln_sums(const float* part, int tiles,
-                                            int h, T* s0, T* s1, T* s2,
-                                            int first, unsigned char* smem) {
-  const int per = h / kSumCols, n = 3 * per;
-  int w = blockIdx.x;
-  if (w < first) w += ((first - w + gridDim.x - 1) / gridDim.x) * gridDim.x;
-  for (; w < first + n; w += gridDim.x) {
-    const int q = (w - first) / per, c0 = ((w - first) % per) * kSumCols;
-    T* out = (q == 0 ? s0 : (q == 1 ? s1 : s2)) + c0;
-    colsum_tile<float, T, kWarps>(part, tiles, 3 * h, q * h + c0, out,
-                                  threadIdx.x % 32, threadIdx.x / 32,
-                                  reinterpret_cast<float*>(smem));
-    __syncthreads();
+// Measurement build (-DTGFR_PHASE_TIMES; ops/_cuda.py `VARIANTS`): the
+// time of every phase and barrier, read by chip_smoke.py's phase table and
+// loaded by nothing else. At each barrier every block's thread 0 stamps its
+// arrival with %globaltimer into a device buffer (atomicMax: the last
+// block's arrival ends the phase), and block 0 stamps the release right
+// after grid.sync(); block 0 also stamps the kernel's start. A phase's time
+// is its last arrival less the previous release; a barrier's cost is its
+// release less its last arrival. The default build compiles none of it.
+#ifdef TGFR_PHASE_TIMES
+constexpr int kMaxStamps = 1024;
+__device__ unsigned long long g_start[2];
+__device__ unsigned long long g_arrive[2][kMaxStamps];
+__device__ unsigned long long g_release[2][kMaxStamps];
+__device__ unsigned g_smid[2][kMaxStamps];   // the SM of each block
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#endif
+
+// Block 0 stamps the kernel's start, every block its SM (measurement build
+// only).
+template <int DIR> __device__ __forceinline__ void phase_start() {
+#ifdef TGFR_PHASE_TIMES
+  if (blockIdx.x == 0 && threadIdx.x == 0) g_start[DIR] = now_ns();
+  if (threadIdx.x == 0 && blockIdx.x < kMaxStamps) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    g_smid[DIR][blockIdx.x] = sm;
   }
+#endif
+}
+
+// The end of phase n: the block's arrival (measurement build only).
+template <int DIR> __device__ __forceinline__ void phase_arrive(int n) {
+#ifdef TGFR_PHASE_TIMES
+  __syncthreads();
+  if (threadIdx.x == 0 && n < kMaxStamps)
+    atomicMax(&g_arrive[DIR][n], now_ns());
+#endif
+}
+
+// The grid-wide barrier after phase n; n counts the pass's barriers.
+template <int DIR>
+__device__ __forceinline__ void phase_sync(cg::grid_group& grid, int& n) {
+  phase_arrive<DIR>(n);
+  grid.sync();
+#ifdef TGFR_PHASE_TIMES
+  if (blockIdx.x == 0 && threadIdx.x == 0 && n < kMaxStamps)
+    g_release[DIR][n] = now_ns();
+#endif
+  ++n;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) tower_fwd_kernel(TowerArgs a) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
+tower_fwd_kernel(TowerArgs a) {
   extern __shared__ __align__(32) unsigned char smem[];
+  __shared__ int slot;
   cg::grid_group grid = cg::this_grid();
   const int rows = a.b * a.t, h = a.h, inter = a.inter, L = a.layers;
   const size_t act = (size_t)rows * h;
   const size_t p_el = (size_t)a.heads * a.b * a.t * a.t;
+  const size_t hh = (size_t)h * h, ih = (size_t)inter * h;
   const int ln_tiles = (rows + kWarps - 1) / kWarps;
   const float inv = 1.0f / sqrtf(static_cast<float>(kDHead));
   T* y = static_cast<T*>(a.p[F_Y]);
   T* ab = static_cast<T*>(a.p[F_A]);
+  T* stage = reinterpret_cast<T*>(smem);        // the LN tiles' staging
   const int* mask = static_cast<const int*>(a.p[F_MASK]);
+  unsigned* items = g_items[0];
+  int ns = 0;
+  phase_start<0>();
+  zero_items<0>(7 * L);
 
   for (int j = 0; j < L; ++j) {
-    const size_t slot = a.save ? j : 0;         // this layer's residual slot
-    const T* x = j == 0 ? static_cast<const T*>(a.p[F_X])
-                        : at<T>(a.p[F_XIN], (a.save ? j : (j & 1)) * act);
-    T* z = j == L - 1 ? static_cast<T*>(a.p[F_Z])
-                      : at<T>(a.p[F_XIN],
-                              (a.save ? j + 1 : ((j + 1) & 1)) * act);
-    T* qkv = at<T>(a.p[F_QKV], slot * act * 3);
-    T* p = at<T>(a.p[F_P], slot * p_el);
-    T* o = at<T>(a.p[F_O], slot * act);
-    T* r1 = at<T>(a.p[F_R1], slot * act);
-    T* f = at<T>(a.p[F_F], slot * rows * inter);
-    T* r2 = at<T>(a.p[F_R2], slot * act);
-    const LayerDrop ld = layer_drop(a, a.p + F_BITS_P, a.p[F_SEED], j);
+    // the layer's buffers, recomputed from the kernel's parameters where
+    // a phase uses them (none stays live across the phases)
+    const size_t slot_j = a.save ? j : 0;       // this layer's residual slot
+    auto X = [&] {
+      return j == 0 ? static_cast<const T*>(a.p[F_X])
+                    : at<T>(a.p[F_XIN], (a.save ? j : (j & 1)) * act);
+    };
+    auto Z = [&] {
+      return j == L - 1 ? static_cast<T*>(a.p[F_Z])
+                        : at<T>(a.p[F_XIN],
+                                (a.save ? j + 1 : ((j + 1) & 1)) * act);
+    };
+    auto QKV = [&] { return at<T>(a.p[F_QKV], slot_j * act * 3); };
+    auto O = [&] { return at<T>(a.p[F_O], slot_j * act); };
+    auto R1 = [&] { return at<T>(a.p[F_R1], slot_j * act); };
+    auto R2 = [&] { return at<T>(a.p[F_R2], slot_j * act); };
+    auto W = [&](int which, size_t per) {
+      return at<T>(a.p[which], j * per);
+    };
+    auto LD = [&] { return layer_drop(a, a.p + F_BITS_P, a.p[F_SEED], j); };
 
     // (1) qkv = x . Wqkv + bqkv; layer 0 also files x as its saved input
     {
-      GemmArgs g = gemm_args(x, at<T>(a.p[F_WQKV], (size_t)j * 3 * h * h),
-                             qkv, rows, 3 * h, h);
+      GemmArgs g = planned<T>(
+          gemm_args(X(), W(F_WQKV, 3 * hh), QKV(), rows, 3 * h, h));
       g.bias_t = at<T>(a.p[F_BQKV], (size_t)j * 3 * h);
-      run_gemm<T, kEpiBias, kARowMajor, kBActNK>(g, 0, smem);
+      const int n = gemm_tiles(g);
+      for_items(items + ns, n, &slot, [&](int w) {
+        gemm_item<T, kEpiBias, kARowMajor, kBActNK>(g, w, smem);
+      });
       if (j == 0 && a.save) {
         T* x0 = static_cast<T*>(a.p[F_XIN]);
+        const T* x = X();
         for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < act;
              i += (size_t)gridDim.x * kThreads)
           x0[i] = x[i];
       }
     }
-    grid.sync();
+    prefetch_l2(W(F_WO, hh), hh * sizeof(T));
+    phase_sync<0>(grid, ns);
     // (2) attention per (caption, head)
-    for (int w = blockIdx.x; w < a.b * a.heads; w += gridDim.x) {
-      attention_core_tile<T>(qkv, mask, ld.p, a.thr, a.scale, p, o, a.b, a.t,
-                             h, inv, w / a.heads, w % a.heads,
-                             reinterpret_cast<float*>(smem));
-      __syncthreads();
-    }
-    grid.sync();
+    for_items(items + ns, a.b * a.heads, &slot, [&](int w) {
+      attn_fwd_item<T>(QKV(), mask, LD().p, a.thr, a.scale,
+                       at<T>(a.p[F_P], slot_j * p_el), O(), a.b, a.t, h, inv,
+                       w / a.heads, w % a.heads, smem);
+    });
+    phase_sync<0>(grid, ns);
     // (3) r1 = x + drop(o . Wo + bo)
     {
-      GemmArgs g = gemm_args(o, at<T>(a.p[F_WO], (size_t)j * h * h), r1, rows,
-                             h, h);
+      GemmArgs g = planned<T>(gemm_args(O(), W(F_WO, hh), R1(), rows, h, h));
       g.bias_t = at<T>(a.p[F_BO], (size_t)j * h);
-      g.resid = x;
-      g.drop = ld.h;
+      g.resid = X();
+      g.drop = LD().h;
       g.thr = a.thr;
       g.scale = a.scale;
-      run_gemm<T, kEpiBiasResidual, kARowMajor, kBActNK>(g, 0, smem);
+      const int n = gemm_tiles(g);
+      for_items(items + ns, n, &slot, [&](int w) {
+        gemm_item<T, kEpiBiasResidual, kARowMajor, kBActNK>(g, w, smem);
+      });
     }
-    grid.sync();
+    prefetch_l2(W(F_W1, ih), ih * sizeof(T));
+    phase_sync<0>(grid, ns);
     // (4) y = LN(r1)
-    for (int w = blockIdx.x; w < ln_tiles; w += gridDim.x)
-      layernorm_rows_tile<T, T, false, kWarps>(
-          r1, at<T>(a.p[F_G1], (size_t)j * h), at<T>(a.p[F_B1], (size_t)j * h),
-          y, rows, h, a.eps, w);
-    grid.sync();
+    for_items(items + ns, ln_tiles, &slot, [&](int w) {
+      ln_item<T>(R1(), at<T>(a.p[F_G1], (size_t)j * h),
+                 at<T>(a.p[F_B1], (size_t)j * h), y, rows, h, a.eps, w,
+                 stage);
+    });
+    phase_sync<0>(grid, ns);
     // (5) f = y . W1 + c1, a = gelu(f)
     {
-      GemmArgs g = gemm_args(y, at<T>(a.p[F_W1], (size_t)j * inter * h), ab,
-                             rows, inter, h);
+      GemmArgs g = planned<T>(gemm_args(y, W(F_W1, ih), ab, rows, inter, h));
       g.bias_t = at<T>(a.p[F_C1], (size_t)j * inter);
-      g.out2 = f;
-      run_gemm<T, kEpiBiasGelu, kARowMajor, kBActNK>(g, 0, smem);
+      g.out2 = at<T>(a.p[F_F], slot_j * rows * inter);
+      const int n = gemm_tiles(g);
+      for_items(items + ns, n, &slot, [&](int w) {
+        gemm_item<T, kEpiBiasGelu, kARowMajor, kBActNK>(g, w, smem);
+      });
     }
-    grid.sync();
+    prefetch_l2(W(F_W2, ih), ih * sizeof(T));
+    phase_sync<0>(grid, ns);
     // (6) r2 = y + drop(a . W2 + c2)
     {
-      GemmArgs g = gemm_args(ab, at<T>(a.p[F_W2], (size_t)j * inter * h), r2,
-                             rows, h, inter);
+      GemmArgs g = planned<T>(gemm_args(ab, W(F_W2, ih), R2(), rows, h, inter));
       g.bias_t = at<T>(a.p[F_C2], (size_t)j * h);
       g.resid = y;
-      g.drop = ld.f;
+      g.drop = LD().f;
       g.thr = a.thr;
       g.scale = a.scale;
-      run_gemm<T, kEpiBiasResidual, kARowMajor, kBActNK>(g, 0, smem);
+      const int n = gemm_tiles(g);
+      for_items(items + ns, n, &slot, [&](int w) {
+        gemm_item<T, kEpiBiasResidual, kARowMajor, kBActNK>(g, w, smem);
+      });
     }
-    grid.sync();
+    if (j + 1 < L)
+      prefetch_l2(at<T>(a.p[F_WQKV], (j + 1) * 3 * hh), 3 * hh * sizeof(T));
+    phase_sync<0>(grid, ns);
     // (7) z = LN(r2)
-    for (int w = blockIdx.x; w < ln_tiles; w += gridDim.x)
-      layernorm_rows_tile<T, T, false, kWarps>(
-          r2, at<T>(a.p[F_G2], (size_t)j * h), at<T>(a.p[F_B2], (size_t)j * h),
-          z, rows, h, a.eps, w);
-    if (j < L - 1) grid.sync();
+    for_items(items + ns, ln_tiles, &slot, [&](int w) {
+      ln_item<T>(R2(), at<T>(a.p[F_G2], (size_t)j * h),
+                 at<T>(a.p[F_B2], (size_t)j * h), Z(), rows, h, a.eps, w,
+                 stage);
+    });
+    if (j < L - 1) phase_sync<0>(grid, ns);
   }
+  phase_arrive<0>(ns);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) tower_bwd_kernel(TowerArgs a) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
+tower_bwd_kernel(TowerArgs a) {
   extern __shared__ __align__(32) unsigned char smem[];
+  __shared__ int slot;
   cg::grid_group grid = cg::this_grid();
   const int rows = a.b * a.t, h = a.h, inter = a.inter, L = a.layers;
   const size_t act = (size_t)rows * h;
   const size_t p_el = (size_t)a.heads * a.b * a.t * a.t;
+  const size_t hh = (size_t)h * h, ih = (size_t)inter * h;
   const int ln_tiles = (rows + kWarps - 1) / kWarps;
   const float inv = 1.0f / sqrtf(static_cast<float>(kDHead));
-  float* red = reinterpret_cast<float*>(smem);
+  float* red = reinterpret_cast<float*>(smem);    // the LN tiles' sums,
+  T* stage = reinterpret_cast<T*>(red + kLnRed);  // then their staging
   T* dx = static_cast<T*>(a.p[B_DX]);
   T* dr = static_cast<T*>(a.p[B_DR]);
   T* ab = static_cast<T*>(a.p[B_A]);
@@ -292,122 +485,155 @@ __global__ void __launch_bounds__(kThreads) tower_bwd_kernel(TowerArgs a) {
   T* dout = static_cast<T*>(a.p[B_DOUT]);
   T* dqkv = static_cast<T*>(a.p[B_DQKV]);
   float* part = static_cast<float*>(a.p[B_PART]);
+  unsigned* items = g_items[1];
+  int ns = 0;
+  phase_start<1>();
+  zero_items<1>(7 * L);
 
   for (int j = L - 1; j >= 0; --j) {
-    const T* dz = j == L - 1 ? static_cast<const T*>(a.p[B_DZ]) : dx;
-    const T* xin = at<T>(a.p[B_XIN], j * act);
-    const T* qkv = at<T>(a.p[B_QKV], j * act * 3);
-    const T* p = at<T>(a.p[B_P], j * p_el);
-    const T* o = at<T>(a.p[B_O], j * act);
-    const T* r1 = at<T>(a.p[B_R1], j * act);
-    const T* f = at<T>(a.p[B_F], (size_t)j * rows * inter);
-    const T* r2 = at<T>(a.p[B_R2], j * act);
-    const T* wqkv = at<T>(a.p[B_WQKV], (size_t)j * 3 * h * h);
-    const T* wo = at<T>(a.p[B_WO], (size_t)j * h * h);
-    const T* w1 = at<T>(a.p[B_W1], (size_t)j * inter * h);
-    const T* w2 = at<T>(a.p[B_W2], (size_t)j * inter * h);
-    const T* g1 = at<T>(a.p[B_G1], (size_t)j * h);
-    const T* b1 = at<T>(a.p[B_B1], (size_t)j * h);
-    const T* g2 = at<T>(a.p[B_G2], (size_t)j * h);
-    const LayerDrop ld = layer_drop(a, a.p + B_BITS_P, a.p[B_SEED], j);
+    // the layer's buffers, recomputed from the kernel's parameters where
+    // a phase uses them (none stays live across the phases)
+    auto R = [&](int which, size_t per) {      // a saved residual of layer j
+      return static_cast<const T*>(at<T>(a.p[which], j * per));
+    };
+    auto W = [&](int which, size_t per) {      // a stacked leaf of layer j
+      return static_cast<const T*>(at<T>(a.p[which], j * per));
+    };
+    auto G = [&](int which, size_t per) {      // a stacked gradient
+      return at<T>(a.p[which], j * per);
+    };
+    auto LD = [&] { return layer_drop(a, a.p + B_BITS_P, a.p[B_SEED], j); };
+    const size_t ri = (size_t)rows * inter;
     // the dropped gradients: a buffer of their own with dropout, else dr
-    T* dd_f = ld.f.on() ? static_cast<T*>(a.p[B_DD]) : dr;
-    T* dd_h = ld.h.on() ? static_cast<T*>(a.p[B_DD]) : dr;
+    auto DD = [&](bool on) { return on ? static_cast<T*>(a.p[B_DD]) : dr; };
 
-    // (1) LN2 backward rows; a = gelu(f) and y = LN(r1) recomputed
-    for (int w = blockIdx.x; w < ln_tiles; w += gridDim.x)
-      layernorm_bwd_rows_tile<T, T, false, kWarps>(
-          dz, r2, g2, dr, ld.f.on() ? dd_f : nullptr, ld.f, a.thr, a.scale,
-          part, 3, rows, h, a.eps, w, red);
-    for (int w = blockIdx.x; w < ln_tiles; w += gridDim.x)
-      layernorm_rows_tile<T, T, false, kWarps>(r1, g1, b1, y, rows, h, a.eps,
-                                               w);
-    for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
-         i < (size_t)rows * inter; i += (size_t)gridDim.x * kThreads)
-      ab[i] = from_f32<T>(gelu_erf(to_f32(f[i])));
-    grid.sync();
+    // (1) LN2 backward rows; y = LN(r1) and a = gelu(f) recomputed
+    for_items(items + ns, 2 * ln_tiles, &slot, [&](int w) {
+      if (w < ln_tiles)
+      {
+        const DropSrc df_ = LD().f;
+        ln_bwd_item<T>(j == L - 1 ? static_cast<const T*>(a.p[B_DZ]) : dx,
+                       R(B_R2, act), W(B_G2, h), dr,
+                       df_.on() ? DD(true) : nullptr, df_, a.thr, a.scale,
+                       part, rows, h, a.eps, w, red, stage);
+      } else {
+        ln_item<T>(R(B_R1, act), W(B_G1, h), W(B_B1, h), y, rows, h, a.eps,
+                   w - ln_tiles, stage);
+      }
+    });
+    gelu_rows<T>(R(B_F, ri), ab, ri);
+    prefetch_l2(W(B_W2, ih), ih * sizeof(T));
+    phase_sync<1>(grid, ns);
     // (2) dgamma2, dbeta2, dc2; dW2 (h, inter) = dgg^T . a;
     //     df = r(r(dgg . W2) gelu'(f)), W2 stored (h, inter) = (K, N)
     {
-      GemmArgs gw = gemm_args(dd_f, ab, at<T>(a.p[B_DW2],
-                                               (size_t)j * inter * h),
-                              h, inter, rows);
-      GemmArgs gd = gemm_args(dd_f, w2, df, rows, inter, h);
-      gd.aux = f;
-      const int n0 = gemm_tiles(gw), n1 = gemm_tiles(gd);
-      run_gemm<T, kEpiBias, kATransposed, kBActKN>(gw, 0, smem);
-      run_gemm<T, kEpiDgelu, kARowMajor, kBActKN>(gd, n0, smem);
-      run_ln_sums<T>(part, ln_tiles, h, at<T>(a.p[B_DG2], (size_t)j * h),
-                     at<T>(a.p[B_DB2], (size_t)j * h),
-                     at<T>(a.p[B_DC2], (size_t)j * h), n0 + n1, smem);
+      T* dd_f = DD(LD().f.on());
+      GemmArgs gw = planned<T>(
+          gemm_args(dd_f, ab, G(B_DW2, ih), h, inter, rows));
+      GemmArgs gd = planned<T>(
+          gemm_args(dd_f, W(B_W2, ih), df, rows, inter, h));
+      gd.aux = R(B_F, ri);
+      const int n0 = gemm_tiles(gw), n1 = n0 + gemm_tiles(gd);
+      const int n2 = n1 + 3 * h / kSumCols;
+      for_items(items + ns, n2, &slot, [&](int w) {
+        if (w < n0)
+          gemm_item<T, kEpiBias, kATransposed, kBActKN>(gw, w, smem);
+        else if (w < n1)
+          gemm_item<T, kEpiDgelu, kARowMajor, kBActKN>(gd, w - n0, smem);
+        else
+          ln_sums_item<T>(part, ln_tiles, h, G(B_DG2, h), G(B_DB2, h),
+                          G(B_DC2, h), w - n1, smem);
+      });
     }
-    grid.sync();
+    prefetch_l2(W(B_W1, ih), ih * sizeof(T));
+    phase_sync<1>(grid, ns);
     // (3) dy = r(dr2 + r(df . W1)), W1 stored (inter, h) = (K, N);
     //     dW1 (inter, h) = df^T . y; dc1
     {
-      GemmArgs gx = gemm_args(df, w1, dy, rows, h, inter);
+      GemmArgs gx = planned<T>(gemm_args(df, W(B_W1, ih), dy, rows, h, inter));
       gx.resid = dr;
-      GemmArgs gw = gemm_args(df, y, at<T>(a.p[B_DW1], (size_t)j * inter * h),
-                              inter, h, rows);
-      const int n0 = gemm_tiles(gx), n1 = gemm_tiles(gw);
-      run_gemm<T, kEpiBiasResidual, kARowMajor, kBActKN>(gx, 0, smem);
-      run_gemm<T, kEpiBias, kATransposed, kBActKN>(gw, n0, smem);
-      run_colsum<T, T>(df, rows, inter, at<T>(a.p[B_DC1], (size_t)j * inter),
-                       n0 + n1, smem);
+      GemmArgs gw = planned<T>(
+          gemm_args(df, y, G(B_DW1, ih), inter, h, rows));
+      const int n0 = gemm_tiles(gx), n1 = n0 + gemm_tiles(gw);
+      const int n2 = n1 + inter / kSumCols;
+      for_items(items + ns, n2, &slot, [&](int w) {
+        if (w < n0)
+          gemm_item<T, kEpiBiasResidual, kARowMajor, kBActKN>(gx, w, smem);
+        else if (w < n1)
+          gemm_item<T, kEpiBias, kATransposed, kBActKN>(gw, w - n0, smem);
+        else
+          colsum_item<T, T>(df, rows, inter, G(B_DC1, inter), w - n1, smem);
+      });
     }
-    grid.sync();
+    phase_sync<1>(grid, ns);
     // (4) LN1 backward rows
-    for (int w = blockIdx.x; w < ln_tiles; w += gridDim.x)
-      layernorm_bwd_rows_tile<T, T, false, kWarps>(
-          dy, r1, g1, dr, ld.h.on() ? dd_h : nullptr, ld.h, a.thr, a.scale,
-          part, 3, rows, h, a.eps, w, red);
-    grid.sync();
+    for_items(items + ns, ln_tiles, &slot, [&](int w) {
+      const DropSrc dh_ = LD().h;
+      ln_bwd_item<T>(dy, R(B_R1, act), W(B_G1, h), dr,
+                     dh_.on() ? DD(true) : nullptr, dh_, a.thr, a.scale, part,
+                     rows, h, a.eps, w, red, stage);
+    });
+    prefetch_l2(W(B_WO, hh), hh * sizeof(T));
+    phase_sync<1>(grid, ns);
     // (5) dgamma1, dbeta1, dbo; dWo (h, h) = dh^T . o; do = r(dh . Wo)
     {
-      GemmArgs gw = gemm_args(dd_h, o, at<T>(a.p[B_DWO], (size_t)j * h * h),
-                              h, h, rows);
-      GemmArgs gd = gemm_args(dd_h, wo, dout, rows, h, h);
-      const int n0 = gemm_tiles(gw), n1 = gemm_tiles(gd);
-      run_gemm<T, kEpiBias, kATransposed, kBActKN>(gw, 0, smem);
-      run_gemm<T, kEpiBias, kARowMajor, kBActKN>(gd, n0, smem);
-      run_ln_sums<T>(part, ln_tiles, h, at<T>(a.p[B_DG1], (size_t)j * h),
-                     at<T>(a.p[B_DB1], (size_t)j * h),
-                     at<T>(a.p[B_DBO], (size_t)j * h), n0 + n1, smem);
+      T* dd_h = DD(LD().h.on());
+      GemmArgs gw = planned<T>(
+          gemm_args(dd_h, R(B_O, act), G(B_DWO, hh), h, h, rows));
+      GemmArgs gd = planned<T>(gemm_args(dd_h, W(B_WO, hh), dout, rows, h, h));
+      const int n0 = gemm_tiles(gw), n1 = n0 + gemm_tiles(gd);
+      const int n2 = n1 + 3 * h / kSumCols;
+      for_items(items + ns, n2, &slot, [&](int w) {
+        if (w < n0)
+          gemm_item<T, kEpiBias, kATransposed, kBActKN>(gw, w, smem);
+        else if (w < n1)
+          gemm_item<T, kEpiBias, kARowMajor, kBActKN>(gd, w - n0, smem);
+        else
+          ln_sums_item<T>(part, ln_tiles, h, G(B_DG1, h), G(B_DB1, h),
+                          G(B_DBO, h), w - n1, smem);
+      });
     }
-    grid.sync();
+    prefetch_l2(W(B_WQKV, 3 * hh), 3 * hh * sizeof(T));
+    phase_sync<1>(grid, ns);
     // (6) the attention backward per (caption, head)
-    for (int w = blockIdx.x; w < a.b * a.heads; w += gridDim.x) {
-      attention_core_bwd_tile<T>(qkv, p, dout, ld.p, a.thr, a.scale, dqkv,
-                                 a.b, a.t, h, inv, w / a.heads, w % a.heads,
-                                 red);
-      __syncthreads();
-    }
-    grid.sync();
+    for_items(items + ns, a.b * a.heads, &slot, [&](int w) {
+      attn_bwd_item<T>(R(B_QKV, 3 * act), R(B_P, p_el), dout, LD().p, a.thr,
+                       a.scale, dqkv, a.b, a.t, h, inv, w / a.heads,
+                       w % a.heads, smem);
+    });
+    phase_sync<1>(grid, ns);
     // (7) dx = r(dr1 + r(dqkv . Wqkv)), Wqkv stored (3h, h) = (K, N);
     //     dWqkv (3h, h) = dqkv^T . x; dbqkv
     {
-      GemmArgs gx = gemm_args(dqkv, wqkv, dx, rows, h, 3 * h);
+      GemmArgs gx = planned<T>(
+          gemm_args(dqkv, W(B_WQKV, 3 * hh), dx, rows, h, 3 * h));
       gx.resid = dr;
-      GemmArgs gw = gemm_args(dqkv, xin,
-                              at<T>(a.p[B_DWQKV], (size_t)j * 3 * h * h),
-                              3 * h, h, rows);
-      const int n0 = gemm_tiles(gx), n1 = gemm_tiles(gw);
-      run_gemm<T, kEpiBiasResidual, kARowMajor, kBActKN>(gx, 0, smem);
-      run_gemm<T, kEpiBias, kATransposed, kBActKN>(gw, n0, smem);
-      run_colsum<T, T>(dqkv, rows, 3 * h,
-                       at<T>(a.p[B_DBQKV], (size_t)j * 3 * h), n0 + n1, smem);
+      GemmArgs gw = planned<T>(
+          gemm_args(dqkv, R(B_XIN, act), G(B_DWQKV, 3 * hh), 3 * h, h, rows));
+      const int n0 = gemm_tiles(gx), n1 = n0 + gemm_tiles(gw);
+      const int n2 = n1 + 3 * h / kSumCols;
+      for_items(items + ns, n2, &slot, [&](int w) {
+        if (w < n0)
+          gemm_item<T, kEpiBiasResidual, kARowMajor, kBActKN>(gx, w, smem);
+        else if (w < n1)
+          gemm_item<T, kEpiBias, kATransposed, kBActKN>(gw, w - n0, smem);
+        else
+          colsum_item<T, T>(dqkv, rows, 3 * h, G(B_DBQKV, 3 * h), w - n1,
+                            smem);
+      });
     }
-    if (j > 0) grid.sync();
+    if (j > 0)
+      prefetch_l2(at<T>(a.p[B_W2], (j - 1) * ih), ih * sizeof(T));
+    if (j > 0) phase_sync<1>(grid, ns);
   }
+  phase_arrive<1>(ns);
 }
 
-size_t max_sz(size_t a, size_t b) { return a > b ? a : b; }
-
-// Launch `kernel` cooperatively on a grid that is resident at once, no
-// larger than `max_tiles`. info[0] = the grid, info[1] = blocks per SM,
-// info[2] = the dynamic shared memory in bytes.
+// Launch `kernel` cooperatively on the grid that fills the card: as many
+// blocks as are resident at once. info[0] = the grid, info[1] = blocks per
+// SM, info[2] = the dynamic shared memory in bytes.
 template <typename K>
-int launch(K kernel, const TowerArgs& a, size_t smem, int max_tiles,
+int launch(K kernel, const TowerArgs& a, size_t smem, int max_per_sm,
            int* info, cudaStream_t s) {
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024)
@@ -424,8 +650,21 @@ int launch(K kernel, const TowerArgs& a, size_t smem, int max_tiles,
                                                       kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  int grid = per_sm * sms;
-  if (grid > max_tiles) grid = max_tiles;
+  if (per_sm > max_per_sm) per_sm = max_per_sm;
+  // the thread stack the kernel's spills need (the runtime does not grow
+  // it for a cooperative launch: without this the f32 backward's launch
+  // is refused as out of resources)
+  cudaFuncAttributes fa;
+  if ((err = cudaFuncGetAttributes(&fa, kernel)) != cudaSuccess)
+    return static_cast<int>(err);
+  size_t stack = 0;
+  if ((err = cudaDeviceGetLimit(&stack, cudaLimitStackSize)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (stack < fa.localSizeBytes &&
+      (err = cudaDeviceSetLimit(cudaLimitStackSize, fa.localSizeBytes)) !=
+          cudaSuccess)
+    return static_cast<int>(err);
+  const int grid = per_sm * sms;
   if (info) {
     info[0] = grid;
     info[1] = per_sm;
@@ -454,12 +693,11 @@ int fill(TowerArgs& a, void* const* ptrs, int count, const long long* strides,
   a.scale = scale;
   a.eps = eps;
   if (a.h != a.heads * kDHead || a.h > kLnMaxWidth || a.h % 64 ||
-      a.inter % 64 || a.layers < 1)
+      a.inter % 64 || a.layers < 1 || 7 * a.layers > kMaxPhases)
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
 
-int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 }  // namespace
 
@@ -471,24 +709,27 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 // save; else xin (2, b t, h), one layer of qkv, o, r1, r2, and p, f null),
 // and scratch y (b t, h), a (b t, inter). strides: elements between two
 // layers' bits. dims: L, b, t, h, heads, inter, save. info: 3 host ints out.
-extern "C" int tgfr_tower_fwd(void* const* ptrs, const long long* strides,
+TGFR_API int tgfr_tower_fwd(void* const* ptrs, const long long* strides,
                               const int* dims, int* info, unsigned thr,
                               float scale, float eps, int dtype,
                               void* stream) {
   TowerArgs a{};
   if (int e = fill(a, ptrs, F_COUNT, strides, dims, thr, scale, eps)) return e;
   const auto s = static_cast<cudaStream_t>(stream);
-  const int rows = a.b * a.t;
-  const int tiles = std::max({ceil_div(rows, tgfr::kBM) * (a.inter / tgfr::kBN),
-                              a.b * a.heads, ceil_div(rows, kWarps)});
+  const size_t extra = tgfr::attn_fwd_smem_bytes(a.t);
   if (dtype == tgfr::kBF16)
     return launch(tower_fwd_kernel<__nv_bfloat16>, a,
-                  max_sz(tgfr::gemm_smem_bytes<__nv_bfloat16>(),
-                         tgfr::attn_fwd_smem_bytes(a.t)), tiles, info, s);
+                  std::max({tgfr::gemm_smem_bytes<__nv_bfloat16>(), extra,
+                            tgfr::ln_tile_stage_bytes<__nv_bfloat16,
+                                                      kWarps>()}),
+                  kMinBlocks<__nv_bfloat16>, info, s);
+#ifndef TGFR_PHASE_TIMES  // the measurement build times bf16 alone
   if (dtype == tgfr::kF32)
     return launch(tower_fwd_kernel<float>, a,
-                  max_sz(tgfr::gemm_smem_bytes<float>(),
-                         tgfr::attn_fwd_smem_bytes(a.t)), tiles, info, s);
+                  std::max({tgfr::gemm_smem_bytes<float>(), extra,
+                            tgfr::ln_tile_stage_bytes<float, kWarps>()}),
+                  kMinBlocks<float>, info, s);
+#endif
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -499,27 +740,65 @@ extern "C" int tgfr_tower_fwd(void* const* ptrs, const long long* strides,
 // scratch dr, dd (b t, h; dd only with bits), a (b t, inter), y (b t, h),
 // df (b t, inter), dy, dout (b t, h), dqkv (b t, 3h), part
 // (ceil(b t / 4), 3h) f32.
-extern "C" int tgfr_tower_bwd(void* const* ptrs, const long long* strides,
+TGFR_API int tgfr_tower_bwd(void* const* ptrs, const long long* strides,
                               const int* dims, int* info, unsigned thr,
                               float scale, float eps, int dtype,
                               void* stream) {
   TowerArgs a{};
   if (int e = fill(a, ptrs, B_COUNT, strides, dims, thr, scale, eps)) return e;
   const auto s = static_cast<cudaStream_t>(stream);
-  const int rows = a.b * a.t;
-  // the widest phase: dW2 and df, or dW1 and dy
-  const int tiles = (a.h / tgfr::kBM) * (a.inter / tgfr::kBN) +
-                    ceil_div(rows, tgfr::kBM) * (a.inter / tgfr::kBN) +
-                    3 * a.h / tgfr::kSumCols;
-  const size_t extra =
-      max_sz(tgfr::attn_bwd_smem_bytes(a.t),
-             (size_t)kWarps * tgfr::kLnMaxWidth * sizeof(float));
+  // the LN tiles: their sums, then their staging
+  const size_t red = (size_t)kLnRed * sizeof(float);
+  const size_t attn = tgfr::attn_bwd_smem_bytes(a.t);
   if (dtype == tgfr::kBF16)
     return launch(tower_bwd_kernel<__nv_bfloat16>, a,
-                  max_sz(tgfr::gemm_smem_bytes<__nv_bfloat16>(), extra),
-                  tiles, info, s);
+                  std::max({tgfr::gemm_smem_bytes<__nv_bfloat16>(), attn,
+                            red + tgfr::ln_tile_stage_bytes<__nv_bfloat16,
+                                                            kWarps>()}),
+                  kMinBlocks<__nv_bfloat16>, info, s);
+#ifndef TGFR_PHASE_TIMES
   if (dtype == tgfr::kF32)
     return launch(tower_bwd_kernel<float>, a,
-                  max_sz(tgfr::gemm_smem_bytes<float>(), extra), tiles, info, s);
+                  std::max({tgfr::gemm_smem_bytes<float>(), attn,
+                            red + tgfr::ln_tile_stage_bytes<float, kWarps>()}),
+                  kMinBlocks<float>, info, s);
+#endif
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#ifdef TGFR_PHASE_TIMES
+// Measurement build: zero the stamps of both passes.
+TGFR_API int tgfr_tower_phase_reset(void* stream) {
+  static const unsigned long long zeros[2 * kMaxStamps] = {};
+  cudaStreamSynchronize(static_cast<cudaStream_t>(stream));
+  cudaError_t e = cudaMemcpyToSymbol(g_start, zeros, sizeof(g_start));
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(g_arrive, zeros, sizeof(g_arrive));
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(g_release, zeros, sizeof(g_release));
+  return static_cast<int>(e);
+}
+
+// Measurement build: out (1 + 2 n) = the start, n arrivals and n releases
+// (ns, %globaltimer) of pass dir (0 forward, 1 backward); smid (1024): the
+// SM each block ran on.
+TGFR_API int tgfr_tower_phase_read(int dir, void* out, void* smid, int n,
+                                     void* stream) {
+  if (dir < 0 || dir > 1 || n < 1 || n > kMaxStamps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* o = static_cast<unsigned long long*>(out);
+  const size_t row = sizeof(unsigned long long) * kMaxStamps;
+  cudaStreamSynchronize(static_cast<cudaStream_t>(stream));
+  cudaError_t e = cudaMemcpyFromSymbol(o, g_start, sizeof(*o),
+                                       dir * sizeof(*o));
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(o + 1, g_arrive, n * sizeof(*o), dir * row);
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(o + 1 + n, g_release, n * sizeof(*o),
+                             dir * row);
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(smid, g_smid, sizeof(unsigned) * kMaxStamps,
+                             dir * sizeof(unsigned) * kMaxStamps);
+  return static_cast<int>(e);
+}
+#endif

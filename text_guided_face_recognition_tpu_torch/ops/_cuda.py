@@ -7,6 +7,9 @@ Libraries are built at first use into `_build/` beside this package (listed
 in `.gitignore`), named by a digest of their sources and flags, so an
 edited source never loads a stale library.
 `build()` compiles several sources in parallel, one `nvcc` process each.
+A variant (`VARIANTS`) is a source built with extra flags into a library
+of its own name: the measurement build of the tower kernels, which only
+chip_smoke.py loads.
 
 Nothing here runs at import time: this module imports on hosts with no CUDA
 toolchain, where the kernels' plain versions serve CPU tensors.
@@ -22,11 +25,12 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Sequence, Tuple
 
 import torch
 
-__all__ = ["SOURCES", "build", "function", "dtype_code", "launch"]
+__all__ = ["SOURCES", "VARIANTS", "build", "function", "dtype_code",
+           "launch"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -34,7 +38,11 @@ _BUILD = _PKG / "_build"
 SOURCES = ("layernorm", "ffn_block", "attn_block", "tower_block", "damsm",
            "philox")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+          "-shared", "-Xcompiler", "-fPIC", "-Xcompiler", "-fvisibility=hidden",
+          "-Xptxas", "-v")
+# name: (source, extra flags). The tower kernels with %globaltimer stamps
+# at every grid barrier (csrc/tower_block.cu, TGFR_PHASE_TIMES).
+VARIANTS = {"tower_block_phases": ("tower_block", ("-DTGFR_PHASE_TIMES",))}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -49,11 +57,18 @@ def _nvcc() -> str:
     return path
 
 
+def _source(name: str) -> Tuple[Path, Tuple[str, ...]]:
+    """(the source of library `name`, its flags)."""
+    src, extra = VARIANTS.get(name, (name, ()))
+    return _CSRC / f"{src}.cu", _FLAGS + tuple(extra)
+
+
 def _target(name: str) -> Path:
+    src, flags = _source(name)
     h = hashlib.sha1()
-    for part in (_CSRC / f"{name}.cu", _CSRC / "common.cuh"):
+    for part in (src, _CSRC / "common.cuh"):
         h.update(part.read_bytes())
-    h.update(" ".join(_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return _BUILD / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -71,7 +86,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        src, flags = _source(name)
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs[name] = (proc, tmp, out, time.perf_counter())
@@ -81,7 +97,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         seconds[name] = time.perf_counter() - t0
         out.with_suffix(".so.log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
+            failed.append(f"nvcc failed for {name} "
+                          f"({_source(name)[0].name}):\n{log}")
             continue
         os.replace(tmp, out)
     if failed:

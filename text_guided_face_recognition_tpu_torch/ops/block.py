@@ -104,7 +104,10 @@ TOWER_LEAVES = ("wqkv", "bqkv", "wo", "bo", "g1", "b1", "w1", "c1", "w2",
                 "c2", "g2", "b2")
 MAX_T_BWD = 64   # the backward's per-head block holds 4 (T, 64) + 2 (T, T)
 MAX_T_FWD = 128  # the forward's, without residuals: 3 (T, 64) + (T, T)
-MAX_T_FWD = 128  # the forward's, without residuals: 3 (T, 64) + (T, T)
+# The library the tower wrappers launch from: `tower_block`, or its
+# measurement build `tower_block_phases` (ops/_cuda.py VARIANTS), which
+# chip_smoke.py's phase table switches to around its own calls.
+_TOWER_LIB = "tower_block"
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -812,7 +815,7 @@ def _tower_launch(fn_name, ptrs, bits, dims, rate, eps, dtype):
     cdims = (ctypes.c_int * len(dims))(*dims)
     info = (ctypes.c_int * 3)()
     thr, scale = _drop_args(rate)
-    fn = _cuda.function("tower_block", fn_name, _TOWER_ARGTYPES)
+    fn = _cuda.function(_TOWER_LIB, fn_name, _TOWER_ARGTYPES)
     _cuda.launch(fn, arr, strides, cdims, info, thr, scale, float(eps),
                  _cuda.dtype_code(dtype))
     return tuple(info)
