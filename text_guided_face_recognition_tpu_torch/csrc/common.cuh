@@ -873,10 +873,21 @@ layernorm_bwd_rows_tile(const T* dy, const T* x, const T* __restrict__ gamma,
     const int nv = h / VEC;
     T* xbuf = stage + warp * 2 * 32 * J;
     T* dbuf = xbuf + 32 * J;
-    float v[VPL][VEC], d[VPL][VEC], r[VPL][VEC];
-    float mean = 0.f, rs = 0.f;
+    // the sums' terms [dy xhat | dy | r] of the row go to this warp's rows
+    // of `red` as each vector is done (0 where dead), so no term is held
+    // to the end; then the warps are added in warp order
+    float* q0 = red + warp * kLnMaxWidth;
+    float* q1 = q0 + WARPS * kLnMaxWidth;
+    float* q2s = q1 + WARPS * kLnMaxWidth;
+    auto put = [&](float* q, int col, const float (&c)[VEC]) {
+#pragma unroll
+      for (int j = 0; j < VEC; j += 4)         // 16-byte stores
+        *reinterpret_cast<float4*>(q + col + j) =
+            make_float4(c[j], c[j + 1], c[j + 2], c[j + 3]);
+    };
     if (live) {
       const size_t r0 = (size_t)row * h;
+      float v[VPL][VEC], d[VPL][VEC];
       uint4 ux[VPL], ud[VPL];
       ln_fetch<VEC, VPL>(x + r0, ux, v, lane, nv);
       ln_fetch<VEC, VPL>(dy + r0, ud, d, lane, nv);
@@ -893,7 +904,7 @@ layernorm_bwd_rows_tile(const T* dy, const T* x, const T* __restrict__ gamma,
         s += ln_tile<VEC, VPL>(xbuf, v, j, lane, h);
         m1 += ln_tile<VEC, VPL>(dbuf, d, j, lane, h) * g;
       }
-      mean = warp_sum(s) / h;
+      const float mean = warp_sum(s) / h;
       m1 = warp_sum(m1) / h;
       float q2 = 0.f;
 #pragma unroll
@@ -903,7 +914,7 @@ layernorm_bwd_rows_tile(const T* dy, const T* x, const T* __restrict__ gamma,
                             : 0.f;
         q2 += c * c;
       }
-      rs = rsqrtf(warp_sum(q2) / h + eps);
+      const float rs = rsqrtf(warp_sum(q2) / h + eps);
       float m2 = 0.f;
 #pragma unroll
       for (int j = 0; j < J; ++j) {
@@ -919,52 +930,41 @@ layernorm_bwd_rows_tile(const T* dy, const T* x, const T* __restrict__ gamma,
 #pragma unroll
       for (int k = 0; k < VPL; ++k) {
         const int col = (lane + 32 * k) * VEC;
-        const bool lv = lane + 32 * k < nv;
-        float g[VEC];
-        if (lv) ld_param<VEC, T, false>(gamma + col, g);
+        if (lane + 32 * k >= nv) continue;
+        float g[VEC], r[VEC], c0[VEC];
+        ld_param<VEC, T, false>(gamma + col, g);
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
           const float xh = (v[k][j] - mean) * rs;
-          r[k][j] = lv ? round_to<T>(rs * (d[k][j] * g[j] - m1 - xh * m2))
-                       : 0.f;
+          r[j] = round_to<T>(rs * (d[k][j] * g[j] - m1 - xh * m2));
+          c0[j] = d[k][j] * xh;
         }
-        if (lv) {
-          st_vec<VEC>(dx + r0 + col, r[k]);
-          if (dxd) {
-            if (drop.on()) {
-              unsigned bits[VEC];
-              drop.bits_run<VEC>(r0 + col, bits);
+        put(q0, col, c0);
+        put(q1, col, d[k]);
+        st_vec<VEC>(dx + r0 + col, r);
+        if (dxd) {
+          if (drop.on()) {
+            unsigned bits[VEC];
+            drop.bits_run<VEC>(r0 + col, bits);
 #pragma unroll
-              for (int j = 0; j < VEC; ++j)
-                r[k][j] = drop_to<T>(r[k][j], bits[j], thr, scale);
-            }
-            st_vec<VEC>(dxd + r0 + col, r[k]);
+            for (int j = 0; j < VEC; ++j)
+              r[j] = drop_to<T>(r[j], bits[j], thr, scale);
           }
+          st_vec<VEC>(dxd + r0 + col, r);
         }
+        if (nq == 3) put(q2s, col, r);
       }
-    }
-    // the sums' terms [dy xhat | dy | r] of the row (0 where dead), all nq
-    // sums at once through `red`, then the warps added in warp order
+    } else {
+      float z[VEC];
 #pragma unroll
-    for (int qi = 0; qi < 3; ++qi) {
-      if (qi >= nq) break;
-      float* mine = red + (qi * WARPS + warp) * kLnMaxWidth;
+      for (int j = 0; j < VEC; ++j) z[j] = 0.f;
 #pragma unroll
       for (int k = 0; k < VPL; ++k) {
-        if (lane + 32 * k < nv) {
-          float c[VEC];
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) {
-            c[j] = 0.f;
-            if (live)
-              c[j] = qi == 0 ? d[k][j] * ((v[k][j] - mean) * rs)
-                             : (qi == 1 ? d[k][j] : r[k][j]);
-          }
-#pragma unroll
-          for (int j = 0; j < VEC; j += 4)     // 16-byte stores
-            *reinterpret_cast<float4*>(mine + (lane + 32 * k) * VEC + j) =
-                make_float4(c[j], c[j + 1], c[j + 2], c[j + 3]);
-        }
+        if (lane + 32 * k >= nv) continue;
+        const int col = (lane + 32 * k) * VEC;
+        put(q0, col, z);
+        put(q1, col, z);
+        if (nq == 3) put(q2s, col, z);
       }
     }
     __syncthreads();
