@@ -27,7 +27,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      operation (torch.profiler), and K2's outputs are bit for bit the same
      over repeated calls, from a CUDA graph's replay and on two streams at
      once (each with its own arrival counters); so are the LN sums of K4
-     and K6 over two calls. K3 and K5 are
+     and K6 over two calls. K3 and K5 (bf16, eval) are also listed launch
+     by launch, each launch's device us (torch.profiler) beside one PyTorch
+     call doing its work on the same bf16-rounded operands (torch.matmul,
+     F.scaled_dot_product_attention, F.layer_norm: reference columns, used
+     nowhere in the port), and K5 without residuals is held at T = 512 (two
+     captions, padded keys). K3 and K5 are
      held and timed twice: serving (rate 0, no residuals) and train mode
      (rate 0.1, the residuals the backward reads, `*_train` keys); K3-K6
      once more in prng mode (`seed=`: the bits drawn in-kernel from the
@@ -71,7 +76,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      run_test in pair mode, then extract_embeddings, with every kernel's
      launch count zeroed before and read after; then one pair batch with
      the kernels off (plain PyTorch modules on the card) against the same
-     batch with them on, and the time of a pair batch either way; and
+     batch with them on, and the time of a pair batch either way; one pair
+     batch of captions up to 512 tokens, kernels on against off; and
      run_test once more with fused_block=tower (K7 in place of K3 and K5),
      its scores against kernels off and against `both`;
   6. stage-1 training at full width in bf16 (bert-base, iresnet18 at
@@ -743,6 +749,37 @@ def kernel_phase(args):
     ln_gen = torch.Generator().manual_seed(args.manual_seed + 5)
     for row, extra in ln_checks(dev, ln_gen, eps).items():
         rows[[r["name"] for r in rows].index(row)].update(extra)
+    xb = x32.bfloat16()
+    for row, launches in half_layer_launches(xb, mask, attn_w, ffn_w, B, T,
+                                             heads, eps).items():
+        rows[[r["name"] for r in rows].index(row)]["launch_breakdown"] = \
+            launches
+    # the bf16 attention forward without residuals takes captions up to
+    # MAX_T_FWD (bert-base's position table): K5 at that length, two
+    # captions with padded keys, against its plain version
+    t_long = block.MAX_T_FWD
+    long_gen = torch.Generator().manual_seed(args.manual_seed + 7)
+    x_long = torch.randn(2 * t_long, H, generator=long_gen).to(
+        dev, torch.bfloat16)
+    mask_long = torch.ones(2, t_long, dtype=torch.int32, device=dev)
+    mask_long[1, t_long // 3:] = 0
+    for kw in (dict(rate=0.0), dict(rate=RATE, seed=seed)):
+        got = block.attn_block_fwd(x_long, mask_long, *attn_w, 2, t_long,
+                                   heads, eps=eps, save=False, **kw)[0]
+        want = block.attn_block_fwd_ref(x_long, mask_long, *attn_w, 2,
+                                        t_long, heads, eps=eps, **kw)[0]
+        torch.cuda.synchronize()
+        err, ok = _close(got, want, TOL["bfloat16"])
+        if not ok:
+            raise AssertionError(f"attn_block at t = {t_long} "
+                                 f"{kw.get('rate')}: kernel disagrees with "
+                                 f"its plain version ({err})")
+        rows[[r["name"] for r in rows].index("attn_block")][
+            f"max_abs_err_t{t_long}" + ("_prng" if kw["rate"] else "")] = err
+    k5 = rows[[r["name"] for r in rows].index("attn_block")]
+    print(f"kernel attn_block at t = {t_long} (bf16, 2 captions): max|err| "
+          f"{k5[f'max_abs_err_t{t_long}']:.3g}, prng "
+          f"{k5[f'max_abs_err_t{t_long}_prng']:.3g}", flush=True)
     # the half-layer backwards' LN sums (the bias gradient, dgamma, dbeta)
     # are bit for bit the same over two calls
     for s in specs:
@@ -758,6 +795,104 @@ def kernel_phase(args):
     towers = tower_kernels(dev, B, T, H, heads, I, mask, x32, dy32, gen,
                            flush, seed)
     return rows[:6] + towers + rows[6:]
+
+
+def _launch_us(fn, calls: int = 20) -> list:
+    """The device kernels one call of fn launches, in launch order, from
+    torch.profiler over `calls` calls (after one to warm up): [(kernel
+    name, device us per call, launches per call)]."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    order, total, count = [], {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name not in total:
+            order.append(e.name)
+            total[e.name], count[e.name] = 0.0, 0
+        total[e.name] += e.device_time_total if hasattr(
+            e, "device_time_total") else e.cuda_time_total
+        count[e.name] += 1
+    return [(n, total[n] / calls, count[n] / calls) for n in order]
+
+
+def half_layer_launches(x, mask, attn_w, ffn_w, B, T, heads, eps) -> dict:
+    """K3 and K5 (bf16, eval) launch by launch: each kernel's device us per
+    call (torch.profiler) beside one PyTorch call doing that launch's work
+    on the same bf16-rounded operands: torch.matmul for each GEMM (the
+    weight rounded once, outside the timed call), F.layer_norm for the LN
+    rows, F.scaled_dot_product_attention for the attention. Reference
+    columns only; the port calls none of them."""
+    import torch
+    import torch.nn.functional as F
+
+    from text_guided_face_recognition_tpu_torch.ops import block
+
+    wqkv, _, wo, _, g, b = attn_w
+    w1, _, w2 = ffn_w[:3]
+    H = x.shape[1]
+    # each launch's inputs, as the kernels see them
+    _, qkv, _, o, r1 = block.attn_block_fwd(x, mask, *attn_w, B, T, heads,
+                                            eps=eps)
+    _, _, act, r2 = block.ffn_block_fwd(x, *ffn_w, eps=eps)
+    wb = {k: v.t().contiguous().bfloat16() for k, v in
+          (("wqkv", wqkv), ("wo", wo), ("w1", w1), ("w2", w2))}
+    gb, bb = g.bfloat16(), b.bfloat16()
+    q, k, v = (qkv[:, i * H:(i + 1) * H].reshape(B, T, heads, -1)
+               .transpose(1, 2) for i in range(3))
+    neg = torch.finfo(torch.float32).min
+    amask = torch.where(mask[:, None, None, :] > 0, 0.0, neg).to(x.dtype)
+
+    def ref_us(fn):
+        return sum(us for _, us, _ in _launch_us(fn))
+
+    refs = {
+        "attn_block": [
+            ("torch.matmul x . Wqkv^T", ref_us(
+                lambda: torch.matmul(x, wb["wqkv"].t()))),
+            ("F.scaled_dot_product_attention", ref_us(
+                lambda: F.scaled_dot_product_attention(q, k, v, amask))),
+            ("torch.matmul o . Wo^T", ref_us(
+                lambda: torch.matmul(o, wb["wo"].t()))),
+            ("F.layer_norm", ref_us(
+                lambda: F.layer_norm(r1, (H,), gb, bb, eps)))],
+        "ffn_block": [
+            ("torch.matmul x . W1^T", ref_us(
+                lambda: torch.matmul(x, wb["w1"].t()))),
+            ("torch.matmul act . W2^T", ref_us(
+                lambda: torch.matmul(act, wb["w2"].t()))),
+            ("F.layer_norm", ref_us(
+                lambda: F.layer_norm(r2, (H,), gb, bb, eps)))]}
+    runs = {"attn_block": lambda: block.attn_block_fwd(
+                x, mask, *attn_w, B, T, heads, eps=eps, save=False),
+            "ffn_block": lambda: block.ffn_block_fwd(x, *ffn_w, eps=eps,
+                                                     save=False)}
+    out = {}
+    for name, run in runs.items():
+        launches = _launch_us(run)
+        if len(launches) != len(refs[name]):
+            raise AssertionError(f"{name}: {len(launches)} device launches "
+                                 f"a call, expected {len(refs[name])}: "
+                                 f"{launches}")
+        out[name] = [{"kernel": kn, "us": us, "per_call": n,
+                      "reference": rn, "reference_us": rus}
+                     for (kn, us, n), (rn, rus) in zip(launches,
+                                                       refs[name])]
+        print(f"kernel {name} launch by launch (bf16 eval, device us a "
+              "call): " + "; ".join(
+                  f"{d['kernel'][:60]} {d['us']:.3f} (beside "
+                  f"{d['reference']} {d['reference_us']:.3f})"
+                  for d in out[name]), flush=True)
+    return out
 
 
 def _prng_pair(spec, x):
@@ -1384,7 +1519,8 @@ def _profile(step, reps: int = 3, what: str = "pair batch") -> dict:
         return {"device_busy_share_profiled": "not measured"}
 
     def group(name):
-        for key in ("tower_fwd_kernel", "tower_bwd_kernel", "gemm_kernel",
+        for key in ("tower_fwd_kernel", "tower_bwd_kernel",
+                    "hl_gemm_kernel", "gemm_kernel", "attention_mma",
                     "attention_core_bwd", "attention_core",
                     "layernorm_bwd_kernel", "layernorm_fwd_kernel",
                     "colsum",
@@ -1546,6 +1682,8 @@ def slice_phase(args, kernels):
         run(te_tw, th_tw)
         torch.cuda.synchronize()
         ms_tw.append((time.perf_counter() - t0) * 1e3)
+    long_diff = long_captions(args, backbone, image_head, fusion_net,
+                              text_encoder, text_head, kernels)
     profile = _profile(lambda: run(text_encoder, text_head))
     print("serving profile: " + json.dumps(_show(profile)))
     print("serving profile, tower: " + json.dumps(
@@ -1556,10 +1694,58 @@ def slice_phase(args, kernels):
         statistics.median(ms_off), "ms_per_pair_batch_tower":
         statistics.median(ms_tw), "score_diff_on_off": diff,
         "score_diff_tower_off": diff_off, "score_diff_tower_both": diff_both,
-        "metrics_tower": metrics_tw,
+        "metrics_tower": metrics_tw, "score_diff_on_off_t512": long_diff,
         "pair_batches": n_batches, "batch_size": args.batch_size}))
     return {k: total[k] + tower_counts[k] for k in total}, {
         k: max(after_test[k], tower_counts[k]) // n_batches for k in total}
+
+
+def long_captions(args, backbone, image_head, fusion_net, text_encoder,
+                  text_head, kernels) -> float:
+    """One pair batch of captions as long as bert-base's position table
+    (the synthetic split's ragged lengths up to block.MAX_T_FWD) through
+    the serving path with fused_block=both, kernels on (K5's tensor-core
+    attention) against off, the same weights; returns the largest score
+    difference, which must stay within SCORE_TOL."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.config import check_serving
+    from text_guided_face_recognition_tpu_torch.engine import prepare as prep
+    from text_guided_face_recognition_tpu_torch.engine.evaluate import (
+        pair_scores)
+    from text_guided_face_recognition_tpu_torch.ops import block
+
+    long = args.replace(bert_words_num=block.MAX_T_FWD)
+    check_serving(long)
+    dev = next(text_encoder.parameters()).device
+    dl, _ = prep.prepare_dataloader(long, "test")
+    batch = next(iter(dl))
+    cols = [batch[k] for k in ("img1", "img2", "cap1", "cap2", "mask1",
+                               "mask2")]
+    scores = []
+    for cfg in (long, long.replace(fused_block="none", fused_ln=False)):
+        te, th = prep.prepare_text_encoder(cfg, dev)
+        te.load_state_dict(text_encoder.state_dict())
+        th.load_state_dict(text_head.state_dict())
+        _zero(kernels)
+        scores.append(pair_scores(cfg, backbone, image_head, fusion_net, te,
+                                  th, *cols).float())
+        torch.cuda.synchronize()
+        counts = _counts(kernels)
+        want = 2 * te.model.arch.layers if cfg is long else 0
+        if counts["attn_block"] != want or counts["ffn_block"] != want:
+            raise AssertionError(f"t = {block.MAX_T_FWD} pair batch: "
+                                 f"launches {counts}, expected {want} of "
+                                 "K3 and K5")
+    diff = (scores[0] - scores[1]).abs().max().item()
+    print(f"serving, captions up to {block.MAX_T_FWD} tokens (longest "
+          f"{int(batch['mask1'].sum(-1).max())}), one pair batch: kernels on "
+          f"vs off max |score diff| {diff:.6g} (tolerance {SCORE_TOL})",
+          flush=True)
+    if not (diff <= SCORE_TOL and bool(torch.isfinite(scores[0]).all())):
+        raise AssertionError(f"t = {block.MAX_T_FWD}: kernels on/off scores "
+                             f"differ by {diff}")
+    return diff
 
 
 def _twin(trainer, state, **changes):

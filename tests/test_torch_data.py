@@ -230,18 +230,27 @@ def test_tokenizer_resolution_matches_jax(tmp_path, monkeypatch, jx):
 
 @pytest.mark.parametrize("fused_block", ["both", "tower", "ffn", "attn"])
 def test_long_captions_refused_at_the_config_check(fused_block):
-    """The block kernels take at most 64 tokens with a gradient and 128
-    without; a longer bert_words_num is refused where the configuration is
-    checked, before any step, and the message names the limit."""
+    """The block kernels take at most 64 tokens with a gradient; without
+    one, 512 in bf16 (K5's tensor-core attention forward, bert-base's
+    position table) and 128 in f32 and for the whole-tower kernel; a longer
+    bert_words_num is refused where the configuration is checked, before
+    any step, and the message names the limit."""
     cfg = PConfig().replace(fused_block=fused_block, bert_words_num=64)
     pconfig.check_stage1(cfg)
     pconfig.check_stage2(cfg.replace(fusion_type="fcfm"))
     for check in (pconfig.check_stage1, pconfig.check_stage2):
         with pytest.raises(NotImplementedError, match="at most 64 tokens"):
             check(cfg.replace(bert_words_num=65))
-    pconfig.check_serving(cfg.replace(bert_words_num=128))
+    assert cfg.compute_dtype == "bfloat16"
+    serve = 128 if fused_block == "tower" else 512
+    pconfig.check_serving(cfg.replace(bert_words_num=serve))
+    with pytest.raises(NotImplementedError,
+                       match=f"at most {serve} tokens"):
+        pconfig.check_serving(cfg.replace(bert_words_num=serve + 1))
+    f32 = cfg.replace(compute_dtype="float32")
+    pconfig.check_serving(f32.replace(bert_words_num=128))
     with pytest.raises(NotImplementedError, match="at most 128 tokens"):
-        pconfig.check_serving(cfg.replace(bert_words_num=129))
+        pconfig.check_serving(f32.replace(bert_words_num=129))
     # unfused, any length
     off = cfg.replace(fused_block="none", bert_words_num=200)
     pconfig.check_stage1(off)
@@ -261,12 +270,12 @@ def test_long_captions_refused_before_the_first_step(monkeypatch, tmp_path):
 
     monkeypatch.setattr(prepare, "prepare_dataloader", no_data)
     cfg = tmp_path / "long.yml"
-    cfg.write_text("bert_words_num: 130\nfused_block: both\n")
-    with pytest.raises(NotImplementedError, match="at most 128 tokens"):
+    cfg.write_text("bert_words_num: 513\nfused_block: both\n")
+    with pytest.raises(NotImplementedError, match="at most 512 tokens"):
         cli.main(["--cfg", str(cfg), "--synthetic", "--cpu"])
     with pytest.raises(NotImplementedError, match="at most 128 tokens"):
         extract_embeddings(PConfig().replace(
-            fused_block="tower", bert_words_num=130, cpu=True,
+            fused_block="tower", bert_words_num=129, cpu=True,
             synthetic=True))
 
 

@@ -11,6 +11,14 @@ A is stored (K, M). Tolerance: the products of bf16 operands are exact in
 f32 and only the order of the f32 sums differs, so 1e-4 of the output's
 largest element (f32: the same, full f32 both sides, TF32 off).
 
+The half-layer route (the bf16 GEMMs of K3 and K5: 128-row tiles by two
+consumer warpgroups, a producer warpgroup that has the Tensor Memory
+Accelerator copy A and the f32 weight and rounds the weight into the
+stages) is held the same way at every width it takes and at the shapes K3
+and K5 give it, ragged ones too; its sums must be the same bits as the core
+above (what keeps the half-layer chains equal to the tower kernels) and
+over repeated calls and a CUDA graph's replay.
+
 The cases carry the `cuda` marker and skip without a card; they import no
 JAX, so on the card:
   python -m pytest tests/test_torch_gemm_core.py -m cuda --noconftest -q
@@ -103,6 +111,87 @@ def test_cuda_wgmma_core_at_flagship_shapes(cuda, al, bl):
             m, k = n // 3 if n == 2304 else n, m
         a, b, ref = operands(m, n, k, al, bl, torch.bfloat16, cuda)
         check(gemm(a, b, m, n, k, al, bl, 0), ref)
+
+
+def hl_gemm(a, w, m, n, k, bn):
+    """out (m, n) f32 = A . W^T through the half-layer route: A (m, k)
+    bf16, W (n, k) f32; bn 0 for the route's own choice."""
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    fn = _cuda.function("gemm", "tgfr_hl_gemm", (_P,) * 3 + (_I,) * 4 + (_P,))
+    _cuda.launch(fn, a.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, bn)
+    return out
+
+
+def route_operands(m, n, k, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(m, k, generator=g).to(dev, torch.bfloat16)
+    w = torch.randn(n, k, generator=g).to(dev)
+    return a, w, a.float() @ w.bfloat16().float().t()
+
+
+# (m, n, k): K3's up and down GEMMs and K5's QKV and Wo GEMMs at R = 768
+# token rows, and ragged shapes: a partial 128-row tile, N that no width
+# divides, a partial 64-deep step
+ROUTE_SHAPES = [(768, 3072, 768), (768, 768, 3072), (768, 2304, 768),
+                (768, 768, 768), (72, 200, 200), (200, 136, 3000),
+                (130, 264, 2120)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [128, 96, 48])
+@pytest.mark.parametrize("m,n,k", ROUTE_SHAPES)
+def test_cuda_hl_route_matches_matmul(cuda, m, n, k, bn):
+    a, w, ref = route_operands(m, n, k, cuda)
+    check(hl_gemm(a, w, m, n, k, bn), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(768, 768, 3072), (768, 3072, 768),
+                                   (200, 136, 3000)])
+def test_cuda_hl_route_equals_the_core_bit_for_bit(cuda, m, n, k):
+    """The route and the 64-row core (fed the weight rounded to bf16, as
+    the tower holds it) add the same products in the same order: the same
+    bits, whatever the widths; so the chain of half-layers equals the
+    whole-tower kernel."""
+    a, w, _ = route_operands(m, n, k, cuda)
+    wb = w.bfloat16().contiguous()
+    for bn in (128, 96, 48):
+        got = hl_gemm(a, w, m, n, k, bn)
+        for core_bn in WIDTHS:
+            assert torch.equal(gemm(a, wb, m, n, k, A_ROW, B_ACT_NK,
+                                    core_bn), got), (bn, core_bn)
+
+
+@pytest.mark.cuda
+def test_cuda_hl_route_is_the_same_bits_over_calls_and_a_graph(cuda):
+    """K3's down GEMM shape: repeated calls and a CUDA graph's replays give
+    the same bits."""
+    m, n, k = 768, 768, 3072
+    a, w, ref = route_operands(m, n, k, cuda, seed=3)
+    first = hl_gemm(a, w, m, n, k, 0)
+    check(first, ref)
+    for _ in range(3):
+        assert torch.equal(hl_gemm(a, w, m, n, k, 0), first)
+    out = torch.empty_like(first)
+    fn = _cuda.function("gemm", "tgfr_hl_gemm", (_P,) * 3 + (_I,) * 4 + (_P,))
+
+    def call():
+        _cuda.launch(fn, a.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
+                     0)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        call()
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
 
 
 # -- the whole-tower kernels at a ragged size: R = 72 token rows, one full

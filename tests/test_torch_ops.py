@@ -171,6 +171,86 @@ def test_attn_block_matches_jax(jx, jdt, tdt, tol, seed):
     close(out, ref, tol)
 
 
+# captions longer than the port's f32 and training kernels take: the bf16
+# forward's tensor-core attention takes T up to 512 on the card; here its
+# plain version against the JAX kernel, keys padded in every caption but
+# the first
+LONG_B, LONG_T, LONG_H, LONG_HEADS = 2, 200, 128, 2
+
+
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
+def test_attn_block_matches_jax_at_long_captions(jx, jdt, tdt, tol):
+    rng = np.random.default_rng(7)
+    f = np.float32
+    h, r = LONG_H, LONG_B * LONG_T
+    x = rng.normal(size=(r, h)).astype(f)
+    w = dict(wqkv=(rng.normal(size=(h, 3 * h)) / np.sqrt(h)).astype(f),
+             bqkv=rng.normal(0, 0.1, 3 * h).astype(f),
+             wo=(rng.normal(size=(h, h)) / np.sqrt(h)).astype(f),
+             bo=rng.normal(0, 0.1, h).astype(f),
+             g=(1 + rng.normal(0, 0.1, h)).astype(f),
+             b=rng.normal(0, 0.1, h).astype(f))
+    mask = ragged_mask(LONG_B, LONG_T, 7)
+    assert mask.sum() < mask.size
+    ref = done(jx.attn_block(jx.a(x, jdt), jx.a(mask, "int32"), *(
+        jx.a(w[k]) for k in ("wqkv", "bqkv", "wo", "bo", "g", "b")),
+        jx.bits, jx.bits, jx.seed, LONG_B, LONG_T, LONG_HEADS, 0.0, 1e-12,
+        False, True))
+    out = block.attn_block_ref(t(x, tdt), t(mask), *(t(w[k]) for k in (
+        "wqkv", "bqkv", "wo", "bo", "g", "b")), LONG_B, LONG_T, LONG_HEADS,
+        0.0, 1e-12)
+    close(out, ref, tol)
+
+
+@pytest.mark.parametrize("grad_mode", ["enabled", "no_grad", "inference"])
+@pytest.mark.parametrize("kernel", ["ffn", "attn", "tower"])
+def test_residuals_are_saved_only_when_a_gradient_can_flow(monkeypatch,
+                                                           kernel,
+                                                           grad_mode):
+    """The autograd wrappers ask their forward kernel for the backward's
+    residuals (`save`) only with grad mode on where they are called and an
+    input that requires a gradient: serving runs in inference mode with
+    parameters that require one, and must take the kernels' paths without
+    residuals (K5's tensor-core attention, captions up to 512 tokens)."""
+    p = _params(256)
+    ws = {k: t(p[k]).requires_grad_() for k in p if k != "x"}
+    x = t(p["x"])
+    seen = []
+    names = {"ffn": "ffn_block_fwd", "attn": "attn_block_fwd",
+             "tower": "tower_block_fwd"}
+    real = getattr(block, names[kernel])
+
+    def spy(*a, **k):
+        seen.append(a[-1])                  # save, the last positional
+        return real(*a, **k)
+
+    monkeypatch.setattr(block, names[kernel], spy)
+    ctx = {"enabled": torch.enable_grad, "no_grad": torch.no_grad,
+           "inference": torch.inference_mode}[grad_mode]
+    with ctx():
+        if kernel == "ffn":
+            block.ffn_block(x, *(ws[k] for k in ("w1", "c1", "w2", "c2", "g",
+                                                 "b")))
+        elif kernel == "attn":
+            block.attn_block(x, t(ragged_mask(B, T)), *(ws[k] for k in (
+                "wqkv", "bqkv", "wo", "bo", "g", "b")), B, T, HEADS)
+        else:
+            h, inter = H, 256
+
+            def stack(v, shape):
+                return v.detach().reshape(shape)[None].requires_grad_()
+
+            leaves = [stack(ws["wqkv"], (h, 3 * h)),
+                      stack(ws["bqkv"], (1, 3 * h)), stack(ws["wo"], (h, h)),
+                      stack(ws["bo"], (1, h)), stack(ws["g"], (1, h)),
+                      stack(ws["b"], (1, h)), stack(ws["w1"], (h, inter)),
+                      stack(ws["c1"], (1, inter)),
+                      stack(ws["w2"], (inter, h)), stack(ws["c2"], (1, h)),
+                      stack(ws["g"], (1, h)), stack(ws["b"], (1, h))]
+            block.tower_block(x, t(ragged_mask(B, T)), *leaves, B, T, HEADS)
+    assert seen == [grad_mode == "enabled"]
+
+
 def test_dropout_and_devices_are_refused():
     p = _params(256)
     args = (t(p["x"]), t(p["w1"]), t(p["c1"]), t(p["w2"]), t(p["c2"]),
@@ -283,6 +363,116 @@ def test_cuda_attn_block_matches_plain(cuda, tdt, tol):
     torch.testing.assert_close(block.attn_block(x, *args).float(),
                                block.attn_block_ref(x, *args).float(),
                                rtol=tol, atol=tol)
+
+
+# the flagship shapes: B 32 captions of T 24, bert-base's H 768, 12 heads,
+# I 3072
+FB, FT, FH, FHEADS, FI = 32, 24, 768, 12, 3072
+
+
+def _flagship(dev, t=FT, b=FB, seed=11):
+    g = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g) * std).to(dev)
+
+    h, i = FH, FI
+    p = dict(x=rn(b * t, h), g=1.0 + rn(h, std=0.1), b=rn(h, std=0.1),
+             wqkv=rn(3 * h, h, std=h ** -0.5).t(), bqkv=rn(3 * h, std=0.1),
+             wo=rn(h, h, std=h ** -0.5).t(), bo=rn(h, std=0.1),
+             w1=rn(i, h, std=h ** -0.5).t(), c1=rn(i, std=0.1),
+             w2=rn(h, i, std=i ** -0.5).t(), c2=rn(h, std=0.1))
+    lens = torch.randint(2, t + 1, (b,), generator=g)
+    lens[0] = t
+    p["mask"] = (torch.arange(t)[None] < lens[:, None]).to(dev, torch.int32)
+    p["bits_p"] = torch.randint(-2 ** 31, 2 ** 31 - 1, (FHEADS * b, t, t),
+                                generator=g, dtype=torch.int32).to(dev)
+    p["bits_h"] = torch.randint(-2 ** 31, 2 ** 31 - 1, (b * t, h),
+                                generator=g, dtype=torch.int32).to(dev)
+    p["seed"] = torch.tensor([5], dtype=torch.int32, device=dev)
+    return p
+
+
+def _hold(name, a, b, tol, what):
+    """A forward output of the kernel against its plain version: element-
+    wise at rtol = atol = tol, but the pre-LN sum r (x plus the block's
+    output) to tol times its largest element, as chip_smoke.py holds the
+    tower's r1 and r2: where the two addends nearly cancel, a bf16 step of
+    the addend (the two add their GEMMs' products in other orders) is a
+    step of an element near zero."""
+    a, b = a.float(), b.float()
+    if name == "r":
+        err = (a - b).abs().max().item()
+        assert err <= tol * max(1.0, b.abs().max().item()), (what, err)
+    else:
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol, msg=what)
+
+
+def _modes(p, attn):
+    """(name, keyword arguments) of eval, host-bits and prng mode."""
+    bits = (dict(bits_p=p["bits_p"], bits_h=p["bits_h"]) if attn
+            else dict(bits=p["bits_h"]))
+    return [("eval", dict(rate=0.0)), ("host", dict(rate=0.1, **bits)),
+            ("prng", dict(rate=0.1, seed=p["seed"]))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt,tol", CUDA_DTYPES)
+def test_cuda_ffn_block_matches_plain_at_flagship_shapes(cuda, tdt, tol):
+    p = _flagship(cuda)
+    x = p["x"].to(tdt)
+    w = (p["w1"], p["c1"], p["w2"], p["c2"], p["g"], p["b"])
+    for mode, kw in _modes(p, False):
+        n = block.ffn_block.launches
+        got = block.ffn_block_fwd(x, *w, **kw)
+        assert block.ffn_block.launches == n + 1
+        for name, a, b in zip(("z", "f", "act", "r"), got,
+                              block.ffn_block_fwd_ref(x, *w, **kw)):
+            _hold(name, a, b, tol, f"{mode} {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt,tol", CUDA_DTYPES)
+def test_cuda_attn_block_matches_plain_at_flagship_shapes(cuda, tdt, tol):
+    p = _flagship(cuda)
+    x = p["x"].to(tdt)
+    args = (p["mask"], p["wqkv"], p["bqkv"], p["wo"], p["bo"], p["g"],
+            p["b"], FB, FT, FHEADS)
+    # with the residuals (training: the scalar tile the tower runs) and,
+    # in bf16, without them (serving: the tensor-core tile)
+    for save in (True, False):
+        for mode, kw in _modes(p, True):
+            n = block.attn_block.launches
+            got = block.attn_block_fwd(x, *args, save=save, **kw)
+            assert block.attn_block.launches == n + 1
+            assert (got[2] is None) == (not save)
+            for name, a, b in zip(("y", "qkv", "p", "o", "r"), got,
+                                  block.attn_block_fwd_ref(x, *args, **kw)):
+                if a is not None:
+                    _hold(name, a, b, tol, f"{mode} save={save} {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_len", [24, 129, 200, 512])
+def test_cuda_attn_block_takes_long_captions_in_bf16(cuda, t_len):
+    """The bf16 forward without residuals at T up to 512, keys padded in
+    every caption but the first; with residuals the limit stays 64, and in
+    f32 128."""
+    p = _flagship(cuda, t=t_len, b=2, seed=t_len)
+    x = p["x"].bfloat16()
+    args = (p["mask"], p["wqkv"], p["bqkv"], p["wo"], p["bo"], p["g"],
+            p["b"], 2, t_len, FHEADS)
+    for kw in (dict(rate=0.0), dict(rate=0.1, seed=p["seed"])):
+        got = block.attn_block_fwd(x, *args, save=False, **kw)[0]
+        torch.testing.assert_close(
+            got.float(), block.attn_block_fwd_ref(x, *args, **kw)[0].float(),
+            rtol=2e-2, atol=2e-2)
+    if t_len > block.MAX_T_BWD:
+        with pytest.raises(ValueError, match=f"t <= {block.MAX_T_BWD}"):
+            block.attn_block_fwd(x, *args)
+    if t_len > block.MAX_T_FWD_SCALAR:
+        with pytest.raises(ValueError, match="t <= 128"):
+            block.attn_block_fwd(p["x"], *args, save=False)
 
 
 @pytest.mark.cuda

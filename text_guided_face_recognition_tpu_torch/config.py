@@ -257,22 +257,26 @@ class TGFRConfig:
 
 def check_caption_length(cfg: TGFRConfig, grad: bool) -> None:
     """Refuse captions longer than the block kernels take, before any step:
-    with `fused_block` other than none, the attention kernels K5-K8
-    (ops/block.py) hold a caption's heads in shared memory and take at most
-    MAX_T_BWD (64) tokens when a gradient is needed, MAX_T_FWD (128)
-    otherwise; the JAX kernels have no such limit. Widening it waits for the
-    attention kernels' rework (ROADMAP.md, Queue 2)."""
+    with `fused_block` other than none, the attention kernels (ops/block.py
+    `max_t`) take at most MAX_T_BWD (64) tokens when a gradient is needed;
+    without one, MAX_T_FWD (512, bert-base's position table) in bf16 and
+    MAX_T_FWD_SCALAR (128) in f32 and for the whole-tower kernel
+    (`tower`). The JAX kernels have no such limit. Widening the training
+    limit waits for the attention backward's rework (ROADMAP.md, Queue 2)."""
     if cfg.fused_block == "none":
         return
-    from text_guided_face_recognition_tpu_torch.ops.block import (
-        MAX_T_BWD, MAX_T_FWD)
-    limit = MAX_T_BWD if grad else MAX_T_FWD
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.ops.block import max_t
+    limit = max_t(getattr(torch, cfg.compute_dtype), grad,
+                  tower=cfg.fused_block == "tower")
     if cfg.bert_words_num > limit:
         raise NotImplementedError(
             f"fused_block={cfg.fused_block!r} with bert_words_num="
             f"{cfg.bert_words_num}: the block kernels take captions of at "
             f"most {limit} tokens "
-            + ("when a gradient is needed" if grad else "in serving")
+            + ("when a gradient is needed" if grad else
+               f"in serving in {cfg.compute_dtype}")
             + " (ops/block.py); longer captions wait for the attention "
             "kernels' rework (ROADMAP.md, Queue 2). Use fused_block='none' "
             f"or bert_words_num <= {limit}.")

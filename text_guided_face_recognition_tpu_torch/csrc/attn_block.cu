@@ -10,16 +10,26 @@
 // Forward. Bound on the H100: operations. At R = 768 token rows (B = 32,
 // T = 24), H = 768, 12 heads of 64: the QKV GEMM is 2.72 GFLOP, scores and
 // P.V 0.057, the Wo GEMM 0.91, against ~12 MB moved.
-// Design, in four launches:
+// Design, in four launches (common.cuh has the notes):
 //   (a) qkv = x . Wqkv + bqkv, q|k|v packed on the output axis, head-major
-//       within each, into a (R, 3H) buffer;
-//   (b) one block per (batch row, head): q, k, v of that head staged in
-//       shared memory as f32, scores q.k^T / sqrt(64) plus the additive key
-//       mask (finfo(float32).min on padded keys), an f32 softmax with one
-//       warp per query row, probabilities rounded to the activation type
-//       (and saved, before dropout, as p (heads*B, T, T) when the backward
-//       will need them), dropped, then P.V, the context o rounded into a
-//       (R, H) buffer. At T = 24 the whole head fits one block;
+//       within each, into a (R, 3H) buffer: in bf16 the half-layer GEMM
+//       route, in f32 the FMA tile;
+//   (b) the attention per (caption, head): scores q.k^T / sqrt(64) plus the
+//       additive key mask (finfo(float32).min on padded keys), an f32
+//       softmax, probabilities rounded to the activation type (and saved,
+//       before dropout, as p (heads*B, T, T) when the backward will need
+//       them), dropped, then P.V, the context o rounded into a (R, H)
+//       buffer. In bf16 without residuals (serving) on tensor cores
+//       (attention_mma_kernel: 4 warps a block, 2 pairs a block at
+//       T <= 32, a warp's 16 query rows against keys in blocks of 64 from
+//       shared memory in two passes, the row maxima and sums, then the
+//       probabilities and P.V), so T goes to 512; with residuals
+//       (training, T <= 64) and in f32 (T <= 128) one block per (caption,
+//       head) with q, k, v and the scores in shared memory as f32, the
+//       tile the whole-tower kernel K7 runs, so that the chain of
+//       half-layers the training checks hold against K7 adds the same
+//       values (K7 with the tensor-core tile ran 18 % slower in all, every
+//       phase of it, in development runs on the H100);
 //   (c) r = x + drop(o . Wo + bo), dropout and the residual fused into the
 //       GEMM epilogue.
 // Dropout bits: host-drawn (bits_p, bits_h), or (prng mode) the stream of
@@ -65,20 +75,42 @@ int run_fwd(const void* x, const int* mask, const float* wqkv,
             const tgfr::DropSrc& drop_h, unsigned thr, float scale, void* qkv,
             void* p, void* ctx, void* resid, void* y, int b, int t, int h,
             int heads, float eps, cudaStream_t s) {
+  constexpr bool kRoute = std::is_same<T, __nv_bfloat16>::value;
   const int rows = b * t;
+  const float inv = 1.0f / sqrtf(static_cast<float>(tgfr::kDHead));
+  if (t > (kRoute && !p ? tgfr::kAttnMaxT : tgfr::kAttnScalarMaxT))
+    return static_cast<int>(cudaErrorInvalidValue);
   tgfr::GemmArgs proj = tgfr::gemm_args(x, wqkv, qkv, rows, 3 * h, h);
   proj.bias = bqkv;
-  cudaError_t err = tgfr::launch_gemm<T, tgfr::kEpiBias>(proj, s);
+  cudaError_t err = tgfr::launch_forward_gemm<T, tgfr::kEpiBias>(proj, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const size_t smem = tgfr::attn_fwd_smem_bytes(t);
-  err = set_smem(tgfr::attention_core_kernel<T>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tgfr::attention_core_kernel<T>
-      <<<dim3(b, heads), tgfr::kAttnThreads, smem, s>>>(
-      static_cast<const T*>(qkv), mask, drop_p, thr, scale,
-      static_cast<T*>(p), static_cast<T*>(ctx), b, t, h,
-      1.0f / sqrtf(static_cast<float>(tgfr::kDHead)));
+  // with residuals (training, and every f32 call) the scalar tile, which
+  // the whole-tower kernel runs too; without them in bf16 (serving) the
+  // tensor-core tile, t up to 512
+  bool scalar = true;
+  if constexpr (kRoute) {
+    if (!p) {
+      scalar = false;
+      const int pairs = tgfr::attn_pairs_per_block(t);
+      const size_t smem = tgfr::attn_mma_smem_bytes(t, pairs);
+      err = set_smem(tgfr::attention_mma_kernel, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      tgfr::attention_mma_kernel<<<(b * heads + pairs - 1) / pairs,
+                                   tgfr::kAttnThreads, smem, s>>>(
+          static_cast<const T*>(qkv), mask, drop_p, thr, scale,
+          static_cast<T*>(ctx), b, t, h, inv, pairs);
+    }
+  }
+  if (scalar) {
+    const size_t smem = tgfr::attn_fwd_smem_bytes(t);
+    err = set_smem(tgfr::attention_core_kernel<T>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    tgfr::attention_core_kernel<T>
+        <<<dim3(b, heads), tgfr::kAttnThreads, smem, s>>>(
+        static_cast<const T*>(qkv), mask, drop_p, thr, scale,
+        static_cast<T*>(p), static_cast<T*>(ctx), b, t, h, inv);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -88,7 +120,7 @@ int run_fwd(const void* x, const int* mask, const float* wqkv,
   out.drop = drop_h;
   out.thr = thr;
   out.scale = scale;
-  err = tgfr::launch_gemm<T, tgfr::kEpiBiasResidual>(out, s);
+  err = tgfr::launch_forward_gemm<T, tgfr::kEpiBiasResidual>(out, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = tgfr::launch_layernorm_rows<T, true>(static_cast<const T*>(resid),
                                              gamma, beta, static_cast<T*>(y),

@@ -36,6 +36,7 @@
 #include <cstdint>
 #include <type_traits>
 #include <cuda/atomic>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -1020,10 +1021,11 @@ __device__ __forceinline__ void gelu_rows(const T* f, T* a, size_t n) {
 // as zeros and is not stored.
 //
 // bf16 runs on Hopper's warpgroup MMA (`wgmma.mma_async`, the only way to
-// the card's full tensor-core rate), one core for every caller (the
-// half-layer kernels K3-K6 through launch_gemm, the tower kernels K7/K8
-// through their phases), so the tower and the chains of half-layers add the
-// same products in the same order:
+// the card's full tensor-core rate), the one core of the half-layer
+// backwards K4/K6 (through launch_gemm) and the tower kernels K7/K8 (through
+// their phases); the forwards K3/K5 run the half-layer route below, whose
+// sums are this core's bit for bit, so the tower and the chains of
+// half-layers add the same products in the same order:
 // - a 64 x BN output tile, BN 48 or 96 (gemm_width), the whole K in each
 //   tile, no split-K; at R = 384 token rows the N = 768 GEMMs take 96
 //   tiles of 48 columns, where 64-wide tiles gave 72 and left 60 of 132
@@ -1037,9 +1039,8 @@ __device__ __forceinline__ void gelu_rows(const T* f, T* a, size_t n) {
 //   current one. f32 masters cannot be copied as they are: a thread loads
 //   its share of the next stage's f32 weights into registers before the
 //   MMAs are issued and stores them rounded while they run. (TMA is not
-//   used: the f32 masters of K3-K6 must be rounded on the way in, and the
-//   tower would need a tensor map per operand and layer; cp.async covers
-//   every layout with one path.)
+//   used here: the tower would need a tensor map per operand and layer;
+//   cp.async covers every layout with one path.)
 // - the accumulators stay in registers and the epilogue reads them there.
 // f32 runs an FMA tile (64 x 64, K in steps of 32, every thread an 8x4
 // micro-tile, full f32, no TF32) that keeps the f32 variant usable for
@@ -1074,7 +1075,7 @@ struct GemmArgs {
   void* out;              // (M, N) type T, f32 for kEpiF32
   void* out2;             // (M, N) type T: kEpiBiasGelu's f, or null
   int m, n, k;
-  int bn;                 // the tile's width (gemm_width)
+  int bn;                 // the tile's width (gemm_width, hl_width)
   unsigned thr;           // keep iff bit >= thr
   float scale;            // 1 / (1 - rate)
 };
@@ -1361,8 +1362,9 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Waits until at most N of the warpgroup's MMA groups are in flight.
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Byte offset of 16-byte chunk c of row r in a 128-byte-swizzled atom (rows
@@ -1487,6 +1489,148 @@ template <> struct Wgmma<128> {
         : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
   }
 };
+
+// The epilogue of a 64 x BN wgmma tile at (m0, n0) from its accumulators,
+// by the four warps (`warp` 0..3) of the warpgroup that holds them:
+// accumulator j of thread (warp w, lane l): row 16 w + l / 4 (+ 8 for
+// j % 4 >= 2), column 8 (j / 4) + 2 (l % 4) + j % 2: the thread owns
+// column pairs (c, c + 1) of two rows. The epilogue runs in chunks of 2
+// column groups: the chunk's operands (bias, residual, pre-activation,
+// dropout bits) are all loaded before any of its outputs is stored, so
+// the loads are in flight together; the arithmetic is gemm_epilogue's.
+template <int EPI, int BN>
+__device__ __forceinline__ void wg_epilogue(const GemmArgs& p, int m0,
+                                            int n0,
+                                            const float (&acc)[BN / 2],
+                                            int warp, int lane) {
+  using T = __nv_bfloat16;
+  const int r0 = m0 + warp * 16 + lane / 4;
+  constexpr int kGroups = BN / 8, kChunk = 2;
+#pragma unroll
+  for (int j0 = 0; j0 < kGroups; j0 += kChunk) {
+    float bias[kChunk][2], pre[kChunk][2][2];
+    unsigned bit[kChunk][2][2];
+    bool hasb = false;
+    // in-kernel bits with the stream's blocks aligned to the column groups
+    // (base % 4 == 0, N % 4 == 0): lanes l and l ^ 1 own the two halves of
+    // one Philox block in each of their two rows, so each computes one
+    // row's block and takes the other's from its partner
+    bool shared_bits = false;
+    if constexpr (EPI == kEpiBiasResidual) {
+      shared_bits = p.drop.seed && !p.drop.bits && (p.drop.base & 3) == 0;
+      if (shared_bits) {
+        const unsigned key =
+            static_cast<unsigned>(__ldg(p.drop.seed)) + p.drop.key_add;
+#pragma unroll
+        for (int jj = 0; jj < kChunk; ++jj) {
+          const int j = j0 + jj;
+          if (j >= kGroups) break;
+          const int c = n0 + j * 8 + 2 * (lane % 4), hm = lane & 1;
+          const uint4 mine = philox_block(
+              key, (p.drop.base + (unsigned long long)(r0 + 8 * hm) * p.n +
+                    (c & ~3)) >> 2);
+          uint4 other;
+          other.x = __shfl_xor_sync(0xffffffffu, mine.x, 1);
+          other.y = __shfl_xor_sync(0xffffffffu, mine.y, 1);
+          other.z = __shfl_xor_sync(0xffffffffu, mine.z, 1);
+          other.w = __shfl_xor_sync(0xffffffffu, mine.w, 1);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint4& blk = h == hm ? mine : other;
+            bit[jj][h][0] = block_word(blk, static_cast<unsigned>(c));
+            bit[jj][h][1] = block_word(blk, static_cast<unsigned>(c) + 1u);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kChunk; ++jj) {
+      const int j = j0 + jj;
+      if (j >= kGroups) break;
+      const int c = n0 + j * 8 + 2 * (lane % 4);
+      if (c >= p.n) continue;
+      if constexpr (EPI == kEpiBias || EPI == kEpiBiasGelu ||
+                    EPI == kEpiBiasResidual) {
+        if (p.bias) {
+          const float2 b2 = *reinterpret_cast<const float2*>(p.bias + c);
+          bias[jj][0] = round_to<T>(b2.x);
+          bias[jj][1] = round_to<T>(b2.y);
+          hasb = true;
+        } else if (p.bias_t) {
+          float b2[2];
+          unpack_pair(reinterpret_cast<const unsigned*>(
+                          static_cast<const T*>(p.bias_t) + c), b2);
+          bias[jj][0] = b2[0];
+          bias[jj][1] = b2[1];
+          hasb = true;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gm = r0 + 8 * h;
+        if (gm >= p.m) continue;
+        const size_t o = (size_t)gm * p.n + c;
+        if constexpr (EPI == kEpiBiasResidual || EPI == kEpiDgelu) {
+          const T* src = static_cast<const T*>(
+              EPI == kEpiDgelu ? p.aux : p.resid);
+          unpack_pair(reinterpret_cast<const unsigned*>(src + o), pre[jj][h]);
+        }
+        if constexpr (EPI == kEpiBiasResidual) {
+          if (p.drop.on() && !shared_bits) p.drop.bits_run<2>(o, bit[jj][h]);
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kChunk; ++jj) {
+      const int j = j0 + jj;
+      if (j >= kGroups) break;
+      const int c = n0 + j * 8 + 2 * (lane % 4);
+      if (c >= p.n) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gm = r0 + 8 * h;
+        if (gm >= p.m) continue;
+        const size_t o = (size_t)gm * p.n + c;
+        float v[2], f[2];             // f: kEpiBiasGelu's pre-activation
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float a = acc[4 * j + 2 * h + e];
+          if constexpr (EPI == kEpiF32) {
+            v[e] = a;
+          } else {
+            v[e] = round_to<T>(a);
+            if constexpr (EPI == kEpiDgelu) {
+              v[e] *= dgelu_erf(pre[jj][h][e]);
+            } else {
+              if (hasb) v[e] = round_to<T>(v[e] + bias[jj][e]);
+              if constexpr (EPI == kEpiBiasGelu) {
+                if (p.out2) f[e] = v[e];
+                v[e] = gelu_erf(v[e]);
+              }
+              if constexpr (EPI == kEpiBiasResidual) {
+                if (p.drop.on())
+                  v[e] = drop_to<T>(v[e], bit[jj][h][e], p.thr, p.scale);
+                v[e] = pre[jj][h][e] + v[e];
+              }
+            }
+          }
+        }
+        if constexpr (EPI == kEpiBiasGelu) {
+          if (p.out2)
+            *reinterpret_cast<unsigned*>(static_cast<T*>(p.out2) + o) =
+                pack_pair(f);
+        }
+        if constexpr (EPI == kEpiF32) {
+          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) =
+              make_float2(v[0], v[1]);
+        } else {
+          *reinterpret_cast<unsigned*>(static_cast<T*>(p.out) + o) =
+              pack_pair(v);
+        }
+      }
+    }
+  }
+}
 
 // Output tile `tile` (row-major over the (M / 64, N / BN) tile grid) of the
 // bf16 GEMM p. smem: wg_smem_bytes(BN) bytes. See the section note.
@@ -1651,142 +1795,10 @@ __device__ __forceinline__ void gemm_tile_wg(const GemmArgs& p, int tile,
     if constexpr (kBF32) {
       if (kt + 1 < nk) put_b(kt + 1);   // while the MMAs run
     }
-    wgmma_wait0();
+    wgmma_wait<0>();
   }
 
-  // accumulator j of thread (warp w, lane l): row 16 w + l / 4 (+ 8 for
-  // j % 4 >= 2), column 8 (j / 4) + 2 (l % 4) + j % 2: the thread owns
-  // column pairs (c, c + 1) of two rows. The epilogue runs in chunks of 2
-  // column groups: the chunk's operands (bias, residual, pre-activation,
-  // dropout bits) are all loaded before any of its outputs is stored, so
-  // the loads are in flight together; the arithmetic is gemm_epilogue's.
-  const int warp = tid / 32, lane = tid % 32;
-  const int r0 = m0 + warp * 16 + lane / 4;
-  constexpr int kGroups = BN / 8, kChunk = 2;
-#pragma unroll
-  for (int j0 = 0; j0 < kGroups; j0 += kChunk) {
-    float bias[kChunk][2], pre[kChunk][2][2];
-    unsigned bit[kChunk][2][2];
-    bool hasb = false;
-    // in-kernel bits with the stream's blocks aligned to the column groups
-    // (base % 4 == 0, N % 4 == 0): lanes l and l ^ 1 own the two halves of
-    // one Philox block in each of their two rows, so each computes one
-    // row's block and takes the other's from its partner
-    bool shared_bits = false;
-    if constexpr (EPI == kEpiBiasResidual) {
-      shared_bits = p.drop.seed && !p.drop.bits && (p.drop.base & 3) == 0;
-      if (shared_bits) {
-        const unsigned key =
-            static_cast<unsigned>(__ldg(p.drop.seed)) + p.drop.key_add;
-#pragma unroll
-        for (int jj = 0; jj < kChunk; ++jj) {
-          const int j = j0 + jj;
-          if (j >= kGroups) break;
-          const int c = n0 + j * 8 + 2 * (lane % 4), hm = lane & 1;
-          const uint4 mine = philox_block(
-              key, (p.drop.base + (unsigned long long)(r0 + 8 * hm) * p.n +
-                    (c & ~3)) >> 2);
-          uint4 other;
-          other.x = __shfl_xor_sync(0xffffffffu, mine.x, 1);
-          other.y = __shfl_xor_sync(0xffffffffu, mine.y, 1);
-          other.z = __shfl_xor_sync(0xffffffffu, mine.z, 1);
-          other.w = __shfl_xor_sync(0xffffffffu, mine.w, 1);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const uint4& blk = h == hm ? mine : other;
-            bit[jj][h][0] = block_word(blk, static_cast<unsigned>(c));
-            bit[jj][h][1] = block_word(blk, static_cast<unsigned>(c) + 1u);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int jj = 0; jj < kChunk; ++jj) {
-      const int j = j0 + jj;
-      if (j >= kGroups) break;
-      const int c = n0 + j * 8 + 2 * (lane % 4);
-      if (c >= p.n) continue;
-      if constexpr (EPI == kEpiBias || EPI == kEpiBiasGelu ||
-                    EPI == kEpiBiasResidual) {
-        if (p.bias) {
-          const float2 b2 = *reinterpret_cast<const float2*>(p.bias + c);
-          bias[jj][0] = round_to<T>(b2.x);
-          bias[jj][1] = round_to<T>(b2.y);
-          hasb = true;
-        } else if (p.bias_t) {
-          float b2[2];
-          unpack_pair(reinterpret_cast<const unsigned*>(
-                          static_cast<const T*>(p.bias_t) + c), b2);
-          bias[jj][0] = b2[0];
-          bias[jj][1] = b2[1];
-          hasb = true;
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int gm = r0 + 8 * h;
-        if (gm >= p.m) continue;
-        const size_t o = (size_t)gm * p.n + c;
-        if constexpr (EPI == kEpiBiasResidual || EPI == kEpiDgelu) {
-          const T* src = static_cast<const T*>(
-              EPI == kEpiDgelu ? p.aux : p.resid);
-          unpack_pair(reinterpret_cast<const unsigned*>(src + o), pre[jj][h]);
-        }
-        if constexpr (EPI == kEpiBiasResidual) {
-          if (p.drop.on() && !shared_bits) p.drop.bits_run<2>(o, bit[jj][h]);
-        }
-      }
-    }
-#pragma unroll
-    for (int jj = 0; jj < kChunk; ++jj) {
-      const int j = j0 + jj;
-      if (j >= kGroups) break;
-      const int c = n0 + j * 8 + 2 * (lane % 4);
-      if (c >= p.n) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int gm = r0 + 8 * h;
-        if (gm >= p.m) continue;
-        const size_t o = (size_t)gm * p.n + c;
-        float v[2], f[2];             // f: kEpiBiasGelu's pre-activation
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float a = acc[4 * j + 2 * h + e];
-          if constexpr (EPI == kEpiF32) {
-            v[e] = a;
-          } else {
-            v[e] = round_to<T>(a);
-            if constexpr (EPI == kEpiDgelu) {
-              v[e] *= dgelu_erf(pre[jj][h][e]);
-            } else {
-              if (hasb) v[e] = round_to<T>(v[e] + bias[jj][e]);
-              if constexpr (EPI == kEpiBiasGelu) {
-                if (p.out2) f[e] = v[e];
-                v[e] = gelu_erf(v[e]);
-              }
-              if constexpr (EPI == kEpiBiasResidual) {
-                if (p.drop.on())
-                  v[e] = drop_to<T>(v[e], bit[jj][h][e], p.thr, p.scale);
-                v[e] = pre[jj][h][e] + v[e];
-              }
-            }
-          }
-        }
-        if constexpr (EPI == kEpiBiasGelu) {
-          if (p.out2)
-            *reinterpret_cast<unsigned*>(static_cast<T*>(p.out2) + o) =
-                pack_pair(f);
-        }
-        if constexpr (EPI == kEpiF32) {
-          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) =
-              make_float2(v[0], v[1]);
-        } else {
-          *reinterpret_cast<unsigned*>(static_cast<T*>(p.out) + o) =
-              pack_pair(v);
-        }
-      }
-    }
-  }
+  wg_epilogue<EPI, BN>(p, m0, n0, acc, tid / 32, tid % 32);
 }
 
 // Output tile `tile` of the GEMM p (p.bn set by gemm_width), by the
@@ -1831,6 +1843,336 @@ cudaError_t launch_weight_grad(const void* g, const void* x, float* dw, int m,
                                int n, int k, cudaStream_t stream) {
   return launch_gemm<T, kEpiF32, kATransposed, kBActKN>(
       gemm_args(g, x, dw, m, n, k), stream);
+}
+
+// ---------------------------------------------------------------------------
+// The half-layer GEMM route: the four bf16 GEMMs of the forward half-layers
+// K3 (f = x . W1^T + c1 with GELU; r = x + drop(act . W2^T + c2)) and K5
+// (qkv = x . Wqkv^T + bqkv; r = x + drop(o . Wo^T + bo)):
+//   out (M, N) = epilogue(A . W^T), A (M, K) bf16 row-major, W the f32
+//   master (N, K) row-major as nn.Linear keeps it.
+//
+// Replaces, with the LN rows and the attention blocks, the GEMMs of
+// block_pallas.py `_ffn_fwd_kernel` and `_attn_fwd_kernel`.
+//
+// Bound on the H100: at R = 768, H = 768, I = 3072 the four GEMMs are
+// 9.9 GFLOP, 10 us at 989 TFLOP/s. What the core above (one 64 x 48 tile a
+// warpgroup) loses besides: every 64-row tile re-reads the whole weight
+// from L2 as f32, twice the bytes of bf16; the f32 weights go through the
+// MMA warps' registers; loads and MMAs share the warps.
+//
+// This design:
+// - A 128 x BN output tile (BN 48, 96 or 128, hl_width) by two consumer
+//   warpgroups of 64 rows each: each staged weight tile feeds 128 rows.
+// - One producer warpgroup keeps a ring of HlRing<BN>::kStages stages
+//   full, handed over by mbarriers (full: the producer's 128 threads
+//   arrive; empty: the consumers' 8 warps), so loads and MMAs run on other
+//   warps and overlap.
+// - One producer thread asks the Tensor Memory Accelerator for each step:
+//   A (bf16) straight into the stage in the 128-byte swizzle, W (f32) into
+//   an f32 staging slot, kAhead steps ahead, both completing on the step's
+//   `loaded` mbarrier; the producer warpgroup then rounds W to bf16 into
+//   the stage's swizzled B. No rounded weight copy exists in device
+//   memory, and no MMA warp touches f32. The tensor maps come from
+//   cuTensorMapEncodeTiled, reached through the runtime's entry-point
+//   lookup, so the build links no -lcuda. (Copies by
+//   cp.async from the producer's threads ran at half this speed, and W
+//   loaded into the producer's registers instead of the staging slot
+//   ran slower too: development runs on the H100.)
+// - The consumers run wgmma on the stage (m64nBNk16, K-major both) and keep
+//   one group in flight, releasing the stage before it.
+// - The epilogue is wg_epilogue, shared with the core above, so every
+//   rounding point is the one at the top of this file; each output adds
+//   its K steps from 0 in the core's order (the products of the stage are
+//   the same bits in every tile shape), which keeps the chain of
+//   half-layers equal to the whole-tower kernels.
+// ---------------------------------------------------------------------------
+
+constexpr int kHlConsumers = 2;
+constexpr int kHlThreads = 128 * (1 + kHlConsumers);
+constexpr int kHlBM = 64 * kHlConsumers;
+
+// The ring of a tile width: kStages stages of A (bf16) and W (rounded to
+// bf16), and kAhead steps that the copies run ahead of the rounding (f32
+// staging slots: kAhead + 1). The producer waits on the release of the
+// stage kStages - kAhead steps back, so the consumers keep at least two
+// steps of slack; the deepest ring that fits the 227 KB of shared memory.
+template <int BN> struct HlRing;
+template <> struct HlRing<48> { static constexpr int kStages = 7, kAhead = 3; };
+template <> struct HlRing<96> { static constexpr int kStages = 5, kAhead = 2; };
+template <> struct HlRing<128> { static constexpr int kStages = 4, kAhead = 1; };
+
+template <int BN> __host__ __device__ constexpr int hl_stage_bytes() {
+  return kHlConsumers * kWgAtom + BN * 128;
+}
+
+// Dynamic shared memory: 1 KB of alignment, the ring, the f32 staging
+// slots (kAhead + 1 of BN x 64 floats).
+template <int BN> __host__ __device__ constexpr size_t hl_smem_bytes() {
+  return 1024 + (size_t)HlRing<BN>::kStages * hl_stage_bytes<BN>() +
+         (size_t)(HlRing<BN>::kAhead + 1) * BN * 256;
+}
+
+inline __host__ __device__ int hl_tiles(const GemmArgs& p) {
+  return ((p.m + kHlBM - 1) / kHlBM) * ((p.n + p.bn - 1) / p.bn);
+}
+
+// The tile width of an (m, n) GEMM, of 128, 96, 48: the one whose waves of
+// tiles over the 132 SMs, each wave as long as the bytes a tile stages a K
+// step (128 rows of A in bf16, BN of W in f32), take least; the wider on a
+// tie. (At R = 768 it picks what the H100 measured fastest of 128, 96, 64
+// and 48 for each of K3's and K5's GEMMs: 96 for K3's up GEMM, 48 for its
+// down GEMM and for Wo, 128 for Wqkv.)
+inline __host__ __device__ int hl_width(int m, int n) {
+  const int widths[3] = {128, 96, 48};
+  const int rows = (m + kHlBM - 1) / kHlBM;
+  int best = widths[0];
+  long long best_cost = -1;
+  for (int i = 0; i < 3; ++i) {
+    const int tiles = rows * ((n + widths[i] - 1) / widths[i]);
+    const long long cost =
+        (long long)((tiles + 131) / 132) * (2 * kHlBM + 4 * widths[i]);
+    if (best_cost < 0 || cost < best_cost) {
+      best = widths[i];
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+          smem_u32(b))
+      : "memory");
+}
+
+// This thread's arrival, and `bytes` more of asynchronous copies to wait
+// for in the current phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(b)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits (acquire) until the phase of parity `parity` of b has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
+  const uint32_t a = smem_u32(b);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The box at (c0 inner, c1 outer) of a 2-D tensor map into shared memory
+// at dst, completing on the mbarrier b.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            int c0, int c1, uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(b))
+      : "memory");
+}
+
+// Named barrier `id` among the first `threads` threads of the block.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int EPI, int BN>
+__global__ void __launch_bounds__(kHlThreads, 1)
+hl_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+               const __grid_constant__ CUtensorMap map_w, GemmArgs p) {
+  constexpr int kStages = HlRing<BN>::kStages, kAhead = HlRing<BN>::kAhead;
+  extern __shared__ __align__(128) unsigned char hl_sm[];
+  __shared__ __align__(8) uint64_t loaded[kStages], full[kStages],
+      empty[kStages];
+  constexpr int kSB = hl_stage_bytes<BN>();
+  constexpr int kSlot = BN * 256;        // an f32 staging slot: BN rows
+  constexpr int kBPer = BN * 8 / 128;    // B chunks a producer thread
+  const uint32_t raw = smem_u32(hl_sm);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = hl_sm + (base - raw);
+  const uint32_t slots = base + kStages * kSB;
+  const unsigned char* gslots = gbase + kStages * kSB;
+  const int tiles_n = (p.n + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * kHlBM;
+  const int n0 = (blockIdx.x % tiles_n) * BN;
+  const int nk = (p.k + kWgBK - 1) / kWgBK;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&loaded[s], 1);
+      mbar_init(&full[s], 128);
+      mbar_init(&empty[s], 4 * kHlConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  if (wg == 0) {
+    // producer: step i into stage i % kStages and f32 slot i % (kAhead + 1)
+    auto issue = [&](int j) {       // thread 0: the copies of step j
+      if (j >= kStages)             // the consumers are done with its stage
+        mbar_wait(&empty[j % kStages], ((j / kStages) - 1) & 1);
+      uint64_t* bar = &loaded[j % kStages];
+      mbar_expect_tx(bar, kHlBM * 128 + kSlot);
+      tma_load_2d(base + (j % kStages) * kSB, &map_a, j * kWgBK, m0, bar);
+      tma_load_2d(slots + (j % (kAhead + 1)) * kSlot, &map_w, j * kWgBK, n0,
+                  bar);
+    };
+    if (tid == 0)
+      for (int j = 0; j < kAhead && j < nk; ++j) issue(j);
+    for (int i = 0; i < nk; ++i) {
+      // every producer thread is done with step i - 1's f32 slot, which
+      // step i + kAhead's copy overwrites
+      if (i > 0) named_sync(1, 128);
+      if (tid == 0 && i + kAhead < nk) issue(i + kAhead);
+      mbar_wait(&loaded[i % kStages], (i / kStages) & 1);
+      unsigned char* sb = gbase + (i % kStages) * kSB +
+                          kHlConsumers * kWgAtom;
+      const unsigned char* sf = gslots + (i % (kAhead + 1)) * kSlot;
+#pragma unroll
+      for (int u = 0; u < kBPer; ++u) {
+        // 16-byte chunk c of row r of B: 8 floats of row r of the slot
+        const int q = tid + u * 128, r = q >> 3, c = q & 7;
+        const float4 lo = *reinterpret_cast<const float4*>(sf + r * 256 +
+                                                           c * 32);
+        const float4 hi = *reinterpret_cast<const float4*>(sf + r * 256 +
+                                                           c * 32 + 16);
+        const __nv_bfloat162 w0 = __floats2bfloat162_rn(lo.x, lo.y);
+        const __nv_bfloat162 w1 = __floats2bfloat162_rn(lo.z, lo.w);
+        const __nv_bfloat162 w2 = __floats2bfloat162_rn(hi.x, hi.y);
+        const __nv_bfloat162 w3 = __floats2bfloat162_rn(hi.z, hi.w);
+        uint4 o;
+        o.x = *reinterpret_cast<const unsigned*>(&w0);
+        o.y = *reinterpret_cast<const unsigned*>(&w1);
+        o.z = *reinterpret_cast<const unsigned*>(&w2);
+        o.w = *reinterpret_cast<const unsigned*>(&w3);
+        *reinterpret_cast<uint4*>(sb + swz(r, c)) = o;
+      }
+      fence_proxy_async();          // the rounded B, to wgmma's proxy
+      mbar_arrive(&full[i % kStages]);
+    }
+  } else {
+    // consumers: rows 64 (wg - 1) .. of the tile
+    const int lane = tid % 32;
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % kStages;
+      mbar_wait(&full[s], (i / kStages) & 1);
+      const uint32_t a0 = base + s * kSB + (wg - 1) * kWgAtom;
+      const uint32_t b0 = base + s * kSB + kHlConsumers * kWgAtom;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk)
+        Wgmma<BN>::template mma<0, 0>(acc, wg_desc(a0 + kk * 32, 16, 1024),
+                                      wg_desc(b0 + kk * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();                 // step i - 1's MMAs are done
+      if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % kStages]);
+    }
+    wgmma_wait<0>();
+    wg_epilogue<EPI, BN>(p, m0 + 64 * (wg - 1), n0, acc, tid / 32, lane);
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
+typedef CUresult (*TensorMapEncode)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline TensorMapEncode tensor_map_encode() {
+  static TensorMapEncode fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<TensorMapEncode>(f);
+  }
+  return fn;
+}
+
+// The tensor map of a row-major (rows, cols) matrix at base, boxes of
+// box_rows x box_cols; past its edges the copies read zeros.
+inline cudaError_t tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type,
+                                 size_t elem, const void* base, int rows,
+                                 int cols, int box_rows, int box_cols,
+                                 CUtensorMapSwizzle swizzle) {
+  const TensorMapEncode encode = tensor_map_encode();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(
+      map, type, 2, const_cast<void*>(base), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The route's launch: p.bn one of 128, 96, 48 (hl_width). Shapes: K
+// and N multiples of 8; A and W 16-byte aligned.
+template <int EPI>
+cudaError_t launch_hl_gemm(const GemmArgs& p, cudaStream_t stream) {
+  if (p.k % 8 || p.n % 8) return cudaErrorInvalidValue;
+  CUtensorMap map_a, map_w;
+  cudaError_t err = tensor_map_2d(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                  2, p.a, p.m, p.k, kHlBM, kWgBK,
+                                  CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  err = tensor_map_2d(&map_w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p.b, p.n,
+                      p.k, p.bn, kWgBK, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  auto go = [&](auto kernel, size_t smem) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    kernel<<<hl_tiles(p), kHlThreads, smem, stream>>>(map_a, map_w, p);
+    return cudaGetLastError();
+  };
+  switch (p.bn) {
+    case 128: return go(hl_gemm_kernel<EPI, 128>, hl_smem_bytes<128>());
+    case 96: return go(hl_gemm_kernel<EPI, 96>, hl_smem_bytes<96>());
+    case 48: return go(hl_gemm_kernel<EPI, 48>, hl_smem_bytes<48>());
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// A forward half-layer GEMM with an f32 master weight (N, K): the route in
+// bf16, the FMA tile in f32.
+template <typename T, int EPI>
+cudaError_t launch_forward_gemm(GemmArgs p, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    p.bn = hl_width(p.m, p.n);
+    return launch_hl_gemm<EPI>(p, stream);
+  } else {
+    return launch_gemm<T, EPI>(p, stream);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1926,6 +2268,336 @@ attention_core_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
   extern __shared__ float attn_sm[];
   attention_core_tile<T>(qkv, mask, drop_p, thr, scale, p_out, ctx, nb, t, h,
                          inv, blockIdx.x, blockIdx.y, attn_sm);
+}
+
+// ---------------------------------------------------------------------------
+// The attention forward on tensor cores (bf16 K5 without residuals: the
+// serving path), block_pallas.py `_attn_heads_fwd`: per (caption, head) pair,
+// scores q.k^T / sqrt(64) plus the additive key mask, an f32 softmax,
+// probabilities rounded to bf16, dropped with the bits of element
+// [head*B + b, i, j], then P.V rounded into the context rows.
+//
+// Bound on the H100: bytes. At B 32, T 24, 12 heads the scores and P.V are
+// 0.057 GFLOP against 3.5 MB of q, k, v and context; the scalar tile above
+// (f32 FMA, one block a pair, everything staged as f32) took 21 us inside
+// the tower kernel.
+//
+// This design:
+// - q.k^T and P.V run on mma.sync m16n8k16 (bf16 in, f32 accumulation): a
+//   warp holds 16 query rows, q in registers as A fragments, and walks the
+//   keys in blocks of 64 from shared memory, where k and v of the pair lie
+//   as bf16 rows of 72 (144 bytes: the fragment loads and ldmatrix are
+//   free of bank conflicts), zero past t.
+// - Two passes over the key blocks, so that T is bounded by shared memory
+//   (2 x T x 144 bytes a pair: T <= 512, bert-base's position table), not
+//   by the registers: first the row maximum and the sum of exp(s - max)
+//   (rescaled as the maximum grows), then the normalised probabilities,
+//   rounded, saved, dropped and multiplied by v, the P fragments reused as
+//   A fragments of P.V (v through ldmatrix.trans).
+// - Several pairs a block where the queries are few: 4 warps, and 4, 2 or
+//   1 pairs a block (T <= 16, <= 32, longer), each pair's query tiles
+//   spread over its warps.
+// The whole-tower kernel K7 keeps the scalar tile above (in development
+// runs on the H100 this tile inside it slowed every phase of K7, 18 % in
+// all), and so does K5 with residuals, so that the training chain of
+// half-layers equals K7 bit for bit.
+// Keys past t score -inf (no weight); a masked key scores
+// s + finfo(float32).min, as the plain version adds it.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+constexpr int kAttnKeys = 64;           // keys a block of the two passes
+constexpr int kAttnLd = kDHead + 8;     // bf16 row stride in shared memory
+constexpr int kAttnMaxT = 512;          // this tile's t
+constexpr int kAttnScalarMaxT = 128;    // the scalar tile's (shared memory)
+
+// Pairs a block of the kernel, from t: a pair's 16-row query tiles fill
+// its share of the block's 4 warps.
+inline __host__ __device__ int attn_pairs_per_block(int t) {
+  return t <= 16 ? 4 : (t <= 32 ? 2 : 1);
+}
+
+// Shared memory of a block of `pairs` pairs: k and v, t rounded up to 16
+// rows of kAttnLd bf16 each, then each pair's additive key biases (f32).
+inline __host__ __device__ size_t attn_mma_smem_bytes(int t, int pairs) {
+  const size_t tp = (t + 15) / 16 * 16;
+  return (size_t)pairs * tp * (2 * kAttnLd * sizeof(__nv_bfloat16) +
+                               sizeof(float));
+}
+
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const unsigned (&a)[4],
+                                          unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Pairs pair0 .. pair0 + pairs - 1 (pair = b * heads + head; those at or
+// past n_pairs are absent) by the block's kAttnThreads threads; smem:
+// attn_mma_smem_bytes(t, pairs) bytes, pairs one of 1, 2, 4.
+__device__ __forceinline__ void
+attention_mma_tile(const __nv_bfloat16* qkv, const int* __restrict__ mask,
+                   const DropSrc& drop_p, unsigned thr, float scale,
+                   __nv_bfloat16* ctx, int nb, int t, int h, float inv,
+                   int pair0, int pairs, int n_pairs, unsigned char* smem) {
+  using T = __nv_bfloat16;
+  const int heads = h / kDHead, tp = (t + 15) / 16 * 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wpp = (kAttnThreads / 32) / pairs;     // warps a pair
+  const int pi = warp / wpp, pair = pair0 + pi;
+  const bool live = pair < n_pairs;
+  const int b = live ? pair / heads : 0, head = live ? pair % heads : 0;
+  const size_t row0 = (size_t)b * t;
+  const int g = lane >> 2, tq = lane & 3;
+  // q of the warp's query tile qt, rows g and g + 8, as A fragments over
+  // the 4 k16 steps of d (rows past t zero)
+  unsigned qa[4][4];
+  auto load_q = [&](int qt) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = qt * 16 + g + 8 * hr;
+      const unsigned* q = reinterpret_cast<const unsigned*>(
+          qkv + (row0 + (row < t ? row : 0)) * 3 * h + head * kDHead);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        qa[kk][hr] = row < t ? q[kk * 8 + tq] : 0u;
+        qa[kk][2 + hr] = row < t ? q[kk * 8 + 4 + tq] : 0u;
+      }
+    }
+  };
+  if (live) load_q(warp % wpp);           // in flight during the staging
+  // k and v of every pair of the block (rows past t zero), a thread's
+  // loads of a batch all issued before its stores; the key biases
+  T* kv = reinterpret_cast<T*>(smem);
+  float* biases = reinterpret_cast<float*>(kv + (size_t)pairs * 2 * tp *
+                                                   kAttnLd);
+  // the additive bias of key i % tp of pair i / tp: finfo(float32).min on
+  // a masked key, -inf past t (no weight); the first 4 a thread loaded
+  // beside the first batch of k and v
+  auto key_bias = [&](int i) {
+    const int pj = i / tp, key = i % tp;
+    if (pair0 + pj >= n_pairs || key >= t) return neg_inf();
+    return __ldg(mask + (size_t)((pair0 + pj) / heads) * t + key) != 0
+               ? 0.f
+               : -FLT_MAX;
+  };
+  float bias0[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = u * kAttnThreads + threadIdx.x;
+    bias0[u] = i < pairs * tp ? key_bias(i) : 0.f;
+  }
+  const int nchunk = pairs * tp * 8;
+  for (int i0 = 0; i0 < nchunk; i0 += 4 * kAttnThreads) {
+    uint4 kr[4], vr[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * kAttnThreads + threadIdx.x;
+      const int pj = i / (tp * 8), r = (i / 8) % tp, c = i % 8;
+      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (i < nchunk && pair0 + pj < n_pairs && r < t) {
+        const int bj = (pair0 + pj) / heads, hj = (pair0 + pj) % heads;
+        const T* src =
+            qkv + ((size_t)bj * t + r) * 3 * h + hj * kDHead + c * 8;
+        kr[u] = *reinterpret_cast<const uint4*>(src + h);
+        vr[u] = *reinterpret_cast<const uint4*>(src + 2 * h);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * kAttnThreads + threadIdx.x;
+      if (i < nchunk) {
+        const int pj = i / (tp * 8), r = (i / 8) % tp, c = i % 8;
+        T* ks = kv + (size_t)pj * 2 * tp * kAttnLd;
+        *reinterpret_cast<uint4*>(ks + r * kAttnLd + c * 8) = kr[u];
+        *reinterpret_cast<uint4*>(ks + (tp + r) * kAttnLd + c * 8) = vr[u];
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = u * kAttnThreads + threadIdx.x;
+    if (i < pairs * tp) biases[i] = bias0[u];
+  }
+  for (int i = 4 * kAttnThreads + threadIdx.x; i < pairs * tp;
+       i += kAttnThreads)
+    biases[i] = key_bias(i);
+  __syncthreads();
+  if (!live) return;
+  const T* ks = kv + (size_t)pi * 2 * tp * kAttnLd;
+  const T* vs = ks + tp * kAttnLd;
+  const float* kbias = biases + pi * tp;
+  const uint32_t vs_addr = smem_u32(vs);
+  const size_t pofs = ((size_t)head * nb + b) * t * t;   // [head*B + b]
+  const int nkb = (t + kAttnKeys - 1) / kAttnKeys;
+
+  for (int qt = warp % wpp; qt * 16 < t; qt += wpp) {
+    if (qt != warp % wpp) load_q(qt);
+    const int rows[2] = {qt * 16 + g, qt * 16 + g + 8};
+    // scores of key block kb: s[j][e], key kb * 64 + 8 j + 2 tq + (e & 1),
+    // query row rows[e >> 1]
+    auto scores = [&](int kb, float (&s)[8][4]) {
+      const int k0 = kb * kAttnKeys;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+        if (k0 + 8 * j < t) {
+          const unsigned* kr = reinterpret_cast<const unsigned*>(
+              ks + (k0 + 8 * j + g) * kAttnLd);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            mma_16816(s[j], qa[kk], kr[kk * 8 + tq], kr[kk * 8 + 4 + tq]);
+        }
+        // the key biases of columns 2 tq, 2 tq + 1 (past the padded rows:
+        // no weight)
+        const int key = k0 + 8 * j + 2 * tq;
+        const float2 kb2 = key < tp
+                               ? *reinterpret_cast<const float2*>(kbias + key)
+                               : make_float2(neg_inf(), neg_inf());
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = s[j][e] * inv + ((e & 1) ? kb2.y : kb2.x);
+      }
+    };
+    // pass 1: each row's maximum and its sum of exp(s - max), the quad of
+    // lanes that share a row combined
+    // With one key block (t <= 64) the scores stay in s from pass 1 to
+    // pass 2, as exp(s - max): the same values pass 2 would recompute.
+    float mx[2] = {neg_inf(), neg_inf()}, sum[2] = {0.f, 0.f};
+    float s[8][4];
+    for (int kb = 0; kb < nkb; ++kb) {
+      scores(kb, s);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float bm = neg_inf();
+#pragma unroll
+        for (int j = 0; j < 8; ++j)           // tiles past t add nothing
+          if (kb * kAttnKeys + 8 * j < t)
+            bm = fmaxf(bm, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+        bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 1));
+        bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 2));
+        const float m = fmaxf(mx[hr], bm);
+        float add = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (kb * kAttnKeys + 8 * j < t) {
+            const float e0 = expf(s[j][2 * hr] - m);
+            const float e1 = expf(s[j][2 * hr + 1] - m);
+            add += e0 + e1;
+            if (nkb == 1) {
+              s[j][2 * hr] = e0;
+              s[j][2 * hr + 1] = e1;
+            }
+          }
+        }
+        sum[hr] = sum[hr] * expf(mx[hr] - m) + add;
+        mx[hr] = m;
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 1);
+      sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 2);
+    }
+    // pass 2: p = r(exp(s - max) / sum), dropped, then P.V
+    float o[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+    for (int kb = 0; kb < nkb; ++kb) {
+      const int k0 = kb * kAttnKeys;
+      if (nkb > 1) scores(kb, s);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (k0 + 8 * j >= t) {                // past t: p = 0
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+          continue;
+        }
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int row = rows[hr], key = k0 + 8 * j + 2 * tq;
+          float pv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            pv[e] = round_to<T>(
+                (nkb > 1 ? expf(s[j][2 * hr + e] - mx[hr]) : s[j][2 * hr + e]) /
+                sum[hr]);
+          if (row < t && key < t && drop_p.on()) {
+            const size_t at = pofs + (size_t)row * t + key;
+            unsigned bits[2];
+            if (key + 1 < t) {
+              drop_p.bits_run<2>(at, bits);
+            } else {
+              bits[0] = drop_p.bit(at);
+              bits[1] = 0u;                  // past t: p = 0 stays 0
+            }
+            pv[0] = drop_to<T>(pv[0], bits[0], thr, scale);
+            pv[1] = drop_to<T>(pv[1], bits[1], thr, scale);
+          }
+          s[j][2 * hr] = pv[0];
+          s[j][2 * hr + 1] = pv[1];
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (k0 + 16 * kk >= t) break;
+        unsigned pa[4];
+        pa[0] = pack_pair({s[2 * kk][0], s[2 * kk][1]});
+        pa[1] = pack_pair({s[2 * kk][2], s[2 * kk][3]});
+        pa[2] = pack_pair({s[2 * kk + 1][0], s[2 * kk + 1][1]});
+        pa[3] = pack_pair({s[2 * kk + 1][2], s[2 * kk + 1][3]});
+        // v rows k0 + 16 kk .. + 15 as B fragments of the d tiles 2 dn and
+        // 2 dn + 1: matrix lane / 8 = keys + 8 (m & 1), d + 8 (m >> 1)
+        const int mi = lane >> 3;
+        const uint32_t vrow =
+            vs_addr + ((k0 + 16 * kk + (mi & 1) * 8 + (lane & 7)) * kAttnLd +
+                       (mi >> 1) * 8) * 2;
+#pragma unroll
+        for (int dn = 0; dn < 4; ++dn) {
+          unsigned vb[4];
+          ldmatrix_x4_trans(vb, vrow + dn * 32);
+          mma_16816(o[2 * dn], pa, vb[0], vb[1]);
+          mma_16816(o[2 * dn + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      if (rows[hr] >= t) continue;
+      T* dst = ctx + (row0 + rows[hr]) * h + head * kDHead + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<unsigned*>(dst + 8 * j) =
+            pack_pair({o[j][2 * hr], o[j][2 * hr + 1]});
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kAttnThreads)
+attention_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                     const int* __restrict__ mask, DropSrc drop_p,
+                     unsigned thr, float scale, __nv_bfloat16* ctx, int nb,
+                     int t, int h, float inv, int pairs) {
+  extern __shared__ __align__(16) unsigned char attn_mma_sm[];
+  attention_mma_tile(qkv, mask, drop_p, thr, scale, ctx, nb, t, h, inv,
+                     blockIdx.x * pairs, pairs, nb * (h / kDHead),
+                     attn_mma_sm);
 }
 
 // Shared memory of the backward block: q, k, v, do (t, 65), p and dp (t, t).

@@ -9,18 +9,25 @@
 // I = 3072 the two GEMMs are 7.25 GFLOP against ~21 MB of f32 master
 // weights and activations, so the tensor cores are the limit.
 // Design: the TPU kernel carries an f32 accumulator across a sequential grid
-// over I; CUDA blocks run in parallel and in no order, so the sum over I
-// becomes the K loop of the second GEMM instead, in three launches:
+// over I; CUDA blocks run in parallel and in no order. In bf16, three
+// launches, the two GEMMs on common.cuh's half-layer GEMM route
+// (warp-specialised 128-row tiles, a producer warpgroup that rounds the f32
+// masters into the stages, mbarrier hand-over; see the note there):
 //   (a) f = x . W1 + c1 and act = gelu(f), both rounded to the activation
 //       type, into (R, I) buffers (4.7 MB each in bf16, L2-resident); f is
 //       written only when the backward will need it;
-//   (b) r = x + drop(act . W2 + c2), dropout and the residual fused into
-//       the GEMM epilogue; the bits are host-drawn, or (prng mode) words
-//       [0, R H) of the stream of the seed the wrapper hands over, already
-//       the layer seed ^ 0x5BD1E995 (ops/philox.py), each element computing
-//       its own Philox block: 4x the ALU work of a dump, and no bits in
-//       device memory;
-//   (c) z = LN(r), common.cuh's vector LayerNorm row kernel (K1's).
+//   (b) r = x + drop(act . W2 + c2), the whole sum over I in each tile, in
+//       the order of the whole-tower kernel's W2 phase, so the chain of
+//       half-layers equals K7 (I split into ranges added by the last block
+//       to arrive would need K7 to split alike, and its W2 phase ran slower
+//       split: measured on the H100, PERF.md), with dropout and the
+//       residual fused into the epilogue; the bits are host-drawn, or (prng
+//       mode) words [0, R H) of the stream of the seed the wrapper hands
+//       over, already the layer seed ^ 0x5BD1E995 (ops/philox.py), and no
+//       bits in device memory;
+//   (c) z = LN(r), common.cuh's vector LayerNorm row kernel (K1's): a
+//       128 x BN tile holds no whole row to normalise.
+// f32 runs the FMA tile (common.cuh) in (a) and (b).
 // The backward's residuals are x, f, act and r.
 //
 // Backward. Bound: bytes, narrowly: 49.6 MB with the f32 weight gradients
@@ -53,7 +60,7 @@ int run_fwd(const void* x, const float* w1, const float* c1, const float* w2,
   tgfr::GemmArgs up = tgfr::gemm_args(x, w1, act, rows, inter, h);
   up.bias = c1;
   up.out2 = f;
-  cudaError_t err = tgfr::launch_gemm<T, tgfr::kEpiBiasGelu>(up, s);
+  cudaError_t err = tgfr::launch_forward_gemm<T, tgfr::kEpiBiasGelu>(up, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   tgfr::GemmArgs down = tgfr::gemm_args(act, w2, resid, rows, h, inter);
   down.bias = c2;
@@ -61,7 +68,7 @@ int run_fwd(const void* x, const float* w1, const float* c1, const float* w2,
   down.drop = drop;
   down.thr = thr;
   down.scale = scale;
-  err = tgfr::launch_gemm<T, tgfr::kEpiBiasResidual>(down, s);
+  err = tgfr::launch_forward_gemm<T, tgfr::kEpiBiasResidual>(down, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = tgfr::launch_layernorm_rows<T, true>(static_cast<const T*>(resid),
                                              gamma, beta, static_cast<T*>(z),

@@ -1,6 +1,7 @@
-// The GEMM core of common.cuh on its own, for its tests: out (m, n) f32 =
-// A . B, A and B in one of the layouts the kernels use, at a given tile
-// width. Built on demand (ops/_cuda.py); the port's paths never call it.
+// The GEMM cores of common.cuh on their own, for their tests: out (m, n)
+// f32 = A . B, A and B in one of the layouts the kernels use, at a given
+// tile width; and the half-layer route (A bf16 row-major, B the f32 master
+// (n, k)). Built on demand (ops/_cuda.py); the port's paths never call it.
 #include "common.cuh"
 
 namespace {
@@ -54,4 +55,15 @@ TGFR_API int tgfr_gemm(const void* a, const void* b, void* out, int m,
     return static_cast<int>(dispatch<float>(p, al, bl, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The half-layer route (common.cuh hl_gemm_kernel): out (m, n) f32 =
+// A . W^T, A (m, k) bf16 row-major, W (n, k) f32 row-major; bn one of 128,
+// 96, 48, or 0 for hl_width's choice.
+TGFR_API int tgfr_hl_gemm(const void* a, const void* w, void* out, int m,
+                            int n, int k, int bn, void* stream) {
+  tgfr::GemmArgs p = tgfr::gemm_args(a, w, out, m, n, k);
+  p.bn = bn ? bn : tgfr::hl_width(m, n);
+  return static_cast<int>(tgfr::launch_hl_gemm<tgfr::kEpiF32>(
+      p, static_cast<cudaStream_t>(stream)));
 }

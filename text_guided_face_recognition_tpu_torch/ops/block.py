@@ -41,8 +41,10 @@ r(dr + r(acc)), and weight and bias gradients stay f32.
 
 `ffn_block` and `attn_block` are torch.autograd.Functions. Their forward
 saves the residuals the backward reads (ffn: x, f, act, r; attn: x, qkv,
-p, o, r), and the bits or the seed, only when a gradient is needed; the
-serving path saves nothing.
+p, o, r), and the bits or the seed, only when a gradient is needed: grad
+mode on where the wrapper is called (forward itself runs with it off) and
+an input that requires one; the serving path (inference mode) saves
+nothing, whatever its parameters' requires_grad.
 Each wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor; it never falls back from one to the other. Each kernel call
 adds one to its wrapper's `launches`: `ffn_block.launches` (K3),
@@ -102,8 +104,15 @@ D_HEAD = 64
 # the tower's stacked leaves, in the JAX package's `_BlockP` order
 TOWER_LEAVES = ("wqkv", "bqkv", "wo", "bo", "g1", "b1", "w1", "c1", "w2",
                 "c2", "g2", "b2")
-MAX_T_BWD = 64   # the backward's per-head block holds 4 (T, 64) + 2 (T, T)
-MAX_T_FWD = 128  # the forward's, without residuals: 3 (T, 64) + (T, T)
+# The longest caption (t) the attention kernels take: the backward's
+# per-head block holds 4 (T, 64) + 2 (T, T) f32; K5's tensor-core tile (bf16
+# without residuals) holds k and v of a pair in bf16 and walks the keys in
+# blocks (csrc/common.cuh kAttnMaxT: bert-base's position table); the scalar
+# tile (K5 with residuals or in f32, and the whole-tower kernel K7) holds
+# 3 (T, 64) + (T, T) f32.
+MAX_T_BWD = 64
+MAX_T_FWD = 512
+MAX_T_FWD_SCALAR = 128
 # The library the tower wrappers launch from: `tower_block`, or its
 # measurement build `tower_block_phases` (ops/_cuda.py VARIANTS), which
 # chip_smoke.py's phase table switches to around its own calls.
@@ -147,6 +156,16 @@ def _ln_bwd_rounded(dy, r, gamma, eps):
     dt = dy.dtype
     dr, dg, db = ln_bwd_f32(dy.float(), r.float(), gamma.to(dt).float(), eps)
     return dr.to(dt), dg, db
+
+
+def max_t(dtype: torch.dtype, grad: bool, tower: bool = False) -> int:
+    """The longest caption the attention kernels take in `dtype`, with a
+    gradient or without: K5/K6, or with `tower` K7/K8."""
+    if grad:
+        return MAX_T_BWD
+    if dtype == torch.bfloat16 and not tower:
+        return MAX_T_FWD
+    return MAX_T_FWD_SCALAR
 
 
 def _maybe_drop(x, bits, rate):
@@ -552,8 +571,9 @@ def ffn_block_bwd(dz, x, f, act, r, w1, w2, gamma, bits=None,
 
 class _FfnBlockFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w1, c1, w2, c2, gamma, beta, bits, seed, rate, eps):
-        save = any(ctx.needs_input_grad[:7])
+    def forward(ctx, x, w1, c1, w2, c2, gamma, beta, bits, seed, rate, eps,
+                grad):
+        save = grad and any(ctx.needs_input_grad[:7])
         z, f, act, r = ffn_block_fwd(x, w1, c1, w2, c2, gamma, beta, bits,
                                      rate, eps, save, seed=seed)
         ctx.rate, ctx.eps = rate, eps
@@ -566,7 +586,7 @@ class _FfnBlockFn(torch.autograd.Function):
         x, f, act, r, w1, w2, gamma, bits, seed = ctx.saved_tensors
         grads = ffn_block_bwd(dz.contiguous(), x, f, act, r, w1, w2, gamma,
                               bits, ctx.rate, ctx.eps, seed=seed)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def ffn_block(x, w1, c1, w2, c2, gamma, beta, rate: float = 0.0,
@@ -585,7 +605,7 @@ def ffn_block(x, w1, c1, w2, c2, gamma, beta, rate: float = 0.0,
     if rate <= 0.0:
         bits = seed = None
     return _FfnBlockFn.apply(x, w1, c1, w2, c2, gamma, beta, bits, seed,
-                             rate, eps)
+                             rate, eps, torch.is_grad_enabled())
 
 
 # ---------------------------------------------------- attention kernels --
@@ -612,10 +632,11 @@ def attn_block_fwd(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
     if h != heads * D_HEAD:
         raise ValueError(f"{name}: the kernel takes heads of width {D_HEAD}; "
                          f"got H={h}, heads={heads}")
-    t_max = MAX_T_BWD if save else MAX_T_FWD
+    t_max = max_t(x.dtype, save)
     if not 0 < t <= t_max:
         raise ValueError(f"{name}: the kernel takes 1 <= t <= {t_max}"
-                         f"{' when training' if save else ''}, got {t}")
+                         f"{' when training' if save else ''} in {x.dtype}, "
+                         f"got {t}")
     if tuple(mask.shape) != (b, t) or mask.dtype != torch.int32 or \
             mask.device != dev or not mask.is_contiguous():
         raise ValueError(f"{name}: mask must be a contiguous int32 ({b}, {t})"
@@ -710,8 +731,8 @@ def attn_block_bwd(dy, x, qkv, p, o, r, wqkv, wo, gamma, b: int, t: int,
 class _AttnBlockFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mask, wqkv, bqkv, wo, bo, gamma, beta, bits_p,
-                bits_h, seed, b, t, heads, rate, eps):
-        save = any(ctx.needs_input_grad[:8])
+                bits_h, seed, b, t, heads, rate, eps, grad):
+        save = grad and any(ctx.needs_input_grad[:8])
         y, qkv, p, o, r = attn_block_fwd(x, mask, wqkv, bqkv, wo, bo, gamma,
                                          beta, b, t, heads, bits_p, bits_h,
                                          rate, eps, save, seed=seed)
@@ -728,7 +749,7 @@ class _AttnBlockFn(torch.autograd.Function):
         dx, dwqkv, dbqkv, dwo, dbo, dg, db = attn_block_bwd(
             dy.contiguous(), x, qkv, p, o, r, wqkv, wo, gamma, *ctx.shape,
             bits_p, bits_h, ctx.rate, ctx.eps, seed=seed)
-        return (dx, None, dwqkv, dbqkv, dwo, dbo, dg, db) + (None,) * 8
+        return (dx, None, dwqkv, dbqkv, dwo, dbo, dg, db) + (None,) * 9
 
 
 def attn_block(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
@@ -743,15 +764,17 @@ def attn_block(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
     all float32 masters. When rate > 0, one dropout source: bits_p
     (heads*b, t, t) and bits_h (R, H) int32, or seed (1,) int32, the layer
     seed (ops/philox.py). The kernels take heads of width 64
-    (H = 64 * heads), H <= 1024, t <= 128 (t <= 64 when a gradient is
-    needed), and wqkv, wo as .t() views of contiguous (out, in) tensors.
+    (H = 64 * heads), H <= 1024, t <= 512 in bf16 and 128 in f32 (t <= 64
+    when a gradient is needed; `max_t`), and wqkv, wo as .t() views of
+    contiguous (out, in) tensors.
     Returns y: (R, H).
     """
     _check_rate("attn_block", rate, (bits_p, bits_h), seed)
     if rate <= 0.0:
         bits_p = bits_h = seed = None
     return _AttnBlockFn.apply(x, mask, wqkv, bqkv, wo, bo, gamma, beta,
-                              bits_p, bits_h, seed, b, t, heads, rate, eps)
+                              bits_p, bits_h, seed, b, t, heads, rate, eps,
+                              torch.is_grad_enabled())
 
 
 # -------------------------------------------------------- tower kernels --
@@ -840,7 +863,7 @@ def tower_block_fwd(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2,
     *bits, seed = _sources("tower_block", rate, bits, seed, x.device)
     n, rows, h, inter = _check_tower("tower_block", x, mask, leaves, b, t,
                                      heads, bits, seed, rate,
-                                     MAX_T_BWD if save else MAX_T_FWD)
+                                     max_t(x.dtype, save, tower=True))
 
     def buf(*shape):
         return torch.empty(shape, dtype=x.dtype, device=x.device)
@@ -919,9 +942,10 @@ def tower_block_bwd(dz, mask, xin, qkv, p, o, r1, f, r2, wqkv, wo, g1, b1,
 class _TowerBlockFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2,
-                b2, bits_p, bits_h, bits_f, seed, b, t, heads, rate, eps):
+                b2, bits_p, bits_h, bits_f, seed, b, t, heads, rate, eps,
+                grad):
         needs = ctx.needs_input_grad
-        save = needs[0] or any(needs[2:14])
+        save = grad and (needs[0] or any(needs[2:14]))
         z, *res = tower_block_fwd(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1,
                                   w2, c2, g2, b2, b, t, heads, bits_p, bits_h,
                                   bits_f, rate, eps, save, seed=seed)
@@ -936,7 +960,7 @@ class _TowerBlockFn(torch.autograd.Function):
         *saved, bits_p, bits_h, bits_f, seed = ctx.saved_tensors
         grads = tower_block_bwd(dz.contiguous(), *saved, *ctx.shape, bits_p,
                                 bits_h, bits_f, ctx.rate, ctx.eps, seed=seed)
-        return (grads[0], None, *grads[1:]) + (None,) * 9
+        return (grads[0], None, *grads[1:]) + (None,) * 10
 
 
 def tower_block(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2, b2,
@@ -962,7 +986,7 @@ def tower_block(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2, b2,
         bits_p = bits_h = bits_f = seed = None
     return _TowerBlockFn.apply(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1,
                                w2, c2, g2, b2, bits_p, bits_h, bits_f, seed, b,
-                               t, heads, rate, eps)
+                               t, heads, rate, eps, torch.is_grad_enabled())
 
 
 ffn_block.launches = 0
