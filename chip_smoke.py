@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (one NVIDIA GPU).
 
-  python3 chip_smoke.py [--only kernels|phases|prng|serving|train|stage2]
+  python3 chip_smoke.py [--only kernels|launches|phases|prng|serving|train|
+                                stage2]
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
@@ -27,12 +28,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      operation (torch.profiler), and K2's outputs are bit for bit the same
      over repeated calls, from a CUDA graph's replay and on two streams at
      once (each with its own arrival counters); so are the LN sums of K4
-     and K6 over two calls. K3 and K5 (bf16, eval) are also listed launch
-     by launch, each launch's device us (torch.profiler) beside one PyTorch
-     call doing its work on the same bf16-rounded operands (torch.matmul,
-     F.scaled_dot_product_attention, F.layer_norm: reference columns, used
-     nowhere in the port), and K5 without residuals is held at T = 512 (two
-     captions, padded keys). K3 and K5 are
+     and K6 over two calls. K3 and K5 (bf16, eval) and K4 and K6 (bf16,
+     host bits and prng mode) are also listed launch by launch, each
+     launch's device us (torch.profiler) beside one PyTorch call doing its
+     work on the same bf16-rounded operands (torch.matmul,
+     F.scaled_dot_product_attention and its backward, F.layer_norm,
+     native_layer_norm_backward, Tensor.sum: reference columns, used
+     nowhere in the port; `--only launches` runs these tables alone); K5
+     is held at T = 512 (two captions, padded keys) without residuals and
+     with them (p included), and K4 and K6 at T = 64, 65, 200 and 512 (two
+     captions; f32 up to its limit of 64) in host bits and prng mode. K3
+     and K5 are
      held and timed twice: serving (rate 0, no residuals) and train mode
      (rate 0.1, the residuals the backward reads, `*_train` keys); K3-K6
      once more in prng mode (`seed=`: the bits drawn in-kernel from the
@@ -93,7 +99,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernels on against off, from the same weights and the same dropout
      masks (the off twin fed the host bits and the K10/K11 dumps of the
      seeds), and once more with a planted K6 fault (the wrong seed in its
-     backward) that the comparison must catch; in host mode
+     backward) that the comparison must catch; one step at
+     bert_words_num 512 (captions up to 512 tokens) on against off, its
+     loss held to the same limit and its per-module readings printed
+     beside the T = 24 ones; in host mode
      (fused_dropout) the same comparison in bf16, which must pass, beside
      a planted fault (all-keep bits in K6) that it must catch, and a
      `tower` twin held against `both` (same weights,
@@ -194,6 +203,9 @@ ON_OFF_TOL_STAGE2 = {"bfloat16": ON_OFF_TOL["bfloat16"],
                      "float32": dict(ON_OFF_TOL["float32"], floor=1e-4)}
 RATE = 0.1
 TRAIN_STEPS = 20
+# caption lengths of the long-caption checks of K4 and K6 (bf16 up to 512;
+# f32 up to its limit of 64): the edge of one key block and one past it
+LONG_T = (64, 65, 200, 512)
 
 
 def _graph_ms(fn, calls: int = 20, reps: int = 9) -> float:
@@ -750,8 +762,11 @@ def kernel_phase(args):
     for row, extra in ln_checks(dev, ln_gen, eps).items():
         rows[[r["name"] for r in rows].index(row)].update(extra)
     xb = x32.bfloat16()
-    for row, launches in half_layer_launches(xb, mask, attn_w, ffn_w, B, T,
-                                             heads, eps).items():
+    tables = half_layer_launches(xb, mask, attn_w, ffn_w, B, T, heads, eps)
+    tables.update(half_layer_bwd_launches(
+        xb, dys[torch.bfloat16], mask, attn_w, ffn_w, bits_p, bits_h, bits_f,
+        seed, B, T, heads, eps))
+    for row, launches in tables.items():
         rows[[r["name"] for r in rows].index(row)]["launch_breakdown"] = \
             launches
     # the bf16 attention forward without residuals takes captions up to
@@ -776,10 +791,36 @@ def kernel_phase(args):
                                  f"its plain version ({err})")
         rows[[r["name"] for r in rows].index("attn_block")][
             f"max_abs_err_t{t_long}" + ("_prng" if kw["rate"] else "")] = err
+    # with residuals (training) too, past 128 the tensor-core tile, its
+    # saved p included
+    for kw in (dict(rate=0.0), dict(rate=RATE, seed=seed)):
+        got = block.attn_block_fwd(x_long, mask_long, *attn_w, 2, t_long,
+                                   heads, eps=eps, **kw)
+        want = block.attn_block_fwd_ref(x_long, mask_long, *attn_w, 2,
+                                        t_long, heads, eps=eps, **kw)
+        torch.cuda.synchronize()
+        errs = []
+        for name, a, b in zip(("y", "qkv", "p", "o", "r"), got, want):
+            err, ok = (_close_scaled if name == "r" else _close)(
+                a, b, TOL["bfloat16"])
+            errs.append(err)
+            if not ok:
+                raise AssertionError(f"attn_block with residuals at t = "
+                                     f"{t_long} {kw.get('rate')}: {name} "
+                                     f"disagrees with its plain version "
+                                     f"({err})")
+        rows[[r["name"] for r in rows].index("attn_block")][
+            f"max_abs_err_train_t{t_long}"
+            + ("_prng" if kw["rate"] else "")] = max(errs)
     k5 = rows[[r["name"] for r in rows].index("attn_block")]
     print(f"kernel attn_block at t = {t_long} (bf16, 2 captions): max|err| "
           f"{k5[f'max_abs_err_t{t_long}']:.3g}, prng "
-          f"{k5[f'max_abs_err_t{t_long}_prng']:.3g}", flush=True)
+          f"{k5[f'max_abs_err_t{t_long}_prng']:.3g}; with residuals (p "
+          f"included) {k5[f'max_abs_err_train_t{t_long}']:.3g}, prng "
+          f"{k5[f'max_abs_err_train_t{t_long}_prng']:.3g}", flush=True)
+    for row, errs in long_backwards(dev, attn_w, ffn_w, H, heads, eps,
+                                    seed).items():
+        rows[[r["name"] for r in rows].index(row)].update(errs)
     # the half-layer backwards' LN sums (the bias gradient, dgamma, dbeta)
     # are bit for bit the same over two calls
     for s in specs:
@@ -797,10 +838,79 @@ def kernel_phase(args):
     return rows[:6] + towers + rows[6:]
 
 
-def _launch_us(fn, calls: int = 20) -> list:
-    """The device kernels one call of fn launches, in launch order, from
-    torch.profiler over `calls` calls (after one to warm up): [(kernel
-    name, device us per call, launches per call)]."""
+def long_backwards(dev, attn_w, ffn_w, H, heads, eps, seed) -> dict:
+    """K4 and K6 at caption lengths past the T = 24 of the main checks: two
+    captions of T in LONG_T (the second's keys padded past a third), from
+    the plain forward's residuals, host bits and prng mode, against their
+    plain versions; in bf16 at every T, in f32 up to its limit of 64.
+    Returns {kernel: {max_abs_err_t<T>[_prng][_f32]: err}}."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.ops import block
+    from text_guided_face_recognition_tpu_torch.ops.dropout import draw
+
+    gen = torch.Generator().manual_seed(17)
+    dgen = torch.Generator(device=dev).manual_seed(19)
+    wqkv, wo, g = attn_w[0], attn_w[2], attn_w[4]
+    w1, w2 = ffn_w[0], ffn_w[2]
+    out = {"attn_block_bwd": {}, "ffn_block_bwd": {}}
+    for t in LONG_T:
+        x32 = torch.randn(2 * t, H, generator=gen).to(dev)
+        dy32 = torch.randn(2 * t, H, generator=gen).to(dev)
+        mask = torch.ones(2, t, dtype=torch.int32, device=dev)
+        mask[1, max(1, t // 3):] = 0
+        bits_p = draw(heads * 2 * t * t, dgen, dev).view(heads * 2, t, t)
+        bits_h = draw(2 * t * H, dgen, dev).view(2 * t, H)
+        for dt in (torch.bfloat16, torch.float32):
+            if t > block.max_t(dt, True):
+                continue
+            x, dy, tol = x32.to(dt), dy32.to(dt), TOL[str(dt)[6:]]
+            for mode, akw, fkw in (
+                    ("", dict(bits_p=bits_p, bits_h=bits_h),
+                     dict(bits=bits_h)),
+                    ("_prng", dict(seed=seed), dict(seed=seed))):
+                res = block.attn_block_fwd_ref(x, mask, *attn_w, 2, t, heads,
+                                               rate=RATE, eps=eps, **akw)
+                args = (dy, x, *res[1:], wqkv, wo, g, 2, t, heads)
+                pairs = {"attn_block_bwd": zip(
+                    block.attn_block_bwd(*args, rate=RATE, eps=eps, **akw),
+                    block.attn_block_bwd_ref(*args, rate=RATE, eps=eps,
+                                             **akw))}
+                _, f, act, r = block.ffn_block_fwd_ref(x, *ffn_w, rate=RATE,
+                                                       eps=eps, **fkw)
+                pairs["ffn_block_bwd"] = zip(
+                    block.ffn_block_bwd(dy, x, f, act, r, w1, w2, g,
+                                        rate=RATE, eps=eps, **fkw),
+                    block.ffn_block_bwd_ref(dy, x, f, r, w1, w2, g,
+                                            rate=RATE, eps=eps, **fkw))
+                for name, outs in pairs.items():
+                    errs = []
+                    for k, (a, b) in enumerate(outs):
+                        torch.cuda.synchronize()
+                        err, ok = _close_scaled(a, b, tol)
+                        errs.append(err)
+                        if not ok:
+                            raise AssertionError(
+                                f"{name} at t = {t} {dt}{mode} output {k}: "
+                                f"kernel disagrees with its plain version "
+                                f"({err})")
+                    key = f"max_abs_err_t{t}{mode}" + (
+                        "_f32" if dt == torch.float32 else "")
+                    out[name][key] = max(errs)
+    for name, errs in out.items():
+        print(f"kernel {name} at t in {LONG_T} (2 captions): max|err| "
+              + ", ".join(f"{k[11:]} {v:.3g}" for k, v in errs.items()),
+              flush=True)
+    return out
+
+
+def _launch_seq_us(fn, calls: int = 20) -> list:
+    """The device kernels one call of fn launches, one entry a launch in
+    the first call's order of starts (two launches of one kernel stay
+    apart; launches on two streams may start in another order in another
+    call, so each call's k-th launch of a kernel is matched to the first
+    call's), from torch.profiler over `calls` calls (after one to warm
+    up): [(kernel name, device us)], each the mean over the calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -811,18 +921,28 @@ def _launch_us(fn, calls: int = 20) -> list:
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    order, total, count = [], {}, {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        if e.name not in total:
-            order.append(e.name)
-            total[e.name], count[e.name] = 0.0, 0
-        total[e.name] += e.device_time_total if hasattr(
-            e, "device_time_total") else e.cuda_time_total
-        count[e.name] += 1
-    return [(n, total[n] / calls, count[n] / calls) for n in order]
+            torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    if not ev or len(ev) % calls:
+        raise AssertionError(f"{len(ev)} device events over {calls} calls")
+    n = len(ev) // calls
+    first = [e.name for e in ev[:n]]
+    slots = {}
+    for i, name in enumerate(first):
+        slots.setdefault(name, []).append(i)
+    total = [0.0] * n
+    for c in range(calls):
+        seen = {}
+        for e in ev[c * n:(c + 1) * n]:
+            k = seen.get(e.name, 0)
+            seen[e.name] = k + 1
+            if k >= len(slots.get(e.name, ())):
+                raise AssertionError(f"call {c} launches {e.name} more "
+                                     "often than the first call")
+            total[slots[e.name][k]] += e.time_range.elapsed_us()
+    return [(name, us / calls) for name, us in zip(first, total)]
 
 
 def half_layer_launches(x, mask, attn_w, ffn_w, B, T, heads, eps) -> dict:
@@ -853,7 +973,7 @@ def half_layer_launches(x, mask, attn_w, ffn_w, B, T, heads, eps) -> dict:
     amask = torch.where(mask[:, None, None, :] > 0, 0.0, neg).to(x.dtype)
 
     def ref_us(fn):
-        return sum(us for _, us, _ in _launch_us(fn))
+        return sum(us for _, us in _launch_seq_us(fn))
 
     refs = {
         "attn_block": [
@@ -878,21 +998,198 @@ def half_layer_launches(x, mask, attn_w, ffn_w, B, T, heads, eps) -> dict:
                                                      save=False)}
     out = {}
     for name, run in runs.items():
-        launches = _launch_us(run)
+        launches = _launch_seq_us(run)
         if len(launches) != len(refs[name]):
             raise AssertionError(f"{name}: {len(launches)} device launches "
                                  f"a call, expected {len(refs[name])}: "
                                  f"{launches}")
-        out[name] = [{"kernel": kn, "us": us, "per_call": n,
-                      "reference": rn, "reference_us": rus}
-                     for (kn, us, n), (rn, rus) in zip(launches,
-                                                       refs[name])]
+        out[name] = [{"kernel": kn, "us": us, "reference": rn,
+                      "reference_us": rus}
+                     for (kn, us), (rn, rus) in zip(launches, refs[name])]
         print(f"kernel {name} launch by launch (bf16 eval, device us a "
               "call): " + "; ".join(
                   f"{d['kernel'][:60]} {d['us']:.3f} (beside "
                   f"{d['reference']} {d['reference_us']:.3f})"
                   for d in out[name]), flush=True)
     return out
+
+
+def half_layer_bwd_launches(x, dy, mask, attn_w, ffn_w, bits_p, bits_h,
+                            bits_f, seed, B, T, heads, eps) -> dict:
+    """K4 and K6 (bf16) launch by launch, with host bits (`*_bwd`) and in
+    prng mode (`*_bwd_prng`): each kernel's device us per call
+    (torch.profiler) beside one PyTorch call doing that launch's work on
+    the same bf16-rounded operands: torch.matmul for each GEMM (the weight
+    rounded once, outside the timed call),
+    torch.ops.aten.native_layer_norm_backward for the LN row pass,
+    Tensor.sum(0) for a bias gradient's column sums (added to the weight
+    gradient's matmul where one launch computes both), and the device time
+    of the backward kernels of F.scaled_dot_product_attention at (B, heads,
+    T, 64) for the per-head backward. Reference columns only; the port
+    calls none of them."""
+    import torch
+    import torch.nn.functional as F
+
+    from text_guided_face_recognition_tpu_torch.ops import block
+
+    wqkv, _, wo, _, g, b = attn_w
+    w1, _, w2 = ffn_w[:3]
+    H = x.shape[1]
+    wb = {k: v.t().contiguous().bfloat16() for k, v in
+          (("wqkv", wqkv), ("wo", wo), ("w1", w1), ("w2", w2))}
+    gb, bb = g.bfloat16(), b.bfloat16()
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [H], gb, bb, eps)
+    # operands of the shapes each launch sees (their values do not move a
+    # reference's time)
+    xi = torch.randn(x.shape[0], ffn_w[0].shape[1], device=x.device).to(
+        x.dtype)
+    xq = torch.randn(x.shape[0], 3 * H, device=x.device).to(x.dtype)
+    q, k, v = (torch.randn(B, heads, T, H // heads, device=x.device,
+                           dtype=x.dtype, requires_grad=True)
+               for _ in range(3))
+    neg = torch.finfo(torch.float32).min
+    amask = torch.where(mask[:, None, None, :] > 0, 0.0, neg).to(x.dtype)
+    sdpa = F.scaled_dot_product_attention(q, k, v, amask)
+    do = torch.randn_like(sdpa)
+
+    def ref_us(fn):
+        return 1e3 * _graph_ms(fn)
+
+    ln = ("native_layer_norm_backward", ref_us(
+        lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, x, [H], mean, rstd, gb, bb, [True, True, True])))
+    colsum_i = ref_us(lambda: xi.sum(0))
+    colsum_q = ref_us(lambda: xq.sum(0))
+    # the GEMMs' references: the weight gradients in launch order (the
+    # second with the bias gradient's column sums where no launch of its
+    # own sums them), then the data gradients in launch order
+    refs = {
+        "ffn_block_bwd": dict(sums=colsum_i, dw=[
+            ("torch.matmul dgg^T . act", ref_us(
+                lambda: torch.matmul(x.t(), xi))),
+            ("torch.matmul df^T . x", ref_us(
+                lambda: torch.matmul(xi.t(), x)))], dx=[
+            ("torch.matmul dgg . W2", ref_us(
+                lambda: torch.matmul(x, wb["w2"]))),
+            ("torch.matmul df . W1", ref_us(
+                lambda: torch.matmul(xi, wb["w1"])))]),
+        "attn_block_bwd": dict(sums=colsum_q, dw=[
+            ("torch.matmul dh^T . o", ref_us(
+                lambda: torch.matmul(x.t(), x))),
+            ("torch.matmul dqkv^T . x", ref_us(
+                lambda: torch.matmul(xq.t(), x)))], dx=[
+            ("torch.matmul dh . Wo", ref_us(
+                lambda: torch.matmul(x, wb["wo"]))),
+            ("torch.matmul dqkv . Wqkv", ref_us(
+                lambda: torch.matmul(xq, wb["wqkv"])))],
+            attn=("scaled_dot_product_attention backward", sum(
+                us for _, us in _launch_seq_us(
+                    lambda: torch.autograd.grad(sdpa, (q, k, v), do,
+                                                retain_graph=True)))))}
+
+    def beside(name, launches):
+        """Each launch's reference, by its kind: the weight gradients are
+        the route's mode 2 (hl_bwd_gemm_kernel<2, ...>) or the core's
+        (A stored (K, M), gemm_kernel<..., 4, 1, 2>)."""
+        r, out = refs[name], []
+        dw, dx = iter(r["dw"]), iter(r["dx"])
+        fused = not any("colsum" in kn for kn, _ in launches)
+        n_dw = 0
+        for kn, _ in launches:
+            if "layernorm_bwd" in kn:
+                out.append(ln)
+            elif "colsum" in kn:
+                out.append(("Tensor.sum(0)", r["sums"]))
+            elif "attention" in kn:
+                out.append(r["attn"])
+            elif "gemm_kernel<2," in kn or "4, 1, 2>" in kn:
+                label, us = next(dw)
+                n_dw += 1
+                if fused and n_dw == 2:
+                    label, us = label + " + Tensor.sum(0)", us + r["sums"]
+                out.append((label, us))
+            else:
+                out.append(next(dx))
+        return out
+
+    fres = block.ffn_block_fwd(x, *ffn_w, bits_f, RATE, eps)
+    fres_p = block.ffn_block_fwd(x, *ffn_w, rate=RATE, eps=eps, seed=seed)
+    ares = block.attn_block_fwd(x, mask, *attn_w, B, T, heads, bits_p,
+                                bits_h, RATE, eps)
+    ares_p = block.attn_block_fwd(x, mask, *attn_w, B, T, heads, rate=RATE,
+                                  eps=eps, seed=seed)
+    runs = {
+        "ffn_block_bwd": (
+            lambda: block.ffn_block_bwd(dy, x, *fres[1:], w1, w2, g, bits_f,
+                                        RATE, eps),
+            lambda: block.ffn_block_bwd(dy, x, *fres_p[1:], w1, w2, g,
+                                        rate=RATE, eps=eps, seed=seed)),
+        "attn_block_bwd": (
+            lambda: block.attn_block_bwd(dy, x, *ares[1:], wqkv, wo, g, B, T,
+                                         heads, bits_p, bits_h, RATE, eps),
+            lambda: block.attn_block_bwd(dy, x, *ares_p[1:], wqkv, wo, g, B,
+                                         T, heads, rate=RATE, eps=eps,
+                                         seed=seed))}
+    out = {}
+    for name, (host, prng) in runs.items():
+        rows = []
+        for mode, run in (("train", host), ("prng", prng)):
+            # prng mode's seed is handed over as stream seed ^ 0x5BD1E995
+            # by a small elementwise kernel (ffn only): no reference
+            launches = [(kn, us) for kn, us in _launch_seq_us(run)
+                        if kn.startswith(("void tgfr", "tgfr"))]
+            ref = beside(name, launches)
+            rows += [{"mode": mode, "kernel": kn, "us": us,
+                      "reference": rn, "reference_us": rus}
+                     for (kn, us), (rn, rus) in zip(launches, ref)]
+            print(f"kernel {name} launch by launch (bf16 {mode}, device us "
+                  "a call): " + "; ".join(
+                      f"{kn[:60]} {us:.3f} (beside {rn} {rus:.3f})"
+                      for (kn, us), (rn, rus) in zip(launches, ref))
+                  + f"; sum of launches {sum(us for _, us in launches):.3f}",
+                  flush=True)
+        out[name] = rows
+    return out
+
+
+def launches_phase(args) -> None:
+    """K3-K6 launch by launch alone (`--only launches`): the inputs of
+    kernel_phase's flagship shape, the tables of half_layer_launches and
+    half_layer_bwd_launches."""
+    import numpy as np
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.engine.prepare import (
+        _synthetic_bert)
+    from text_guided_face_recognition_tpu_torch.ops.dropout import draw
+
+    dev = torch.device("cuda")
+    seed = torch.tensor([args.manual_seed + 3], dtype=torch.int32,
+                        device=dev)
+    B, T, H, heads, I = 32, args.bert_words_num, 768, 12, 3072
+    R = B * T
+    eps = 1e-12
+    _, _, masks = _synthetic_bert(args, B)
+    mask = torch.from_numpy(np.stack(masks[::args.captions_per_image][:B]))
+    mask = mask.to(dev, torch.int32).contiguous()
+    gen = torch.Generator().manual_seed(args.manual_seed)
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen) * std).to(dev)
+
+    x, dy = rn(R, H).bfloat16(), rn(R, H).bfloat16()
+    ln_g, ln_b = 1.0 + rn(H, std=0.1), rn(H, std=0.1)
+    attn_w = (rn(3 * H, H, std=H ** -0.5).t(), rn(3 * H, std=0.1),
+              rn(H, H, std=H ** -0.5).t(), rn(H, std=0.1), ln_g, ln_b)
+    ffn_w = (rn(I, H, std=H ** -0.5).t(), rn(I, std=0.1),
+             rn(H, I, std=I ** -0.5).t(), rn(H, std=0.1), ln_g, ln_b)
+    dgen = torch.Generator(device=dev).manual_seed(args.manual_seed + 1)
+    bits_p = draw(heads * B * T * T, dgen, dev).view(heads * B, T, T)
+    bits_h = draw(R * H, dgen, dev).view(R, H)
+    bits_f = draw(R * H, dgen, dev).view(R, H)
+    half_layer_launches(x, mask, attn_w, ffn_w, B, T, heads, eps)
+    half_layer_bwd_launches(x, dy, mask, attn_w, ffn_w, bits_p, bits_h,
+                            bits_f, seed, B, T, heads, eps)
 
 
 def _prng_pair(spec, x):
@@ -1949,6 +2246,49 @@ def _host_mode_counts(host, batch, per_step, kernels, tag: str) -> None:
                              f"{per_step}")
 
 
+def long_caption_step(trainer, state, short: dict) -> dict:
+    """One stage-1 step at bert_words_num = LONG_T[-1] (512, bert-base's
+    position table; the synthetic split's ragged lengths), kernels on (prng
+    mode: K1-K6, K5 with residuals on the tensor-core tile past 128, K6's
+    tensor-core backward) against off, from the same weights as the T = 24
+    comparison (`short`), whose per-module readings are printed beside
+    these. K9 runs its plain version on both sides: its block holds
+    regions x words logits, R T <= 5120 (ops/damsm.py), 26 words at
+    112 x 112 images. The loss is held to the bf16 limit; the gradients
+    are read, not held."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.ops.philox import (
+        compose_drop_bits)
+
+    t_long = LONG_T[-1]
+    on = _twin(trainer, state, bert_words_num=t_long, use_pallas=False)
+    batch = on.to_device(next(iter(on.train_dl)))
+    b, t = batch["caps"].shape
+    bits, seeds = on.draw_drop(b, t)
+    off = _twin(on, state, fused_block="none", fused_ln=False,
+                use_pallas=False)
+    r = _on_off(on, off, batch, (bits, seeds),
+                (compose_drop_bits(on.arch, b, t, "both", bits, seeds),
+                 None), ON_OFF_TOL["bfloat16"]["floor"])
+    longest = int(batch["mask"].sum(1).max())
+    print(f"train: one step at bert_words_num {t_long} (longest caption "
+          f"{longest}), kernels on vs off: loss {r['loss_on']:.6g} / "
+          f"{r['loss_off']:.6g} (rel {r['loss_rel']:.3g}); per module l2 / "
+          "max at T = {0} and at {1}: ".format(
+              trainer.args.bert_words_num, t_long) + "; ".join(
+              f"{m} {short['groups'][m]['l2']:.3g} / "
+              f"{short['groups'][m]['max']:.3g} and {g['l2']:.3g} / "
+              f"{g['max']:.3g}" for m, g in r["groups"].items()),
+          flush=True)
+    if not r["loss_rel"] <= ON_OFF_TOL["bfloat16"]["loss"]:
+        raise AssertionError(f"stage-1 step at t = {t_long}: kernels on/off "
+                             f"loss differs by {r['loss_rel']}")
+    del on, off
+    torch.cuda.empty_cache()
+    return dict(r, longest_caption=longest, t=t)
+
+
 def train_phase(kernels):
     """Stage-1 training at full width; returns the per-kernel launch counts
     of the CLI's run and prints the phase's metrics."""
@@ -2077,6 +2417,8 @@ def train_phase(kernels):
                                  f"in {dt}")
     _faults_caught(planted, ON_OFF_TOL, "K6")
     on_off["planted_k6_faults"] = planted
+    on_off[f"bfloat16_t{LONG_T[-1]}"] = long_caption_step(trainer, state,
+                                                         on_off["bfloat16"])
     torch.cuda.empty_cache()
     _host_mode_counts(host, batch, per_step, kernels, "train")
 
@@ -2273,8 +2615,9 @@ def main(argv=None) -> int:
               "runs the port on an NVIDIA GPU", file=sys.stderr)
         return 1
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels", "phases", "prng",
-                                       "serving", "train", "stage2"))
+    ap.add_argument("--only", choices=("kernels", "launches", "phases",
+                                       "prng", "serving", "train",
+                                       "stage2"))
     only = ap.parse_args(argv).only
     sys.path.insert(0, ROOT)
     from text_guided_face_recognition_tpu_torch.config import load_yaml
@@ -2289,7 +2632,9 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     # the sources and the measurement build of the tower kernels, all at once
-    per_source = _cuda.build(_cuda.SOURCES + tuple(_cuda.VARIANTS))
+    per_source = _cuda.build(
+        ("layernorm", "ffn_block", "attn_block") if only == "launches"
+        else _cuda.SOURCES + tuple(_cuda.VARIANTS))
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{k} {v:.2f} s' for k, v in per_source.items())})",
           flush=True)
@@ -2313,6 +2658,8 @@ def main(argv=None) -> int:
 
     if only == "phases":
         tower_phases(*_tower_inputs(args))
+    if only == "launches":
+        launches_phase(args)
     rows = kernel_phase(args) if only in (None, "kernels") else []
     prng = prng_phase(args, kernels) if only in (None, "prng") else None
     rows += [] if prng is None else prng[2]

@@ -230,29 +230,33 @@ def test_tokenizer_resolution_matches_jax(tmp_path, monkeypatch, jx):
 
 @pytest.mark.parametrize("fused_block", ["both", "tower", "ffn", "attn"])
 def test_long_captions_refused_at_the_config_check(fused_block):
-    """The block kernels take at most 64 tokens with a gradient; without
-    one, 512 in bf16 (K5's tensor-core attention forward, bert-base's
-    position table) and 128 in f32 and for the whole-tower kernel; a longer
+    """In bf16 the half-layer kernels take 512 tokens with a gradient and
+    without one (K5's and K6's tensor-core attention, bert-base's position
+    table); the whole-tower kernels 64 with a gradient and 128 without; in
+    f32 every fused block 64 with a gradient and 128 without. A longer
     bert_words_num is refused where the configuration is checked, before
     any step, and the message names the limit."""
     cfg = PConfig().replace(fused_block=fused_block, bert_words_num=64)
-    pconfig.check_stage1(cfg)
-    pconfig.check_stage2(cfg.replace(fusion_type="fcfm"))
-    for check in (pconfig.check_stage1, pconfig.check_stage2):
-        with pytest.raises(NotImplementedError, match="at most 64 tokens"):
-            check(cfg.replace(bert_words_num=65))
     assert cfg.compute_dtype == "bfloat16"
-    serve = 128 if fused_block == "tower" else 512
-    pconfig.check_serving(cfg.replace(bert_words_num=serve))
-    with pytest.raises(NotImplementedError,
-                       match=f"at most {serve} tokens"):
-        pconfig.check_serving(cfg.replace(bert_words_num=serve + 1))
-    f32 = cfg.replace(compute_dtype="float32")
-    pconfig.check_serving(f32.replace(bert_words_num=128))
-    with pytest.raises(NotImplementedError, match="at most 128 tokens"):
-        pconfig.check_serving(f32.replace(bert_words_num=129))
+    for dtype in ("bfloat16", "float32"):
+        at = cfg.replace(compute_dtype=dtype)
+        train = 512 if dtype == "bfloat16" and fused_block != "tower" else 64
+        serve = 512 if dtype == "bfloat16" and fused_block != "tower" else 128
+        pconfig.check_stage1(at.replace(bert_words_num=train))
+        pconfig.check_stage2(at.replace(fusion_type="fcfm",
+                                        bert_words_num=train))
+        for check in (pconfig.check_stage1, pconfig.check_stage2):
+            with pytest.raises(NotImplementedError,
+                               match=f"at most {train} tokens when a "
+                                     f"gradient is needed in {dtype}"):
+                check(at.replace(bert_words_num=train + 1))
+        pconfig.check_serving(at.replace(bert_words_num=serve))
+        with pytest.raises(NotImplementedError,
+                           match=f"at most {serve} tokens in serving in "
+                                 f"{dtype}"):
+            pconfig.check_serving(at.replace(bert_words_num=serve + 1))
     # unfused, any length
-    off = cfg.replace(fused_block="none", bert_words_num=200)
+    off = cfg.replace(fused_block="none", bert_words_num=600)
     pconfig.check_stage1(off)
     pconfig.check_serving(off)
 

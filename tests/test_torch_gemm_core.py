@@ -19,6 +19,15 @@ and K5 give it, ragged ones too; its sums must be the same bits as the core
 above (what keeps the half-layer chains equal to the tower kernels) and
 over repeated calls and a CUDA graph's replay.
 
+The backward route (the bf16 GEMMs of K4 and K6, on the same design) is
+held the same way: the data gradients (A bf16 row-major, the f32 master stored
+(k, n) used untransposed, rounded into MN-major stages) and the weight
+gradients (both operands bf16 stored (k, m) and (k, n), with the column
+sums of the first operand, the bias gradient, in the same launch), each at
+the shapes K4 and K6 give it and at ragged ones, and bit for bit equal to
+the core's sums in the same operand layouts (what keeps the backward chain
+of half-layers in step with the whole-tower kernel K8).
+
 The cases carry the `cuda` marker and skip without a card; they import no
 JAX, so on the card:
   python -m pytest tests/test_torch_gemm_core.py -m cuda --noconftest -q
@@ -192,6 +201,99 @@ def test_cuda_hl_route_is_the_same_bits_over_calls_and_a_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, first)
+
+
+def hl_bwd_gemm(a, b, m, n, k, mode, bn, colsum=False):
+    """The backward route: mode 1, out (m, n) f32 = A . W, A (m, k) bf16,
+    W (k, n) f32; mode 2, out = G^T . X, G (k, m), X (k, n) bf16, and with
+    `colsum` also G's column sums (m,). bn 0: the route's choice."""
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    sums = (torch.full((m,), float("nan"), device=a.device) if colsum
+            else None)
+    fn = _cuda.function("gemm", "tgfr_hl_bwd_gemm",
+                        (_P,) * 4 + (_I,) * 5 + (_P,))
+    _cuda.launch(fn, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 None if sums is None else sums.data_ptr(), m, n, k, mode,
+                 bn)
+    return out, sums
+
+
+HL_DGRAD, HL_WGRAD = 1, 2
+# (m, n, k) of the data gradients: K4's df = dgg . W2 and dx = df . W1, K6's
+# do = dh . Wo and dx = dqkv . Wqkv at R = 768 token rows; ragged ones
+DGRAD_SHAPES = [(768, 3072, 768), (768, 768, 3072), (768, 768, 768),
+                (768, 768, 2304), (72, 200, 200), (200, 136, 3000)]
+# (m, n, k) of the weight gradients: dW2, dW1, dWo, dWqkv over R = 768
+# token rows; ragged ones (m, n multiples of 8)
+WGRAD_SHAPES = [(768, 3072, 768), (3072, 768, 768), (768, 768, 768),
+                (2304, 768, 768), (200, 136, 72), (72, 264, 130)]
+
+
+def dgrad_operands(m, n, k, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(m, k, generator=g).to(dev, torch.bfloat16)
+    w = torch.randn(k, n, generator=g).to(dev)
+    return a, w, a.float() @ w.bfloat16().float()
+
+
+def wgrad_operands(m, n, k, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(k, m, generator=g).to(dev, torch.bfloat16)
+    x = torch.randn(k, n, generator=g).to(dev, torch.bfloat16)
+    return a, x, a.float().t() @ x.float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", DGRAD_SHAPES)
+def test_cuda_hl_dgrad_matches_matmul(cuda, m, n, k):
+    a, w, ref = dgrad_operands(m, n, k, cuda)
+    check(hl_bwd_gemm(a, w, m, n, k, HL_DGRAD, 0)[0], ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", DGRAD_SHAPES)
+def test_cuda_hl_dgrad_equals_the_core_bit_for_bit(cuda, m, n, k):
+    """The data gradients add the core's products in the core's order: the
+    same bits as the 64-row core at each of its widths, fed the f32 master
+    (K4, K6 before) or the weight rounded to bf16 (the whole-tower kernel
+    K8)."""
+    a, w, _ = dgrad_operands(m, n, k, cuda, seed=2)
+    wb = w.bfloat16().contiguous()
+    got = hl_bwd_gemm(a, w, m, n, k, HL_DGRAD, 0)[0]
+    for core_bn in WIDTHS:
+        assert torch.equal(gemm(a, w, m, n, k, A_ROW, B_WEIGHT_KN, core_bn),
+                           got), core_bn
+        assert torch.equal(gemm(a, wb, m, n, k, A_ROW, B_ACT_KN, core_bn),
+                           got), core_bn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [128, 64])
+@pytest.mark.parametrize("m,n,k", WGRAD_SHAPES)
+def test_cuda_hl_wgrad_matches_matmul(cuda, m, n, k, bn):
+    """The weight gradient and, in the same launch, the column sums of its
+    first operand (bf16 terms summed in f32: 1e-4 of the largest sum)."""
+    a, x, ref = wgrad_operands(m, n, k, cuda)
+    out, sums = hl_bwd_gemm(a, x, m, n, k, HL_WGRAD, bn, colsum=True)
+    check(out, ref)
+    check(sums, a.float().sum(0))
+    assert torch.equal(hl_bwd_gemm(a, x, m, n, k, HL_WGRAD, bn)[0], out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", WGRAD_SHAPES)
+def test_cuda_hl_wgrad_equals_the_core_bit_for_bit(cuda, m, n, k):
+    """The weight gradients are the core's sums bit for bit at every width,
+    and their column sums the same bits over repeated calls."""
+    a, x, _ = wgrad_operands(m, n, k, cuda, seed=4)
+    first = None
+    for bn in (128, 64):
+        got, sums = hl_bwd_gemm(a, x, m, n, k, HL_WGRAD, bn, colsum=True)
+        for core_bn in WIDTHS:
+            assert torch.equal(gemm(a, x, m, n, k, A_TRANS, B_ACT_KN,
+                                    core_bn), got), (bn, core_bn)
+        first = sums if first is None else first
+        assert torch.equal(sums, first), bn
 
 
 # -- the whole-tower kernels at a ragged size: R = 72 token rows, one full

@@ -455,21 +455,25 @@ def test_cuda_attn_block_matches_plain_at_flagship_shapes(cuda, tdt, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("t_len", [24, 129, 200, 512])
 def test_cuda_attn_block_takes_long_captions_in_bf16(cuda, t_len):
-    """The bf16 forward without residuals at T up to 512, keys padded in
-    every caption but the first; with residuals the limit stays 64, and in
-    f32 128."""
+    """The bf16 forward at T up to 512, keys padded in every caption but the
+    first, without residuals (serving) and with them (training: p included;
+    the tensor-core tile past 128); in f32 the limit stays 128, and 64 with
+    residuals."""
     p = _flagship(cuda, t=t_len, b=2, seed=t_len)
     x = p["x"].bfloat16()
     args = (p["mask"], p["wqkv"], p["bqkv"], p["wo"], p["bo"], p["g"],
             p["b"], 2, t_len, FHEADS)
     for kw in (dict(rate=0.0), dict(rate=0.1, seed=p["seed"])):
+        want = block.attn_block_fwd_ref(x, *args, **kw)
         got = block.attn_block_fwd(x, *args, save=False, **kw)[0]
-        torch.testing.assert_close(
-            got.float(), block.attn_block_fwd_ref(x, *args, **kw)[0].float(),
-            rtol=2e-2, atol=2e-2)
+        torch.testing.assert_close(got.float(), want[0].float(), rtol=2e-2,
+                                   atol=2e-2)
+        for name, a, b in zip(("y", "qkv", "p", "o", "r"),
+                              block.attn_block_fwd(x, *args, **kw), want):
+            _hold(name, a, b, 2e-2, f"t={t_len} {kw['rate']} {name}")
     if t_len > block.MAX_T_BWD:
         with pytest.raises(ValueError, match=f"t <= {block.MAX_T_BWD}"):
-            block.attn_block_fwd(x, *args)
+            block.attn_block_fwd(p["x"], *args)
     if t_len > block.MAX_T_FWD_SCALAR:
         with pytest.raises(ValueError, match="t <= 128"):
             block.attn_block_fwd(p["x"], *args, save=False)

@@ -249,6 +249,58 @@ def test_attn_block_train_matches_jax(jx, jdt, tdt, tol, rate):
         close(a, b, tol, scaled=i > 0, what=f"grad {i}")
 
 
+@pytest.mark.parametrize("t_len", [72])
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
+def test_attn_block_train_matches_jax_at_a_long_caption(jx, jdt, tdt, tol,
+                                                        t_len):
+    """attn_block with its residuals and gradients at a caption longer
+    than the 64 tokens the bf16 training kernels took before (2 captions,
+    H 128, 2 heads, a ragged mask), host bits, against the JAX kernel in
+    Pallas interpret mode."""
+    b, h, heads = 2, 128, 2
+    rng = np.random.default_rng(t_len)
+    f = np.float32
+    r = b * t_len
+    p = dict(x=rng.normal(size=(r, h)).astype(f),
+             dy=rng.normal(size=(r, h)).astype(f),
+             wqkv=(rng.normal(size=(h, 3 * h)) / np.sqrt(h)).astype(f),
+             bqkv=rng.normal(0, 0.1, 3 * h).astype(f),
+             wo=(rng.normal(size=(h, h)) / np.sqrt(h)).astype(f),
+             bo=rng.normal(0, 0.1, h).astype(f),
+             g=(1 + rng.normal(0, 0.1, h)).astype(f),
+             b=rng.normal(0, 0.1, h).astype(f))
+    bp = rng.integers(0, 1 << 32, (heads * b, t_len, t_len), dtype=np.uint32)
+    bh = rng.integers(0, 1 << 32, (r, h), dtype=np.uint32)
+    mask = ragged_mask(b, t_len, 5)
+    names = ("wqkv", "bqkv", "wo", "bo", "g", "b")
+    jmask = jx.a(mask, "int32")
+    jbp, jbh = jx.a(bp, "uint32"), jx.a(bh, "uint32")
+
+    def fj(x_, *w):
+        return jx.bp.attn_block(x_, jmask, *w, jbp, jbh, jx.seed, b, t_len,
+                                heads, RATE, 1e-12, False, True)
+
+    args_j = (jx.a(p["x"], jdt), *(jx.a(p[k]) for k in names))
+    y_j, vjp = jx.jax.vjp(fj, *args_j)
+    grads_j = vjp(jx.a(p["dy"], jdt))
+    _, (_, _, qkv_j, p_j, o_j, r_j, *_) = jx.bp._attn_fwd(
+        args_j[0], jmask, *args_j[1:], jbp, jbh, jx.seed, b, t_len, heads,
+        RATE, 1e-12, False, True)
+    got = block.attn_block_fwd_ref(
+        t(p["x"], tdt), t(mask), *(t(p[k]) for k in names), b, t_len, heads,
+        bits(bp), bits(bh), RATE)
+    for a, c in zip(got, (y_j, qkv_j, p_j, o_j, r_j)):
+        close(a, c, tol)
+    ins = [t(p["x"], tdt).requires_grad_()] + [
+        t(p[k]).requires_grad_() for k in names]
+    out = block.attn_block(ins[0], t(mask), *ins[1:], b, t_len, heads, RATE,
+                           bits_p=bits(bp), bits_h=bits(bh))
+    close(out, y_j, tol)
+    for i, (a, c) in enumerate(zip(_grads(out, ins, t(p["dy"], tdt)),
+                                   grads_j)):
+        close(a, c, tol, scaled=i > 0, what=f"grad {i}")
+
+
 def test_dropout_matches_the_jax_plan(jx):
     from text_guided_face_recognition_tpu.models.text_bert import _DropPlan
     rng = np.random.default_rng(3)
@@ -650,6 +702,72 @@ def test_cuda_attn_block_train_matches_plain(cuda, tdt, tol, rate):
     want = block.attn_block_bwd_ref(dy, x, qkv, pp, o, r, *args)
     for a, b in zip(got, want):
         _close_cuda(a, b, tol, True)
+
+
+def _long(dev, t_len, seed):
+    """bert-base's widths (H 768, 12 heads, I 3072) at B 2 captions of
+    t_len tokens, the second caption's keys padded past a third."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g) * std).to(dev)
+
+    h, i, b = 768, 3072, 2
+    p = dict(x=rn(b * t_len, h), dy=rn(b * t_len, h), g=1.0 + rn(h, std=0.1),
+             b=rn(h, std=0.1), wqkv=rn(3 * h, h, std=h ** -0.5).t(),
+             bqkv=rn(3 * h, std=0.1), wo=rn(h, h, std=h ** -0.5).t(),
+             bo=rn(h, std=0.1), w1=rn(i, h, std=h ** -0.5).t(),
+             c1=rn(i, std=0.1), w2=rn(h, i, std=i ** -0.5).t(),
+             c2=rn(h, std=0.1))
+    mask = torch.ones(b, t_len, dtype=torch.int32)
+    mask[1, max(1, t_len // 3):] = 0
+    p["mask"] = mask.to(dev)
+    p["bits_p"] = torch.randint(-2 ** 31, 2 ** 31 - 1, (12 * b, t_len, t_len),
+                                generator=g, dtype=torch.int32).to(dev)
+    p["bits_h"] = torch.randint(-2 ** 31, 2 ** 31 - 1, (b * t_len, h),
+                                generator=g, dtype=torch.int32).to(dev)
+    p["seed"] = torch.tensor([9], dtype=torch.int32, device=dev)
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_len", [24, 64, 65, 200, 512])
+@pytest.mark.parametrize("tdt,tol", CUDA_DTYPES)
+def test_cuda_half_layer_bwds_at_caption_lengths(cuda, tdt, tol, t_len):
+    """K4 and K6 against their plain versions at bert-base's widths and
+    T from 24 to 512, host bits and prng mode, each from the plain
+    forward's residuals; f32 (the scalar attention tiles) up to its limit
+    of 64, past which K6 refuses it."""
+    p = _long(cuda, t_len, seed=t_len)
+    x, dy = p["x"].to(tdt), p["dy"].to(tdt)
+    aw = (p["wqkv"], p["bqkv"], p["wo"], p["bo"], p["g"], p["b"])
+    fw = (p["w1"], p["c1"], p["w2"], p["c2"], p["g"], p["b"])
+    if t_len > block.max_t(tdt, True):
+        res = block.attn_block_fwd_ref(x, p["mask"], *aw, 2, t_len, 12)
+        with pytest.raises(ValueError, match=f"t <= {block.max_t(tdt, True)}"):
+            block.attn_block_bwd(dy, x, *res[1:], p["wqkv"], p["wo"],
+                                 p["g"], 2, t_len, 12)
+        return
+    for mode, akw, fkw in (
+            ("host", dict(bits_p=p["bits_p"], bits_h=p["bits_h"]),
+             dict(bits=p["bits_h"])),
+            ("prng", dict(seed=p["seed"]), dict(seed=p["seed"]))):
+        res = block.attn_block_fwd_ref(x, p["mask"], *aw, 2, t_len, 12,
+                                       rate=RATE, **akw)
+        args = (dy, x, *res[1:], p["wqkv"], p["wo"], p["g"], 2, t_len, 12)
+        for k, (a, b) in enumerate(zip(
+                block.attn_block_bwd(*args, rate=RATE, **akw),
+                block.attn_block_bwd_ref(*args, rate=RATE, **akw))):
+            assert (a - b).float().abs().max() <= tol * max(
+                1.0, b.float().abs().max().item()), (mode, "K6", k)
+        _, f, act, r = block.ffn_block_fwd_ref(x, *fw, rate=RATE, **fkw)
+        got = block.ffn_block_bwd(dy, x, f, act, r, p["w1"], p["w2"],
+                                  p["g"], rate=RATE, **fkw)
+        want = block.ffn_block_bwd_ref(dy, x, f, r, p["w1"], p["w2"],
+                                       p["g"], rate=RATE, **fkw)
+        for k, (a, b) in enumerate(zip(got, want)):
+            assert (a - b).float().abs().max() <= tol * max(
+                1.0, b.float().abs().max().item()), (mode, "K4", k)
 
 
 @pytest.mark.cuda

@@ -256,13 +256,15 @@ class TGFRConfig:
 
 
 def check_caption_length(cfg: TGFRConfig, grad: bool) -> None:
-    """Refuse captions longer than the block kernels take, before any step:
-    with `fused_block` other than none, the attention kernels (ops/block.py
-    `max_t`) take at most MAX_T_BWD (64) tokens when a gradient is needed;
-    without one, MAX_T_FWD (512, bert-base's position table) in bf16 and
-    MAX_T_FWD_SCALAR (128) in f32 and for the whole-tower kernel
-    (`tower`). The JAX kernels have no such limit. Widening the training
-    limit waits for the attention backward's rework (ROADMAP.md, Queue 2)."""
+    """Refuse captions longer than the block kernels take, before any step.
+    With `fused_block` other than none the attention kernels (ops/block.py
+    `max_t`) take, in bf16, at most MAX_T_FWD (512, bert-base's position
+    table) tokens with a gradient and without one (K5's and K6's
+    tensor-core attention); in f32 and for the whole-tower kernels
+    (`tower`), at most MAX_T_BWD (64) tokens when a gradient is needed
+    (the f32 scalar tiles; K7's scalar tile with residuals and K8's sizing)
+    and MAX_T_FWD_SCALAR (128) without one. The JAX kernels have no such
+    limit; the limits still open are listed in ROADMAP.md, Queue 3."""
     if cfg.fused_block == "none":
         return
     import torch
@@ -275,11 +277,11 @@ def check_caption_length(cfg: TGFRConfig, grad: bool) -> None:
             f"fused_block={cfg.fused_block!r} with bert_words_num="
             f"{cfg.bert_words_num}: the block kernels take captions of at "
             f"most {limit} tokens "
-            + ("when a gradient is needed" if grad else
-               f"in serving in {cfg.compute_dtype}")
-            + " (ops/block.py); longer captions wait for the attention "
-            "kernels' rework (ROADMAP.md, Queue 2). Use fused_block='none' "
-            f"or bert_words_num <= {limit}.")
+            + ("when a gradient is needed" if grad else "in serving")
+            + f" in {cfg.compute_dtype} (ops/block.py max_t); longer "
+            "captions wait for the rework of the kernels named in "
+            "ROADMAP.md, Queue 3. Use fused_block='none' or "
+            f"bert_words_num <= {limit}.")
 
 
 def check_serving(cfg: TGFRConfig) -> None:

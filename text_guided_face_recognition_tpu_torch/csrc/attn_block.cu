@@ -19,17 +19,19 @@
 //       softmax, probabilities rounded to the activation type (and saved,
 //       before dropout, as p (heads*B, T, T) when the backward will need
 //       them), dropped, then P.V, the context o rounded into a (R, H)
-//       buffer. In bf16 without residuals (serving) on tensor cores
-//       (attention_mma_kernel: 4 warps a block, 2 pairs a block at
-//       T <= 32, a warp's 16 query rows against keys in blocks of 64 from
-//       shared memory in two passes, the row maxima and sums, then the
-//       probabilities and P.V), so T goes to 512; with residuals
-//       (training, T <= 64) and in f32 (T <= 128) one block per (caption,
-//       head) with q, k, v and the scores in shared memory as f32, the
-//       tile the whole-tower kernel K7 runs, so that the chain of
-//       half-layers the training checks hold against K7 adds the same
-//       values (K7 with the tensor-core tile ran 18 % slower in all, every
-//       phase of it, in development runs on the H100);
+//       buffer. In bf16 without residuals (serving), and with them past
+//       t = 128, on tensor cores (attention_mma_kernel: 4 warps a block,
+//       2 pairs a block at T <= 32, a warp's 16 query rows against keys in
+//       blocks of 64 from shared memory in two passes, the row maxima and
+//       sums, then the probabilities (saved when the backward needs them)
+//       and P.V), so T goes to 512; with residuals up to t = 128 and in f32
+//       (T <= 128) one block per (caption, head) with q, k, v and the
+//       scores in shared memory as f32, the tile the whole-tower kernel K7
+//       runs, so that the chain of half-layers the training checks hold
+//       against K7 adds the same values (K7 with the tensor-core tile ran
+//       18 % slower in all, every phase of it, in development runs on the
+//       H100; K7 takes t <= 128, so no chain needs the scalar tile past
+//       it);
 //   (c) r = x + drop(o . Wo + bo), dropout and the residual fused into the
 //       GEMM epilogue.
 // Dropout bits: host-drawn (bits_p, bits_h), or (prng mode) the stream of
@@ -44,16 +46,23 @@
 // Backward. Bound: bytes: 32 MB with the f32 weight gradients and the
 // dropout bits (9.6 us at 3.35 TB/s) against 7.4 GFLOP (7.4 us at
 // 989 TFLOP/s), at the shapes above, as chip_smoke.py counts them. Six
-// launches around one per-head kernel:
+// launches, the GEMMs in bf16 on common.cuh's backward route (the core's
+// layouts and order of sums), the weight gradients on a second stream
+// beside the data path:
 //   (1) the LN backward row pass from r (K2's kernel in common.cuh), then
 //       the dropout: dr and dh = drop(dr), with dgamma, dbeta and dbo
 //       summed over the rows in the same launch, in a fixed order;
-//   (2) dWo = dh^T . o, f32;  (3) do = r(dh . Wo);
-//   (4) one block per (batch row, head), everything in shared memory:
-//       dv = p_drop^T . do, dp = do . v^T with the probability mask,
-//       ds = r(p (dp - sum(dp p)) / sqrt(64)), dq = ds . k, dk = ds^T . q,
-//       each rounded into dqkv (R, 3H) at the TPU kernel's rounding points;
-//   (5) dWqkv = dqkv^T . x, f32, and dbqkv = column sums of dqkv;
+//   (2) dWo = dh^T . o, f32 (second stream);  (3) do = r(dh . Wo);
+//   (4) the per-head backward: dv = p_drop^T . do, dp = do . v^T with the
+//       probability mask, ds = r(p (dp - sum(dp p)) / sqrt(64)),
+//       dq = ds . k, dk = ds^T . q, each rounded into dqkv (R, 3H) at the
+//       TPU kernel's rounding points: in bf16 on tensor cores
+//       (attention_bwd_mma_kernel, keys and queries in blocks of 64, so T
+//       goes to 512; the whole-tower kernel K8 runs the same tile), in f32
+//       the scalar tile (one block per (caption, head), everything in
+//       shared memory as f32, T <= 64);
+//   (5) dWqkv = dqkv^T . x, f32, with dbqkv = the column sums of dqkv in
+//       the same launch (second stream);
 //   (6) dx = r(dr + r(dqkv . Wqkv)).
 // Weight gradients are f32, in nn.Linear's (out, in) layout.
 #include "common.cuh"
@@ -78,28 +87,30 @@ int run_fwd(const void* x, const int* mask, const float* wqkv,
   constexpr bool kRoute = std::is_same<T, __nv_bfloat16>::value;
   const int rows = b * t;
   const float inv = 1.0f / sqrtf(static_cast<float>(tgfr::kDHead));
-  if (t > (kRoute && !p ? tgfr::kAttnMaxT : tgfr::kAttnScalarMaxT))
+  if (t > (kRoute ? tgfr::kAttnMaxT : tgfr::kAttnScalarMaxT))
     return static_cast<int>(cudaErrorInvalidValue);
   tgfr::GemmArgs proj = tgfr::gemm_args(x, wqkv, qkv, rows, 3 * h, h);
   proj.bias = bqkv;
   cudaError_t err = tgfr::launch_forward_gemm<T, tgfr::kEpiBias>(proj, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  // with residuals (training, and every f32 call) the scalar tile, which
-  // the whole-tower kernel runs too; without them in bf16 (serving) the
-  // tensor-core tile, t up to 512
+  // the scalar tile with residuals up to t = 128 (training, which the
+  // whole-tower kernel's chain must equal) and in f32; the tensor-core
+  // tile without them (serving) and with them past 128, t up to 512
   bool scalar = true;
   if constexpr (kRoute) {
-    if (!p) {
+    if (!p || t > tgfr::kAttnScalarMaxT) {
       scalar = false;
       const int pairs = tgfr::attn_pairs_per_block(t);
       const size_t smem = tgfr::attn_mma_smem_bytes(t, pairs);
-      err = set_smem(tgfr::attention_mma_kernel, smem);
+      const auto kernel = p ? tgfr::attention_mma_kernel<true>
+                            : tgfr::attention_mma_kernel<false>;
+      err = set_smem(kernel, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
-      tgfr::attention_mma_kernel<<<(b * heads + pairs - 1) / pairs,
-                                   tgfr::kAttnThreads, smem, s>>>(
-          static_cast<const T*>(qkv), mask, drop_p, thr, scale,
-          static_cast<T*>(ctx), b, t, h, inv, pairs);
+      kernel<<<(b * heads + pairs - 1) / pairs, tgfr::kAttnThreads, smem,
+               s>>>(static_cast<const T*>(qkv), mask, drop_p, thr, scale,
+                    static_cast<T*>(p), static_cast<T*>(ctx), b, t, h, inv,
+                    pairs);
     }
   }
   if (scalar) {
@@ -128,6 +139,37 @@ int run_fwd(const void* x, const int* mask, const float* wqkv,
   return static_cast<int>(err);
 }
 
+// The per-head backward: bf16 on tensor cores (attention_bwd_mma_kernel,
+// t up to 512), f32 the scalar tile (t up to 64: its shared memory).
+template <typename T>
+cudaError_t launch_attention_bwd(const T* qkv, const T* p, const T* dout,
+                                 const tgfr::DropSrc& drop_p, unsigned thr,
+                                 float scale, T* dqkv, int b, int t, int h,
+                                 cudaStream_t s) {
+  const float inv = 1.0f / sqrtf(static_cast<float>(tgfr::kDHead));
+  const int heads = h / tgfr::kDHead;
+  cudaError_t err;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (t > tgfr::kAttnMaxT) return cudaErrorInvalidValue;
+    const int pairs = tgfr::attn_pairs_per_block(t);
+    const size_t smem = tgfr::attn_bwd_mma_smem_bytes(t, pairs);
+    err = set_smem(tgfr::attention_bwd_mma_kernel, smem);
+    if (err != cudaSuccess) return err;
+    tgfr::attention_bwd_mma_kernel<<<(b * heads + pairs - 1) / pairs,
+                                     tgfr::kAttnThreads, smem, s>>>(
+        qkv, p, dout, drop_p, thr, scale, dqkv, b, t, h, inv, pairs);
+  } else {
+    if (t > tgfr::kAttnScalarBwdMaxT) return cudaErrorInvalidValue;
+    const size_t smem = tgfr::attn_bwd_smem_bytes(t);
+    err = set_smem(tgfr::attention_core_bwd_kernel<T>, smem);
+    if (err != cudaSuccess) return err;
+    tgfr::attention_core_bwd_kernel<T>
+        <<<dim3(b, heads), tgfr::kAttnThreads, smem, s>>>(
+        qkv, p, dout, drop_p, thr, scale, dqkv, b, t, h, inv);
+  }
+  return cudaGetLastError();
+}
+
 template <typename T>
 int run_bwd(const void* dy, const void* x, const void* qkv, const void* p,
             const void* o, const void* r, const float* wqkv, const float* wo,
@@ -144,36 +186,35 @@ int run_bwd(const void* dy, const void* x, const void* qkv, const void* p,
       static_cast<T*>(dr), drop_h.on() ? dh_t : nullptr, drop_h, thr, scale,
       part, dln, counter, rows, h, eps, s);
   if (err != cudaSuccess) return static_cast<int>(err);
+  // the weight gradients on the side stream, beside the data gradients
+  tgfr::SideStream* side = nullptr;
+  err = tgfr::side_stream(&side);
+  if (err == cudaSuccess) err = tgfr::side_fork(side, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   // (2) dWo (h, h) = dh^T . o
-  err = tgfr::launch_weight_grad<T>(dh_t, o, dwo, h, h, rows, s);
+  err = tgfr::launch_weight_grad<T>(dh_t, o, dwo, nullptr, h, h, rows,
+                                    side->stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   // (3) do = r(dh . Wo); Wo is (h, h) = (K, N)
-  err = tgfr::launch_gemm<T, tgfr::kEpiBias, tgfr::kARowMajor,
-                          tgfr::kBWeightKN>(
+  err = tgfr::launch_data_grad<T, tgfr::kEpiBias>(
       tgfr::gemm_args(dh_t, wo, dout, rows, h, h), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   // (4) the per-head backward into dqkv
-  const size_t smem = tgfr::attn_bwd_smem_bytes(t);
-  err = set_smem(tgfr::attention_core_bwd_kernel<T>, smem);
+  err = launch_attention_bwd<T>(static_cast<const T*>(qkv),
+                                static_cast<const T*>(p),
+                                static_cast<const T*>(dout), drop_p, thr,
+                                scale, static_cast<T*>(dqkv), b, t, h, s);
+  if (err == cudaSuccess) err = tgfr::side_fork(side, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  tgfr::attention_core_bwd_kernel<T>
-      <<<dim3(b, heads), tgfr::kAttnThreads, smem, s>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(p),
-      static_cast<const T*>(dout), drop_p, thr, scale, static_cast<T*>(dqkv),
-      b, t, h, 1.0f / sqrtf(static_cast<float>(tgfr::kDHead)));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // (5) dWqkv (3h, h) = dqkv^T . x and dbqkv
-  err = tgfr::launch_weight_grad<T>(dqkv, x, dwqkv, 3 * h, h, rows, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = tgfr::launch_colsum<T>(static_cast<const T*>(dqkv), rows, 3 * h,
-                               dbqkv, s);
+  // (5) dWqkv (3h, h) = dqkv^T . x, and dbqkv, the column sums of dqkv
+  err = tgfr::launch_weight_grad<T>(dqkv, x, dwqkv, dbqkv, 3 * h, h, rows,
+                                    side->stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   // (6) dx = r(dr + r(dqkv . Wqkv)); Wqkv is (3h, h) = (K, N)
   tgfr::GemmArgs dxa = tgfr::gemm_args(dqkv, wqkv, dx, rows, h, 3 * h);
   dxa.resid = dr;
-  err = tgfr::launch_gemm<T, tgfr::kEpiBiasResidual, tgfr::kARowMajor,
-                          tgfr::kBWeightKN>(dxa, s);
+  err = tgfr::launch_data_grad<T, tgfr::kEpiBiasResidual>(dxa, s);
+  if (err == cudaSuccess) err = tgfr::side_join(side, s);
   return static_cast<int>(err);
 }
 

@@ -34,6 +34,7 @@
 #include <cfloat>
 #include <cstddef>
 #include <cstdint>
+#include <mutex>
 #include <type_traits>
 #include <cuda/atomic>
 #include <cuda.h>
@@ -1021,10 +1022,9 @@ __device__ __forceinline__ void gelu_rows(const T* f, T* a, size_t n) {
 // as zeros and is not stored.
 //
 // bf16 runs on Hopper's warpgroup MMA (`wgmma.mma_async`, the only way to
-// the card's full tensor-core rate), the one core of the half-layer
-// backwards K4/K6 (through launch_gemm) and the tower kernels K7/K8 (through
-// their phases); the forwards K3/K5 run the half-layer route below, whose
-// sums are this core's bit for bit, so the tower and the chains of
+// the card's full tensor-core rate), the one core of the tower kernels
+// K7/K8 (through their phases); the half-layers K3-K6 run the routes below,
+// whose sums are this core's bit for bit, so the tower and the chains of
 // half-layers add the same products in the same order:
 // - a 64 x BN output tile, BN 48 or 96 (gemm_width), the whole K in each
 //   tile, no split-K; at R = 384 token rows the N = 768 GEMMs take 96
@@ -1403,6 +1403,28 @@ template <> struct Wgmma<48> {
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
           "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <> struct Wgmma<64> {
+  template <int TA, int TB>
+  __device__ static void mma(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
         : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
   }
 };
@@ -1835,16 +1857,6 @@ cudaError_t launch_gemm(GemmArgs p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// dW (M, N) f32 = G^T X: G stored (K, M), X stored (K, N), both type T; the
-// weight gradient of a Linear with output G and input X in nn.Linear's
-// (out, in) layout, contracting over the K token rows.
-template <typename T>
-cudaError_t launch_weight_grad(const void* g, const void* x, float* dw, int m,
-                               int n, int k, cudaStream_t stream) {
-  return launch_gemm<T, kEpiF32, kATransposed, kBActKN>(
-      gemm_args(g, x, dw, m, n, k), stream);
-}
-
 // ---------------------------------------------------------------------------
 // The half-layer GEMM route: the four bf16 GEMMs of the forward half-layers
 // K3 (f = x . W1^T + c1 with GELU; r = x + drop(act . W2^T + c2)) and K5
@@ -2176,6 +2188,397 @@ cudaError_t launch_forward_gemm(GemmArgs p, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
+// The backward GEMM route: the bf16 GEMMs of the half-layer backwards K4
+// and K6 on the route's design above (128 x BN tiles by two consumer
+// warpgroups on wgmma, a producer warpgroup, TMA copies, mbarrier
+// hand-over), in the backward's layouts (HlMode):
+//   kHlDgrad  out (M, N) = epilogue(A . W), A (M, K) bf16 row-major, W the
+//             f32 master stored (K, N) and used untransposed: the data
+//             gradients, K4's df = r(r(dgg . W2) gelu'(f)) and
+//             dx = r(dr + r(df . W1)), K6's do = r(dh . Wo) and
+//             dx = r(dr + r(dqkv . Wqkv));
+//   kHlWgrad  out (M, N) f32 = G^T . X, G stored (K, M) and X stored (K, N),
+//             both bf16 activations, K the token rows: the weight gradients
+//             dW2, dW1 (K4), dWo, dWqkv (K6) in nn.Linear's (out, in)
+//             layout; with `colsum` the tiles of the first column block
+//             also sum G's columns over the K rows, the bias gradient (dc1,
+//             dbqkv) that a launch of its own used to read G again for.
+//
+// Replaces, with the LN rows and the attention blocks, the GEMMs of
+// block_pallas.py `_ffn_bwd_kernel` and `_attn_bwd_kernel`.
+//
+// Bound on the H100: at R = 768, H = 768, I = 3072 the eight GEMMs are
+// 21.7 GFLOP, 22 us at 989 TFLOP/s. The 64-row core above, which ran them
+// before, re-reads the whole weight as f32 for every 64-row tile, through
+// the MMA warps' registers, with loads and MMAs on the same warps.
+//
+// This design, beside the forward route's:
+// - kHlDgrad: TMA copies W's f32 box of 64 k-rows x BN columns into a
+//   staging slot; the producer warpgroup rounds it to bf16 into the MN-major
+//   atoms of 64 columns that the descriptor's transpose bit reads, the
+//   layout the core stages W (K, N) in. Width 48 (hl_dgrad_width): on the
+//   H100 it beat 96 and 128 at every data gradient of K4 and K6
+//   (development runs; the narrow tiles' extra waves cost less than the
+//   wide tiles' fewer blocks).
+// - kHlWgrad: both operands bf16, so no rounding: one producer thread has
+//   TMA copy them straight into MN-major atoms (boxes of 64 x 64) and the
+//   consumers wait on the copies themselves. Width 64 or 128
+//   (hl_wgrad_width).
+// - The operand layouts are the core's for the same GEMM (A K-major and B
+//   MN-major for the data gradients, both MN-major for the weight
+//   gradients), and each output adds its K steps from 0 in the core's
+//   order, so the sums are the core's bit for bit and the chain of
+//   half-layer backwards stays in step with the whole-tower kernel K8.
+// - The column sums: each consumer thread adds one column's 32 elements of
+//   each staged step in row order while the step's MMAs run, the two
+//   halves of the 64 rows added last: a fixed order, no atomics.
+// - The epilogue is wg_epilogue, so every rounding point is the one at
+//   the top of this file.
+// ---------------------------------------------------------------------------
+
+enum HlMode { kHlDgrad = 1, kHlWgrad = 2 };
+
+// The ring of a mode and width: kStages stages; kAhead steps the copies
+// run ahead of the rounding (kHlDgrad; f32 slots kAhead + 1), none for
+// kHlWgrad, whose copies land in the stages themselves.
+template <int MODE, int BN> struct HlBwdRing;
+template <> struct HlBwdRing<kHlDgrad, 48> {
+  static constexpr int kStages = 7, kAhead = 3;
+};
+template <> struct HlBwdRing<kHlWgrad, 64> {
+  static constexpr int kStages = 8, kAhead = 0;
+};
+template <> struct HlBwdRing<kHlWgrad, 128> {
+  static constexpr int kStages = 6, kAhead = 0;
+};
+
+template <int BN> __host__ __device__ constexpr int hl_bwd_stage_bytes() {
+  return kHlConsumers * kWgAtom + ((BN + 63) / 64) * kWgAtom;
+}
+
+// Dynamic shared memory: 1 KB of alignment, the ring, the f32 staging
+// slots of kHlDgrad (kAhead + 1 of 64 x BN floats).
+template <int MODE, int BN>
+__host__ __device__ constexpr size_t hl_bwd_smem_bytes() {
+  using Ring = HlBwdRing<MODE, BN>;
+  return 1024 + (size_t)Ring::kStages * hl_bwd_stage_bytes<BN>() +
+         (MODE == kHlDgrad ? (size_t)(Ring::kAhead + 1) * BN * 256 : 0);
+}
+
+// The data gradients' width (see the section note).
+constexpr int kHlDgradWidth = 48;
+
+// The tile width of a weight gradient (m, n), of 128 and 64: the one whose
+// waves of tiles over the 132 SMs, each as long as the bytes a tile stages
+// a K step (128 rows of G and BN of X, bf16), take least; the wider on a
+// tie. (At R = 768 it picks what the H100 measured fastest in development
+// runs: 128 for dW2, dW1 and dWqkv, 64 for dWo.)
+inline __host__ __device__ int hl_wgrad_width(int m, int n) {
+  const int rows = (m + kHlBM - 1) / kHlBM;
+  const int wide = rows * ((n + 127) / 128), narrow = rows * ((n + 63) / 64);
+  return (long long)((narrow + 131) / 132) * (2 * kHlBM + 2 * 64) <
+                 (long long)((wide + 131) / 132) * (2 * kHlBM + 2 * 128)
+             ? 64
+             : 128;
+}
+
+// map_a: A (kHlDgrad: (M, K), boxes of 128 x 64; kHlWgrad: G (K, M), boxes
+// of 64 x 64); map_w: kHlDgrad W (K, N) f32, boxes of 64 x BN; kHlWgrad X
+// (K, N) bf16, boxes of 64 x 64. colsum: kHlWgrad's column sums of G, or
+// null.
+template <int MODE, int EPI, int BN>
+__global__ void __launch_bounds__(kHlThreads, 1)
+hl_bwd_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_w, GemmArgs p,
+                   float* colsum) {
+  constexpr int kStages = HlBwdRing<MODE, BN>::kStages;
+  constexpr int kAhead = HlBwdRing<MODE, BN>::kAhead;
+  constexpr bool kWg = MODE == kHlWgrad;
+  extern __shared__ __align__(128) unsigned char hl_sm[];
+  __shared__ __align__(8) uint64_t loaded[kStages], full[kStages],
+      empty[kStages];
+  __shared__ float csum[kWg ? kHlConsumers : 1][128];
+  constexpr int kSB = hl_bwd_stage_bytes<BN>();
+  constexpr int kSlot = BN * 256;        // an f32 staging slot: 64 x BN
+  constexpr int kBPer = BN * 8 / 128;    // B chunks a producer thread
+  constexpr int kBBoxes = (BN + 63) / 64;
+  const uint32_t raw = smem_u32(hl_sm);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = hl_sm + (base - raw);
+  const uint32_t slots = base + kStages * kSB;
+  const unsigned char* gslots = gbase + kStages * kSB;
+  const int tiles_n = (p.n + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * kHlBM;
+  const int n0 = (blockIdx.x % tiles_n) * BN;
+  const int nk = (p.k + kWgBK - 1) / kWgBK;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&loaded[s], 1);
+      mbar_init(&full[s], 128);
+      mbar_init(&empty[s], 4 * kHlConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  if (wg == 0) {
+    if constexpr (kWg) {
+      // thread 0: every step's copies straight into its stage
+      if (tid == 0) {
+        for (int j = 0; j < nk; ++j) {
+          const int s = j % kStages;
+          if (j >= kStages) mbar_wait(&empty[s], ((j / kStages) - 1) & 1);
+          mbar_expect_tx(&loaded[s], (kHlConsumers + kBBoxes) * kWgAtom);
+          const uint32_t st = base + s * kSB;
+#pragma unroll
+          for (int c = 0; c < kHlConsumers; ++c)
+            tma_load_2d(st + c * kWgAtom, &map_a, m0 + 64 * c, j * kWgBK,
+                        &loaded[s]);
+#pragma unroll
+          for (int c = 0; c < kBBoxes; ++c)
+            tma_load_2d(st + (kHlConsumers + c) * kWgAtom, &map_w,
+                        n0 + 64 * c, j * kWgBK, &loaded[s]);
+        }
+      }
+    } else {
+      // step i into stage i % kStages and f32 slot i % (kAhead + 1)
+      auto issue = [&](int j) {     // thread 0: the copies of step j
+        if (j >= kStages)           // the consumers are done with its stage
+          mbar_wait(&empty[j % kStages], ((j / kStages) - 1) & 1);
+        uint64_t* bar = &loaded[j % kStages];
+        mbar_expect_tx(bar, kHlBM * 128 + kSlot);
+        tma_load_2d(base + (j % kStages) * kSB, &map_a, j * kWgBK, m0, bar);
+        tma_load_2d(slots + (j % (kAhead + 1)) * kSlot, &map_w, n0,
+                    j * kWgBK, bar);
+      };
+      if (tid == 0)
+        for (int j = 0; j < kAhead && j < nk; ++j) issue(j);
+      for (int i = 0; i < nk; ++i) {
+        // every producer thread is done with step i - 1's f32 slot, which
+        // step i + kAhead's copy overwrites
+        if (i > 0) named_sync(1, 128);
+        if (tid == 0 && i + kAhead < nk) issue(i + kAhead);
+        mbar_wait(&loaded[i % kStages], (i / kStages) & 1);
+        unsigned char* sb = gbase + (i % kStages) * kSB +
+                            kHlConsumers * kWgAtom;
+        const unsigned char* sf = gslots + (i % (kAhead + 1)) * kSlot;
+#pragma unroll
+        for (int u = 0; u < kBPer; ++u) {
+          // columns 8 cc .. of row r (a k) of the slot into the atom of 64
+          // columns that holds them
+          const int q = tid + u * 128, r = q / (BN / 8), cc = q % (BN / 8);
+          const float4 lo = *reinterpret_cast<const float4*>(
+              sf + r * (BN * 4) + cc * 32);
+          const float4 hi = *reinterpret_cast<const float4*>(
+              sf + r * (BN * 4) + cc * 32 + 16);
+          const __nv_bfloat162 w0 = __floats2bfloat162_rn(lo.x, lo.y);
+          const __nv_bfloat162 w1 = __floats2bfloat162_rn(lo.z, lo.w);
+          const __nv_bfloat162 w2 = __floats2bfloat162_rn(hi.x, hi.y);
+          const __nv_bfloat162 w3 = __floats2bfloat162_rn(hi.z, hi.w);
+          uint4 o;
+          o.x = *reinterpret_cast<const unsigned*>(&w0);
+          o.y = *reinterpret_cast<const unsigned*>(&w1);
+          o.z = *reinterpret_cast<const unsigned*>(&w2);
+          o.w = *reinterpret_cast<const unsigned*>(&w3);
+          *reinterpret_cast<uint4*>(sb + (cc >> 3) * kWgAtom +
+                                    swz(r, cc & 7)) = o;
+        }
+        fence_proxy_async();          // the rounded B, to wgmma's proxy
+        mbar_arrive(&full[i % kStages]);
+      }
+    }
+  } else {
+    // consumers: rows 64 (wg - 1) .. of the tile
+    const int lane = tid % 32;
+    // the column sums: this thread's column and half of the step's rows
+    const bool sums = kWg && colsum && n0 == 0;
+    const int sc = tid % 64, sh = tid / 64;
+    float part = 0.f;
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % kStages;
+      mbar_wait(kWg ? &loaded[s] : &full[s], (i / kStages) & 1);
+      const uint32_t a0 = base + s * kSB + (wg - 1) * kWgAtom;
+      const uint32_t b0 = base + s * kSB + kHlConsumers * kWgAtom;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk) {
+        if constexpr (kWg)
+          Wgmma<BN>::template mma<1, 1>(
+              acc, wg_desc(a0 + kk * 2048, kWgAtom, 1024),
+              wg_desc(b0 + kk * 2048, kWgAtom, 1024));
+        else
+          Wgmma<BN>::template mma<0, 1>(
+              acc, wg_desc(a0 + kk * 32, 16, 1024),
+              wg_desc(b0 + kk * 2048, kWgAtom, 1024));
+      }
+      wgmma_commit();
+      if (sums) {                      // while the MMAs run
+        const unsigned char* ga = gbase + s * kSB + (wg - 1) * kWgAtom;
+#pragma unroll 8
+        for (int r = 32 * sh; r < 32 * sh + 32; ++r)
+          part += __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+              ga + swz(r, sc >> 3) + (sc & 7) * 2));
+      }
+      wgmma_wait<1>();                 // step i - 1's MMAs are done
+      if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % kStages]);
+    }
+    wgmma_wait<0>();
+    if constexpr (kWg) {
+      if (sums) {
+        csum[wg - 1][tid] = part;
+        named_sync(1 + wg, 128);
+        const int gm = m0 + 64 * (wg - 1) + sc;
+        if (sh == 0 && gm < p.m)
+          colsum[gm] = csum[wg - 1][sc] + csum[wg - 1][64 + sc];
+      }
+    }
+    wg_epilogue<EPI, BN>(p, m0 + 64 * (wg - 1), n0, acc, tid / 32, lane);
+  }
+}
+
+// The backward route's launch in mode MODE: p.bn kHlDgradWidth, or 128 or
+// 64 (hl_wgrad_width) for a weight gradient. Shapes: every operand's rows
+// a multiple of 16 bytes long (kHlDgrad: K and N multiples of 8; kHlWgrad:
+// M and N, and K, the token rows, any); the operands 16-byte aligned.
+template <int MODE, int EPI>
+cudaError_t launch_hl_bwd_gemm(const GemmArgs& p, float* colsum,
+                               cudaStream_t stream) {
+  if (p.n % 8 || (MODE == kHlWgrad ? p.m % 8 : p.k % 8))
+    return cudaErrorInvalidValue;
+  CUtensorMap map_a, map_w;
+  cudaError_t err;
+  if (MODE == kHlWgrad) {
+    err = tensor_map_2d(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.a, p.k,
+                        p.m, kWgBK, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return err;
+    err = tensor_map_2d(&map_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.b, p.k,
+                        p.n, kWgBK, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  } else {
+    err = tensor_map_2d(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.a, p.m,
+                        p.k, kHlBM, kWgBK, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return err;
+    err = tensor_map_2d(&map_w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p.b, p.k,
+                        p.n, kWgBK, p.bn, CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  if (err != cudaSuccess) return err;
+  auto go = [&](auto kernel, size_t smem) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    kernel<<<hl_tiles(p), kHlThreads, smem, stream>>>(map_a, map_w, p,
+                                                      colsum);
+    return cudaGetLastError();
+  };
+  if constexpr (MODE == kHlWgrad) {
+    switch (p.bn) {
+      case 128:
+        return go(hl_bwd_gemm_kernel<MODE, EPI, 128>,
+                  hl_bwd_smem_bytes<MODE, 128>());
+      case 64:
+        return go(hl_bwd_gemm_kernel<MODE, EPI, 64>,
+                  hl_bwd_smem_bytes<MODE, 64>());
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    if (p.bn != kHlDgradWidth) return cudaErrorInvalidValue;
+    return go(hl_bwd_gemm_kernel<MODE, EPI, kHlDgradWidth>,
+              hl_bwd_smem_bytes<MODE, kHlDgradWidth>());
+  }
+}
+
+// A second stream of the current device, on which the half-layer backwards
+// run their weight gradients beside the data gradients (the weight
+// gradients' tiles fill the SMs that the data gradients' last wave leaves
+// idle, and dW2 / dWo need nothing the data path computes after the LN
+// rows): fork(s) has it wait for what s has enqueued, join(s) has s wait
+// for what it has enqueued, so the caller's stream sees one ordered call.
+// Made at the first call on the device, non-blocking (no implicit order
+// with the legacy default stream); inside a CUDA graph capture the fork
+// brings it into the capture and the join takes it out again. A mutex
+// keeps each record-and-wait pair together across threads.
+struct SideStream {
+  cudaStream_t stream = nullptr;
+  cudaEvent_t fork = nullptr, join = nullptr;
+};
+
+inline std::mutex& side_mutex() {
+  static std::mutex mu;
+  return mu;
+}
+
+inline cudaError_t side_stream(SideStream** out) {
+  constexpr int kMaxDevices = 64;
+  static SideStream sides[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(side_mutex());
+  SideStream& sd = sides[dev];
+  if (!sd.stream) {
+    cudaStream_t st;
+    e = cudaStreamCreateWithFlags(&st, cudaStreamNonBlocking);
+    if (e == cudaSuccess)
+      e = cudaEventCreateWithFlags(&sd.fork, cudaEventDisableTiming);
+    if (e == cudaSuccess)
+      e = cudaEventCreateWithFlags(&sd.join, cudaEventDisableTiming);
+    if (e != cudaSuccess) return e;
+    sd.stream = st;
+  }
+  *out = &sd;
+  return cudaSuccess;
+}
+
+inline cudaError_t side_fork(SideStream* sd, cudaStream_t s) {
+  std::lock_guard<std::mutex> lock(side_mutex());
+  const cudaError_t e = cudaEventRecord(sd->fork, s);
+  return e == cudaSuccess ? cudaStreamWaitEvent(sd->stream, sd->fork, 0) : e;
+}
+
+inline cudaError_t side_join(SideStream* sd, cudaStream_t s) {
+  std::lock_guard<std::mutex> lock(side_mutex());
+  const cudaError_t e = cudaEventRecord(sd->join, sd->stream);
+  return e == cudaSuccess ? cudaStreamWaitEvent(s, sd->join, 0) : e;
+}
+
+// A backward data gradient out = epilogue(A . W), W the f32 master stored
+// (K, N): the backward route in bf16, the FMA tile in f32.
+template <typename T, int EPI>
+cudaError_t launch_data_grad(GemmArgs p, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    p.bn = kHlDgradWidth;
+    return launch_hl_bwd_gemm<kHlDgrad, EPI>(p, nullptr, stream);
+  } else {
+    return launch_gemm<T, EPI, kARowMajor, kBWeightKN>(p, stream);
+  }
+}
+
+// A backward weight gradient dW (M, N) f32 = G^T X, G stored (K, M), X
+// stored (K, N), both type T, contracting over the K token rows; with
+// `colsum` (M,) also the column sums of G (the bias gradient): the
+// backward route in bf16; in f32 the FMA tile and a column-sum launch.
+template <typename T>
+cudaError_t launch_weight_grad(const void* g, const void* x, float* dw,
+                               float* colsum, int m, int n, int k,
+                               cudaStream_t stream) {
+  GemmArgs p = gemm_args(g, x, dw, m, n, k);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    p.bn = hl_wgrad_width(m, n);
+    return launch_hl_bwd_gemm<kHlWgrad, kEpiF32>(p, colsum, stream);
+  } else {
+    cudaError_t err =
+        launch_gemm<T, kEpiF32, kATransposed, kBActKN>(p, stream);
+    if (err != cudaSuccess || !colsum) return err;
+    return launch_colsum<T>(static_cast<const T*>(g), k, m, colsum, stream);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Multi-head self-attention, one block of work per (caption, head), heads of
 // width 64, everything of the head in shared memory as f32 (block_pallas.py
 // `_attn_heads_fwd`, `_attn_heads_bwd`). qkv is (B t, 3 h) with q | k | v
@@ -2311,6 +2714,7 @@ constexpr int kAttnKeys = 64;           // keys a block of the two passes
 constexpr int kAttnLd = kDHead + 8;     // bf16 row stride in shared memory
 constexpr int kAttnMaxT = 512;          // this tile's t
 constexpr int kAttnScalarMaxT = 128;    // the scalar tile's (shared memory)
+constexpr int kAttnScalarBwdMaxT = 64;  // the scalar backward tile's
 
 // Pairs a block of the kernel, from t: a pair's 16-row query tiles fill
 // its share of the block's 4 warps.
@@ -2347,12 +2751,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
 
 // Pairs pair0 .. pair0 + pairs - 1 (pair = b * heads + head; those at or
 // past n_pairs are absent) by the block's kAttnThreads threads; smem:
-// attn_mma_smem_bytes(t, pairs) bytes, pairs one of 1, 2, 4.
+// attn_mma_smem_bytes(t, pairs) bytes, pairs one of 1, 2, 4. kSaveP: the
+// probabilities are also written to p_out, rounded, before dropout (K5
+// with residuals past the scalar tile's t).
+template <bool kSaveP>
 __device__ __forceinline__ void
 attention_mma_tile(const __nv_bfloat16* qkv, const int* __restrict__ mask,
                    const DropSrc& drop_p, unsigned thr, float scale,
-                   __nv_bfloat16* ctx, int nb, int t, int h, float inv,
-                   int pair0, int pairs, int n_pairs, unsigned char* smem) {
+                   __nv_bfloat16* p_out, __nv_bfloat16* ctx, int nb, int t,
+                   int h, float inv, int pair0, int pairs, int n_pairs,
+                   unsigned char* smem) {
   using T = __nv_bfloat16;
   const int heads = h / kDHead, tp = (t + 15) / 16 * 16;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -2538,6 +2946,11 @@ attention_mma_tile(const __nv_bfloat16* qkv, const int* __restrict__ mask,
             pv[e] = round_to<T>(
                 (nkb > 1 ? expf(s[j][2 * hr + e] - mx[hr]) : s[j][2 * hr + e]) /
                 sum[hr]);
+          if (kSaveP && row < t && key < t) {  // saved before dropout
+            const size_t at = pofs + (size_t)row * t + key;
+            p_out[at] = __float2bfloat16(pv[0]);
+            if (key + 1 < t) p_out[at + 1] = __float2bfloat16(pv[1]);
+          }
           if (row < t && key < t && drop_p.on()) {
             const size_t at = pofs + (size_t)row * t + key;
             unsigned bits[2];
@@ -2589,15 +3002,17 @@ attention_mma_tile(const __nv_bfloat16* qkv, const int* __restrict__ mask,
   }
 }
 
+template <bool kSaveP>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
                      const int* __restrict__ mask, DropSrc drop_p,
-                     unsigned thr, float scale, __nv_bfloat16* ctx, int nb,
-                     int t, int h, float inv, int pairs) {
+                     unsigned thr, float scale, __nv_bfloat16* p_out,
+                     __nv_bfloat16* ctx, int nb, int t, int h, float inv,
+                     int pairs) {
   extern __shared__ __align__(16) unsigned char attn_mma_sm[];
-  attention_mma_tile(qkv, mask, drop_p, thr, scale, ctx, nb, t, h, inv,
-                     blockIdx.x * pairs, pairs, nb * (h / kDHead),
-                     attn_mma_sm);
+  attention_mma_tile<kSaveP>(qkv, mask, drop_p, thr, scale, p_out, ctx, nb,
+                             t, h, inv, blockIdx.x * pairs, pairs,
+                             nb * (h / kDHead), attn_mma_sm);
 }
 
 // Shared memory of the backward block: q, k, v, do (t, 65), p and dp (t, t).
@@ -2705,6 +3120,443 @@ attention_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
   extern __shared__ float attn_sm[];
   attention_core_bwd_tile<T>(qkv, p, dout, drop_p, thr, scale, dqkv, nb, t, h,
                              inv, blockIdx.x, blockIdx.y, attn_sm);
+}
+
+// ---------------------------------------------------------------------------
+// The per-head attention backward on tensor cores (bf16 K6 at every t, and
+// the whole-tower kernel K8's attention phase), block_pallas.py
+// `_attn_heads_bwd`: per (caption, head) pair, from the saved probabilities
+// p (rounded, before dropout) and do = d(context),
+//   dv = p_drop^T . do,  dp = do . v^T (dropped like the probabilities,
+//   scaled in f32),  ds = r(p (dp - sum_j dp p) / sqrt(64)),
+//   dq = ds . k,  dk = ds^T . q,
+// each rounded into the pair's slices of dqkv (B t, 3 h).
+//
+// Bound on the H100: bytes. At B 32, T 24, 12 heads: 0.11 GFLOP against
+// 5.2 MB of q, k, v, do, p and dqkv; the scalar tile (f32 FMA, everything
+// staged as f32, one block a pair) took 32 us on the H100, a quarter of K6
+// (PERF.md), and held 4 (t, 64) + 2 (t, t) f32, so training stopped at
+// t = 64.
+//
+// This design (mma.sync m16n8k16, bf16 in, f32 accumulation; the fragment
+// and ldmatrix scheme of attention_mma_tile above):
+// - Phase A, per 16-query tile of a warp: the row sums dot_i = sum_j dp p
+//   over the key blocks of 64 (do as A fragments, v from shared memory),
+//   then a second pass that forms ds and adds dq = ds . k (k through
+//   ldmatrix.trans); dot_i goes to shared memory.
+// - Phase B, per 16-key tile of a warp, over the query blocks of 64: first
+//   dv += p_drop^T . do, then dp^T = v . do^T, ds^T, dk += ds^T . q, each
+//   product's left operand formed in the accumulator layout and reused as
+//   A fragments (q and do through ldmatrix.trans); two passes keep fewer
+//   registers live, which the whole-tower kernel's cap of 168 needs.
+// - k and v (phase A), q and do (phase B) lie in shared memory as bf16 rows
+//   of 72, all four at once where they fit (t <= kAttnBwdAll4T), else q and
+//   do are staged over k and v between the phases. The probabilities with
+//   their keep flags (the sign bit of a bf16 p >= 0) are staged beside
+//   them, each Philox block drawn once for four words: all of them at
+//   t <= 64, else a strip of 64 query rows (phase A) or of 64 key columns
+//   (phase B) in turn; so t is bounded by shared memory at
+//   2 x t x 144 + 128 t bytes a pair: t <= 512.
+// - Several pairs a block where the rows are few (attn_pairs_per_block).
+// At t = 24 the tile is bound by latency (one block's chain of copies,
+// barriers and dependent products), not by bytes or operations.
+// K6 and K8 run this one function, so the chain of half-layers and the
+// whole-tower kernel add the same values in the same order.
+// ---------------------------------------------------------------------------
+
+constexpr int kAttnBwdAll4T = 320;   // q, k, v, do all staged at once
+
+inline __host__ __device__ bool attn_bwd_all4(int t) {
+  return t <= kAttnBwdAll4T;
+}
+
+// Shared memory of a block of `pairs` pairs of the backward tile: the
+// staged rows (four or two (t rounded up to 16, 72) bf16 buffers a pair),
+// each pair's row sums (f32), then the probabilities with their keep
+// flags (16-bit): at t <= 64 each pair's whole (tp, tp), else a strip of
+// 64 query rows or 64 key columns, (64, tp).
+inline __host__ __device__ size_t attn_bwd_mma_smem_bytes(int t, int pairs) {
+  const size_t tp = (t + 15) / 16 * 16;
+  return (size_t)pairs * tp *
+             ((attn_bwd_all4(t) ? 4 : 2) * kAttnLd * sizeof(__nv_bfloat16) +
+              sizeof(float)) +
+         (t <= kAttnKeys ? (size_t)pairs * tp * tp : (size_t)kAttnKeys * tp) *
+             sizeof(unsigned short);
+}
+
+// A fragments of a 16-row tile whose rows start at `rows` (rows past t
+// zero): 16 rows of 64 bf16 at row stride `ld` elements.
+__device__ __forceinline__ void load_a_frags(unsigned (&fa)[4][4],
+                                             const __nv_bfloat16* rows,
+                                             size_t ld, int r0, int t,
+                                             int g, int tq) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + g + 8 * hr;
+    const unsigned* src = reinterpret_cast<const unsigned*>(
+        rows + (size_t)(row < t ? row : 0) * ld);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fa[kk][hr] = row < t ? src[kk * 8 + tq] : 0u;
+      fa[kk][2 + hr] = row < t ? src[kk * 8 + 4 + tq] : 0u;
+    }
+  }
+}
+
+// c[j] (8 column groups of 8) += A (16 x 64, fragments fa) . B^T, B's 64
+// rows r0 + 8 j + g at stride kAttnLd in shared memory (K-major B: the
+// scores' k, or v and do here); groups past t skipped.
+__device__ __forceinline__ void mma_rows(float (&c)[8][4],
+                                         const unsigned (&fa)[4][4],
+                                         const __nv_bfloat16* bs, int r0,
+                                         int t, int g, int tq) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+    if (r0 + 8 * j < t) {
+      const unsigned* br = reinterpret_cast<const unsigned*>(
+          bs + (size_t)(r0 + 8 * j + g) * kAttnLd);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_16816(c[j], fa[kk], br[kk * 8 + tq], br[kk * 8 + 4 + tq]);
+    }
+  }
+}
+
+// o (16 x 64) += A . B, A the 16 x 64 tile c0 .. of `c` (accumulator
+// layout, rounded to bf16 as the fragments), B rows r0 .. r0 + 63 of a
+// (rows, 64) bf16 matrix at smem address `bs` (stride kAttnLd), through
+// ldmatrix.trans; 16-row steps at or past t skipped.
+__device__ __forceinline__ void mma_acc_rows(float (&o)[8][4],
+                                             const float (&c)[8][4],
+                                             uint32_t bs, int r0, int t,
+                                             int lane) {
+  const int mi = lane >> 3;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (r0 + 16 * kk >= t) break;
+    unsigned pa[4];
+    pa[0] = pack_pair({c[2 * kk][0], c[2 * kk][1]});
+    pa[1] = pack_pair({c[2 * kk][2], c[2 * kk][3]});
+    pa[2] = pack_pair({c[2 * kk + 1][0], c[2 * kk + 1][1]});
+    pa[3] = pack_pair({c[2 * kk + 1][2], c[2 * kk + 1][3]});
+    const uint32_t row =
+        bs + ((r0 + 16 * kk + (mi & 1) * 8 + (lane & 7)) * kAttnLd +
+              (mi >> 1) * 8) * 2;
+#pragma unroll
+    for (int dn = 0; dn < 4; ++dn) {
+      unsigned vb[4];
+      ldmatrix_x4_trans(vb, row + dn * 32);
+      mma_16816(o[2 * dn], pa, vb[0], vb[1]);
+      mma_16816(o[2 * dn + 1], pa, vb[2], vb[3]);
+    }
+  }
+}
+
+// A 16 x 64 accumulator tile rounded to bf16 into rows r0 + g (+ 8) of dst
+// (row stride ld), rows at or past t not stored.
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, size_t ld,
+                                           const float (&o)[8][4], int r0,
+                                           int t, int g, int tq) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + g + 8 * hr;
+    if (row >= t) continue;
+    __nv_bfloat16* d = dst + (size_t)row * ld + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<unsigned*>(d + 8 * j) =
+          pack_pair({o[j][2 * hr], o[j][2 * hr + 1]});
+  }
+}
+
+// Pairs pair0 .. pair0 + pairs - 1 (pair = b * heads + head; those at or
+// past n_pairs are absent) by the block's kAttnThreads threads; smem:
+// attn_bwd_mma_smem_bytes(t, pairs) bytes, pairs one of 1, 2, 4 (1 past
+// t = 64: the strips are the block's).
+__device__ __forceinline__ void
+attention_bwd_mma_tile(const __nv_bfloat16* qkv, const __nv_bfloat16* p,
+                       const __nv_bfloat16* dout, const DropSrc& drop_p,
+                       unsigned thr, float scale, __nv_bfloat16* dqkv, int nb,
+                       int t, int h, float inv, int pair0, int pairs,
+                       int n_pairs, unsigned char* smem) {
+  using T = __nv_bfloat16;
+  const int heads = h / kDHead, tp = (t + 15) / 16 * 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wpp = (kAttnThreads / 32) / pairs;     // warps a pair
+  const int pi = warp / wpp, pair = pair0 + pi;
+  const bool live = pair < n_pairs;
+  const int b = live ? pair / heads : 0, head = live ? pair % heads : 0;
+  const size_t row0 = (size_t)b * t;
+  const int g = lane >> 2, tq = lane & 3;
+  const bool all4 = attn_bwd_all4(t), whole = t <= kAttnKeys;
+  const bool drop = drop_p.on();
+  const size_t buf = (size_t)tp * kAttnLd;
+  const int nbuf = all4 ? 4 : 2;
+  T* sm = reinterpret_cast<T*>(smem);
+  float* dots = reinterpret_cast<float*>(sm + (size_t)pairs * nbuf * buf);
+  // the probabilities (bf16 bits), the sign bit set where the probability
+  // was dropped (p >= 0)
+  unsigned short* pks =
+      reinterpret_cast<unsigned short*>(dots + (size_t)pairs * tp);
+  // rows of every pair of the block into its buffers: k, v (phase A:
+  // which 0) at 0 and 1, q, do (phase B: which 1) at 2 and 3, or at 0 and
+  // 1 over k and v; rows past t zero
+  auto stage = [&](int which) {
+    const int nchunk = pairs * tp * 8;
+    const int at = all4 ? 2 * which : 0;
+    for (int i0 = 0; i0 < nchunk; i0 += 4 * kAttnThreads) {
+      uint4 r0v[4], r1v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * kAttnThreads + threadIdx.x;
+        const int pj = i / (tp * 8), r = (i / 8) % tp, c = i % 8;
+        r0v[u] = r1v[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (i < nchunk && pair0 + pj < n_pairs && r < t) {
+          const int bj = (pair0 + pj) / heads, hj = (pair0 + pj) % heads;
+          const size_t row = (size_t)bj * t + r;
+          const T* src = qkv + row * 3 * h + hj * kDHead + c * 8;
+          if (which == 0) {
+            r0v[u] = *reinterpret_cast<const uint4*>(src + h);
+            r1v[u] = *reinterpret_cast<const uint4*>(src + 2 * h);
+          } else {
+            r0v[u] = *reinterpret_cast<const uint4*>(src);
+            r1v[u] = *reinterpret_cast<const uint4*>(
+                dout + row * h + hj * kDHead + c * 8);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * kAttnThreads + threadIdx.x;
+        if (i < nchunk) {
+          const int pj = i / (tp * 8), r = (i / 8) % tp, c = i % 8;
+          T* d = sm + ((size_t)pj * nbuf + at) * buf + r * kAttnLd + c * 8;
+          *reinterpret_cast<uint4*>(d) = r0v[u];
+          *reinterpret_cast<uint4*>(d + buf) = r1v[u];
+        }
+      }
+    }
+  };
+  // queries [q0, q0 + nq) x keys [k0, k0 + nk) (clipped to t) of every
+  // pair of the block into pks at row stride `stride`, four consecutive
+  // keys a thread (one Philox block for every four words in prng mode)
+  auto stage_p = [&](int q0, int nq, int k0, int nk, int stride) {
+    const int q1 = min(q0 + nq, t), k1 = min(k0 + nk, t);
+    const int kg = (k1 - k0 + 3) / 4, per = (q1 - q0) * kg;
+    for (int i = threadIdx.x; i < pairs * per; i += kAttnThreads) {
+      const int pj = i / per, q = q0 + (i % per) / kg;
+      const int k = k0 + (i % kg) * 4, n = min(k1 - k, 4);
+      if (pair0 + pj >= n_pairs) continue;
+      const int bj = (pair0 + pj) / heads, hj = (pair0 + pj) % heads;
+      const size_t at = (((size_t)hj * nb + bj) * t + q) * t + k;
+      unsigned bits[4] = {thr, thr, thr, thr};
+      if (drop) {
+        if (n == 4) {
+          drop_p.bits_run<4>(at, bits);
+        } else {
+          for (int e = 0; e < n; ++e) bits[e] = drop_p.bit(at + e);
+        }
+      }
+      const unsigned short* src =
+          reinterpret_cast<const unsigned short*>(p) + at;
+      unsigned short* dst = pks + (size_t)pj * tp * tp +
+                            (size_t)(q - q0) * stride + (k - k0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (e < n)
+          dst[e] = static_cast<unsigned short>(
+              src[e] | (bits[e] >= thr ? 0u : 0x8000u));
+    }
+  };
+  stage(0);
+  if (all4) stage(1);
+  if (whole) stage_p(0, t, 0, t, tp);
+  __syncthreads();
+  const T* pb = sm + (size_t)pi * nbuf * buf;        // this pair's buffers
+  const T* ks = pb;
+  const T* vs = pb + buf;
+  float* pdots = dots + pi * tp;
+  const unsigned short* ppk = pks + (size_t)pi * tp * tp;
+  const float sc = round_to<T>(scale);
+  const int nblk = (t + kAttnKeys - 1) / kAttnKeys, ntile = tp / 16;
+  // the staged element (query q, key k), q and k < t: p and its keep flag;
+  // (sq0, sk0, stride): the strip's origin and row stride
+  int sq0 = 0, sk0 = 0, stride = tp;
+  auto prob = [&](int q, int k, bool& keep) -> float {
+    const unsigned u = ppk[(q - sq0) * stride + (k - sk0)];
+    keep = !(u & 0x8000u);
+    return __uint_as_float((u & 0x7FFFu) << 16);
+  };
+
+  // phase A: dot and dq, a warp's 16 query rows at a time, query block by
+  // query block (past t = 64 the block's strip of p staged in turn)
+  for (int qb = 0; qb < nblk; ++qb) {
+    if (!whole) {
+      __syncthreads();
+      stage_p(qb * kAttnKeys, kAttnKeys, 0, t, tp);
+      sq0 = qb * kAttnKeys;
+      __syncthreads();
+    }
+    const int qt_end = min(ntile, (qb + 1) * (kAttnKeys / 16));
+    for (int qt = qb * (kAttnKeys / 16) + warp % wpp; live && qt < qt_end;
+         qt += wpp) {
+      unsigned fa[4][4];
+      if (all4)
+        load_a_frags(fa, pb + 3 * buf, kAttnLd, qt * 16, t, g, tq);
+      else
+        load_a_frags(fa, dout + row0 * h + head * kDHead, h, qt * 16, t, g,
+                     tq);
+      const int rows[2] = {qt * 16 + g, qt * 16 + g + 8};
+      // key block kb: the masked dp in s and p in pv, elements past t zero
+      auto block_dp = [&](int kb, float (&s)[8][4], float (&pv)[8][4]) {
+        const int k0 = kb * kAttnKeys;
+        mma_rows(s, fa, vs, k0, t, g, tq);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = rows[e >> 1], key = k0 + 8 * j + 2 * tq + (e & 1);
+            float d = 0.f, pr = 0.f;
+            if (row < t && key < t) {
+              bool keep;
+              pr = prob(row, key, keep);
+              d = keep ? (drop ? s[j][e] * scale : s[j][e]) : 0.f;
+            }
+            s[j][e] = d;
+            pv[j][e] = pr;
+          }
+      };
+      float dot[2] = {0.f, 0.f};
+      float s[8][4], pv[8][4];
+      for (int kb = 0; kb < nblk; ++kb) {
+        block_dp(kb, s, pv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dot[e >> 1] += s[j][e] * pv[j][e];
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        dot[hr] += __shfl_xor_sync(0xffffffffu, dot[hr], 1);
+        dot[hr] += __shfl_xor_sync(0xffffffffu, dot[hr], 2);
+        if (tq == 0 && rows[hr] < t) pdots[rows[hr]] = dot[hr];
+      }
+      float o[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+      for (int kb = 0; kb < nblk; ++kb) {
+        if (nblk > 1) block_dp(kb, s, pv);   // one block: still in s, pv
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = round_to<T>(pv[j][e] * (s[j][e] - dot[e >> 1]) * inv);
+        mma_acc_rows(o, s, smem_u32(ks), kb * kAttnKeys, t, lane);
+      }
+      store_rows(dqkv + row0 * 3 * h + head * kDHead, 3 * h, o, qt * 16, t,
+                 g, tq);
+    }
+  }
+  __syncthreads();
+  if (!all4) {
+    stage(1);
+    __syncthreads();
+  }
+  const T* qs = pb + (all4 ? 2 : 0) * buf;
+  const T* dos = qs + buf;
+  if (!whole) {
+    sq0 = 0;
+    stride = kAttnKeys;
+  }
+
+  // phase B, a warp's 16 key rows at a time, key block by key block (past
+  // t = 64 the block's strip of p staged in turn): dv = p_drop^T . do, then
+  // dk = ds^T . q (two passes over the query blocks: fewer live registers)
+  for (int kb = 0; kb < nblk; ++kb) {
+    if (!whole) {
+      __syncthreads();
+      stage_p(0, t, kb * kAttnKeys, kAttnKeys, kAttnKeys);
+      sk0 = kb * kAttnKeys;
+      __syncthreads();
+    }
+    const int kt_end = min(ntile, (kb + 1) * (kAttnKeys / 16));
+    for (int kt = kb * (kAttnKeys / 16) + warp % wpp; live && kt < kt_end;
+         kt += wpp) {
+      const int keys[2] = {kt * 16 + g, kt * 16 + g + 8};
+      float acc[8][4], c[8][4];   // c: p_drop^T, then ds^T (keys x queries)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+      for (int qb = 0; qb < nblk; ++qb) {
+        const int q0 = qb * kAttnKeys;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = keys[e >> 1], qry = q0 + 8 * j + 2 * tq + (e & 1);
+            float pd = 0.f;
+            if (key < t && qry < t) {
+              bool keep;
+              const float pr = prob(qry, key, keep);
+              pd = drop ? (keep ? round_to<T>(pr * sc) : 0.f) : pr;
+            }
+            c[j][e] = pd;
+          }
+        mma_acc_rows(acc, c, smem_u32(dos), q0, t, lane);
+      }
+      store_rows(dqkv + row0 * 3 * h + 2 * h + head * kDHead, 3 * h, acc,
+                 kt * 16, t, g, tq);
+      unsigned fa[4][4];
+      if (all4)
+        load_a_frags(fa, vs, kAttnLd, kt * 16, t, g, tq);
+      else
+        load_a_frags(fa, qkv + row0 * 3 * h + 2 * h + head * kDHead, 3 * h,
+                     kt * 16, t, g, tq);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+      for (int qb = 0; qb < nblk; ++qb) {
+        const int q0 = qb * kAttnKeys;
+        mma_rows(c, fa, dos, q0, t, g, tq);       // dp^T = v . do^T
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = keys[e >> 1], qry = q0 + 8 * j + 2 * tq + (e & 1);
+            float ds = 0.f;
+            if (key < t && qry < t) {
+              bool keep;
+              const float pr = prob(qry, key, keep);
+              const float d = keep ? (drop ? c[j][e] * scale : c[j][e]) : 0.f;
+              ds = round_to<T>(pr * (d - pdots[qry]) * inv);
+            }
+            c[j][e] = ds;
+          }
+        mma_acc_rows(acc, c, smem_u32(qs), q0, t, lane);
+      }
+      store_rows(dqkv + row0 * 3 * h + h + head * kDHead, 3 * h, acc,
+                 kt * 16, t, g, tq);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kAttnThreads)
+attention_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                         const __nv_bfloat16* __restrict__ p,
+                         const __nv_bfloat16* __restrict__ dout,
+                         DropSrc drop_p, unsigned thr, float scale,
+                         __nv_bfloat16* dqkv, int nb, int t, int h, float inv,
+                         int pairs) {
+  extern __shared__ __align__(16) unsigned char attn_mma_sm[];
+  attention_bwd_mma_tile(qkv, p, dout, drop_p, thr, scale, dqkv, nb, t, h,
+                         inv, blockIdx.x * pairs, pairs, nb * (h / kDHead),
+                         attn_mma_sm);
 }
 
 }  // namespace tgfr

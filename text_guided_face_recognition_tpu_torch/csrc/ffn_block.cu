@@ -34,19 +34,23 @@
 // and the dropout bits (14.8 us at 3.35 TB/s) against the four GEMMs'
 // 14.5 GFLOP (14.7 us at 989 TFLOP/s), at the shapes above, as
 // chip_smoke.py counts them. The TPU kernel streams over I with an f32 dx
-// accumulator; here it becomes six launches:
+// accumulator; here it becomes five launches, the GEMMs in bf16 on
+// common.cuh's backward route (warp-specialised 128-row tiles, TMA, the
+// core's layouts and order of sums), the weight gradients on a second
+// stream beside the data gradients:
 //   (1) the LN backward row pass from r (statistics recomputed; K2's
 //       kernel in common.cuh), then the dropout (the forward's bits, or its
 //       stream regenerated from the same seed): dr and dgg = drop(dr),
 //       rounded; dgamma, dbeta and dc2 summed over the rows in the same
 //       launch, in a fixed order;
-//   (2) dW2 = dgg^T . act, f32;
+//   (2) dW2 = dgg^T . act, f32 (second stream);
 //   (3) df = r(r(dgg . W2) * gelu'(f)), the GELU derivative in the epilogue;
-//   (4) dW1 = df^T . x, f32;  (5) dc1 = column sums of df;
-//   (6) dx = r(dr + r(df . W1)).
+//   (4) dW1 = df^T . x, f32, with dc1 = the column sums of df in the same
+//       launch (second stream);
+//   (5) dx = r(dr + r(df . W1)).
 // dW1 and dW2 are written in nn.Linear's (out, in) layout; the weight
 // gradients are never rounded to bf16 (the TPU kernel's outputs are in the
-// master dtype).
+// master dtype). f32 runs the FMA tile and a column-sum launch for dc1.
 #include "common.cuh"
 
 namespace {
@@ -91,27 +95,30 @@ int run_bwd(const void* dz, const void* x, const void* f, const void* act,
       static_cast<T*>(dr), drop.on() ? dgg_t : nullptr, drop, thr, scale,
       part, dln, counter, rows, h, eps, s);
   if (err != cudaSuccess) return static_cast<int>(err);
+  // the weight gradients on the side stream, beside the data gradients
+  tgfr::SideStream* side = nullptr;
+  err = tgfr::side_stream(&side);
+  if (err == cudaSuccess) err = tgfr::side_fork(side, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   // (2) dW2 (h, inter) = dgg^T . act
-  err = tgfr::launch_weight_grad<T>(dgg_t, act, dw2, h, inter, rows, s);
+  err = tgfr::launch_weight_grad<T>(dgg_t, act, dw2, nullptr, h, inter, rows,
+                                    side->stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   // (3) df = r(r(dgg . W2) * gelu'(f)); W2 is (h, inter) = (K, N)
   tgfr::GemmArgs da = tgfr::gemm_args(dgg_t, w2, df, rows, inter, h);
   da.aux = f;
-  err = tgfr::launch_gemm<T, tgfr::kEpiDgelu, tgfr::kARowMajor,
-                          tgfr::kBWeightKN>(da, s);
+  err = tgfr::launch_data_grad<T, tgfr::kEpiDgelu>(da, s);
+  if (err == cudaSuccess) err = tgfr::side_fork(side, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // (4) dW1 (inter, h) = df^T . x
-  err = tgfr::launch_weight_grad<T>(df, x, dw1, inter, h, rows, s);
+  // (4) dW1 (inter, h) = df^T . x, and dc1, the column sums of df
+  err = tgfr::launch_weight_grad<T>(df, x, dw1, dc1, inter, h, rows,
+                                    side->stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // (5) dc1
-  err = tgfr::launch_colsum<T>(static_cast<const T*>(df), rows, inter, dc1,
-                               s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // (6) dx = r(dr + r(df . W1)); W1 is (inter, h) = (K, N)
+  // (5) dx = r(dr + r(df . W1)); W1 is (inter, h) = (K, N)
   tgfr::GemmArgs dxa = tgfr::gemm_args(df, w1, dx, rows, h, inter);
   dxa.resid = dr;
-  err = tgfr::launch_gemm<T, tgfr::kEpiBiasResidual, tgfr::kARowMajor,
-                          tgfr::kBWeightKN>(dxa, s);
+  err = tgfr::launch_data_grad<T, tgfr::kEpiBiasResidual>(dxa, s);
+  if (err == cudaSuccess) err = tgfr::side_join(side, s);
   return static_cast<int>(err);
 }
 

@@ -1,7 +1,9 @@
 // The GEMM cores of common.cuh on their own, for their tests: out (m, n)
 // f32 = A . B, A and B in one of the layouts the kernels use, at a given
-// tile width; and the half-layer route (A bf16 row-major, B the f32 master
-// (n, k)). Built on demand (ops/_cuda.py); the port's paths never call it.
+// tile width; and the half-layer routes (forward: A bf16 row-major, B the
+// f32 master (n, k); data gradient: the f32 master (k, n); weight
+// gradient: A stored (k, m) and B (k, n), both bf16, with A's column sums).
+// Built on demand (ops/_cuda.py); the port's paths never call it.
 #include "common.cuh"
 
 namespace {
@@ -66,4 +68,29 @@ TGFR_API int tgfr_hl_gemm(const void* a, const void* w, void* out, int m,
   p.bn = bn ? bn : tgfr::hl_width(m, n);
   return static_cast<int>(tgfr::launch_hl_gemm<tgfr::kEpiF32>(
       p, static_cast<cudaStream_t>(stream)));
+}
+
+// The backward route (common.cuh hl_bwd_gemm_kernel): mode 1, out (m, n)
+// f32 = A . W, A (m, k) bf16 row-major, W (k, n) f32 row-major, bn 48 or 0
+// (kHlDgradWidth); mode 2, out (m, n) f32 = G^T . X, G (k, m) and X (k, n)
+// bf16 row-major, and colsum (m) f32 = the column sums of G where given,
+// bn 128, 64 or 0 (hl_wgrad_width).
+TGFR_API int tgfr_hl_bwd_gemm(const void* a, const void* b, void* out,
+                                void* colsum, int m, int n, int k, int mode,
+                                int bn, void* stream) {
+  tgfr::GemmArgs p = tgfr::gemm_args(a, b, out, m, n, k);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (mode == tgfr::kHlDgrad) {
+    p.bn = bn ? bn : tgfr::kHlDgradWidth;
+    return static_cast<int>(
+        tgfr::launch_hl_bwd_gemm<tgfr::kHlDgrad, tgfr::kEpiF32>(p, nullptr,
+                                                                 s));
+  }
+  if (mode == tgfr::kHlWgrad) {
+    p.bn = bn ? bn : tgfr::hl_wgrad_width(m, n);
+    return static_cast<int>(
+        tgfr::launch_hl_bwd_gemm<tgfr::kHlWgrad, tgfr::kEpiF32>(
+            p, static_cast<float*>(colsum), s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

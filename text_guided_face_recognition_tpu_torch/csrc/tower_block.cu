@@ -57,7 +57,9 @@
 //   (3) dy = r(dr2 + r(df . W1)); dW1 = df^T . y; dc1 = column sums of df;
 //   (4) LN1 backward rows from r1: dr1, dh = drop(dr1), partials;
 //   (5) the partials summed; dWo = dh^T . o; do = r(dh . Wo);
-//   (6) per (caption, head): the attention backward -> dqkv;
+//   (6) per (caption, head): the attention backward -> dqkv (bf16: the
+//       tensor-core tile of common.cuh that K6 runs too; f32: the scalar
+//       tile);
 //   (7) dx = r(dr1 + r(dqkv . Wqkv)); dWqkv = dqkv^T . x; dbqkv.
 // Sums over rows are per-tile f32 partials reduced in a second phase in a
 // fixed order: no float atomics, the result is deterministic. Every
@@ -222,15 +224,34 @@ __device__ __forceinline__ void attn_fwd_item(const T* qkv, const int* mask,
                          head, reinterpret_cast<float*>(smem));
 }
 
+// Pairs (caption, head) a work item of the attention backward: in bf16 as
+// many as a block of the half-layer kernel K6 takes (attn_pairs_per_block:
+// 2 at t = 24, where one pair an item ran K8 slower in a development run
+// on the H100), in f32 one.
+template <typename T> __host__ __device__ int attn_bwd_pairs(int t) {
+  return std::is_same<T, __nv_bfloat16>::value ? attn_pairs_per_block(t) : 1;
+}
+
+// The attention backward of item w: in bf16 the tensor-core tile the
+// half-layer backward K6 runs, so that the chain of half-layers adds the
+// same values (a pair's sums do not depend on the pairs beside it); in f32
+// the scalar tile of pair w (= b heads + head).
 template <typename T>
 __device__ __forceinline__ void attn_bwd_item(const T* qkv, const T* p,
                                            const T* dout, const DropSrc& drop,
                                            unsigned thr, float scale, T* dqkv,
                                            int nb, int t, int h, float inv,
-                                           int b, int head,
-                                           unsigned char* smem) {
-  attention_core_bwd_tile<T>(qkv, p, dout, drop, thr, scale, dqkv, nb, t, h,
-                             inv, b, head, reinterpret_cast<float*>(smem));
+                                           int w, unsigned char* smem) {
+  const int heads = h / kDHead;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const int pairs = attn_bwd_pairs<T>(t);
+    attention_bwd_mma_tile(qkv, p, dout, drop, thr, scale, dqkv, nb, t, h,
+                           inv, w * pairs, pairs, nb * heads, smem);
+  } else {
+    attention_core_bwd_tile<T>(qkv, p, dout, drop, thr, scale, dqkv, nb, t,
+                               h, inv, w / heads, w % heads,
+                               reinterpret_cast<float*>(smem));
+  }
 }
 
 template <typename T>
@@ -596,10 +617,11 @@ tower_bwd_kernel(TowerArgs a) {
     prefetch_l2(W(B_WQKV, 3 * hh), 3 * hh * sizeof(T));
     phase_sync<1>(grid, ns);
     // (6) the attention backward per (caption, head)
-    for_items(items + ns, a.b * a.heads, &slot, [&](int w) {
+    const int pairs = attn_bwd_pairs<T>(a.t);
+    for_items(items + ns, (a.b * a.heads + pairs - 1) / pairs, &slot,
+              [&](int w) {
       attn_bwd_item<T>(R(B_QKV, 3 * act), R(B_P, p_el), dout, LD().p, a.thr,
-                       a.scale, dqkv, a.b, a.t, h, inv, w / a.heads,
-                       w % a.heads, smem);
+                       a.scale, dqkv, a.b, a.t, h, inv, w, smem);
     });
     phase_sync<1>(grid, ns);
     // (7) dx = r(dr1 + r(dqkv . Wqkv)), Wqkv stored (3h, h) = (K, N);
@@ -749,7 +771,11 @@ TGFR_API int tgfr_tower_bwd(void* const* ptrs, const long long* strides,
   const auto s = static_cast<cudaStream_t>(stream);
   // the LN tiles: their sums, then their staging
   const size_t red = (size_t)kLnRed * sizeof(float);
-  const size_t attn = tgfr::attn_bwd_smem_bytes(a.t);
+  const size_t attn =
+      dtype == tgfr::kBF16
+          ? tgfr::attn_bwd_mma_smem_bytes(
+                a.t, attn_bwd_pairs<__nv_bfloat16>(a.t))
+          : tgfr::attn_bwd_smem_bytes(a.t);
   if (dtype == tgfr::kBF16)
     return launch(tower_bwd_kernel<__nv_bfloat16>, a,
                   std::max({tgfr::gemm_smem_bytes<__nv_bfloat16>(), attn,

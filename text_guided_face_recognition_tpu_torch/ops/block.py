@@ -104,12 +104,14 @@ D_HEAD = 64
 # the tower's stacked leaves, in the JAX package's `_BlockP` order
 TOWER_LEAVES = ("wqkv", "bqkv", "wo", "bo", "g1", "b1", "w1", "c1", "w2",
                 "c2", "g2", "b2")
-# The longest caption (t) the attention kernels take: the backward's
-# per-head block holds 4 (T, 64) + 2 (T, T) f32; K5's tensor-core tile (bf16
-# without residuals) holds k and v of a pair in bf16 and walks the keys in
-# blocks (csrc/common.cuh kAttnMaxT: bert-base's position table); the scalar
-# tile (K5 with residuals or in f32, and the whole-tower kernel K7) holds
-# 3 (T, 64) + (T, T) f32.
+# The longest caption (t) the attention kernels take: the tensor-core
+# tiles (bf16: K5, K6 and K8's attention phase) hold two or four (T, 64)
+# bf16 rows of a pair and walk the keys in blocks (csrc/common.cuh
+# kAttnMaxT: bert-base's position table); the scalar forward tile (f32, K5
+# with residuals up to 128, and the whole-tower kernel K7) holds
+# 3 (T, 64) + (T, T) f32; the scalar backward tile (f32) 4 (T, 64) +
+# 2 (T, T) f32. The tower keeps the training limit of MAX_T_BWD: K7's
+# scalar tile with residuals and K8's sizing are not widened.
 MAX_T_BWD = 64
 MAX_T_FWD = 512
 MAX_T_FWD_SCALAR = 128
@@ -160,12 +162,12 @@ def _ln_bwd_rounded(dy, r, gamma, eps):
 
 def max_t(dtype: torch.dtype, grad: bool, tower: bool = False) -> int:
     """The longest caption the attention kernels take in `dtype`, with a
-    gradient or without: K5/K6, or with `tower` K7/K8."""
-    if grad:
-        return MAX_T_BWD
+    gradient or without: K5/K6, or with `tower` K7/K8. bf16 K5/K6 take
+    MAX_T_FWD either way; f32 and the tower MAX_T_BWD with a gradient and
+    MAX_T_FWD_SCALAR without (the tower in bf16 too)."""
     if dtype == torch.bfloat16 and not tower:
         return MAX_T_FWD
-    return MAX_T_FWD_SCALAR
+    return MAX_T_BWD if grad else MAX_T_FWD_SCALAR
 
 
 def _maybe_drop(x, bits, rate):
@@ -685,9 +687,10 @@ def attn_block_bwd(dy, x, qkv, p, o, r, wqkv, wo, gamma, b: int, t: int,
     _check_act(name, x, (x.shape[-1],))
     rows, h = x.shape
     dev = x.device
-    if rows != b * t or h != heads * D_HEAD or not 0 < t <= MAX_T_BWD:
+    t_max = max_t(x.dtype, True)
+    if rows != b * t or h != heads * D_HEAD or not 0 < t <= t_max:
         raise ValueError(f"{name}: the kernel takes x (b*t, heads*{D_HEAD}) "
-                         f"with 1 <= t <= {MAX_T_BWD}; got {tuple(x.shape)}, "
+                         f"with 1 <= t <= {t_max}; got {tuple(x.shape)}, "
                          f"b={b}, t={t}, heads={heads}")
     for what, a, shape in (("dy", dy, (rows, h)), ("o", o, (rows, h)),
                            ("r", r, (rows, h)), ("qkv", qkv, (rows, 3 * h))):
@@ -764,8 +767,8 @@ def attn_block(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
     all float32 masters. When rate > 0, one dropout source: bits_p
     (heads*b, t, t) and bits_h (R, H) int32, or seed (1,) int32, the layer
     seed (ops/philox.py). The kernels take heads of width 64
-    (H = 64 * heads), H <= 1024, t <= 512 in bf16 and 128 in f32 (t <= 64
-    when a gradient is needed; `max_t`), and wqkv, wo as .t() views of
+    (H = 64 * heads), H <= 1024, t <= 512 in bf16, and in f32 t <= 128
+    (64 when a gradient is needed; `max_t`), and wqkv, wo as .t() views of
     contiguous (out, in) tensors.
     Returns y: (R, H).
     """
