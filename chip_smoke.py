@@ -904,45 +904,54 @@ def long_backwards(dev, attn_w, ffn_w, H, heads, eps, seed) -> dict:
     return out
 
 
-def _launch_seq_us(fn, calls: int = 20) -> list:
+def _launch_seq_us(fn, calls: int = 20, tries: int = 3) -> list:
     """The device kernels one call of fn launches, one entry a launch in
     the first call's order of starts (two launches of one kernel stay
     apart; launches on two streams may start in another order in another
     call, so each call's k-th launch of a kernel is matched to the first
     call's), from torch.profiler over `calls` calls (after one to warm
-    up): [(kernel name, device us)], each the mean over the calls."""
+    up): [(kernel name, device us)], each the mean over the calls. The
+    profiler now and then loses a window's device events; such a window
+    (events that do not split into equal calls) is taken again, up to
+    `tries` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-            torch.cuda.synchronize()
-    ev = sorted((e for e in prof.events()
-                 if e.device_type == DeviceType.CUDA),
-                key=lambda e: e.time_range.start)
-    if not ev or len(ev) % calls:
-        raise AssertionError(f"{len(ev)} device events over {calls} calls")
-    n = len(ev) // calls
-    first = [e.name for e in ev[:n]]
-    slots = {}
-    for i, name in enumerate(first):
-        slots.setdefault(name, []).append(i)
-    total = [0.0] * n
-    for c in range(calls):
-        seen = {}
-        for e in ev[c * n:(c + 1) * n]:
-            k = seen.get(e.name, 0)
-            seen[e.name] = k + 1
-            if k >= len(slots.get(e.name, ())):
-                raise AssertionError(f"call {c} launches {e.name} more "
-                                     "often than the first call")
-            total[slots[e.name][k]] += e.time_range.elapsed_us()
-    return [(name, us / calls) for name, us in zip(first, total)]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+                torch.cuda.synchronize()
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+        if not ev or len(ev) % calls:
+            continue
+        n = len(ev) // calls
+        first = [e.name for e in ev[:n]]
+        slots = {}
+        for i, name in enumerate(first):
+            slots.setdefault(name, []).append(i)
+        total, ok = [0.0] * n, True
+        for c in range(calls):
+            seen = {}
+            for e in ev[c * n:(c + 1) * n]:
+                k = seen.get(e.name, 0)
+                seen[e.name] = k + 1
+                if k >= len(slots.get(e.name, ())):
+                    ok = False
+                    break
+                total[slots[e.name][k]] += e.time_range.elapsed_us()
+            if not ok:
+                break
+        if ok:
+            return [(name, us / calls) for name, us in zip(first, total)]
+    raise AssertionError(f"the profiler's device events did not split into "
+                         f"{calls} equal calls in {tries} tries")
 
 
 def half_layer_launches(x, mask, attn_w, ffn_w, B, T, heads, eps) -> dict:

@@ -151,7 +151,7 @@ cudaError_t launch_attention_bwd(const T* qkv, const T* p, const T* dout,
   cudaError_t err;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (t > tgfr::kAttnMaxT) return cudaErrorInvalidValue;
-    const int pairs = tgfr::attn_pairs_per_block(t);
+    const int pairs = tgfr::attn_bwd_pairs_per_block(t);
     const size_t smem = tgfr::attn_bwd_mma_smem_bytes(t, pairs);
     err = set_smem(tgfr::attention_bwd_mma_kernel, smem);
     if (err != cudaSuccess) return err;

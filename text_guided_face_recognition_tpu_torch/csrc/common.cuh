@@ -3148,7 +3148,11 @@ attention_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
 //   dv += p_drop^T . do, then dp^T = v . do^T, ds^T, dk += ds^T . q, each
 //   product's left operand formed in the accumulator layout and reused as
 //   A fragments (q and do through ldmatrix.trans); two passes keep fewer
-//   registers live, which the whole-tower kernel's cap of 168 needs.
+//   registers live, which the whole-tower kernel's cap of 168 needs. At
+//   t <= 64 the dv pass needs nothing of phase A, so it runs beside
+//   phase A on the pair's warps, and only the dk pass waits for the row
+//   sums: one block's chain of dependent steps is what bounds the tile at
+//   short t.
 // - k and v (phase A), q and do (phase B) lie in shared memory as bf16 rows
 //   of 72, all four at once where they fit (t <= kAttnBwdAll4T), else q and
 //   do are staged over k and v between the phases. The probabilities with
@@ -3157,9 +3161,7 @@ attention_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
 //   t <= 64, else a strip of 64 query rows (phase A) or of 64 key columns
 //   (phase B) in turn; so t is bounded by shared memory at
 //   2 x t x 144 + 128 t bytes a pair: t <= 512.
-// - Several pairs a block where the rows are few (attn_pairs_per_block).
-// At t = 24 the tile is bound by latency (one block's chain of copies,
-// barriers and dependent products), not by bytes or operations.
+// - Two pairs a block where the rows are fewest (attn_bwd_pairs_per_block).
 // K6 and K8 run this one function, so the chain of half-layers and the
 // whole-tower kernel add the same values in the same order.
 // ---------------------------------------------------------------------------
@@ -3168,6 +3170,15 @@ constexpr int kAttnBwdAll4T = 320;   // q, k, v, do all staged at once
 
 inline __host__ __device__ bool attn_bwd_all4(int t) {
   return t <= kAttnBwdAll4T;
+}
+
+// Pairs a block of the backward tile, from t: one, so that more blocks
+// hide the chain of each (the query and key tiles of a pair fill its 4
+// warps from t = 24); two at t <= 16, where one pair has a single query
+// tile and a single key tile. (Faster than attn_pairs_per_block's counts
+// in K6 and in K8 at t = 24: development runs on the H100.)
+inline __host__ __device__ int attn_bwd_pairs_per_block(int t) {
+  return t <= 16 ? 2 : 1;
 }
 
 // Shared memory of a block of `pairs` pairs of the backward tile: the
@@ -3390,158 +3401,179 @@ attention_bwd_mma_tile(const __nv_bfloat16* qkv, const __nv_bfloat16* p,
     return __uint_as_float((u & 0x7FFFu) << 16);
   };
 
-  // phase A: dot and dq, a warp's 16 query rows at a time, query block by
-  // query block (past t = 64 the block's strip of p staged in turn)
-  for (int qb = 0; qb < nblk; ++qb) {
-    if (!whole) {
-      __syncthreads();
-      stage_p(qb * kAttnKeys, kAttnKeys, 0, t, tp);
-      sq0 = qb * kAttnKeys;
-      __syncthreads();
-    }
-    const int qt_end = min(ntile, (qb + 1) * (kAttnKeys / 16));
-    for (int qt = qb * (kAttnKeys / 16) + warp % wpp; live && qt < qt_end;
-         qt += wpp) {
-      unsigned fa[4][4];
-      if (all4)
-        load_a_frags(fa, pb + 3 * buf, kAttnLd, qt * 16, t, g, tq);
-      else
-        load_a_frags(fa, dout + row0 * h + head * kDHead, h, qt * 16, t, g,
-                     tq);
-      const int rows[2] = {qt * 16 + g, qt * 16 + g + 8};
-      // key block kb: the masked dp in s and p in pv, elements past t zero
-      auto block_dp = [&](int kb, float (&s)[8][4], float (&pv)[8][4]) {
-        const int k0 = kb * kAttnKeys;
-        mma_rows(s, fa, vs, k0, t, g, tq);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = rows[e >> 1], key = k0 + 8 * j + 2 * tq + (e & 1);
-            float d = 0.f, pr = 0.f;
-            if (row < t && key < t) {
-              bool keep;
-              pr = prob(row, key, keep);
-              d = keep ? (drop ? s[j][e] * scale : s[j][e]) : 0.f;
-            }
-            s[j][e] = d;
-            pv[j][e] = pr;
-          }
-      };
-      float dot[2] = {0.f, 0.f};
-      float s[8][4], pv[8][4];
-      for (int kb = 0; kb < nblk; ++kb) {
-        block_dp(kb, s, pv);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dot[e >> 1] += s[j][e] * pv[j][e];
-      }
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        dot[hr] += __shfl_xor_sync(0xffffffffu, dot[hr], 1);
-        dot[hr] += __shfl_xor_sync(0xffffffffu, dot[hr], 2);
-        if (tq == 0 && rows[hr] < t) pdots[rows[hr]] = dot[hr];
-      }
-      float o[8][4];
+  const T* qs = pb + (all4 ? 2 : 0) * buf;   // q, do: staged by phase B
+  const T* dos = qs + buf;
+
+  // query tile qt: the row sums dot over the key blocks, then ds and
+  // dq = ds . k (phase A)
+  auto a_unit = [&](int qt) {
+    unsigned fa[4][4];
+    if (all4)
+      load_a_frags(fa, dos, kAttnLd, qt * 16, t, g, tq);
+    else
+      load_a_frags(fa, dout + row0 * h + head * kDHead, h, qt * 16, t, g,
+                   tq);
+    const int rows[2] = {qt * 16 + g, qt * 16 + g + 8};
+    // key block kb: the masked dp in s and p in pv, elements past t zero
+    auto block_dp = [&](int kb, float (&s)[8][4], float (&pv)[8][4]) {
+      const int k0 = kb * kAttnKeys;
+      mma_rows(s, fa, vs, k0, t, g, tq);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-      for (int kb = 0; kb < nblk; ++kb) {
-        if (nblk > 1) block_dp(kb, s, pv);   // one block: still in s, pv
+        for (int e = 0; e < 4; ++e) {
+          const int row = rows[e >> 1], key = k0 + 8 * j + 2 * tq + (e & 1);
+          float d = 0.f, pr = 0.f;
+          if (row < t && key < t) {
+            bool keep;
+            pr = prob(row, key, keep);
+            d = keep ? (drop ? s[j][e] * scale : s[j][e]) : 0.f;
+          }
+          s[j][e] = d;
+          pv[j][e] = pr;
+        }
+    };
+    float dot[2] = {0.f, 0.f};
+    float s[8][4], pv[8][4];
+    for (int kb = 0; kb < nblk; ++kb) {
+      block_dp(kb, s, pv);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[j][e] = round_to<T>(pv[j][e] * (s[j][e] - dot[e >> 1]) * inv);
-        mma_acc_rows(o, s, smem_u32(ks), kb * kAttnKeys, t, lane);
-      }
-      store_rows(dqkv + row0 * 3 * h + head * kDHead, 3 * h, o, qt * 16, t,
-                 g, tq);
+        for (int e = 0; e < 4; ++e) dot[e >> 1] += s[j][e] * pv[j][e];
     }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      dot[hr] += __shfl_xor_sync(0xffffffffu, dot[hr], 1);
+      dot[hr] += __shfl_xor_sync(0xffffffffu, dot[hr], 2);
+      if (tq == 0 && rows[hr] < t) pdots[rows[hr]] = dot[hr];
+    }
+    float o[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+    for (int kb = 0; kb < nblk; ++kb) {
+      if (nblk > 1) block_dp(kb, s, pv);   // one block: still in s, pv
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = round_to<T>(pv[j][e] * (s[j][e] - dot[e >> 1]) * inv);
+      mma_acc_rows(o, s, smem_u32(ks), kb * kAttnKeys, t, lane);
+    }
+    store_rows(dqkv + row0 * 3 * h + head * kDHead, 3 * h, o, qt * 16, t, g,
+               tq);
+  };
+  // key tile kt: dv = p_drop^T . do over the query blocks (needs no row
+  // sum), and dk = ds^T . q (after phase A's row sums); c holds p_drop^T,
+  // then ds^T, in the accumulator layout (keys x queries)
+  auto dv_unit = [&](int kt) {
+    const int keys[2] = {kt * 16 + g, kt * 16 + g + 8};
+    float acc[8][4], c[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int qb = 0; qb < nblk; ++qb) {
+      const int q0 = qb * kAttnKeys;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = keys[e >> 1], qry = q0 + 8 * j + 2 * tq + (e & 1);
+          float pd = 0.f;
+          if (key < t && qry < t) {
+            bool keep;
+            const float pr = prob(qry, key, keep);
+            pd = drop ? (keep ? round_to<T>(pr * sc) : 0.f) : pr;
+          }
+          c[j][e] = pd;
+        }
+      mma_acc_rows(acc, c, smem_u32(dos), q0, t, lane);
+    }
+    store_rows(dqkv + row0 * 3 * h + 2 * h + head * kDHead, 3 * h, acc,
+               kt * 16, t, g, tq);
+  };
+  auto dk_unit = [&](int kt) {
+    const int keys[2] = {kt * 16 + g, kt * 16 + g + 8};
+    unsigned fa[4][4];
+    if (all4)
+      load_a_frags(fa, vs, kAttnLd, kt * 16, t, g, tq);
+    else
+      load_a_frags(fa, qkv + row0 * 3 * h + 2 * h + head * kDHead, 3 * h,
+                   kt * 16, t, g, tq);
+    float acc[8][4], c[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int qb = 0; qb < nblk; ++qb) {
+      const int q0 = qb * kAttnKeys;
+      mma_rows(c, fa, dos, q0, t, g, tq);         // dp^T = v . do^T
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = keys[e >> 1], qry = q0 + 8 * j + 2 * tq + (e & 1);
+          float ds = 0.f;
+          if (key < t && qry < t) {
+            bool keep;
+            const float pr = prob(qry, key, keep);
+            const float d = keep ? (drop ? c[j][e] * scale : c[j][e]) : 0.f;
+            ds = round_to<T>(pr * (d - pdots[qry]) * inv);
+          }
+          c[j][e] = ds;
+        }
+      mma_acc_rows(acc, c, smem_u32(qs), q0, t, lane);
+    }
+    store_rows(dqkv + row0 * 3 * h + h + head * kDHead, 3 * h, acc, kt * 16,
+               t, g, tq);
+  };
+
+  if (whole) {
+    // everything staged: the query tiles and the key tiles' dv spread over
+    // the pair's warps, then the key tiles' dk
+    for (int u = warp % wpp; live && u < 2 * ntile; u += wpp) {
+      if (u < ntile)
+        a_unit(u);
+      else
+        dv_unit(u - ntile);
+    }
+    __syncthreads();
+    for (int kt = warp % wpp; live && kt < ntile; kt += wpp) dk_unit(kt);
+    return;
+  }
+  // phase A, query block by query block, the block's strip of p staged in
+  // turn
+  for (int qb = 0; qb < nblk; ++qb) {
+    __syncthreads();
+    stage_p(qb * kAttnKeys, kAttnKeys, 0, t, tp);
+    sq0 = qb * kAttnKeys;
+    __syncthreads();
+    const int qt_end = min(ntile, (qb + 1) * (kAttnKeys / 16));
+    for (int qt = qb * (kAttnKeys / 16) + warp % wpp; live && qt < qt_end;
+         qt += wpp)
+      a_unit(qt);
   }
   __syncthreads();
   if (!all4) {
     stage(1);
     __syncthreads();
   }
-  const T* qs = pb + (all4 ? 2 : 0) * buf;
-  const T* dos = qs + buf;
-  if (!whole) {
-    sq0 = 0;
-    stride = kAttnKeys;
-  }
-
-  // phase B, a warp's 16 key rows at a time, key block by key block (past
-  // t = 64 the block's strip of p staged in turn): dv = p_drop^T . do, then
-  // dk = ds^T . q (two passes over the query blocks: fewer live registers)
+  sq0 = 0;
+  stride = kAttnKeys;
+  // phase B, key block by key block, the block's strip of p staged in turn
   for (int kb = 0; kb < nblk; ++kb) {
-    if (!whole) {
-      __syncthreads();
-      stage_p(0, t, kb * kAttnKeys, kAttnKeys, kAttnKeys);
-      sk0 = kb * kAttnKeys;
-      __syncthreads();
-    }
+    __syncthreads();
+    stage_p(0, t, kb * kAttnKeys, kAttnKeys, kAttnKeys);
+    sk0 = kb * kAttnKeys;
+    __syncthreads();
     const int kt_end = min(ntile, (kb + 1) * (kAttnKeys / 16));
     for (int kt = kb * (kAttnKeys / 16) + warp % wpp; live && kt < kt_end;
          kt += wpp) {
-      const int keys[2] = {kt * 16 + g, kt * 16 + g + 8};
-      float acc[8][4], c[8][4];   // c: p_drop^T, then ds^T (keys x queries)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-      for (int qb = 0; qb < nblk; ++qb) {
-        const int q0 = qb * kAttnKeys;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = keys[e >> 1], qry = q0 + 8 * j + 2 * tq + (e & 1);
-            float pd = 0.f;
-            if (key < t && qry < t) {
-              bool keep;
-              const float pr = prob(qry, key, keep);
-              pd = drop ? (keep ? round_to<T>(pr * sc) : 0.f) : pr;
-            }
-            c[j][e] = pd;
-          }
-        mma_acc_rows(acc, c, smem_u32(dos), q0, t, lane);
-      }
-      store_rows(dqkv + row0 * 3 * h + 2 * h + head * kDHead, 3 * h, acc,
-                 kt * 16, t, g, tq);
-      unsigned fa[4][4];
-      if (all4)
-        load_a_frags(fa, vs, kAttnLd, kt * 16, t, g, tq);
-      else
-        load_a_frags(fa, qkv + row0 * 3 * h + 2 * h + head * kDHead, 3 * h,
-                     kt * 16, t, g, tq);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-      for (int qb = 0; qb < nblk; ++qb) {
-        const int q0 = qb * kAttnKeys;
-        mma_rows(c, fa, dos, q0, t, g, tq);       // dp^T = v . do^T
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = keys[e >> 1], qry = q0 + 8 * j + 2 * tq + (e & 1);
-            float ds = 0.f;
-            if (key < t && qry < t) {
-              bool keep;
-              const float pr = prob(qry, key, keep);
-              const float d = keep ? (drop ? c[j][e] * scale : c[j][e]) : 0.f;
-              ds = round_to<T>(pr * (d - pdots[qry]) * inv);
-            }
-            c[j][e] = ds;
-          }
-        mma_acc_rows(acc, c, smem_u32(qs), q0, t, lane);
-      }
-      store_rows(dqkv + row0 * 3 * h + h + head * kDHead, 3 * h, acc,
-                 kt * 16, t, g, tq);
+      dv_unit(kt);
+      dk_unit(kt);
     }
   }
 }

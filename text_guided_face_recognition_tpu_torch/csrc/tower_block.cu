@@ -225,11 +225,11 @@ __device__ __forceinline__ void attn_fwd_item(const T* qkv, const int* mask,
 }
 
 // Pairs (caption, head) a work item of the attention backward: in bf16 as
-// many as a block of the half-layer kernel K6 takes (attn_pairs_per_block:
-// 2 at t = 24, where one pair an item ran K8 slower in a development run
-// on the H100), in f32 one.
+// many as a block of the half-layer kernel K6 takes
+// (attn_bwd_pairs_per_block), in f32 one.
 template <typename T> __host__ __device__ int attn_bwd_pairs(int t) {
-  return std::is_same<T, __nv_bfloat16>::value ? attn_pairs_per_block(t) : 1;
+  return std::is_same<T, __nv_bfloat16>::value ? attn_bwd_pairs_per_block(t)
+                                               : 1;
 }
 
 // The attention backward of item w: in bf16 the tensor-core tile the
