@@ -2,7 +2,7 @@
 """On-card smoke run of the PyTorch/CUDA port (one NVIDIA GPU).
 
   python3 chip_smoke.py [--only kernels|launches|phases|prng|serving|train|
-                                stage2]
+                                stage2|damsm]
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
@@ -67,7 +67,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      stamps at every grid barrier), the time of each of the 7 phases a
      layer and of the barriers, K7 in eval and prng mode and K8 in prng
      mode, with each block's SM and the compiler's register and spill
-     report of the tower kernels (`--only phases` runs this alone);
+     report of the tower kernels (`--only phases` runs this alone). K9
+     (f32) is also held with a ragged mask, bit for bit over two calls,
+     and at T = 510 (bert_words_num 512, its long path) against its plain
+     version, and timed there beside the plain version, with its
+     yardsticks at the flagship: the two contractions alone as f32
+     torch.bmm (TF32 off), regions_j^T by all captions' words and attended
+     weights by regions_j^T, batched over the images (reference columns,
+     used nowhere in the port); its bound counts the three TF32 products
+     of 3xTF32 at the TF32 peak, the f32 FMA bound listed beside it
+     (`--only damsm` runs K9 alone);
   4. prng: the port's tools/verify_block_prng at full width (B 32, T 24,
      12 layers of H 768, I 3072), f32 and bf16, with the counts zeroed
      before and read after: for K3/K4, K5/K6 and K7/K8 in prng mode,
@@ -100,16 +109,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      masks (the off twin fed the host bits and the K10/K11 dumps of the
      seeds), and once more with a planted K6 fault (the wrong seed in its
      backward) that the comparison must catch; one step at
-     bert_words_num 512 (captions up to 512 tokens) on against off, its
-     loss held to the same limit and its per-module readings printed
-     beside the T = 24 ones; in host mode
+     bert_words_num 512 (captions up to 512 tokens) on against off, K9 on
+     its long path (regions x words 196 x 510) launched once on the on
+     side, its loss held to the same limit and its per-module readings
+     printed beside the T = 24 ones; in host mode
      (fused_dropout) the same comparison in bf16, which must pass, beside
      a planted fault (all-keep bits in K6) that it must catch, and a
      `tower` twin held against `both` (same weights,
      same bits) and two steps with the same launches as a prng step; the
      step time, device time, peak memory and host words per step in prng
      mode, host mode and with the kernels off, and the step's device-time
-     split;
+     split (its device ms per step on a line of its own);
   7. stage-2 fusion training at full width in bf16 (cfg/fusion_bert.yml as
      it stands: bert-base, iresnet18 frozen, FCFM 640, num_classes 4500,
      batch 16; fused_block=tower, fused_ln; prng mode, the tower's one seed
@@ -138,10 +148,11 @@ error scales with the gradient's magnitude, not element by element. K8
 against the K4/K6 chain in bf16: each weight gradient within one bf16 step
 (2^-7 of its value) of the chain's f32 one, the difference the two designs
 have by construction. K9
-(f32): |k - p| <= 1e-4 + 1e-4 |p|. Kernels on against off: serving pair
-scores 2e-2 (bf16 rounding differences carried through 12 layers and a
-640-d cosine). One training step, from the same weights and dropout bits,
-in the trainer's bf16 and again in f32: the loss within 1e-2 (bf16) /
+(f32, 3xTF32 on tensor cores): |k - p| <= 1e-4 + 1e-4 |p|. Kernels on
+against off: serving pair scores 2e-2 (bf16 rounding differences carried
+through 12 layers and a 640-d cosine). One training step, from the same
+weights and dropout bits, in the trainer's bf16 and again in f32: the
+loss within 1e-2 (bf16) /
 1e-5 (f32) relative; and per top-level module (image_head, text_encoder,
 text_head, image_cls, text_cls) its gradients as one vector within
 ||g_on - g_off|| <= 0.1 (bf16; the text head 0.25) / 1e-4 (f32)
@@ -184,8 +195,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # integer operations a word: 10 rounds of two 32 x 32 products and 4 xors
 # a 4-word block) enter no bound: K10-K12 are bound by the bytes they write.
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bf16_tensor": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16_tensor": 989e12, "tf32_tensor": 495e12, "f32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# K9 (f32 as 3xTF32 on tensor cores) against its plain version at these
+# l2-normalised inputs: absolute, about 5x the kernel's largest error and
+# below a third of the plain version's own with its contractions at single
+# TF32, which each run shows fails it (PERF.md, K9)
+DAMSM_ATOL = 5e-6
 SCORE_TOL = 2e-2
 # kernels on against off, one training step (see the docstring)
 ON_OFF_TOL = {"bfloat16": {"loss": 1e-2, "l2": 0.1, "l2_text_head": 0.25,
@@ -206,6 +222,8 @@ TRAIN_STEPS = 20
 # caption lengths of the long-caption checks of K4 and K6 (bf16 up to 512;
 # f32 up to its limit of 64): the edge of one key block and one past it
 LONG_T = (64, 65, 200, 512)
+# K9's caption length at bert_words_num 512 (words without [CLS], [SEP])
+DAMSM_LONG_T = 510
 
 
 def _graph_ms(fn, calls: int = 20, reps: int = 9) -> float:
@@ -247,11 +265,13 @@ def _times(fn, flush, flush_ms: float) -> tuple:
     return _graph_ms(fn), _graph_ms(cold) - flush_ms
 
 
-def _close(a, b, tol: float):
-    """(max |a - b|, whether |a - b| <= tol + tol |b| everywhere)."""
+def _close(a, b, tol: float, rtol: float | None = None):
+    """(max |a - b|, whether |a - b| <= tol + rtol |b| everywhere; rtol
+    defaults to tol)."""
     a, b = a.float(), b.float()
     err = (a - b).abs()
-    return err.max().item(), bool((err <= tol + tol * b.abs()).all())
+    rtol = tol if rtol is None else rtol
+    return err.max().item(), bool((err <= tol + rtol * b.abs()).all())
 
 
 def _close_scaled(a, b, tol: float):
@@ -277,6 +297,17 @@ def _bound(nbytes: float, flops: float, kind: str) -> dict:
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
+
+
+def _damsm_bound(b, d, t, r, kind: str) -> dict:
+    """K9's bound: words, regions in and sim out once; the two
+    contractions (logits R x T x D and context T x R x D per pair, B^2
+    pairs) in f32 FMA (`f32`) or as the kernel runs them, 3xTF32 on tensor
+    cores (`tf32_3x`: three TF32 products for each f32 one)."""
+    flops = 4.0 * b * b * r * t * d
+    return _bound(4 * (b * d * (t + r) + b * b),
+                  3 * flops if kind == "tf32_3x" else flops,
+                  "tf32_tensor" if kind == "tf32_3x" else "f32")
 
 
 def _bounds(b, t, h, heads, inter, es, d_words, t_words, r_regions):
@@ -306,9 +337,8 @@ def _bounds(b, t, h, heads, inter, es, d_words, t_words, r_regions):
         "attn_block_bwd": _bound(
             8 * act + p_el * es + 4 * (8 * h * h + 6 * h) + 4 * (p_el + r * h),
             2.0 * r * h * 8 * h + 2 * attn_core, "bf16_tensor"),
-        "damsm_similarity": _bound(
-            4 * (b * d_words * (t_words + r_regions) + b * b),
-            4.0 * b * b * r_regions * t_words * d_words, "f32"),
+        "damsm_similarity": _damsm_bound(b, d_words, t_words, r_regions,
+                                         "tf32_3x"),
     }
     # train-mode forwards: + bits in, + residuals out (f, r / qkv, p, o, r)
     out["ffn_block_train"] = _bound(
@@ -362,6 +392,138 @@ JAX = "text_guided_face_recognition_tpu/ops/"
 # 16-byte vector (the scalar path), the flagship, the widest row, a row
 # narrower than a warp's vectors
 LN_SHAPES = ((37, 389), (768, 768), (50, 1024), (9, 8))
+
+
+def damsm_extras(dev, B, D, TW, RG, seed: int, flush,
+                 flush_ms: float) -> dict:
+    """K9 beyond the kernel table's flagship row: at the flagship (B, D,
+    TW, RG) with a ragged mask, two calls bit for bit, and its yardsticks,
+    the two contractions alone as f32 torch.bmm (TF32 off; used nowhere in
+    the port): regions_j^T (RG x D) by all captions' words (D x B TW) and
+    attended weights (B TW x RG) by regions_j^T (RG x D), batched over the
+    B images; then at T = DAMSM_LONG_T (bert_words_num 512) the kernel
+    against its plain version and both timed. Each comparison also runs the
+    plain version with its contractions at single TF32 and shows that it
+    fails DAMSM_ATOL, the limit the kernel (3xTF32) is held to."""
+    import torch
+    import torch.nn.functional as F
+
+    from text_guided_face_recognition_tpu_torch.ops import attention, damsm
+
+    def held(tag, got, want, plain_tf32):
+        """The kernel within DAMSM_ATOL of the f32 plain version, the
+        single-TF32 plain version outside it."""
+        err, ok = _close(got, want, DAMSM_ATOL, 0.0)
+        err_tf32 = _close(plain_tf32, want, DAMSM_ATOL, 0.0)[0]
+        if not ok or err_tf32 <= DAMSM_ATOL:
+            raise AssertionError(
+                f"damsm_similarity{tag}: max |err| {err}, the single-TF32 "
+                f"plain version's {err_tf32} (limit {DAMSM_ATOL} between)")
+        out[f"max_abs_err{tag}"] = err
+        out[f"max_abs_err{tag}_plain_tf32"] = err_tf32
+
+    def tf32(fn):
+        was = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return fn()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = was
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def unit(*shape):
+        return F.normalize(torch.randn(*shape, generator=gen), dim=1).to(
+            dev).contiguous()
+
+    words, regions = unit(B, D, TW), unit(B, D, RG)
+    lens = torch.randint(1, TW + 1, (B,), generator=gen)
+    mask = (torch.arange(TW)[None] < lens[:, None]).to(dev)
+    out = {}
+    for tag, m in (("", None), ("_masked", mask)):
+        got = damsm.damsm_similarity_cuda(words, regions, 4.0, 5.0, m)
+        again = damsm.damsm_similarity_cuda(words, regions, 4.0, 5.0, m)
+        ref = (lambda m=m: attention.damsm_similarity(words, regions, 4.0,
+                                                      5.0, m))
+        held("_flagship" + tag, got, ref(), tf32(ref))
+        if not torch.equal(got, again):
+            raise AssertionError(f"damsm_similarity{tag}: two calls differ")
+    out["bitwise_repeat"] = True
+    # the yardsticks: the two contractions alone
+    reg_t = regions.transpose(1, 2).contiguous()              # (B, RG, D)
+    w_all = words.permute(1, 0, 2).reshape(D, B * TW).expand(B, D, B * TW)
+    att_w = torch.softmax(torch.randn(B, B * TW, RG, generator=gen), -1).to(
+        dev).contiguous()
+    out["bmm_logits_ms"], out["bmm_logits_ms_cold_l2"] = _times(
+        lambda: torch.bmm(reg_t, w_all), flush, flush_ms)
+    out["bmm_context_ms"], out["bmm_context_ms_cold_l2"] = _times(
+        lambda: torch.bmm(att_w, reg_t), flush, flush_ms)
+    out["bmm_sum_ms"] = out["bmm_logits_ms"] + out["bmm_context_ms"]
+    out.update({k + "_f32_fma": v for k, v in _damsm_bound(
+        B, D, TW, RG, "f32").items() if k in ("bound_ms", "bound_by")})
+    # the long captions: T = DAMSM_LONG_T
+    tl = DAMSM_LONG_T
+    words_l = unit(B, D, tl)
+    lens = torch.randint(tl // 2, tl + 1, (B,), generator=gen)
+    mask_l = (torch.arange(tl)[None] < lens[:, None]).to(dev)
+    run = (lambda: damsm.damsm_similarity_cuda(words_l, regions, 4.0, 5.0,
+                                               mask_l))
+    ref = (lambda: attention.damsm_similarity(words_l, regions, 4.0, 5.0,
+                                              mask_l))
+    got, want = run(), ref()
+    held(f"_t{tl}", got, want, tf32(ref))
+    if not torch.equal(got, run()):
+        raise AssertionError(f"damsm_similarity at t = {tl}: two calls "
+                             "differ")
+    out[f"ms_t{tl}"], out[f"ms_t{tl}_cold_l2"] = _times(run, flush, flush_ms)
+    out[f"plain_ms_t{tl}"] = _graph_ms(ref, calls=2, reps=3)
+    for kind, key in (("tf32_3x", ""), ("f32", "_f32_fma")):
+        b = _damsm_bound(B, D, tl, RG, kind)
+        out[f"bound_ms_t{tl}{key}"] = b["bound_ms"]
+    del words_l, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def damsm_phase(args) -> dict:
+    """`--only damsm`: K9 at the flagship shapes against its plain version,
+    timed beside it and its yardsticks (`damsm_extras`), with its bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from text_guided_face_recognition_tpu_torch.ops import attention, damsm
+
+    dev = torch.device("cuda")
+    B, D, TW, RG = 32, args.aux_feat_dim_per_granularity, \
+        args.bert_words_num - 2, (args.img_size // 8) ** 2
+    gen = torch.Generator().manual_seed(args.manual_seed)
+    words = F.normalize(torch.randn(B, D, TW, generator=gen), dim=1).to(
+        dev).contiguous()
+    regions = F.normalize(torch.randn(B, D, RG, generator=gen), dim=1).to(
+        dev).contiguous()
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    flush_ms = _graph_ms(flush)
+    run = (lambda: damsm.damsm_similarity_cuda(words, regions, 4.0, 5.0))
+    ref = (lambda: attention.damsm_similarity(words, regions, 4.0, 5.0))
+    err, ok = _close(run(), ref(), DAMSM_ATOL, 0.0)
+    if not ok:
+        raise AssertionError(f"damsm_similarity: max |err| {err}")
+    row = {"max_abs_err": err}
+    # in turns: kernel, plain, kernel
+    row["ms"], row["ms_cold_l2"] = _times(run, flush, flush_ms)
+    row["plain_ms"], row["plain_ms_cold_l2"] = _times(ref, flush, flush_ms)
+    ms2 = _times(run, flush, flush_ms)
+    row["ms_runs"], row["ms_cold_l2_runs"] = [row["ms"], ms2[0]], \
+        [row["ms_cold_l2"], ms2[1]]
+    row.update(_damsm_bound(B, D, TW, RG, "tf32_3x"))
+    row.update(damsm_extras(dev, B, D, TW, RG, args.manual_seed + 11, flush,
+                            flush_ms))
+    print("damsm: " + json.dumps(row), flush=True)
+    return row
 
 
 def _device_ops(fn) -> int:
@@ -651,6 +813,7 @@ def kernel_phase(args):
         dict(name="damsm_similarity", fn=damsm.damsm_similarity_cuda,
              source=SRC + "damsm.cu",
              replaces=JAX + "damsm_pallas.py:115", dtypes=(torch.float32,),
+             atol=DAMSM_ATOL,
              run=lambda x: (damsm.damsm_similarity_cuda(words, regions, 4.0,
                                                         5.0),),
              ref=lambda x: (attention.damsm_similarity(words, regions, 4.0,
@@ -665,7 +828,8 @@ def kernel_phase(args):
         dtypes = s.get("dtypes", (torch.bfloat16, torch.float32))
         for dt in dtypes:
             x = x32.to(dt)
-            tol = TOL[str(dt)[6:]]
+            tol = s.get("atol", TOL[str(dt)[6:]])
+            rtol = 0.0 if "atol" in s else tol
             tag = "" if dt == dtypes[0] else "_f32"
             if "res" in s:
                 res = s["res"](x)
@@ -676,14 +840,15 @@ def kernel_phase(args):
             errs = []
             for k, (o, p) in enumerate(zip(run(x), ref(x))):
                 torch.cuda.synchronize()
-                err, ok = check(o, p, tol)
+                err, ok = (check(o, p, tol) if s.get("bwd")
+                           else _close(o, p, tol, rtol))
                 errs.append(err)
                 if not ok:
                     raise AssertionError(
                         f"{s['name']} {dt} output {k}: kernel disagrees with "
                         f"its plain version (max |err| {err})")
             row[f"max_abs_err{tag}"] = max(errs)
-            row[f"tolerance{tag}"] = {"rtol": tol, "atol": tol,
+            row[f"tolerance{tag}"] = {"rtol": rtol, "atol": tol,
                                       "scaled": bool(s.get("bwd"))}
             if "train_run" in s:
                 errs = []
@@ -833,6 +998,14 @@ def kernel_phase(args):
                                      "two calls")
             rows[[r["name"] for r in rows].index(s["name"])][
                 "ln_sums_bitwise_repeat"] = True
+    rows[[r["name"] for r in rows].index("damsm_similarity")].update(
+        damsm_extras(dev, B, D, TW, RG, args.manual_seed + 11, flush,
+                     flush_ms))
+    print("kernel damsm_similarity, flagship masked, yardsticks and t = "
+          f"{DAMSM_LONG_T}: " + json.dumps({k: v for k, v in rows[-1].items()
+                                            if "t510" in k or "bmm" in k
+                                            or "flagship" in k
+                                            or "f32_fma" in k}), flush=True)
     towers = tower_kernels(dev, B, T, H, heads, I, mask, x32, dy32, gen,
                            flush, seed)
     return rows[:6] + towers + rows[6:]
@@ -2255,31 +2428,36 @@ def _host_mode_counts(host, batch, per_step, kernels, tag: str) -> None:
                              f"{per_step}")
 
 
-def long_caption_step(trainer, state, short: dict) -> dict:
+def long_caption_step(trainer, state, short: dict, kernels) -> dict:
     """One stage-1 step at bert_words_num = LONG_T[-1] (512, bert-base's
     position table; the synthetic split's ragged lengths), kernels on (prng
     mode: K1-K6, K5 with residuals on the tensor-core tile past 128, K6's
-    tensor-core backward) against off, from the same weights as the T = 24
-    comparison (`short`), whose per-module readings are printed beside
-    these. K9 runs its plain version on both sides: its block holds
-    regions x words logits, R T <= 5120 (ops/damsm.py), 26 words at
-    112 x 112 images. The loss is held to the bf16 limit; the gradients
-    are read, not held."""
+    tensor-core backward, K9 on its long path at regions x words 196 x 510)
+    against off, from the same weights as the T = 24 comparison (`short`),
+    whose per-module readings are printed beside these; the on step
+    launches K9 once, the off step never. The loss is held to the bf16
+    limit; the gradients are read, not held."""
     import torch
 
     from text_guided_face_recognition_tpu_torch.ops.philox import (
         compose_drop_bits)
 
     t_long = LONG_T[-1]
-    on = _twin(trainer, state, bert_words_num=t_long, use_pallas=False)
+    on = _twin(trainer, state, bert_words_num=t_long, use_pallas=True)
     batch = on.to_device(next(iter(on.train_dl)))
     b, t = batch["caps"].shape
     bits, seeds = on.draw_drop(b, t)
     off = _twin(on, state, fused_block="none", fused_ln=False,
                 use_pallas=False)
+    _zero(kernels)
     r = _on_off(on, off, batch, (bits, seeds),
                 (compose_drop_bits(on.arch, b, t, "both", bits, seeds),
                  None), ON_OFF_TOL["bfloat16"]["floor"])
+    torch.cuda.synchronize()
+    k9 = kernels["damsm_similarity"].launches
+    if k9 != 1:
+        raise AssertionError(f"stage-1 step at t = {t_long}: K9 launched "
+                             f"{k9} times, expected once (kernels on)")
     longest = int(batch["mask"].sum(1).max())
     print(f"train: one step at bert_words_num {t_long} (longest caption "
           f"{longest}), kernels on vs off: loss {r['loss_on']:.6g} / "
@@ -2290,12 +2468,15 @@ def long_caption_step(trainer, state, short: dict) -> dict:
               f"{short['groups'][m]['max']:.3g} and {g['l2']:.3g} / "
               f"{g['max']:.3g}" for m, g in r["groups"].items()),
           flush=True)
+    print(f"train: at bert_words_num {t_long}, K9 launches {k9} (kernels on "
+          "side; regions x words "
+          f"{(on.args.img_size // 8) ** 2} x {t - 2})", flush=True)
     if not r["loss_rel"] <= ON_OFF_TOL["bfloat16"]["loss"]:
         raise AssertionError(f"stage-1 step at t = {t_long}: kernels on/off "
                              f"loss differs by {r['loss_rel']}")
     del on, off
     torch.cuda.empty_cache()
-    return dict(r, longest_caption=longest, t=t)
+    return dict(r, longest_caption=longest, t=t, damsm_launches=k9)
 
 
 def train_phase(kernels):
@@ -2426,8 +2607,8 @@ def train_phase(kernels):
                                  f"in {dt}")
     _faults_caught(planted, ON_OFF_TOL, "K6")
     on_off["planted_k6_faults"] = planted
-    on_off[f"bfloat16_t{LONG_T[-1]}"] = long_caption_step(trainer, state,
-                                                         on_off["bfloat16"])
+    on_off[f"bfloat16_t{LONG_T[-1]}"] = long_caption_step(
+        trainer, state, on_off["bfloat16"], kernels)
     torch.cuda.empty_cache()
     _host_mode_counts(host, batch, per_step, kernels, "train")
 
@@ -2448,6 +2629,11 @@ def train_phase(kernels):
         ms_grads.append((t1 - t0) * 1e3)
         ms_opt.append((time.perf_counter() - t1) * 1e3)
     profile = modes["prng"]["profile"]
+    k9_ms = sum(ms for name, (ms, _) in profile.get("kernels", {}).items()
+                if "damsm_kernel" in name)
+    print("train: stage-1 device ms per step (prng mode, profiled): "
+          f"{profile.get('device_ms_per_call', 'not measured')}; K9 "
+          f"{k9_ms} ms of it", flush=True)
     print("train profile: " + json.dumps(_show(profile)))
     print("train profile, host mode: " + json.dumps(
         _show(modes["host"]["profile"])))
@@ -2626,7 +2812,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "launches", "phases",
                                        "prng", "serving", "train",
-                                       "stage2"))
+                                       "stage2", "damsm"))
     only = ap.parse_args(argv).only
     sys.path.insert(0, ROOT)
     from text_guided_face_recognition_tpu_torch.config import load_yaml
@@ -2643,6 +2829,7 @@ def main(argv=None) -> int:
     # the sources and the measurement build of the tower kernels, all at once
     per_source = _cuda.build(
         ("layernorm", "ffn_block", "attn_block") if only == "launches"
+        else ("damsm",) if only == "damsm"
         else _cuda.SOURCES + tuple(_cuda.VARIANTS))
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{k} {v:.2f} s' for k, v in per_source.items())})",
@@ -2669,6 +2856,8 @@ def main(argv=None) -> int:
         tower_phases(*_tower_inputs(args))
     if only == "launches":
         launches_phase(args)
+    if only == "damsm":
+        damsm_phase(args)
     rows = kernel_phase(args) if only in (None, "kernels") else []
     prng = prng_phase(args, kernels) if only in (None, "prng") else None
     rows += [] if prng is None else prng[2]

@@ -20,7 +20,7 @@ gradients 1e-4 (times their largest element: f32 sums over B x B terms
 of magnitude up to 500).
 
 The `cuda`-marked cases hold each new CUDA kernel against its plain version
-on a card and skip elsewhere; the JAX package is imported inside fixtures,
+on a card (K9 at DAMSM_ATOL, absolute) and skip elsewhere; the JAX package is imported inside fixtures,
 so on a machine with a card and no JAX they run alone:
   python -m pytest tests/test_torch_train_ops.py -m cuda --noconftest -q
 """
@@ -321,7 +321,7 @@ def _damsm_data(seed=0, b=6, d=32, t_=7, r=49):
     rng = np.random.default_rng(seed)
     words = rng.normal(size=(b, d, t_)).astype(np.float32)
     regions = rng.normal(size=(b, d, r)).astype(np.float32)
-    lens = rng.integers(2, t_ + 1, b)
+    lens = rng.integers(min(2, t_), t_ + 1, b)
     return words, regions, np.arange(t_)[None, :] < lens[:, None]
 
 
@@ -357,6 +357,75 @@ def test_func_attention_and_plain_damsm_match_jax(jx, masked):
     want = JA.damsm_similarity(jx.a(words), jx.a(regions), 4.0, 5.0, jm)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_damsm_plain_matches_pallas_kernel_past_5120_pairs(jx, masked):
+    """Regions x words 196 x 40 = 7840, past the 5120 that K9 once took:
+    the plain version K9 is held to against the JAX kernel (interpret
+    mode), which has no such limit (2e-5, as above)."""
+    from text_guided_face_recognition_tpu.ops.damsm_pallas import (
+        damsm_similarity_pallas)
+    words, regions, mask = _damsm_data(3, b=2, d=16, t_=40, r=196)
+    jm = jx.jnp.asarray(mask) if masked else None
+    want = damsm_similarity_pallas(jx.a(words), jx.a(regions), 4.0, 5.0, jm,
+                                   interpret=True)
+    got = attention.damsm_similarity(t(words), t(regions), 4.0, 5.0,
+                                     t(mask) if masked else None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("d", [64, 256, 512])
+def test_damsm_plan_fits_and_takes_the_long_path_where_words_do_not_fit(d):
+    """K9's launch plan for every caption length up to bert-base's 512
+    tokens and 7 x 7, 14 x 14 and 28 x 28 regions: its shared memory fits
+    a block (232,448 bytes on the H100), and it takes the long path
+    exactly where one caption's words do not fit in a block's word
+    columns; the short path's captions fit, the long path's chunks cover
+    the caption, and the grid covers every (caption, image) pair."""
+    assert damsm.SMEM_LIMIT == 232448
+    for r in (49, 196, 784):
+        for t_ in range(1, 513):
+            p = damsm.damsm_plan(32, d, t_, r)
+            assert p["smem"] <= damsm.SMEM_LIMIT, (d, r, t_, p)
+            assert p["smem"] == damsm.damsm_smem(p["dp"], p["n"])
+            assert p["long"] == (t_ > p["n"]), (d, r, t_, p)
+            if p["long"]:
+                assert p["g"] == 1 and p["grid"] == (32, 32)
+                assert (p["word_chunks"] - 1) * p["n"] < t_ <= \
+                    p["word_chunks"] * p["n"]
+            else:
+                assert 1 <= p["g"] and p["g"] * t_ <= p["n"]
+                assert p["grid"][0] * p["g"] >= 32 and p["grid"][1] == 32
+                assert p["g"] == 32 or (p["g"] + 1) * t_ > p["n"]
+    with pytest.raises(ValueError, match="D <= 512"):
+        damsm.damsm_plan(32, 513, 22, 196)
+    with pytest.raises(ValueError, match="empty"):
+        damsm.damsm_plan(32, 256, 0, 196)
+
+
+def test_damsm_kernel_limits_refused_at_the_config_check():
+    """With use_pallas, a word-feature width above the kernel's MAX_D or
+    |GAMMA1| above MAX_GAMMA1 is refused by check_stage1, before any step;
+    at the limits, and without use_pallas, the check passes."""
+    from text_guided_face_recognition_tpu_torch import config as pconfig
+    cfg = pconfig.TGFRConfig().replace(use_pallas=True)
+    smooth = cfg.TRAIN.SMOOTH
+    pconfig.check_stage1(cfg.replace(aux_feat_dim_per_granularity=512))
+    with pytest.raises(NotImplementedError, match="at most 512"):
+        pconfig.check_stage1(cfg.replace(aux_feat_dim_per_granularity=513))
+    for g1 in (60.0, -60.0):
+        train = pconfig.TrainCfg(SMOOTH=pconfig.TrainSmooth(
+            GAMMA1=g1, GAMMA2=smooth.GAMMA2, GAMMA3=smooth.GAMMA3))
+        pconfig.check_stage1(cfg.replace(TRAIN=train))
+        big = pconfig.TrainCfg(SMOOTH=pconfig.TrainSmooth(
+            GAMMA1=g1 * 1.01, GAMMA2=smooth.GAMMA2, GAMMA3=smooth.GAMMA3))
+        with pytest.raises(NotImplementedError, match="GAMMA1"):
+            pconfig.check_stage1(cfg.replace(TRAIN=big))
+        pconfig.check_stage1(cfg.replace(TRAIN=big, use_pallas=False))
+    pconfig.check_stage1(cfg.replace(aux_feat_dim_per_granularity=1024,
+                                     use_pallas=False))
 
 
 def test_damsm_gradient_matches_jax_custom_vjp(jx, monkeypatch):
@@ -770,15 +839,101 @@ def test_cuda_half_layer_bwds_at_caption_lengths(cuda, tdt, tol, t_len):
                 1.0, b.float().abs().max().item()), (mode, "K4", k)
 
 
+# K9 on the card against its plain version in f32 (TF32 off): absolute.
+# At these cases the kernel (3xTF32) reads at most 9.5e-7 and the plain
+# version with its contractions at single TF32 3.6e-5 or more where it
+# differs at all (PERF.md, K9), so a kernel at single TF32 fails.
+DAMSM_ATOL = 5e-6
+
+
+def _damsm_held(record_property, w, rg, gamma1, m):
+    """K9 within DAMSM_ATOL of its plain version; the kernel's error and
+    the single-TF32 plain version's are recorded (junit properties)."""
+    got = damsm.damsm_similarity_cuda(w, rg, gamma1, 5.0, m)
+    want = attention.damsm_similarity(w, rg, gamma1, 5.0, m)
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = attention.damsm_similarity(w, rg, gamma1, 5.0, m)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    record_property("max_abs_err", (got - want).abs().max().item())
+    record_property("max_abs_err_plain_tf32",
+                    (tf32 - want).abs().max().item())
+    torch.testing.assert_close(got, want, rtol=0, atol=DAMSM_ATOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("masked", [True, False])
-def test_cuda_damsm_matches_plain(cuda, masked):
+def test_cuda_damsm_matches_plain(cuda, masked, record_property):
     words, regions, mask = _damsm_data(0, b=8, d=64, t_=22, r=196)
     w, r = t(words).to(cuda), t(regions).to(cuda)
     m = t(mask).to(cuda) if masked else None
-    got = damsm.damsm_similarity_cuda(w, r, 4.0, 5.0, m)
-    want = attention.damsm_similarity(w, r, 4.0, 5.0, m)
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    _damsm_held(record_property, w, r, 4.0, m)
+
+
+# (b, d, t, r, gamma1, masked): the flagship (B 32, D 256, T 22, R 196);
+# bert_words_num 512 (T 510, the long path); ragged widths and lengths
+# (D 200, T 1 and 7, R 49); the long path in two, five and three word
+# chunks (D 256, 64 and 384); gamma1 50; each of the kernel's tilings
+# (D 100, 384, 512)
+DAMSM_SHAPES = [(32, 256, 22, 196, 4.0, False), (32, 256, 22, 196, 4.0, True),
+                (3, 256, 510, 196, 4.0, False), (3, 256, 510, 196, 4.0, True),
+                (5, 200, 1, 49, 4.0, True), (5, 200, 7, 49, 4.0, False),
+                (5, 200, 7, 49, 4.0, True), (4, 256, 150, 49, 4.0, True),
+                (3, 64, 400, 49, 4.0, True), (6, 64, 22, 196, 50.0, True),
+                (9, 100, 22, 196, 4.0, True), (4, 384, 30, 49, 4.0, True),
+                (4, 512, 22, 196, 4.0, True), (3, 384, 70, 49, 4.0, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,t_,r,gamma1,masked", DAMSM_SHAPES)
+def test_cuda_damsm_matches_plain_at_shapes(cuda, b, d, t_, r, gamma1,
+                                            masked, record_property):
+    """K9 against its plain version (DAMSM_ATOL), on both paths and every
+    tiling; no limit on R x T."""
+    words, regions, mask = _damsm_data(d + t_, b=b, d=d, t_=t_, r=r)
+    w, rg = t(words).to(cuda), t(regions).to(cuda)
+    m = t(mask).to(cuda) if masked else None
+    _damsm_held(record_property, w, rg, gamma1, m)
+
+
+@pytest.mark.cuda
+def test_cuda_damsm_plan_smem_is_the_kernels_layout(cuda):
+    """The plan's shared memory (damsm_smem, which the CPU plan test holds
+    under the block's limit) is the layout the launcher takes
+    (csrc/damsm.cu `tgfr_damsm_smem`) at every width up to MAX_D; no tiling
+    takes another word-column count or a width past MAX_D."""
+    import ctypes
+
+    from text_guided_face_recognition_tpu_torch.ops import _cuda
+    smem = _cuda.function("damsm", "tgfr_damsm_smem",
+                          (ctypes.c_int, ctypes.c_int))
+    for d in range(1, damsm.MAX_D + 1):
+        p = damsm.damsm_plan(32, d, 22, 196)
+        assert smem(p["dp"], p["n"]) == p["smem"], (d, p)
+    for dp, n in ((128, 32), (256, 32), (272, 96), (528, 32), (64, 64)):
+        assert smem(dp, n) == 0, (dp, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_", [22, 510])
+def test_cuda_damsm_is_deterministic_and_graph_safe(cuda, t_):
+    """Two calls give the same bits (no float atomics, sums in a fixed
+    order), and so does a CUDA graph's replay of one call."""
+    words, regions, mask = _damsm_data(t_, b=8, d=256, t_=t_, r=196)
+    w, rg, m = (t(x).to(cuda) for x in (words, regions, mask))
+    one = damsm.damsm_similarity_cuda(w, rg, 4.0, 5.0, m)
+    two = damsm.damsm_similarity_cuda(w, rg, 4.0, 5.0, m)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = damsm.damsm_similarity_cuda(w, rg, 4.0, 5.0, m)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+    assert torch.equal(out, one)
 
 
 @pytest.mark.cuda

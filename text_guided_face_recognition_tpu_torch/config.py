@@ -36,8 +36,8 @@ from typing import Any, Dict, Optional
 import yaml
 
 __all__ = ["TGFRConfig", "TrainCfg", "TrainSmooth", "check_caption_length",
-           "check_serving", "check_stage1", "check_stage2", "load_yaml",
-           "merge_args_yaml"]
+           "check_damsm", "check_serving", "check_stage1", "check_stage2",
+           "load_yaml", "merge_args_yaml"]
 
 _NUM_PREFIX = re.compile(r"^\s*([+-]?\d+(?:\.\d+)?(?:[eE][+-]?\d+)?)")
 
@@ -284,6 +284,27 @@ def check_caption_length(cfg: TGFRConfig, grad: bool) -> None:
             f"bert_words_num <= {limit}.")
 
 
+def check_damsm(cfg: TGFRConfig) -> None:
+    """Refuse, before any step, the DAMSM shapes the K9 kernel does not take
+    (`use_pallas`): a word-feature width (aux_feat_dim_per_granularity)
+    above ops/damsm.py MAX_D, whose context sums a thread holds in
+    registers, and |GAMMA1| above MAX_GAMMA1, past which the kernel's fixed
+    gamma1 offset would let the softmax terms underflow. The plain path
+    takes both; the limits are listed in ROADMAP.md, Queue 3."""
+    if not (cfg.use_pallas and cfg.is_DAMSM):
+        return
+    from text_guided_face_recognition_tpu_torch.ops.damsm import (
+        MAX_D, MAX_GAMMA1)
+    gamma1 = cfg.TRAIN.SMOOTH.GAMMA1
+    if cfg.aux_feat_dim_per_granularity > MAX_D or abs(gamma1) > MAX_GAMMA1:
+        raise NotImplementedError(
+            f"use_pallas with aux_feat_dim_per_granularity="
+            f"{cfg.aux_feat_dim_per_granularity} and GAMMA1={gamma1}: the "
+            f"DAMSM kernel takes a feature width of at most {MAX_D} and "
+            f"|GAMMA1| <= {MAX_GAMMA1} (ops/damsm.py); use use_pallas: "
+            "false (ROADMAP.md, Queue 3).")
+
+
 def check_serving(cfg: TGFRConfig) -> None:
     """Refuse the serving options the port does not run yet (evaluation
     and embedding extraction)."""
@@ -304,6 +325,7 @@ def check_stage1(cfg: TGFRConfig) -> None:
             f"stage-1 training with {', '.join(refused)} is not ported yet "
             "(ROADMAP.md, Queue 1)")
     check_caption_length(cfg, grad=True)
+    check_damsm(cfg)
 
 
 def check_stage2(cfg: TGFRConfig) -> None:

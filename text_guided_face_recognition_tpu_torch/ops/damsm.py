@@ -16,6 +16,19 @@ the norms. Inputs and output are f32 on both.
 `damsm_similarity_cuda` runs the plain version for a CPU tensor and the
 kernel for a CUDA tensor; it never falls back from one to the other. Each
 kernel call adds one to `damsm_similarity_cuda.launches`.
+
+The kernel takes any B, T and R. Its launch plan is `damsm_plan`, computed
+here so that the CPU tests can check every plan: a block takes one image
+and a group of captions whose words fit in its N word columns (the short
+path), or one caption in chunks of N words (the long path: a first pass
+for each region's softmax statistics over words and the logits, kept in
+(B, B, R, 2) and (B, B, R, T rounded up to 8) f32 scratch, 410 MB at
+B 32, R 196, T 510, which the second pass reads back). Two bounds remain,
+both checked here and by `config.check_stage1` before the first step:
+D <= MAX_D (the context accumulator lives in registers) and
+|gamma1| <= MAX_GAMMA1 (the gamma1
+softmax subtracts the fixed bound max(gamma1, 0) of gamma1 p, so every
+term is at least exp(-|gamma1|), which must stay a normal f32 number).
 """
 
 from __future__ import annotations
@@ -29,11 +42,54 @@ from text_guided_face_recognition_tpu_torch.ops import _cuda
 from text_guided_face_recognition_tpu_torch.ops.attention import (
     damsm_similarity)
 
-__all__ = ["damsm_similarity_cuda", "damsm_similarity_fused"]
+__all__ = ["damsm_similarity_cuda", "damsm_similarity_fused", "damsm_plan",
+           "damsm_smem", "MAX_D", "MAX_GAMMA1", "SMEM_LIMIT"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P)
-MAX_PAIRS = 20 * 256   # csrc/damsm.cu: regions x words logits per block
+_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             ctypes.c_longlong, _F, _F, _F, _P)
+MAX_D = 512          # csrc/damsm.cu: two 64-row wgmma tiles a warpgroup
+MAX_GAMMA1 = 60.0    # exp(-60) ~ 8.8e-27: the least gamma1 term stays normal
+SMEM_LIMIT = 232448  # shared memory a block can have on the H100
+_WARPS = 16          # csrc/damsm.cu kThreads / 32
+_RC = 32             # csrc/damsm.cu kRC: regions a block of the ring
+
+
+def damsm_smem(dp: int, n: int) -> int:
+    """Shared memory of a block, in bytes, as the kernel lays it out: 1024
+    to align the gamma1 weights for wgmma, which take two (n, 32) tiles (hi
+    and lo); the (dp, n) word tile; two (dp, 32) region slots, which the
+    warps' three cosine partials per word column reuse at the end; two
+    (32, n + 4) logit tiles (the feature sum's two halves); and per word
+    column its sum, mask and cosine. A copy, for the CPU tests, of
+    csrc/damsm.cu `tgfr_damsm_smem`; a card test holds the two equal."""
+    ring = max(2 * dp * _RC, 3 * _WARPS * n)
+    return 1024 + 4 * (2 * n * _RC + dp * n + ring + 2 * _RC * (n + 4)
+                       + 3 * n)
+
+
+def damsm_plan(b: int, d: int, t: int, r: int) -> dict:
+    """K9's launch plan for words (b, d, t) and regions (b, d, r).
+
+    dp: d rounded up to 16; n: the word columns of a block, 96 for dp up
+    to 256 and 32 up to 512 (a thread holds 48, or 32, context sums);
+    long: a caption's t words do not fit in n columns; g: captions a block
+    (1 on the long path); word_chunks: n-word chunks a caption takes;
+    grid: (caption groups, images)."""
+    if min(b, d, t, r) < 1:
+        raise ValueError(f"damsm_plan: empty shape b {b}, d {d}, t {t}, "
+                         f"r {r}")
+    if d > MAX_D:
+        raise ValueError(f"damsm_plan: the kernel takes D <= {MAX_D}, got "
+                         f"{d}")
+    dp = -(-d // 16) * 16
+    n = 96 if dp <= 256 else 32
+    long = t > n
+    g = 1 if long else min(b, n // t)
+    return {"dp": dp, "n": n, "long": long, "g": g,
+            "smem": damsm_smem(dp, n),
+            "word_chunks": -(-t // n) if long else 1,
+            "grid": (b if long else -(-b // g), b)}
 
 
 def damsm_similarity_cuda(words: torch.Tensor, regions: torch.Tensor,
@@ -43,7 +99,8 @@ def damsm_similarity_cuda(words: torch.Tensor, regions: torch.Tensor,
     """K9: sim (B, B), sim[j, i] for image j and caption i.
 
     words (B, D, T), regions (B, D, R), f32 and contiguous; word_mask
-    optional (B, T) bool. The kernel takes R * T <= 5120.
+    optional (B, T) bool. The kernel takes D <= MAX_D and
+    |gamma1| <= MAX_GAMMA1.
     """
     if words.device.type == "cpu":
         return damsm_similarity(words, regions, gamma1, gamma2, word_mask,
@@ -61,9 +118,10 @@ def damsm_similarity_cuda(words: torch.Tensor, regions: torch.Tensor,
                 a.device != words.device or not a.is_contiguous():
             raise ValueError(f"{name}: {what} must be a contiguous float32 "
                              f"{shape} tensor on {words.device}")
-    if r * t > MAX_PAIRS:
-        raise ValueError(f"{name}: the kernel takes R * T <= {MAX_PAIRS}, "
-                         f"got {r} * {t}")
+    if abs(gamma1) > MAX_GAMMA1:
+        raise ValueError(f"{name}: the kernel takes |gamma1| <= "
+                         f"{MAX_GAMMA1}, got {gamma1}")
+    plan = damsm_plan(b, d, t, r)
     mask = None
     if word_mask is not None:
         if tuple(word_mask.shape) != (b, t) or \
@@ -72,10 +130,19 @@ def damsm_similarity_cuda(words: torch.Tensor, regions: torch.Tensor,
                              f"{words.device}")
         mask = word_mask.to(torch.float32).contiguous()
     sim = torch.empty((b, b), dtype=torch.float32, device=words.device)
+    stats = kept = None
+    if plan["long"]:
+        stats = torch.empty((b, b, r, 2), dtype=torch.float32,
+                            device=words.device)
+        kept = torch.empty((b, b, r, -(-t // 8) * 8), dtype=torch.float32,
+                           device=words.device)
     fn = _cuda.function("damsm", "tgfr_damsm_similarity", _ARGTYPES)
     _cuda.launch(fn, words.data_ptr(), regions.data_ptr(),
                  None if mask is None else mask.data_ptr(), sim.data_ptr(),
-                 b, d, t, r, float(gamma1), float(gamma2), float(eps))
+                 None if stats is None else stats.data_ptr(),
+                 None if kept is None else kept.data_ptr(), b, d, t, r,
+                 plan["n"], plan["g"], int(plan["long"]),
+                 plan["smem"], float(gamma1), float(gamma2), float(eps))
     damsm_similarity_cuda.launches += 1
     return sim
 
