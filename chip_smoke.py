@@ -2,7 +2,7 @@
 """On-card smoke run of the PyTorch/CUDA port (one NVIDIA GPU).
 
   python3 chip_smoke.py [--only kernels|launches|phases|prng|serving|train|
-                                stage2|damsm]
+                                stage2|damsm|weights]
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
@@ -131,7 +131,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      the K12 dump), and again with a planted K8 fault (the wrong seed in
      its backward) that the comparison must catch; in host mode the bf16
      comparison and its all-keep fault in K8 as in stage 1; the three
-     dropout modes as in stage 1, and the device-time split.
+     dropout modes as in stage 1, and the device-time split;
+  8. weights (`--only weights` runs it alone, building the four sources it
+     needs): files in the reference's layouts, made from seeded tensors
+     under its key names and written under checkpoints/chip_smoke_weights
+     (removed at the end): ArcFace's iresnet18 .pth (`features.weight`
+     off 1), AdaFace's ir_18 Lightning .ckpt (with hyper-parameters that
+     weights_only=True refuses), MagFace's .pth (with its margin head's
+     `module.fc.weight`), one bert-base {'model', 'head'} text bundle (an
+     HF BertModel under 'model.', pooler included), the {'image_head'}
+     bundle and the {'net'} FCFM bundle (`module.`-prefixed). For each
+     backbone, in serving's configuration (bf16, batch 32, fused_block
+     both, fused_ln), every module through the prepare path from these
+     files: layer 11's fused qkv, the folded `features` variance
+     (ArcFace, MagFace) and AdaFace's permuted output_fc equal to the
+     written tensors after the map; run_test with the counts zeroed before
+     and read after (K1, K3, K5 as in phase 5); one pair batch kernels on
+     against off within SCORE_TOL; the device ms (profiled) and host ms of
+     a pair batch; then the COTS baseline (org_face_test, no text, no
+     kernel launched) and its ms per pair batch. Then one AdaFace stage-1
+     step (cfg/train_bert.yml, the same files) with the kernels on: a
+     finite loss and the launches of phase 6's step.
 Each kernel launches on at least one driven path, and on each path exactly
 the expected number of times. The last two lines are the `kernels` JSON
 line and the result line.
@@ -2803,6 +2823,393 @@ def stage2_phase(kernels):
     return cli_counts, {k: v // TRAIN_STEPS for k, v in fixed_counts.items()}
 
 
+# ----------------------------------------------- reference weight files --
+
+def _ref_tensors(gen):
+    """Builders of seeded tensors under the reference's key names: conv
+    and linear weights N(0, 1/fan_in), biases and BN affines near their
+    init, BN statistics (mean N(0, 0.1^2), var U(0.5, 1.5))."""
+    import torch
+
+    def normal(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen) * std
+
+    def weight(*shape):
+        return normal(*shape, std=1.0 / math.sqrt(math.prod(shape[1:])))
+
+    def bn(sd, name, c, affine=True):
+        if affine:
+            sd[f"{name}.weight"] = 1.0 + normal(c, std=0.1)
+            sd[f"{name}.bias"] = normal(c, std=0.1)
+        sd[f"{name}.running_mean"] = normal(c, std=0.1)
+        sd[f"{name}.running_var"] = 0.5 + torch.rand(c, generator=gen)
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(1000)
+
+    return normal, weight, bn
+
+
+def ref_iresnet18(gen) -> dict:
+    """ArcFace's iresnet18 state_dict (the reference's models/iresnet.py
+    key names), `features.weight` off 1 so that loading takes the fold."""
+    import torch
+    normal, weight, bn = _ref_tensors(gen)
+    sd = {"conv1.weight": weight(64, 3, 3, 3)}
+    bn(sd, "bn1", 64)
+    sd["prelu.weight"] = torch.full((64,), 0.25)
+    cin = 64
+    for stage, planes in enumerate((64, 128, 256, 512), start=1):
+        for i in range(2):
+            t = f"layer{stage}.{i}"
+            bn(sd, f"{t}.bn1", cin)
+            sd[f"{t}.conv1.weight"] = weight(planes, cin, 3, 3)
+            bn(sd, f"{t}.bn2", planes)
+            sd[f"{t}.prelu.weight"] = torch.full((planes,), 0.25)
+            sd[f"{t}.conv2.weight"] = weight(planes, planes, 3, 3)
+            bn(sd, f"{t}.bn3", planes)
+            if i == 0:
+                sd[f"{t}.downsample.0.weight"] = weight(planes, cin, 1, 1)
+                bn(sd, f"{t}.downsample.1", planes)
+            cin = planes
+    bn(sd, "bn2", 512)
+    sd["fc.weight"] = weight(512, 512 * 7 * 7)
+    sd["fc.bias"] = normal(512, std=0.1)
+    bn(sd, "features", 512)
+    return sd
+
+
+def ref_ir18(gen) -> dict:
+    """AdaFace's ir_18 state_dict (the reference's models/net.py key
+    names, without the Lightning module's `model.` prefix)."""
+    import torch
+    normal, weight, bn = _ref_tensors(gen)
+    sd = {"input_layer.0.weight": weight(64, 3, 3, 3)}
+    bn(sd, "input_layer.1", 64)
+    sd["input_layer.2.weight"] = torch.full((64,), 0.25)
+    cin, i = 64, 0
+    for depth in (64, 128, 256, 512):
+        for u in range(2):
+            t = f"body.{i}"
+            if cin != depth:
+                sd[f"{t}.shortcut_layer.0.weight"] = weight(depth, cin, 1, 1)
+                bn(sd, f"{t}.shortcut_layer.1", depth)
+            bn(sd, f"{t}.res_layer.0", cin)
+            sd[f"{t}.res_layer.1.weight"] = weight(depth, cin, 3, 3)
+            bn(sd, f"{t}.res_layer.2", depth)
+            sd[f"{t}.res_layer.3.weight"] = torch.full((depth,), 0.25)
+            sd[f"{t}.res_layer.4.weight"] = weight(depth, depth, 3, 3)
+            bn(sd, f"{t}.res_layer.5", depth)
+            cin, i = depth, i + 1
+    bn(sd, "output_layer.0", 512)
+    sd["output_layer.3.weight"] = weight(512, 512 * 7 * 7)
+    sd["output_layer.3.bias"] = normal(512, std=0.1)
+    bn(sd, "output_layer.4", 512, affine=False)
+    return sd
+
+
+def ref_text_bundle(gen, layers=12, h=768, inter=3072, vocab=30522,
+                    positions=512, feat=256) -> dict:
+    """The reference's stage-1 text artifact at bert-base width:
+    {'model': TextEncoder state_dict (an HF BertModel under 'model.',
+    pooler included), 'head': TextHeading state_dict
+    (Bert_Word_Mapping's Conv2d(1, feat, (K, h)) kernels)}."""
+    import torch
+    normal, weight, _ = _ref_tensors(gen)
+    m = {"embeddings.word_embeddings.weight": normal(vocab, h, std=0.02),
+         "embeddings.position_embeddings.weight": normal(positions, h,
+                                                          std=0.02),
+         "embeddings.token_type_embeddings.weight": normal(2, h, std=0.02),
+         "embeddings.LayerNorm.weight": 1.0 + normal(h, std=0.05),
+         "embeddings.LayerNorm.bias": normal(h, std=0.05)}
+    for j in range(layers):
+        t = f"encoder.layer.{j}"
+        for name, (o, i) in (("attention.self.query", (h, h)),
+                             ("attention.self.key", (h, h)),
+                             ("attention.self.value", (h, h)),
+                             ("attention.output.dense", (h, h)),
+                             ("intermediate.dense", (inter, h)),
+                             ("output.dense", (h, inter))):
+            m[f"{t}.{name}.weight"] = weight(o, i)
+            m[f"{t}.{name}.bias"] = normal(o, std=0.02)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            m[f"{t}.{name}.weight"] = 1.0 + normal(h, std=0.05)
+            m[f"{t}.{name}.bias"] = normal(h, std=0.05)
+    m["pooler.dense.weight"] = weight(h, h)
+    m["pooler.dense.bias"] = torch.zeros(h)
+    head = {}
+    for idx, k in enumerate((2, 3, 4)):
+        head[f"bwm.convs1.{idx}.weight"] = weight(feat, 1, k, h)
+        head[f"bwm.convs1.{idx}.bias"] = normal(feat, std=0.02)
+    return {"model": {"model." + k: v for k, v in m.items()}, "head": head}
+
+
+def ref_image_head(gen, c=256, feat=256, s=14) -> dict:
+    """The reference's stage-1 image artifact: {'image_head': ImageHeading
+    state_dict}, its IMIM's projections as 1x1 convolutions."""
+    normal, weight, bn = _ref_tensors(gen)
+    sd = {}
+    bn(sd, "imim.bn_img", c)
+    for name in ("query_proj", "key_proj", "value_proj"):
+        sd[f"imim.sa.{name}.weight"] = weight(c, c, 1, 1)
+        sd[f"imim.sa.{name}.bias"] = normal(c, std=0.02)
+    sd["imim.ln.weight"] = 1.0 + normal(c, s, s, std=0.05)
+    sd["imim.ln.bias"] = normal(c, s, s, std=0.05)
+    sd["imim.conv1x1_1.weight"] = weight(c // 2, c, 1, 1)
+    sd["imim.conv1x1_1.bias"] = normal(c // 2, std=0.02)
+    sd["imim.conv1x1_2.weight"] = weight(c, c // 2, 1, 1)
+    sd["imim.conv1x1_2.bias"] = normal(c, std=0.02)
+    sd["imim.project_local.projection.weight"] = weight(feat, c)
+    sd["imim.project_local.projection.bias"] = normal(feat, std=0.02)
+    sd["project_global.projection.weight"] = weight(feat, 512)
+    sd["project_global.projection.bias"] = normal(feat, std=0.02)
+    return {"image_head": sd}
+
+
+def ref_fcfm(gen, c=36, feat=256) -> dict:
+    """The reference's stage-2 artifact: {'net': Working (FCFM)
+    state_dict}, DataParallel's `module.` prefix on every key."""
+    normal, weight, bn = _ref_tensors(gen)
+    sd = {"conv.weight": weight(c, 256, 3, 3), "conv.bias": normal(c, std=0.02),
+          "projection.weight": weight(c, feat),
+          "projection.bias": normal(c, std=0.02),
+          "linear.weight": weight(128, c * 9),
+          "linear.bias": normal(128, std=0.02),
+          "ln.weight": 1.0 + normal(c, 6, 6, std=0.05),
+          "ln.bias": normal(c, 6, 6, std=0.05)}
+    for name in ("query_proj", "key_proj", "value_proj"):
+        sd[f"sa.{name}.weight"] = weight(c, c, 1, 1)
+        sd[f"sa.{name}.bias"] = normal(c, std=0.02)
+    for name in ("ln_gl_image", "ln_sent"):
+        sd[f"{name}.weight"] = 1.0 + normal(feat, std=0.05)
+        sd[f"{name}.bias"] = normal(feat, std=0.05)
+    bn(sd, "bn_img", c)
+    bn(sd, "bn_word", c)
+    return {"net": {"module." + k: v for k, v in sd.items()}}
+
+
+def write_reference_files(root: str, seed: int = 0) -> dict:
+    """Write every reference layout the weights phase loads under `root`;
+    returns {kind: path} and the written trees under `trees`."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    arc, ada, mag = ref_iresnet18(gen), ref_ir18(gen), ref_iresnet18(gen)
+    trees = {
+        "arcface": arc,
+        "adaface": {"state_dict": {**{"model." + k: v for k, v in ada.items()},
+                                   "head.kernel": torch.randn(
+                                       512, 4500, generator=gen)},
+                    "epoch": 25, "hyper_parameters": argparse.Namespace(
+                        arch="ir_18", head="adaface", m=0.4, h=0.333)},
+        "magface": {"state_dict": {
+            **{"module.features." + k: v for k, v in mag.items()},
+            "module.fc.weight": torch.randn(4500, 512, generator=gen)}},
+        "text": ref_text_bundle(gen), "image": ref_image_head(gen),
+        "fusion": ref_fcfm(gen)}
+    names = {"arcface": "arcface_ir18_ms1mv3.pth",
+             "adaface": "adaface_ir18_webface4m.ckpt",
+             "magface": "magface_iresnet18_casia_dp.pth",
+             "text": "bert_text_encoder_1", "image": "arcface_image_encoder_1",
+             "fusion": "fusion_fcfm_arcface_1"}
+    os.makedirs(root, exist_ok=True)
+    paths = {k: os.path.join(root, n) for k, n in names.items()}
+    for k, tree in trees.items():
+        torch.save(tree, paths[k])
+    return {"paths": paths, "trees": trees}
+
+
+def _check_leaves(model_type: str, backbone, text_encoder, trees) -> dict:
+    """A few leaves of the loaded modules against the written tensors
+    after the map: layer 11's fused qkv ([q | k | v] on the output axis),
+    ArcFace's and MagFace's folded `features` variance, AdaFace's
+    output_fc (its input axis from (C, H, W) to (H, W, C) order)."""
+    import torch
+    m = trees["text"]["model"]
+    t = "model.encoder.layer.11.attention.self"
+    want_qkv = torch.cat([m[f"{t}.{n}.weight"] for n in ("query", "key",
+                                                          "value")])
+    got = text_encoder.model.layer_11.attn.qkv.weight.detach().cpu()
+    checks = {"qkv_layer11": float((got - want_qkv).abs().max())}
+    if model_type == "adaface":
+        w = trees["adaface"]["state_dict"]["model.output_layer.3.weight"]
+        want = w.reshape(512, 512, 7, 7).permute(0, 2, 3, 1).reshape(512, -1)
+        got = backbone.output_fc.weight.detach().cpu()
+        checks["adaface_output_fc"] = float((got - want).abs().max())
+    else:
+        sd = trees[model_type]
+        pre = "" if model_type == "arcface" else "module.features."
+        if model_type == "magface":
+            sd = sd["state_dict"]
+        w, var = sd[pre + "features.weight"], sd[pre + "features.running_var"]
+        want = (var + 1e-5) / w ** 2 - 1e-5
+        got = backbone.features.running_var.detach().cpu()
+        checks["features_var_fold"] = float(
+            ((got - want).abs() / want.abs()).max())
+    print(f"weights, {model_type}: leaves after the map, max |loaded - "
+          f"written| {checks} (0 expected; the fold relative, 1e-6)",
+          flush=True)
+    if checks["qkv_layer11"] != 0 or checks.get("adaface_output_fc", 0) != 0 \
+            or not checks.get("features_var_fold", 0) <= 1e-6:
+        raise AssertionError(f"{model_type}: loaded leaves differ from the "
+                             f"file: {checks}")
+    return checks
+
+
+def _host_ms(fn, reps: int = 10) -> float:
+    import torch
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+def weights_phase(args, kernels):
+    """The reference's weight files through the prepare path: for each
+    backbone (arcface, adaface, magface) run_test with every module loaded
+    from a reference-layout file, its leaves, launches, kernels on against
+    off and its times, then the COTS baseline (org_face_test); then one
+    AdaFace stage-1 step with the kernels on. Returns the launch counts of
+    the driven runs and per pair batch, and prints the phase's metrics."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.engine import prepare as prep
+    from text_guided_face_recognition_tpu_torch.engine.evaluate import (
+        org_face_test, pair_scores, raw_pair_scores, run_test)
+    from text_guided_face_recognition_tpu_torch.engine.stage1 import (
+        Stage1Trainer)
+
+    root = os.path.join(ROOT, "checkpoints", "chip_smoke_weights")
+    t0 = time.perf_counter()
+    try:
+        ref = write_reference_files(root)
+        paths, trees = ref["paths"], ref["trees"]
+        print(f"weights: reference files written in "
+              f"{time.perf_counter() - t0:.1f} s: "
+              + ", ".join(f"{k} {os.path.getsize(p) / 2**20:.1f} MiB"
+                          for k, p in paths.items()), flush=True)
+        dev = prep.resolve_device(False)
+        total = {k: 0 for k in kernels}
+        per_batch, report = None, {}
+        files = dict(text_encoder_path=paths["text"],
+                     image_encoder_path=paths["image"],
+                     fusion_net_path=paths["fusion"])
+        for mt in ("arcface", "adaface", "magface"):
+            a = args.replace(model_type=mt, **files,
+                             **{f"weights_{mt}": paths[mt]})
+            test_dl, _ = prep.prepare_dataloader(a, "test")
+            te, th = prep.prepare_text_encoder(a, dev)
+            backbone = prep.prepare_backbone(a, dev)
+            ih = prep.prepare_image_head(a, dev)
+            fu = prep.prepare_fusion_net(a, dev)
+            leaves = _check_leaves(mt, backbone, te, trees)
+            n = len(test_dl)
+            _zero(kernels)
+            metrics = run_test(a, test_dl, backbone, ih, fu, te, th)
+            torch.cuda.synchronize()
+            counts = _counts(kernels)
+            layers = te.model.arch.layers
+            want = {k: 0 for k in kernels}
+            want.update({"layernorm_fused": 2 * n,
+                         "attn_block": 2 * layers * n,
+                         "ffn_block": 2 * layers * n})
+            if counts != want:
+                raise AssertionError(f"weights, {mt}: launch counts {counts}"
+                                     f" != expected {want}")
+            if not all(math.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"weights, {mt}: non-finite {metrics}")
+            total = {k: total[k] + counts[k] for k in total}
+            per_batch = {k: v // n for k, v in counts.items()}
+            # kernels on against off on one pair batch, the same weights
+            off = a.replace(fused_block="none", fused_ln=False)
+            te_off, th_off = prep.prepare_text_encoder(off, dev)
+            batch = next(iter(test_dl))
+            cols = [batch[k] for k in ("img1", "img2", "cap1", "cap2",
+                                       "mask1", "mask2")]
+
+            def run(te_, th_, a=a, backbone=backbone, ih=ih, fu=fu,
+                    cols=cols):
+                return pair_scores(a, backbone, ih, fu, te_, th_, *cols)
+
+            s_on, s_off = run(te, th).float(), run(te_off, th_off).float()
+            diff = (s_on - s_off).abs().max().item()
+            if not (diff <= SCORE_TOL and bool(torch.isfinite(s_on).all())):
+                raise AssertionError(f"weights, {mt}: kernels on/off scores "
+                                     f"differ by {diff}")
+            # the COTS baseline: no text, no kernel
+            _zero(kernels)
+            cots = org_face_test(a, test_dl, backbone)
+            torch.cuda.synchronize()
+            if any(_counts(kernels).values()):
+                raise AssertionError(f"weights, {mt}: the COTS baseline "
+                                     f"launched {_counts(kernels)}")
+            if not all(math.isfinite(v) for v in cots.values()):
+                raise AssertionError(f"weights, {mt}: non-finite {cots}")
+
+            def cots_batch(backbone=backbone, mt=mt, batch=batch):
+                return raw_pair_scores(backbone, mt, batch["img1"],
+                                       batch["img2"])
+
+            prof = _profile(lambda: run(te, th))
+            prof_cots = _profile(cots_batch)
+            report[mt] = {
+                "leaves": leaves, "metrics": metrics, "cots_metrics": cots,
+                "score_diff_on_off": diff,
+                "ms_per_pair_batch": _host_ms(lambda: run(te, th)),
+                "device_ms_per_pair_batch": prof.get("device_ms_per_call",
+                                                     "not measured"),
+                "cots_ms_per_pair_batch": _host_ms(cots_batch),
+                "cots_device_ms_per_pair_batch": prof_cots.get(
+                    "device_ms_per_call", "not measured"),
+                "cots_top_ms": prof_cots.get("top_ms_per_call", {}),
+                "pair_batches": n, "launches": counts}
+            print(f"weights, {mt}: " + json.dumps(report[mt]), flush=True)
+            del te, th, te_off, th_off, backbone, ih, fu
+            torch.cuda.empty_cache()
+
+        # one AdaFace stage-1 step, kernels on, from the reference files
+        from text_guided_face_recognition_tpu_torch.config import load_yaml
+        targs = load_yaml(os.path.join(ROOT, "cfg", "train_bert.yml")).replace(
+            synthetic=True, fused_block="both", fused_ln=True,
+            use_pallas=True, compute_dtype="bfloat16", batch_size=32,
+            checkpoints_path="", model_type="adaface",
+            weights_adaface=paths["adaface"],
+            text_encoder_path=paths["text"],
+            image_encoder_path=paths["image"])
+        trainer = Stage1Trainer(targs, dev)
+        batch = trainer.to_device(next(iter(trainer.train_dl)))
+        _zero(kernels)
+        loss = float(trainer.train_step(batch)["total_loss"])
+        torch.cuda.synchronize()
+        step_counts = _counts(kernels)
+        layers = trainer.arch.layers
+        want = {k: 0 for k in kernels}
+        want.update({"layernorm_fused": 1, "layernorm_bwd": 1,
+                     "attn_block": layers, "attn_block_bwd": layers,
+                     "ffn_block": layers, "ffn_block_bwd": layers,
+                     "damsm_similarity": 1})
+        print(f"weights: one AdaFace stage-1 step (batch {batch['caps'].shape[0]}"
+              f"), total loss {loss}, launches {step_counts}", flush=True)
+        if step_counts != want or not math.isfinite(loss):
+            raise AssertionError(f"AdaFace stage-1 step: loss {loss}, "
+                                 f"launches {step_counts} != {want}")
+        total = {k: total[k] + step_counts[k] for k in total}
+        report["adaface_stage1_step"] = {"loss": loss,
+                                         "launches": step_counts}
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("weights: " + json.dumps({
+        "times": {mt: {k: report[mt][k] for k in (
+            "ms_per_pair_batch", "device_ms_per_pair_batch",
+            "cots_ms_per_pair_batch", "cots_device_ms_per_pair_batch")}
+            for mt in ("arcface", "adaface", "magface")},
+        "batch_size": args.batch_size}))
+    return total, per_batch
+
+
 def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2812,7 +3219,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "launches", "phases",
                                        "prng", "serving", "train",
-                                       "stage2", "damsm"))
+                                       "stage2", "damsm", "weights"))
     only = ap.parse_args(argv).only
     sys.path.insert(0, ROOT)
     from text_guided_face_recognition_tpu_torch.config import load_yaml
@@ -2830,6 +3237,8 @@ def main(argv=None) -> int:
     per_source = _cuda.build(
         ("layernorm", "ffn_block", "attn_block") if only == "launches"
         else ("damsm",) if only == "damsm"
+        else ("layernorm", "ffn_block", "attn_block", "damsm")
+        if only == "weights"
         else _cuda.SOURCES + tuple(_cuda.VARIANTS))
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{k} {v:.2f} s' for k, v in per_source.items())})",
@@ -2865,12 +3274,16 @@ def main(argv=None) -> int:
                else None)
     train = train_phase(kernels) if only in (None, "train") else None
     stage2 = stage2_phase(kernels) if only in (None, "stage2") else None
+    weights = (weights_phase(args, kernels) if only in (None, "weights")
+               else None)
     # every path was driven with the counts zeroed just before it and read
     # just after; each phase held its path to the expected count per kernel
     paths = (("launches_prng", "launches_per_prng_check", prng),
              ("launches_serving", "launches_per_pair_batch", serving),
              ("launches_train", "launches_per_train_step", train),
-             ("launches_stage2", "launches_per_stage2_step", stage2))
+             ("launches_stage2", "launches_per_stage2_step", stage2),
+             ("launches_weights", "launches_per_weights_pair_batch",
+              weights))
     for r in rows:
         for key, per_key, got in paths:
             if got is not None:

@@ -86,3 +86,57 @@ def close(port, ref, tol: float, what: str = "") -> None:
         np.asarray(port.detach().float().numpy() if torch.is_tensor(port)
                    else port, np.float32),
         np.asarray(ref, np.float32), rtol=tol, atol=tol, err_msg=what)
+
+
+def reference_oracle(model_type: str, seed: int = 0) -> torch.nn.Module:
+    """The torch oracle of a backbone (tests/test_convert.py: TorchIR18 for
+    adaface, else TorchIResNet18) from torch's generator at `seed`, in eval
+    mode, with random BN statistics and affines; `features.weight` stays
+    off 1, so loading it takes the scale fold."""
+    from test_convert import TorchIR18, TorchIResNet18, _randomize_bn_stats
+    torch.manual_seed(seed)
+    model = (TorchIR18 if model_type == "adaface" else TorchIResNet18)()
+    _randomize_bn_stats(model.eval(), np.random.default_rng(seed))
+    return model
+
+
+def write_reference_backbone(path, model_type: str, seed: int = 0,
+                             prefix: str = "") -> torch.nn.Module:
+    """Write a backbone file at `path` in the reference's layout and return
+    its oracle: ArcFace's bare state_dict (keys under `prefix`), MagFace's
+    {'state_dict': module.features.* + the margin head's module.fc.weight},
+    AdaFace's Lightning checkpoint {'state_dict': model.* + head.*,
+    'hyper_parameters' (an object weights_only=True refuses), 'epoch'}."""
+    import argparse
+    import os
+    oracle = reference_oracle(model_type, seed)
+    sd = oracle.state_dict()
+    if model_type == "adaface":
+        sd = {"model." + k: v for k, v in sd.items()}
+        sd["head.kernel"] = torch.randn(512, 16)
+        obj = {"state_dict": sd, "epoch": 25,
+               "hyper_parameters": argparse.Namespace(arch="ir_18", m=0.4)}
+    elif model_type == "magface":
+        sd = {"module.features." + k: v for k, v in sd.items()}
+        sd["module.fc.weight"] = torch.randn(512, 16)
+        obj = {"state_dict": sd}
+    else:
+        obj = {prefix + k: v for k, v in sd.items()}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(obj, str(path))
+    return oracle
+
+
+def write_cfg(directory, name: str, **changes) -> str:
+    """The shipped cfg/<name> with `changes`, written into `directory`;
+    returns its path (for a CLI's --cfg)."""
+    import os
+    import yaml
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "cfg", name)) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(changes)
+    out = os.path.join(str(directory), name)
+    with open(out, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return out

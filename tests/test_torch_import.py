@@ -43,7 +43,9 @@ def test_importing_the_port_loads_no_jax():
         f"{PORT}.engine.trainer, {PORT}.models.margins, "
         f"{PORT}.cli.fusion_bert, {PORT}.ops.philox, {PORT}.tools, "
         f"{PORT}.tools.verify_block_prng, {PORT}.data.native, "
-        f"{PORT}.data.wordpiece, {PORT}.data.tokenizers\n"
+        f"{PORT}.data.wordpiece, {PORT}.data.tokenizers, "
+        f"{PORT}.engine.convert, {PORT}.models.irnet, {PORT}.models.magface, "
+        f"{PORT}.cli.org_face_test\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = str(ROOT)

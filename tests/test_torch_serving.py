@@ -26,7 +26,8 @@ from text_guided_face_recognition_tpu_torch.config import (
 from text_guided_face_recognition_tpu_torch.engine import evaluate as pev
 from text_guided_face_recognition_tpu_torch.engine import prepare as pprep
 
-from _torch_port import TINY, bridge, close, randomize_stats
+from _torch_port import (TINY, bridge, close, randomize_stats, write_cfg,
+                         write_reference_backbone)
 from _torch_port import tiny_arch  # noqa: F401  (fixture)
 
 CPU = torch.device("cpu")
@@ -173,6 +174,66 @@ def test_cli_without_cpu_needs_cuda(small_cli, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(small_cli[1:])
+
+
+# The shipped configs name the backbones' files relative to the working
+# directory: the CLIs below run from tmp_path with a reference-layout file
+# written there, so each loads it (a file present is never replaced by
+# random weights).
+_WEIGHTS = {"arcface": "weights/pretrained/arcface_ir18_ms1mv3.pth",
+            "adaface": "weights/pretrained/adaface_ir18_webface4m.ckpt",
+            "magface": "weights/pretrained/magface_iresnet18_casia_dp.pth"}
+
+
+@pytest.mark.parametrize("model_type", ["arcface", "adaface", "magface"])
+def test_cli_org_face_test_runs_on_cpu(monkeypatch, tmp_path, capsys,
+                                       model_type):
+    """The COTS baseline CLI on the CPU for each backbone, the full-depth
+    backbone loaded from the config's weights_<model_type> path, in table
+    mode (one forward per image; the pair loop is held against JAX in
+    tests/test_torch_convert.py); its metrics equal the port's
+    org_face_test on the same file."""
+    from text_guided_face_recognition_tpu_torch.cli import org_face_test
+    monkeypatch.chdir(tmp_path)
+    write_reference_backbone(tmp_path / _WEIGHTS[model_type], model_type, 3)
+    metrics = org_face_test.main([
+        "--cpu", "--synthetic", "--batch_size", "32", "--eval_table_mode",
+        "--cfg", write_cfg(tmp_path, "test.yml", model_type=model_type)])
+    assert f"loading pretrained {model_type} backbone" in capsys.readouterr(
+        ).out
+    assert set(metrics) >= {"auc", "eer", "score"}
+    assert all(np.isfinite(v) for v in metrics.values())
+    _, pargs = _cfg(model_type=model_type, batch_size=32, is_roc=True,
+                    roc_file=str(tmp_path / "again"), bert_type="bert",
+                    eval_table_mode=True,
+                    **{f"weights_{model_type}": _WEIGHTS[model_type]})
+    dl, _ = pprep.prepare_dataloader(pargs, "test")
+    again = pev.org_face_test(pargs, dl, pprep.prepare_backbone(pargs, CPU))
+    assert again == metrics
+
+
+@pytest.mark.parametrize("model_type", ["adaface", "magface"])
+def test_cli_test_serves_other_backbones_on_cpu(small_cli, tmp_path, capsys,
+                                                model_type):
+    """cli.test with the AdaFace and MagFace backbones from their
+    reference files."""
+    from text_guided_face_recognition_tpu_torch.cli import test as cli
+    write_reference_backbone(tmp_path / _WEIGHTS[model_type], model_type, 4)
+    metrics = cli.main(small_cli + [
+        "--eval_table_mode",
+        "--cfg", write_cfg(tmp_path, "test.yml", model_type=model_type)])
+    assert f"loading pretrained {model_type} backbone" in capsys.readouterr(
+        ).out
+    assert all(np.isfinite(v) for v in metrics.values())
+
+
+def test_cli_org_face_test_without_cpu_needs_cuda(monkeypatch, tmp_path):
+    from text_guided_face_recognition_tpu_torch.cli import org_face_test
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        org_face_test.main(["--synthetic", "--cfg", write_cfg(
+            tmp_path, "test.yml", model_type="adaface")])
 
 
 def test_caption_cache_round_trip(tmp_path):

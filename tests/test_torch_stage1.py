@@ -30,6 +30,7 @@ noise-level gradient); the 3-step trajectory's total loss rtol 1e-5 per
 step.
 """
 
+import copy
 import os
 
 import numpy as np
@@ -37,6 +38,7 @@ import optax
 import pytest
 import torch
 
+import flax.linen
 import jax
 import jax.numpy as jnp
 
@@ -56,9 +58,11 @@ from text_guided_face_recognition_tpu_torch.engine.from_jax import (
 from text_guided_face_recognition_tpu_torch.engine.stage1 import (
     Stage1Trainer as PTrainer)
 
+from text_guided_face_recognition_tpu_torch.models import irnet as pirnet
 from text_guided_face_recognition_tpu_torch.models import text_bert as ptb
 
-from _torch_port import TINY, to_numpy
+from _torch_port import (TINY, close, to_numpy, write_cfg,
+                         write_reference_backbone)
 from _torch_port import tiny_arch  # noqa: F401  (fixture)
 
 B, T, CLASSES = 4, 12, 16
@@ -99,13 +103,15 @@ def _batch():
 
 
 class _Twins:
-    """A JAX Stage1Trainer (its backbone stubbed: the batches carry
-    backbone features) and a port Stage1Trainer holding the JAX init."""
+    """A JAX Stage1Trainer (its backbone stubbed, the batches carrying
+    backbone features, unless `cfg` names a backbone) and a port
+    Stage1Trainer holding the JAX init."""
 
-    def __init__(self, monkeypatch):
-        jargs, pargs = _cfg()
-        monkeypatch.setattr(jprep, "prepare_backbone",
-                            lambda args: jprep.Bundle(None, {}))
+    def __init__(self, monkeypatch, **cfg):
+        jargs, pargs = _cfg(**cfg)
+        if "model_type" not in cfg:
+            monkeypatch.setattr(jprep, "prepare_backbone",
+                                lambda args: jprep.Bundle(None, {}))
         self.bits = []
         rec = self.bits
 
@@ -126,11 +132,13 @@ class _Twins:
         return state_dict_from_jax(to_numpy(params), to_numpy(stats),
                                    module=self.p.model)
 
-    def jax_grads(self, state, batch, seed):
-        """Eager JAX loss and gradients; records the step's bits."""
+    def jax_grads(self, state, batch, seed, frozen=None):
+        """Eager JAX loss and gradients; records the step's bits. `frozen`:
+        the backbone's variables, for batches of images."""
         (loss, (stats, metrics)), grads = jax.value_and_grad(
             self.loss_fn, has_aux=True)(state.params, state.batch_stats,
-                                        batch, {}, jax.random.PRNGKey(seed))
+                                        batch, frozen or {},
+                                        jax.random.PRNGKey(seed))
         return float(loss), {"image_head": stats}, metrics, grads
 
     def port_bits(self):
@@ -248,6 +256,77 @@ def test_stage1_step_and_trajectory_match_jax(tiny_arch, monkeypatch):
                                    rtol=1e-5, err_msg=f"step {step}")
 
 
+def test_stage1_step_with_adaface_matches_jax(tiny_arch, monkeypatch,
+                                             tmp_path):
+    """One step with model_type adaface: both trainers load the same
+    reference Lightning checkpoint. The frozen ir_18's features against
+    JAX's at 1e-4 (global and local). The port's batch then carries uint8
+    images (the BGR flip on the device), so its backbone runs inside the
+    step; the JAX batch carries the port's own features, so both heads see
+    the same input: the loss and metrics at rtol 1e-5, every gradient as
+    above (k = 1e-6).
+
+    On this backbone's local map (a channel whose mean is 20 of its
+    deviations) the batch-statistics BN's E[x^2] - E[x]^2 moves IMIM's
+    bottleneck pre-activations by rounding, and a few of them lie that
+    close to 0: the two sides may take the other side of a ReLU kink, a
+    choice the gradient does not define. So the JAX step takes the port's
+    ReLU masks for those two convs (its forward moves by less than the
+    rounding that flipped them); no other leaf changes."""
+    path = tmp_path / "adaface_ir18.ckpt"
+    write_reference_backbone(path, "adaface", 5)
+    tw = _Twins(monkeypatch, model_type="adaface", weights_adaface=str(path),
+                uint8_images=True)
+    assert isinstance(tw.p.backbone, pirnet.IRBackbone)
+    rng = np.random.default_rng(5)
+    img = rng.integers(0, 256, (B, 112, 112, 3)).astype(np.uint8)
+    j_gl, j_lc = tw.j._image_forward(tw.j.backbone.variables,
+                                     jnp.asarray(img))
+    p_gl, p_lc = tw.p.image_features(torch.from_numpy(img))
+    close(p_gl, j_gl, 1e-4, "global")
+    close(p_lc.permute(0, 2, 3, 1), j_lc, 1e-4, "local")
+    jb, pb = _batch()
+    del pb["img_gl"], pb["img_lc"]
+    pb["img"] = torch.from_numpy(img)
+    jb["img_gl"] = jnp.asarray(p_gl.numpy())
+    jb["img_lc"] = jnp.asarray(p_lc.permute(0, 2, 3, 1).numpy())
+
+    # the port's masks, from its image head's train-mode forward on the
+    # same features, in a copy (the step's BN updates its statistics)
+    head = copy.deepcopy(tw.p.model.image_head)
+    masks = {}                            # NHWC shape -> the port's mask
+
+    def keep_mask(_module, _inputs, out):
+        m = (out > 0).permute(0, 2, 3, 1).numpy()
+        masks[m.shape] = jnp.asarray(m)
+
+    for conv in (head.imim.conv1x1_1, head.imim.conv1x1_2):
+        conv.register_forward_hook(keep_mask)
+    with torch.no_grad():
+        head(p_gl, p_lc)
+    assert len(masks) == 2
+    used = []
+    relu = flax.linen.relu
+
+    def port_masked_relu(x):
+        if x.shape not in masks:
+            return relu(x)
+        used.append(x.shape)
+        return jnp.where(masks[x.shape], x, 0.0)
+
+    with monkeypatch.context() as m:
+        m.setattr(flax.linen, "relu", port_masked_relu)
+        loss_j, _, metrics_j, grads_j = tw.jax_grads(tw.j.state, jb, 0)
+    assert sorted(used) == sorted(masks)
+    loss_p, metrics_p = tw.p.compute_grads(pb, tw.port_bits())
+    np.testing.assert_allclose(float(loss_p), loss_j, rtol=1e-5)
+    assert set(metrics_p) == set(metrics_j)
+    for k, v in metrics_p.items():
+        np.testing.assert_allclose(float(v), float(metrics_j[k]), rtol=1e-5,
+                                   err_msg=k)
+    _check_grads(tw.p.model, tw.sd(grads_j, tw.j.state.batch_stats))
+
+
 @pytest.mark.parametrize("change", [
     dict(is_CMP=True), dict(is_WRA=True), dict(lazy_embedding_adam=True),
     dict(frozen_feature_cache=True), dict(en_type="LSTM"),
@@ -307,6 +386,25 @@ def test_train_cli_runs_on_cpu_saves_and_resumes(small_train_cli):
 
     prune_checkpoints(save_dir, 1)
     assert set(os.listdir(save_dir)) == {n for n in names if n.endswith("_3")}
+
+
+@pytest.mark.parametrize("model_type", ["adaface", "magface"])
+def test_train_cli_other_backbones_on_cpu(small_train_cli, tmp_path, capsys,
+                                          model_type):
+    """One stage-1 step through the CLI with the AdaFace and MagFace
+    backbones, each from its reference file at the config's path."""
+    from text_guided_face_recognition_tpu_torch.cli import (
+        train_encoders_bert as cli)
+    rel = {"adaface": "weights/pretrained/adaface_ir18_webface4m.ckpt",
+           "magface": "weights/pretrained/magface_iresnet18_casia_dp.pth"}
+    write_reference_backbone(tmp_path / rel[model_type], model_type, 6)
+    tr = cli.main(["--cpu"] + small_train_cli + [
+        "--cfg", write_cfg(tmp_path, "train_bert.yml", model_type=model_type),
+        "--max_steps", "1", "--max_epoch", "1"])
+    assert f"loading pretrained {model_type} backbone" in capsys.readouterr(
+        ).out
+    assert tr.steps == 1
+    assert f"{model_type}_image_encoder_1" in os.listdir(tr.save_dir())
 
 
 def test_train_cli_without_cpu_needs_cuda(small_train_cli, monkeypatch):

@@ -417,8 +417,8 @@ def test_fusion_cli_without_cpu_needs_cuda(small_cli, monkeypatch):
 
 def test_stage1_encoders_load_into_stage2(small_cli, tmp_path):
     """The hand-off: the encoders the stage-1 trainer saves are what the
-    stage-2 trainer starts from; a path that is not such an artifact is
-    refused."""
+    stage-2 trainer starts from; a path that is neither such an artifact
+    nor a reference file (not even a torch file) is refused."""
     from text_guided_face_recognition_tpu_torch.cli import (
         fusion_bert, train_encoders_bert)
     s1 = train_encoders_bert.main(["--cpu"] + small_cli + [
@@ -435,6 +435,6 @@ def test_stage1_encoders_load_into_stage2(small_cli, tmp_path):
             torch.testing.assert_close(v, want[k], rtol=0, atol=0)
     other = tmp_path / "not_a_checkpoint"
     other.write_bytes(b"reference weights")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="not a torch file"):
         fusion_bert.main(["--cpu"] + small_cli + [
             "--max_epoch", "0", "--text_encoder_path", str(other)])

@@ -11,11 +11,14 @@ Layout:
   ops     image normalisation; the hand-written CUDA kernels (csrc/) for the
           text tower's LayerNorm and post-LN half-layers, each beside its
           plain PyTorch version
-  models  BERT text encoder and head, iResNet backbone, image head, FCFM
-  engine  model factories, the weight bridge from JAX variables, pair
-          evaluation and embedding extraction
-  cli     entry points: `python -m text_guided_face_recognition_tpu_torch.cli.test`
-          and `... .cli.extract_embeddings`
+  models  BERT text encoder and head, the iResNet (ArcFace, MagFace) and
+          IR (AdaFace) backbones, image head, FCFM
+  engine  model factories, the reference's weight files and the weight
+          bridge from JAX variables, pair evaluation, the COTS baseline and
+          embedding extraction, the two trainers
+  cli     entry points: `python -m text_guided_face_recognition_tpu_torch.cli.test`,
+          `... .cli.extract_embeddings`, `... .cli.org_face_test` and the
+          trainers
   utils   verification and identification metrics (numpy)
 
 What is ported so far, and what waits, is in ROADMAP.md.

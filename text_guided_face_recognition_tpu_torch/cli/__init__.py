@@ -1,6 +1,7 @@
 """Entry points of the port, run as modules:
 
   python -m text_guided_face_recognition_tpu_torch.cli.test [--cfg ...]
+  python -m text_guided_face_recognition_tpu_torch.cli.org_face_test ...
   python -m text_guided_face_recognition_tpu_torch.cli.extract_embeddings ...
   python -m text_guided_face_recognition_tpu_torch.cli.train_encoders_bert ...
   python -m text_guided_face_recognition_tpu_torch.cli.fusion_bert ...

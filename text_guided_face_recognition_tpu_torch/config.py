@@ -22,7 +22,8 @@ device; and by `check_stage2`: `frozen_feature_cache`,
 train, as the JAX trainer refuses it too) and more than one device. Both,
 and `check_serving` at the serving entries, refuse a `fused_block` other
 than none with captions longer than the block kernels take
-(`check_caption_length`).
+(`check_caption_length`) and a backbone the port does not build
+(`check_backbone`: AdaFace takes 112 x 112 images only).
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ from typing import Any, Dict, Optional
 
 import yaml
 
-__all__ = ["TGFRConfig", "TrainCfg", "TrainSmooth", "check_caption_length",
+__all__ = ["TGFRConfig", "TrainCfg", "TrainSmooth", "check_backbone",
+           "check_caption_length",
            "check_damsm", "check_serving", "check_stage1", "check_stage2",
            "load_yaml", "merge_args_yaml"]
 
@@ -103,7 +105,9 @@ class TGFRConfig:
     dataset_name: str = "face2text"
     data_dir: str = "./data/face2text"
     checkpoints_path: str = "./checkpoints"
+    weights_adaface: str = "./weights/pretrained/adaface_ir18_webface4m.ckpt"
     weights_arcface: str = "./weights/pretrained/arcface_ir18_ms1mv3.pth"
+    weights_magface: str = "./weights/pretrained/magface_iresnet18_casia_dp.pth"
     valid_pair_list: str = "./data/face2text/images/valid_199_sub.txt"
     test_pair_list: str = "./data/face2text/images/test_199_sub.txt"
     text_encoder_path: str = ""
@@ -130,7 +134,7 @@ class TGFRConfig:
     # --- model arch ---
     aux_feat_dim_per_granularity: int = 256
     img_size: int = 112
-    model_type: str = "arcface"
+    model_type: str = "arcface"            # the frozen backbone: arcface | adaface | magface
     ch_size: int = 3
     num_classes: int = 4500
 
@@ -305,9 +309,23 @@ def check_damsm(cfg: TGFRConfig) -> None:
             "false (ROADMAP.md, Queue 3).")
 
 
+def check_backbone(cfg: TGFRConfig) -> None:
+    """Refuse, before any step, a backbone the port does not build: a
+    model_type other than arcface, adaface or magface, and AdaFace at
+    another image size than 112 (its output_fc takes the 512 x 7 x 7 map
+    of 112 x 112 input, as the reference's does)."""
+    if cfg.model_type not in ("arcface", "adaface", "magface"):
+        raise ValueError(f"model_type={cfg.model_type!r} is not one of "
+                         "arcface, adaface, magface")
+    if cfg.model_type == "adaface" and cfg.img_size != 112:
+        raise ValueError(f"model_type='adaface' with img_size={cfg.img_size}"
+                         ": the AdaFace backbone takes 112 x 112 images")
+
+
 def check_serving(cfg: TGFRConfig) -> None:
     """Refuse the serving options the port does not run yet (evaluation
     and embedding extraction)."""
+    check_backbone(cfg)
     check_caption_length(cfg, grad=False)
 
 
@@ -324,6 +342,7 @@ def check_stage1(cfg: TGFRConfig) -> None:
         raise NotImplementedError(
             f"stage-1 training with {', '.join(refused)} is not ported yet "
             "(ROADMAP.md, Queue 1)")
+    check_backbone(cfg)
     check_caption_length(cfg, grad=True)
     check_damsm(cfg)
 
@@ -341,6 +360,7 @@ def check_stage2(cfg: TGFRConfig) -> None:
         raise NotImplementedError(
             f"stage-2 training with {', '.join(refused)} is not ported yet "
             "(ROADMAP.md, Queue 1)")
+    check_backbone(cfg)
     check_caption_length(cfg, grad=True)
     if cfg.fusion_type == "concat":
         raise ValueError("stage-2 training requires fusion_type linear|fcfm")

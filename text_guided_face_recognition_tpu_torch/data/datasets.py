@@ -307,14 +307,19 @@ class TestDataset(_DatasetBase):
             out.append((n, n[:-4]))
         return out
 
-    def get_sample(self, name: str, key: str) -> Dict[str, np.ndarray]:
-        """One side's sample: eval image + first caption (sent_ix = 0)."""
+    def get_sample(self, name: str, key: str, need_caption: bool = True
+                   ) -> Dict[str, np.ndarray]:
+        """One side's sample: eval image + first caption (sent_ix = 0);
+        `need_caption=False` leaves the caption out (the image-only
+        org_face_test table)."""
         path = os.path.join(self.data_dir, "images", self.split, name)
         img = (None if self.synthetic
                else self._load_transformed(path, train=False, rng=None))
         if img is None:
             img = self._eval_image(self._raw_image(path, key))
         side: Dict[str, np.ndarray] = {"img": img}
+        if not need_caption:
+            return side
         new_sent_ix = self._index.get(key, 0) * self.embeddings_num
         side["cap"] = _as_numpy_caption(self.captions[new_sent_ix])
         side["mask"] = _as_numpy_caption(self.att_masks[new_sent_ix])

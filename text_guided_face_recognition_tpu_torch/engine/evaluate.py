@@ -7,8 +7,10 @@ report AUC/EER/TPR@FPR (+ rank-1 identification). Pair mode runs every pair
 batch; table mode (`eval_table_mode`) embeds each distinct sample once and
 scores pairs from the table. `validate_concat` is stage 1's validation:
 concat fusion on the valid split, modules put in eval mode for its length.
-The mesh-sharded eval of the JAX package waits for the parallel slice
-(ROADMAP.md).
+`org_face_test` is the COTS baseline, the cosine of the raw backbone's
+global features with no text, and `get_img_features_dict` its per-image
+feature table. The mesh-sharded eval of the JAX package waits for the
+parallel slice (ROADMAP.md).
 
 Batches arrive as numpy from the data layer, images NHWC (the wire format);
 `backbone_features` normalises uint8 on the device and permutes to NCHW.
@@ -16,6 +18,7 @@ Batches arrive as numpy from the data layer, images NHWC (the wire format);
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List
 
 import numpy as np
@@ -29,7 +32,8 @@ from text_guided_face_recognition_tpu_torch.utils.metrics import (
 )
 
 __all__ = ["cosine_pairs", "run_test", "embed_batch", "pair_scores",
-           "backbone_features", "validate_concat"]
+           "backbone_features", "validate_concat", "global_features",
+           "raw_pair_scores", "org_face_test", "get_img_features_dict"]
 
 
 def cosine_pairs(out1: torch.Tensor, out2: torch.Tensor,
@@ -43,9 +47,11 @@ def cosine_pairs(out1: torch.Tensor, out2: torch.Tensor,
 
 def backbone_features(backbone: nn.Module, model_type: str,
                       img: torch.Tensor):
-    """(global (B, 512) f32, local (B, C, S, S)) of NHWC images."""
+    """(global (B, 512) f32, local (B, C, S, S)) of NHWC images; AdaFace's
+    third output, the feature norm, is dropped."""
     img = device_normalize(img, model_type)            # NHWC
-    return backbone(img.permute(0, 3, 1, 2))           # NCHW inside
+    out = backbone(img.permute(0, 3, 1, 2))            # NCHW inside
+    return out[:2] if model_type == "adaface" else out
 
 
 def _fused_embed(backbone, image_head, text_encoder, text_head, fusion_net,
@@ -122,11 +128,13 @@ def _score_loop(dl, models: _Models):
     return preds, labels
 
 
-def _table_score_loop(args, ds, models: _Models):
+def _table_score_loop(args, ds, embed, need_caption: bool = True):
     """Pair scores through a deduplicated per-sample embedding table: each
     distinct image side of the pair list is embedded once (first-appearance
     order, keyed on the full image name), then every pair is the cosine of
-    two table rows. Batches are padded to one shape."""
+    two table rows. `embed` maps numpy columns (img, and cap and mask with
+    `need_caption`) to (B, D) embeddings. Batches are padded to one
+    shape."""
     sides = [ds.pair_sides(i) for i in range(len(ds))]
     order, seen = [], {}
     for pair in sides:
@@ -136,16 +144,17 @@ def _table_score_loop(args, ds, models: _Models):
                 order.append((name, key))
 
     bs = max(int(args.batch_size), 1)
+    fields = ("img", "cap", "mask") if need_caption else ("img",)
     embs = []
     for i in range(0, len(order), bs):
-        chunk = [ds.get_sample(n, k) for n, k in order[i:i + bs]]
-        cols = [np.stack([c[f] for c in chunk])
-                for f in ("img", "cap", "mask")]
+        chunk = [ds.get_sample(n, k, need_caption=need_caption)
+                 for n, k in order[i:i + bs]]
+        cols = [np.stack([c[f] for c in chunk]) for f in fields]
         pad = bs - len(chunk)
         if pad:
             cols = [np.concatenate([a, np.repeat(a[:1], pad, axis=0)])
                     for a in cols]
-        out = models.embed(*models.to_device(*cols))
+        out = embed(*cols)
         embs.append(out.float().cpu().numpy()[:len(chunk)])
     table = np.concatenate(embs)
 
@@ -156,6 +165,10 @@ def _table_score_loop(args, ds, models: _Models):
     return preds.tolist(), list(ds.pair_label)
 
 
+def _table_embed(models: _Models):
+    return lambda *cols: models.embed(*models.to_device(*cols))
+
+
 def run_test(args, test_dl, backbone, image_head, fusion_net, text_encoder,
              text_head) -> Dict[str, float]:
     """Full eval with fusion dispatch on the modules' device; prints and
@@ -163,7 +176,8 @@ def run_test(args, test_dl, backbone, image_head, fusion_net, text_encoder,
     models = _Models(args, backbone, image_head, fusion_net, text_encoder,
                      text_head)
     if getattr(args, "eval_table_mode", False):
-        preds, labels = _table_score_loop(args, test_dl.dataset, models)
+        preds, labels = _table_score_loop(args, test_dl.dataset,
+                                          _table_embed(models))
     else:
         preds, labels = _score_loop(test_dl, models)
     if args.is_ident:
@@ -184,10 +198,83 @@ def validate_concat(args, valid_dl, backbone, image_head, text_encoder,
         models = _Models(args.replace(fusion_type="concat"), backbone,
                          image_head, None, text_encoder, text_head)
         if args.eval_table_mode:
-            preds, labels = _table_score_loop(args, valid_dl.dataset, models)
+            preds, labels = _table_score_loop(args, valid_dl.dataset,
+                                              _table_embed(models))
         else:
             preds, labels = _score_loop(valid_dl, models)
     finally:
         for m, mode in zip(mods, modes):
             m.train(mode)
+    return calculate_scores(preds, labels, args)
+
+
+# ------------------------------------------------------ the COTS baseline --
+
+@torch.inference_mode()
+def global_features(backbone: nn.Module, model_type: str, img
+                    ) -> torch.Tensor:
+    """The backbone's global features (B, 512) of NHWC images given as
+    numpy or tensors."""
+    device = next(backbone.parameters()).device
+    img = torch.as_tensor(np.asarray(img)).to(device, non_blocking=True)
+    return backbone_features(backbone, model_type, img)[0]
+
+
+def raw_pair_scores(backbone: nn.Module, model_type: str, img1, img2
+                    ) -> torch.Tensor:
+    """One pair batch's cosine scores on the raw global features."""
+    return cosine_pairs(global_features(backbone, model_type, img1),
+                        global_features(backbone, model_type, img2))
+
+
+def get_img_features_dict(args, backbone: nn.Module
+                          ) -> Dict[str, np.ndarray]:
+    """The global backbone features of every distinct image of the test
+    pair list ({name: (512,) f32}), read from
+    data_dir/dataset_name/test_images in sorted name order, batched and
+    zero-padded to one shape."""
+    from text_guided_face_recognition_tpu_torch.data.transforms import (
+        decode_image, eval_transform)
+
+    with open(args.test_pair_list) as fd:
+        pairs = fd.readlines()
+    names = sorted({p.split(" ")[0] for p in pairs} |
+                   {p.split(" ")[1].strip() for p in pairs})
+    feats: Dict[str, np.ndarray] = {}
+    bs = max(int(args.batch_size), 1)
+    for i in range(0, len(names), bs):
+        chunk = names[i:i + bs]
+        imgs = np.stack([
+            eval_transform(decode_image(
+                os.path.join(args.data_dir, args.dataset_name, "test_images",
+                             n), args.img_size), args.model_type)
+            for n in chunk])
+        if len(chunk) < bs:
+            imgs = np.concatenate([imgs, np.zeros(
+                (bs - len(chunk),) + imgs.shape[1:], imgs.dtype)])
+        out = global_features(backbone, args.model_type, imgs)
+        for n, f in zip(chunk, out.float().cpu().numpy()):
+            feats[n] = f
+    return feats
+
+
+def org_face_test(args, test_dl, backbone: nn.Module) -> Dict[str, float]:
+    """The COTS baseline: cosine on the raw backbone's global features, no
+    text; every pair batch, or with `eval_table_mode` a per-image feature
+    table (no captions loaded). Prints and returns the verification
+    metrics (+ identification with is_ident)."""
+    if getattr(args, "eval_table_mode", False):
+        preds, labels = _table_score_loop(
+            args, test_dl.dataset,
+            lambda img: global_features(backbone, args.model_type, img),
+            need_caption=False)
+    else:
+        preds, labels = [], []
+        for batch in test_dl:
+            pred = raw_pair_scores(backbone, args.model_type, batch["img1"],
+                                   batch["img2"])
+            preds += pred.float().cpu().tolist()
+            labels += np.asarray(batch["pair_label"]).tolist()
+    if args.is_ident:
+        calculate_identification_acc(preds, args)
     return calculate_scores(preds, labels, args)

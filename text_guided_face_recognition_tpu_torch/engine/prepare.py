@@ -3,13 +3,24 @@
 Counterpart of text_guided_face_recognition_tpu/engine/prepare.py. Each
 factory returns port modules in eval mode on the requested device, with
 weights drawn from a `torch.Generator` seeded with `manual_seed` (on the
-CPU, so a seed gives the same weights on every device). A weight path that
-names a file written by the port's own trainers (engine/checkpoint.py: the
-stage-1 `*_image_encoder_N` / `*_text_encoder_N` and the stage-2
-`fusion_*_N` / `encoder_*_N` artifacts) is loaded, strictly. Loading Orbax
-checkpoints (directories) and reference `.pth` files is not ported yet and
-raises NotImplementedError; an absent path warns and random-inits, as the
-JAX factories do when no weights are found.
+CPU, so a seed gives the same weights on every device), then loaded,
+strictly, from the file its config key names:
+
+  weights_arcface / weights_adaface / weights_magface (by model_type)
+      the reference's pretrained backbones: ArcFace's iresnet18 .pth,
+      AdaFace's ir_18 Lightning .ckpt, MagFace's iresnet18 .pth;
+  text_encoder_path, image_encoder_path, fusion_net_path
+      the port's own trainer artifacts (engine/checkpoint.py: the stage-1
+      `*_image_encoder_N` / `*_text_encoder_N` and the stage-2
+      `fusion_*_N` / `encoder_*_N`), or the reference's: its trainers'
+      {"model", "head"}, {"image_head"} and {"net"} bundles, or a raw HF
+      BERT state_dict for the text encoder.
+
+Reference files go through engine/convert.py into the JAX package's tree
+layout and engine/from_jax.py onto the module. A file in neither layout
+raises ValueError, an Orbax checkpoint (a directory) NotImplementedError;
+an absent path warns and keeps the random init, as the JAX factories do
+when no weights are found.
 """
 
 from __future__ import annotations
@@ -17,7 +28,7 @@ from __future__ import annotations
 import math
 import os
 import warnings
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,13 +41,20 @@ from text_guided_face_recognition_tpu_torch.data import (
     TrainDataset,
     load_text_data_bert,
 )
+from text_guided_face_recognition_tpu_torch.engine import convert as C
 from text_guided_face_recognition_tpu_torch.engine.checkpoint import (
     load_checkpoint)
+from text_guided_face_recognition_tpu_torch.engine.from_jax import (
+    state_dict_from_jax)
+from text_guided_face_recognition_tpu_torch.models.irnet import build_model
+from text_guided_face_recognition_tpu_torch.models.magface import (
+    network_builder)
 from text_guided_face_recognition_tpu_torch.models.layers import (
     BatchNorm, LayerNormCHW, PReLU)
 from text_guided_face_recognition_tpu_torch.models.text_bert import LayerNorm
 
 __all__ = ["resolve_device", "compute_dtype", "random_init_",
+           "prepare_arcface", "prepare_adaface", "prepare_magface",
            "prepare_backbone", "prepare_text_encoder", "prepare_image_head",
            "prepare_fusion_net", "prepare_dataloader"]
 
@@ -79,7 +97,8 @@ def random_init_(module: nn.Module, seed: int) -> nn.Module:
         elif isinstance(m, BatchNorm):
             if m.weight is not None:
                 m.weight.fill_(1.0)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
         elif isinstance(m, PReLU):
@@ -87,53 +106,185 @@ def random_init_(module: nn.Module, seed: int) -> nn.Module:
     return module
 
 
-def _load_port_checkpoint(parts, path: str, what: str) -> bool:
-    """Load the port's own artifact at `path` into `parts` ({key of the
-    saved tree: module}), strictly. False when nothing is there."""
+# ----------------------------------------------------------------- weights --
+# Two layouts reach the trained-module paths (text_encoder_path,
+# image_encoder_path, fusion_net_path). Both keep the same top-level keys
+# ({"model", "head"}, {"image_head"}, {"net", ...}); the inner keys tell
+# them apart. The port's own artifacts (engine/checkpoint.py) hold each
+# module's state_dict, flax-path keys (`model.layer_0.attn.qkv.weight`,
+# `bwm.conv_k2.weight`). The reference's hold its torch modules' keys
+# (`model.embeddings.word_embeddings.weight`, `bwm.convs1.0.weight`, 1x1
+# convs as 4-D weights), which engine/convert.py maps into the JAX
+# package's tree and engine/from_jax.py onto the module. The backbone paths
+# (weights_arcface / _adaface / _magface) name the reference's files only.
+
+_ORBAX = ("{what}: {path!r} is a directory; loading the JAX package's Orbax "
+          "checkpoints is not ported yet (ROADMAP.md, Queue 1 item 4)")
+
+
+def _read_weight_file(path: str, what: str):
+    """The object in the torch file at `path`, read with weights_only=True
+    (engine/checkpoint.load_checkpoint): the port's artifacts and the
+    reference's bundles on these paths are tensors in dicts."""
+    try:
+        return load_checkpoint(path)
+    except Exception as e:
+        raise ValueError(f"{what}: {path!r} is not a torch file (the port "
+                         "loads its own artifacts and the reference's "
+                         "state_dict bundles)") from e
+
+
+def _port_layout(sd, module: nn.Module) -> bool:
+    """`sd` is `module`'s own state_dict: the same keys and shapes."""
+    if not isinstance(sd, Mapping):
+        return False
+    target = module.state_dict()
+    return set(sd) == set(target) and all(
+        tuple(getattr(sd[k], "shape", ())) == tuple(v.shape)
+        for k, v in target.items())
+
+
+def _land(module: nn.Module, tree) -> None:
+    """A JAX-layout tree ({"params", "batch_stats"} of numpy) onto `module`,
+    strictly (engine/from_jax.py refuses a missing or extra leaf)."""
+    module.load_state_dict(state_dict_from_jax(
+        tree["params"], tree.get("batch_stats"), module=module), strict=True)
+
+
+def _conv_weight(sd, key: str) -> bool:
+    """The reference's 1x1-conv projection: `key` holds a 4-D weight."""
+    return getattr(sd.get(key), "ndim", 0) == 4
+
+
+def _load_trained(path: str, what: str, parts, reference) -> bool:
+    """Load the file at `path` into `parts` ({top-level key: module}):
+    the port's artifact when every part is its module's own state_dict,
+    else the reference's layout when `reference[0](obj)` says so, by
+    `reference[1](obj)`; anything else raises, naming both layouts
+    (`reference[2]` describes the reference's). False when nothing is at
+    `path`."""
     if not path or not os.path.exists(path):
         return False
-    unported = NotImplementedError(
-        f"{what}: {path!r} is not an artifact of this package's trainers; "
-        "loading Orbax checkpoints and reference .pth files is not ported "
-        "yet (ROADMAP.md, Queue 1); remove the path to use random weights")
-    if not os.path.isfile(path):
-        raise unported
-    try:
-        tree = load_checkpoint(path)
+    if os.path.isdir(path):
+        raise NotImplementedError(_ORBAX.format(what=what, path=path))
+    obj = _read_weight_file(path, what)
+    is_ref, convert, ref_layout = reference
+    if isinstance(obj, Mapping) and all(
+            _port_layout(obj.get(k), m) for k, m in parts.items()):
         for key, module in parts.items():
-            module.load_state_dict(tree[key], strict=True)
-    except Exception as e:   # not a torch file, or another tree
-        raise unported from e
-    print(f"loading {what}:", path)
+            module.load_state_dict(obj[key], strict=True)
+        print(f"loading {what}:", path)
+    elif is_ref(obj):
+        convert(obj)
+        print(f"converted reference {what}:", path)
+    else:
+        port_layout = ", ".join(f"{k!r}: {type(m).__name__}.state_dict()"
+                                for k, m in parts.items())
+        raise ValueError(
+            f"{what}: {path!r} is in neither layout the port loads: the "
+            f"port's artifact {{{port_layout}}} (engine/checkpoint.py) or "
+            f"the reference's {ref_layout}")
     return True
 
 
-def _finish(module: nn.Module, path: str, what: str, args,
-            device: torch.device, parts=None) -> nn.Module:
-    """Random init, then the port's artifact at `path` when there is one
-    (`parts`: which saved sub-tree goes into which module)."""
-    random_init_(module, args.manual_seed)
-    if not _load_port_checkpoint(parts or {}, path, what):
+def _finish(module: nn.Module, loaded: bool, path: str, what: str,
+            device: torch.device) -> nn.Module:
+    if not loaded:
         warnings.warn(f"{what}: no weights at {path!r}; using random init "
                       "(synthetic/e2e mode)")
     return module.to(device).eval()
 
 
+# --------------------------------------------------------------- backbones --
+
+def _load_backbone(net: nn.Module, path: str, what: str, key, marker: str,
+                   convert) -> bool:
+    """The reference's backbone file at `path` (the state_dict under `key`
+    when the file holds one there) into `net`, when it has `marker`."""
+    if not path or not os.path.exists(path):
+        return False
+    if os.path.isdir(path):
+        raise NotImplementedError(_ORBAX.format(what=what, path=path))
+    try:
+        sd = C.load_torch_state_dict(path, key=key)
+    except Exception as e:
+        raise ValueError(f"{what}: {path!r} is not a torch file") from e
+    if marker not in sd and "module." + marker not in sd:
+        raise ValueError(f"{what}: {path!r} is not the reference's "
+                         f"checkpoint: no key {marker!r}")
+    _land(net, convert(sd))
+    print(f"loading pretrained {what} from {path}")
+    return True
+
+
+def prepare_arcface(args, device: torch.device) -> nn.Module:
+    """Frozen ArcFace iresnet18 from the reference's .pth (its state_dict,
+    `module.`-prefixed or not)."""
+    net = random_init_(M.iresnet18(dtype=compute_dtype(args),
+                                   img_size=args.img_size), args.manual_seed)
+    loaded = _load_backbone(net, args.weights_arcface, "arcface backbone",
+                            None, "layer1.0.conv1.weight", C.convert_iresnet)
+    return _finish(net, loaded, args.weights_arcface, "arcface backbone",
+                   device)
+
+
+def prepare_adaface(args, device: torch.device) -> nn.Module:
+    """Frozen AdaFace ir_18 from the reference's Lightning .ckpt: its
+    `state_dict`, the backbone's keys under `model.`."""
+    net = random_init_(build_model("ir_18", dtype=compute_dtype(args)),
+                       args.manual_seed)
+
+    def convert(sd):
+        return C.convert_irbackbone(
+            {k[6:]: v for k, v in sd.items() if k.startswith("model.")})
+
+    loaded = _load_backbone(net, args.weights_adaface, "adaface backbone",
+                            "state_dict", "model.input_layer.0.weight",
+                            convert)
+    return _finish(net, loaded, args.weights_adaface, "adaface backbone",
+                   device)
+
+
+def prepare_magface(args, device: torch.device) -> nn.Module:
+    """Frozen MagFace iresnet18 from the reference's .pth: its
+    `state_dict`, the backbone under `module.features.`; the margin head's
+    `module.fc.weight` is dropped."""
+    net = random_init_(network_builder("iresnet18", dtype=compute_dtype(args),
+                                       img_size=args.img_size),
+                       args.manual_seed)
+    loaded = _load_backbone(net, args.weights_magface, "magface backbone",
+                            "state_dict", "module.features.conv1.weight",
+                            C.convert_magface)
+    return _finish(net, loaded, args.weights_magface, "magface backbone",
+                   device)
+
+
 def prepare_backbone(args, device: torch.device) -> nn.Module:
-    """Frozen ArcFace iresnet18."""
-    if args.model_type != "arcface":
-        raise NotImplementedError(
-            f"model_type={args.model_type!r}: only the arcface iresnet18 "
-            "backbone is ported yet (ROADMAP.md, Queue 1)")
-    net = M.iresnet18(dtype=compute_dtype(args), img_size=args.img_size)
-    # the pretrained backbone is a reference .pth: not ported, see _finish
-    return _finish(net, args.weights_arcface, "arcface backbone", args, device,
-                   {"backbone": net})
+    """The frozen backbone of `model_type` (arcface | adaface | magface)."""
+    factories = {"arcface": prepare_arcface, "adaface": prepare_adaface,
+                 "magface": prepare_magface}
+    if args.model_type not in factories:
+        raise ValueError(f"model_type={args.model_type!r} is not one of "
+                         f"{tuple(factories)}")
+    return factories[args.model_type](args, device)
+
+
+# ------------------------------------------------------------ text + heads --
+
+_WORDS = "embeddings.word_embeddings.weight"
+
+
+def _hf_bert(sd) -> bool:
+    """An HF BERT state_dict, under any prefix (`bert.`, `model.`)."""
+    return isinstance(sd, Mapping) and any(k.endswith(_WORDS) for k in sd)
 
 
 def prepare_text_encoder(args, device: torch.device
                          ) -> Tuple[nn.Module, nn.Module]:
-    """BERT text encoder and its TextHeading."""
+    """BERT text encoder and its TextHeading. `text_encoder_path` names the
+    port's {"model", "head"} artifact, the reference's {"model", "head"}
+    bundle, or a raw HF BertModel state_dict (the head then stays random,
+    as in the JAX package)."""
     if args.en_type != "BERT":
         raise NotImplementedError(
             f"en_type={args.en_type!r}: the LSTM path is not ported yet "
@@ -146,24 +297,62 @@ def prepare_text_encoder(args, device: torch.device
     head = M.TextHeading(hidden=M.TEXT_ARCHS[args.bert_type].hidden,
                          feat_dim=args.aux_feat_dim_per_granularity,
                          dtype=dtype)
-    both = nn.ModuleDict({"model": enc, "head": head})
-    _finish(both, args.text_encoder_path, "text encoder", args, device,
-            {"model": enc, "head": head})
+    both = random_init_(nn.ModuleDict({"model": enc, "head": head}),
+                        args.manual_seed)
+    path = args.text_encoder_path
+
+    def is_ref(obj) -> bool:
+        return _hf_bert(obj) or (isinstance(obj, Mapping) and "head" in obj
+                                 and _hf_bert(obj.get("model")))
+
+    def convert(obj) -> None:
+        if _hf_bert(obj):
+            _land(enc, {"params": {"model": C.convert_hf_text_model(
+                C.npify(obj), args.bert_type)["params"]}})
+            warnings.warn(f"text encoder: {path!r} is a raw HF text model; "
+                          "the text head keeps its random init")
+            return
+        _land(enc, C.convert_text_encoder_bundle(C.npify(obj["model"]),
+                                                 args.bert_type))
+        _land(head, C.convert_text_heading(C.npify(obj["head"])))
+
+    loaded = _load_trained(
+        path, "text encoder", {"model": enc, "head": head},
+        (is_ref, convert, "{'model': TextEncoder state_dict (keys "
+         f"'model.{_WORDS}', ...), 'head': TextHeading state_dict (keys "
+         "'bwm.convs1.0.weight', ...)} or a raw HF BertModel state_dict"))
+    _finish(both, loaded, path, "text encoder", device)
     return enc, head
 
 
 def prepare_image_head(args, device: torch.device) -> nn.Module:
-    spatial = args.img_size // 8
-    head = M.ImageHeading(feat_dim=args.aux_feat_dim_per_granularity,
-                          spatial=spatial, dtype=compute_dtype(args))
-    return _finish(head, args.image_encoder_path, "image head", args, device,
-                   {"image_head": head})
+    """The ImageHeading; `image_encoder_path` names a file holding it under
+    "image_head" (the stage-1 image artifact or a stage-2 fusion one)."""
+    head = random_init_(
+        M.ImageHeading(feat_dim=args.aux_feat_dim_per_granularity,
+                       spatial=args.img_size // 8, dtype=compute_dtype(args)),
+        args.manual_seed)
+
+    def is_ref(obj) -> bool:
+        return isinstance(obj, Mapping) and isinstance(
+            obj.get("image_head"), Mapping) and _conv_weight(
+                C.strip_module(C.npify(obj["image_head"])),
+                "imim.sa.query_proj.weight")
+
+    loaded = _load_trained(
+        args.image_encoder_path, "image head", {"image_head": head},
+        (is_ref, lambda obj: _land(head, C.convert_image_heading(
+            C.npify(obj["image_head"]))),
+         "{'image_head': ImageHeading state_dict with the 1x1-conv "
+         "projections (a 4-D 'imim.sa.query_proj.weight')}"))
+    return _finish(head, loaded, args.image_encoder_path, "image head",
+                   device)
 
 
 def prepare_fusion_net(args, device: torch.device, load: bool = True
                        ) -> Optional[nn.Module]:
     """The fusion net (None for concat); `load=False` (the stage-2 trainer)
-    ignores `fusion_net_path`."""
+    ignores `fusion_net_path`, which names a file holding it under "net"."""
     dtype = compute_dtype(args)
     feat = args.aux_feat_dim_per_granularity
     if args.fusion_type == "concat":
@@ -172,12 +361,33 @@ def prepare_fusion_net(args, device: torch.device, load: bool = True
         net = M.LinearFusion(in_features=256 + feat,
                              fusion_final_dim=args.fusion_final_dim,
                              dtype=dtype)
+        # the reference's dead `ln` member marks its state_dict
+        is_net, convert = (lambda sd: "fc1.weight" in sd and "ln.weight" in sd,
+                           C.convert_linear_fusion)
+        ref_layout = ("{'net': LinearFusion state_dict (keys 'fc1.weight', "
+                      "'ln.weight', ...)}")
     elif args.fusion_type == "fcfm":
         net = M.FCFM(channel_dim=36, feat_dim=feat, dtype=dtype)
+        is_net, convert = (
+            lambda sd: _conv_weight(sd, "sa.query_proj.weight"),
+            C.convert_fcfm)
+        ref_layout = ("{'net': Working (FCFM) state_dict with the 1x1-conv "
+                      "projections (a 4-D 'sa.query_proj.weight')}")
     else:
         raise ValueError(f"unknown fusion_type {args.fusion_type!r}")
-    return _finish(net, args.fusion_net_path if load else "", "fusion net",
-                   args, device, {"net": net})
+    random_init_(net, args.manual_seed)
+    path = args.fusion_net_path if load else ""
+
+    def is_ref(obj) -> bool:
+        return isinstance(obj, Mapping) and isinstance(
+            obj.get("net"), Mapping) and is_net(
+                C.strip_module(C.npify(obj["net"])))
+
+    loaded = _load_trained(
+        path, "fusion net", {"net": net},
+        (is_ref, lambda obj: _land(net, convert(C.npify(obj["net"]))),
+         ref_layout))
+    return _finish(net, loaded, path, "fusion net", device)
 
 
 # --------------------------------------------------------------- dataloader --

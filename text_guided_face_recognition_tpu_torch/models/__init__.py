@@ -10,6 +10,10 @@ from text_guided_face_recognition_tpu_torch.models.iresnet import (  # noqa: F40
     IResNet,
     iresnet18,
 )
+from text_guided_face_recognition_tpu_torch.models.irnet import (  # noqa: F401
+    IRBackbone,
+    build_model,
+)
 from text_guided_face_recognition_tpu_torch.models.layers import (  # noqa: F401
     LayerNormCHW,
     PReLU,

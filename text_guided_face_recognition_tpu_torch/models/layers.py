@@ -56,7 +56,8 @@ class PReLU(nn.Module):
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1 with flax nn.BatchNorm semantics, computed in
     f32 and cast to `dtype`. `use_scale=False` gives the scale-free BN of
-    the iResNet `features` layer.
+    the iResNet `features` layer; `use_bias=False` as well, the affine-free
+    output BN of the AdaFace backbone.
 
     Eval mode normalises with the running statistics. Train mode normalises
     with the batch's: mean and the biased variance E[x^2] - E[x]^2 (floored
@@ -67,12 +68,13 @@ class BatchNorm(nn.Module):
     momentum 0.1)."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1,
-                 use_scale: bool = True, dtype: torch.dtype = torch.float32):
+                 use_scale: bool = True, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps, self.momentum, self.dtype = eps, momentum, dtype
         self.weight = (nn.Parameter(torch.ones(features)) if use_scale
                        else None)
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
@@ -94,7 +96,9 @@ class BatchNorm(nn.Module):
         if self.weight is not None:
             mul = mul * self.weight
         y = (xf - mean.reshape(shape)) * mul.reshape(shape)
-        return (y + self.bias.reshape(shape)).to(self.dtype)
+        if self.bias is not None:
+            y = y + self.bias.reshape(shape)
+        return y.to(self.dtype)
 
 
 def _channels_last_dense(dense: Dense, x: torch.Tensor) -> torch.Tensor:
