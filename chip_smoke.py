@@ -2,7 +2,7 @@
 """On-card smoke run of the PyTorch/CUDA port (one NVIDIA GPU).
 
   python3 chip_smoke.py [--only kernels|launches|phases|prng|serving|train|
-                                stage2|damsm|weights]
+                                stage2|step|damsm|weights]
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
@@ -101,14 +101,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      its chip: fused_dropout false, the embeddings' bits from the host and
      the half-layers' drawn in-kernel from one seed per layer; Adam
      moments bf16, synthetic train split):
-     the CLI (cli/train_encoders_bert.py: one epoch of 2 steps, its
-     checkpoints written and removed again) with every count zeroed before
-     and read after; then 20 steps on one fixed batch (counts per step,
+     the CLI (cli/train_encoders_bert.py: one epoch of 2 steps, both
+     eager warm-up steps of the captured step, its checkpoints written and
+     removed again) with every count zeroed before and read after; the CLI
+     again for two epochs of the synthetic split's two steps (3 eager
+     warm-up steps, then the capture; the schedule's rate edit between the
+     epochs), its counts (the counters count at capture, not at replay: 4
+     steps' launches) and its replays' device kernels (torch.profiler)
+     against an eager twin's step's; then, going on with the first run
+     eagerly (its weights, optimizer state, rates and dropout stream), 20
+     steps on one fixed batch (counts per step,
      a finite loss that falls); one step's loss and gradients with the
      kernels on against off, from the same weights and the same dropout
      masks (the off twin fed the host bits and the K10/K11 dumps of the
      seeds), and once more with a planted K6 fault (the wrong seed in its
-     backward) that the comparison must catch; one step at
+     backward) that the comparison must catch, in f32 also with a planted
+     K3 forward fault (below); one step at
      bert_words_num 512 (captions up to 512 tokens) on against off, K9 on
      its long path (regions x words 196 x 510) launched once on the on
      side, its loss held to the same limit and its per-module readings
@@ -126,13 +134,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      per step): the CLI
      (cli/fusion_bert.py: one epoch of 2 steps, its artifacts saved, then
      resumed for a second epoch) with every count zeroed before and read
-     after; 20 steps on one fixed batch with a falling loss; kernels on
+     after; the CLI again for one epoch of 4 steps, captured, checked as
+     in stage 1; going on with the resumed run eagerly, 20 steps on one fixed batch with a falling loss; kernels on
      against off per top-level module in bf16 and f32 (the off twin fed
      the K12 dump), and again with a planted K8 fault (the wrong seed in
-     its backward) that the comparison must catch; in host mode the bf16
+     its backward) that the comparison must catch, in f32 also with a
+     planted K7 forward fault (below); in host mode the bf16
      comparison and its all-keep fault in K8 as in stage 1; the three
      dropout modes as in stage 1, and the device-time split;
-  8. weights (`--only weights` runs it alone, building the four sources it
+  8. step (`--only step` runs it alone, building the six sources): the
+     compiled step for stage 1 (as in 6) and stage 2 (as in 7): an eager
+     trainer and a captured one from the same weights, batch and drop_gen
+     seed, six steps each (the head's rate halved before the fifth; the
+     captured one's fourth step is its capture), every parameter, BN
+     statistic, Adam moment, count and metric bit for bit after 3 and 6
+     steps; a replay launching, by the profiler's device kernel names,
+     what one eager step launches (the most over three profiler sessions
+     a side: the profiler drops a replay's records now and then, never
+     adds any), the counters unmoved; and the step table, (b) eager and
+     (c) captured, kernels on and off, in turns: host ms per step (median
+     of 10), device ms
+     (profiler), busy share (device over host ms), resident, peak and
+     reserved memory. A refused capture of `tower` is printed with its
+     error and stage 2 is measured with `both`;
+  9. weights (`--only weights` runs it alone, building the four sources it
      needs): files in the reference's layouts, made from seeded tensors
      under its key names and written under checkpoints/chip_smoke_weights
      (removed at the end): ArcFace's iresnet18 .pth (`features.weight`
@@ -191,7 +216,30 @@ step, bf16 and f32, with K6 handed the wrong seed in the backward, so
 that it regenerates other masks than its forward drew (it moves the text
 tower by about 0.22 of its norm), and in host mode a bf16 step with K6
 handed all-keep bits for the probabilities; the script runs them after
-the real comparison and each must fail it. K10-K12 and prng mode against
+the real comparison and each must fail it. The f32 step is also held in
+two parts (`_f32_on_off`): the text tower's output within the kernels' f32
+limit (1e-4 + 1e-4 |p|), and the gradients at the limits above with
+everything after the tower run on the same values (the off tower hands on
+the on tower's output, its gradient still flowing into the off tower);
+and two witnesses run the kernels-off model against itself with its
+tower output moved by the same magnitudes as the on/off difference, in
+other directions, and once through the same hook adding zeros. The f32
+step passes end to end, or, where the gap comes from the kernels-off
+model itself, in its two parts: the control must move nothing and each
+witness must reach a quarter of the end-to-end gap in every module beyond
+the limits. Such a gap: an exact tie of two positive values in the text
+head's max over time in the kernels-off forward, where the max's gradient
+is split between the two and any rounding difference (the kernels', or
+a witness's) hands it to one (stage 2 after the CLI's 2 + 2 steps, on an
+H100: one tie, text head and text encoder 2.3e-3 and 1.5e-3 apart end to end and
+in both witnesses alike, 0 in the control). A
+planted f32 forward fault (K3's, or K7's, weights rounded to bf16) must
+fail the tower's limit, and both f32 faults the whole check. Each on/off
+step also prints where its two sides route differently (ROUTES: the ReLUs
+and max pools of the text head, IMIM and FCFM, the text head's maxima),
+the tower output's difference, the kernels-off side's exact ties in the
+text head's maxima and the norms of its word features before their l2
+normalisation. K10-K12 and prng mode against
 host mode fed the dumps: bit for bit.
 """
 
@@ -239,6 +287,10 @@ ON_OFF_TOL_STAGE2 = {"bfloat16": ON_OFF_TOL["bfloat16"],
                      "float32": dict(ON_OFF_TOL["float32"], floor=1e-4)}
 RATE = 0.1
 TRAIN_STEPS = 20
+# steps of each CLI run (the synthetic train split holds 64 images): 3
+# eager warm-up steps, then the capture (stage 1: two epochs of two steps,
+# the schedule's rate edit between them; stage 2: one epoch of four)
+CLI_STEPS = 4
 # caption lengths of the long-caption checks of K4 and K6 (bf16 up to 512;
 # f32 up to its limit of 64): the edge of one key block and one past it
 LONG_T = (64, 65, 200, 512)
@@ -2249,20 +2301,62 @@ def long_captions(args, backbone, image_head, fusion_net, text_encoder,
 
 def _twin(trainer, state, **changes):
     """Another trainer of `trainer`'s configuration with `changes`, holding
-    the weights (and BN statistics) `state`."""
-    tw = type(trainer)(trainer.args.replace(**changes), trainer.device)
+    the weights (and BN statistics) `state`, taking eager steps (the
+    counters count every launch)."""
+    tw = type(trainer)(trainer.args.replace(**changes), trainer.device,
+                       eager=True)
     tw.model.load_state_dict(state)
     return tw
 
 
-def _grads(on, off, batch, drop_on, drop_off) -> tuple:
+# the model's points where a difference at rounding level can send a
+# gradient elsewhere: (module, what its output routes)
+ROUTES = (("text_head.bwm.conv_k2", "relu"), ("text_head.bwm.conv_k3", "relu"),
+          ("text_head.bwm.conv_k4", "relu"),
+          ("image_head.imim.conv1x1_1", "relu"),
+          ("image_head.imim.conv1x1_2", "relu"),
+          ("fusion_net.conv", "relu, max pool"), ("fusion_net.ln", "max pool"),
+          ("text_encoder", "tower output"))
+
+
+def _grads(on, off, batch, drop_on, drop_off,
+           same_tower_output: bool = False, tower_shift=None,
+           keep=None) -> tuple:
     """One step's loss and gradients (no update) from two trainers holding
     the same weights, on the same batch and the same dropout masks
     (drop_*: each trainer's (host bits, kernel seeds)): (loss_on,
     loss_off, per parameter (name, max |d|, max |g_off|, ||d||^2,
-    ||g_off||^2)) with d = g_on - g_off."""
-    loss_on, _ = on.compute_grads(batch, *drop_on)
-    loss_off, _ = off.compute_grads(batch, *drop_off)
+    ||g_off||^2), the routing differences) with d = g_on - g_off. With
+    `same_tower_output` the off side's text tower hands on the on side's
+    output values (its gradient still flows into the off tower), so both
+    sides run everything after the tower on the same values; `tower_shift`
+    is added to the on side's tower output (a constant). `keep`, a dict,
+    receives the outputs at ROUTES by (side, module)."""
+    out, hooks = {}, []
+    for side, tr in (("on", on), ("off", off)):
+        for path, _ in ROUTES:
+            mod = tr.model
+            for name in path.split("."):
+                mod = getattr(mod, name, None)
+            if mod is not None:
+                hooks.append(mod.register_forward_hook(
+                    lambda m, i, o, key=(side, path): out.__setitem__(
+                        key, (o[0] if isinstance(o, tuple) else o).detach())))
+    if same_tower_output:
+        hooks.append(off.model.text_encoder.register_forward_hook(
+            lambda m, i, o: (o[0] + (out[("on", "text_encoder")] - o[0])
+                             .detach(), *o[1:])))
+    if tower_shift is not None:
+        hooks.append(on.model.text_encoder.register_forward_hook(
+            lambda m, i, o: (o[0] + tower_shift, *o[1:])))
+    try:
+        loss_on, _ = on.compute_grads(batch, *drop_on)
+        loss_off, _ = off.compute_grads(batch, *drop_off)
+    finally:
+        for h in hooks:
+            h.remove()
+    if keep is not None:
+        keep.update(out)
     offp = dict(off.model.named_parameters())
     stats = []
     for name, p in on.model.named_parameters():
@@ -2274,16 +2368,92 @@ def _grads(on, off, batch, drop_on, drop_off) -> tuple:
             d = a - c
             stats.append((name, d.abs().max().item(), c.abs().max().item(),
                           d.square().sum().item(), c.square().sum().item()))
-    return float(loss_on), float(loss_off), stats
+    return float(loss_on), float(loss_off), stats, _routing_differences(out)
 
 
-def _on_off(on, off, batch, drop_on, drop_off, floor: float) -> dict:
+def _routing_differences(out: dict) -> dict:
+    """Where the two sides of a kernels on/off step route differently, from
+    the outputs at ROUTES (out[(side, module)]): elements whose ReLU is on
+    for one side only, 2 x 2 max pools and the text head's per-word maxima
+    over its three scales and per-sentence maxima over time won by another
+    element. Each sends an element's gradient elsewhere, so a difference
+    in the forward at rounding level becomes one of the order of that
+    gradient. Also the largest difference of the text tower's output."""
+    import torch
+    import torch.nn.functional as F
+
+    res = {}
+    for path, kind in ROUTES:
+        if ("on", path) not in out:
+            continue
+        a, b = out[("on", path)].float(), out[("off", path)].float()
+        if kind == "tower output":
+            res["tower_output_max_abs"] = float((a - b).abs().max())
+            # against the kernels' f32 limit, 1e-4 + 1e-4 |off|
+            res["tower_output_vs_f32_limit"] = float(
+                ((a - b).abs() / (1e-4 + 1e-4 * b.abs())).max())
+            continue
+        n = 0
+        if kind.startswith("relu"):
+            n += int(((a > 0) != (b > 0)).sum())
+            a, b = torch.relu(a), torch.relu(b)
+        if kind.endswith("max pool"):
+            n += int((F.max_pool2d(a, 2, return_indices=True)[1]
+                      != F.max_pool2d(b, 2, return_indices=True)[1]).sum())
+        res[path] = n
+    convs = [f"text_head.bwm.conv_k{k}" for k in (2, 3, 4)]
+    if ("on", convs[0]) in out:
+        def maxima(side):
+            outs = [torch.relu(out[(side, c)].float()) for c in convs]
+            t = outs[0].shape[1]
+            neg = torch.finfo(torch.float32).min
+            words = torch.stack([F.pad(o, (0, 0, 0, t - o.shape[1]),
+                                       value=neg) for o in outs]).argmax(0)
+            return words, [o.argmax(1) for o in outs]
+        (wa, sa), (wb, sb) = maxima("on"), maxima("off")
+        res["text_head word max"] = int((wa != wb).sum())
+        res["text_head sentence max"] = sum(int((x != y).sum())
+                                            for x, y in zip(sa, sb))
+        # the word features' norms before the head's l2 normalisation (the
+        # largest over scales of the ReLU outputs, per word): its gradient
+        # is 1/||w|| times the one after it, and a rounding difference in
+        # w turns it by |dw|/||w||, so small norms amplify
+        outs = [torch.relu(out[("off", c)].float()) for c in convs]
+        t = outs[0].shape[1]
+        w = torch.stack([F.pad(o, (0, 0, 0, t - o.shape[1])) for o in outs]
+                        ).amax(0).norm(dim=-1).flatten()
+        live = w[w > 0]
+        # exact ties at a positive value, where max and amax split the
+        # gradient and any perturbation picks one winner
+        sent_ties = sum(int(((o == o.amax(1, keepdim=True)) & (o > 0))
+                            .sum(1).gt(1).sum()) for o in outs)
+        st = torch.stack([F.pad(o, (0, 0, 0, t - o.shape[1]), value=-1.0)
+                          for o in outs])
+        top = st.amax(0, keepdim=True)
+        res["ties"] = {"sentence max": sent_ties, "word max": int(
+            ((st == top) & (top > 0)).sum(0).gt(1).sum())}
+        res["word_norms"] = {
+            "min": float(live.min()) if live.numel() else 0.0,
+            "median": float(live.median()) if live.numel() else 0.0,
+            "below_1e-2": int((live < 1e-2).sum()), "zero": int(
+                (w == 0).sum()), "words": int(w.numel())}
+    res["total"] = sum(v for k, v in res.items()
+                       if not k.startswith("tower_output")
+                       and k not in ("word_norms", "ties"))
+    return res
+
+
+def _on_off(on, off, batch, drop_on, drop_off, floor: float,
+            same_tower_output: bool = False, tower_shift=None,
+            keep=None) -> dict:
     """Kernels on against off for one step (`_grads`), summed per
     top-level module (image_head, text_encoder, text_head, image_cls,
     text_cls): l2 = ||g_on - g_off|| / ||g_off|| over the module, and max,
     the largest over its parameters of max |g_on - g_off| / (max |g_off| +
     floor G), G the largest gradient element of the model."""
-    loss_on, loss_off, stats = _grads(on, off, batch, drop_on, drop_off)
+    loss_on, loss_off, stats, routing = _grads(on, off, batch, drop_on,
+                                               drop_off, same_tower_output,
+                                               tower_shift, keep)
     big = max(s[2] for s in stats)
     groups = {}
     for name, dmax, cmax, d2, c2 in stats:
@@ -2301,7 +2471,9 @@ def _on_off(on, off, batch, drop_on, drop_off, floor: float) -> dict:
     return {"loss_on": loss_on, "loss_off": loss_off,
             "loss_rel": abs(loss_on - loss_off) / abs(loss_off),
             "groups": groups, "gradients": len(stats),
-            "largest_gradient": big}
+            "largest_gradient": big,
+            "routing_differences": routing,
+            "same_tower_output": same_tower_output}
 
 
 def _l2_tol(tol: dict, module: str) -> float:
@@ -2309,13 +2481,17 @@ def _l2_tol(tol: dict, module: str) -> float:
 
 
 def _on_off_ok(r, tol) -> bool:
+    if r["same_tower_output"] and \
+            not r["routing_differences"]["tower_output_vs_f32_limit"] <= 1:
+        return False
     return r["loss_rel"] <= tol["loss"] and all(
         g["l2"] <= _l2_tol(tol, m) and g["max"] <= tol["max"]
         for m, g in r["groups"].items())
 
 
 def _planted_fault(on, off, batch, drop_on, drop_off, floor: float,
-                   name: str = "attn_block_bwd", bits_p_at=None) -> dict:
+                   name: str = "attn_block_bwd", bits_p_at=None,
+                   same_tower_output: bool = False, bf16_at=()) -> dict:
     """`_on_off` with a fault planted in the inputs of the backward `name`
     (K6, or K8 `tower_block_bwd`) of the trainer `on`. In prng mode
     (bits_p_at None) it is handed the wrong seed, so it regenerates other
@@ -2323,14 +2499,22 @@ def _planted_fault(on, off, batch, drop_on, drop_off, floor: float,
     bits for the probabilities that the forward dropped (bits_p_at: where
     the autograd Function's backward passes bits_p, 13th for K6, 20th for
     K8). Only the text tower's gradients move; the forward and the loss do
-    not."""
+    not. With `bf16_at`, `name` is a forward (K3 `ffn_block_fwd`, K7
+    `tower_block_fwd`) handed its weights at those positions rounded to
+    bf16, as a kernel that multiplied f32 operands on bf16 tensor cores
+    would: the forward moves, the backward reads the true weights."""
     import torch
 
     from text_guided_face_recognition_tpu_torch.ops import block
     real = getattr(block, name)
 
     def faulty(*a, **kw):
-        if bits_p_at is None:
+        if bf16_at:
+            a = list(a)
+            for i in bf16_at:     # the same (transposed) layout
+                w = a[i].transpose(-1, -2)
+                a[i] = w.to(torch.bfloat16).to(w.dtype).transpose(-1, -2)
+        elif bits_p_at is None:
             kw["seed"] = kw["seed"] + 1
         else:
             a = list(a)
@@ -2342,9 +2526,109 @@ def _planted_fault(on, off, batch, drop_on, drop_off, floor: float,
     faulty.launches = 0
     setattr(block, name, faulty)
     try:
-        return _on_off(on, off, batch, drop_on, drop_off, floor)
+        return _on_off(on, off, batch, drop_on, drop_off, floor,
+                       same_tower_output)
     finally:
         setattr(block, name, real)
+
+
+# seeds of the f32 witnesses' directions (`_f32_on_off`)
+WITNESS_SEEDS = (1, 2)
+
+
+def _f32_ok(e2e: dict, split: dict, witnesses, control: dict, tol) -> str:
+    """The f32 kernels on/off verdict: "end to end" when the step's
+    gradients agree within `tol`; else "explained" when the text tower's
+    output is within the kernels' f32 limit and everything after it, run on
+    the same values, agrees within `tol` (`split`), the plain model agrees
+    with itself through the witnesses' hook with a zero shift (`control`),
+    and the plain model alone, its tower output moved by the same
+    magnitudes in other directions (`witnesses`), reaches in every module
+    beyond `tol` at least a quarter of the end-to-end l2 gap: the gap is
+    the plain model's own response to any rounding difference of the
+    tower's size (as at an exact tie of a max), not the kernels'; else ""
+    (failed)."""
+    if _on_off_ok(e2e, tol):
+        return "end to end"
+    if not _on_off_ok(split, tol) or not _on_off_ok(control, tol) or \
+            e2e["loss_rel"] > tol["loss"]:
+        return ""
+    over = [m for m, g in e2e["groups"].items()
+            if g["l2"] > _l2_tol(tol, m) or g["max"] > tol["max"]]
+    if all(w["groups"][m]["l2"] >= e2e["groups"][m]["l2"] / 4
+           for w in witnesses for m in over):
+        return "explained"
+    return ""
+
+
+def _f32_on_off(on, off, plain, batch, drop_on, drop_off, tol, fwd: tuple,
+                bwd: str, tag: str) -> dict:
+    """Kernels on against off in f32 (trainers `on`, `off`; `plain` a second
+    kernels-off twin): the step end to end; split in two, the tower's
+    output within the kernels' f32 limit (1e-4 + 1e-4 |p|) and the
+    gradients with everything after the tower on the same values; and the
+    witnesses: `plain` against `off` with `plain`'s tower output moved by
+    the split step's tower difference, its elements permuted and their
+    signs flipped at random (WITNESS_SEEDS), and once with a zero shift
+    (the control: the hook alone moves nothing). Planted faults, each of which
+    must fail the verdict (`_f32_ok`) and the end-to-end check: the wrong
+    seed in the backward `bwd`, and the forward fwd = (name, weight
+    positions) handed bf16-rounded weights, which the tower's f32 limit
+    must catch. Raises if the verdict fails or a fault passes."""
+    import torch
+
+    floor = tol["floor"]
+    keep = {}
+    r = {"float32": _on_off(on, off, batch, drop_on, drop_off, floor),
+         "float32, split": _on_off(on, off, batch, drop_on, drop_off, floor,
+                                   True, keep=keep)}
+    d = (keep[("on", "text_encoder")] - keep[("off", "text_encoder")])
+    flat = d.flatten()
+    for seed in WITNESS_SEEDS:
+        gen = torch.Generator(device=d.device).manual_seed(seed)
+        perm = torch.randperm(flat.numel(), generator=gen, device=d.device)
+        sign = torch.randint(0, 2, (flat.numel(),), generator=gen,
+                             device=d.device) * 2 - 1
+        shift = (flat[perm] * sign).view_as(d).to(d.dtype)
+        r[f"float32, witness, seed {seed}"] = _on_off(
+            plain, off, batch, drop_off, drop_off, floor, tower_shift=shift)
+    r["float32, witness, zero shift"] = _on_off(
+        plain, off, batch, drop_off, drop_off, floor,
+        tower_shift=torch.zeros_like(d))
+    witnesses = [r[f"float32, witness, seed {seed}"]
+                 for seed in WITNESS_SEEDS]
+    control = r["float32, witness, zero shift"]
+    fwd_name, fwd_at = fwd
+    planted = {}
+    for label, kw in ((f"wrong seed in {bwd}", dict(name=bwd)),
+                      (f"bf16 weights in {fwd_name}", dict(
+                          name=fwd_name, bf16_at=fwd_at))):
+        planted[f"float32, {label}"] = _planted_fault(
+            on, off, batch, drop_on, drop_off, floor, **kw)
+        planted[f"float32, {label}, split"] = _planted_fault(
+            on, off, batch, drop_on, drop_off, floor, same_tower_output=True,
+            **kw)
+    for dt, x in (*r.items(), *planted.items()):
+        _print_on_off(tag, dt, x, {"float32": tol})
+    verdict = _f32_ok(r["float32"], r["float32, split"], witnesses, control,
+                      tol)
+    print(f"{tag}, float32 verdict: {verdict or 'failed'}", flush=True)
+    if not verdict:
+        raise AssertionError(f"{tag}: the f32 kernels on/off step disagrees")
+    for label in (f"wrong seed in {bwd}", f"bf16 weights in {fwd_name}"):
+        e2e, split = (planted[f"float32, {label}"],
+                      planted[f"float32, {label}, split"])
+        if _on_off_ok(e2e, tol) or _f32_ok(e2e, split, witnesses, control,
+                                           tol):
+            raise AssertionError(f"{tag}: the f32 on/off check passed a "
+                                 f"planted fault: {label}")
+    fwd_split = planted[f"float32, bf16 weights in {fwd_name}, split"]
+    if fwd_split["routing_differences"]["tower_output_vs_f32_limit"] <= 1:
+        raise AssertionError(f"{tag}: the tower's f32 limit passed the "
+                             f"planted forward fault in {fwd_name}")
+    r["float32 verdict"] = verdict
+    r["planted"] = planted
+    return r
 
 
 def _faults_caught(planted: dict, tols: dict, kernel: str) -> None:
@@ -2357,6 +2641,13 @@ def _faults_caught(planted: dict, tols: dict, kernel: str) -> None:
 
 def _print_on_off(tag: str, dt: str, r: dict, tols=ON_OFF_TOL) -> None:
     tol = tols[dt.split(",")[0]]
+    if r["same_tower_output"]:
+        dt += " (after the tower on the same values)"
+    if "zero shift" in dt:
+        dt += " (kernels off on both sides, one through the hook adding 0)"
+    elif "witness" in dt:
+        dt += (" (kernels off on both sides, one side's tower output moved "
+               "by the on/off difference's magnitudes)")
     print(f"{tag}, one step, {dt}: loss "
           f"{r['loss_on']:.6f} vs {r['loss_off']:.6f} (rel "
           f"{r['loss_rel']:.3g}, tolerance {tol['loss']}); per module "
@@ -2368,7 +2659,8 @@ def _print_on_off(tag: str, dt: str, r: dict, tols=ON_OFF_TOL) -> None:
               f"{m} {g['l2']:.4g} / {g['max']:.4g} at {g['max_at']}"
               + ("" if "max_abs" not in g else
                  " (|d| %.3g of %.3g)" % g["max_abs"])
-              for m, g in r["groups"].items()), flush=True)
+              for m, g in r["groups"].items())
+          + f"; routing differences {r['routing_differences']}", flush=True)
 
 
 def _modes(trainers, batch, reps: int = 5) -> dict:
@@ -2499,6 +2791,62 @@ def long_caption_step(trainer, state, short: dict, kernels) -> dict:
     return dict(r, longest_caption=longest, t=t, damsm_launches=k9)
 
 
+def _counted_steps(trainer, steps: int, tag: str) -> int:
+    """The steps of a CLI run whose launches the counters saw: the eager
+    warm-up steps and the capture (the counters count at capture, not at
+    replay); every later step must have been a replay."""
+    w = trainer.WARMUP_STEPS
+    if trainer.eager or trainer.graph_replays != max(0, steps - w):
+        raise AssertionError(f"{tag}: {steps} steps, {trainer.graph_replays} "
+                             f"replays (eager {trainer.eager}): the CLI "
+                             "runs the captured step on the card")
+    return min(steps, w + 1)
+
+
+def _eager_continuation(trainer):
+    """An eager trainer that goes on with `trainer`'s run: its weights and
+    BN statistics, optimizer state, learning rates and dropout stream."""
+    tw = _twin(trainer, trainer.model.state_dict())
+    tw.opt.load_state_dict(trainer.opt.state_dict())
+    tw.lr = dict(trainer.lr)
+    tw._apply_lrs()
+    tw.drop_gen.set_state(trainer.drop_gen.get_state())
+    tw.steps = trainer.steps
+    return tw
+
+
+def _captured_cli(main, argv, ckpt, per_step, kernels, tag: str) -> dict:
+    """One CLI run long enough to capture its step (CLI_STEPS: 3 eager
+    warm-up steps, then the capture), with every count zeroed before and
+    read after: the warm-up steps' and the capture's launches; then its
+    replays' device kernels against an eager twin's step (profiler).
+    Returns the counts."""
+    import torch
+
+    _zero(kernels)
+    t0 = time.perf_counter()
+    try:
+        cli = main(argv)
+        torch.cuda.synchronize()
+        saved = sorted(os.listdir(cli.save_dir()))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    counts = _counts(kernels)
+    counted = _counted_steps(cli, cli.steps, tag)
+    print(f"{tag}: {cli.steps} steps ({counted} eager or captured, "
+          f"{cli.graph_replays} replays) + {saved} in "
+          f"{time.perf_counter() - t0:.1f} s (set-up included), launches "
+          f"{counts}", flush=True)
+    if cli.steps != CLI_STEPS or \
+            counts != {k: counted * v for k, v in per_step.items()}:
+        raise AssertionError(f"{tag}: {cli.steps} steps, launch counts "
+                             f"{counts} != {counted} x {per_step}")
+    batch = cli.to_device(next(iter(cli.train_dl)))
+    eager = _twin(cli, cli.model.state_dict())
+    _replays_launch_as_eager(cli, eager, batch, kernels, tag)
+    return counts
+
+
 def train_phase(kernels):
     """Stage-1 training at full width; returns the per-kernel launch counts
     of the CLI's run and prints the phase's metrics."""
@@ -2513,18 +2861,18 @@ def train_phase(kernels):
     argv = ["--cfg", os.path.join(ROOT, "cfg", "train_bert.yml"),
             "--synthetic", "--fused_block", "both", "--fused_ln",
             "--use_pallas", "--compute_dtype", "bfloat16", "--batch_size",
-            "32", "--max_steps", "2", "--max_epoch", "1",
-            "--checkpoints_path", ckpt]
+            "32", "--checkpoints_path", ckpt]
     _zero(kernels)
     t0 = time.perf_counter()
     try:
-        trainer = train_encoders_bert.main(argv)
+        trainer = train_encoders_bert.main(argv + ["--max_steps", "2",
+                                                   "--max_epoch", "1"])
         torch.cuda.synchronize()
         saved = sorted(os.listdir(trainer.save_dir()))
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     t_cli = time.perf_counter() - t0
-    cli_counts = _counts(kernels)
+    warm_counts = _counts(kernels)
     args = trainer.args
     layers = trainer.arch.layers
     per_step = {k: 0 for k in kernels}
@@ -2533,19 +2881,32 @@ def train_phase(kernels):
                      "ffn_block": layers, "ffn_block_bwd": layers,
                      "damsm_similarity": 1})
     steps = trainer.steps
-    print(f"train: CLI {steps} steps + checkpoints {saved} in {t_cli:.1f} s "
-          f"(set-up included), launches {cli_counts}", flush=True)
-    if cli_counts != {k: steps * v for k, v in per_step.items()}:
-        raise AssertionError(f"CLI launch counts {cli_counts} != {steps} x "
+    _counted_steps(trainer, steps, "train: CLI")
+    print(f"train: CLI {steps} steps (warm-up, eager) + checkpoints {saved} "
+          f"in {t_cli:.1f} s (set-up included), launches {warm_counts}",
+          flush=True)
+    if warm_counts != {k: steps * v for k, v in per_step.items()}:
+        raise AssertionError(f"CLI launch counts {warm_counts} != {steps} x "
                              f"{per_step}")
     expect = {f"{args.model_type}_image_encoder_1",
               f"{args.bert_type}_text_encoder_1", "train_state_1"}
     if set(saved) != expect:
         raise AssertionError(f"checkpoints {saved} != {sorted(expect)}")
-
-    # 20 steps on one fixed batch
+    # the checks below go on with this run eagerly (the counters see every
+    # launch), on the batch its loader gives next
     batch = trainer.to_device(next(iter(trainer.train_dl)))
     b, t = batch["caps"].shape
+    trainer = _eager_continuation(trainer)
+    # the CLI run long enough to capture its step: two epochs of the
+    # synthetic split's two steps, the schedule's rate edit between them
+    cli_counts = _captured_cli(
+        train_encoders_bert.main,
+        argv + ["--max_steps", str(CLI_STEPS // 2), "--max_epoch", "2"],
+        ckpt, per_step, kernels, "train: captured CLI")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 20 steps on one fixed batch
     _zero(kernels)
     losses = [trainer.train_step(batch)["total_loss"]
               for _ in range(TRAIN_STEPS)]
@@ -2584,13 +2945,16 @@ def train_phase(kernels):
     planted = {"bfloat16, wrong seed in K6": _planted_fault(
         trainer, off, batch, drop_on, drop_off, floor)}
     trainer.model.load_state_dict(state)
+    f32_off = dict(compute_dtype="float32", fused_block="none",
+                   fused_ln=False, use_pallas=False)
     f32 = [_twin(trainer, state, compute_dtype="float32"),
-           _twin(trainer, state, compute_dtype="float32", fused_block="none",
-                 fused_ln=False, use_pallas=False)]
-    on_off["float32"] = _on_off(*f32, batch, drop_on, drop_off,
-                                ON_OFF_TOL["float32"]["floor"])
-    planted["float32, wrong seed in K6"] = _planted_fault(
-        *f32, batch, drop_on, drop_off, ON_OFF_TOL["float32"]["floor"])
+           _twin(trainer, state, **f32_off), _twin(trainer, state, **f32_off)]
+    f32_r = _f32_on_off(*f32, batch, drop_on, drop_off,
+                        ON_OFF_TOL["float32"], ("ffn_block_fwd", (1, 3)),
+                        "attn_block_bwd", "train: kernels on vs off")
+    on_off["float32"] = f32_r.pop("float32")
+    planted["float32, wrong seed in K6"] = f32_r["planted"][
+        "float32, wrong seed in attn_block_bwd"]
     del f32
     host = _twin(trainer, state, fused_dropout=True)
     on_off["bfloat16, host mode"] = _on_off(host, off, batch, drop_off,
@@ -2599,7 +2963,8 @@ def train_phase(kernels):
         host, off, batch, drop_off, drop_off, floor, bits_p_at=12)
     host.model.load_state_dict(state)
     for dt, r in (*on_off.items(), *planted.items()):
-        _print_on_off("train: kernels on vs off", dt, r)
+        if not dt.startswith("float32"):      # printed by _f32_on_off
+            _print_on_off("train: kernels on vs off", dt, r)
     # host mode (fused_dropout): the whole-tower kernels against the
     # half-layer ones, same weights, same bits (K7 and K8 once each, K3-K6
     # once each for the `both` twin)
@@ -2621,11 +2986,12 @@ def train_phase(kernels):
         raise AssertionError("stage-1 step: tower disagrees with both")
     on_off["bfloat16_tower_vs_both"] = tower_both
     del tower
-    for dt in ("bfloat16", "float32", "bfloat16, host mode"):
+    for dt in ("bfloat16", "bfloat16, host mode"):
         if not _on_off_ok(on_off[dt], ON_OFF_TOL[dt.split(",")[0]]):
             raise AssertionError(f"kernels on/off training step disagrees "
                                  f"in {dt}")
     _faults_caught(planted, ON_OFF_TOL, "K6")
+    on_off["float32, checks"] = f32_r
     on_off["planted_k6_faults"] = planted
     on_off[f"bfloat16_t{LONG_T[-1]}"] = long_caption_step(
         trainer, state, on_off["bfloat16"], kernels)
@@ -2684,34 +3050,37 @@ def stage2_phase(kernels):
     ckpt = os.path.join(ROOT, "checkpoints", "chip_smoke_stage2")
     argv = ["--cfg", os.path.join(ROOT, "cfg", "fusion_bert.yml"),
             "--synthetic", "--fused_block", "tower", "--fused_ln",
-            "--max_steps", "2", "--checkpoints_path", ckpt]
+            "--checkpoints_path", ckpt]
     per_step = {k: 0 for k in kernels}
     per_step.update({"layernorm_fused": 1, "layernorm_bwd": 1,
                      "tower_block": 1, "tower_block_bwd": 1})
     _zero(kernels)
     t0 = time.perf_counter()
     try:
-        first = fusion_bert.main(argv + ["--max_epoch", "1"])
+        first = fusion_bert.main(argv + ["--max_steps", "2", "--max_epoch",
+                                         "1"])
         torch.cuda.synchronize()
         save_dir = first.save_dir()
         saved = sorted(os.listdir(save_dir))
         # resume: the second epoch starts from the first one's train state
         trainer = fusion_bert.main(argv + [
-            "--max_epoch", "2", "--resume_epoch", "2",
+            "--max_steps", "2", "--max_epoch", "2", "--resume_epoch", "2",
             "--resume_model_path", os.path.join(save_dir, "train_state_1")])
         torch.cuda.synchronize()
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     t_cli = time.perf_counter() - t0
-    cli_counts = _counts(kernels)
+    warm_counts = _counts(kernels)
     args = trainer.args
     steps = first.steps + trainer.steps
+    _counted_steps(first, first.steps, "stage2: CLI")
+    _counted_steps(trainer, trainer.steps, "stage2: resumed CLI")
     print(f"stage2: CLI {first.steps} steps + artifacts {saved}, resumed at "
-          f"epoch {trainer.start_epoch} for {trainer.steps} more, in "
-          f"{t_cli:.1f} s (set-up included), launches {cli_counts}",
-          flush=True)
-    if cli_counts != {k: steps * v for k, v in per_step.items()}:
-        raise AssertionError(f"CLI launch counts {cli_counts} != {steps} x "
+          f"epoch {trainer.start_epoch} for {trainer.steps} more (warm-up, "
+          f"eager), in {t_cli:.1f} s (set-up included), launches "
+          f"{warm_counts}", flush=True)
+    if warm_counts != {k: steps * v for k, v in per_step.items()}:
+        raise AssertionError(f"CLI launch counts {warm_counts} != {steps} x "
                              f"{per_step}")
     expect = {f"fusion_{args.fusion_type}_{args.model_type}_1",
               f"encoder_{args.en_type}_{args.fusion_type}_1", "train_state_1"}
@@ -2719,9 +3088,19 @@ def stage2_phase(kernels):
             (first.steps, trainer.steps) != (2, 2):
         raise AssertionError(f"artifacts {saved} != {sorted(expect)}, or the "
                              "resume did not start at epoch 2")
-
+    del first
+    # the checks below go on with the resumed run eagerly (the counters see
+    # every launch), on the batch its loader gives next
     batch = trainer.to_device(next(iter(trainer.train_dl)))
     b, t = batch["caps"].shape
+    trainer = _eager_continuation(trainer)
+    # the CLI run long enough to capture its step: one epoch of four
+    cli_counts = _captured_cli(
+        fusion_bert.main, argv + ["--max_steps", str(CLI_STEPS),
+                                  "--max_epoch", "1"],
+        ckpt, per_step, kernels, "stage2: captured CLI")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # one step, kernels on against off: same weights, same bits, per
     # top-level module; bf16 and f32, and bf16 in host mode; then planted
@@ -2743,14 +3122,16 @@ def stage2_phase(kernels):
                                   floor)}
     planted = {"bfloat16, wrong seed in K8": _planted_fault(
         trainer, off, batch, drop_on, drop_off, floor, "tower_block_bwd")}
+    f32_off = dict(compute_dtype="float32", fused_block="none",
+                   fused_ln=False)
     f32 = [_twin(trainer, state, compute_dtype="float32"),
-           _twin(trainer, state, compute_dtype="float32", fused_block="none",
-                 fused_ln=False)]
-    on_off["float32"] = _on_off(*f32, batch, drop_on, drop_off,
-                                tols["float32"]["floor"])
-    planted["float32, wrong seed in K8"] = _planted_fault(
-        *f32, batch, drop_on, drop_off, tols["float32"]["floor"],
-        "tower_block_bwd")
+           _twin(trainer, state, **f32_off), _twin(trainer, state, **f32_off)]
+    f32_r = _f32_on_off(*f32, batch, drop_on, drop_off, tols["float32"],
+                        ("tower_block_fwd", (2, 4, 8, 10)), "tower_block_bwd",
+                        "stage2: kernels on vs off")
+    f32_e2e = f32_r.pop("float32")
+    planted["float32, wrong seed in K8"] = f32_r["planted"][
+        "float32, wrong seed in tower_block_bwd"]
     del f32
     host = _twin(trainer, state, fused_dropout=True)
     on_off["bfloat16, host mode"] = _on_off(host, off, batch, drop_off,
@@ -2758,7 +3139,8 @@ def stage2_phase(kernels):
     planted["bfloat16, host mode, all-keep bits in K8"] = _planted_fault(
         host, off, batch, drop_off, drop_off, floor, "tower_block_bwd", 19)
     for dt, r in (*on_off.items(), *planted.items()):
-        _print_on_off("stage2: kernels on vs off", dt, r, tols)
+        if not dt.startswith("float32"):      # printed by _f32_on_off
+            _print_on_off("stage2: kernels on vs off", dt, r, tols)
     want = {"text_encoder", "text_head", "image_head", "fusion_net",
             "metric_fc"}
     for dt, r in on_off.items():
@@ -2768,7 +3150,12 @@ def stage2_phase(kernels):
         if not _on_off_ok(r, tols[dt.split(",")[0]]):
             raise AssertionError(f"stage-2 kernels on/off step disagrees in "
                                  f"{dt}")
+    if set(f32_e2e["groups"]) != want:
+        raise AssertionError(f"modules compared {set(f32_e2e['groups'])} != "
+                             f"{want}")
     _faults_caught(planted, tols, "K8")
+    on_off["float32"] = f32_e2e
+    on_off["float32, checks"] = f32_r
     on_off["planted_k8_faults"] = planted
     torch.cuda.empty_cache()
 
@@ -2821,6 +3208,268 @@ def stage2_phase(kernels):
                       if "profile" in m else m)
                   for k, m in modes.items()}}))
     return cli_counts, {k: v // TRAIN_STEPS for k, v in fixed_counts.items()}
+
+
+# ------------------------------------------------------ the compiled step --
+
+PORT_KERNEL_KEYS = ("tower_fwd_kernel", "tower_bwd_kernel", "hl_gemm_kernel",
+                    "hl_bwd_gemm_kernel", "gemm_kernel", "attention_mma",
+                    "attention_core_bwd", "attention_core",
+                    "layernorm_bwd_kernel", "layernorm_fwd_kernel", "colsum",
+                    "damsm_kernel", "philox_dump")
+
+
+def _device_kernels(fn, reps: int) -> dict:
+    """{device kernel name: launches per call} of the port's kernels over
+    `reps` calls of fn, from torch.profiler's device records: they see the
+    kernels of a CUDA graph's replay, which the wrappers' counters do not
+    (those count at capture). One call before them runs under the
+    profiler's warm-up, whose records are dropped: without it the first
+    kernels of a replay went unrecorded now and then."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reps, repeat=1),
+                 acc_events=True) as prof:
+        for _ in range(1 + reps):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and any(
+                k in e.name for k in PORT_KERNEL_KEYS):
+            out[e.name] = out.get(e.name, 0) + 1
+    return {k: v / reps for k, v in sorted(out.items())}
+
+
+def _kernel_counts(fn, sessions: int) -> dict:
+    """Per device kernel name of the port's, the most launches that one
+    call of fn showed in `sessions` profiler sessions (`_device_kernels`,
+    one call each): the profiler drops records of a graph's replay now
+    and then (it never adds any), so the most over sessions is a bound
+    from below of what a call launches."""
+    best = {}
+    for _ in range(sessions):
+        for k, v in _device_kernels(fn, 1).items():
+            best[k] = max(best.get(k, 0.0), v)
+    return best
+
+
+def _replays_launch_as_eager(graphed, eager, batch, kernels, tag: str,
+                             sessions: int = 3) -> dict:
+    """The replayed steps of `graphed` launch the port's device kernels of
+    one eager step of `eager` (same configuration), name for name and as
+    many times, by the profiler (`_kernel_counts`, each side over
+    `sessions` sessions); the launch counters do not move at replay."""
+    eager_k = _kernel_counts(lambda: eager.train_step(batch), sessions)
+    n0, before = graphed.graph_replays, _counts(kernels)
+    graph_k = _kernel_counts(lambda: graphed.train_step(batch), sessions)
+    if graphed.graph_replays != n0 + 2 * sessions or \
+            _counts(kernels) != before:
+        raise AssertionError(f"{tag}: {graphed.graph_replays - n0} replays "
+                             f"in {2 * sessions} captured steps, counters "
+                             f"{before} -> {_counts(kernels)}")
+    if not eager_k or graph_k != eager_k:
+        raise AssertionError(f"{tag}: replayed steps launch {graph_k}, an "
+                             f"eager step {eager_k}")
+    print(f"{tag}: a replayed step launches the port kernels of an eager "
+          f"step (profiler, {sessions} sessions a side; counters unmoved): "
+          + json.dumps({k[:70]: v for k, v in graph_k.items()}), flush=True)
+    return graph_k
+
+
+def _snapshot(tr) -> dict:
+    """Every parameter, BN statistic, moment, momentum buffer and count of
+    a trainer, cloned."""
+    out = {f"model.{k}": v.detach().clone()
+           for k, v in tr.model.state_dict().items()}
+    for g, sd in tr.opt.state_dict().items():
+        out[f"{g}.count"] = sd["count"].clone()
+        for i, st in sd["state"].items():
+            for k, t in st.items():
+                out[f"{g}.{i}.{k}"] = t.clone()
+    return out
+
+
+def _max_diff(a: dict, b: dict) -> tuple:
+    """(equal bit for bit, largest |a - b| over every tensor, where)."""
+    import torch
+    worst, at = 0.0, ""
+    if a.keys() != b.keys():
+        return False, math.inf, "keys"
+    equal = True
+    for k in a:
+        x, y = a[k], b[k]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False, math.inf, k
+        if not torch.equal(x, y):
+            equal = False
+            d = (x.double() - y.double()).abs().max().item()
+            if d > worst:
+                worst, at = d, k
+    return equal, worst, at
+
+
+def _time_modes(trainers, batch, reps: int = 5) -> dict:
+    """Per trainer: host-clock ms per step (median of 2 x reps, in turns
+    forwards and backwards), device ms per step from the profiler, the busy
+    share (device ms over the unprofiled host ms), the memory resident and
+    the peak of a step, and what the caching allocator holds (a graph's
+    private pool among it)."""
+    import torch
+
+    ms = {k: [] for k in trainers}
+    order = list(trainers.items())
+    for _ in range(reps):
+        for k, step in order + order[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    gc.collect()
+    for k, step in order:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        prof = _profile(step, what="step")
+        host = statistics.median(ms[k])
+        dev = prof.get("device_ms_per_call")
+        out[k] = {"host_ms": host, "host_ms_all": ms[k],
+                  "device_ms": dev if dev is not None else "not measured",
+                  "busy_share": dev / host if dev else "not measured",
+                  "resident_gb": base / 1e9, "peak_gb": peak / 1e9,
+                  "reserved_gb": reserved / 1e9,
+                  "top_ms": prof.get("top_ms_per_call")}
+    return out
+
+
+def _captured_vs_eager(cls, args, dev) -> tuple:
+    """An eager trainer and a captured one of `args` from the same weights,
+    six steps each on one batch (the head's rate halved before the fifth):
+    (eager, captured, the initial weights, the batch, {after 3 and after 6
+    steps: bit for bit (parameters, BN statistics, moments, counts and the
+    step's metrics), the largest difference and where}). The captured
+    trainer's fourth step is its capture."""
+    import torch
+
+    eager = cls(args, dev, eager=True)
+    state = {k: v.clone() for k, v in eager.model.state_dict().items()}
+    batch = eager.to_device(next(iter(eager.train_dl)))
+    graphed = cls(args, dev)
+    graphed.model.load_state_dict(state)
+    cmp = {}
+    for n in range(6):
+        if n == 4:
+            for tr in (eager, graphed):
+                tr.lr["head"] *= 0.5
+                tr._apply_lrs()
+        ma, mb = eager.train_step(batch), graphed.train_step(batch)
+        if n in (2, 5):
+            equal, worst, at = _max_diff(_snapshot(graphed), _snapshot(eager))
+            m_eq = all(torch.equal(ma[k], mb[k]) for k in ma)
+            cmp[f"after {n + 1} steps"] = {
+                "bitwise": equal and m_eq, "max_abs": worst, "at": at,
+                "metrics_equal": m_eq, "replays": graphed.graph_replays}
+    return eager, graphed, state, batch, cmp
+
+
+def step_phase(kernels) -> dict:
+    """The compiled step (`--only step`): for stage 1 (cfg/train_bert.yml,
+    bf16, batch 32, fused_block both, fused_ln, use_pallas, prng mode) and
+    stage 2 (cfg/fusion_bert.yml, batch 16, fused_block tower, fused_ln),
+    kernels on and off: (b) the eager step and (c) the captured one, timed
+    in turns in this process. Checks: (c) against (b) from the same
+    weights, batch and drop_gen seed after 3 and 6 steps (a learning-rate
+    edit between), every parameter, BN statistic, moment and count bit for
+    bit; the replayed steps launch the device kernels of an eager step
+    (profiler)."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.config import load_yaml
+    from text_guided_face_recognition_tpu_torch.engine.stage1 import (
+        Stage1Trainer)
+    from text_guided_face_recognition_tpu_torch.engine.stage2 import (
+        FusionTrainer)
+
+    dev = torch.device("cuda")
+    stages = {
+        "stage1": (Stage1Trainer, load_yaml(
+            os.path.join(ROOT, "cfg", "train_bert.yml")).replace(
+            synthetic=True, fused_block="both", fused_ln=True,
+            use_pallas=True, compute_dtype="bfloat16", batch_size=32,
+            checkpoints_path="")),
+        "stage2": (FusionTrainer, load_yaml(
+            os.path.join(ROOT, "cfg", "fusion_bert.yml")).replace(
+            synthetic=True, fused_block="tower", fused_ln=True,
+            checkpoints_path="")),
+    }
+    off = dict(fused_block="none", fused_ln=False, use_pallas=False)
+    report, failures = {}, []
+    for stage, (cls, args) in stages.items():
+        try:
+            eager, graphed, state, batch, cmp = _captured_vs_eager(cls, args,
+                                                                   dev)
+        except RuntimeError as e:
+            if args.fused_block != "tower" or \
+                    "capturing the train step" not in str(e):
+                raise
+            print(f"step, {stage}: the card refuses to capture fused_block "
+                  f"tower ({e}); this stage's graph is measured with both",
+                  flush=True)
+            report[f"{stage}_tower_refused"] = str(e)
+            args = args.replace(fused_block="both")
+            eager, graphed, state, batch, cmp = _captured_vs_eager(cls, args,
+                                                                   dev)
+        print(f"step, {stage}: captured against eager (3 warm-up steps, "
+              f"capture, replays): {json.dumps(cmp)}", flush=True)
+        if not all(c["bitwise"] for c in cmp.values()):
+            failures.append(f"{stage}: the captured step differs from the "
+                            f"eager step: {cmp}")
+        _replays_launch_as_eager(graphed, eager, batch, kernels,
+                                 f"step, {stage}")
+
+        # the table: (b), (c), kernels on and off
+        modes = {"(b) eager, kernels on": lambda: eager.train_step(batch),
+                 "(c) captured, kernels on": lambda: graphed.train_step(batch)}
+        e_off = cls(args.replace(**off), dev, eager=True)
+        g_off = cls(args.replace(**off), dev)
+        for tr in (e_off, g_off):
+            tr.model.load_state_dict(state)
+        for _ in range(graphed.WARMUP_STEPS + 1):
+            g_off.train_step(batch)
+        modes.update({
+            "(b) eager, kernels off": lambda: e_off.train_step(batch),
+            "(c) captured, kernels off": lambda: g_off.train_step(batch)})
+        table = _time_modes(modes, batch)
+        for k, m in table.items():
+            print(f"step, {stage}, {k}: {m['host_ms']:.3f} host ms per step "
+                  f"(median of {len(m['host_ms_all'])}), device "
+                  f"{m['device_ms']} ms, busy {m['busy_share']}, resident "
+                  f"{m['resident_gb']:.3f} GB, peak {m['peak_gb']:.3f} GB, "
+                  f"reserved {m['reserved_gb']:.3f} GB",
+                  flush=True)
+        report[stage] = {"captured_vs_eager": cmp,
+                         "table": {k: {n: v for n, v in m.items()
+                                       if n != "top_ms"}
+                                   for k, m in table.items()},
+                         "top_ms": {k: m["top_ms"] for k, m in table.items()}}
+        del eager, graphed, e_off, g_off, modes
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("step: " + json.dumps(report), flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return report
 
 
 # ----------------------------------------------- reference weight files --
@@ -3177,7 +3826,7 @@ def weights_phase(args, kernels):
             weights_adaface=paths["adaface"],
             text_encoder_path=paths["text"],
             image_encoder_path=paths["image"])
-        trainer = Stage1Trainer(targs, dev)
+        trainer = Stage1Trainer(targs, dev, eager=True)
         batch = trainer.to_device(next(iter(trainer.train_dl)))
         _zero(kernels)
         loss = float(trainer.train_step(batch)["total_loss"])
@@ -3219,7 +3868,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "launches", "phases",
                                        "prng", "serving", "train",
-                                       "stage2", "damsm", "weights"))
+                                       "stage2", "step", "damsm",
+                                       "weights"))
     only = ap.parse_args(argv).only
     sys.path.insert(0, ROOT)
     from text_guided_face_recognition_tpu_torch.config import load_yaml
@@ -3238,7 +3888,7 @@ def main(argv=None) -> int:
         ("layernorm", "ffn_block", "attn_block") if only == "launches"
         else ("damsm",) if only == "damsm"
         else ("layernorm", "ffn_block", "attn_block", "damsm")
-        if only == "weights"
+        if only == "weights" else _cuda.SOURCES if only == "step"
         else _cuda.SOURCES + tuple(_cuda.VARIANTS))
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{k} {v:.2f} s' for k, v in per_source.items())})",
@@ -3274,6 +3924,8 @@ def main(argv=None) -> int:
                else None)
     train = train_phase(kernels) if only in (None, "train") else None
     stage2 = stage2_phase(kernels) if only in (None, "stage2") else None
+    if only in (None, "step"):
+        step_phase(kernels)
     weights = (weights_phase(args, kernels) if only in (None, "weights")
                else None)
     # every path was driven with the counts zeroed just before it and read

@@ -116,18 +116,19 @@ def _batches(prep, args, split):
     return ds, list(dl)
 
 
-def test_on_disk_batches_match_jax(disk_set, tmp_path, jx):
-    jdir, pdir = disk_set
-    shutil.copytree(pdir, tmp_path / "own")
-    jargs = jx.Config().replace(**_cfg(jdir), num_devices=1)
-    pargs = PConfig().replace(**_cfg(pdir))
+def _batches_match(jx, jdir, pdir, **kw):
+    """Both packages' train and test batches from their copies of the set
+    are equal, element for element; returns the port's, by split."""
+    jargs = jx.Config().replace(**_cfg(jdir, **kw), num_devices=1)
+    pargs = PConfig().replace(**_cfg(pdir, **kw))
     jbatches = {s: _batches(jx.prep, jargs, s) for s in ("train", "test")}
     vocab = jdir / "wordpiece_vocab.txt"
     if vocab.is_file():                   # the JAX package trained one
         shutil.copy(vocab, pdir / vocab.name)
+    out = {}
     for split in ("train", "test"):
         jds, jb = jbatches[split]
-        pds, pb = _batches(pprep, pargs, split)
+        pds, pb = out[split] = _batches(pprep, pargs, split)
         assert jds._native_ok() and pds._native_ok(), split
         assert len(jb) == len(pb) > 0, split
         for j, p in zip(jb, pb):
@@ -135,6 +136,14 @@ def test_on_disk_batches_match_jax(disk_set, tmp_path, jx):
             for k in p:
                 np.testing.assert_array_equal(p[k], j[k],
                                               err_msg=f"{split} {k}")
+    return {split: pb for split, (_, pb) in out.items()}
+
+
+def test_on_disk_batches_match_jax(disk_set, tmp_path, jx):
+    jdir, pdir = disk_set
+    shutil.copytree(pdir, tmp_path / "own")
+    _batches_match(jx, jdir, pdir)
+    vocab = jdir / "wordpiece_vocab.txt"
     # the caches: the same resolved tokenizer's, on both sides
     jc = sorted(f for f in os.listdir(jdir) if f.startswith("captions_"))
     pc = sorted(f for f in os.listdir(pdir) if f.startswith("captions_"))
@@ -160,6 +169,21 @@ def test_on_disk_batches_match_jax(disk_set, tmp_path, jx):
         assert lp[:5] == lj[:5] == ["[PAD]", "[UNK]", "[CLS]", "[SEP]",
                                     "[MASK]"]
         assert len(lp) == len(lj)
+
+
+def test_on_disk_batches_match_jax_with_the_caption_bug(disk_set, jx):
+    """compat_bert_caption_bug: the train batches index captions by the
+    drawn sentence alone (the reference's bug), as the JAX package's do,
+    and differ from the batches without the switch; test batches do not
+    change."""
+    jdir, pdir = disk_set
+    bug = _batches_match(jx, jdir, pdir, compat_bert_caption_bug=True)
+    fixed = _batches_match(jx, jdir, pdir)
+    assert any(not np.array_equal(a["caps"], b["caps"])
+               for a, b in zip(bug["train"], fixed["train"]))
+    for a, b in zip(bug["test"], fixed["test"]):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
 
 
 def test_on_disk_images_take_the_native_path(disk_set):

@@ -328,7 +328,7 @@ def test_stage1_step_with_adaface_matches_jax(tiny_arch, monkeypatch,
 
 
 @pytest.mark.parametrize("change", [
-    dict(is_CMP=True), dict(is_WRA=True), dict(lazy_embedding_adam=True),
+    dict(is_CMP=True), dict(is_WRA=True),
     dict(frozen_feature_cache=True), dict(en_type="LSTM"),
     dict(num_devices=2)])
 def test_stage1_refuses_unported_options(change):

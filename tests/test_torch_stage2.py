@@ -334,7 +334,7 @@ def test_stage2_schedule_epoch_end(tiny_arch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(lazy_embedding_adam=True), dict(frozen_feature_cache=True),
+    dict(frozen_feature_cache=True),
     dict(en_type="LSTM"), dict(num_devices=2)])
 def test_stage2_refuses_unported_options(change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -10,15 +10,17 @@ time; a closed string option with an unknown value fails at construction.
 Accepted and ignored (N/A; they land in `extras`): TPU-only knobs that
 change how the JAX package schedules the same math on a TPU, not the math:
 `stacked_optimizer`, `fused_optimizer`, `stack_max_elems` (how optimizer
-updates are batched), `xla_opts`, `xla_opts_stage2` (XLA compiler options),
-and `prng_impl`
-(which PRNG draws the host dropout bits; the keep rule is the same).
+updates are batched; the port always runs one multi-tensor update per
+group and dtype, engine/optim.py), `xla_opts`, `xla_opts_stage2` (XLA
+compiler options), `prng_impl` (which PRNG draws the host dropout bits;
+the keep rule is the same) and the JAX compile cache. `lazy_embedding_adam`
+keeps the JAX package's meaning (the row-sparse update of the embedding
+table, engine/optim.py).
 
 Not ported yet, and refused by `check_stage1` with NotImplementedError
-(ROADMAP.md): `is_CMP`, `is_WRA`, `lazy_embedding_adam`,
-`frozen_feature_cache`, an `en_type` other than BERT, and more than one
-device; and by `check_stage2`: `frozen_feature_cache`,
-`lazy_embedding_adam`, the LSTM path, `fusion_type: concat` (nothing to
+(ROADMAP.md): `is_CMP`, `is_WRA`, `frozen_feature_cache`, an `en_type`
+other than BERT, and more than one device; and by `check_stage2`:
+`frozen_feature_cache`, the LSTM path, `fusion_type: concat` (nothing to
 train, as the JAX trainer refuses it too) and more than one device. Both,
 and `check_serving` at the serving entries, refuse a `fused_block` other
 than none with captions longer than the block kernels take
@@ -193,12 +195,13 @@ class TGFRConfig:
     current_epoch: int = 0
     len_train_dl: int = 0
     compat_frozen_text: bool = False       # reproduce the reference's no-grad text path
+    compat_bert_caption_bug: bool = False  # reproduce the reference's caption index (sent_ix, not index * captions_per_image + sent_ix)
     max_steps: int = 0                     # >0: cap steps per epoch (smoke runs)
     keep_last_ckpts: int = 0               # >0: retain only the newest K epoch artifacts
     use_pallas: bool = False               # DAMSM similarity through the CUDA kernel (ops/damsm.py)
     adam_moments_dtype: str = "bfloat16"   # Adam moment storage dtype (engine/optim.py)
     grads_dtype: str = "float32"           # gradients rounded to this dtype before the optimizers
-    lazy_embedding_adam: bool = False      # not ported (check_stage1)
+    lazy_embedding_adam: bool = False      # row-sparse Adam for the encoder's embedding table (engine/optim.py)
     frozen_feature_cache: bool = False     # not ported (check_stage1)
 
     # Anything else found in a YAML lands here and is still attribute-accessible.
@@ -331,8 +334,7 @@ def check_serving(cfg: TGFRConfig) -> None:
 
 def check_stage1(cfg: TGFRConfig) -> None:
     """Refuse the stage-1 options the port does not run yet."""
-    refused = [name for name in ("is_CMP", "is_WRA", "lazy_embedding_adam",
-                                 "frozen_feature_cache")
+    refused = [name for name in ("is_CMP", "is_WRA", "frozen_feature_cache")
                if getattr(cfg, name)]
     if cfg.en_type != "BERT":
         refused.append(f"en_type={cfg.en_type!r}")
@@ -349,9 +351,7 @@ def check_stage1(cfg: TGFRConfig) -> None:
 
 def check_stage2(cfg: TGFRConfig) -> None:
     """Refuse the stage-2 options the port does not run yet."""
-    refused = [name for name in ("lazy_embedding_adam",
-                                 "frozen_feature_cache")
-               if getattr(cfg, name)]
+    refused = ["frozen_feature_cache"] if cfg.frozen_feature_cache else []
     if cfg.en_type != "BERT":
         refused.append(f"en_type={cfg.en_type!r}")
     if cfg.num_devices > 1:

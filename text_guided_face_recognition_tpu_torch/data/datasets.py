@@ -15,8 +15,9 @@ generates (tests/test_torch_data.py holds both).
 Ported: the reference's on-disk formats (filenames/class pickles, per-id
 caption files, the caption caches named by the tokenizer's cache tag),
 `TrainDataset` (flat samples, as training and extraction use them) and
-`TestDataset` (pair lists). Waiting (ROADMAP.md): the LSTM caption path,
-the frozen-feature cache and the `compat_bert_caption_bug` switch.
+`TestDataset` (pair lists), and the `compat_bert_caption_bug` switch (the
+reference's caption index). Waiting (ROADMAP.md): the LSTM caption path
+and the frozen-feature cache.
 """
 
 from __future__ import annotations
@@ -199,6 +200,8 @@ class TrainDataset(_DatasetBase):
             self.class_id = [i % args.num_classes
                              for i in range(len(self.filenames))]
         self.seed = seed
+        # the reference's caption index (utils/train_dataset.py:77-82)
+        self.compat_bug = bool(args.compat_bert_caption_bug)
         self._visits: Dict[int, int] = {}
         # serving knobs: no augmentation, a pinned caption index
         self.augment: bool = True
@@ -240,7 +243,8 @@ class TrainDataset(_DatasetBase):
         sample = {"img": self._produce_image(index, rng)}
         sent_ix = (self.fixed_sent_ix if self.fixed_sent_ix is not None
                    else int(rng.integers(0, self.embeddings_num)))
-        cap_index = index * self.embeddings_num + sent_ix
+        cap_index = (sent_ix if self.compat_bug
+                     else index * self.embeddings_num + sent_ix)
         sample.update(caps=_as_numpy_caption(self.captions[cap_index]),
                       mask=_as_numpy_caption(self.att_masks[cap_index]),
                       key=key, cls_id=np.int32(self.class_id[index]))

@@ -81,7 +81,8 @@ class Stage1Trainer(TrainerBase):
     """Stage-1 trainer for en_type BERT on one device (the CUDA card unless
     `device` is the CPU)."""
 
-    def __init__(self, args, device: Optional[torch.device] = None):
+    def __init__(self, args, device: Optional[torch.device] = None,
+                 eager: bool = False):
         check_stage1(args)
         self.args = args
         self.device = device if device is not None else \
@@ -119,6 +120,7 @@ class Stage1Trainer(TrainerBase):
         self.loss_fn = self.build_loss_fn()
         self.start_epoch = 1
         self.steps = 0
+        self.init_step(eager)
 
     # ---------------------------------------------------------- train step --
 

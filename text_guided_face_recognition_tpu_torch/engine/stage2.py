@@ -74,7 +74,8 @@ class FusionTrainer(TrainerBase):
     """Stage-2 trainer for en_type BERT on one device (the CUDA card unless
     `device` is the CPU)."""
 
-    def __init__(self, args, device: Optional[torch.device] = None):
+    def __init__(self, args, device: Optional[torch.device] = None,
+                 eager: bool = False):
         check_stage2(args)
         self.args = args
         self.device = device if device is not None else \
@@ -112,6 +113,7 @@ class FusionTrainer(TrainerBase):
         self.loss_fn = self.build_loss_fn()
         self.start_epoch = 1
         self.steps = 0
+        self.init_step(eager)
 
     # ---------------------------------------------------------- train step --
 

@@ -21,7 +21,7 @@ kernels' int32 seeds beside it (`draw_seeds`).
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -75,18 +75,22 @@ def total_elems(hidden: int, layers: int, heads: int, b: int, t: int,
     return b * t * hidden + layers * per
 
 
-def draw(n: int, generator: torch.Generator, device) -> torch.Tensor:
+def draw(n: int, generator: torch.Generator, device,
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """n uniform 32-bit patterns as int32, made on `device` from
-    `generator` (which must live on that device)."""
+    `generator` (which must live on that device); into `out` when given
+    (the same stream)."""
     return torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int32,
-                         generator=generator, device=device)
+                         generator=generator, device=device, out=out)
 
 
-def draw_seeds(n: int, generator: torch.Generator, device) -> torch.Tensor:
+def draw_seeds(n: int, generator: torch.Generator, device,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """n int32 stream seeds in [0, 2^31 - 1), as the JAX package draws them
-    (jax.random.randint(key, (1, 1), 0, int32 max)), made on `device`."""
+    (jax.random.randint(key, (1, 1), 0, int32 max)), made on `device`;
+    into `out` when given."""
     return torch.randint(0, (1 << 31) - 1, (n,), dtype=torch.int32,
-                         generator=generator, device=device)
+                         generator=generator, device=device, out=out)
 
 
 class DropBits:
