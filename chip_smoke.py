@@ -2,7 +2,7 @@
 """On-card smoke run of the PyTorch/CUDA port (one NVIDIA GPU).
 
   python3 chip_smoke.py [--only kernels|launches|phases|prng|serving|train|
-                                stage2|step|damsm|weights]
+                                stage2|step|damsm|weights|lstm]
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
@@ -176,7 +176,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      a pair batch; then the COTS baseline (org_face_test, no text, no
      kernel launched) and its ms per pair batch. Then one AdaFace stage-1
      step (cfg/train_bert.yml, the same files) with the kernels on: a
-     finite loss and the launches of phase 6's step.
+     finite loss and the launches of phase 6's step;
+ 10. lstm (`--only lstm` runs it alone, building K9's source): the
+     LSTM/GRU recipe at the shipped widths in bf16, random weights from
+     manual_seed, the synthetic corpus (its vocabulary printed):
+     stage 1 (cfg/train_lstm.yml, B 128, T 18, 4500 classes) captured
+     against eager bit for bit, use_pallas off (as shipped) and on; the
+     use_pallas twin counted (K9 once a step, masked by the captions'
+     lengths), its replays launching K9 as an eager step (profiler), and a
+     step with K9 against one without within ON_OFF_TOL; stage 2
+     (cfg/fusion_lstm.yml, B 64, linear) captured against eager bit for
+     bit and one fcfm step (WordLevelCFA_LSTM); one GRU stage-1 step;
+     serving (run_test, one pair batch of 32, its f32 scores on the card
+     against the CPU's within LSTM_SCORE_TOL); host ms, device ms and busy
+     share of the steps and the pair batch, with the card.
 Each kernel launches on at least one driven path, and on each path exactly
 the expected number of times. The last two lines are the `kernels` JSON
 line and the result line.
@@ -271,6 +284,9 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # TF32, which each run shows fails it (PERF.md, K9)
 DAMSM_ATOL = 5e-6
 SCORE_TOL = 2e-2
+# the LSTM recipe's pair scores in f32 on the card against the same modules
+# on the CPU (TF32 off): sums in other orders, cosines in [-1, 1]
+LSTM_SCORE_TOL = 1e-3
 # kernels on against off, one training step (see the docstring)
 ON_OFF_TOL = {"bfloat16": {"loss": 1e-2, "l2": 0.1, "l2_text_head": 0.25,
                            "max": 0.5, "floor": 1e-3},
@@ -3353,18 +3369,20 @@ def _time_modes(trainers, batch, reps: int = 5) -> dict:
     return out
 
 
-def _captured_vs_eager(cls, args, dev) -> tuple:
+def _captured_vs_eager(cls, args, dev, make_batch=None) -> tuple:
     """An eager trainer and a captured one of `args` from the same weights,
     six steps each on one batch (the head's rate halved before the fifth):
     (eager, captured, the initial weights, the batch, {after 3 and after 6
     steps: bit for bit (parameters, BN statistics, moments, counts and the
     step's metrics), the largest difference and where}). The captured
-    trainer's fourth step is its capture."""
+    trainer's fourth step is its capture. The batch is the train loader's
+    first, or make_batch(eager trainer)."""
     import torch
 
     eager = cls(args, dev, eager=True)
     state = {k: v.clone() for k, v in eager.model.state_dict().items()}
-    batch = eager.to_device(next(iter(eager.train_dl)))
+    batch = (make_batch(eager) if make_batch is not None
+             else eager.to_device(next(iter(eager.train_dl))))
     graphed = cls(args, dev)
     graphed.model.load_state_dict(state)
     cmp = {}
@@ -3859,6 +3877,269 @@ def weights_phase(args, kernels):
     return total, per_batch
 
 
+def _lstm_batch(trainer, n: int):
+    """A train batch of n samples on the device, image i % len of the
+    synthetic train split (64 images) at sample i: the shipped stage-1
+    batch of 128 is larger than that split, which the loader, dropping its
+    last batch, would leave empty."""
+    import numpy as np
+    ds = trainer.train_ds
+    samples = [ds[i % len(ds)] for i in range(n)]
+    return trainer.to_device({k: np.stack([x[k] for x in samples])
+                              for k in samples[0] if k != "key"})
+
+
+def _lstm_k9_alone(trainer, batch, failures: list) -> dict:
+    """K9 on the inputs an LSTM stage-1 step gives it: one eager step of
+    `trainer` (use_pallas) records what words_loss hands K9 (the f32
+    words_emb (B, 256, T), the regions (B, 256, 196), the cap_len mask);
+    K9 called again on them equals the step's own call bit for bit, and
+    holds against the plain version within DAMSM_ATOL. The mask must cut
+    words, or the masked path was not exercised."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.ops import (
+        attention, damsm, losses)
+    seen = {}
+    real = losses.damsm_similarity_fused
+
+    def record(words, regions, gamma1, gamma2, word_mask=None):
+        sim = real(words, regions, gamma1, gamma2, word_mask)
+        seen.update(words=words.detach().clone(),
+                    regions=regions.detach().clone(), mask=word_mask,
+                    gammas=(gamma1, gamma2), sim=sim.detach().clone())
+        return sim
+
+    losses.damsm_similarity_fused = record
+    try:
+        trainer.train_step(batch)
+    finally:
+        losses.damsm_similarity_fused = real
+    torch.cuda.synchronize()
+    if not seen or seen["mask"] is None:
+        failures.append(f"stage 1 use_pallas: K9 not reached with a word "
+                        f"mask ({sorted(seen)})")
+        return {}
+    words, regions, mask = seen["words"], seen["regions"], seen["mask"]
+    got = damsm.damsm_similarity_cuda(words, regions, *seen["gammas"], mask)
+    want = attention.damsm_similarity(words, regions, *seen["gammas"], mask)
+    err, ok = _close(got, want, DAMSM_ATOL, 0.0)
+    r = {"words": list(words.shape), "regions": list(regions.shape),
+         "words_masked": int((~mask).sum()), "max_abs_err": err,
+         "atol": DAMSM_ATOL, "equals_step_call": torch.equal(got, seen["sim"])}
+    print(f"lstm, stage 1: K9 alone on the step's own inputs against its "
+          f"plain version: {json.dumps(r)}", flush=True)
+    if not ok or not r["equals_step_call"] or not r["words_masked"]:
+        failures.append(f"stage 1: K9 on the LSTM step's inputs: {r}")
+    return r
+
+
+def _step_times(tag: str, modes: dict, batch) -> dict:
+    """Host ms, device ms (profiler) and busy share per mode
+    (`_time_modes`), printed with the card."""
+    table = _time_modes(modes, batch)
+    for k, m in table.items():
+        print(f"lstm, {tag}, {k}: {m['host_ms']:.3f} host ms per step "
+              f"(median of {len(m['host_ms_all'])}), device "
+              f"{m['device_ms']} ms, busy {m['busy_share']}, peak "
+              f"{m['peak_gb']:.3f} GB; {card_line()}", flush=True)
+    return {k: {n: v for n, v in m.items() if n not in ("top_ms",
+                                                         "host_ms_all")}
+            for k, m in table.items()}
+
+
+def lstm_phase(kernels) -> dict:
+    """The LSTM/GRU recipe at the shipped widths (`--only lstm`): random
+    weights from manual_seed, the synthetic corpus, bf16.
+    (a) stage 1, cfg/train_lstm.yml (B 128, T 18, embedding 300, 128 units
+    a direction, 4500 classes, use_pallas false as shipped): the captured
+    step against the eager one bit for bit after 3 and 6 steps, and so
+    with use_pallas true; that twin's path counted (3 eager warm-up steps
+    and the capture: one K9 launch each, masked by cap_len), its replays
+    launching K9 as an eager step does (profiler), and one step with K9
+    against one without it, from the same weights and dropout bits, within
+    the bf16 on/off limits (ON_OFF_TOL), and K9 alone on the inputs that
+    step gives it (`_lstm_k9_alone`: B 128, T 18, masked by cap_len)
+    within DAMSM_ATOL of its plain version; (b) stage 2, cfg/fusion_lstm.yml
+    (B 64, linear fusion): captured against eager bit for bit, its path
+    counted (no kernel), and one step with fcfm (WordLevelCFA_LSTM,
+    fusion_final_dim 768); (c) one stage-1 step with en_type GRU; (d)
+    serving, cfg/fusion_lstm.yml at batch 32: run_test (counted: no
+    kernel), and one pair batch of 32 pairs, its bf16 scores finite and
+    its f32 scores on the card against the same modules' on the CPU within
+    LSTM_SCORE_TOL. Host ms, device ms and busy share of (a), (b) and (d).
+    Returns {path: (counts, per step or pair batch)} for the kernels line:
+    "lstm_serving", "lstm_train", "lstm_stage2"."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.config import load_yaml
+    from text_guided_face_recognition_tpu_torch.engine import prepare as prep
+    from text_guided_face_recognition_tpu_torch.engine.evaluate import (
+        pair_scores, run_test)
+    from text_guided_face_recognition_tpu_torch.engine.stage1 import (
+        Stage1Trainer)
+    from text_guided_face_recognition_tpu_torch.engine.stage2 import (
+        FusionTrainer)
+
+    dev = torch.device("cuda")
+    failures, out = [], {}
+    s1 = load_yaml(os.path.join(ROOT, "cfg", "train_lstm.yml")).replace(
+        synthetic=True, checkpoints_path="")
+    s2 = load_yaml(os.path.join(ROOT, "cfg", "fusion_lstm.yml")).replace(
+        synthetic=True, checkpoints_path="")
+    big = lambda tr: _lstm_batch(tr, s1.batch_size)  # noqa: E731
+
+    # (a) stage 1: captured against eager, use_pallas off (as shipped)
+    # and on
+    report = {}
+    for pallas in (False, True):
+        eager, graphed, state, batch, cmp = _captured_vs_eager(
+            Stage1Trainer, s1.replace(use_pallas=pallas), dev, big)
+        tag = f"stage 1, use_pallas {pallas}"
+        print(f"lstm, {tag}: vocabulary {eager.args.vocab_size} words "
+              f"(synthetic), batch {tuple(batch['caps'].shape)}, lengths "
+              f"{int(batch['cap_len'].min())}-{int(batch['cap_len'].max())}"
+              f"; captured against eager: {json.dumps(cmp)}", flush=True)
+        if not all(c["bitwise"] for c in cmp.values()):
+            failures.append(f"{tag}: captured differs from eager: {cmp}")
+        if not pallas:
+            report["stage1"] = _step_times("stage 1", {
+                "eager": lambda: eager.train_step(batch),
+                "captured": lambda: graphed.train_step(batch)}, batch)
+        del eager, graphed
+    # the use_pallas path, counted: 3 eager warm-up steps and the capture
+    # (its first replay), then 2 more replays (not counted)
+    _zero(kernels)
+    on = Stage1Trainer(s1.replace(use_pallas=True), dev)
+    on.model.load_state_dict(state)
+    for _ in range(6):
+        on.train_step(batch)
+    torch.cuda.synchronize()
+    counts = _counts(kernels)
+    per = {k: v / (on.WARMUP_STEPS + 1) for k, v in counts.items()}
+    want = {k: (1.0 if k == "damsm_similarity" else 0.0) for k in counts}
+    if per != want or on.graph_replays != 6 - on.WARMUP_STEPS:
+        failures.append(f"stage 1 use_pallas: launches per step {per}, "
+                        f"want {want}; replays {on.graph_replays}")
+    out["lstm_train"] = (counts, per)
+    on_e = _twin(on, state)
+    _replays_launch_as_eager(on, on_e, batch, kernels, "lstm, stage 1, "
+                             "use_pallas")
+    off_e = _twin(on, state, use_pallas=False)
+    on_e.model.load_state_dict(state)
+    bits, _ = on_e.draw_drop(*batch["caps"].shape)
+    r = _on_off(on_e, off_e, batch, (bits, None), (bits, None),
+                ON_OFF_TOL["bfloat16"]["floor"])
+    print(f"lstm, stage 1: K9 on against off, one step: {json.dumps(r)}",
+          flush=True)
+    if not _on_off_ok(r, ON_OFF_TOL["bfloat16"]):
+        failures.append(f"stage 1: K9 on against off past the limits: {r}")
+    report["stage1_k9_on_off"] = r
+    report["stage1_k9_alone"] = _lstm_k9_alone(on_e, batch, failures)
+    del on, on_e, off_e
+
+    # (c) GRU: one stage-1 step
+    gru = Stage1Trainer(s1.replace(en_type="GRU"), dev, eager=True)
+    m = gru.train_step(big(gru))
+    loss = float(m["total_loss"])
+    print(f"lstm, stage 1 GRU: one step, total loss {loss}", flush=True)
+    if not math.isfinite(loss):
+        failures.append(f"GRU step: loss {loss}")
+    del gru
+
+    # (b) stage 2, linear as shipped: captured against eager, counted
+    _zero(kernels)
+    eager, graphed, state, batch, cmp = _captured_vs_eager(
+        FusionTrainer, s2, dev)
+    counts = _counts(kernels)
+    steps = 6 + graphed.WARMUP_STEPS + 1
+    out["lstm_stage2"] = (counts, {k: v / steps for k, v in counts.items()})
+    print(f"lstm, stage 2 (linear): batch {tuple(batch['caps'].shape)}; "
+          f"captured against eager: {json.dumps(cmp)}; launches "
+          f"{json.dumps(counts)}", flush=True)
+    if not all(c["bitwise"] for c in cmp.values()):
+        failures.append(f"stage 2: captured differs from eager: {cmp}")
+    if any(counts.values()):
+        failures.append(f"stage 2 launched kernels: {counts}")
+    report["stage2"] = _step_times("stage 2", {
+        "eager": lambda: eager.train_step(batch),
+        "captured": lambda: graphed.train_step(batch)}, batch)
+    del eager, graphed
+    fcfm = FusionTrainer(s2.replace(fusion_type="fcfm", fusion_final_dim=768),
+                         dev, eager=True)
+    batch = fcfm.to_device(next(iter(fcfm.train_dl)))
+    loss = float(fcfm.train_step(batch)["loss"])
+    print(f"lstm, stage 2 fcfm (WordLevelCFA_LSTM): one step, loss {loss}",
+          flush=True)
+    if not math.isfinite(loss):
+        failures.append(f"fcfm step: loss {loss}")
+    del fcfm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) serving
+    args = s2.replace(batch_size=32, is_roc=False, is_ident=False,
+                      eval_table_mode=False)
+    test_dl, _ = prep.prepare_dataloader(args, "test")
+    mods = _serving_modules(args, dev)
+    _zero(kernels)
+    t0 = time.perf_counter()
+    metrics = run_test(args, test_dl, *mods, None)
+    torch.cuda.synchronize()
+    counts = _counts(kernels)
+    out["lstm_serving"] = (counts, {k: v / len(test_dl)
+                                    for k, v in counts.items()})
+    print(f"lstm, serving: run_test over {len(test_dl)} pair batches of 32 "
+          f"in {time.perf_counter() - t0:.3f} s: {json.dumps(metrics)}; "
+          f"launches {json.dumps(counts)}", flush=True)
+    if any(counts.values()) or not all(
+            math.isfinite(v) for v in metrics.values()):
+        failures.append(f"serving: launches {counts}, metrics {metrics}")
+    b = next(iter(test_dl))
+    cols = [b[k] for k in ("img1", "img2", "cap1", "cap2", "cap_len1",
+                           "cap_len2")]
+
+    def pair_batch():
+        return pair_scores(args, *mods, None, *cols)
+
+    scores = pair_batch()
+    host = _host_ms(pair_batch)
+    prof = _profile(pair_batch)
+    dev_ms = prof.get("device_ms_per_call")
+    report["serving"] = {
+        "host_ms": host, "device_ms": dev_ms if dev_ms else "not measured",
+        "busy_share": dev_ms / host if dev_ms else "not measured"}
+    print(f"lstm, serving, one pair batch of {scores.shape[0]}: "
+          f"{host:.3f} host ms (median of 10), device {dev_ms} ms, busy "
+          f"{report['serving']['busy_share']}; {card_line()}", flush=True)
+    if scores.shape != (32,) or not bool(torch.isfinite(scores).all()):
+        failures.append(f"serving scores: {scores}")
+    # f32 on the card against the same modules on the CPU
+    f32 = args.replace(compute_dtype="float32")
+    s_card, s_cpu = (pair_scores(f32, *_serving_modules(f32, d), None, *cols)
+                     for d in (dev, torch.device("cpu")))
+    diff = float((s_card.cpu() - s_cpu).abs().max())
+    print(f"lstm, serving: f32 pair scores, card against CPU, max |d| "
+          f"{diff:.3g} (tolerance {LSTM_SCORE_TOL})", flush=True)
+    if not diff <= LSTM_SCORE_TOL:
+        failures.append(f"serving: f32 card against CPU {diff}")
+    report["serving"]["f32_card_vs_cpu"] = diff
+    print("lstm: " + json.dumps(report), flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def _serving_modules(args, dev) -> tuple:
+    """(backbone, image head, fusion net, text encoder) of `args` on `dev`,
+    random from manual_seed (the same weights on every device)."""
+    from text_guided_face_recognition_tpu_torch.engine import prepare as prep
+    return (prep.prepare_backbone(args, dev),
+            prep.prepare_image_head(args, dev),
+            prep.prepare_fusion_net(args, dev),
+            prep.prepare_text_encoder(args, dev)[0])
+
+
 def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3869,7 +4150,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("kernels", "launches", "phases",
                                        "prng", "serving", "train",
                                        "stage2", "step", "damsm",
-                                       "weights"))
+                                       "weights", "lstm"))
     only = ap.parse_args(argv).only
     sys.path.insert(0, ROOT)
     from text_guided_face_recognition_tpu_torch.config import load_yaml
@@ -3886,7 +4167,7 @@ def main(argv=None) -> int:
     # the sources and the measurement build of the tower kernels, all at once
     per_source = _cuda.build(
         ("layernorm", "ffn_block", "attn_block") if only == "launches"
-        else ("damsm",) if only == "damsm"
+        else ("damsm",) if only in ("damsm", "lstm")
         else ("layernorm", "ffn_block", "attn_block", "damsm")
         if only == "weights" else _cuda.SOURCES if only == "step"
         else _cuda.SOURCES + tuple(_cuda.VARIANTS))
@@ -3928,6 +4209,7 @@ def main(argv=None) -> int:
         step_phase(kernels)
     weights = (weights_phase(args, kernels) if only in (None, "weights")
                else None)
+    lstm = lstm_phase(kernels) if only in (None, "lstm") else {}
     # every path was driven with the counts zeroed just before it and read
     # just after; each phase held its path to the expected count per kernel
     paths = (("launches_prng", "launches_per_prng_check", prng),
@@ -3935,7 +4217,13 @@ def main(argv=None) -> int:
              ("launches_train", "launches_per_train_step", train),
              ("launches_stage2", "launches_per_stage2_step", stage2),
              ("launches_weights", "launches_per_weights_pair_batch",
-              weights))
+              weights),
+             ("launches_lstm_serving", "launches_per_lstm_pair_batch",
+              lstm.get("lstm_serving")),
+             ("launches_lstm_train", "launches_per_lstm_step_use_pallas",
+              lstm.get("lstm_train")),
+             ("launches_lstm_stage2", "launches_per_lstm_stage2_step",
+              lstm.get("lstm_stage2")))
     for r in rows:
         for key, per_key, got in paths:
             if got is not None:

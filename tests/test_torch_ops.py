@@ -171,6 +171,39 @@ def test_attn_block_matches_jax(jx, jdt, tdt, tol, seed):
     close(out, ref, tol)
 
 
+@pytest.mark.parametrize("threads", range(1, 9))
+def test_plain_blocks_ignore_the_weight_layout(threads):
+    """The plain FFN and attention blocks, forward and backward, give the
+    same bits whether a weight is held contiguous (in, out) or as the .t()
+    view of a contiguous (out, in) tensor, the kernels' layout, at each
+    torch thread count from 1 to 8 (a CPU product's summation order follows
+    its operands' layout and the thread count; ops/block.kernel_layout)."""
+    p = _params(1024)
+    mask = ragged_mask(B, T, 0)
+    keep = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        for tdt in (torch.float32, torch.bfloat16):
+            outs = []
+            for view in (lambda a: t(a), lambda a: t(a.T).t()):
+                x = t(p["x"], tdt).requires_grad_()
+                ws = {k: view(p[k]).requires_grad_()
+                      for k in ("w1", "w2", "wqkv", "wo")}
+                y = block.attn_block(x, t(mask), ws["wqkv"], t(p["bqkv"]),
+                                     ws["wo"], t(p["bo"]), t(p["g"]),
+                                     t(p["b"]), B, T, HEADS, 0.0, 1e-12)
+                z = block.ffn_block(y, ws["w1"], t(p["c1"]), ws["w2"],
+                                    t(p["c2"]), t(p["g"]), t(p["b"]), 0.0,
+                                    1e-12)
+                z.float().square().sum().backward()
+                outs.append([z, x.grad] + [ws[k].grad for k in sorted(ws)])
+            assert outs[0][0].dtype == tdt
+            for a, b in zip(*outs):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+    finally:
+        torch.set_num_threads(keep)
+
+
 # captions longer than the port's f32 and training kernels take: the bf16
 # forward's tensor-core attention takes T up to 512 on the card; here its
 # plain version against the JAX kernel, keys padded in every caption but

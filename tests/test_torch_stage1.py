@@ -329,8 +329,7 @@ def test_stage1_step_with_adaface_matches_jax(tiny_arch, monkeypatch,
 
 @pytest.mark.parametrize("change", [
     dict(is_CMP=True), dict(is_WRA=True),
-    dict(frozen_feature_cache=True), dict(en_type="LSTM"),
-    dict(num_devices=2)])
+    dict(frozen_feature_cache=True), dict(num_devices=2)])
 def test_stage1_refuses_unported_options(change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_stage1(PConfig().replace(**change))

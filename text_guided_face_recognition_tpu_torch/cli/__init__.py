@@ -5,6 +5,11 @@
   python -m text_guided_face_recognition_tpu_torch.cli.extract_embeddings ...
   python -m text_guided_face_recognition_tpu_torch.cli.train_encoders_bert ...
   python -m text_guided_face_recognition_tpu_torch.cli.fusion_bert ...
+  python -m text_guided_face_recognition_tpu_torch.cli.train_encoders_lstm ...
+  python -m text_guided_face_recognition_tpu_torch.cli.fusion_lstm ...
+
+`test` and `extract_embeddings` take any config, an LSTM one
+(cfg/fusion_lstm.yml) too.
 
 All run on the CUDA card unless `--cpu` is given, and fail when no card is
 present and the CPU was not asked for.

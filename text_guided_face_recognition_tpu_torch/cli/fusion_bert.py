@@ -13,8 +13,10 @@ from __future__ import annotations
 from text_guided_face_recognition_tpu_torch.cli import parser, setup
 
 
-def main(argv=None):
-    p = parser("fusion_bert.yml", "Fusion")
+def main(argv=None, default_cfg: str = "fusion_bert.yml"):
+    """Stage 2 under `default_cfg`; the config's en_type picks the text
+    encoder (BERT, LSTM or GRU)."""
+    p = parser(default_cfg, "Fusion")
     p.add_argument("--max_steps", type=int, default=None,
                    help="cap steps per epoch (smoke runs)")
     p.add_argument("--max_epoch", type=int, default=None)

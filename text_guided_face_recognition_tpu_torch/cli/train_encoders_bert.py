@@ -15,8 +15,11 @@ import argparse
 from text_guided_face_recognition_tpu_torch.cli import parser, setup
 
 
-def main(argv=None):
-    p = parser("train_bert.yml", "Train BERT Encoder")
+def main(argv=None, default_cfg: str = "train_bert.yml",
+         title: str = "Train BERT Encoder"):
+    """Stage 1 under `default_cfg`; the config's en_type picks the text
+    encoder (BERT, LSTM or GRU)."""
+    p = parser(default_cfg, title)
     p.add_argument("--max_steps", type=int, default=None,
                    help="cap steps per epoch (smoke runs)")
     p.add_argument("--max_epoch", type=int, default=None)

@@ -1,8 +1,8 @@
 """Typed configuration for the port.
 
 Counterpart of text_guided_face_recognition_tpu/config.py, cut to the fields
-the ported paths read (serving, stage-1 BERT training, stage-2 fusion
-training): every cfg/*.yml
+the ported paths read (serving, stage-1 training, stage-2 fusion training,
+with en_type BERT, LSTM or GRU): every cfg/*.yml
 still loads unchanged, and any key without a field here lands in `extras`,
 attribute-accessible. Values are coerced to their declared types at load
 time; a closed string option with an unknown value fails at construction.
@@ -13,16 +13,24 @@ change how the JAX package schedules the same math on a TPU, not the math:
 updates are batched; the port always runs one multi-tensor update per
 group and dtype, engine/optim.py), `xla_opts`, `xla_opts_stage2` (XLA
 compiler options), `prng_impl` (which PRNG draws the host dropout bits;
-the keep rule is the same) and the JAX compile cache. `lazy_embedding_adam`
+the keep rule is the same), `rnn_unroll` (the unroll factor of the JAX
+package's lax.scan over caption steps; the port's RNN is one Python loop
+over them, captured whole in the train step's CUDA graph) and the JAX
+compile cache. `lazy_embedding_adam`
 keeps the JAX package's meaning (the row-sparse update of the embedding
 table, engine/optim.py).
 
 Not ported yet, and refused by `check_stage1` with NotImplementedError
-(ROADMAP.md): `is_CMP`, `is_WRA`, `frozen_feature_cache`, an `en_type`
-other than BERT, and more than one device; and by `check_stage2`:
-`frozen_feature_cache`, the LSTM path, `fusion_type: concat` (nothing to
-train, as the JAX trainer refuses it too) and more than one device. Both,
-and `check_serving` at the serving entries, refuse a `fused_block` other
+(ROADMAP.md): `is_CMP`, `is_WRA`, `frozen_feature_cache` and more than one
+device; and by `check_stage2`: `frozen_feature_cache`, `fusion_type:
+concat` (nothing to train, as the JAX trainer refuses it too) and more
+than one device. Refused with ValueError as no model takes them
+(`check_fusion`, from both and from `check_serving`): `fusion_type: fcfm`
+with en_type GRU (the reference and the JAX package build the LSTM's
+fusion net for LSTM only and the BERT one otherwise, which takes no RNN
+words), and in stage 2 with en_type LSTM a `fusion_final_dim` other than
+768, the width of WordLevelCFA_LSTM's output that the margin head takes.
+Both, and `check_serving` at the serving entries, refuse a `fused_block` other
 than none with captions longer than the block kernels take
 (`check_caption_length`) and a backbone the port does not build
 (`check_backbone`: AdaFace takes 112 x 112 images only).
@@ -39,7 +47,7 @@ from typing import Any, Dict, Optional
 import yaml
 
 __all__ = ["TGFRConfig", "TrainCfg", "TrainSmooth", "check_backbone",
-           "check_caption_length",
+           "check_caption_length", "check_fusion",
            "check_damsm", "check_serving", "check_stage1", "check_stage2",
            "load_yaml", "merge_args_yaml"]
 
@@ -143,6 +151,7 @@ class TGFRConfig:
     # --- optimisation ---
     init_lr_bert: float = 7e-5
     min_lr_bert: float = 2e-5
+    init_lr_lstm: float = 1e-3             # stage 1, en_type LSTM/GRU: the encoder's first rate
     lr_head: float = 1e-3
     lr_image_train: float = 0.1            # stage 2: metric_fc's SGD
     weight_decay: float = 0.01             # stage 1: encoder Adam; stage 2: metric_fc's SGD
@@ -157,9 +166,11 @@ class TGFRConfig:
     TRAIN: TrainCfg = field(default_factory=TrainCfg)
 
     # --- encoder selection ---
-    en_type: str = "BERT"
+    en_type: str = "BERT"                  # BERT | LSTM | GRU
     bert_words_num: int = 24
     lstm_words_num: int = 18
+    embedding_dim: int = 256               # LSTM/GRU: both directions' hidden units
+    vocab_size: int = 0                    # LSTM/GRU: filled from the corpus by prepare_dataloader
     captions_per_image: int = 4
     bert_type: str = "bert"
     # the HF tokenizer of each bert_type (data/tokenizers.get_bert_tokenizer)
@@ -221,6 +232,7 @@ class TGFRConfig:
             "compute_dtype": ("float32", "bfloat16"),
             "adam_moments_dtype": ("float32", "bfloat16"),
             "grads_dtype": ("float32", "bfloat16"),
+            "en_type": ("BERT", "LSTM", "GRU"),
         }
         for name, allowed in _enums.items():
             val = getattr(self, name)
@@ -271,8 +283,9 @@ def check_caption_length(cfg: TGFRConfig, grad: bool) -> None:
     (`tower`), at most MAX_T_BWD (64) tokens when a gradient is needed
     (the f32 scalar tiles; K7's scalar tile with residuals and K8's sizing)
     and MAX_T_FWD_SCALAR (128) without one. The JAX kernels have no such
-    limit; the limits still open are listed in ROADMAP.md, Queue 3."""
-    if cfg.fused_block == "none":
+    limit; the limits still open are listed in ROADMAP.md, Queue 3. An
+    LSTM or GRU caption runs no block kernel."""
+    if cfg.fused_block == "none" or cfg.en_type != "BERT":
         return
     import torch
 
@@ -325,19 +338,38 @@ def check_backbone(cfg: TGFRConfig) -> None:
                          ": the AdaFace backbone takes 112 x 112 images")
 
 
+def check_fusion(cfg: TGFRConfig, train: bool) -> None:
+    """Refuse, before any step, a fusion no model takes: fcfm with GRU
+    captions, and (`train`, stage 2) fcfm with LSTM captions unless the
+    margin head is as wide as WordLevelCFA_LSTM's 768-wide output."""
+    if cfg.fusion_type != "fcfm" or cfg.en_type == "BERT":
+        return
+    if cfg.en_type == "GRU":
+        raise ValueError(
+            "fusion_type='fcfm' with en_type='GRU': the fcfm net of RNN "
+            "captions (WordLevelCFA_LSTM) is built for en_type LSTM only, as "
+            "in the reference and the JAX package; use fusion_type linear "
+            "or concat")
+    if train and cfg.fusion_final_dim != 768:
+        raise ValueError(
+            f"fusion_type='fcfm' with en_type='LSTM' and fusion_final_dim="
+            f"{cfg.fusion_final_dim}: WordLevelCFA_LSTM's output is 768 "
+            "wide, and the margin head takes fusion_final_dim; set "
+            "fusion_final_dim: 768")
+
+
 def check_serving(cfg: TGFRConfig) -> None:
     """Refuse the serving options the port does not run yet (evaluation
     and embedding extraction)."""
     check_backbone(cfg)
     check_caption_length(cfg, grad=False)
+    check_fusion(cfg, train=False)
 
 
 def check_stage1(cfg: TGFRConfig) -> None:
     """Refuse the stage-1 options the port does not run yet."""
     refused = [name for name in ("is_CMP", "is_WRA", "frozen_feature_cache")
                if getattr(cfg, name)]
-    if cfg.en_type != "BERT":
-        refused.append(f"en_type={cfg.en_type!r}")
     if cfg.num_devices > 1:
         refused.append(f"num_devices={cfg.num_devices}")
     if refused:
@@ -352,8 +384,6 @@ def check_stage1(cfg: TGFRConfig) -> None:
 def check_stage2(cfg: TGFRConfig) -> None:
     """Refuse the stage-2 options the port does not run yet."""
     refused = ["frozen_feature_cache"] if cfg.frozen_feature_cache else []
-    if cfg.en_type != "BERT":
-        refused.append(f"en_type={cfg.en_type!r}")
     if cfg.num_devices > 1:
         refused.append(f"num_devices={cfg.num_devices}")
     if refused:
@@ -364,6 +394,7 @@ def check_stage2(cfg: TGFRConfig) -> None:
     check_caption_length(cfg, grad=True)
     if cfg.fusion_type == "concat":
         raise ValueError("stage-2 training requires fusion_type linear|fcfm")
+    check_fusion(cfg, train=True)
 
 
 def load_yaml(filename: str) -> TGFRConfig:

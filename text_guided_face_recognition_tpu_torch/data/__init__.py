@@ -3,6 +3,7 @@ from text_guided_face_recognition_tpu_torch.data.datasets import (  # noqa: F401
     TrainDataset,
     load_class_id,
     load_filenames,
+    load_text_data,
     load_text_data_bert,
 )
 from text_guided_face_recognition_tpu_torch.data.loader import DataLoader  # noqa: F401

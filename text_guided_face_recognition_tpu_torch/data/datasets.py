@@ -1,9 +1,9 @@
-"""Datasets for the BERT serving path: caption/identity metadata and images.
+"""Datasets: caption/identity metadata and images.
 
 Counterpart of text_guided_face_recognition_tpu/data/datasets.py, for BERT
-captions. Samples are dicts of numpy arrays; images are NHWC float32 in
-[-1, 1] (or uint8 with `uint8_images`), the same wire format as the JAX
-package. Images on disk take the JAX package's paths: the fused native
+and LSTM/GRU captions. Samples are dicts of numpy arrays; images are NHWC
+float32 in [-1, 1] (or uint8 with `uint8_images`), the same wire format as
+the JAX package. Images on disk take the JAX package's paths: the fused native
 decode + resize + augment (data/native.py, native/tgfr_dataio.cpp; one
 uint64 seed drawn per train image, where the JAX package draws it) when the
 library loads, else PIL (data/transforms.py), with the JAX package's
@@ -13,11 +13,17 @@ deterministic random image per key, the same bytes as the JAX package
 generates (tests/test_torch_data.py holds both).
 
 Ported: the reference's on-disk formats (filenames/class pickles, per-id
-caption files, the caption caches named by the tokenizer's cache tag),
-`TrainDataset` (flat samples, as training and extraction use them) and
-`TestDataset` (pair lists), and the `compat_bert_caption_bug` switch (the
-reference's caption index). Waiting (ROADMAP.md): the LSTM caption path
-and the frozen-feature cache.
+caption files, the BERT caption caches named by the tokenizer's cache tag,
+the LSTM path's captions_RNN.pickle), `TrainDataset` (flat samples, as
+training and extraction use them) and `TestDataset` (pair lists), and the
+`compat_bert_caption_bug` switch (the reference's caption index). A BERT
+sample carries the padded token ids and their attention `mask`; an LSTM or
+GRU sample the word ids padded with 0 ('<end>') to `lstm_words_num` and
+their count `cap_len`: a longer caption keeps `lstm_words_num` of its
+words, chosen at random in order (`pad_lstm_caption`, from the sample's
+generator: (seed, index, visit) in training, (0, pair index) for both
+sides of a test pair, (1, key index) for a table-mode sample). Waiting
+(ROADMAP.md): the frozen-feature cache.
 """
 
 from __future__ import annotations
@@ -25,12 +31,16 @@ from __future__ import annotations
 import hashlib
 import os
 import pickle
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from text_guided_face_recognition_tpu_torch.data.tokenizers import (
-    get_bert_tokenizer)
+    LstmTokenizer,
+    Vocabulary,
+    build_dictionary,
+    get_bert_tokenizer,
+)
 from text_guided_face_recognition_tpu_torch.data.transforms import (
     decode_image,
     eval_transform,
@@ -38,8 +48,9 @@ from text_guided_face_recognition_tpu_torch.data.transforms import (
     train_transform,
 )
 
-__all__ = ["load_filenames", "load_class_id", "load_text_data_bert",
-           "TrainDataset", "TestDataset"]
+__all__ = ["load_filenames", "load_class_id", "load_captions",
+           "load_text_data", "load_text_data_bert", "TrainDataset",
+           "TestDataset"]
 
 
 def load_filenames(data_dir: str, split: str) -> List[str]:
@@ -64,6 +75,55 @@ def _read_caption_file(data_dir: str, filename: str) -> List[str]:
     cap_path = os.path.join(data_dir, "text", filename + ".txt")
     with open(cap_path, "r") as f:
         return [c for c in f.read().split("\n") if len(c) > 0]
+
+
+def load_captions(data_dir: str, filenames, embeddings_num: int
+                  ) -> List[List[str]]:
+    """The LSTM path's tokens of `embeddings_num` captions per image (the
+    first ones with any word)."""
+    tok = LstmTokenizer()
+    all_captions: List[List[str]] = []
+    for name in filenames:
+        cnt = 0
+        for cap in _read_caption_file(data_dir, name):
+            tokens = tok.tokenize(cap)
+            if not tokens:
+                continue
+            all_captions.append(tokens)
+            cnt += 1
+            if cnt == embeddings_num:
+                break
+        if cnt < embeddings_num:
+            print(f"ERROR: the captions for {name} less than {cnt}")
+    return all_captions
+
+
+def load_text_data(data_dir: str, embeddings_num: int):
+    """The LSTM caption cache data_dir/captions_RNN.pickle, the reference's
+    layout ([train, valid, test captions as word-id lists, ixtoword,
+    wordtoix], pickle protocol 2), built from the caption files on first
+    use. Returns (train names, train captions, valid names, valid
+    captions, test names, test captions, vocabulary). Raises
+    FileNotFoundError when the split metadata is absent."""
+    names = {s: load_filenames(data_dir, s) for s in ("train", "valid", "test")}
+    if not names["train"] and not names["test"]:
+        raise FileNotFoundError(f"no split metadata under {data_dir}")
+    filepath = os.path.join(data_dir, "captions_RNN.pickle")
+    if not os.path.isfile(filepath):
+        raw = [load_captions(data_dir, names[s], embeddings_num)
+               for s in ("train", "valid", "test")]
+        (train_caps, valid_caps, test_caps), vocab = build_dictionary(*raw)
+        with open(filepath, "wb") as f:
+            pickle.dump([train_caps, valid_caps, test_caps,
+                         vocab.ixtoword, vocab.wordtoix], f, protocol=2)
+        print("\nSave to: ", filepath)
+    else:
+        with open(filepath, "rb") as f:
+            x = pickle.load(f)
+        train_caps, valid_caps, test_caps = x[0], x[1], x[2]
+        vocab = Vocabulary(wordtoix=x[4], ixtoword=x[3])
+    return (names["train"], train_caps, names["valid"], valid_caps,
+            names["test"], test_caps, vocab)
 
 
 def _as_numpy_caption(x) -> np.ndarray:
@@ -128,14 +188,14 @@ class _DatasetBase:
     use_native: bool = True  # the fused C++ decode + transform when it loads
 
     def _init_common(self, filenames, captions, att_masks, split, args,
-                     synthetic):
-        if args.en_type != "BERT":
-            raise NotImplementedError(
-                f"en_type={args.en_type!r}: the LSTM path is not ported yet "
-                "(ROADMAP.md, Queue 1)")
+                     synthetic, vocab):
         self.filenames = list(filenames)
         self.captions = captions
         self.att_masks = att_masks
+        self.vocab = vocab
+        self.en_type = args.en_type
+        self.word_num = (args.bert_words_num if args.en_type == "BERT"
+                         else args.lstm_words_num)
         self.split = split
         self.args = args
         self.synthetic = synthetic or bool(getattr(args, "synthetic", False))
@@ -182,6 +242,33 @@ class _DatasetBase:
             return np.ascontiguousarray(raw)  # the device normalises
         return eval_transform(raw, self.model_type)
 
+    def pad_lstm_caption(self, caption, rng: np.random.Generator
+                         ) -> Tuple[np.ndarray, int]:
+        """(word ids padded with 0 to word_num, their count): a caption
+        longer than word_num keeps word_num of its words in order, drawn by
+        one permutation from `rng`."""
+        cap = np.asarray(caption, np.int64)
+        if (cap == 0).sum() > 0:
+            print("ERROR: do not need END (0) token", cap)
+        x = np.zeros((self.word_num,), np.int32)
+        n = len(cap)
+        if n <= self.word_num:
+            x[:n] = cap
+            return x, n
+        ix = np.sort(rng.permutation(n)[: self.word_num])
+        x[:] = cap[ix]
+        return x, self.word_num
+
+    def _caption(self, index: int, rng: np.random.Generator
+                 ) -> Dict[str, np.ndarray]:
+        """Caption `index`: {"caps", "mask"} (BERT) or {"caps",
+        "cap_len"} (LSTM/GRU, padded or subsampled from `rng`)."""
+        if self.en_type == "BERT":
+            return {"caps": _as_numpy_caption(self.captions[index]),
+                    "mask": _as_numpy_caption(self.att_masks[index])}
+        caps, cap_len = self.pad_lstm_caption(self.captions[index], rng)
+        return {"caps": caps, "cap_len": np.int32(cap_len)}
+
 
 class TrainDataset(_DatasetBase):
     """Flat (image, caption) samples. Each __getitem__ call derives its RNG
@@ -189,9 +276,10 @@ class TrainDataset(_DatasetBase):
     deterministic."""
 
     def __init__(self, filenames, captions, att_masks=None, split="train",
-                 args=None, synthetic: bool = False, seed: int = 0):
+                 args=None, synthetic: bool = False, seed: int = 0,
+                 vocab: Optional[Vocabulary] = None):
         self._init_common(filenames, captions, att_masks, split, args,
-                          synthetic)
+                          synthetic, vocab)
         try:
             self.class_id = load_class_id(os.path.join(self.data_dir, split))
         except (FileNotFoundError, OSError):
@@ -243,11 +331,11 @@ class TrainDataset(_DatasetBase):
         sample = {"img": self._produce_image(index, rng)}
         sent_ix = (self.fixed_sent_ix if self.fixed_sent_ix is not None
                    else int(rng.integers(0, self.embeddings_num)))
-        cap_index = (sent_ix if self.compat_bug
-                     else index * self.embeddings_num + sent_ix)
-        sample.update(caps=_as_numpy_caption(self.captions[cap_index]),
-                      mask=_as_numpy_caption(self.att_masks[cap_index]),
-                      key=key, cls_id=np.int32(self.class_id[index]))
+        cap_index = index * self.embeddings_num + sent_ix
+        if self.compat_bug and self.en_type == "BERT":
+            cap_index = sent_ix
+        sample.update(self._caption(cap_index, rng))
+        sample.update(key=key, cls_id=np.int32(self.class_id[index]))
         return sample
 
 
@@ -259,9 +347,10 @@ class TestDataset(_DatasetBase):
     __test__ = False  # not a pytest class despite the name
 
     def __init__(self, filenames, captions, att_masks=None, split="test",
-                 args=None, synthetic: bool = False):
+                 args=None, synthetic: bool = False,
+                 vocab: Optional[Vocabulary] = None):
         self._init_common(filenames, captions, att_masks, split, args,
-                          synthetic)
+                          synthetic, vocab)
         self._index = {name: i for i, name in enumerate(self.filenames)}
         pair_file = (args.test_pair_list if split == "test"
                      else args.valid_pair_list)
@@ -311,9 +400,12 @@ class TestDataset(_DatasetBase):
             out.append((n, n[:-4]))
         return out
 
-    def get_sample(self, name: str, key: str, need_caption: bool = True
+    def get_sample(self, name: str, key: str, need_caption: bool = True,
+                   rng: Optional[np.random.Generator] = None
                    ) -> Dict[str, np.ndarray]:
-        """One side's sample: eval image + first caption (sent_ix = 0);
+        """One side's sample: eval image + first caption (sent_ix = 0), an
+        LSTM caption's words chosen from `rng` (default: the sample's own,
+        (1, key index), so a table-mode sample is the same in every pair);
         `need_caption=False` leaves the caption out (the image-only
         org_face_test table)."""
         path = os.path.join(self.data_dir, "images", self.split, name)
@@ -324,17 +416,19 @@ class TestDataset(_DatasetBase):
         side: Dict[str, np.ndarray] = {"img": img}
         if not need_caption:
             return side
-        new_sent_ix = self._index.get(key, 0) * self.embeddings_num
-        side["cap"] = _as_numpy_caption(self.captions[new_sent_ix])
-        side["mask"] = _as_numpy_caption(self.att_masks[new_sent_ix])
+        real_index = self._index.get(key, 0)
+        if rng is None:
+            rng = np.random.default_rng((1, real_index))
+        cap = self._caption(real_index * self.embeddings_num, rng)
+        side["cap"] = cap.pop("caps")
+        side.update(cap)
         return side
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng((0, index))     # both sides, in turn
         sample: Dict[str, np.ndarray] = {
             "pair_label": np.int32(self.pair_label[index])}
         for slot, (name, key) in enumerate(self.pair_sides(index), start=1):
-            side = self.get_sample(name, key)
-            sample[f"img{slot}"] = side["img"]
-            sample[f"cap{slot}"] = side["cap"]
-            sample[f"mask{slot}"] = side["mask"]
+            for k, v in self.get_sample(name, key, rng=rng).items():
+                sample[f"{k}{slot}"] = v
         return sample

@@ -1,25 +1,86 @@
-"""Caption tokenisation for the BERT path.
+"""Caption tokenisation.
 
-Counterpart of text_guided_face_recognition_tpu/data/tokenizers.py, as far
-as the BERT path needs it: `get_bert_tokenizer` resolves a tokenizer in the
-JAX package's order and with its cache tags (a HuggingFace tokenizer from
-the local cache, a WordPiece vocabulary trained on the caption corpus
-(data/wordpiece.py), the deterministic HashTokenizer), each with the output
-contract of a HuggingFace tokenizer with padding='max_length': input_ids
-padded to `bert_words_num` plus the attention mask.
+Counterpart of text_guided_face_recognition_tpu/data/tokenizers.py.
+
+The LSTM path: `LstmTokenizer` (the reference's RegexpTokenizer(r'\\w+'):
+lowercased word runs, non-ASCII characters dropped per token) and the
+corpus `Vocabulary`, index 0 '<end>', that `build_dictionary` builds over
+all splits.
+
+The BERT path: `get_bert_tokenizer` resolves a tokenizer in the JAX
+package's order and with its cache tags (a HuggingFace tokenizer from the
+local cache, a WordPiece vocabulary trained on the caption corpus
+(data/wordpiece.py), the deterministic HashTokenizer), each with the
+output contract of a HuggingFace tokenizer with padding='max_length':
+input_ids padded to `bert_words_num` plus the attention mask.
 """
 
 from __future__ import annotations
 
 import re
 import warnings
-from typing import Tuple
+from collections import defaultdict
+from dataclasses import dataclass, field
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["HashTokenizer", "get_bert_tokenizer"]
+__all__ = ["LstmTokenizer", "Vocabulary", "build_dictionary",
+           "HashTokenizer", "get_bert_tokenizer"]
 
 _WORD_RE = re.compile(r"\w+")
+
+
+class LstmTokenizer:
+    """RegexpTokenizer(r'\\w+'): lowercase, keep word runs, drop each
+    token's non-ASCII characters (and the token when nothing is left)."""
+
+    def tokenize(self, caption: str) -> List[str]:
+        caption = caption.replace("\ufffd\ufffd", " ")
+        out = []
+        for tok in _WORD_RE.findall(caption.lower()):
+            tok = tok.encode("ascii", "ignore").decode("ascii")
+            if tok:
+                out.append(tok)
+        return out
+
+
+@dataclass
+class Vocabulary:
+    """The corpus vocabulary; index 0 is '<end>'."""
+
+    wordtoix: Dict[str, int] = field(default_factory=lambda: {"<end>": 0})
+    ixtoword: Dict[int, str] = field(default_factory=lambda: {0: "<end>"})
+
+    @property
+    def n_words(self) -> int:
+        return len(self.ixtoword)
+
+    def add(self, word: str) -> int:
+        if word not in self.wordtoix:
+            ix = len(self.wordtoix)
+            self.wordtoix[word] = ix
+            self.ixtoword[ix] = word
+        return self.wordtoix[word]
+
+    def encode(self, tokens: Sequence[str]) -> List[int]:
+        return [self.wordtoix[w] for w in tokens if w in self.wordtoix]
+
+
+def build_dictionary(*caption_sets: Sequence[List[str]]
+                     ) -> Tuple[List[List[List[int]]], Vocabulary]:
+    """The vocabulary over all splits, words in first-seen order (the
+    reference's count threshold >= 0 keeps every word), and each split's
+    captions encoded with it."""
+    counts: Dict[str, float] = defaultdict(float)
+    for caps in caption_sets:
+        for sent in caps:
+            for w in sent:
+                counts[w] += 1
+    vocab = Vocabulary()
+    for w in counts:
+        vocab.add(w)
+    return [[vocab.encode(s) for s in caps] for caps in caption_sets], vocab
 
 
 class HashTokenizer:

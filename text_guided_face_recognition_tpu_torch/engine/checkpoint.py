@@ -3,11 +3,12 @@
 Counterpart of text_guided_face_recognition_tpu/engine/checkpoint.py, in
 the JAX package's naming. Under one save directory, stage 1 writes
 `{model_type}_image_encoder_{epoch}` ({"image_head"}),
-`{bert_type}_text_encoder_{epoch}` ({"model", "head"}) and
-`train_state_{epoch}`; stage 2 writes
-`fusion_{fusion_type}_{model_type}_{epoch}` ({"net", "image_head"}),
-`encoder_{en_type}_{fusion_type}_{epoch}` ({"model", "head"}) and
-`train_state_{epoch}`. Each is one file holding a nested dict of tensors
+`{bert_type}_text_encoder_{epoch}` ({"model", "head"}; with an LSTM or
+GRU encoder `{en_type}_text_encoder_{epoch}`, {"model"}, in a save
+directory without the bert_type level) and `train_state_{epoch}`; stage 2
+writes `fusion_{fusion_type}_{model_type}_{epoch}` ({"net",
+"image_head"}), `encoder_{en_type}_{fusion_type}_{epoch}` ({"model",
+"head"}, or {"model"} for an RNN encoder) and `train_state_{epoch}`. Each is one file holding a nested dict of tensors
 (state_dicts, optimizer state, metadata); engine/prepare.py loads the
 encoder and fusion artifacts back by these keys. `prune_checkpoints` keeps
 the newest epochs of each artifact family.

@@ -8,8 +8,8 @@ returns the flax tree the JAX package would build from it ({"params",
 engine/from_jax.state_dict_from_jax, lands it on a port module. The files:
 the frozen backbones (ArcFace arcface_ir18_ms1mv3.pth, AdaFace
 adaface_ir18_webface4m.ckpt, MagFace magface_iresnet18_casia_dp.pth), an HF
-torch BERT, and the reference trainers' text, image-head and fusion
-bundles.
+torch BERT, the reference trainers' text, image-head and fusion bundles,
+and its LSTM/GRU caption encoder and LSTM fusion net.
 
 Layout rules (the JAX package's):
   * conv kernels: OIHW -> HWIO
@@ -21,6 +21,11 @@ Layout rules (the JAX package's):
     scale-free BN (`features`) with a torch weight other than 1 takes the
     weight into its running variance: var' = (var + eps) / w^2 - eps
   * PReLU: weight -> alpha
+  * torch's nn.LSTM / nn.GRU: gate rows chunked along dim 0 (LSTM i, f,
+    g, o; GRU r, z, n) -> one (in, out) kernel per gate and side; the LSTM
+    bias is b_ih + b_hh on the hidden side, the GRU's r and z biases are
+    b_ih + b_hh on the input side and n keeps b_in and b_hn apart (torch's
+    n = tanh(W_in x + b_in + r (W_hn h + b_hn)), flax's GRUCell split)
 
 torch only deserialises (`load_torch_state_dict`); the rest is numpy.
 """
@@ -36,7 +41,8 @@ __all__ = ["strip_module", "npify", "load_torch_state_dict",
            "convert_iresnet", "convert_irbackbone", "convert_magface",
            "convert_bert_encoder", "convert_hf_text_model",
            "convert_text_encoder_bundle", "convert_text_heading",
-           "convert_image_heading", "convert_fcfm", "convert_linear_fusion"]
+           "convert_image_heading", "convert_fcfm", "convert_linear_fusion",
+           "convert_wordlevel_cfa", "convert_rnn_encoder"]
 
 
 def strip_module(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -369,3 +375,48 @@ def convert_linear_fusion(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
     forward and is dropped."""
     sd = strip_module(sd)
     return {"params": {"fc1": _dense(sd, "fc1")}}
+
+
+def convert_wordlevel_cfa(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """The reference WordLevelCFA_LSTM. Its `conv` and `bn_img` members are
+    never called in its forward and are dropped; `ln1` converts, though
+    its output is dropped too (the module keeps that)."""
+    sd = strip_module(sd)
+    return {"params": {
+        "sa": _sa(sd, "sa"),
+        "ln1": _ln_chw(sd, "ln1"),
+        "ln2": _ln_chw(sd, "ln2"),
+        "linear": _dense(sd, "linear"),
+    }}
+
+
+def convert_rnn_encoder(sd: Dict[str, np.ndarray],
+                        en_type: str = "LSTM") -> Dict[str, Any]:
+    """The reference RNNEncoder (Embedding `encoder` and a one-layer
+    bidirectional nn.LSTM / nn.GRU `rnn`) -> the RNNEncoder tree: the
+    embedding, and per direction (`fwd`, `_reverse` -> `bwd`) one kernel
+    per gate and side (see the module docstring for the biases)."""
+    sd = strip_module(sd)
+    p: Dict[str, Any] = {"encoder": {"embedding": sd["encoder.weight"]}}
+    lstm = en_type.upper() == "LSTM"
+    gates = ("i", "f", "g", "o") if lstm else ("r", "z", "n")
+    for suffix, ours in (("", "fwd"), ("_reverse", "bwd")):
+        wi = sd[f"rnn.weight_ih_l0{suffix}"]
+        wh = sd[f"rnn.weight_hh_l0{suffix}"]
+        bi = sd[f"rnn.bias_ih_l0{suffix}"]
+        bh = sd[f"rnn.bias_hh_l0{suffix}"]
+        h = wh.shape[1]
+        cell: Dict[str, Any] = {}
+        for gi, g in enumerate(gates):
+            sl = slice(gi * h, (gi + 1) * h)
+            if lstm:
+                cell[f"i{g}"] = {"kernel": wi[sl].T}
+                cell[f"h{g}"] = {"kernel": wh[sl].T, "bias": bi[sl] + bh[sl]}
+            elif g == "n":
+                cell["in"] = {"kernel": wi[sl].T, "bias": bi[sl]}
+                cell["hn"] = {"kernel": wh[sl].T, "bias": bh[sl]}
+            else:
+                cell[f"i{g}"] = {"kernel": wi[sl].T, "bias": bi[sl] + bh[sl]}
+                cell[f"h{g}"] = {"kernel": wh[sl].T}
+        p[ours] = cell
+    return {"params": p}

@@ -31,7 +31,8 @@ from text_guided_face_recognition_tpu_torch.utils.metrics import (
     calculate_scores,
 )
 
-__all__ = ["cosine_pairs", "run_test", "embed_batch", "pair_scores",
+__all__ = ["cosine_pairs", "extra_key", "run_test", "embed_batch",
+           "pair_scores",
            "backbone_features", "validate_concat", "global_features",
            "raw_pair_scores", "org_face_test", "get_img_features_dict"]
 
@@ -54,24 +55,32 @@ def backbone_features(backbone: nn.Module, model_type: str,
     return out[:2] if model_type == "adaface" else out
 
 
+def extra_key(en_type: str) -> str:
+    """The caption field beside the token ids: BERT's attention `mask`, an
+    RNN's `cap_len`."""
+    return "mask" if en_type == "BERT" else "cap_len"
+
+
 def _fused_embed(backbone, image_head, text_encoder, text_head, fusion_net,
                  en_type: str, model_type: str, fusion_type: str,
                  img: torch.Tensor, caps: torch.Tensor,
                  extra: torch.Tensor) -> torch.Tensor:
     """One side's fused embedding, the deployable vector: the cosine of two
-    of these is the pair score. extra = the attention mask."""
-    if en_type != "BERT":
-        raise NotImplementedError(
-            f"en_type={en_type!r}: the LSTM path is not ported yet "
-            "(ROADMAP.md, Queue 1)")
-    words_raw, _ = text_encoder(caps, extra)
-    w, s = text_head(words_raw)
+    of these is the pair score. extra = the attention mask (BERT) or the
+    caption lengths (LSTM/GRU, whose encoder has no head)."""
+    if en_type == "BERT":
+        words_raw, _ = text_encoder(caps, extra)
+        w, s = text_head(words_raw)
+    else:
+        w, s = text_encoder(caps, extra)
     g, l = backbone_features(backbone, model_type, img)
     p, q = image_head(g, l)
     if fusion_type == "concat":
         return torch.cat([p, s], dim=1)
     if fusion_type == "linear":
         return fusion_net(p, s)
+    if fusion_type == "fcfm" and en_type == "LSTM":
+        return fusion_net(q, w)
     if fusion_type == "fcfm":
         return fusion_net(q, w, p, s)
     raise ValueError(fusion_type)
@@ -119,10 +128,11 @@ def pair_scores(args, backbone, image_head, fusion_net, text_encoder,
 
 def _score_loop(dl, models: _Models):
     preds, labels = [], []
+    xk = extra_key(models.kinds[0])
     for batch in dl:
         pred = models.pair_scores(*models.to_device(
             batch["img1"], batch["img2"], batch["cap1"], batch["cap2"],
-            batch["mask1"], batch["mask2"]))
+            batch[xk + "1"], batch[xk + "2"]))
         preds += pred.float().cpu().tolist()
         labels += np.asarray(batch["pair_label"]).tolist()
     return preds, labels
@@ -133,8 +143,8 @@ def _table_score_loop(args, ds, embed, need_caption: bool = True):
     distinct image side of the pair list is embedded once (first-appearance
     order, keyed on the full image name), then every pair is the cosine of
     two table rows. `embed` maps numpy columns (img, and cap and mask with
-    `need_caption`) to (B, D) embeddings. Batches are padded to one
-    shape."""
+    `need_caption`: cap and mask, or cap and cap_len) to (B, D)
+    embeddings. Batches are padded to one shape."""
     sides = [ds.pair_sides(i) for i in range(len(ds))]
     order, seen = [], {}
     for pair in sides:
@@ -144,7 +154,8 @@ def _table_score_loop(args, ds, embed, need_caption: bool = True):
                 order.append((name, key))
 
     bs = max(int(args.batch_size), 1)
-    fields = ("img", "cap", "mask") if need_caption else ("img",)
+    fields = (("img", "cap", extra_key(args.en_type)) if need_caption
+              else ("img",))
     embs = []
     for i in range(0, len(order), bs):
         chunk = [ds.get_sample(n, k, need_caption=need_caption)
@@ -189,8 +200,10 @@ def validate_concat(args, valid_dl, backbone, image_head, text_encoder,
                     text_head) -> Dict[str, float]:
     """Stage-1 validation: concat(global image projection, sentence)
     cosine verification on the valid split (reference: Train.test,
-    src/train_encoders_bert.py:348-395), the modules in eval mode."""
-    mods = (image_head, text_encoder, text_head)
+    src/train_encoders_bert.py:348-395), the modules in eval mode
+    (text_head None with an RNN encoder)."""
+    mods = [m for m in (image_head, text_encoder, text_head)
+            if m is not None]
     modes = [m.training for m in mods]
     for m in mods:
         m.eval()

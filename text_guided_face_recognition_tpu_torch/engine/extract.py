@@ -29,7 +29,8 @@ def extract_embeddings(args, split: str = "test", out: Optional[str] = None,
     from text_guided_face_recognition_tpu_torch.data import (
         DataLoader, TrainDataset)
     from text_guided_face_recognition_tpu_torch.engine import prepare as prep
-    from text_guided_face_recognition_tpu_torch.engine.evaluate import _Models
+    from text_guided_face_recognition_tpu_torch.engine.evaluate import (
+        _Models, extra_key)
 
     check_serving(args)
 
@@ -39,7 +40,8 @@ def extract_embeddings(args, split: str = "test", out: Optional[str] = None,
     if split != "train":
         # one flat sample per image instead of the pair list
         ds = TrainDataset(ds.filenames, ds.captions, ds.att_masks, args=args,
-                          split=split, synthetic=ds.synthetic, seed=0)
+                          split=split, synthetic=ds.synthetic, seed=0,
+                          vocab=ds.vocab)
     ds.augment = False
     ds.fixed_sent_ix = 0
     dl = DataLoader(ds, batch_size=args.batch_size, shuffle=False,
@@ -51,9 +53,10 @@ def extract_embeddings(args, split: str = "test", out: Optional[str] = None,
                      prep.prepare_fusion_net(args, device), text_encoder,
                      text_head)
     keys, embs, cls = [], [], []
+    xk = extra_key(args.en_type)       # the attention mask or cap_len
     for batch in dl:
         emb = models.embed(*models.to_device(batch["img"], batch["caps"],
-                                             batch["mask"]))
+                                             batch[xk]))
         embs.append(emb.float().cpu().numpy())
         keys += batch["key"].tolist()
         cls.append(np.asarray(batch["cls_id"]))

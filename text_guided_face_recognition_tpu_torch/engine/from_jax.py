@@ -14,13 +14,18 @@ transforms:
   a bare `weight` (the trainers'
   image_cls / text_cls /
   metric_fc class weights)      -> `weight`, unchanged
+  RNN gate `i{g}` / `h{g}`
+  `kernel` (in, h), `bias`      -> the gate's `weight` (h, in), `bias`
+                                   (models/text_rnn.py keeps flax's gates,
+                                   LSTM i, f, g, o, GRU r, z, n, one each)
 
 The scale-free `features` BN has no scale on either side. A whole trainer
 bridges at once: the stage-1 params tree {image_head, text_encoder,
 text_head, image_cls, text_cls} with batch_stats {image_head} onto
 engine/stage1.Stage1Model, and the stage-2 tree {text_encoder, text_head,
 image_head, fusion_net, metric_fc} with batch_stats {image_head,
-fusion_net} onto engine/stage2.FusionModel. The text tower's tree is the
+fusion_net} onto engine/stage2.FusionModel; with an LSTM or GRU encoder
+neither tree nor model has a text_head. The text tower's tree is the
 same under every `fused_block`, `tower` included. Inputs are nested
 dicts of numpy arrays (the tests get them with `jax.device_get`); this module
 imports nothing of JAX.

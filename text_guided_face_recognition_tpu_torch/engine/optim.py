@@ -1,10 +1,9 @@
 """The trainers' optimizer groups and their learning rates.
 
-Counterpart of the BERT parts of
-text_guided_face_recognition_tpu/engine/optim.py (`make_stage1_bert_tx`,
-`make_stage2_tx`): three groups over the trainer's top-level modules, as
-the reference drives three torch optimizers. Stage 1
-(src/train_encoders_bert.py:212-222):
+Counterpart of text_guided_face_recognition_tpu/engine/optim.py
+(`make_stage1_bert_tx`, `make_stage1_lstm_tx`, `make_stage2_tx`): three
+groups over the trainer's top-level modules, as the reference drives three
+torch optimizers. Stage 1 with BERT (src/train_encoders_bert.py:212-222):
 
   head     image_head, text_head   Adam(betas (0.5, 0.999))
   encoder  text_encoder            Adam(betas (0.9, 0.999)), coupled L2
@@ -12,7 +11,10 @@ the reference drives three torch optimizers. Stage 1
                                    an optional clip first
   cls      image_cls, text_cls     SGD(momentum 0.9, weight decay 5e-5)
 
-Stage 2 (src/fusion_bert.py:118-141):
+Stage 1 with an LSTM or GRU (src/train_encoders_lstm.py:180-189): the
+same, but the encoder's Adam takes betas (0.9, 0.5), and there is no
+text_head. Stage 2 (src/fusion_bert.py:118-141; no text_head with an
+RNN encoder):
 
   cls      metric_fc               plain SGD (momentum 0), weight decay
                                    `weight_decay`
@@ -47,7 +49,8 @@ and are accepted and ignored (config.py).
 `lazy_embedding_adam` gives the encoder group's embedding tables (2-D
 leaves of at least EMB_MIN_ROWS rows) the JAX package's row-sparse update
 (`_lazy_row_update`): the rows of the `top_k` largest squared gradient
-rows, at most `max(256, batch_size * bert_words_num)`, step; rows no token
+rows, at most `max(256, batch_size * words)`, words `bert_words_num` or,
+with en_type LSTM or GRU, `lstm_words_num`, step; rows no token
 touched keep parameters and both moments bit-unchanged; their weight decay
 applies to touched rows only, and the dense weight decay skips the table.
 
@@ -64,7 +67,8 @@ from typing import Dict, Iterable, List
 import torch
 
 __all__ = ["AdamGroup", "SgdGroup", "GroupedOptimizer", "Stage1Optimizer",
-           "Stage2Optimizer", "make_stage1_bert_tx", "make_stage2_tx",
+           "Stage1LstmOptimizer", "Stage2Optimizer", "make_stage1_bert_tx",
+           "make_stage1_lstm_tx", "make_stage2_tx",
            "cast_grads", "clip_grad_norm", "effective_clip", "lazy_rows",
            "EMB_MIN_ROWS", "GROUPS", "STAGE2_GROUPS"]
 
@@ -367,11 +371,13 @@ def effective_clip(args) -> float:
 
 def lazy_rows(args) -> int:
     """The JAX package's `_lazy_rows`: at most B T distinct tokens touch
-    the table in a step (at least 256 rows); 0 without
-    `lazy_embedding_adam`."""
+    the table in a step (at least 256 rows), T the caption length of the
+    en_type; 0 without `lazy_embedding_adam`."""
     if not args.lazy_embedding_adam:
         return 0
-    return max(256, int(args.batch_size) * int(args.bert_words_num or 24))
+    words = (args.bert_words_num if args.en_type == "BERT"
+             else args.lstm_words_num)
+    return max(256, int(args.batch_size) * int(words or 24))
 
 
 class GroupedOptimizer:
@@ -380,9 +386,11 @@ class GroupedOptimizer:
     builds the three groups in `_make`."""
 
     groups: Dict[str, str] = {}
+    optional = ("text_head",)     # an LSTM or GRU encoder has no head
 
     def __init__(self, args, modules: Dict[str, torch.nn.Module]):
-        missing = sorted(set(self.groups) - set(modules))
+        modules = {k: m for k, m in modules.items() if m is not None}
+        missing = sorted(set(self.groups) - set(modules) - set(self.optional))
         if missing:
             raise ValueError(f"{type(self).__name__}: no module for {missing}")
         md = args.adam_moments_dtype
@@ -455,14 +463,19 @@ class GroupedOptimizer:
 
 class Stage1Optimizer(GroupedOptimizer):
     groups = GROUPS
+    encoder_betas = (0.9, 0.999)
 
     def _make(self, args, adam, sgd, rows):
         return {
             "head": adam(self.params["head"], (0.5, 0.999)),
-            "encoder": adam(self.params["encoder"], (0.9, 0.999),
+            "encoder": adam(self.params["encoder"], self.encoder_betas,
                             float(args.weight_decay), rows),
             "cls": sgd(self.params["cls"], 0.9, 5e-5),
         }
+
+
+class Stage1LstmOptimizer(Stage1Optimizer):
+    encoder_betas = (0.9, 0.5)
 
 
 class Stage2Optimizer(GroupedOptimizer):
@@ -483,6 +496,13 @@ def make_stage1_bert_tx(args, modules: Dict[str, torch.nn.Module]
     text_head, image_cls, text_cls}; all learning rates start at 0 until
     `set_lr`."""
     return Stage1Optimizer(args, modules)
+
+
+def make_stage1_lstm_tx(args, modules: Dict[str, torch.nn.Module]
+                        ) -> Stage1LstmOptimizer:
+    """The stage-1 LSTM/GRU optimizer over {image_head, text_encoder,
+    image_cls, text_cls}; all learning rates start at 0 until `set_lr`."""
+    return Stage1LstmOptimizer(args, modules)
 
 
 def make_stage2_tx(args, modules: Dict[str, torch.nn.Module]

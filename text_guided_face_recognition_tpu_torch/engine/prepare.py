@@ -14,7 +14,13 @@ strictly, from the file its config key names:
       `*_image_encoder_N` / `*_text_encoder_N` and the stage-2
       `fusion_*_N` / `encoder_*_N`), or the reference's: its trainers'
       {"model", "head"}, {"image_head"} and {"net"} bundles, or a raw HF
-      BERT state_dict for the text encoder.
+      BERT state_dict for the text encoder; with en_type LSTM or GRU its
+      {"model": RNNEncoder state_dict} file (or that state_dict alone).
+
+With en_type LSTM or GRU the loader fills `vocab_size` from the corpus
+(the synthetic one: 200 words and '<end>'), which the RNN encoder's
+embedding takes, so `prepare_dataloader` runs before
+`prepare_text_encoder`, as in the JAX trainers.
 
 Reference files go through engine/convert.py into the JAX package's tree
 layout and engine/from_jax.py onto the module. A file in neither layout
@@ -39,8 +45,10 @@ from text_guided_face_recognition_tpu_torch.data import (
     DataLoader,
     TestDataset,
     TrainDataset,
+    load_text_data,
     load_text_data_bert,
 )
+from text_guided_face_recognition_tpu_torch.data.tokenizers import Vocabulary
 from text_guided_face_recognition_tpu_torch.engine import convert as C
 from text_guided_face_recognition_tpu_torch.engine.checkpoint import (
     load_checkpoint)
@@ -52,11 +60,12 @@ from text_guided_face_recognition_tpu_torch.models.magface import (
 from text_guided_face_recognition_tpu_torch.models.layers import (
     BatchNorm, LayerNormCHW, PReLU)
 from text_guided_face_recognition_tpu_torch.models.text_bert import LayerNorm
+from text_guided_face_recognition_tpu_torch.models.text_rnn import init_rnn_
 
 __all__ = ["resolve_device", "compute_dtype", "random_init_",
            "prepare_arcface", "prepare_adaface", "prepare_magface",
-           "prepare_backbone", "prepare_text_encoder", "prepare_image_head",
-           "prepare_fusion_net", "prepare_dataloader"]
+           "prepare_backbone", "prepare_text_encoder", "prepare_rnn_encoder",
+           "prepare_image_head", "prepare_fusion_net", "prepare_dataloader"]
 
 
 def resolve_device(cpu: bool = False) -> torch.device:
@@ -279,16 +288,47 @@ def _hf_bert(sd) -> bool:
     return isinstance(sd, Mapping) and any(k.endswith(_WORDS) for k in sd)
 
 
+def _rnn_state_dict(obj):
+    """The reference RNNEncoder's state_dict in `obj` ({'model': sd} or sd
+    itself), or None."""
+    if not isinstance(obj, Mapping):
+        return None
+    sd = obj.get("model", obj)
+    if isinstance(sd, Mapping) and any(
+            k.endswith("rnn.weight_ih_l0") for k in sd):
+        return sd
+    return None
+
+
+def prepare_rnn_encoder(args, device: torch.device) -> nn.Module:
+    """The LSTM or GRU caption encoder (models/text_rnn.py) over the
+    corpus's `vocab_size` words; `text_encoder_path` names the port's
+    {"model"} artifact or the reference's {'model': RNNEncoder state_dict}
+    file (or the state_dict alone)."""
+    enc = init_rnn_(M.RNNEncoder(max(int(args.vocab_size), 2), args.en_type,
+                                 nhidden=args.embedding_dim,
+                                 dtype=compute_dtype(args)),
+                    torch.Generator().manual_seed(int(args.manual_seed)))
+    path = args.text_encoder_path
+    loaded = _load_trained(
+        path, "text encoder", {"model": enc},
+        (lambda obj: _rnn_state_dict(obj) is not None,
+         lambda obj: _land(enc, C.convert_rnn_encoder(
+             C.npify(_rnn_state_dict(obj)), args.en_type)),
+         "{'model': RNNEncoder state_dict (keys 'encoder.weight', "
+         "'rnn.weight_ih_l0', ...)} or that state_dict alone"))
+    return _finish(enc, loaded, path, "text encoder", device)
+
+
 def prepare_text_encoder(args, device: torch.device
-                         ) -> Tuple[nn.Module, nn.Module]:
-    """BERT text encoder and its TextHeading. `text_encoder_path` names the
-    port's {"model", "head"} artifact, the reference's {"model", "head"}
-    bundle, or a raw HF BertModel state_dict (the head then stays random,
-    as in the JAX package)."""
+                         ) -> Tuple[nn.Module, Optional[nn.Module]]:
+    """The text encoder and its TextHeading: BERT's, or with en_type LSTM
+    or GRU the RNN encoder and None (it has no head). For BERT
+    `text_encoder_path` names the port's {"model", "head"} artifact, the
+    reference's {"model", "head"} bundle, or a raw HF BertModel state_dict
+    (the head then stays random, as in the JAX package)."""
     if args.en_type != "BERT":
-        raise NotImplementedError(
-            f"en_type={args.en_type!r}: the LSTM path is not ported yet "
-            "(ROADMAP.md, Queue 1)")
+        return prepare_rnn_encoder(args, device), None
     dtype = compute_dtype(args)
     enc = M.TextEncoder(bert_type=args.bert_type, dtype=dtype,
                         fused_ln=bool(args.fused_ln),
@@ -357,16 +397,25 @@ def prepare_fusion_net(args, device: torch.device, load: bool = True
     feat = args.aux_feat_dim_per_granularity
     if args.fusion_type == "concat":
         return None
+    rnn = args.en_type != "BERT"
     if args.fusion_type == "linear":
-        net = M.LinearFusion(in_features=256 + feat,
-                             fusion_final_dim=args.fusion_final_dim,
-                             dtype=dtype)
+        net = M.LinearFusion(
+            in_features=feat + (args.embedding_dim if rnn else 256),
+            fusion_final_dim=args.fusion_final_dim, dtype=dtype)
         # the reference's dead `ln` member marks its state_dict
         is_net, convert = (lambda sd: "fc1.weight" in sd and "ln.weight" in sd,
                            C.convert_linear_fusion)
         ref_layout = ("{'net': LinearFusion state_dict (keys 'fc1.weight', "
                       "'ln.weight', ...)}")
-    elif args.fusion_type == "fcfm":
+    elif args.fusion_type == "fcfm" and args.en_type == "LSTM":
+        net = M.WordLevelCFA_LSTM(channel_dim=256, dtype=dtype)
+        is_net, convert = (
+            lambda sd: _conv_weight(sd, "sa.query_proj.weight")
+            and "ln1.weight" in sd, C.convert_wordlevel_cfa)
+        ref_layout = ("{'net': WordLevelCFA_LSTM state_dict with the 1x1-"
+                      "conv projections (a 4-D 'sa.query_proj.weight') and "
+                      "'ln1.weight'}")
+    elif args.fusion_type == "fcfm" and not rnn:
         net = M.FCFM(channel_dim=36, feat_dim=feat, dtype=dtype)
         is_net, convert = (
             lambda sd: _conv_weight(sd, "sa.query_proj.weight"),
@@ -374,7 +423,8 @@ def prepare_fusion_net(args, device: torch.device, load: bool = True
         ref_layout = ("{'net': Working (FCFM) state_dict with the 1x1-conv "
                       "projections (a 4-D 'sa.query_proj.weight')}")
     else:
-        raise ValueError(f"unknown fusion_type {args.fusion_type!r}")
+        raise ValueError(f"fusion_type {args.fusion_type!r} with en_type "
+                         f"{args.en_type!r}: no fusion net takes it")
     random_init_(net, args.manual_seed)
     path = args.fusion_net_path if load else ""
 
@@ -392,42 +442,77 @@ def prepare_fusion_net(args, device: torch.device, load: bool = True
 
 # --------------------------------------------------------------- dataloader --
 
-def prepare_dataloader(args, split: str):
-    """The split's loader and dataset; synthetic captions when the caption
-    assets are absent, as the JAX package does."""
-    if args.en_type != "BERT":
-        raise NotImplementedError(
-            f"en_type={args.en_type!r}: the LSTM path is not ported yet "
-            "(ROADMAP.md, Queue 1)")
-    synthetic = bool(args.synthetic)
+def _captions(args):
+    """{split: (names, captions, masks)} and the vocabulary (None for BERT;
+    masks None for LSTM/GRU), synthetic when the caption assets are
+    absent, and whether they are."""
     try:
-        (tr_n, tr_c, tr_m, va_n, va_c, va_m,
-         te_n, te_c, te_m) = load_text_data_bert(args.data_dir, args)
+        if args.en_type == "BERT":
+            (tr_n, tr_c, tr_m, va_n, va_c, va_m,
+             te_n, te_c, te_m) = load_text_data_bert(args.data_dir, args)
+            vocab = None
+        else:
+            (tr_n, tr_c, va_n, va_c, te_n, te_c,
+             vocab) = load_text_data(args.data_dir, args.captions_per_image)
+            tr_m = va_m = te_m = None
+        return ({"train": (tr_n, tr_c, tr_m), "valid": (va_n, va_c, va_m),
+                 "test": (te_n, te_c, te_m)}, vocab, False)
     except (FileNotFoundError, OSError):
         warnings.warn("caption assets missing; generating synthetic "
                       "caption/token data")
-        synthetic = True
-        tr_n, tr_c, tr_m = _synthetic_bert(args, 64)
-        va_n, va_c, va_m = _synthetic_bert(args, 32)
-        te_n, te_c, te_m = _synthetic_bert(args, 32)
-    data = {"train": (tr_n, tr_c, tr_m), "valid": (va_n, va_c, va_m),
-            "test": (te_n, te_c, te_m)}
+    if args.en_type == "BERT":
+        return ({s: _synthetic_bert(args, n) for s, n in
+                 (("train", 64), ("valid", 32), ("test", 32))}, None, True)
+    vocab = _synthetic_vocab(200)
+    return ({s: _synthetic_lstm(args, n, vocab) + (None,) for s, n in
+             (("train", 64), ("valid", 32), ("test", 32))}, vocab, True)
+
+
+def prepare_dataloader(args, split: str):
+    """The split's loader and dataset; synthetic captions when the caption
+    assets are absent, as the JAX package does. With en_type LSTM or GRU
+    sets `args.vocab_size` to the vocabulary's size."""
+    data, vocab, missing = _captions(args)
+    synthetic = bool(args.synthetic) or missing
+    if vocab is not None:
+        args.vocab_size = vocab.n_words
     names, caps, masks = data[split]
     if split == "train":
         ds = TrainDataset(names, caps, masks, split="train", args=args,
-                          synthetic=synthetic, seed=args.manual_seed)
+                          synthetic=synthetic, seed=args.manual_seed,
+                          vocab=vocab)
         dl = DataLoader(ds, batch_size=args.batch_size, drop_last=True,
                         shuffle=True, num_workers=args.num_workers,
                         seed=args.manual_seed)
         return dl, ds
     ds = TestDataset(names, caps, masks, split=split, args=args,
-                     synthetic=synthetic)
+                     synthetic=synthetic, vocab=vocab)
     if args.is_ident and ds.synthetic_pairs:
         # synthetic pair groups: the genuine pair at column 0 of each group
         args.test_sub = len(ds) // 4
     dl = DataLoader(ds, batch_size=args.batch_size, drop_last=False,
                     shuffle=False, num_workers=args.num_workers)
     return dl, ds
+
+
+def _synthetic_vocab(n: int) -> Vocabulary:
+    """'<end>' and the words w0 ... w{n-1}."""
+    v = Vocabulary()
+    for i in range(n):
+        v.add(f"w{i}")
+    return v
+
+
+def _synthetic_lstm(args, n_images: int, vocab: Vocabulary):
+    """The JAX package's synthetic LSTM captions, value for value: word
+    ids in [1, n_words), 3 to lstm_words_num + 3 of them (the longer ones
+    take the subsampling path)."""
+    rng = np.random.default_rng(0)
+    names = [f"s{i}_0" for i in range(n_images)]
+    caps = [rng.integers(1, vocab.n_words,
+                         size=rng.integers(3, args.lstm_words_num + 4)).tolist()
+            for _ in range(n_images * args.captions_per_image)]
+    return names, caps
 
 
 def _synthetic_bert(args, n_images: int):

@@ -1,19 +1,23 @@
-"""Stage-1 FCAM pretraining (encoder alignment) with a BERT text encoder.
+"""Stage-1 FCAM pretraining (encoder alignment).
 
 Counterpart of text_guided_face_recognition_tpu/engine/stage1.py
-(`Stage1Trainer`, en_type BERT, one device):
+(`Stage1Trainer`, en_type BERT, LSTM or GRU, one device):
 
   * the frozen backbone (eval-mode BN, no gradient) -> ImageHeading in
     train mode (batch statistics; running statistics updated in place);
   * the BERT tower in train mode (dropout from one flat bit draw per step
     and, unless fused_dropout, the fused kernels' int32 seeds, on the
     device, from a torch.Generator seeded with manual_seed + 1) ->
-    TextHeading;
+    TextHeading; or, with en_type LSTM or GRU (src/train_encoders_lstm.py),
+    the RNN encoder in train mode (embedding dropout 0.5 from the same
+    generator), no head, and its words masked past each caption's length;
   * the loss cocktail gated by is_DAMSM / is_CLIP / is_ident_loss with the
-    reference's weights (DAMSM word + sentence terms, ArcFace focal identity
-    losses on both sides, the CLIP-style global loss);
+    reference's weights (DAMSM word + sentence terms, the sentence terms
+    off for an RNN encoder, ArcFace focal identity losses on both sides,
+    the CLIP-style global loss, for an RNN encoder the InfoNCE clip_loss);
   * the three optimizer groups of engine/optim.py and the reference's
-    epoch-edge learning-rate schedule, applied from the host.
+    epoch-edge learning-rate schedule, applied from the host (an RNN
+    encoder's rate decays with the head's).
 
 A training step is one forward, one backward and one optimizer step; the
 epoch loop keeps running metric sums on the device and syncs with the host
@@ -65,10 +69,11 @@ class ClassWeight(nn.Module):
 
 class Stage1Model(nn.Module):
     """The trained modules, named as the JAX trainer's param tree:
-    image_head, text_encoder, text_head, image_cls, text_cls."""
+    image_head, text_encoder, text_head (None with an RNN encoder),
+    image_cls, text_cls."""
 
     def __init__(self, image_head: nn.Module, text_encoder: nn.Module,
-                 text_head: nn.Module, num_classes: int, feat: int):
+                 text_head: Optional[nn.Module], num_classes: int, feat: int):
         super().__init__()
         self.image_head = image_head
         self.text_encoder = text_encoder
@@ -78,8 +83,8 @@ class Stage1Model(nn.Module):
 
 
 class Stage1Trainer(TrainerBase):
-    """Stage-1 trainer for en_type BERT on one device (the CUDA card unless
-    `device` is the CPU)."""
+    """Stage-1 trainer for en_type BERT, LSTM or GRU on one device (the
+    CUDA card unless `device` is the CPU)."""
 
     def __init__(self, args, device: Optional[torch.device] = None,
                  eager: bool = False):
@@ -108,13 +113,18 @@ class Stage1Trainer(TrainerBase):
             xavier_uniform_(cls.weight, gen)
         self.model.to(dev).train()
 
-        self.opt = optim.make_stage1_bert_tx(
-            args, {name: getattr(self.model, name) for name in optim.GROUPS})
-        # initial LRs (reference: src/train_encoders_bert.py:212-222)
+        self.is_bert = args.en_type == "BERT"
+        make_tx = (optim.make_stage1_bert_tx if self.is_bert
+                   else optim.make_stage1_lstm_tx)
+        self.opt = make_tx(args, {name: getattr(self.model, name)
+                                  for name in optim.GROUPS})
+        # initial LRs (reference: src/train_encoders_bert.py:212-222,
+        # src/train_encoders_lstm.py:180-189)
         self.lr = {"head": float(args.lr_head),
-                   "encoder": float(args.min_lr_bert), "cls": 0.1}
+                   "encoder": float(args.min_lr_bert if self.is_bert
+                                    else args.init_lr_lstm), "cls": 0.1}
         self._apply_lrs()
-        self.arch = TEXT_ARCHS[args.bert_type]
+        self.arch = TEXT_ARCHS[args.bert_type] if self.is_bert else None
         self.drop_gen = torch.Generator(device=dev).manual_seed(
             int(args.manual_seed) + 1)
         self.loss_fn = self.build_loss_fn()
@@ -124,18 +134,35 @@ class Stage1Trainer(TrainerBase):
 
     # ---------------------------------------------------------- train step --
 
+    def text_forward(self, batch, drop_bits=None, drop_seeds=None):
+        """(words (B, D, T'), sentence (B, D), word mask or None) of a
+        batch's captions in train mode: BERT through its head (every word
+        of the bert_words_num - 2 taken), an RNN with `cap_len` (words at
+        t < cap_len taken)."""
+        m = self.model
+        if m.text_head is not None:
+            words_raw, _ = m.text_encoder(batch["caps"], batch["mask"],
+                                          drop_bits, drop_seeds)
+            return (*m.text_head(words_raw), None)
+        words_emb, sent_emb = m.text_encoder(batch["caps"], batch["cap_len"],
+                                             drop_bits)
+        t = words_emb.shape[-1]
+        mask = (torch.arange(t, device=words_emb.device)[None, :]
+                < batch["cap_len"].long()[:, None])
+        return words_emb, sent_emb, mask
+
     def build_loss_fn(self):
         """The stage-1 loss cocktail: loss_fn(batch, drop_bits,
         drop_seeds) -> (total, metrics), a batch of device tensors."""
         args = self.args
         g = args.TRAIN.SMOOTH
         m = self.model
+        bert = self.is_bert
 
         def loss_fn(batch, drop_bits=None, drop_seeds=None):
             class_ids = batch["cls_id"].long()
-            words_raw, _ = m.text_encoder(batch["caps"], batch["mask"],
-                                          drop_bits, drop_seeds)
-            words_emb, sent_emb = m.text_head(words_raw)
+            words_emb, sent_emb, word_mask = self.text_forward(
+                batch, drop_bits, drop_seeds)
             if args.compat_frozen_text:
                 words_emb, sent_emb = words_emb.detach(), sent_emb.detach()
             if "img_gl" in batch:     # precomputed backbone features
@@ -148,11 +175,13 @@ class Stage1Trainer(TrainerBase):
             metrics: Dict[str, torch.Tensor] = {}
             if args.is_DAMSM:
                 w0, w1 = ops.words_loss(words_f, words_emb, labels, g.GAMMA1,
-                                        g.GAMMA2, g.GAMMA3, word_mask=None,
+                                        g.GAMMA2, g.GAMMA3,
+                                        word_mask=word_mask,
                                         use_pallas=bool(args.use_pallas))
                 s0, s1 = ops.sent_loss(img_f, sent_emb, labels, class_ids,
                                        gamma3=g.GAMMA3)
-                damsm = w0 + w1 + s0 + s1   # ref bert :272-283
+                # ref bert :272-283; lstm :259-270 (sentence terms off)
+                damsm = w0 + w1 + s0 + s1 if bert else w0 + w1
                 total = total + damsm
                 metrics.update(w_loss=w0 + w1, s_loss=s0 + s1,
                                damsm_loss=damsm)
@@ -165,8 +194,10 @@ class Stage1Trainer(TrainerBase):
                                         + ops.focal_loss(i_logits, class_ids))
                 total = total + idn
                 metrics["idn_loss"] = idn
-            if args.is_CLIP:             # global_loss (ref bert :309-312)
-                cl = args.lambda_clip * ops.global_loss(img_f, sent_emb)
+            if args.is_CLIP:   # ref bert :309-312 / ClipLoss, lstm :288-291
+                cl = args.lambda_clip * (
+                    ops.global_loss(img_f, sent_emb) if bert
+                    else ops.clip_loss(sent_emb, img_f))
                 total = total + cl
                 metrics["clip_loss"] = cl
             metrics["total_loss"] = total
@@ -198,9 +229,12 @@ class Stage1Trainer(TrainerBase):
 
     def schedule_epoch_end(self, epoch: int) -> None:
         """The reference's LR edits: head ExponentialLR(0.98) per epoch
-        (src/train_encoders_bert.py:225-226, :406), cls /10 at epochs 3
-        and 8 (:398-411)."""
+        (src/train_encoders_bert.py:225-226, :406), and an RNN encoder's
+        too (src/train_encoders_lstm.py:191-195), cls /10 at epochs 3 and 8
+        (:398-411)."""
         self.lr["head"] *= 0.98
+        if not self.is_bert:
+            self.lr["encoder"] *= 0.98
         if epoch in (3, 8):
             self.lr["cls"] *= 0.1
             print("Learning Rate change to: {:0.5f}".format(self.lr["cls"]))
@@ -215,18 +249,23 @@ class Stage1Trainer(TrainerBase):
 
     def save_dir(self) -> str:
         a = self.args
-        return os.path.join(a.checkpoints_path, a.dataset_name,
-                            a.CONFIG_NAME, f"{a.en_type}_{a.model_type}",
-                            a.bert_type)
+        out = os.path.join(a.checkpoints_path, a.dataset_name,
+                           a.CONFIG_NAME, f"{a.en_type}_{a.model_type}")
+        return os.path.join(out, a.bert_type) if self.is_bert else out
 
     def save_encoders(self, save_dir: str, epoch: int) -> None:
-        """Two artifacts (reference: src/train_encoders_bert.py:59-80)."""
+        """Two artifacts (reference: src/train_encoders_bert.py:59-80):
+        the image head, and the text encoder with its head as
+        `{bert_type}_text_encoder_N`, or an RNN encoder alone as
+        `{en_type}_text_encoder_N`."""
         a, m = self.args, self.model
         save_checkpoint(f"{save_dir}/{a.model_type}_image_encoder_{epoch}",
                         {"image_head": m.image_head.state_dict()})
-        save_checkpoint(f"{save_dir}/{a.bert_type}_text_encoder_{epoch}",
-                        {"model": m.text_encoder.state_dict(),
-                         "head": m.text_head.state_dict()})
+        text = {"model": m.text_encoder.state_dict()}
+        if self.is_bert:
+            text["head"] = m.text_head.state_dict()
+        name = a.bert_type if self.is_bert else a.en_type
+        save_checkpoint(f"{save_dir}/{name}_text_encoder_{epoch}", text)
 
     def main(self) -> None:
         """Epoch loop (reference: src/train_encoders_bert.py:398-421)."""

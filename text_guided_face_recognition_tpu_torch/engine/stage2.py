@@ -1,7 +1,7 @@
-"""Stage-2 fusion training with a BERT text encoder.
+"""Stage-2 fusion training.
 
 Counterpart of text_guided_face_recognition_tpu/engine/stage2.py
-(`FusionTrainer`, en_type BERT, one device): from the stage-1 encoders
+(`FusionTrainer`, en_type BERT, LSTM or GRU, one device): from the stage-1 encoders
 (loaded when `text_encoder_path` / `image_encoder_path` name artifacts of
 this package's stage-1 trainer, else random), fine-tune the text encoder
 and its head, the image head and the fusion net against an ArcFace margin
@@ -13,10 +13,12 @@ focal loss (`model_type: arcface` and `loss: focal_loss`) or cross entropy.
   * the BERT tower in train mode (dropout from one flat bit draw per step
     and, unless fused_dropout, the fused kernels' int32 seeds, on the
     device, from a torch.Generator seeded with manual_seed + 2) ->
-    TextHeading;
+    TextHeading; or the LSTM/GRU encoder with `cap_len` (embedding
+    dropout from the same generator), no head (src/fusion_lstm.py);
   * fusion: FCFM(local map, word features, global feature, sentence
     feature) in train mode (its two BatchNorms take batch statistics), or
-    LinearFusion(global feature, sentence feature);
+    LinearFusion(global feature, sentence feature); with an LSTM encoder
+    and fcfm, WordLevelCFA_LSTM(local map, word features), 768 wide;
   * the three optimizer groups of engine/optim.py (`make_stage2_tx`) and
     the reference's StepLR triplet applied from the host at epoch edges
     (encoder x0.8 every 10 epochs; cls x0.6 and head x0.97 every 5).
@@ -57,9 +59,11 @@ __all__ = ["FusionModel", "FusionTrainer"]
 
 class FusionModel(nn.Module):
     """The trained modules, named as the JAX trainer's param tree:
-    text_encoder, text_head, image_head, fusion_net, metric_fc."""
+    text_encoder, text_head (None with an RNN encoder), image_head,
+    fusion_net, metric_fc."""
 
-    def __init__(self, text_encoder: nn.Module, text_head: nn.Module,
+    def __init__(self, text_encoder: nn.Module,
+                 text_head: Optional[nn.Module],
                  image_head: nn.Module, fusion_net: nn.Module,
                  metric_fc: nn.Module):
         super().__init__()
@@ -71,8 +75,8 @@ class FusionModel(nn.Module):
 
 
 class FusionTrainer(TrainerBase):
-    """Stage-2 trainer for en_type BERT on one device (the CUDA card unless
-    `device` is the CPU)."""
+    """Stage-2 trainer for en_type BERT, LSTM or GRU on one device (the
+    CUDA card unless `device` is the CPU)."""
 
     def __init__(self, args, device: Optional[torch.device] = None,
                  eager: bool = False):
@@ -107,7 +111,8 @@ class FusionTrainer(TrainerBase):
         self.lr = {"cls": float(args.lr_image_train), "encoder": 1e-5,
                    "head": float(args.lr_head)}
         self._apply_lrs()
-        self.arch = TEXT_ARCHS[args.bert_type]
+        self.is_bert = args.en_type == "BERT"
+        self.arch = TEXT_ARCHS[args.bert_type] if self.is_bert else None
         self.drop_gen = torch.Generator(device=dev).manual_seed(
             int(args.manual_seed) + 2)
         self.loss_fn = self.build_loss_fn()
@@ -124,9 +129,13 @@ class FusionTrainer(TrainerBase):
         args, m = self.args, self.model
 
         def embed_fn(batch, drop_bits=None, drop_seeds=None):
-            words_raw, _ = m.text_encoder(batch["caps"], batch["mask"],
-                                          drop_bits, drop_seeds)
-            words_emb, sent_emb = m.text_head(words_raw)
+            if m.text_head is None:
+                words_emb, sent_emb = m.text_encoder(
+                    batch["caps"], batch["cap_len"], drop_bits)
+            else:
+                words_raw, _ = m.text_encoder(batch["caps"], batch["mask"],
+                                              drop_bits, drop_seeds)
+                words_emb, sent_emb = m.text_head(words_raw)
             if args.compat_frozen_text:
                 words_emb, sent_emb = words_emb.detach(), sent_emb.detach()
             if "img_gl" in batch:     # precomputed backbone features
@@ -136,6 +145,8 @@ class FusionTrainer(TrainerBase):
             img_f, local_f = m.image_head(gl, lc)
             if args.fusion_type == "linear":
                 return m.fusion_net(img_f, sent_emb)
+            if m.text_head is None:       # WordLevelCFA_LSTM
+                return m.fusion_net(local_f, words_emb)
             return m.fusion_net(local_f, words_emb, img_f, sent_emb)
 
         return embed_fn
@@ -209,16 +220,18 @@ class FusionTrainer(TrainerBase):
                             a.fusion_type)
 
     def save_models(self, save_dir: str, epoch: int) -> None:
-        """Two artifacts (reference: src/fusion_bert.py:166-191)."""
+        """Two artifacts (reference: src/fusion_bert.py:166-191); an RNN
+        encoder's has no head."""
         a, m = self.args, self.model
         save_checkpoint(
             f"{save_dir}/fusion_{a.fusion_type}_{a.model_type}_{epoch}",
             {"net": m.fusion_net.state_dict(),
              "image_head": m.image_head.state_dict()})
+        text = {"model": m.text_encoder.state_dict()}
+        if m.text_head is not None:
+            text["head"] = m.text_head.state_dict()
         save_checkpoint(
-            f"{save_dir}/encoder_{a.en_type}_{a.fusion_type}_{epoch}",
-            {"model": m.text_encoder.state_dict(),
-             "head": m.text_head.state_dict()})
+            f"{save_dir}/encoder_{a.en_type}_{a.fusion_type}_{epoch}", text)
 
     def main(self) -> None:
         """Epoch loop (reference: src/fusion_bert.py:251-274)."""

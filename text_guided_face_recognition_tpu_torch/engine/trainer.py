@@ -66,12 +66,13 @@ class TrainerBase:
 
     def draw_drop(self, b: int, t: int, out=(None, None)
                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-        """One step's dropout for the text tower, drawn on the device from
+        """One step's dropout for the text encoder, drawn on the device from
         drop_gen: (host bits, kernel seeds), into the tensors `out` when
-        given. In host mode (fused_dropout) the bits of every site and no
-        seeds; in prng mode the bits of the sites the kernels do not draw,
-        then their int32 seeds. (None, None) without dropout."""
-        n_bits, n_seeds = self.model.text_encoder.model.drop_counts(b, t)
+        given. BERT in host mode (fused_dropout): the bits of every site
+        and no seeds; in prng mode the bits of the sites the kernels do not
+        draw, then their int32 seeds. LSTM/GRU: the embeddings' bits. (None,
+        None) without dropout."""
+        n_bits, n_seeds = self.model.text_encoder.drop_counts(b, t)
         if not n_bits:
             return None, None
         bits = draw(n_bits, self.drop_gen, self.device, out=out[0])
@@ -141,7 +142,7 @@ class TrainerBase:
         replay; the metrics are copied out of the graph's outputs."""
         if self.graph is None:
             self._static = {k: torch.empty_like(v) for k, v in batch.items()}
-            n_bits, n_seeds = self.model.text_encoder.model.drop_counts(
+            n_bits, n_seeds = self.model.text_encoder.drop_counts(
                 *batch["caps"].shape)
             self._static_drop = tuple(
                 torch.empty(n, dtype=torch.int32, device=self.device)

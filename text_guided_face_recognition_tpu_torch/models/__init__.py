@@ -1,6 +1,7 @@
 from text_guided_face_recognition_tpu_torch.models.fusion import (  # noqa: F401
     FCFM,
     LinearFusion,
+    WordLevelCFA_LSTM,
 )
 from text_guided_face_recognition_tpu_torch.models.image_heads import (  # noqa: F401
     IMIM,
@@ -23,6 +24,9 @@ from text_guided_face_recognition_tpu_torch.models.layers import (  # noqa: F401
 )
 from text_guided_face_recognition_tpu_torch.models.margins import (  # noqa: F401
     ArcMarginProduct,
+)
+from text_guided_face_recognition_tpu_torch.models.text_rnn import (  # noqa: F401
+    RNNEncoder,
 )
 from text_guided_face_recognition_tpu_torch.models.text_bert import (  # noqa: F401
     TEXT_ARCHS,

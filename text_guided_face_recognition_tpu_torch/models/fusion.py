@@ -1,8 +1,9 @@
 """Face-caption fusion networks, NCHW.
 
 Counterpart of text_guided_face_recognition_tpu/models/fusion.py: `FCFM`
-(the BERT-path fusion net) and `LinearFusion`. Word features arrive as
-(B, F, T), the text head's layout.
+(the BERT-path fusion net), `WordLevelCFA_LSTM` (the LSTM path's) and
+`LinearFusion`. Word features arrive as (B, F, T), the text head's and the
+RNN encoder's layout.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from text_guided_face_recognition_tpu_torch.models.layers import (
     SelfAttention2D,
 )
 
-__all__ = ["LinearFusion", "FCFM"]
+__all__ = ["LinearFusion", "FCFM", "WordLevelCFA_LSTM"]
 
 
 class LinearFusion(nn.Module):
@@ -87,3 +88,40 @@ class FCFM(nn.Module):
         iw = self.linear(iw)
         return torch.cat([iw, self._ln(self.ln_gl_image, gl_img),
                           self._ln(self.ln_sent, sent)], dim=1)   # (B, 640)
+
+
+class WordLevelCFA_LSTM(nn.Module):
+    """LSTM-path fusion net (the reference's models/fusion_nets.py:260-291).
+
+    The local map (B, C, 14, 14) sits in a zero 16 x 16 canvas; the words
+    (B, C, T) give a C x C Gram / sqrt(C), computed in f32 and rounded, its
+    second axis folded into 16 x 16 (C = 256); one SelfAttention2D (shared
+    weights) runs twice: canvas on canvas, then that on the word map. `ln1`
+    holds weights only: the reference normalises the first pass with it and
+    drops the result (:283), so it is not called; `ln2` normalises the
+    second; avg-pool 8 -> flatten (C, 2, 2) -> Dense 1024 -> 768."""
+
+    def __init__(self, channel_dim: int = 256, scale: int = 2,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        c = channel_dim
+        if c != 256:
+            raise ValueError("WordLevelCFA_LSTM folds its C x C word Gram "
+                             "into a 16 x 16 map: channel_dim must be 256")
+        self.c, self.dtype = c, dtype
+        self.sa = SelfAttention2D(c, scale=scale, dtype=dtype)
+        self.ln1 = LayerNormCHW(c, 16, 16)
+        self.ln2 = LayerNormCHW(c, 16, 16)
+        self.linear = Dense(4 * c, 768, dtype)
+
+    def forward(self, local_img: torch.Tensor, word: torch.Tensor
+                ) -> torch.Tensor:
+        b, c, dt = local_img.shape[0], self.c, self.dtype
+        img = F.pad(local_img.to(dt), (1, 1, 1, 1))             # (B,C,16,16)
+        wf = word.float()
+        gram = torch.matmul(wf, wf.transpose(1, 2))              # (B, C, C)
+        wmap = (gram / math.sqrt(c)).to(dt).reshape(b, c, 16, 16)
+        img2 = self.sa(img, img)
+        iw = self.ln2(self.sa(img2, wmap))
+        iw = F.avg_pool2d(iw, 8).flatten(1)                      # (B, 1024)
+        return self.linear(iw)

@@ -353,6 +353,9 @@ class TextEncoder(nn.Module):
         self.model = TransformerEncoder(TEXT_ARCHS[bert_type], dtype,
                                         fused_ln, fused_block, fused_dropout)
 
+    def drop_counts(self, b: int, t: int) -> Tuple[int, int]:
+        return self.model.drop_counts(b, t)
+
     def forward(self, captions: torch.Tensor, mask: torch.Tensor,
                 drop_bits: Optional[torch.Tensor] = None,
                 drop_seeds: Optional[torch.Tensor] = None

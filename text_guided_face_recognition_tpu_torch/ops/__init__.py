@@ -26,6 +26,7 @@ from text_guided_face_recognition_tpu_torch.ops.layernorm import (  # noqa: F401
     layernorm_ref,
 )
 from text_guided_face_recognition_tpu_torch.ops.losses import (  # noqa: F401
+    clip_loss,
     cosine_similarity,
     cross_entropy_rows,
     focal_loss,

@@ -27,7 +27,10 @@ and LayerNorm parameters are f32 masters, rounded to the activation dtype
 inside the kernel, as flax rounds them at each use. A weight has the JAX
 (in, out) shape; the kernel takes it as the transposed view
 `linear.weight.t()` of a contiguous (out, in) nn.Linear weight, the layout
-the port's modules store (the plain version takes any layout).
+the port's modules store. The plain version takes any layout and brings a
+weight to that one before each product (`kernel_layout`): on the CPU a
+product's summation order follows its operands' memory layout, so the
+plain result is then the same bits whatever layout the caller holds.
 
 Rounding points (block_pallas.py `_attn_heads_fwd`, `_attn_heads_bwd`,
 `_ffn_fwd_kernel`, `_ffn_bwd_kernel`): every GEMM accumulates in f32, is
@@ -132,13 +135,20 @@ def dgelu(x: torch.Tensor) -> torch.Tensor:
         x * torch.exp(-0.5 * x * x) * (1.0 / math.sqrt(2.0 * math.pi))
 
 
+def kernel_layout(w: torch.Tensor) -> torch.Tensor:
+    """An (in, out) weight as the .t() view of a contiguous (out, in)
+    tensor, the layout the kernels take (a copy when it is held in
+    another)."""
+    return w if w.t().is_contiguous() else w.t().contiguous().t()
+
+
 def dense_ref(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor
               ) -> torch.Tensor:
     """x . w + bias with flax nn.Dense(dtype=x.dtype) rounding: the product
     of the rounded operands accumulated in f32, rounded, then the rounded
-    bias added. w: (in, out) f32 master."""
+    bias added. w: (in, out) f32 master, in any layout."""
     dt = x.dtype
-    y = torch.matmul(x.float(), w.to(dt).float()).to(dt)
+    y = torch.matmul(x.float(), kernel_layout(w.to(dt).float())).to(dt)
     return y + bias.to(dt)
 
 
@@ -206,10 +216,10 @@ def ffn_block_bwd_ref(dz, x, f, r, w1, w2, gamma, bits=None,
     dgg = _maybe_drop(dr, bits, rate)
     a = gelu(f.float()).to(dt)
     dw2 = a.float().t() @ dgg.float()
-    da = _mm(dgg, w2.to(dt).t(), dt)
+    da = _mm(dgg, kernel_layout(w2.to(dt)).t(), dt)
     df = (da.float() * dgelu(f.float())).to(dt)
     dw1 = x.float().t() @ df.float()
-    dx = dr + _mm(df, w1.to(dt).t(), dt)
+    dx = dr + _mm(df, kernel_layout(w1.to(dt)).t(), dt)
     return (dx, dw1, df.float().sum(0), dw2, dgg.float().sum(0), dg, db)
 
 
@@ -280,7 +290,7 @@ def attn_block_bwd_ref(dy, x, qkv, p, o, r, wqkv, wo, gamma, b: int, t: int,
     dr, dg, db = _ln_bwd_rounded(dy, r, gamma, eps)
     dh = _maybe_drop(dr, bits_h, rate)
     dwo = o.float().t() @ dh.float()
-    do = _heads(_mm(dh, wo.to(dt).t(), dt), b, t, heads)
+    do = _heads(_mm(dh, kernel_layout(wo.to(dt)).t(), dt), b, t, heads)
     q, k, v = (_heads(qkv[:, i * h:(i + 1) * h], b, t, heads)
                for i in range(3))
     pb = _bhtt(p, b, heads)                            # (B, heads, T, T)
@@ -296,7 +306,7 @@ def attn_block_bwd_ref(dy, x, qkv, p, o, r, wqkv, wo, gamma, b: int, t: int,
     dk = _mm(ds.transpose(-1, -2), q, dt)
     dqkv = torch.cat([_unheads(dq), _unheads(dk), _unheads(dv)], dim=-1)
     dwqkv = x.float().t() @ dqkv.float()
-    dx = dr + _mm(dqkv, wqkv.to(dt).t(), dt)
+    dx = dr + _mm(dqkv, kernel_layout(wqkv.to(dt)).t(), dt)
     return (dx, dwqkv, dqkv.float().sum(0), dwo, dh.float().sum(0), dg, db)
 
 

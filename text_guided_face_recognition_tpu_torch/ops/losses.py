@@ -2,7 +2,8 @@
 stage-1 recipe.
 
 Counterpart of text_guided_face_recognition_tpu/ops/losses.py (the terms
-the BERT stage-1 trainer runs). Batch-global semantics: every B x B matrix
+the stage-1 trainers run: `global_loss` for BERT, `clip_loss` for LSTM and
+GRU). Batch-global semantics: every B x B matrix
 is over the whole batch. All losses return f32 scalars; upstream
 activations may be bf16.
 """
@@ -20,7 +21,7 @@ from text_guided_face_recognition_tpu_torch.ops.damsm import (
     damsm_similarity_fused)
 
 __all__ = ["cosine_similarity", "cross_entropy_rows", "sent_loss",
-           "words_loss", "global_loss", "focal_loss"]
+           "words_loss", "global_loss", "clip_loss", "focal_loss"]
 
 
 def cosine_similarity(x1: torch.Tensor, x2: torch.Tensor, dim: int = 1,
@@ -95,6 +96,18 @@ def global_loss(cnn_code: torch.Tensor, rnn_code: torch.Tensor,
     loss0, loss1 = sent_loss(cnn_code, rnn_code, labels, None, gamma3=temp3,
                              eps=eps)
     return loss0 + loss1
+
+
+def clip_loss(text_features: torch.Tensor, image_features: torch.Tensor,
+              logit_scale: float = 1.0) -> torch.Tensor:
+    """The InfoNCE CLIP loss of the LSTM trainer (the reference's
+    `ClipLoss`): the mean of the cross-entropies over images and over
+    texts of the logit_scale-scaled B x B product, in f32."""
+    labels = torch.arange(image_features.shape[0],
+                          device=image_features.device)
+    logits = logit_scale * (image_features.float() @ text_features.float().t())
+    return (cross_entropy_rows(logits, labels)
+            + cross_entropy_rows(logits.t(), labels)) / 2.0
 
 
 def focal_loss(logits: torch.Tensor, labels: torch.Tensor,
