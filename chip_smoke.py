@@ -2,7 +2,7 @@
 """On-card smoke run of the PyTorch/CUDA port (one NVIDIA GPU).
 
   python3 chip_smoke.py [--only kernels|launches|phases|prng|serving|train|
-                                stage2|step|damsm|weights|lstm]
+                                stage2|step|damsm|weights|lstm|options]
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
@@ -25,9 +25,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      also held at (rows, H) = (37, 389), (768, 768), (50, 1024), (9, 8)
      and with rows one element into their storage (the scalar path), f32
      and bf16; at R = H = 768 in bf16 one call of each is one device
-     operation (torch.profiler), and K2's outputs are bit for bit the same
-     over repeated calls, from a CUDA graph's replay and on two streams at
-     once (each with its own arrival counters); so are the LN sums of K4
+     operation (torch.profiler, the most over three sessions), and K2's
+     outputs are bit for bit the same over repeated calls, from a CUDA
+     graph's replay and on two streams at once (each with its own arrival
+     counters); so are the LN sums of K4
      and K6 over two calls. K3 and K5 (bf16, eval) and K4 and K6 (bf16,
      host bits and prng mode) are also listed launch by launch, each
      launch's device us (torch.profiler) beside one PyTorch call doing its
@@ -189,7 +190,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      bit and one fcfm step (WordLevelCFA_LSTM); one GRU stage-1 step;
      serving (run_test, one pair batch of 32, its f32 scores on the card
      against the CPU's within LSTM_SCORE_TOL); host ms, device ms and busy
-     share of the steps and the pair batch, with the card.
+     share of the steps and the pair batch, with the card;
+ 11. options (`--only options` runs it alone, building the six sources):
+     the stage options is_CMP, is_WRA and frozen_feature_cache at full
+     width in bf16. Stage 1 (as in 6) with is_CMP and is_WRA captured
+     against eager bit for bit with the counts zeroed before and read
+     after (K1-K6 and K9 as in 6), its replays launching K1-K6 and K9 as an
+     eager step (profiler), its wra_loss and cmp_loss printed; a stage-1
+     train state saved after 2 eager steps and resumed in a fresh trainer,
+     step 3 equal to the uninterrupted run's bit for bit (cmp's Adam state
+     among it); the frozen-feature cache in stage 1 (CMP+WRA) and stage 2
+     (as in 7): the refresh over a synthetic split of CACHE_SPLIT images
+     (a short last chunk) timed, its host bytes, its last 32 images'
+     (global, local) features against the in-step backbone at B 32 within
+     2e-2 max(1, max |b|), one epoch's caption indices with the cache
+     equal to those without it bit for bit, a step with the cache and one
+     without on the same draws (total loss within 1e-2 relative), and the
+     cached step captured against eager bit for bit; host and device ms
+     and busy share per step, median of 10 in turns, stage 1 with CMP+WRA
+     against without and each stage with the cache against without,
+     beside the card's name and power limit.
 Each kernel launches on at least one driven path, and on each path exactly
 the expected number of times. The last two lines are the `kernels` JSON
 line and the result line.
@@ -614,20 +634,28 @@ def damsm_phase(args) -> dict:
     return row
 
 
-def _device_ops(fn) -> int:
+def _device_ops(fn, sessions: int = 3) -> int:
     """Device operations (kernels, memsets, copies) one call of fn runs, as
-    torch.profiler records them, after one call to warm up."""
+    torch.profiler records them: the most over `sessions` sessions of one
+    call each, after one call to warm up. The profiler loses a session's
+    device records now and then (it never adds any), so the most over
+    sessions is a bound from below of what a call runs, and any extra
+    operation still shows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    best = 0
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        best = max(best, sum(1 for e in prof.events()
+                             if e.device_type == DeviceType.CUDA))
+    return best
 
 
 def _graph_outputs(fn):
@@ -653,10 +681,10 @@ def ln_checks(dev, gen, eps: float) -> dict:
     version at LN_SHAPES and with rows one element into their storage (the
     scalar path), f32 and bf16; the part rows the wrappers allocate against
     the kernel's own count; and at R = H = 768 in bf16 the device
-    operations of one call (1 each, from torch.profiler), and K2's outputs
-    bit for bit over repeated calls, from a CUDA graph's replay (arrival
-    counters back at 0) and on two streams at once. Returns extra keys for
-    the two rows."""
+    operations of one call (1 each, from torch.profiler: `_device_ops`),
+    and K2's outputs bit for bit over repeated calls, from a CUDA graph's
+    replay (arrival counters back at 0) and on two streams at once.
+    Returns extra keys for the two rows."""
     import ctypes
 
     import torch
@@ -4130,6 +4158,277 @@ def lstm_phase(kernels) -> dict:
     return out
 
 
+# ------------------------------------------- the stage options (PR 13) --
+
+# images of the synthetic train split for the frozen-feature cache's checks:
+# four chunks of feature_cache_batch 256 and a short fifth of 76
+CACHE_SPLIT = 1100
+# the device kernels of a stage-1 step's replay that K1-K6 and K9 launch
+STAGE1_REPLAY_KEYS = ("layernorm_fwd_kernel", "layernorm_bwd_kernel",
+                      "hl_gemm_kernel", "hl_bwd_gemm_kernel", "attention",
+                      "damsm_kernel")
+
+
+def _grow_split(ds, n: int) -> None:
+    """Make a synthetic train split `n` images long: keys s{i}_0 (a
+    distinct image each), image i's captions those of image i mod the old
+    length, class ids i mod num_classes."""
+    m, cpi = len(ds.filenames), ds.embeddings_num
+
+    def spread(xs):
+        return [xs[(i % m) * cpi + k] for i in range(n) for k in range(cpi)]
+
+    ds.filenames = [f"s{i}_0" for i in range(n)]
+    ds.captions = spread(ds.captions)
+    if ds.att_masks is not None:
+        ds.att_masks = spread(ds.att_masks)
+    ds.class_id = [i % int(ds.args.num_classes) for i in range(n)]
+
+
+def _cache_checks(cls, args, dev, tag: str) -> dict:
+    """With and without the frozen-feature cache, eager, from the same
+    weights over a CACHE_SPLIT-image split: the refresh (seconds per 1000
+    images, host bytes); the cache's (gl, lc) of the short last chunk's
+    last 32 images against the in-step backbone at B 32 (bf16: max |a - b|
+    <= 2e-2 max(1, max |b|), as the backward outputs are held: the
+    backbone at B 256 and at B 32 runs other cuDNN algorithms, whose bf16
+    roundings move an element by steps of the largest ones); one epoch of
+    the two loaders, caption indices, masks and class ids equal bit for
+    bit; the first batch's step with the cache and without it, on the same
+    dropout draws, total loss within 1e-2 relative. Returns the readings,
+    the two trainers and the first batch of each."""
+    import numpy as np
+    import torch
+
+    cached = cls(args.replace(frozen_feature_cache=True), dev, eager=True)
+    plain = cls(args, dev, eager=True)
+    plain.model.load_state_dict(cached.model.state_dict())
+    for tr in (cached, plain):
+        _grow_split(tr.train_ds, CACHE_SPLIT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cached.refresh_features()
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    cache = cached.feat_cache
+    n = len(cached.train_ds)
+    idx = list(range(n - 32, n))
+    img = torch.from_numpy(np.stack([cached.train_ds.peek_augmented_image(i)
+                                     for i in idx])).to(dev)
+    gl, lc = cached.image_features(img)
+    gl_err, gl_ok = _close_scaled(cache.gl[idx].to(dev), gl, 2e-2)
+    lc_err, lc_ok = _close_scaled(cache.lc[idx].to(dev), lc, 2e-2)
+    extra = "mask" if args.en_type == "BERT" else "cap_len"
+    first, n_batches, same = None, 0, True
+    for bc, bp in zip(cached.train_dl, plain.train_dl):
+        if "img" in bc or "img_gl" not in bc or "img" not in bp:
+            raise AssertionError(f"{tag}: batch keys {sorted(bc)} with the "
+                                 f"cache, {sorted(bp)} without")
+        same &= all(np.array_equal(bc[k], bp[k])
+                    for k in ("caps", extra, "cls_id"))
+        if first is None:
+            first = (cached.to_device(bc), plain.to_device(bp))
+        n_batches += 1
+    key = "total_loss" if cls.__name__ == "Stage1Trainer" else "loss"
+    loss_c = float(cached.train_step(first[0])[key])
+    loss_p = float(plain.train_step(first[1])[key])
+    rel = abs(loss_c - loss_p) / abs(loss_p)
+    out = {"images": n, "chunk": int(args.feature_cache_batch),
+           "refresh_s": refresh_s,
+           "refresh_s_per_1000": refresh_s * 1e3 / n,
+           "host_bytes": cache.host_bytes(),
+           "host_bytes_per_image": cache.host_bytes() / n,
+           "gl_max_abs_err": gl_err, "gl_max_abs": gl.abs().max().item(),
+           "lc_max_abs_err": lc_err,
+           "lc_max_abs": lc.float().abs().max().item(),
+           "batches_compared": n_batches, "captions_equal": bool(same),
+           "loss_cached": loss_c, "loss_plain": loss_p, "loss_rel": rel}
+    print(f"{tag}: cache against in-step backbone: " + json.dumps(out),
+          flush=True)
+    if not (gl_ok and lc_ok and same and rel <= 1e-2
+            and n_batches == len(cached.train_dl)):
+        raise AssertionError(f"{tag}: cache checks failed: {out}")
+    return out, cached, plain, first
+
+
+def _resume_check(args, dev, tag: str) -> dict:
+    """A stage-1 run of 2 eager steps saved as a train state and resumed in
+    a fresh trainer: step 3 of the resumed trainer equals step 3 of the
+    uninterrupted one bit for bit (every parameter, BN statistic, moment,
+    count and metric), both fed step 3's dropout draw."""
+    import tempfile
+
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.engine.stage1 import (
+        Stage1Trainer)
+    run = Stage1Trainer(args, dev, eager=True)
+    batch = run.to_device(next(iter(run.train_dl)))
+    for _ in range(2):
+        run.train_step(batch)
+    os.makedirs(os.path.join(ROOT, "checkpoints"), exist_ok=True)
+    d = tempfile.mkdtemp(dir=os.path.join(ROOT, "checkpoints"))
+    try:
+        run.save_state(d, 1)
+        back = Stage1Trainer(args, dev, eager=True)
+        back.resume_from(os.path.join(d, "train_state_1"))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    bits, seeds = run.draw_drop(*batch["caps"].shape)
+    m_run = run.train_step(batch, drop_bits=bits, drop_seeds=seeds)
+    m_back = back.train_step(batch, drop_bits=bits, drop_seeds=seeds)
+    equal, worst, at = _max_diff(_snapshot(back), _snapshot(run))
+    m_eq = all(torch.equal(m_run[k], m_back[k]) for k in m_run)
+    out = {"bitwise": equal and m_eq, "max_abs": worst, "at": at,
+           "start_epoch": back.start_epoch,
+           "cmp_in_state": any(k.startswith("model.cmp.")
+                               for k in _snapshot(back))}
+    print(f"{tag}: step 3 resumed against uninterrupted: {json.dumps(out)}",
+          flush=True)
+    if not (out["bitwise"] and out["cmp_in_state"]):
+        raise AssertionError(f"{tag}: the resumed step differs: {out}")
+    return out
+
+
+def options_phase(kernels) -> dict:
+    """The stage options last ported (`--only options`), at full width in
+    bf16: stage 1 (cfg/train_bert.yml, batch 32, 4500 classes, fused_block
+    both, fused_ln, use_pallas) with is_CMP and is_WRA, captured against
+    eager bit for bit, with every count zeroed before and read after (the
+    eager trainer's 6 steps and the captured one's 3 warm-up steps and
+    capture), its replays launching K1-K6 and K9 as an eager step does
+    (profiler); the frozen-feature cache in stage 1 (with CMP and WRA) and
+    stage 2 (cfg/fusion_bert.yml, batch 16, tower, fused_ln; its counts
+    read as stage 1's), each captured against eager bit for bit with the
+    cache and checked against the in-step backbone (`_cache_checks`); a
+    resumed stage-1 train state (`_resume_check`); and the step times in
+    turns: stage 1 with CMP+WRA against without, each stage with the cache
+    against without. Returns {path: (counts, counts per step)}."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.config import load_yaml
+    from text_guided_face_recognition_tpu_torch.engine.stage1 import (
+        Stage1Trainer)
+    from text_guided_face_recognition_tpu_torch.engine.stage2 import (
+        FusionTrainer)
+
+    dev = torch.device("cuda")
+    base1 = load_yaml(os.path.join(ROOT, "cfg", "train_bert.yml")).replace(
+        synthetic=True, fused_block="both", fused_ln=True, use_pallas=True,
+        compute_dtype="bfloat16", batch_size=32, checkpoints_path="")
+    opts = base1.replace(is_CMP=True, is_WRA=True)
+    base2 = load_yaml(os.path.join(ROOT, "cfg", "fusion_bert.yml")).replace(
+        synthetic=True, fused_block="tower", fused_ln=True,
+        checkpoints_path="")
+    layers = 12
+    per1 = {k: 0 for k in kernels}
+    per1.update({"layernorm_fused": 1, "layernorm_bwd": 1,
+                 "attn_block": layers, "attn_block_bwd": layers,
+                 "ffn_block": layers, "ffn_block_bwd": layers,
+                 "damsm_similarity": 1})
+    per2 = {k: 0 for k in kernels}
+    per2.update({"layernorm_fused": 1, "layernorm_bwd": 1,
+                 "tower_block": 1, "tower_block_bwd": 1})
+    report, paths, failures = {}, {}, []
+
+    def captured(tag, cls, args, per, make_batch=None):
+        _zero(kernels)
+        eager, graphed, state, batch, cmp = _captured_vs_eager(
+            cls, args, dev, make_batch)
+        torch.cuda.synchronize()
+        counts = _counts(kernels)
+        steps = 6 + graphed.WARMUP_STEPS + 1
+        print(f"{tag}: captured against eager: {json.dumps(cmp)}; "
+              f"launches {counts}", flush=True)
+        if not all(c["bitwise"] for c in cmp.values()):
+            failures.append(f"{tag}: captured differs from eager: {cmp}")
+        if counts != {k: steps * v for k, v in per.items()}:
+            failures.append(f"{tag}: launch counts {counts} != {steps} x "
+                            f"{per}")
+        replay = _replays_launch_as_eager(graphed, eager, batch, kernels,
+                                          tag)
+        report[tag] = {"captured_vs_eager": cmp}
+        return eager, graphed, batch, (counts, per), replay
+
+    # stage 1 with CMP and WRA: the path's counts, replays, losses
+    e1, g1, b1, paths["options_stage1"], replay = captured(
+        "options, stage 1 CMP+WRA", Stage1Trainer, opts, per1)
+    missing = [k for k in STAGE1_REPLAY_KEYS
+               if not any(k in name for name in replay)]
+    if missing:
+        failures.append(f"stage-1 replay lacks {missing}: {sorted(replay)}")
+    m = e1.train_step(b1)
+    losses = {k: float(v) for k, v in m.items()}
+    print("options, stage 1 CMP+WRA: losses " + json.dumps(losses),
+          flush=True)
+    if not all(math.isfinite(v) for v in losses.values()) or not (
+            "wra_loss" in losses and "cmp_loss" in losses):
+        failures.append(f"stage-1 CMP+WRA losses {losses}")
+    report["stage1_losses"] = losses
+    del e1
+    g_plain = Stage1Trainer(base1, dev)
+    b_plain = g_plain.to_device(next(iter(g_plain.train_dl)))
+    for _ in range(g_plain.WARMUP_STEPS + 1):
+        g_plain.train_step(b_plain)
+    times = {"stage 1, CMP+WRA": _time_modes(
+        {"stage 1 CMP+WRA, captured": lambda: g1.train_step(b1),
+         "stage 1 without, captured": lambda: g_plain.train_step(b_plain)},
+        b1)}
+    del g1, g_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the resumed train state (stage 1, CMP+WRA)
+    report["resume"] = _resume_check(opts, dev, "options, resume")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the cache, stage 1 (CMP+WRA) and stage 2
+    for stage, cls, args, per in (("stage 1", Stage1Trainer, opts, per1),
+                                  ("stage 2", FusionTrainer, base2, per2)):
+        tag = f"options, {stage} cache"
+        checks, cached, plain, first = _cache_checks(cls, args, dev, tag)
+        report[f"{stage}_cache"] = checks
+        del cached, plain, first
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def cache_batch(tr):
+            tr.refresh_features()
+            return tr.to_device(next(iter(tr.train_dl)))
+
+        _, g_cache, bc, paths[f"options_{stage.replace(' ', '')}_cache"], \
+            _ = captured(tag, cls, args.replace(frozen_feature_cache=True),
+                         per, cache_batch)
+        gp = cls(args, dev)
+        gp.model.load_state_dict(g_cache.model.state_dict())
+        bp = gp.to_device(next(iter(gp.train_dl)))
+        for _ in range(gp.WARMUP_STEPS + 1):
+            gp.train_step(bp)
+        times[f"{stage}, cache"] = _time_modes(
+            {f"{stage} with the cache, captured":
+                 lambda: g_cache.train_step(bc),
+             f"{stage} without, captured": lambda: gp.train_step(bp)}, bc)
+        del g_cache, gp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    card = card_line()
+    for what, table in times.items():
+        for k, m in table.items():
+            print(f"options, {k}: {m['host_ms']:.3f} host ms per step "
+                  f"(median of {len(m['host_ms_all'])} in turns), device "
+                  f"{m['device_ms']} ms, busy {m['busy_share']}, peak "
+                  f"{m['peak_gb']:.3f} GB ({card})", flush=True)
+    report["times"] = {w: {k: {n: v for n, v in m.items() if n != "top_ms"}
+                           for k, m in t.items()} for w, t in times.items()}
+    report["card"] = card
+    print("options: " + json.dumps(report), flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return paths
+
+
 def _serving_modules(args, dev) -> tuple:
     """(backbone, image head, fusion net, text encoder) of `args` on `dev`,
     random from manual_seed (the same weights on every device)."""
@@ -4150,7 +4449,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("kernels", "launches", "phases",
                                        "prng", "serving", "train",
                                        "stage2", "step", "damsm",
-                                       "weights", "lstm"))
+                                       "weights", "lstm", "options"))
     only = ap.parse_args(argv).only
     sys.path.insert(0, ROOT)
     from text_guided_face_recognition_tpu_torch.config import load_yaml
@@ -4169,7 +4468,8 @@ def main(argv=None) -> int:
         ("layernorm", "ffn_block", "attn_block") if only == "launches"
         else ("damsm",) if only in ("damsm", "lstm")
         else ("layernorm", "ffn_block", "attn_block", "damsm")
-        if only == "weights" else _cuda.SOURCES if only == "step"
+        if only == "weights" else _cuda.SOURCES
+        if only in ("step", "options")
         else _cuda.SOURCES + tuple(_cuda.VARIANTS))
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{k} {v:.2f} s' for k, v in per_source.items())})",
@@ -4210,6 +4510,7 @@ def main(argv=None) -> int:
     weights = (weights_phase(args, kernels) if only in (None, "weights")
                else None)
     lstm = lstm_phase(kernels) if only in (None, "lstm") else {}
+    options = options_phase(kernels) if only in (None, "options") else {}
     # every path was driven with the counts zeroed just before it and read
     # just after; each phase held its path to the expected count per kernel
     paths = (("launches_prng", "launches_per_prng_check", prng),
@@ -4223,7 +4524,9 @@ def main(argv=None) -> int:
              ("launches_lstm_train", "launches_per_lstm_step_use_pallas",
               lstm.get("lstm_train")),
              ("launches_lstm_stage2", "launches_per_lstm_stage2_step",
-              lstm.get("lstm_stage2")))
+              lstm.get("lstm_stage2")),
+             *((f"launches_{k}", f"launches_per_{k}_step", v)
+               for k, v in options.items()))
     for r in rows:
         for key, per_key, got in paths:
             if got is not None:

@@ -143,8 +143,12 @@ def test_bridge_refuses_incomplete_or_foreign_stage1_trees(tiny_arch):
         state_dict_from_jax(missing, stats, module=model)
     with pytest.raises(KeyError, match="no JAX leaf"):
         state_dict_from_jax(params, {}, module=model)
-    extra = {**params, "cmp": {"W": np.zeros((256, 16), np.float32)}}
+    extra = {**params, "cmp": {"Q": np.zeros((256, 16), np.float32)}}
     with pytest.raises(KeyError, match="unknown leaf"):
+        state_dict_from_jax(extra, stats, module=model)
+    # is_CMP's projection, on a model built without it
+    extra = {**params, "cmp": {"W": np.zeros((256, 16), np.float32)}}
+    with pytest.raises(KeyError, match="no port key"):
         state_dict_from_jax(extra, stats, module=model)
     extra = {**params, "cmp": {"weight": np.zeros((256, 16), np.float32)}}
     with pytest.raises(KeyError, match="no port key"):

@@ -333,8 +333,7 @@ def test_stage2_schedule_epoch_end(tiny_arch):
     assert tr.opt.get_lr("head") == tr.lr["head"]
 
 
-@pytest.mark.parametrize("change", [
-    dict(frozen_feature_cache=True), dict(num_devices=2)])
+@pytest.mark.parametrize("change", [dict(num_devices=2)])
 def test_stage2_refuses_unported_options(change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_stage2(PConfig().replace(**change))

@@ -2,9 +2,12 @@
 
   python -m text_guided_face_recognition_tpu_torch.cli.test \
       [--cfg cfg/test.yml] [--synthetic] [--cpu] [--fused_block both] \
-      [--fused_ln] [--batch_size 32] [--eval_table_mode]
+      [--fused_ln] [--batch_size 32] [--eval_table_mode] \
+      [--text_encoder_path P] [--image_encoder_path P] [--fusion_net_path P]
 
-Counterpart of src/test.py.
+Counterpart of src/test.py. The three paths take the port's artifacts,
+the reference's files or the JAX package's exported with
+tools/export_jax_checkpoint.py (engine/prepare.py).
 """
 
 from __future__ import annotations
@@ -13,7 +16,11 @@ from text_guided_face_recognition_tpu_torch.cli import parser, setup
 
 
 def main(argv=None):
-    args = setup(parser("test.yml", "Testing TGFR model").parse_args(argv))
+    p = parser("test.yml", "Testing TGFR model")
+    for name in ("text_encoder_path", "image_encoder_path",
+                 "fusion_net_path"):
+        p.add_argument(f"--{name}", type=str, default=None)
+    args = setup(p.parse_args(argv))
     from text_guided_face_recognition_tpu_torch.config import check_serving
     from text_guided_face_recognition_tpu_torch.engine import prepare as prep
     from text_guided_face_recognition_tpu_torch.engine.evaluate import run_test

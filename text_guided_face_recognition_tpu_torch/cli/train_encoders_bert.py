@@ -2,10 +2,13 @@
 
   python -m text_guided_face_recognition_tpu_torch.cli.train_encoders_bert \
       [--cfg cfg/train_bert.yml] [--synthetic] [--cpu] [--max_steps N] \
-      [--max_epoch N] [--fused_block both] [--fused_ln] [--use_pallas]
+      [--max_epoch N] [--fused_block both] [--fused_ln] [--use_pallas] \
+      [--resume_model_path P --resume_epoch N]
 
 Counterpart of src/train_encoders_bert.py. Runs on the CUDA card unless
-`--cpu` is given.
+`--cpu` is given. `--resume_model_path` (with `--resume_epoch` above 1)
+takes the port's train state or the JAX package's, exported with
+tools/export_jax_checkpoint.py.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ def main(argv=None, default_cfg: str = "train_bert.yml",
                    help="cap steps per epoch (smoke runs)")
     p.add_argument("--max_epoch", type=int, default=None)
     p.add_argument("--checkpoints_path", type=str, default=None)
+    p.add_argument("--resume_model_path", type=str, default=None)
+    p.add_argument("--resume_epoch", type=int, default=None)
     p.add_argument("--use_pallas", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="DAMSM similarity through the CUDA kernel")

@@ -20,11 +20,10 @@ compile cache. `lazy_embedding_adam`
 keeps the JAX package's meaning (the row-sparse update of the embedding
 table, engine/optim.py).
 
-Not ported yet, and refused by `check_stage1` with NotImplementedError
-(ROADMAP.md): `is_CMP`, `is_WRA`, `frozen_feature_cache` and more than one
-device; and by `check_stage2`: `frozen_feature_cache`, `fusion_type:
-concat` (nothing to train, as the JAX trainer refuses it too) and more
-than one device. Refused with ValueError as no model takes them
+Not ported yet, and refused by `check_stage1` and `check_stage2` with
+NotImplementedError (ROADMAP.md): more than one device; `check_stage2`
+also refuses `fusion_type: concat` (nothing to train, as the JAX trainer
+refuses it too). Refused with ValueError as no model takes them
 (`check_fusion`, from both and from `check_serving`): `fusion_type: fcfm`
 with en_type GRU (the reference and the JAX package build the LSTM's
 fusion net for LSTM only and the BERT one otherwise, which takes no RNN
@@ -213,7 +212,8 @@ class TGFRConfig:
     adam_moments_dtype: str = "bfloat16"   # Adam moment storage dtype (engine/optim.py)
     grads_dtype: str = "float32"           # gradients rounded to this dtype before the optimizers
     lazy_embedding_adam: bool = False      # row-sparse Adam for the encoder's embedding table (engine/optim.py)
-    frozen_feature_cache: bool = False     # not ported (check_stage1)
+    frozen_feature_cache: bool = False     # the frozen backbone once an epoch over the train split (engine/feature_cache.py), out of the step
+    feature_cache_batch: int = 256         # frozen_feature_cache: the backbone's batch
 
     # Anything else found in a YAML lands here and is still attribute-accessible.
     extras: Dict[str, Any] = field(default_factory=dict)
@@ -366,16 +366,16 @@ def check_serving(cfg: TGFRConfig) -> None:
     check_fusion(cfg, train=False)
 
 
+def _check_one_device(cfg: TGFRConfig, stage: str) -> None:
+    if cfg.num_devices > 1:
+        raise NotImplementedError(
+            f"{stage} training with num_devices={cfg.num_devices} is not "
+            "ported yet (ROADMAP.md, Queue 1)")
+
+
 def check_stage1(cfg: TGFRConfig) -> None:
     """Refuse the stage-1 options the port does not run yet."""
-    refused = [name for name in ("is_CMP", "is_WRA", "frozen_feature_cache")
-               if getattr(cfg, name)]
-    if cfg.num_devices > 1:
-        refused.append(f"num_devices={cfg.num_devices}")
-    if refused:
-        raise NotImplementedError(
-            f"stage-1 training with {', '.join(refused)} is not ported yet "
-            "(ROADMAP.md, Queue 1)")
+    _check_one_device(cfg, "stage-1")
     check_backbone(cfg)
     check_caption_length(cfg, grad=True)
     check_damsm(cfg)
@@ -383,13 +383,7 @@ def check_stage1(cfg: TGFRConfig) -> None:
 
 def check_stage2(cfg: TGFRConfig) -> None:
     """Refuse the stage-2 options the port does not run yet."""
-    refused = ["frozen_feature_cache"] if cfg.frozen_feature_cache else []
-    if cfg.num_devices > 1:
-        refused.append(f"num_devices={cfg.num_devices}")
-    if refused:
-        raise NotImplementedError(
-            f"stage-2 training with {', '.join(refused)} is not ported yet "
-            "(ROADMAP.md, Queue 1)")
+    _check_one_device(cfg, "stage-2")
     check_backbone(cfg)
     check_caption_length(cfg, grad=True)
     if cfg.fusion_type == "concat":

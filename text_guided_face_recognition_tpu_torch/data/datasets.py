@@ -22,8 +22,12 @@ GRU sample the word ids padded with 0 ('<end>') to `lstm_words_num` and
 their count `cap_len`: a longer caption keeps `lstm_words_num` of its
 words, chosen at random in order (`pad_lstm_caption`, from the sample's
 generator: (seed, index, visit) in training, (0, pair index) for both
-sides of a test pair, (1, key index) for a table-mode sample). Waiting
-(ROADMAP.md): the frozen-feature cache.
+sides of a test pair, (1, key index) for a table-mode sample). With a
+frozen-feature cache installed (`set_feature_cache`,
+engine/feature_cache.py) a train sample carries the backbone's `img_gl`
+and `img_lc` at its index in place of `img`, and its generator takes the
+draws the image would have taken, so its caption is the one drawn
+without the cache.
 """
 
 from __future__ import annotations
@@ -291,6 +295,8 @@ class TrainDataset(_DatasetBase):
         # the reference's caption index (utils/train_dataset.py:77-82)
         self.compat_bug = bool(args.compat_bert_caption_bug)
         self._visits: Dict[int, int] = {}
+        # the frozen-feature cache: {"gl", "lc"} indexed as the dataset
+        self._feature_cache = None
         # serving knobs: no augmentation, a pinned caption index
         self.augment: bool = True
         self.fixed_sent_ix: Optional[int] = None
@@ -324,11 +330,44 @@ class TrainDataset(_DatasetBase):
             return train_aug_u8(raw, rng)
         return train_transform(raw, rng, self.model_type)
 
+    def _consume_aug_draws(self, rng: np.random.Generator) -> None:
+        """Advance `rng` as `_produce_image` does, draw for draw, without
+        the image: the native path's one uint64 seed (drawn when the
+        library loads and the image is not synthetic), else the two
+        uniforms of `train_aug_u8` (grayscale, flip), which
+        `train_transform` calls. An image that fails native decode after
+        its seed takes two more on the PIL path; the cache assumes
+        decodable files."""
+        if not self.augment:
+            return                      # the eval transform draws nothing
+        if not self.synthetic and self._native_ok():
+            rng.integers(0, 2**63)      # _load_transformed's seed
+        else:
+            rng.random()                # train_aug_u8: RandomGrayscale
+            rng.random()                # train_aug_u8: RandomHorizontalFlip
+
+    def peek_augmented_image(self, index: int) -> np.ndarray:
+        """The image __getitem__ gives `index` at its next visit, without
+        counting the visit (the cache's refresh before each epoch)."""
+        visit = self._visits.get(index, -1) + 1
+        rng = np.random.default_rng((self.seed, index, visit))
+        return self._produce_image(index, rng)
+
+    def set_feature_cache(self, cache) -> None:
+        """cache: {"gl": (N, ...), "lc": (N, ...)} (numpy arrays or CPU
+        tensors) aligned with the dataset's indices, or None."""
+        self._feature_cache = cache
+
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         key = self.filenames[index]
         visit = self._visits[index] = self._visits.get(index, -1) + 1
         rng = np.random.default_rng((self.seed, index, visit))
-        sample = {"img": self._produce_image(index, rng)}
+        if self._feature_cache is not None:
+            self._consume_aug_draws(rng)
+            sample = {"img_gl": self._feature_cache["gl"][index],
+                      "img_lc": self._feature_cache["lc"][index]}
+        else:
+            sample = {"img": self._produce_image(index, rng)}
         sent_ix = (self.fixed_sent_ix if self.fixed_sent_ix is not None
                    else int(rng.integers(0, self.embeddings_num)))
         cap_index = index * self.embeddings_num + sent_ix

@@ -2,9 +2,12 @@
 
 Counterpart of text_guided_face_recognition_tpu/data/loader.py for one
 process: a thread pool builds each batch's samples and a producer thread
-keeps `prefetch` collated batches (dicts of stacked numpy arrays) ahead of
-the consumer. The multi-host `process_shard` option waits for the parallel
-slice (ROADMAP.md).
+keeps `prefetch` collated batches (dicts of stacked numpy arrays, or of
+stacked CPU tensors where the samples hold tensors: the frozen-feature
+cache's bf16 maps) ahead of the consumer. A batch of an epoch is made only
+once that epoch's iteration has begun: nothing is fetched across the epoch
+boundary, so the cache refreshed before an epoch feeds all of it. The
+multi-host `process_shard` option waits for the parallel slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator
 
 import numpy as np
+import torch
 
 __all__ = ["DataLoader"]
 
@@ -24,6 +28,8 @@ def _collate(samples) -> Dict[str, np.ndarray]:
     for k in samples[0]:
         if isinstance(samples[0][k], str):
             out[k] = np.asarray([s[k] for s in samples])
+        elif isinstance(samples[0][k], torch.Tensor):
+            out[k] = torch.stack([s[k] for s in samples])
         else:
             out[k] = np.stack([s[k] for s in samples])
     return out

@@ -5,7 +5,8 @@ Counterpart of text_guided_face_recognition_tpu/engine/optim.py
 groups over the trainer's top-level modules, as the reference drives three
 torch optimizers. Stage 1 with BERT (src/train_encoders_bert.py:212-222):
 
-  head     image_head, text_head   Adam(betas (0.5, 0.999))
+  head     image_head, text_head,  Adam(betas (0.5, 0.999))
+           cmp (is_CMP)
   encoder  text_encoder            Adam(betas (0.9, 0.999)), coupled L2
                                    `weight_decay` (added to the gradient),
                                    an optional clip first
@@ -73,7 +74,7 @@ __all__ = ["AdamGroup", "SgdGroup", "GroupedOptimizer", "Stage1Optimizer",
            "EMB_MIN_ROWS", "GROUPS", "STAGE2_GROUPS"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-GROUPS = {"image_head": "head", "text_head": "head",
+GROUPS = {"image_head": "head", "text_head": "head", "cmp": "head",
           "text_encoder": "encoder", "image_cls": "cls", "text_cls": "cls"}
 STAGE2_GROUPS = {"text_encoder": "encoder", "text_head": "head",
                  "image_head": "head", "fusion_net": "head",
@@ -386,7 +387,8 @@ class GroupedOptimizer:
     builds the three groups in `_make`."""
 
     groups: Dict[str, str] = {}
-    optional = ("text_head",)     # an LSTM or GRU encoder has no head
+    # an LSTM or GRU encoder has no head; `cmp` is there with is_CMP only
+    optional = ("text_head", "cmp")
 
     def __init__(self, args, modules: Dict[str, torch.nn.Module]):
         modules = {k: m for k, m in modules.items() if m is not None}
@@ -493,15 +495,16 @@ class Stage2Optimizer(GroupedOptimizer):
 def make_stage1_bert_tx(args, modules: Dict[str, torch.nn.Module]
                         ) -> Stage1Optimizer:
     """The stage-1 BERT optimizer over {image_head, text_encoder,
-    text_head, image_cls, text_cls}; all learning rates start at 0 until
-    `set_lr`."""
+    text_head, image_cls, text_cls, cmp}; all learning rates start at 0
+    until `set_lr`."""
     return Stage1Optimizer(args, modules)
 
 
 def make_stage1_lstm_tx(args, modules: Dict[str, torch.nn.Module]
                         ) -> Stage1LstmOptimizer:
     """The stage-1 LSTM/GRU optimizer over {image_head, text_encoder,
-    image_cls, text_cls}; all learning rates start at 0 until `set_lr`."""
+    image_cls, text_cls, cmp}; all learning rates start at 0 until
+    `set_lr`."""
     return Stage1LstmOptimizer(args, modules)
 
 

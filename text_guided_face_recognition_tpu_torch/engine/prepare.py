@@ -15,7 +15,12 @@ strictly, from the file its config key names:
       `fusion_*_N` / `encoder_*_N`), or the reference's: its trainers'
       {"model", "head"}, {"image_head"} and {"net"} bundles, or a raw HF
       BERT state_dict for the text encoder; with en_type LSTM or GRU its
-      {"model": RNNEncoder state_dict} file (or that state_dict alone).
+      {"model": RNNEncoder state_dict} file (or that state_dict alone);
+      or the JAX package's artifacts of the same names, Orbax
+      directories, exported to `.npz` by tools/export_jax_checkpoint.py:
+      {"model", "head"} (an RNN encoder's {"model"}), {"image_head"},
+      {"net", "image_head"}, each factory taking its own subtree, as the
+      JAX factories' partial loads do.
 
 With en_type LSTM or GRU the loader fills `vocab_size` from the corpus
 (the synthetic one: 200 words and '<end>'), which the RNN encoder's
@@ -23,8 +28,11 @@ embedding takes, so `prepare_dataloader` runs before
 `prepare_text_encoder`, as in the JAX trainers.
 
 Reference files go through engine/convert.py into the JAX package's tree
-layout and engine/from_jax.py onto the module. A file in neither layout
-raises ValueError, an Orbax checkpoint (a directory) NotImplementedError;
+layout and engine/from_jax.py onto the module, an export through
+engine/from_jax.py (the text tower's legacy query / key / value leaves
+fused first, engine/checkpoint.migrate_legacy_qkv). A file in none of
+these layouts raises ValueError, an Orbax checkpoint (a directory)
+NotImplementedError, naming the exporter on the trained-module paths;
 an absent path warns and keeps the random init, as the JAX factories do
 when no weights are found.
 """
@@ -51,7 +59,7 @@ from text_guided_face_recognition_tpu_torch.data import (
 from text_guided_face_recognition_tpu_torch.data.tokenizers import Vocabulary
 from text_guided_face_recognition_tpu_torch.engine import convert as C
 from text_guided_face_recognition_tpu_torch.engine.checkpoint import (
-    load_checkpoint)
+    is_jax_export, load_checkpoint, load_jax_export, migrate_legacy_qkv)
 from text_guided_face_recognition_tpu_torch.engine.from_jax import (
     state_dict_from_jax)
 from text_guided_face_recognition_tpu_torch.models.irnet import build_model
@@ -116,10 +124,12 @@ def random_init_(module: nn.Module, seed: int) -> nn.Module:
 
 
 # ----------------------------------------------------------------- weights --
-# Two layouts reach the trained-module paths (text_encoder_path,
-# image_encoder_path, fusion_net_path). Both keep the same top-level keys
-# ({"model", "head"}, {"image_head"}, {"net", ...}); the inner keys tell
-# them apart. The port's own artifacts (engine/checkpoint.py) hold each
+# Three layouts reach the trained-module paths (text_encoder_path,
+# image_encoder_path, fusion_net_path). All keep the same top-level keys
+# ({"model", "head"}, {"image_head"}, {"net", ...}). The JAX package's
+# export is a `.npz` of `/`-joined tree paths (engine/checkpoint.
+# is_jax_export); between the two torch files the inner keys tell them
+# apart. The port's own artifacts (engine/checkpoint.py) hold each
 # module's state_dict, flax-path keys (`model.layer_0.attn.qkv.weight`,
 # `bwm.conv_k2.weight`). The reference's hold its torch modules' keys
 # (`model.embeddings.word_embeddings.weight`, `bwm.convs1.0.weight`, 1x1
@@ -127,8 +137,10 @@ def random_init_(module: nn.Module, seed: int) -> nn.Module:
 # package's tree and engine/from_jax.py onto the module. The backbone paths
 # (weights_arcface / _adaface / _magface) name the reference's files only.
 
-_ORBAX = ("{what}: {path!r} is a directory; loading the JAX package's Orbax "
-          "checkpoints is not ported yet (ROADMAP.md, Queue 1 item 4)")
+_ORBAX = ("{what}: {path!r} is a directory; the port does not read the JAX "
+          "package's Orbax checkpoints: export it with `JAX_PLATFORMS=cpu "
+          "python tools/export_jax_checkpoint.py {path} <out>.npz` where JAX "
+          "is installed, and pass the .npz")
 
 
 def _read_weight_file(path: str, what: str):
@@ -176,6 +188,16 @@ def _load_trained(path: str, what: str, parts, reference) -> bool:
         return False
     if os.path.isdir(path):
         raise NotImplementedError(_ORBAX.format(what=what, path=path))
+    if is_jax_export(path):
+        tree = load_jax_export(path)
+        missing = [k for k in parts if k not in tree]
+        if missing:
+            raise ValueError(f"{what}: the JAX export {path!r} lacks "
+                             f"{missing}; it holds {sorted(tree)}")
+        for key, module in parts.items():
+            _land(module, migrate_legacy_qkv(tree[key]))
+        print(f"loading exported JAX {what}:", path)
+        return True
     obj = _read_weight_file(path, what)
     is_ref, convert, ref_layout = reference
     if isinstance(obj, Mapping) and all(
@@ -213,7 +235,10 @@ def _load_backbone(net: nn.Module, path: str, what: str, key, marker: str,
     if not path or not os.path.exists(path):
         return False
     if os.path.isdir(path):
-        raise NotImplementedError(_ORBAX.format(what=what, path=path))
+        raise NotImplementedError(
+            f"{what}: {path!r} is a directory (an Orbax backbone of the JAX "
+            "package's tools/convert_weights.py); the port reads the "
+            "reference's backbone file it was converted from")
     try:
         sd = C.load_torch_state_dict(path, key=key)
     except Exception as e:

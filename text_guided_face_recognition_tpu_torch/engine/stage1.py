@@ -11,10 +11,14 @@ Counterpart of text_guided_face_recognition_tpu/engine/stage1.py
     TextHeading; or, with en_type LSTM or GRU (src/train_encoders_lstm.py),
     the RNN encoder in train mode (embedding dropout 0.5 from the same
     generator), no head, and its words masked past each caption's length;
-  * the loss cocktail gated by is_DAMSM / is_CLIP / is_ident_loss with the
-    reference's weights (DAMSM word + sentence terms, the sentence terms
-    off for an RNN encoder, ArcFace focal identity losses on both sides,
-    the CLIP-style global loss, for an RNN encoder the InfoNCE clip_loss);
+  * the loss cocktail gated by is_DAMSM / is_WRA / is_ident_loss /
+    is_CLIP / is_CMP with the reference's weights, summed in that order
+    (DAMSM word + sentence terms, the sentence terms off for an RNN
+    encoder; the word-region alignment loss of ops/wra.py, each word's
+    saliency its largest attention weight over its image's regions;
+    ArcFace focal identity losses on both sides; the CLIP-style global
+    loss, for an RNN encoder the InfoNCE clip_loss; the cross-modal
+    projection classification over `cmp.W`);
   * the three optimizer groups of engine/optim.py and the reference's
     epoch-edge learning-rate schedule, applied from the host (an RNN
     encoder's rate decays with the head's).
@@ -24,7 +28,10 @@ epoch loop keeps running metric sums on the device and syncs with the host
 once per epoch. `build_loss_fn` is the step's loss as a function of a batch
 on the device; a batch may carry precomputed backbone features (`img_gl`
 (B, 512) and `img_lc` (B, 256, S, S), NCHW) instead of `img`, which skips
-the backbone, as the JAX loss function allows.
+the backbone, as the JAX loss function allows. With
+`frozen_feature_cache` every batch does: the cache (engine/
+feature_cache.py) is refreshed at the start of each epoch, inside its
+timed window.
 
 Reference quirks kept as the JAX package keeps them: the text side trains
 by default (`compat_frozen_text: true` reproduces the reference's
@@ -56,7 +63,7 @@ from text_guided_face_recognition_tpu_torch.models.margins import (
     xavier_uniform_)
 from text_guided_face_recognition_tpu_torch.models.text_bert import TEXT_ARCHS
 
-__all__ = ["ClassWeight", "Stage1Model", "Stage1Trainer"]
+__all__ = ["ClassWeight", "CmpWeight", "Stage1Model", "Stage1Trainer"]
 
 
 class ClassWeight(nn.Module):
@@ -67,19 +74,30 @@ class ClassWeight(nn.Module):
         self.weight = nn.Parameter(torch.empty(num_classes, feat))
 
 
+class CmpWeight(nn.Module):
+    """The cross-modal projection classifier's W, (feat, num_classes),
+    normalised over its features (axis 0) in the loss."""
+
+    def __init__(self, feat: int, num_classes: int):
+        super().__init__()
+        self.W = nn.Parameter(torch.empty(feat, num_classes))
+
+
 class Stage1Model(nn.Module):
     """The trained modules, named as the JAX trainer's param tree:
     image_head, text_encoder, text_head (None with an RNN encoder),
-    image_cls, text_cls."""
+    image_cls, text_cls, cmp (None without is_CMP)."""
 
     def __init__(self, image_head: nn.Module, text_encoder: nn.Module,
-                 text_head: Optional[nn.Module], num_classes: int, feat: int):
+                 text_head: Optional[nn.Module], num_classes: int, feat: int,
+                 cmp: bool = False):
         super().__init__()
         self.image_head = image_head
         self.text_encoder = text_encoder
         self.text_head = text_head
         self.image_cls = ClassWeight(num_classes, feat)
         self.text_cls = ClassWeight(num_classes, feat)
+        self.cmp = CmpWeight(feat, num_classes) if cmp else None
 
 
 class Stage1Trainer(TrainerBase):
@@ -105,12 +123,17 @@ class Stage1Trainer(TrainerBase):
         text_encoder, text_head = prep.prepare_text_encoder(args, dev)
         feat = args.aux_feat_dim_per_granularity
         self.model = Stage1Model(image_head, text_encoder, text_head,
-                                 args.num_classes, feat)
+                                 args.num_classes, feat, bool(args.is_CMP))
         # class weights: xavier uniform (reference margins: image s=30,
-        # text s=35, both m=0.5), from the manual_seed generator
+        # text s=35, both m=0.5), then cmp's W normal, from the
+        # manual_seed generator
         gen = torch.Generator().manual_seed(int(args.manual_seed))
         for cls in (self.model.image_cls, self.model.text_cls):
             xavier_uniform_(cls.weight, gen)
+        if self.model.cmp is not None:
+            with torch.no_grad():
+                self.model.cmp.W.copy_(torch.randn(
+                    self.model.cmp.W.shape, generator=gen))
         self.model.to(dev).train()
 
         self.is_bert = args.en_type == "BERT"
@@ -128,6 +151,7 @@ class Stage1Trainer(TrainerBase):
         self.drop_gen = torch.Generator(device=dev).manual_seed(
             int(args.manual_seed) + 1)
         self.loss_fn = self.build_loss_fn()
+        self.init_feature_cache()
         self.start_epoch = 1
         self.steps = 0
         self.init_step(eager)
@@ -185,6 +209,21 @@ class Stage1Trainer(TrainerBase):
                 total = total + damsm
                 metrics.update(w_loss=w0 + w1, s_loss=s0 + s1,
                                damsm_loss=damsm)
+            if args.is_WRA:
+                # the saliency takes no gradient; its operands in their
+                # common dtype, as jnp.einsum promotes them
+                dt = torch.promote_types(words_emb.dtype, words_f.dtype)
+                with torch.no_grad():
+                    _, attn = ops.func_attention(words_emb.to(dt),
+                                                 words_f.to(dt), g.GAMMA1,
+                                                 query_mask=word_mask)
+                    saliency = attn.flatten(2).amax(-1)       # (B, T)
+                wra = ops.word_region_alignment_loss(
+                    words_emb.transpose(1, 2),                 # (B, T, D)
+                    words_f.flatten(2).transpose(1, 2),        # (B, H W, D)
+                    saliency, word_mask)
+                total = total + wra
+                metrics["wra_loss"] = wra
             if args.is_ident_loss:
                 t_logits = ops.arc_margin_logits(
                     sent_emb, m.text_cls.weight, class_ids, s=35.0, m=0.5)
@@ -200,6 +239,10 @@ class Stage1Trainer(TrainerBase):
                     else ops.clip_loss(sent_emb, img_f))
                 total = total + cl
                 metrics["clip_loss"] = cl
+            if args.is_CMP:
+                cmp = ops.cmpc_loss(sent_emb, img_f, class_ids, m.cmp.W)
+                total = total + cmp
+                metrics["cmp_loss"] = cmp
             metrics["total_loss"] = total
             return total, metrics
 
@@ -211,6 +254,7 @@ class Stage1Trainer(TrainerBase):
         args = self.args
         n = 0
         t0 = time.time()
+        self.refresh_features()       # inside the timed window
         acc = None
         for batch in self.train_dl:
             acc = self.train_step(self.to_device(batch), acc=acc)

@@ -26,7 +26,9 @@ focal loss (`model_type: arcface` and `loss: focal_loss`) or cross entropy.
 A training step is one forward, one backward and one optimizer step; the
 epoch loop keeps the running loss on the device and syncs with the host
 once per epoch. A batch may carry precomputed backbone features (`img_gl`,
-`img_lc`, NCHW) instead of `img`, as the JAX loss function allows. The text
+`img_lc`, NCHW) instead of `img`, as the JAX loss function allows; with
+`frozen_feature_cache` every batch does, from the cache refreshed at the
+start of each epoch (engine/feature_cache.py). The text
 side trains by default; `compat_frozen_text: true` reproduces the
 reference's no-gradient text path.
 """
@@ -116,6 +118,7 @@ class FusionTrainer(TrainerBase):
         self.drop_gen = torch.Generator(device=dev).manual_seed(
             int(args.manual_seed) + 2)
         self.loss_fn = self.build_loss_fn()
+        self.init_feature_cache()
         self.start_epoch = 1
         self.steps = 0
         self.init_step(eager)
@@ -176,6 +179,7 @@ class FusionTrainer(TrainerBase):
         args = self.args
         n = 0
         t0 = time.time()
+        self.refresh_features()       # inside the timed window
         acc = None
         for batch in self.train_dl:
             acc = self.train_step(self.to_device(batch), acc=acc)

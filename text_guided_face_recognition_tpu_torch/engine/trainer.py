@@ -1,8 +1,10 @@
 """What the stage-1 and stage-2 trainers share: moving a batch to the
 device, the step's dropout bits and seeds, the frozen backbone, one
 training step
-(forward, backward, optimizer), the per-group learning rates, and the
-resumable train-state artifact.
+(forward, backward, optimizer), the per-group learning rates, the
+frozen-feature cache's refresh, and the resumable train state: the port's
+own artifact, or the JAX package's exported by tools/
+export_jax_checkpoint.py.
 
 A subclass sets `args`, `device`, `backbone`, `model` (an nn.Module whose
 children are the optimizer's named modules), `opt` (engine/optim.
@@ -13,19 +15,19 @@ GroupedOptimizer), `lr` ({group: rate}), `arch`, `drop_gen`, `loss_fn`
 The compiled step. On a CUDA device a trainer runs its step as one CUDA
 graph of forward, backward and optimizer, the counterpart of the JAX
 package's `jax.jit(train_step, donate_argnums=(0,))`, unless it was made
-with `eager=True` (on the CPU it is always eager). The first
-WARMUP_STEPS steps run eagerly on the capture stream (the lazy set-up of
-the kernels: K2's arrival counters of that stream, the half-layer
-backwards' side stream, the libraries' first loads); the next step is
-captured and replayed, and every later one replayed. Each is a real step:
-N steps captured equal N eager steps. A replay reads the batch from static
-buffers it is copied into (the train loader drops its last batch, so
-shapes are fixed; a batch of another shape raises), and the dropout bits
-and seeds from static buffers that `drop_gen` fills before it, outside
-the graph, in the eager step's order. Learning rates and Adam counts are
-tensors the graph reads (engine/optim.py). A capture that fails raises:
-there is no eager fallback. The kernels' launch counters count at capture,
-not at replay.
+with `eager=True` (on the CPU it is always eager). The first WARMUP_STEPS
+steps run eagerly on the capture stream (the lazy set-up of the kernels:
+K2's arrival counters of that stream, the half-layer backwards' side stream,
+the libraries' first loads); the next step is captured and replayed, and
+every later one replayed. Each is a real step: N steps captured equal N
+eager steps. A replay reads the batch from static buffers it is copied into,
+one a key of the captured batch (`img`, or the cached `img_gl` and `img_lc`;
+the train loader drops its last batch, so shapes are fixed; a batch of other
+keys or shapes raises), and the dropout bits and seeds from static buffers
+that `drop_gen` fills before it, outside the graph, in the eager step's
+order. Learning rates and Adam counts are tensors the graph reads
+(engine/optim.py). A capture that fails raises: there is no eager fallback.
+The kernels' launch counters count at capture, not at replay.
 """
 
 from __future__ import annotations
@@ -37,9 +39,13 @@ import numpy as np
 import torch
 
 from text_guided_face_recognition_tpu_torch.engine.checkpoint import (
-    load_checkpoint, save_checkpoint)
+    is_jax_export, load_checkpoint, load_jax_export, save_checkpoint)
 from text_guided_face_recognition_tpu_torch.engine.evaluate import (
     backbone_features)
+from text_guided_face_recognition_tpu_torch.engine.feature_cache import (
+    FrozenFeatureCache)
+from text_guided_face_recognition_tpu_torch.engine.from_jax import (
+    optimizer_state_from_jax, state_dict_from_jax)
 from text_guided_face_recognition_tpu_torch.ops.dropout import (
     draw, draw_seeds)
 
@@ -59,10 +65,23 @@ class TrainerBase:
             self.opt.set_lr(group, lr)
 
     def to_device(self, batch) -> Dict[str, torch.Tensor]:
-        """A loader batch (numpy) on the device; string fields dropped."""
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device,
-                                                     non_blocking=True)
+        """A loader batch (numpy, or CPU tensors) on the device; string
+        fields dropped."""
+        return {k: (v if torch.is_tensor(v) else torch.as_tensor(
+                    np.asarray(v))).to(self.device, non_blocking=True)
                 for k, v in batch.items() if k != "key"}
+
+    def init_feature_cache(self) -> None:
+        """The frozen-feature cache when `frozen_feature_cache` is on."""
+        self.feat_cache = (FrozenFeatureCache(self.backbone, self.args,
+                                              self.device)
+                           if self.args.frozen_feature_cache else None)
+
+    def refresh_features(self) -> None:
+        """Before an epoch's first batch: the cache's refresh over the
+        train split (no batch of the epoch is made before it)."""
+        if self.feat_cache is not None:
+            self.feat_cache.refresh(self.train_ds)
 
     def draw_drop(self, b: int, t: int, out=(None, None)
                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
@@ -149,6 +168,11 @@ class TrainerBase:
                 if n_bits and n else None for n in (n_bits, n_seeds))
         sig = {k: (v.shape, v.dtype) for k, v in batch.items()}
         want = {k: (v.shape, v.dtype) for k, v in self._static.items()}
+        if sig.keys() != want.keys():
+            raise ValueError(f"the captured train step reads the batch keys "
+                             f"{sorted(want)}, got {sorted(sig)} (captured "
+                             "with or without the frozen-feature cache; "
+                             "eager=True takes any)")
         if sig != want:
             raise ValueError(f"the captured train step takes batches of "
                              f"{want}, got {sig} (the train loader drops "
@@ -200,9 +224,20 @@ class TrainerBase:
             "meta": {"epoch": epoch, "lr": dict(self.lr)}})
 
     def resume_from(self, path: str) -> None:
-        tree = load_checkpoint(path, map_location=self.device)
-        self.model.load_state_dict(tree["model"])
-        self.opt.load_state_dict(tree["optimizer"])
+        """The model, optimizer, learning rates and epoch of a train state:
+        the port's artifact, or a JAX package train state exported to
+        `.npz` (its parameters, batch statistics and optimizer state
+        through engine/from_jax.py)."""
+        if is_jax_export(path):
+            tree = load_jax_export(path)
+            self.model.load_state_dict(state_dict_from_jax(
+                tree["params"], tree.get("batch_stats"), module=self.model))
+            self.opt.load_state_dict(optimizer_state_from_jax(
+                tree.get("opt", {}), self.model, self.opt))
+        else:
+            tree = load_checkpoint(path, map_location=self.device)
+            self.model.load_state_dict(tree["model"])
+            self.opt.load_state_dict(tree["optimizer"])
         self.lr = {k: float(v) for k, v in tree["meta"]["lr"].items()}
         self._apply_lrs()
         self.start_epoch = int(tree["meta"]["epoch"]) + 1

@@ -27,10 +27,14 @@ from text_guided_face_recognition_tpu_torch.ops.layernorm import (  # noqa: F401
 )
 from text_guided_face_recognition_tpu_torch.ops.losses import (  # noqa: F401
     clip_loss,
+    clip_soft_loss,
+    cmpc_loss,
+    cmpm_loss,
     cosine_similarity,
     cross_entropy_rows,
     focal_loss,
     global_loss,
+    kl_loss,
     sent_loss,
     words_loss,
 )
@@ -42,4 +46,7 @@ from text_guided_face_recognition_tpu_torch.ops.philox import (  # noqa: F401
     attn_stream_bits,
     ffn_stream_bits,
     tower_stream_bits,
+)
+from text_guided_face_recognition_tpu_torch.ops.wra import (  # noqa: F401
+    word_region_alignment_loss,
 )

@@ -1,11 +1,12 @@
 """FCAM multi-granularity contrastive losses and the identity loss of the
 stage-1 recipe.
 
-Counterpart of text_guided_face_recognition_tpu/ops/losses.py (the terms
-the stage-1 trainers run: `global_loss` for BERT, `clip_loss` for LSTM and
-GRU). Batch-global semantics: every B x B matrix
-is over the whole batch. All losses return f32 scalars; upstream
-activations may be bf16.
+Counterpart of text_guided_face_recognition_tpu/ops/losses.py: the terms the
+stage-1 trainers run (`global_loss` for BERT, `clip_loss` for LSTM and GRU,
+`cmpc_loss` with is_CMP), and the reference's other losses (`cmpm_loss`,
+`clip_soft_loss`, `kl_loss`). Batch-global semantics: every B x B matrix is
+over the whole batch. All losses return f32 scalars; upstream activations
+may be bf16.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from text_guided_face_recognition_tpu_torch.ops.damsm import (
     damsm_similarity_fused)
 
 __all__ = ["cosine_similarity", "cross_entropy_rows", "sent_loss",
-           "words_loss", "global_loss", "clip_loss", "focal_loss"]
+           "words_loss", "global_loss", "clip_loss", "clip_soft_loss",
+           "cmpc_loss", "cmpm_loss", "focal_loss", "kl_loss"]
 
 
 def cosine_similarity(x1: torch.Tensor, x2: torch.Tensor, dim: int = 1,
@@ -108,6 +110,61 @@ def clip_loss(text_features: torch.Tensor, image_features: torch.Tensor,
     logits = logit_scale * (image_features.float() @ text_features.float().t())
     return (cross_entropy_rows(logits, labels)
             + cross_entropy_rows(logits.t(), labels)) / 2.0
+
+
+def clip_soft_loss(text_embeddings: torch.Tensor,
+                   image_embeddings: torch.Tensor,
+                   temperature: float) -> torch.Tensor:
+    """The soft-target CLIP variant (the reference's standalone
+    `clip_loss` function): targets are the softmax of the mean of the
+    image-image and text-text similarities times `temperature`, in f32."""
+    te, ie = text_embeddings.float(), image_embeddings.float()
+    logits = te @ ie.t() / temperature
+    sim = (ie @ ie.t() + te @ te.t()) / 2 * temperature
+    targets = torch.softmax(sim, dim=-1)
+    texts = (-targets * F.log_softmax(logits, dim=-1)).sum(1)
+    images = (-targets.t() * F.log_softmax(logits.t(), dim=-1)).sum(1)
+    return ((images + texts) / 2.0).mean()
+
+
+def _l2n(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return x / torch.linalg.vector_norm(x, dim=dim, keepdim=True)
+
+
+def cmpc_loss(text_embeddings: torch.Tensor, image_embeddings: torch.Tensor,
+              labels: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """Cross-modal projection classification (is_CMP): each side projected
+    on the other's direction, classified by the column-normalised W
+    (feat, num_classes), the two cross-entropies summed, in f32."""
+    w_norm = _l2n(W.float(), 0)
+    ie, te = image_embeddings.float(), text_embeddings.float()
+    image_norm, text_norm = _l2n(ie, 1), _l2n(te, 1)
+    image_proj_text = (ie * text_norm).sum(1, keepdim=True) * text_norm
+    text_proj_image = (te * image_norm).sum(1, keepdim=True) * image_norm
+    return (cross_entropy_rows(image_proj_text @ w_norm, labels)
+            + cross_entropy_rows(text_proj_image @ w_norm, labels))
+
+
+def cmpm_loss(text_embeddings: torch.Tensor, image_embeddings: torch.Tensor,
+              labels: torch.Tensor, epsilon: float = 1e-8) -> torch.Tensor:
+    """Cross-modal projection matching, the KL form, in f32; each row's
+    same-label mask is divided by its l2 norm, as the reference does."""
+    ie, te = image_embeddings.float(), text_embeddings.float()
+    mask = (labels[:, None] == labels[None, :]).float()
+    log_target = torch.log(mask / torch.linalg.vector_norm(mask, dim=1)
+                           + epsilon)
+
+    def kl(proj):
+        return (torch.softmax(proj, dim=1)
+                * (F.log_softmax(proj, dim=1) - log_target)).sum(1).mean()
+
+    return kl(ie @ _l2n(te, 1).t()) + kl(te @ _l2n(ie, 1).t())
+
+
+def kl_loss(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """The VAE KL divergence: -0.5 mean(1 + logvar - mu^2 - exp(logvar))."""
+    element = 1 + logvar - mu.square() - torch.exp(logvar)
+    return element.mean() * -0.5
 
 
 def focal_loss(logits: torch.Tensor, labels: torch.Tensor,
