@@ -2,7 +2,8 @@
 """On-card smoke run of the PyTorch/CUDA port (one NVIDIA GPU).
 
   python3 chip_smoke.py [--only kernels|launches|phases|prng|serving|train|
-                                stage2|step|damsm|weights|lstm|options]
+                                stage2|step|damsm|weights|lstm|options|
+                                parallel]
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
@@ -209,7 +210,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      cached step captured against eager bit for bit; host and device ms
      and busy share per step, median of 10 in turns, stage 1 with CMP+WRA
      against without and each stage with the cache against without,
-     beside the card's name and power limit.
+     beside the card's name and power limit;
+ 12. parallel (`--only parallel` runs it alone, building the six sources):
+     data parallelism over torch.distributed at full width, the ranks
+     processes of this script (`--dp_rank`) launched with torchrun's
+     variables, their logs and results under
+     checkpoints/chip_smoke_parallel/: (a)
+     two gloo ranks sharing the card, eager, host bits: a stage-1 step (as
+     in 6, B 32, 16 a rank) and a stage-2 step (as in 7, B 16, 8 a rank),
+     in bf16 and in f32, each rank's gradients against one process's step
+     on the same global batch, weights and bits (whose backbone features
+     are made at the ranks' batch size: cuDNN's bf16 convolutions round by
+     batch size) under the one-step rule (ON_OFF_TOL; in f32 also 1e-4 of
+     each parameter's norm and its largest element), with each rank's
+     launch counts against that step's (K9 on the global 32 captions), a
+     planted gather whose backward sums over the ranks that must fail, one
+     pair batch of 33 pairs within SCORE_TOL of one process, and the
+     captured step refused under gloo; (b) one NCCL rank: the stage-1 step
+     captured with its collectives, bit for bit against eager steps after
+     3 and 6 steps, then the stage-1 entry point (cli.train_encoders_bert
+     through cli.run, as `python -m` runs it) under the launcher's
+     variables, captured, two epochs of two steps, which must write rank
+     0's checkpoints and leave the process group with its graph closed
+     within CLI_TIMEOUT; (c) where there are two cards, two NCCL ranks, a
+     card each: captured stage-1 steps against one process and against
+     eager steps bit for bit, the device-time split of a rank's step and
+     of one process's at the global batch (`_split`), the gradient
+     reduction against two other designs (`_reduce_ab`), and the entry
+     point as
+     in (b) on both ranks (else a line says why (c) did not run). Host and
+     device ms a step per rank, and the collectives' share. `--dp_parts`
+     (default abc) runs some of (a), (b), (c).
 Each kernel launches on at least one driven path, and on each path exactly
 the expected number of times. The last two lines are the `kernels` JSON
 line and the result line.
@@ -284,6 +315,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -2129,13 +2161,17 @@ def _profile(step, reps: int = 3, what: str = "pair batch") -> dict:
         g = group(e.key)
         by_group[g] = by_group.get(g, 0.0) + e.self_device_time_total
     top = sorted(by_group.items(), key=lambda kv: -kv[1])[:12]
+    kernels = {}        # names cut to 120 characters; those alike add up
+    for e in dev:
+        ms, n = kernels.get(e.key[:120], (0.0, 0.0))
+        kernels[e.key[:120]] = (ms + e.self_device_time_total / reps / 1e3,
+                                n + e.count / reps)
     return {what + "es" if what.endswith("batch") else what + "s": reps,
             "wall_ms_per_call": wall_us / reps / 1e3,
             "device_ms_per_call": busy_us / reps / 1e3,
             "device_busy_share_profiled": busy_us / wall_us,
             "top_ms_per_call": {k: v / reps / 1e3 for k, v in top},
-            "kernels": {e.key[:120]: (e.self_device_time_total / reps / 1e3,
-                                      e.count / reps) for e in dev}}
+            "kernels": kernels}
 
 
 def _show(profile: dict) -> dict:
@@ -2150,6 +2186,25 @@ def _counts(kernels):
 def _zero(kernels):
     for fn in kernels.values():
         fn.launches = 0
+
+
+def kernel_fns() -> dict:
+    """{name: wrapper} of the twelve kernels; each wrapper counts its
+    launches in `launches`."""
+    from text_guided_face_recognition_tpu_torch.ops import (
+        block, damsm, layernorm, philox)
+    return {"layernorm_fused": layernorm.layernorm_fused,
+            "layernorm_bwd": layernorm.layernorm_bwd,
+            "attn_block": block.attn_block,
+            "attn_block_bwd": block.attn_block_bwd,
+            "ffn_block": block.ffn_block,
+            "ffn_block_bwd": block.ffn_block_bwd,
+            "tower_block": block.tower_block,
+            "tower_block_bwd": block.tower_block_bwd,
+            "damsm_similarity": damsm.damsm_similarity_cuda,
+            "attn_stream_bits": philox.attn_stream_bits,
+            "ffn_stream_bits": philox.ffn_stream_bits,
+            "tower_stream_bits": philox.tower_stream_bits}
 
 
 def slice_phase(args, kernels):
@@ -4429,6 +4484,749 @@ def options_phase(kernels) -> dict:
     return paths
 
 
+# ------------------------------------------------------------ parallel --
+# Data parallelism (`--only parallel`): the ranks are processes of this
+# script (`--dp_rank`), launched as torchrun would launch them.
+
+PARALLEL_TIMEOUT = 300
+# an entry point's run in the parallel phase, process start to exit: a
+# rank left hanging in the process group's teardown fails it
+CLI_TIMEOUT = 180
+LOSS_KEY = {"stage1": "total_loss", "stage2": "loss"}
+
+
+def _dp_configs() -> dict:
+    """The phase's configurations: stage 1 as cfg/train_bert.yml trains
+    (bert-base, B 32, 4500 classes, bf16, fused_block both, fused_ln,
+    use_pallas) in host mode, stage 2 as cfg/fusion_bert.yml (B 16,
+    fused_block tower, fused_ln) in host mode, serving as phase 5 with one
+    pair batch of 33 pairs."""
+    from text_guided_face_recognition_tpu_torch.config import load_yaml
+
+    def cfg(name, **kw):
+        return load_yaml(os.path.join(ROOT, "cfg", name)).replace(
+            synthetic=True, compute_dtype="bfloat16", fused_ln=True,
+            fused_dropout=True, checkpoints_path="", **kw)
+
+    return {"stage1": cfg("train_bert.yml", fused_block="both",
+                          use_pallas=True, batch_size=32),
+            "stage2": cfg("fusion_bert.yml", fused_block="tower"),
+            "serving": cfg("test.yml", fused_block="both", batch_size=33,
+                           is_roc=False, is_ident=False,
+                           eval_table_mode=False)}
+
+
+def _dp_grad_check(got: dict, ref: dict, loss: float, loss_ref: float,
+                   dtype: str, stage: str) -> dict:
+    """A rank's step against one process's, under the rule the script holds
+    one training step to (kernels on against off: ON_OFF_TOL, stage 2
+    ON_OFF_TOL_STAGE2): the loss, each top-level module's ||d|| / ||g_ref||
+    and each parameter's max |d| / (max |g_ref| + k G), d = g - g_ref, G
+    the largest reference gradient element. In f32 also per parameter
+    ||d|| <= 1e-4 ||g_ref|| + k G sqrt(n) and the kernels' backward rule
+    max |d| <= 1e-4 max(1, max |g_ref|). In bf16 those two are read, not
+    held: the ranks' GEMMs and convolutions run at half the batch, where
+    cuBLAS and cuDNN choose other algorithms, and the BatchNorm sums add in
+    another order, so bf16 roundings flip, and a bias whose gradient is
+    zero in exact arithmetic (before a train-mode BatchNorm) keeps only
+    that noise. Returns the readings and "ok"."""
+    import torch
+    tol = (ON_OFF_TOL_STAGE2 if stage == "stage2" else ON_OFF_TOL)[dtype]
+    big = max(float(g.abs().max()) for g in ref.values())
+    worst = {"kernel_rule": (0.0, ""), "norm_rule": (0.0, ""),
+             "max": (0.0, "")}
+    sums = {}
+    for name, r in ref.items():
+        d = got[name].float() - r.float()
+        dmax, rmax = float(d.abs().max()), float(r.abs().max())
+        dn = float(torch.linalg.vector_norm(d))
+        rn = float(torch.linalg.vector_norm(r.float()))
+        for key, v in (
+                ("kernel_rule", dmax / (TOL[dtype] * max(1.0, rmax))),
+                ("norm_rule", dn / (TOL[dtype] * rn + tol["floor"] * big
+                                    * math.sqrt(r.numel())) if dn else 0.0),
+                ("max", dmax / (rmax + tol["floor"] * big) if dmax
+                 else 0.0)):
+            worst[key] = max(worst[key], (v, name))
+        acc = sums.setdefault(name.split(".")[0], [0.0, 0.0])
+        acc[0] += dn ** 2
+        acc[1] += rn ** 2
+    l2 = {mod: math.sqrt(e / n) if n else math.sqrt(e)
+          for mod, (e, n) in sums.items()}
+    loss_rel = abs(loss - loss_ref) / abs(loss_ref)
+    ok = (loss_rel <= tol["loss"] and worst["max"][0] <= tol["max"]
+          and all(l2[mod] <= _l2_tol(tol, mod) for mod in l2))
+    if dtype == "float32":
+        ok = ok and worst["kernel_rule"][0] <= 1.0 and \
+            worst["norm_rule"][0] <= 1.0
+    return {"ok": ok, "loss_rel": loss_rel, "l2": l2,
+            **{f"worst_{k}": v for k, v in worst.items()}}
+
+
+def _param_grads(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+class _CollectiveClock:
+    """Wall time inside torch.distributed's all_gather and all_reduce
+    (synchronised on both sides), and the calls made while the calling
+    thread's stream is being captured (`captured`); every call counted by
+    collective, thread and capture (`by_thread`)."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.dist, self.saved = dist, {}
+        self.seconds, self.calls, self.captured = 0.0, 0, 0
+        self.by_thread = {}
+
+    def __enter__(self):
+        import threading
+
+        import torch
+        for name in ("all_gather", "all_reduce"):
+            fn = self.saved[name] = getattr(self.dist, name)
+
+            def timed(*a, _fn=fn, _name=name, **k):
+                self.calls += 1
+                capturing = torch.cuda.is_current_stream_capturing()
+                key = (f"{_name} on {threading.current_thread().name}"
+                       + (", capturing" if capturing else ""))
+                self.by_thread[key] = self.by_thread.get(key, 0) + 1
+                if capturing:
+                    self.captured += 1
+                    return _fn(*a, **k)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **k)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                return out
+
+            setattr(self.dist, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+
+def _nccl_kernels(fn) -> int:
+    """Device kernels whose name holds "nccl" in one call of fn
+    (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and "nccl" in e.name.lower())
+
+
+def _split(prof: dict) -> dict:
+    """A `_profile` result's device ms a call by kind of kernel: the
+    port's kernels, cuBLAS/CUTLASS GEMMs, cuDNN convolutions, NCCL,
+    the optimizer's multi-tensor kernels, copies and fills, and the rest
+    (elementwise, reductions, norms)."""
+    kinds = (("port kernels", ("tower_", "hl_gemm", "gemm_kernel",
+                               "attention_mma", "attention_core",
+                               "layernorm_", "colsum", "damsm_kernel")),
+             ("nccl", ("nccl",)),
+             ("optimizer (multi-tensor)", ("multi_tensor", "foreach")),
+             ("cuBLAS/CUTLASS GEMM", ("gemm", "xmma", "cutlass", "gemv",
+                                      "sm90_", "sm80_")),
+             ("cuDNN convolution", ("conv", "implicit", "winograd",
+                                    "fprop", "dgrad", "wgrad")),
+             ("copies and fills", ("memcpy", "memset", "copy_", "fill_")))
+    out = {"device_ms": prof.get("device_ms_per_call", "not measured")}
+    for name, (ms, _) in prof.get("kernels", {}).items():
+        low = name.lower()
+        kind = next((k for k, keys in kinds if any(w in low for w in keys)),
+                    "other")
+        out[kind] = out.get(kind, 0.0) + ms
+    return out
+
+
+def _reduce_ab(tr, reps: int = 10) -> dict:
+    """Three designs of the gradient reduction on the trainer's gradients:
+    the trainer's, its persistent flat buckets that the gradients live in
+    as views (`attach_buckets`: the bucket's fill and the backward's
+    accumulation, here an add, then one all-reduce), against each bucket's
+    gradients flattened into a new tensor, all-reduced and copied back,
+    and one coalesced NCCL call of a bucket's tensors in place. Device ms
+    a call (CUDA events, median of `reps`, in turns); every rank makes the
+    same calls."""
+    import torch
+    import torch.distributed as dist
+
+    buckets = [[p.grad.clone() for p in params]
+               for _, params, _ in tr._buckets]
+
+    def bucket_views():
+        for (flat, _, views), grads in zip(tr._buckets, buckets):
+            flat.zero_()
+            torch._foreach_add_(views, grads)
+            dist.all_reduce(flat)
+
+    def flat_copy():
+        for grads in buckets:
+            f = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(f)
+            torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(
+                f.split([g.numel() for g in grads]), grads)])
+
+    def coalesced():
+        for grads in buckets:
+            with dist._coalescing_manager():
+                for g in grads:
+                    dist.all_reduce(g)
+
+    times = {"bucket_views": [], "flat_copy": [], "coalesced": []}
+    for _ in range(reps):
+        for name, fn in (("bucket_views", bucket_views),
+                         ("flat_copy", flat_copy), ("coalesced", coalesced)):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {"bytes": sum(g.numel() * g.element_size() for b in buckets
+                         for g in b),
+            "tensors": sum(len(b) for b in buckets),
+            **{f"{k}_ms": statistics.median(v) for k, v in times.items()},
+            **{f"{k}_ms_all": v for k, v in times.items()}}
+
+
+def _dp_reference(cls, args, dev, kernels, tag: str, world: int,
+                  steps: int = 0) -> dict:
+    """One process's step on the global batch (this card, no process
+    group): the train loader's first batch, the weights from manual_seed,
+    the first dropout draw of drop_gen; its gradients, loss, launch counts
+    and, with `steps`, the losses of that many steps of the captured
+    trainer on the batch (the first three eager, then the capture and its
+    replays) and the device-time split of a replay (`_split`).
+    The frozen backbone's features enter the batch (img_gl, img_lc), made
+    `world` chunks at a time as the ranks make theirs in their steps: cuDNN
+    picks its bf16 convolution by batch size, and the features of one
+    batch of B and of two of B / 2 differ by rounding (`backbone_chunks`:
+    the largest difference), which is not the data parallelism's to
+    answer for."""
+    import torch
+    t0 = time.perf_counter()
+    tr = cls(args, dev, eager=not steps)
+    batch = next(iter(tr.train_dl))
+    gen = tr.drop_gen.get_state()
+    dev_batch = tr.to_device(batch)
+    img = dev_batch.pop("img")
+    bl = img.shape[0] // world
+    parts = [tr.image_features(img[i * bl:(i + 1) * bl])
+             for i in range(world)]
+    dev_batch["img_gl"] = torch.cat([p[0] for p in parts])
+    dev_batch["img_lc"] = torch.cat([p[1] for p in parts])
+    whole = tr.image_features(img)
+    chunks = max(float((a - b).abs().max()) for a, b in zip(
+        whole, (dev_batch["img_gl"], dev_batch["img_lc"])))
+    _zero(kernels)
+    total, _ = tr.compute_grads(dev_batch)
+    torch.cuda.synchronize()
+    out = {"keys": [str(k) for k in batch["key"]], "gen": gen,
+           "loss": float(total), "grads": _param_grads(tr.model),
+           "counts": _counts(kernels), "backbone_chunks": chunks}
+    if steps:
+        tr.drop_gen.set_state(gen)
+        out["losses"] = [float(tr.train_step(dev_batch)[LOSS_KEY[tag]])
+                         for _ in range(steps)]
+        out["split"] = _split(_profile(lambda: tr.train_step(dev_batch),
+                                       reps=3, what="step"))
+        tr.close()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _dp_stage(cls, args, dev, kernels, ref: dict, captured: bool, tag: str,
+              full: bool, failures: list) -> dict:
+    """This rank's step: its rows of the global batch (the loader's
+    process shard), the same weights and dropout stream as the reference;
+    counts zeroed just before and read just after (and K9's operand
+    shapes); the gradients against the reference's (`_dp_grad_check`).
+    With `full`: in stage 1 a gather whose backward sums over the ranks,
+    which the check must fail; host and device ms per step and the
+    collectives' share. `captured`: the trainer's captured steps (six: the
+    first three eager, the fourth captured). A failed check is appended to
+    `failures`."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.engine import stage1 as s1
+    from text_guided_face_recognition_tpu_torch.ops import losses
+    from text_guided_face_recognition_tpu_torch.parallel import (
+        contrastive, mesh)
+
+    t0 = time.perf_counter()
+    rank, world = mesh.rank(), mesh.world_size()
+    what = f"parallel ({tag}, {args.compute_dtype})"
+    tr = cls(args, dev, eager=not captured)
+    batch = next(iter(tr.train_dl))
+    keys = [str(k) for k in batch["key"]]
+    bl = len(keys)
+    if bl * world != args.batch_size or \
+            keys != ref["keys"][rank * bl:(rank + 1) * bl]:
+        failures.append(f"{what}: rank {rank} loads {keys}, not its rows "
+                        "of the global batch")
+    tr.drop_gen.set_state(ref["gen"])
+    dev_batch = tr.to_device(batch)
+    shapes = []
+    orig = losses.damsm_similarity_fused       # K9's caller in words_loss
+
+    def recorded(words, *a, **k):
+        shapes.append(tuple(words.shape))
+        return orig(words, *a, **k)
+
+    losses.damsm_similarity_fused = recorded
+    _zero(kernels)
+    try:
+        if captured:     # the first of the captured trainer's steps
+            total = tr.train_step(dev_batch)[LOSS_KEY[tag]]
+        else:
+            total, _ = tr.compute_grads(dev_batch)
+        torch.cuda.synchronize()
+    finally:
+        losses.damsm_similarity_fused = orig
+    counts = _counts(kernels)
+    check = _dp_grad_check(_param_grads(tr.model), ref["grads"],
+                           float(total), ref["loss"], args.compute_dtype, tag)
+    out = {"rows": bl, "loss": float(total), "loss_one_process": ref["loss"],
+           "counts": counts, "damsm_words": shapes, "check": check,
+           "backbone_chunks_vs_whole": ref["backbone_chunks"]}
+    if counts != ref["counts"]:
+        failures.append(f"{what}: rank {rank} launches {counts}, one "
+                        f"process {ref['counts']}")
+    if not check["ok"]:
+        failures.append(f"{what}: rank {rank} against one process: "
+                        f"{json.dumps(check)}")
+    if full and tag == "stage1":
+        saved = s1.gather_global_negatives
+        s1.gather_global_negatives = (
+            lambda x: contrastive._gather_rows(x, summed=True))
+        try:
+            tr.drop_gen.set_state(ref["gen"])
+            fault_total, _ = tr.compute_grads(dev_batch)
+        finally:
+            s1.gather_global_negatives = saved
+        planted = _dp_grad_check(_param_grads(tr.model), ref["grads"],
+                                 float(fault_total), ref["loss"],
+                                 args.compute_dtype, tag)
+        out["planted_summed_gather"] = planted
+        if planted["ok"]:
+            failures.append(f"{what}: a gather whose backward sums over the "
+                            f"ranks passed the check: {planted}")
+    if captured:
+        losses_ = [float(total)] + [
+            float(tr.train_step(dev_batch)[LOSS_KEY[tag]]) for _ in range(5)]
+        out["losses"], out["replays"] = losses_, tr.graph_replays
+        tol = ON_OFF_TOL[args.compute_dtype]["loss"]
+        if tr.graph_replays != 6 - tr.WARMUP_STEPS or any(
+                abs(a - b) > tol * abs(b)
+                for a, b in zip(losses_, ref["losses"])):
+            failures.append(f"{what}: captured losses {losses_} against one "
+                            f"process {ref['losses']} (replays "
+                            f"{tr.graph_replays})")
+        out["nccl_kernels_in_a_replay"] = _nccl_kernels(
+            lambda: tr.train_step(dev_batch))
+        if not out["nccl_kernels_in_a_replay"]:
+            failures.append(f"{what}: no NCCL kernel in a replay")
+    if full:
+        def step():
+            tr.train_step(dev_batch)
+
+        host = []
+        with _CollectiveClock() as clock:
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t1) * 1e3)
+        prof = _profile(step, reps=1, what="step")
+        nccl = sum(v[0] for k, v in prof.get("kernels", {}).items()
+                   if "nccl" in k.lower())
+        ms = statistics.median(host)
+        if captured:
+            out["split"] = _split(_profile(step, reps=3, what="step"))
+            out["split_one_process"] = ref.get("split")
+            out["reduction"] = _reduce_ab(tr)
+        out["timing"] = {
+            "host_ms": ms, "host_ms_all": host,
+            "device_ms": prof.get("device_ms_per_call", "not measured"),
+            "collectives_host_ms": clock.seconds * 1e3 / 3,
+            "collectives_host_share": (clock.seconds * 1e3 / 3 / ms
+                                       if not captured else "captured"),
+            "nccl_device_ms": nccl,
+            "top_device_ms": prof.get("top_ms_per_call")}
+    tr.close()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _dp_pairs(args, dev, kernels) -> tuple:
+    """One pair batch of 33 pairs through predict_pairs (sharded under a
+    process group): (scores, launch counts)."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.engine import prepare as prep
+    from text_guided_face_recognition_tpu_torch.engine.evaluate import (
+        predict_pairs)
+    dl, ds = prep.prepare_dataloader(args, "test")
+    ds.imgs_pair, ds.pair_label = ds.imgs_pair[:33], ds.pair_label[:33]
+    te, th = prep.prepare_text_encoder(args, dev)
+    mods = (prep.prepare_backbone(args, dev), prep.prepare_image_head(
+        args, dev), prep.prepare_fusion_net(args, dev), te, th)
+    _zero(kernels)
+    preds, _ = predict_pairs(args, dl, *mods)
+    torch.cuda.synchronize()
+    return preds, _counts(kernels)
+
+
+def _dp_captured(cfg, dev) -> dict:
+    """The captured data-parallel stage-1 step against eager steps bit for
+    bit (`_captured_vs_eager`), with the collectives counted; the trainers
+    and their graph are gone when it returns (a process group left with a
+    graph of its collectives alive hung on two cards)."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.engine.stage1 import (
+        Stage1Trainer)
+    with _CollectiveClock() as clock:
+        _, graphed, _, batch, cmp = _captured_vs_eager(Stage1Trainer, cfg,
+                                                       dev)
+    out = {"captured_vs_eager": cmp, "collectives": clock.by_thread,
+           "collectives_in_capture": clock.captured,
+           "nccl_kernels_in_a_replay": _nccl_kernels(
+               lambda: graphed.train_step(batch)),
+           "graph": graphed.graph is not None}
+    graphed.close()
+    del graphed, batch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_cli(out_dir: str) -> None:
+    """One rank of the stage-1 entry point under the launcher's variables
+    (`--dp_rank cli`): cli.train_encoders_bert.main through cli.run, as
+    `python -m` runs it (the step captured, two epochs of two steps; run
+    closes the trainer and leaves the group), then this rank's record to
+    out_dir/rank{RANK}.json: what the trainer held at the end of main,
+    the files rank 0 wrote, and whether the group was left."""
+    from text_guided_face_recognition_tpu_torch.cli import (
+        run, train_encoders_bert)
+    from text_guided_face_recognition_tpu_torch.parallel import mesh
+
+    rank = int(os.environ["RANK"])
+    ckpt = os.path.join(out_dir, "checkpoints")
+    res = {"rank": rank, "mode": "cli"}
+    t0 = time.perf_counter()
+
+    def main():
+        tr = train_encoders_bert.main([
+            "--cfg", os.path.join(ROOT, "cfg", "train_bert.yml"),
+            "--synthetic", "--fused_block", "both", "--fused_ln",
+            "--use_pallas", "--compute_dtype", "bfloat16", "--batch_size",
+            "32", "--checkpoints_path", ckpt, "--max_steps", "2",
+            "--max_epoch", "2"])
+        res.update(backend=mesh.backend(), world=mesh.world_size(),
+                   steps=tr.steps, graph=tr.graph is not None,
+                   replays=tr.graph_replays, rows=tr.train_dl.batch_size
+                   // mesh.world_size(), save_dir=tr.save_dir(),
+                   expect=[f"{tr.args.model_type}_image_encoder_2",
+                           f"{tr.args.bert_type}_text_encoder_2",
+                           "train_state_2"])
+        return tr
+
+    run(main)
+    res["group_left"] = not mesh.active()
+    res["saved"] = (sorted(os.listdir(res["save_dir"]))
+                    if os.path.isdir(res["save_dir"]) else [])
+    res["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _check_cli(runs: list, world: int, tag: str) -> str:
+    """The entry point's ranks (`dp_cli`): each captured its step and left
+    the group, rank 0 wrote the last epoch's three files (the prune keeps
+    the newest); a line for the log."""
+    bad = [r for r in runs if r["world"] != world or r["backend"] != "nccl"
+           or r["steps"] != 4 or not r["graph"] or r["replays"] != 1
+           or not r["group_left"]]
+    if len(runs) != world or bad or \
+            not set(runs[0]["expect"]) <= set(runs[0]["saved"]):
+        raise AssertionError(f"parallel ({tag}) entry point: {runs}")
+    return (f"the entry point on {world} NCCL rank(s): 4 steps (the fourth "
+            f"captured), rank 0 wrote {runs[0]['saved']}, every rank left "
+            f"the group, {max(r['seconds'] for r in runs):.1f} s")
+
+
+def dp_rank(mode: str, out_dir: str) -> None:
+    """One rank of the parallel phase (`--dp_rank`; RANK, WORLD_SIZE,
+    LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT set by the
+    launcher). Modes: "gloo" (two ranks sharing one card, eager steps),
+    "nccl1" (one rank over NCCL, the captured step with its collectives
+    against eager steps bit for bit), "nccl2" (a rank a card, captured).
+    The stage steps run in bf16 (the configs') and once more in f32, whose
+    rounding leaves the data parallelism's own differences in sight.
+    Writes its results to out_dir/rank{RANK}.json, then raises if a check
+    failed."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.engine.stage1 import (
+        Stage1Trainer)
+    from text_guided_face_recognition_tpu_torch.engine.stage2 import (
+        FusionTrainer)
+    from text_guided_face_recognition_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    world = int(os.environ["WORLD_SIZE"])
+    local = int(os.environ["LOCAL_RANK"])
+    dev = torch.device("cuda", local % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    kernels = kernel_fns()
+    cfgs = _dp_configs()
+    res = {"rank": rank, "mode": mode, "device": str(dev)}
+    failures = []
+    t0 = time.perf_counter()
+    if mode == "nccl1":
+        mesh.init_group(dev, "nccl", 0, 1, "env://")
+        res["backend"] = mesh.backend()
+        res.update(_dp_captured(cfgs["stage1"], dev))
+    else:
+        runs = [("stage1", Stage1Trainer, "bfloat16"),
+                ("stage1", Stage1Trainer, "float32")]
+        if mode == "gloo":
+            runs += [("stage2", FusionTrainer, "bfloat16"),
+                     ("stage2", FusionTrainer, "float32")]
+        refs = [_dp_reference(cls, cfgs[tag].replace(compute_dtype=dt), dev,
+                              kernels, tag, world,
+                              steps=6 if mode == "nccl2" and
+                              dt == "bfloat16" else 0)
+                for tag, cls, dt in runs]
+        if mode == "gloo":
+            pairs_ref, pair_counts_ref = _dp_pairs(cfgs["serving"], dev,
+                                                   kernels)
+        res["reference_s"] = time.perf_counter() - t0
+        mesh.init_from_env(cpu=False)
+        res["backend"] = mesh.backend()
+        want = "gloo" if mode == "gloo" else "nccl"
+        if res["backend"] != want:
+            raise AssertionError(f"{mode}: backend {res['backend']}")
+        # CUDA tensors through the backend's collectives
+        x = torch.full((3,), float(rank + 1), device=dev)
+        got = mesh.all_gather_rows(x)
+        mesh.all_reduce_sum_(x)
+        if got.tolist() != [float(r + 1) for r in range(world)
+                            for _ in range(3)] or \
+                x.tolist() != [world * (world + 1) / 2] * 3:
+            raise AssertionError(f"{mode}: collectives of CUDA tensors gave "
+                                 f"{got.tolist()} and {x.tolist()}")
+        for (tag, cls, dt), ref in zip(runs, refs):
+            full = dt == "bfloat16"     # f32: the gradients of one step
+            res[tag if full else f"{tag}_f32"] = _dp_stage(
+                cls, cfgs[tag].replace(compute_dtype=dt), dev, kernels, ref,
+                mode == "nccl2" and full, tag, full, failures)
+        if mode == "nccl2":     # the captured DP step against eager DP
+            res.update(_dp_captured(cfgs["stage1"], dev))
+        if mode == "gloo":
+            preds, counts = _dp_pairs(cfgs["serving"], dev, kernels)
+            diff = max(abs(a - b) for a, b in zip(preds, pairs_ref))
+            res["pairs"] = {"pairs": len(preds), "max_abs_diff": diff,
+                            "counts": counts,
+                            "counts_one_process": pair_counts_ref}
+            if len(preds) != 33 or diff > SCORE_TOL or \
+                    counts != pair_counts_ref:
+                failures.append(f"pairs: {res['pairs']}")
+            if rank == 0:       # the captured step under gloo raises
+                try:
+                    FusionTrainer(cfgs["stage2"], dev)
+                except RuntimeError as e:
+                    res["captured_under_gloo"] = str(e)[:160]
+                else:
+                    failures.append("a captured step under gloo was made")
+        mesh.barrier()
+    if "captured_vs_eager" in res:
+        if not all(v["bitwise"] for v in res["captured_vs_eager"].values()):
+            failures.append(f"captured against eager "
+                            f"{res['captured_vs_eager']}")
+        if not res["collectives_in_capture"] or not res["graph"]:
+            failures.append("no collective in the captured step")
+    res["seconds"] = time.perf_counter() - t0
+    res["failures"] = failures
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    mesh.shutdown()
+    if failures:
+        raise AssertionError(f"parallel {mode} rank {rank}: " +
+                             "; ".join(failures))
+
+
+def _launch_ranks(mode: str, world: int, out_dir: str) -> list:
+    """Start `world` ranks of this script in `mode` with the variables
+    torchrun sets (LOCAL_WORLD_SIZE `world` on this host), wait for all,
+    kill any left on failure (`timeout` seconds at most; PARALLEL_TIMEOUT,
+    or CLI_TIMEOUT in mode "cli"); returns each rank's results, or raises
+    with their failures."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+        env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        log = open(os.path.join(out_dir, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--dp_rank", mode, "--dp_dir", out_dir], env=env, cwd=ROOT,
+            stdout=log, stderr=subprocess.STDOUT), log))
+    deadline = time.time() + (CLI_TIMEOUT if mode == "cli"
+                              else PARALLEL_TIMEOUT)
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            if time.time() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    out, bad = [], []
+    timed_out = time.time() > deadline
+    for r, (p, _) in enumerate(procs):
+        path = os.path.join(out_dir, f"rank{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                out.append(json.load(f))
+            print(f"parallel {mode} rank {r}: {json.dumps(out[-1])}",
+                  flush=True)
+        if p.returncode != 0:
+            with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+                cut = " (killed at the time limit)" if timed_out else ""
+                bad.append(f"rank {r} exited {p.returncode}{cut}:\n"
+                           f"{f.read()[-3000:]}")
+    if bad:
+        raise AssertionError(f"parallel {mode}: " + "\n".join(bad))
+    return out
+
+
+def parallel_phase(kernels, parts: str = "abc") -> dict:
+    """Data parallelism over torch.distributed at full width (`--only
+    parallel`): (a) two ranks over gloo sharing this card, eager: a stage-1
+    step (cfg/train_bert.yml: B 32, 16 a rank) and a stage-2 step
+    (cfg/fusion_bert.yml: B 16) in host mode, bf16 and f32, each rank's
+    gradients against one process's step on the same global batch and bits
+    (`_dp_grad_check`), its launch counts against that step's (K9 on the
+    global B 32), a planted gather whose backward sums over the ranks
+    failing the check, one pair batch of 33 pairs within SCORE_TOL of one
+    process, and the captured step refused under gloo; (b) one rank over
+    NCCL: the stage-1 step captured with its collectives, bit for bit
+    against eager steps after 3 and 6 steps, then the stage-1 entry point
+    on that rank (`dp_cli`); (c) with two cards or more, two ranks over
+    NCCL, a card each, captured stage-1 steps against one process and
+    against eager steps bit for bit, the device-time split of a rank's
+    step and of one process's, the reduction against two other designs,
+    and the entry point on both ranks. Host and device ms per step of each
+    rank (one shared card in (a): not a scaling result). `parts` picks
+    some of a, b, c. Returns {path: (counts, counts per call)} of rank 0
+    in (a), bf16 ({} without (a))."""
+    import torch
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    base = os.path.join(ROOT, "checkpoints", "chip_smoke_parallel")
+    paths = {}
+    if "a" in parts:
+        a = _launch_ranks("gloo", 2, os.path.join(base, "a"))
+        ta = time.perf_counter() - t0
+        for tag in ("stage1", "stage2", "pairs"):
+            if a[0][tag]["counts"] != a[1][tag]["counts"]:
+                raise AssertionError(f"parallel (a) {tag}: ranks launch "
+                                     f"{a[0][tag]['counts']} and "
+                                     f"{a[1][tag]['counts']}")
+        words = {tuple(s) for r in a for s in r["stage1"]["damsm_words"]}
+        if len(words) != 1 or next(iter(words))[0] != 32:
+            raise AssertionError(f"parallel (a): K9 took words {words}, not "
+                                 "the global batch of 32")
+        print(f"parallel (a): two gloo ranks sharing one card "
+              f"({card_line()}; not a scaling result), {ta:.1f} s; captured "
+              f"step under gloo refused: {a[0]['captured_under_gloo']}",
+              flush=True)
+        paths = {f"parallel_{tag}": (a[0][k]["counts"], a[0][k]["counts"])
+                 for tag, k in (("stage1_step", "stage1"),
+                                ("stage2_step", "stage2"),
+                                ("pair_batch", "pairs"))}
+    if "b" in parts:
+        t1 = time.perf_counter()
+        b = _launch_ranks("nccl1", 1, os.path.join(base, "b"))[0]
+        print(f"parallel (b) one rank over NCCL: captured against eager "
+              f"{json.dumps(b['captured_vs_eager'])}, collectives issued in "
+              f"the capture {b['collectives_in_capture']} (every call by "
+              f"thread: {b['collectives']}), NCCL kernels in a replay "
+              f"{b['nccl_kernels_in_a_replay']}, "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+        t1 = time.perf_counter()
+        line = _check_cli(_launch_ranks("cli", 1, os.path.join(base,
+                                                               "b_cli")),
+                          1, "b")
+        print(f"parallel (b): {line} ({time.perf_counter() - t1:.1f} s "
+              "with the process start)", flush=True)
+    if "c" in parts and cards >= 2:
+        t2 = time.perf_counter()
+        c = _launch_ranks("nccl2", 2, os.path.join(base, "c"))
+        print(f"parallel (c): two NCCL ranks on two cards, captured against "
+              f"eager {json.dumps(c[0]['captured_vs_eager'])}, collectives "
+              f"issued in the capture {c[0]['collectives_in_capture']}, "
+              f"{time.perf_counter() - t2:.1f} s", flush=True)
+        for r in c:
+            st = r["stage1"]
+            print(f"parallel (c) rank {r['rank']} ({card_line()}): device "
+                  f"split of a captured step at {st['rows']} rows "
+                  f"{json.dumps(st.get('split'))}; one process at the "
+                  f"global batch {json.dumps(st.get('split_one_process'))}; "
+                  f"gradient reduction {json.dumps(st.get('reduction'))}",
+                  flush=True)
+        t2 = time.perf_counter()
+        line = _check_cli(_launch_ranks("cli", 2, os.path.join(base,
+                                                               "c_cli")),
+                          2, "c")
+        print(f"parallel (c): {line} ({time.perf_counter() - t2:.1f} s "
+              "with the process start)", flush=True)
+    elif "c" in parts:
+        print(f"parallel (c) did not run: torch.cuda.device_count() is "
+              f"{cards}; two ranks over NCCL need a card each", flush=True)
+    print(f"parallel: whole phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return paths
+
+
 def _serving_modules(args, dev) -> tuple:
     """(backbone, image head, fusion net, text encoder) of `args` on `dev`,
     random from manual_seed (the same weights on every device)."""
@@ -4449,12 +5247,26 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("kernels", "launches", "phases",
                                        "prng", "serving", "train",
                                        "stage2", "step", "damsm",
-                                       "weights", "lstm", "options"))
-    only = ap.parse_args(argv).only
+                                       "weights", "lstm", "options",
+                                       "parallel"))
+    ap.add_argument("--dp_rank", choices=("gloo", "nccl1", "nccl2", "cli"),
+                    help=argparse.SUPPRESS)     # a rank of the parallel phase
+    ap.add_argument("--dp_parts", default="abc",
+                    help="the parts of the parallel phase to run: some of "
+                         "a (gloo ranks sharing a card), b (one NCCL rank), "
+                         "c (two NCCL ranks on two cards)")
+    ap.add_argument("--dp_dir", help=argparse.SUPPRESS)
+    ns = ap.parse_args(argv)
+    only = ns.only
     sys.path.insert(0, ROOT)
+    if ns.dp_rank == "cli":
+        dp_cli(ns.dp_dir)
+        return 0
+    if ns.dp_rank:
+        dp_rank(ns.dp_rank, ns.dp_dir)
+        return 0
     from text_guided_face_recognition_tpu_torch.config import load_yaml
-    from text_guided_face_recognition_tpu_torch.ops import (
-        _cuda, block, damsm, layernorm, philox)
+    from text_guided_face_recognition_tpu_torch.ops import _cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4469,7 +5281,7 @@ def main(argv=None) -> int:
         else ("damsm",) if only in ("damsm", "lstm")
         else ("layernorm", "ffn_block", "attn_block", "damsm")
         if only == "weights" else _cuda.SOURCES
-        if only in ("step", "options")
+        if only in ("step", "options", "parallel")
         else _cuda.SOURCES + tuple(_cuda.VARIANTS))
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{k} {v:.2f} s' for k, v in per_source.items())})",
@@ -4479,18 +5291,7 @@ def main(argv=None) -> int:
         synthetic=True, fused_block="both", fused_ln=True,
         compute_dtype="bfloat16", batch_size=32, is_roc=False,
         checkpoints_path="", eval_table_mode=False)
-    kernels = {"layernorm_fused": layernorm.layernorm_fused,
-               "layernorm_bwd": layernorm.layernorm_bwd,
-               "attn_block": block.attn_block,
-               "attn_block_bwd": block.attn_block_bwd,
-               "ffn_block": block.ffn_block,
-               "ffn_block_bwd": block.ffn_block_bwd,
-               "tower_block": block.tower_block,
-               "tower_block_bwd": block.tower_block_bwd,
-               "damsm_similarity": damsm.damsm_similarity_cuda,
-               "attn_stream_bits": philox.attn_stream_bits,
-               "ffn_stream_bits": philox.ffn_stream_bits,
-               "tower_stream_bits": philox.tower_stream_bits}
+    kernels = kernel_fns()
 
     if only == "phases":
         tower_phases(*_tower_inputs(args))
@@ -4511,6 +5312,8 @@ def main(argv=None) -> int:
                else None)
     lstm = lstm_phase(kernels) if only in (None, "lstm") else {}
     options = options_phase(kernels) if only in (None, "options") else {}
+    parallel = (parallel_phase(kernels, ns.dp_parts)
+                if only in (None, "parallel") else {})
     # every path was driven with the counts zeroed just before it and read
     # just after; each phase held its path to the expected count per kernel
     paths = (("launches_prng", "launches_per_prng_check", prng),
@@ -4526,7 +5329,9 @@ def main(argv=None) -> int:
              ("launches_lstm_stage2", "launches_per_lstm_stage2_step",
               lstm.get("lstm_stage2")),
              *((f"launches_{k}", f"launches_per_{k}_step", v)
-               for k, v in options.items()))
+               for k, v in options.items()),
+             *((f"launches_{k}", f"launches_per_{k}", v)
+               for k, v in parallel.items()))
     for r in rows:
         for key, per_key, got in paths:
             if got is not None:

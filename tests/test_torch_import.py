@@ -1,6 +1,6 @@
 """The port stands alone: importing it (and its CLIs) loads no JAX-family
 module and nothing of the JAX package, and no source of the port or of
-chip_smoke.py imports them. The port's own name starts with the JAX
+chip_smoke.py or of the data-parallel test worker imports them. The port's own name starts with the JAX
 package's name, so the checks match whole module names and `name.`
 prefixes."""
 
@@ -45,7 +45,8 @@ def test_importing_the_port_loads_no_jax():
         f"{PORT}.tools.verify_block_prng, {PORT}.data.native, "
         f"{PORT}.data.wordpiece, {PORT}.data.tokenizers, "
         f"{PORT}.engine.convert, {PORT}.models.irnet, {PORT}.models.magface, "
-        f"{PORT}.cli.org_face_test\n"
+        f"{PORT}.cli.org_face_test, {PORT}.parallel, {PORT}.parallel.mesh, "
+        f"{PORT}.parallel.contrastive, {PORT}.parallel.partial_fc\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = str(ROOT)
@@ -73,7 +74,8 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
-    list((ROOT / PORT).rglob("*.py")) + [ROOT / "chip_smoke.py"]))
+    list((ROOT / PORT).rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tests" / "_torch_dp_worker.py"]))
 def test_sources_import_no_jax(path):
     bad = [m for m in _imports(ROOT / path) if _forbidden(m)]
     assert bad == [], f"{path} imports {bad}"

@@ -341,7 +341,9 @@ def test_stage1_step_with_adaface_matches_jax(tiny_arch, monkeypatch,
 
 @pytest.mark.parametrize("change", [dict(num_devices=2)])
 def test_stage1_refuses_unported_options(change):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """num_devices above the world size (one process here) is refused before
+    any step: launch that many ranks with torchrun."""
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         check_stage1(PConfig().replace(**change))
 
 

@@ -335,7 +335,9 @@ def test_stage2_schedule_epoch_end(tiny_arch):
 
 @pytest.mark.parametrize("change", [dict(num_devices=2)])
 def test_stage2_refuses_unported_options(change):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """num_devices above the world size (one process here) is refused before
+    any step: launch that many ranks with torchrun."""
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         check_stage2(PConfig().replace(**change))
 
 

@@ -13,11 +13,26 @@
 
 All run on the CUDA card unless `--cpu` is given, and fail when no card is
 present and the CPU was not asked for.
+
+Each also runs on N ranks under torchrun, one process a rank:
+
+  torchrun --nproc_per_node 2 -m \
+      text_guided_face_recognition_tpu_torch.cli.train_encoders_bert \
+      --cpu --synthetic                    # two CPU ranks over gloo
+  torchrun --nproc_per_node 8 -m \
+      text_guided_face_recognition_tpu_torch.cli.fusion_bert   # 8 cards, NCCL
+
+(parallel/mesh.py: gloo on the CPU and where ranks share a card, NCCL with
+one rank a card; the captured train step needs NCCL, so the training CLIs
+take `--eager` for ranks that share a card). Training splits every global
+batch of `batch_size` over the ranks, which must divide it; evaluation and
+extraction shard each batch. Rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import os
 import random
 
@@ -53,6 +68,22 @@ def parser(default_cfg: str, description: str) -> argparse.ArgumentParser:
     p.add_argument("--eval_table_mode", action="store_true", default=None,
                    help="score pairs through the per-sample embedding table")
     return p
+
+
+def run(main) -> None:
+    """An entry point's `__main__`: main(); then the trainer it returns
+    closed (its captured step and the NCCL collectives in it freed:
+    engine/trainer.py `close`) and collected, and the process group
+    left."""
+    from text_guided_face_recognition_tpu_torch.parallel import mesh
+    try:
+        out = main()
+        if hasattr(out, "close"):
+            out.close()
+        del out
+        gc.collect()
+    finally:
+        mesh.shutdown()
 
 
 def setup(ns: argparse.Namespace):

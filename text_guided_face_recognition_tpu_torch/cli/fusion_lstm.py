@@ -5,14 +5,15 @@
       [--max_epoch N]
 
 Counterpart of src/fusion_lstm.py: fusion_bert's entry point under
-cfg/fusion_lstm.yml. Runs on the CUDA card unless `--cpu` is given. A
-config with fusion_type fcfm (WordLevelCFA_LSTM, en_type LSTM) needs
-fusion_final_dim 768, the width of its output.
+cfg/fusion_lstm.yml. Runs on the CUDA card unless `--cpu` is given, or on
+N ranks under torchrun (cli/__init__.py). A config with fusion_type fcfm
+(WordLevelCFA_LSTM, en_type LSTM) needs fusion_final_dim 768, the width
+of its output.
 """
 
 from __future__ import annotations
 
-from text_guided_face_recognition_tpu_torch.cli import fusion_bert
+from text_guided_face_recognition_tpu_torch.cli import fusion_bert, run
 
 
 def main(argv=None):
@@ -20,4 +21,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    run(main)

@@ -7,12 +7,13 @@ no text.
 
 Counterpart of src/org_face_test.py. The config's `model_type` (arcface |
 adaface | magface) picks the backbone, its `weights_<model_type>` file the
-weights.
+weights. On N ranks under torchrun each pair batch is sharded over them
+(cli/__init__.py); rank 0 prints the metrics.
 """
 
 from __future__ import annotations
 
-from text_guided_face_recognition_tpu_torch.cli import parser, setup
+from text_guided_face_recognition_tpu_torch.cli import parser, run, setup
 
 
 def main(argv=None):
@@ -22,15 +23,18 @@ def main(argv=None):
     from text_guided_face_recognition_tpu_torch.engine import prepare as prep
     from text_guided_face_recognition_tpu_torch.engine.evaluate import (
         org_face_test)
+    from text_guided_face_recognition_tpu_torch.parallel import mesh
 
     check_backbone(args)
-    device = prep.resolve_device(bool(args.cpu))
+    device = mesh.init_from_env(bool(args.cpu))
     test_dl, _ = prep.prepare_dataloader(args, "test")
-    print("loading models ...")
+    if mesh.is_main():
+        print("loading models ...")
     backbone = prep.prepare_backbone(args, device)
-    print(f"start testing on {device} ...")
+    if mesh.is_main():
+        print(f"start testing on {device} ({mesh.world_size()} rank(s)) ...")
     return org_face_test(args.replace(is_roc=True), test_dl, backbone)
 
 
 if __name__ == "__main__":
-    main()
+    run(main)

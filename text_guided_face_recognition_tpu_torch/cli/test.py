@@ -7,12 +7,14 @@
 
 Counterpart of src/test.py. The three paths take the port's artifacts,
 the reference's files or the JAX package's exported with
-tools/export_jax_checkpoint.py (engine/prepare.py).
+tools/export_jax_checkpoint.py (engine/prepare.py). On N ranks under
+torchrun each pair batch is sharded over them (cli/__init__.py); rank 0
+prints the metrics.
 """
 
 from __future__ import annotations
 
-from text_guided_face_recognition_tpu_torch.cli import parser, setup
+from text_guided_face_recognition_tpu_torch.cli import parser, run, setup
 
 
 def main(argv=None):
@@ -24,19 +26,22 @@ def main(argv=None):
     from text_guided_face_recognition_tpu_torch.config import check_serving
     from text_guided_face_recognition_tpu_torch.engine import prepare as prep
     from text_guided_face_recognition_tpu_torch.engine.evaluate import run_test
+    from text_guided_face_recognition_tpu_torch.parallel import mesh
 
+    device = mesh.init_from_env(bool(args.cpu))
     check_serving(args)
-    device = prep.resolve_device(bool(args.cpu))
     test_dl, _ = prep.prepare_dataloader(args, "test")
     text_encoder, text_head = prep.prepare_text_encoder(args, device)
     backbone = prep.prepare_backbone(args, device)
     image_head = prep.prepare_image_head(args, device)
     fusion_net = prep.prepare_fusion_net(args, device)  # None for concat
 
-    print(f"\nLet's test the model on {device}")
+    if mesh.is_main():
+        print(f"\nLet's test the model on {device} "
+              f"({mesh.world_size()} rank(s))")
     return run_test(args, test_dl, backbone, image_head, fusion_net,
                     text_encoder, text_head)
 
 
 if __name__ == "__main__":
-    main()
+    run(main)

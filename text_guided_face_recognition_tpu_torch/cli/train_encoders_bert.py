@@ -3,11 +3,12 @@
   python -m text_guided_face_recognition_tpu_torch.cli.train_encoders_bert \
       [--cfg cfg/train_bert.yml] [--synthetic] [--cpu] [--max_steps N] \
       [--max_epoch N] [--fused_block both] [--fused_ln] [--use_pallas] \
-      [--resume_model_path P --resume_epoch N]
+      [--resume_model_path P --resume_epoch N] [--eager]
 
 Counterpart of src/train_encoders_bert.py. Runs on the CUDA card unless
-`--cpu` is given. `--resume_model_path` (with `--resume_epoch` above 1)
-takes the port's train state or the JAX package's, exported with
+`--cpu` is given, or on N ranks under torchrun (cli/__init__.py; `--eager`
+where ranks share a card). `--resume_model_path` (with `--resume_epoch`
+above 1) takes the port's train state or the JAX package's, exported with
 tools/export_jax_checkpoint.py.
 """
 
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import argparse
 
-from text_guided_face_recognition_tpu_torch.cli import parser, setup
+from text_guided_face_recognition_tpu_torch.cli import parser, run, setup
 
 
 def main(argv=None, default_cfg: str = "train_bert.yml",
@@ -32,17 +33,24 @@ def main(argv=None, default_cfg: str = "train_bert.yml",
     p.add_argument("--use_pallas", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="DAMSM similarity through the CUDA kernel")
-    args = setup(p.parse_args(argv))
-    from text_guided_face_recognition_tpu_torch.engine import prepare as prep
+    p.add_argument("--eager", action="store_true",
+                   help="eager steps, no CUDA graph (ranks sharing a card)")
+    ns = p.parse_args(argv)
+    eager = ns.eager
+    del ns.eager
+    args = setup(ns)
     from text_guided_face_recognition_tpu_torch.engine.stage1 import (
         Stage1Trainer)
+    from text_guided_face_recognition_tpu_torch.parallel import mesh
 
-    device = prep.resolve_device(bool(args.cpu))
-    print(f"\nLet's train the encoders on {device}")
-    trainer = Stage1Trainer(args, device)
+    device = mesh.init_from_env(bool(args.cpu))
+    if mesh.is_main():
+        print(f"\nLet's train the encoders on {device} "
+              f"({mesh.world_size()} rank(s))")
+    trainer = Stage1Trainer(args, device, eager=eager)
     trainer.main()
     return trainer
 
 
 if __name__ == "__main__":
-    main()
+    run(main)

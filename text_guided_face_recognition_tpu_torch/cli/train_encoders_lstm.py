@@ -6,12 +6,13 @@
 
 Counterpart of src/train_encoders_lstm.py: train_encoders_bert's entry
 point under cfg/train_lstm.yml, whose en_type picks the LSTM or the GRU.
-Runs on the CUDA card unless `--cpu` is given.
+Runs on the CUDA card unless `--cpu` is given, or on N ranks under
+torchrun (cli/__init__.py).
 """
 
 from __future__ import annotations
 
-from text_guided_face_recognition_tpu_torch.cli import train_encoders_bert
+from text_guided_face_recognition_tpu_torch.cli import train_encoders_bert, run
 
 
 def main(argv=None):
@@ -20,4 +21,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    run(main)

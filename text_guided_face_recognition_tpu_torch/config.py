@@ -20,11 +20,15 @@ compile cache. `lazy_embedding_adam`
 keeps the JAX package's meaning (the row-sparse update of the embedding
 table, engine/optim.py).
 
-Not ported yet, and refused by `check_stage1` and `check_stage2` with
-NotImplementedError (ROADMAP.md): more than one device; `check_stage2`
-also refuses `fusion_type: concat` (nothing to train, as the JAX trainer
-refuses it too). Refused with ValueError as no model takes them
-(`check_fusion`, from both and from `check_serving`): `fusion_type: fcfm`
+`num_devices` (`check_world`, from `check_stage1`, `check_stage2` and
+`check_serving`): 0 is the launcher's world size (torchrun's WORLD_SIZE;
+1 without a launcher, parallel/mesh.py), any other value must equal it;
+training refuses a `batch_size` the ranks do not split evenly. (The JAX
+package instead shrinks its mesh until it divides the batch; a launched
+world cannot shrink.) `check_stage2` also refuses `fusion_type: concat`
+(nothing to train, as the JAX trainer refuses it too). Refused with
+ValueError as no model takes them (`check_fusion`, from both and from
+`check_serving`): `fusion_type: fcfm`
 with en_type GRU (the reference and the JAX package build the LSTM's
 fusion net for LSTM only and the BERT one otherwise, which takes no RNN
 words), and in stage 2 with en_type LSTM a `fusion_final_dim` other than
@@ -48,6 +52,7 @@ import yaml
 __all__ = ["TGFRConfig", "TrainCfg", "TrainSmooth", "check_backbone",
            "check_caption_length", "check_fusion",
            "check_damsm", "check_serving", "check_stage1", "check_stage2",
+           "check_world",
            "load_yaml", "merge_args_yaml"]
 
 _NUM_PREFIX = re.compile(r"^\s*([+-]?\d+(?:\.\d+)?(?:[eE][+-]?\d+)?)")
@@ -129,7 +134,7 @@ class TGFRConfig:
     num_workers: int = 8
     manual_seed: int = 100
     cpu: bool = False      # run on the CPU; otherwise the CUDA card or an error
-    num_devices: int = 0   # 0 or 1: one device (more are not ported)
+    num_devices: int = 0   # 0: the launcher's world size (torchrun; 1 without); else it must equal it
 
     # --- stage-1 losses (graph gates + weights) ---
     is_DAMSM: bool = True
@@ -358,24 +363,42 @@ def check_fusion(cfg: TGFRConfig, train: bool) -> None:
             "fusion_final_dim: 768")
 
 
+def check_world(cfg: TGFRConfig, world: Optional[int] = None,
+                batch: bool = True) -> int:
+    """The world size the run takes, refusing before any step a
+    `num_devices` other than 0 and the world size, and (`batch`, the
+    trainers) a `batch_size` the ranks do not split evenly. `world`
+    defaults to the process group's (parallel/mesh.py; 1 without one)."""
+    if world is None:
+        from text_guided_face_recognition_tpu_torch.parallel import mesh
+        world = mesh.world_size()
+    if cfg.num_devices and cfg.num_devices != world:
+        raise ValueError(
+            f"num_devices={cfg.num_devices} but the run has {world} "
+            f"rank(s): launch one process per device with torchrun "
+            f"--nproc_per_node {cfg.num_devices}, or set num_devices: 0 "
+            "(the launcher's world size)")
+    if batch and cfg.batch_size % world:
+        raise ValueError(
+            f"batch_size={cfg.batch_size} does not split evenly over "
+            f"{world} ranks: each rank takes batch_size / world rows of the "
+            "global batch; choose a batch_size divisible by the world size "
+            "(the JAX package would shrink its mesh instead)")
+    return world
+
+
 def check_serving(cfg: TGFRConfig) -> None:
     """Refuse the serving options the port does not run yet (evaluation
     and embedding extraction)."""
+    check_world(cfg, batch=False)
     check_backbone(cfg)
     check_caption_length(cfg, grad=False)
     check_fusion(cfg, train=False)
 
 
-def _check_one_device(cfg: TGFRConfig, stage: str) -> None:
-    if cfg.num_devices > 1:
-        raise NotImplementedError(
-            f"{stage} training with num_devices={cfg.num_devices} is not "
-            "ported yet (ROADMAP.md, Queue 1)")
-
-
 def check_stage1(cfg: TGFRConfig) -> None:
     """Refuse the stage-1 options the port does not run yet."""
-    _check_one_device(cfg, "stage-1")
+    check_world(cfg)
     check_backbone(cfg)
     check_caption_length(cfg, grad=True)
     check_damsm(cfg)
@@ -383,7 +406,7 @@ def check_stage1(cfg: TGFRConfig) -> None:
 
 def check_stage2(cfg: TGFRConfig) -> None:
     """Refuse the stage-2 options the port does not run yet."""
-    _check_one_device(cfg, "stage-2")
+    check_world(cfg)
     check_backbone(cfg)
     check_caption_length(cfg, grad=True)
     if cfg.fusion_type == "concat":

@@ -353,19 +353,36 @@ class TrainDataset(_DatasetBase):
         rng = np.random.default_rng((self.seed, index, visit))
         return self._produce_image(index, rng)
 
+    def count_visits(self, indices) -> None:
+        """Count a visit of each index without loading it: another rank
+        loads these rows of the global batch (data/loader.py
+        `process_shard`), and every row's next draws must be the ones one
+        process would take."""
+        for i in indices:
+            i = int(i)
+            self._visits[i] = self._visits.get(i, -1) + 1
+
     def set_feature_cache(self, cache) -> None:
         """cache: {"gl": (N, ...), "lc": (N, ...)} (numpy arrays or CPU
-        tensors) aligned with the dataset's indices, or None."""
+        tensors) aligned with the dataset's indices, or holding some of
+        them with "slot" (one row an index, -1 where not held:
+        engine/feature_cache.py at more than one rank), or None."""
         self._feature_cache = cache
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         key = self.filenames[index]
         visit = self._visits[index] = self._visits.get(index, -1) + 1
         rng = np.random.default_rng((self.seed, index, visit))
-        if self._feature_cache is not None:
+        cache = self._feature_cache
+        if cache is not None:
             self._consume_aug_draws(rng)
-            sample = {"img_gl": self._feature_cache["gl"][index],
-                      "img_lc": self._feature_cache["lc"][index]}
+            at = index
+            if cache.get("slot") is not None:
+                at = int(cache["slot"][index])
+                if at < 0:
+                    raise KeyError(f"the feature cache holds no row for "
+                                   f"index {index} (another rank's)")
+            sample = {"img_gl": cache["gl"][at], "img_lc": cache["lc"][at]}
         else:
             sample = {"img": self._produce_image(index, rng)}
         sent_ix = (self.fixed_sent_ix if self.fixed_sent_ix is not None

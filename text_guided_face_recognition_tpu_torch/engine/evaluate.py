@@ -1,16 +1,23 @@
 """Pair evaluation: fused embeddings, pair cosine, verification metrics.
 
-Counterpart of text_guided_face_recognition_tpu/engine/evaluate.py for one
-device: encode both sides of each caption pair, run the frozen backbone and
-the image head, fuse (concat | linear | fcfm), score the pair by cosine, and
+Counterpart of text_guided_face_recognition_tpu/engine/evaluate.py: encode
+both sides of each caption pair, run the frozen backbone and the image
+head, fuse (concat | linear | fcfm), score the pair by cosine, and
 report AUC/EER/TPR@FPR (+ rank-1 identification). Pair mode runs every pair
 batch; table mode (`eval_table_mode`) embeds each distinct sample once and
 scores pairs from the table. `validate_concat` is stage 1's validation:
 concat fusion on the valid split, modules put in eval mode for its length.
 `org_face_test` is the COTS baseline, the cosine of the raw backbone's
 global features with no text, and `get_img_features_dict` its per-image
-feature table. The mesh-sharded eval of the JAX package waits for the
-parallel slice (ROADMAP.md).
+feature table.
+
+Under a process group (parallel/mesh.py) every loop is sharded over the
+ranks (the JAX package's `_shard_eval`): each batch is padded to a
+multiple of the world size by repeating row 0, each rank loads and scores
+only its share of it (`shard_rows`; the pair loaders' `row_shard`,
+data/loader.py), and the outputs are gathered in rank order with the
+padded ones dropped (`gather_rows`); rank 0 computes, prints and returns
+the metrics, the other ranks return {}.
 
 Batches arrive as numpy from the data layer, images NHWC (the wire format);
 `backbone_features` normalises uint8 on the device and permutes to NCHW.
@@ -26,13 +33,14 @@ import torch
 from torch import nn
 
 from text_guided_face_recognition_tpu_torch.ops.images import device_normalize
+from text_guided_face_recognition_tpu_torch.parallel import mesh
 from text_guided_face_recognition_tpu_torch.utils.metrics import (
     calculate_identification_acc,
     calculate_scores,
 )
 
 __all__ = ["cosine_pairs", "extra_key", "run_test", "embed_batch",
-           "pair_scores",
+           "pair_scores", "predict_pairs", "shard_rows", "gather_rows",
            "backbone_features", "validate_concat", "global_features",
            "raw_pair_scores", "org_face_test", "get_img_features_dict"]
 
@@ -126,15 +134,44 @@ def pair_scores(args, backbone, image_head, fusion_net, text_encoder,
     return m.pair_scores(*m.to_device(img1, img2, cap1, cap2, x1, x2))
 
 
+def shard_rows(n: int) -> np.ndarray:
+    """The positions, in a batch of n rows, of the rows this rank loads
+    and runs (parallel/mesh.py `shard_positions`); all n without a process
+    group."""
+    return mesh.shard_positions(n, mesh.rank(), mesh.world_size())
+
+
+def gather_rows(out, n: int):
+    """The outputs of a whole batch of n rows from every rank's `out`, the
+    outputs of its rows (`shard_rows`): gathered in rank order, the padded
+    rows dropped; `out` itself without a process group."""
+    return mesh.all_gather_rows(out)[:n] if mesh.active() else out
+
+
+def _whole_batch(batch, pair_label: np.ndarray, pred):
+    """(scores, labels) of a whole pair batch from this rank's scores of
+    it: a row-sharded loader's batch (`global_rows`) has its scores
+    gathered and its labels read from the dataset's `pair_label`."""
+    rows = batch.get("global_rows")
+    if rows is None:
+        return pred, np.asarray(batch["pair_label"])
+    return gather_rows(pred, len(rows)), pair_label[rows]
+
+
 def _score_loop(dl, models: _Models):
+    """Scores and labels of every pair batch of `dl`; a row-sharded loader
+    (under a process group) yields this rank's rows of each batch, whose
+    scores are gathered."""
     preds, labels = [], []
     xk = extra_key(models.kinds[0])
+    pair_label = np.asarray(dl.dataset.pair_label)
     for batch in dl:
-        pred = models.pair_scores(*models.to_device(
-            batch["img1"], batch["img2"], batch["cap1"], batch["cap2"],
-            batch[xk + "1"], batch[xk + "2"]))
+        pred, label = _whole_batch(batch, pair_label, models.pair_scores(
+            *models.to_device(batch["img1"], batch["img2"], batch["cap1"],
+                              batch["cap2"], batch[xk + "1"],
+                              batch[xk + "2"])))
         preds += pred.float().cpu().tolist()
-        labels += np.asarray(batch["pair_label"]).tolist()
+        labels += label.tolist()
     return preds, labels
 
 
@@ -144,7 +181,8 @@ def _table_score_loop(args, ds, embed, need_caption: bool = True):
     order, keyed on the full image name), then every pair is the cosine of
     two table rows. `embed` maps numpy columns (img, and cap and mask with
     `need_caption`: cap and mask, or cap and cap_len) to (B, D)
-    embeddings. Batches are padded to one shape."""
+    embeddings. Batches are padded to one shape; under a process group
+    each rank loads and embeds its share of a batch (`shard_rows`)."""
     sides = [ds.pair_sides(i) for i in range(len(ds))]
     order, seen = [], {}
     for pair in sides:
@@ -158,14 +196,12 @@ def _table_score_loop(args, ds, embed, need_caption: bool = True):
               else ("img",))
     embs = []
     for i in range(0, len(order), bs):
-        chunk = [ds.get_sample(n, k, need_caption=need_caption)
-                 for n, k in order[i:i + bs]]
-        cols = [np.stack([c[f] for c in chunk]) for f in fields]
-        pad = bs - len(chunk)
-        if pad:
-            cols = [np.concatenate([a, np.repeat(a[:1], pad, axis=0)])
-                    for a in cols]
-        out = embed(*cols)
+        chunk = order[i:i + bs]
+        padded = chunk + chunk[:1] * (bs - len(chunk))
+        samples = [ds.get_sample(*padded[p], need_caption=need_caption)
+                   for p in shard_rows(bs)]
+        cols = [np.stack([c[f] for c in samples]) for f in fields]
+        out = gather_rows(embed(*cols), bs)
         embs.append(out.float().cpu().numpy()[:len(chunk)])
     table = np.concatenate(embs)
 
@@ -180,17 +216,27 @@ def _table_embed(models: _Models):
     return lambda *cols: models.embed(*models.to_device(*cols))
 
 
-def run_test(args, test_dl, backbone, image_head, fusion_net, text_encoder,
-             text_head) -> Dict[str, float]:
-    """Full eval with fusion dispatch on the modules' device; prints and
-    returns the verification metrics (+ identification with is_ident)."""
+def predict_pairs(args, test_dl, backbone, image_head, fusion_net,
+                  text_encoder, text_head):
+    """(scores, labels) of every pair of the loader's split, in pair
+    order, on every rank: pair batches, or the embedding table with
+    `eval_table_mode`."""
     models = _Models(args, backbone, image_head, fusion_net, text_encoder,
                      text_head)
     if getattr(args, "eval_table_mode", False):
-        preds, labels = _table_score_loop(args, test_dl.dataset,
-                                          _table_embed(models))
-    else:
-        preds, labels = _score_loop(test_dl, models)
+        return _table_score_loop(args, test_dl.dataset, _table_embed(models))
+    return _score_loop(test_dl, models)
+
+
+def run_test(args, test_dl, backbone, image_head, fusion_net, text_encoder,
+             text_head) -> Dict[str, float]:
+    """Full eval with fusion dispatch on the modules' device; prints and
+    returns the verification metrics (+ identification with is_ident) on
+    rank 0 ({} on the other ranks)."""
+    preds, labels = predict_pairs(args, test_dl, backbone, image_head,
+                                  fusion_net, text_encoder, text_head)
+    if not mesh.is_main():
+        return {}
     if args.is_ident:
         calculate_identification_acc(preds, args)
     return calculate_scores(preds, labels, args)
@@ -201,7 +247,8 @@ def validate_concat(args, valid_dl, backbone, image_head, text_encoder,
     """Stage-1 validation: concat(global image projection, sentence)
     cosine verification on the valid split (reference: Train.test,
     src/train_encoders_bert.py:348-395), the modules in eval mode
-    (text_head None with an RNN encoder)."""
+    (text_head None with an RNN encoder); the metrics on rank 0 ({} on
+    the other ranks)."""
     mods = [m for m in (image_head, text_encoder, text_head)
             if m is not None]
     modes = [m.training for m in mods]
@@ -218,7 +265,7 @@ def validate_concat(args, valid_dl, backbone, image_head, text_encoder,
     finally:
         for m, mode in zip(mods, modes):
             m.train(mode)
-    return calculate_scores(preds, labels, args)
+    return calculate_scores(preds, labels, args) if mesh.is_main() else {}
 
 
 # ------------------------------------------------------ the COTS baseline --
@@ -245,7 +292,9 @@ def get_img_features_dict(args, backbone: nn.Module
     """The global backbone features of every distinct image of the test
     pair list ({name: (512,) f32}), read from
     data_dir/dataset_name/test_images in sorted name order, batched and
-    zero-padded to one shape."""
+    padded to one shape by repeating a batch's first image (whose features
+    are dropped); under a process group each rank decodes and runs its
+    share of a batch (`shard_rows`)."""
     from text_guided_face_recognition_tpu_torch.data.transforms import (
         decode_image, eval_transform)
 
@@ -257,15 +306,14 @@ def get_img_features_dict(args, backbone: nn.Module
     bs = max(int(args.batch_size), 1)
     for i in range(0, len(names), bs):
         chunk = names[i:i + bs]
+        padded = chunk + chunk[:1] * (bs - len(chunk))
         imgs = np.stack([
             eval_transform(decode_image(
                 os.path.join(args.data_dir, args.dataset_name, "test_images",
-                             n), args.img_size), args.model_type)
-            for n in chunk])
-        if len(chunk) < bs:
-            imgs = np.concatenate([imgs, np.zeros(
-                (bs - len(chunk),) + imgs.shape[1:], imgs.dtype)])
-        out = global_features(backbone, args.model_type, imgs)
+                             padded[p]), args.img_size), args.model_type)
+            for p in shard_rows(bs)])
+        out = gather_rows(global_features(backbone, args.model_type, imgs),
+                          bs)
         for n, f in zip(chunk, out.float().cpu().numpy()):
             feats[n] = f
     return feats
@@ -275,7 +323,8 @@ def org_face_test(args, test_dl, backbone: nn.Module) -> Dict[str, float]:
     """The COTS baseline: cosine on the raw backbone's global features, no
     text; every pair batch, or with `eval_table_mode` a per-image feature
     table (no captions loaded). Prints and returns the verification
-    metrics (+ identification with is_ident)."""
+    metrics (+ identification with is_ident) on rank 0 ({} on the other
+    ranks)."""
     if getattr(args, "eval_table_mode", False):
         preds, labels = _table_score_loop(
             args, test_dl.dataset,
@@ -283,11 +332,14 @@ def org_face_test(args, test_dl, backbone: nn.Module) -> Dict[str, float]:
             need_caption=False)
     else:
         preds, labels = [], []
+        pair_label = np.asarray(test_dl.dataset.pair_label)
         for batch in test_dl:
-            pred = raw_pair_scores(backbone, args.model_type, batch["img1"],
-                                   batch["img2"])
+            pred, label = _whole_batch(batch, pair_label, raw_pair_scores(
+                backbone, args.model_type, batch["img1"], batch["img2"]))
             preds += pred.float().cpu().tolist()
-            labels += np.asarray(batch["pair_label"]).tolist()
+            labels += label.tolist()
+    if not mesh.is_main():
+        return {}
     if args.is_ident:
         calculate_identification_acc(preds, args)
     return calculate_scores(preds, labels, args)

@@ -69,21 +69,20 @@ from text_guided_face_recognition_tpu_torch.models.layers import (
     BatchNorm, LayerNormCHW, PReLU)
 from text_guided_face_recognition_tpu_torch.models.text_bert import LayerNorm
 from text_guided_face_recognition_tpu_torch.models.text_rnn import init_rnn_
+from text_guided_face_recognition_tpu_torch.parallel import mesh
 
 __all__ = ["resolve_device", "compute_dtype", "random_init_",
            "prepare_arcface", "prepare_adaface", "prepare_magface",
            "prepare_backbone", "prepare_text_encoder", "prepare_rnn_encoder",
-           "prepare_image_head", "prepare_fusion_net", "prepare_dataloader"]
+           "prepare_image_head", "prepare_fusion_net", "prepare_dataloader",
+           "rank_shard"]
 
 
 def resolve_device(cpu: bool = False) -> torch.device:
-    """The CUDA card, or the CPU when asked for; no silent CPU fallback."""
-    if cpu:
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available: the port runs on an NVIDIA "
-                           "GPU; pass --cpu (device='cpu') to run on the CPU")
-    return torch.device("cuda", torch.cuda.current_device())
+    """The CUDA card, or the CPU when asked for; no silent CPU fallback.
+    In a launched process, this rank's device in its process group
+    (parallel/mesh.py `init_from_env`, which owns the rule)."""
+    return mesh.init_from_env(cpu)
 
 
 def compute_dtype(args) -> torch.dtype:
@@ -496,7 +495,11 @@ def _captions(args):
 def prepare_dataloader(args, split: str):
     """The split's loader and dataset; synthetic captions when the caption
     assets are absent, as the JAX package does. With en_type LSTM or GRU
-    sets `args.vocab_size` to the vocabulary's size."""
+    sets `args.vocab_size` to the vocabulary's size. Under a process group
+    of more than one rank the train loader yields this rank's rows of each
+    global batch (`process_shard`), an eval loader this rank's share of
+    each batch (`row_shard`), whose outputs the evaluation gathers
+    (engine/evaluate.py)."""
     data, vocab, missing = _captions(args)
     synthetic = bool(args.synthetic) or missing
     if vocab is not None:
@@ -508,7 +511,7 @@ def prepare_dataloader(args, split: str):
                           vocab=vocab)
         dl = DataLoader(ds, batch_size=args.batch_size, drop_last=True,
                         shuffle=True, num_workers=args.num_workers,
-                        seed=args.manual_seed)
+                        seed=args.manual_seed, process_shard=rank_shard())
         return dl, ds
     ds = TestDataset(names, caps, masks, split=split, args=args,
                      synthetic=synthetic, vocab=vocab)
@@ -516,8 +519,16 @@ def prepare_dataloader(args, split: str):
         # synthetic pair groups: the genuine pair at column 0 of each group
         args.test_sub = len(ds) // 4
     dl = DataLoader(ds, batch_size=args.batch_size, drop_last=False,
-                    shuffle=False, num_workers=args.num_workers)
+                    shuffle=False, num_workers=args.num_workers,
+                    row_shard=rank_shard())
     return dl, ds
+
+
+def rank_shard():
+    """(rank, world) under a process group of more than one rank, else
+    None: the loaders' shard."""
+    world = mesh.world_size()
+    return (mesh.rank(), world) if world > 1 else None
 
 
 def _synthetic_vocab(n: int) -> Vocabulary:

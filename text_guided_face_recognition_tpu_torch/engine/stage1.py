@@ -1,7 +1,8 @@
 """Stage-1 FCAM pretraining (encoder alignment).
 
 Counterpart of text_guided_face_recognition_tpu/engine/stage1.py
-(`Stage1Trainer`, en_type BERT, LSTM or GRU, one device):
+(`Stage1Trainer`, en_type BERT, LSTM or GRU, one device or one rank of a
+process group):
 
   * the frozen backbone (eval-mode BN, no gradient) -> ImageHeading in
     train mode (batch statistics; running statistics updated in place);
@@ -33,6 +34,13 @@ the backbone, as the JAX loss function allows. With
 feature_cache.py) is refreshed at the start of each epoch, inside its
 timed window.
 
+Data parallelism (engine/trainer.py, under a process group): each rank
+runs the text encoder, the frozen backbone and the image head on its rows,
+gathers words_emb, sent_emb, img_f, words_f, class_ids (and an RNN's word
+mask) with `gather_global_negatives`, and evaluates the whole cocktail on
+the global batch, DAMSM's B x B matrices among it, as the JAX package's jit
+over a data mesh does; image_cls, text_cls and cmp come after the gather.
+
 Reference quirks kept as the JAX package keeps them: the text side trains
 by default (`compat_frozen_text: true` reproduces the reference's
 no-gradient text path), and no gradient clip by default
@@ -54,7 +62,7 @@ from text_guided_face_recognition_tpu_torch.config import check_stage1
 from text_guided_face_recognition_tpu_torch.engine import optim
 from text_guided_face_recognition_tpu_torch.engine import prepare as prep
 from text_guided_face_recognition_tpu_torch.engine.checkpoint import (
-    prune_checkpoints, save_checkpoint)
+    save_checkpoint)
 from text_guided_face_recognition_tpu_torch.engine.evaluate import (
     validate_concat)
 from text_guided_face_recognition_tpu_torch.engine.trainer import (
@@ -62,6 +70,8 @@ from text_guided_face_recognition_tpu_torch.engine.trainer import (
 from text_guided_face_recognition_tpu_torch.models.margins import (
     xavier_uniform_)
 from text_guided_face_recognition_tpu_torch.models.text_bert import TEXT_ARCHS
+from text_guided_face_recognition_tpu_torch.parallel.contrastive import (
+    gather_global_negatives)
 
 __all__ = ["ClassWeight", "CmpWeight", "Stage1Model", "Stage1Trainer"]
 
@@ -102,7 +112,10 @@ class Stage1Model(nn.Module):
 
 class Stage1Trainer(TrainerBase):
     """Stage-1 trainer for en_type BERT, LSTM or GRU on one device (the
-    CUDA card unless `device` is the CPU)."""
+    CUDA card unless `device` is the CPU), or on this rank's under a
+    process group."""
+
+    POST_GATHER = ("image_cls", "text_cls", "cmp")
 
     def __init__(self, args, device: Optional[torch.device] = None,
                  eager: bool = False):
@@ -147,6 +160,7 @@ class Stage1Trainer(TrainerBase):
                    "encoder": float(args.min_lr_bert if self.is_bert
                                     else args.init_lr_lstm), "cls": 0.1}
         self._apply_lrs()
+        self.init_parallel(self.POST_GATHER)
         self.arch = TEXT_ARCHS[args.bert_type] if self.is_bert else None
         self.drop_gen = torch.Generator(device=dev).manual_seed(
             int(args.manual_seed) + 1)
@@ -194,6 +208,12 @@ class Stage1Trainer(TrainerBase):
             else:
                 gl, lc = self.image_features(batch["img"])
             img_f, words_f = m.image_head(gl, lc)
+            if self.dp:     # the global batch, on every rank
+                words_emb, sent_emb, img_f, words_f, class_ids = (
+                    gather_global_negatives(x) for x in (
+                        words_emb, sent_emb, img_f, words_f, class_ids))
+                if word_mask is not None:
+                    word_mask = gather_global_negatives(word_mask)
             labels = torch.arange(img_f.shape[0], device=img_f.device)
             total = torch.zeros((), dtype=torch.float32, device=img_f.device)
             metrics: Dict[str, torch.Tensor] = {}
@@ -268,7 +288,7 @@ class Stage1Trainer(TrainerBase):
         out = {k: v / total_len for k, v in agg.items()}
         out.update(epoch=epoch, steps=n,
                    pairs_per_sec=total_len / dt if dt > 0 else 0.0)
-        print(json.dumps(out))
+        self.say(json.dumps(out))
         return out
 
     def schedule_epoch_end(self, epoch: int) -> None:
@@ -281,12 +301,14 @@ class Stage1Trainer(TrainerBase):
             self.lr["encoder"] *= 0.98
         if epoch in (3, 8):
             self.lr["cls"] *= 0.1
-            print("Learning Rate change to: {:0.5f}".format(self.lr["cls"]))
+            self.say("Learning Rate change to: {:0.5f}".format(
+                self.lr["cls"]))
         self._apply_lrs()
 
     def validate(self) -> Dict[str, float]:
         """Concat-fusion cosine verification on the valid split
-        (reference: Train.test, src/train_encoders_bert.py:348-395)."""
+        (reference: Train.test, src/train_encoders_bert.py:348-395),
+        sharded over the ranks; the metrics on rank 0."""
         m = self.model
         return validate_concat(self.args, self.valid_dl, self.backbone,
                                m.image_head, m.text_encoder, m.text_head)
@@ -301,8 +323,10 @@ class Stage1Trainer(TrainerBase):
         """Two artifacts (reference: src/train_encoders_bert.py:59-80):
         the image head, and the text encoder with its head as
         `{bert_type}_text_encoder_N`, or an RNN encoder alone as
-        `{en_type}_text_encoder_N`."""
+        `{en_type}_text_encoder_N` (rank 0 alone writes them)."""
         a, m = self.args, self.model
+        if not self.rank0:
+            return
         save_checkpoint(f"{save_dir}/{a.model_type}_image_encoder_{epoch}",
                         {"image_head": m.image_head.state_dict()})
         text = {"model": m.text_encoder.state_dict()}
@@ -322,10 +346,10 @@ class Stage1Trainer(TrainerBase):
             self.train_epoch(epoch)
             self.schedule_epoch_end(epoch)
             if epoch % args.save_interval == 0 or epoch == args.max_epoch:
-                print("saving image and text encoder\n")
+                self.say("saving image and text encoder\n")
                 self.save_encoders(save_dir, epoch)
                 self.save_state(save_dir, epoch)
-                prune_checkpoints(save_dir, args.keep_last_ckpts)
+                self.prune(save_dir)
             if epoch > 12 and epoch % args.test_interval == 0:
-                print("start validating")
+                self.say("start validating")
                 self.validate()

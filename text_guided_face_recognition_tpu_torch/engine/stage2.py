@@ -1,7 +1,8 @@
 """Stage-2 fusion training.
 
 Counterpart of text_guided_face_recognition_tpu/engine/stage2.py
-(`FusionTrainer`, en_type BERT, LSTM or GRU, one device): from the stage-1 encoders
+(`FusionTrainer`, en_type BERT, LSTM or GRU, one device or one rank of a
+process group): from the stage-1 encoders
 (loaded when `text_encoder_path` / `image_encoder_path` name artifacts of
 this package's stage-1 trainer, else random), fine-tune the text encoder
 and its head, the image head and the fusion net against an ArcFace margin
@@ -31,6 +32,14 @@ once per epoch. A batch may carry precomputed backbone features (`img_gl`,
 start of each epoch (engine/feature_cache.py). The text
 side trains by default; `compat_frozen_text: true` reproduces the
 reference's no-gradient text path.
+
+Data parallelism (engine/trainer.py, under a process group): each rank
+runs everything up to the fused embedding on its rows (the fusion net's
+BatchNorms on global-batch statistics) and gathers the embeddings and
+labels before metric_fc, so the margin logits and the focal loss's
+batch-mean quirk are the global batch's, as the JAX package's jit over a
+data mesh computes them (its parallel/spmd.py says why a per-rank focal
+would be wrong); metric_fc comes after the gather.
 """
 
 from __future__ import annotations
@@ -48,13 +57,15 @@ from text_guided_face_recognition_tpu_torch.config import check_stage2
 from text_guided_face_recognition_tpu_torch.engine import optim
 from text_guided_face_recognition_tpu_torch.engine import prepare as prep
 from text_guided_face_recognition_tpu_torch.engine.checkpoint import (
-    prune_checkpoints, save_checkpoint)
+    save_checkpoint)
 from text_guided_face_recognition_tpu_torch.engine.evaluate import run_test
 from text_guided_face_recognition_tpu_torch.engine.trainer import (
     TrainerBase, nan_guard)
 from text_guided_face_recognition_tpu_torch.models.margins import (
     ArcMarginProduct, xavier_uniform_)
 from text_guided_face_recognition_tpu_torch.models.text_bert import TEXT_ARCHS
+from text_guided_face_recognition_tpu_torch.parallel.contrastive import (
+    gather_global_negatives)
 
 __all__ = ["FusionModel", "FusionTrainer"]
 
@@ -78,7 +89,10 @@ class FusionModel(nn.Module):
 
 class FusionTrainer(TrainerBase):
     """Stage-2 trainer for en_type BERT, LSTM or GRU on one device (the
-    CUDA card unless `device` is the CPU)."""
+    CUDA card unless `device` is the CPU), or on this rank's under a
+    process group."""
+
+    POST_GATHER = ("metric_fc",)
 
     def __init__(self, args, device: Optional[torch.device] = None,
                  eager: bool = False):
@@ -113,6 +127,7 @@ class FusionTrainer(TrainerBase):
         self.lr = {"cls": float(args.lr_image_train), "encoder": 1e-5,
                    "head": float(args.lr_head)}
         self._apply_lrs()
+        self.init_parallel(self.POST_GATHER)
         self.is_bert = args.en_type == "BERT"
         self.arch = TEXT_ARCHS[args.bert_type] if self.is_bert else None
         self.drop_gen = torch.Generator(device=dev).manual_seed(
@@ -163,8 +178,11 @@ class FusionTrainer(TrainerBase):
 
         def loss_fn(batch, drop_bits=None, drop_seeds=None):
             label = batch["cls_id"].long()
-            logits = m.metric_fc(embed_fn(batch, drop_bits, drop_seeds),
-                                 label)
+            emb = embed_fn(batch, drop_bits, drop_seeds)
+            if self.dp:     # the global batch, on every rank
+                emb, label = (gather_global_negatives(x) for x in (emb,
+                                                                   label))
+            logits = m.metric_fc(emb, label)
             if use_focal:
                 loss = ops.focal_loss(logits, label, gamma=2.0)
             else:
@@ -192,7 +210,7 @@ class FusionTrainer(TrainerBase):
         out = {"epoch": epoch, "loss": total / max(n * args.batch_size, 1),
                "steps": n,
                "pairs_per_sec": n * args.batch_size / dt if dt > 0 else 0.0}
-        print(json.dumps(out))
+        self.say(json.dumps(out))
         return out
 
     def schedule_epoch_end(self, epoch: int) -> None:
@@ -206,7 +224,8 @@ class FusionTrainer(TrainerBase):
 
     def validate(self) -> Dict[str, float]:
         """run_test on the valid split with the current weights, the
-        modules in eval mode for its duration."""
+        modules in eval mode for its duration, sharded over the ranks; the
+        metrics on rank 0."""
         m = self.model
         self.model.eval()
         try:
@@ -225,8 +244,10 @@ class FusionTrainer(TrainerBase):
 
     def save_models(self, save_dir: str, epoch: int) -> None:
         """Two artifacts (reference: src/fusion_bert.py:166-191); an RNN
-        encoder's has no head."""
+        encoder's has no head (rank 0 alone writes them)."""
         a, m = self.args, self.model
+        if not self.rank0:
+            return
         save_checkpoint(
             f"{save_dir}/fusion_{a.fusion_type}_{a.model_type}_{epoch}",
             {"net": m.fusion_net.state_dict(),
@@ -243,7 +264,7 @@ class FusionTrainer(TrainerBase):
         save_dir = self.save_dir()
         if args.resume_model_path and args.resume_epoch > 1:
             self.resume_from(args.resume_model_path)
-        print("Start Training")
+        self.say("Start Training")
         for epoch in range(self.start_epoch, args.max_epoch + 1):
             args.current_epoch = epoch
             self.train_epoch(epoch)
@@ -251,8 +272,8 @@ class FusionTrainer(TrainerBase):
             if epoch % args.save_interval == 0:
                 self.save_models(save_dir, epoch)
                 self.save_state(save_dir, epoch)
-                prune_checkpoints(save_dir, args.keep_last_ckpts)
+                self.prune(save_dir)
             if epoch > 20 and args.do_test and \
                     epoch % args.test_interval == 0:
-                print("\nLet's test the model")
+                self.say("\nLet's test the model")
                 self.validate()

@@ -10,7 +10,7 @@ A subclass sets `args`, `device`, `backbone`, `model` (an nn.Module whose
 children are the optimizer's named modules), `opt` (engine/optim.
 GroupedOptimizer), `lr` ({group: rate}), `arch`, `drop_gen`, `loss_fn`
 (batch, drop_bits, drop_seeds) -> (total, metrics), `start_epoch` and
-`steps`, and calls `init_step(eager)`.
+`steps`, and calls `init_parallel(post_gather)`, then `init_step(eager)`.
 
 The compiled step. On a CUDA device a trainer runs its step as one CUDA
 graph of forward, backward and optimizer, the counterpart of the JAX
@@ -28,18 +28,37 @@ that `drop_gen` fills before it, outside the graph, in the eager step's
 order. Learning rates and Adam counts are tensors the graph reads
 (engine/optim.py). A capture that fails raises: there is no eager fallback.
 The kernels' launch counters count at capture, not at replay.
+
+Data parallelism (`init_parallel`, under a process group of parallel/
+mesh.py; the JAX package's jit over a data mesh). Each rank loads its
+B / N rows of every global batch, runs the towers and heads on them, and
+the subclass's loss gathers what the loss needs (parallel/contrastive.py)
+and evaluates the global loss, the same on every rank; the trained
+BatchNorms take global-batch statistics. After the backward the gradients
+of the modules below the gather (`post_gather` names those after it) are
+summed over the ranks, one flat bucket an optimizer group and dtype
+that the backward accumulates them into (`attach_buckets`), so every
+parameter holds the one-device gradient of the global batch before
+the optimizer. Dropout: in host mode every rank draws the global step's
+bits and takes its rows' (`local_bits`), so the step equals one process's
+on the same bits; in prng mode also the kernels' seeds, each folded with
+the rank (`fold_seeds`) so that no two ranks draw the same masks. Under
+NCCL the collectives are captured in the step's graph; gloo's cannot be,
+and a captured step under gloo raises (ask for eager=True). Rank 0 alone
+prints and writes checkpoints; every rank resumes from the same file.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from text_guided_face_recognition_tpu_torch.engine.checkpoint import (
-    is_jax_export, load_checkpoint, load_jax_export, save_checkpoint)
+    is_jax_export, load_checkpoint, load_jax_export, prune_checkpoints,
+    save_checkpoint)
 from text_guided_face_recognition_tpu_torch.engine.evaluate import (
     backbone_features)
 from text_guided_face_recognition_tpu_torch.engine.feature_cache import (
@@ -48,8 +67,20 @@ from text_guided_face_recognition_tpu_torch.engine.from_jax import (
     optimizer_state_from_jax, state_dict_from_jax)
 from text_guided_face_recognition_tpu_torch.ops.dropout import (
     draw, draw_seeds)
+from text_guided_face_recognition_tpu_torch.parallel import mesh
 
-__all__ = ["TrainerBase", "nan_guard"]
+__all__ = ["TrainerBase", "fold_seeds", "nan_guard"]
+
+_FOLD = 0x9E3779B1    # odd; rank r's seeds are xored with r * _FOLD mod 2^31
+
+
+def fold_seeds(seeds: torch.Tensor, rank: int,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernels' int32 stream seeds of rank `rank`: xored with
+    (rank * 0x9E3779B1) mod 2^31, so they stay in [0, 2^31) and rank 0
+    keeps the drawn ones (the JAX package folds the shard index into its
+    dropout key, parallel/spmd.py); into `out` when given."""
+    return torch.bitwise_xor(seeds, (rank * _FOLD) & 0x7FFFFFFF, out=out)
 
 
 def nan_guard(metrics: Dict[str, float], step: int) -> None:
@@ -79,25 +110,111 @@ class TrainerBase:
 
     def refresh_features(self) -> None:
         """Before an epoch's first batch: the cache's refresh over the
-        train split (no batch of the epoch is made before it)."""
+        train split (no batch of the epoch is made before it); with more
+        than one rank over this rank's rows of the coming epoch."""
         if self.feat_cache is not None:
-            self.feat_cache.refresh(self.train_ds)
+            self.feat_cache.refresh(
+                self.train_ds,
+                self.train_dl.epoch_rows() if self.world > 1 else None)
 
     def draw_drop(self, b: int, t: int, out=(None, None)
                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-        """One step's dropout for the text encoder, drawn on the device from
-        drop_gen: (host bits, kernel seeds), into the tensors `out` when
-        given. BERT in host mode (fused_dropout): the bits of every site
-        and no seeds; in prng mode the bits of the sites the kernels do not
-        draw, then their int32 seeds. LSTM/GRU: the embeddings' bits. (None,
-        None) without dropout."""
-        n_bits, n_seeds = self.model.text_encoder.drop_counts(b, t)
+        """One step's dropout for the text encoder at the local batch
+        (b, t), drawn on the device from drop_gen: (host bits, kernel
+        seeds), into the tensors `out` when given. BERT in host mode
+        (fused_dropout): the bits of every site and no seeds; in prng mode
+        the bits of the sites the kernels do not draw, then their int32
+        seeds. LSTM/GRU: the embeddings' bits. (None, None) without
+        dropout. Data-parallel: the global step's draw (b x world rows),
+        of which this rank takes its rows' bits and its folded seeds."""
+        enc = self.model.text_encoder
+        bg = b * self.world
+        n_bits, n_seeds = enc.drop_counts(bg, t)
         if not n_bits:
             return None, None
-        bits = draw(n_bits, self.drop_gen, self.device, out=out[0])
-        seeds = (draw_seeds(n_seeds, self.drop_gen, self.device, out=out[1])
-                 if n_seeds else None)
+        if not self.dp:
+            bits = draw(n_bits, self.drop_gen, self.device, out=out[0])
+            seeds = (draw_seeds(n_seeds, self.drop_gen, self.device,
+                                out=out[1]) if n_seeds else None)
+            return bits, seeds
+        bits = enc.local_bits(draw(n_bits, self.drop_gen, self.device), bg,
+                              t, self.rank, self.world, out=out[0])
+        seeds = (fold_seeds(draw_seeds(n_seeds, self.drop_gen, self.device),
+                            self.rank, out=out[1]) if n_seeds else None)
         return bits, seeds
+
+    # --------------------------------------------- data parallelism --
+
+    def init_parallel(self, post_gather: Sequence[str]) -> None:
+        """The data-parallel set-up under a process group (module
+        docstring): the rank, the world, global-batch BatchNorm in the
+        trained model, and the gradient buckets, one an optimizer group
+        and dtype, of every parameter outside the `post_gather` modules:
+        (flat, params, views), the parameters' gradients living in views
+        of the flat tensor. Without a process group: one rank, nothing
+        reduced."""
+        self.dp = mesh.active()
+        self.rank, self.world = mesh.rank(), mesh.world_size()
+        self.rank0 = self.rank == 0
+        self._buckets: List[Tuple[torch.Tensor, List[torch.Tensor],
+                                  List[torch.Tensor]]] = []
+        if not self.dp:
+            return
+        mesh.sync_batchnorm(self.model)
+        after = {id(p) for name in post_gather
+                 if getattr(self.model, name, None) is not None
+                 for p in getattr(self.model, name).parameters()}
+        for params in self.opt.params.values():
+            by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+            for p in params:
+                if id(p) not in after:
+                    by_dtype.setdefault(p.dtype, []).append(p)
+            for ps in by_dtype.values():
+                flat = torch.zeros(sum(p.numel() for p in ps),
+                                   dtype=ps[0].dtype, device=self.device)
+                views = [v.view_as(p) for v, p in zip(
+                    flat.split([p.numel() for p in ps]), ps)]
+                self._buckets.append((flat, ps, views))
+
+    def attach_buckets(self) -> None:
+        """Before a backward: each bucket zeroed and its parameters'
+        gradients made its views, so that the backward accumulates them
+        into it (a parameter the backward does not reach keeps zeros, as
+        the optimizer would give it) and no copy is made to reduce them.
+        Held on two H100s over NVLink: the bucket's fill, the
+        accumulation's add and one all-reduce took 2.46 device ms for
+        0.445 GB, the gradients flattened into one tensor, all-reduced and
+        copied back 3.63, one coalesced NCCL call of the 173 tensors 3.77
+        (PERF.md, PR 14)."""
+        for flat, params, views in self._buckets:
+            flat.zero_()
+            for p, v in zip(params, views):
+                p.grad = v
+
+    def reduce_grads(self) -> None:
+        """Sum the gradients below the gather over the ranks: one
+        all-reduce a bucket, in place."""
+        for flat, _, _ in self._buckets:
+            mesh.all_reduce_sum_(flat)
+
+    def say(self, *args) -> None:
+        """print, on rank 0 alone."""
+        if self.rank0:
+            print(*args)
+
+    def prune(self, save_dir: str) -> None:
+        """After an epoch's artifacts: rank 0 prunes to the newest
+        `keep_last_ckpts`; every rank waits for it."""
+        if self.rank0:
+            prune_checkpoints(save_dir, self.args.keep_last_ckpts)
+        mesh.barrier()
+
+    def _backward(self, total: torch.Tensor) -> None:
+        if self.dp:
+            self.attach_buckets()
+        total.backward()
+        if self.dp:
+            self.reduce_grads()
 
     @torch.no_grad()
     def image_features(self, img: torch.Tensor):
@@ -112,7 +229,7 @@ class TrainerBase:
             drop_bits, drop_seeds = self.draw_drop(*batch["caps"].shape)
         self.opt.zero_grad()
         total, metrics = self.loss_fn(batch, drop_bits, drop_seeds)
-        total.backward()
+        self._backward(total)
         return total.detach(), {k: v.detach() for k, v in metrics.items()}
 
     def train_step(self, batch, drop_bits=None, acc=None, drop_seeds=None
@@ -142,13 +259,35 @@ class TrainerBase:
 
     def init_step(self, eager: bool) -> None:
         """Eager steps (`eager`, or a device other than CUDA) or the
-        captured step."""
+        captured step; the captured step under a process group needs NCCL,
+        whose collectives a CUDA graph captures."""
         self.eager = bool(eager) or self.device.type != "cuda"
+        if not self.eager and self.dp and mesh.backend() != "nccl":
+            raise RuntimeError(
+                f"{type(self).__name__}: the captured train step needs the "
+                f"NCCL backend, and this process group runs "
+                f"{mesh.backend()!r}, whose collectives a CUDA graph cannot "
+                "capture (ranks sharing a card run gloo); ask for eager "
+                "steps (eager=True, the training CLIs' --eager)")
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.graph_replays = 0
         self._warm = 0
         self._capture_stream = (None if self.eager
                                 else torch.cuda.Stream(self.device))
+
+    def close(self) -> None:
+        """Free the captured step once the card is done with it: the graph
+        (and with it the collectives it holds), its static inputs and
+        outputs, the capture stream and the gradients; later steps run
+        eagerly. A process group must not be left while a graph of its
+        NCCL collectives is alive (two ranks hung leaving theirs), so the
+        entry points close their trainer first (cli/__init__.py `run`)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.graph, self._capture_stream, self.eager = None, None, True
+        for name in ("_static", "_static_drop", "_static_out"):
+            self.__dict__.pop(name, None)
+        self.opt.zero_grad()
 
     def _eager_step(self, batch, drop_bits, drop_seeds):
         _, metrics = self.compute_grads(batch, drop_bits, drop_seeds)
@@ -205,7 +344,7 @@ class TrainerBase:
             with torch.cuda.graph(graph, stream=side,
                                   capture_error_mode="thread_local"):
                 total, metrics = self.loss_fn(self._static, bits, seeds)
-                total.backward()
+                self._backward(total)
                 self.opt.step()
         except Exception as e:
             raise RuntimeError(
@@ -217,7 +356,10 @@ class TrainerBase:
         self.graph = graph
 
     def save_state(self, save_dir: str, epoch: int) -> None:
-        """The resumable third artifact: model, optimizer, epoch, LRs."""
+        """The resumable third artifact: model, optimizer, epoch, LRs
+        (rank 0 alone writes it)."""
+        if not self.rank0:
+            return
         save_checkpoint(f"{save_dir}/train_state_{epoch}", {
             "model": self.model.state_dict(),
             "optimizer": self.opt.state_dict(),
@@ -241,4 +383,4 @@ class TrainerBase:
         self.lr = {k: float(v) for k, v in tree["meta"]["lr"].items()}
         self._apply_lrs()
         self.start_epoch = int(tree["meta"]["epoch"]) + 1
-        print("resumed from", path, "at epoch", self.start_epoch)
+        self.say("resumed from", path, "at epoch", self.start_epoch)

@@ -14,6 +14,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from text_guided_face_recognition_tpu_torch.parallel import mesh
+from text_guided_face_recognition_tpu_torch.parallel.contrastive import (
+    sync_sum)
+
 __all__ = ["l2_normalize", "Dense", "PReLU", "BatchNorm", "ProjectionHead",
            "LayerNormCHW", "SelfAttention2D"]
 
@@ -65,7 +69,15 @@ class BatchNorm(nn.Module):
     the running statistics in place, running = (1 - momentum) running +
     momentum batch with the biased variance, as flax's
     `mutable=["batch_stats"]` returns them (flax's momentum 0.9 is this
-    momentum 0.1)."""
+    momentum 0.1).
+
+    With `sync` (parallel/mesh.py `sync_batchnorm`, set by the trainers
+    under a process group) train mode takes the global batch's statistics:
+    the per-channel sums of x and x^2, in f32, summed over the ranks
+    (`sync_sum`, whose backward sums the cotangents over the ranks), over
+    the global count; so every rank normalises with, and keeps, the same
+    statistics, forward and backward, as the JAX package's BatchNorm over a
+    sharded batch."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1,
                  use_scale: bool = True, use_bias: bool = True,
@@ -77,6 +89,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.sync = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -86,8 +99,14 @@ class BatchNorm(nn.Module):
         dims = [0] + list(range(2, x.dim()))
         shape = (1, -1) + (1,) * (x.dim() - 2)
         xf = x.float()
-        mean = xf.mean(dims)
-        var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        if self.sync:
+            count = xf.numel() // xf.shape[1] * mesh.world_size()
+            sums = sync_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims)]))
+            mean, sq = (sums / count).chunk(2)
+        else:
+            mean = xf.mean(dims)
+            sq = (xf * xf).mean(dims)
+        var = torch.clamp_min(sq - mean * mean, 0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)

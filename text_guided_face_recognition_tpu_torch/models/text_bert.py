@@ -252,6 +252,30 @@ class TransformerEncoder(nn.Module):
         return drop_elems(self.arch, b, t, self.fused_block,
                           self.fused_dropout), seeds
 
+    def local_bits(self, bits: torch.Tensor, b: int, t: int, rank: int,
+                   world: int, out: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+        """A rank's share of the host bits of a forward at the global batch
+        (b, t): each site's bits of the rank's rows [rank b / world, (rank
+        + 1) b / world), in the plan's site order, as many as a forward at
+        (b / world, t) takes; into `out` when given. Every site is
+        batch-major but the attention probabilities, (heads, B, T, T)."""
+        a = self.arch
+        h, bl = a.hidden, b // world
+        rows = slice(rank * bl, (rank + 1) * bl)
+        in_kernel = prng_sites(self.fused_block, self.fused_dropout)
+        plan = DropBits(bits)
+        parts = [plan.take((b, t * h))[rows]]
+        for _ in range(a.layers):
+            for i, (half, shape) in enumerate(layer_sites(h, a.heads, b, t)):
+                if half in in_kernel:
+                    continue
+                if i == 0:                  # probabilities (heads*B, T, T)
+                    parts.append(plan.take((a.heads, b, t * t))[:, rows])
+                else:
+                    parts.append(plan.take((b, t * h))[rows])
+        return torch.cat([p.reshape(-1) for p in parts], out=out)
+
     def _tower(self, x: torch.Tensor, mask_i32: torch.Tensor,
                plan: Optional[DropBits], rate: float,
                seed: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -355,6 +379,9 @@ class TextEncoder(nn.Module):
 
     def drop_counts(self, b: int, t: int) -> Tuple[int, int]:
         return self.model.drop_counts(b, t)
+
+    def local_bits(self, bits, b, t, rank, world, out=None) -> torch.Tensor:
+        return self.model.local_bits(bits, b, t, rank, world, out)
 
     def forward(self, captions: torch.Tensor, mask: torch.Tensor,
                 drop_bits: Optional[torch.Tensor] = None,

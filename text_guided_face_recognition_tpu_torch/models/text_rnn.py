@@ -115,6 +115,16 @@ class RNNEncoder(nn.Module):
         one bit pattern per embedding element, no seed."""
         return (b * t * self.ninput if self.drop_prob > 0.0 else 0), 0
 
+    def local_bits(self, bits: torch.Tensor, b: int, t: int, rank: int,
+                   world: int, out: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+        """A rank's share of the bits of a forward at the global batch
+        (b, t): the embedding bits (B, T, in) of its rows [rank b / world,
+        (rank + 1) b / world); into `out` when given."""
+        bl = b // world
+        mine = bits.view(b, -1)[rank * bl:(rank + 1) * bl].reshape(-1)
+        return mine if out is None else out.copy_(mine)
+
     def _stacked(self):
         """The two directions' kernels (2, in, G h), (2, h, G h) and biases
         rounded to the compute dtype, gates in flax's order."""

@@ -6,7 +6,10 @@ into a shared library with a plain C interface, loaded with `ctypes`.
 Libraries are built at first use into `_build/` beside this package (listed
 in `.gitignore`), named by a digest of their sources and flags, so an
 edited source never loads a stale library.
-`build()` compiles several sources in parallel, one `nvcc` process each.
+`build()` compiles several sources in parallel, one `nvcc` process each,
+under a file lock in `_build/`, so that the ranks of a data-parallel run
+(parallel/mesh.py) starting together compile each library once: the
+first builds, the others wait and load.
 A variant (`VARIANTS`) is a source built with extra flags into a library
 of its own name: the measurement build of the tower kernels, which only
 chip_smoke.py loads.
@@ -18,6 +21,7 @@ toolchain, where the kernels' plain versions serve CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -78,8 +82,15 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     Returns {name: seconds} for the sources compiled by this call. The
     compiler's report (registers, spills) is kept beside each library as
     `<library>.log`. Raises RuntimeError with the compiler output on failure.
+    Another process building meanwhile holds the lock; this one waits.
     """
     _BUILD.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked(names)
+
+
+def _build_locked(names: Iterable[str]) -> Dict[str, float]:
     jobs = {}
     for name in names:
         out = _target(name)
