@@ -3,7 +3,7 @@
 
   python3 chip_smoke.py [--only kernels|launches|phases|prng|serving|train|
                                 stage2|step|damsm|weights|lstm|options|
-                                parallel]
+                                parallel|archs]
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
@@ -241,6 +241,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      in (b) on both ranks (else a line says why (c) did not run). Host and
      device ms a step per rank, and the collectives' share. `--dp_parts`
      (default abc) runs some of (a), (b), (c).
+ 13. archs (`--only archs` runs it alone, building layernorm and damsm):
+     the text archs of bert_type other than bert and align (clip,
+     groupvit, falva, blip) at full width, bf16, fused_ln, use_pallas and
+     fused_block both, which none of them takes (the unfused tower runs,
+     as in the JAX package): per arch one pair batch of 32, the stage-1
+     step (B 32, 4500 classes) captured against eager bit for bit, one
+     stage-2 step (B 16), each counted (K1 once per LayerNorm of each
+     tower pass, K2 as often in training, K9 once a stage-1 step, K3-K8
+     never); K1 and K2 on the stage-1 step's own LayerNorm inputs (widths
+     256, 512, 768; eps 1e-5 and 1e-12) against their plain versions in
+     bf16 and f32 and timed beside F.layer_norm and
+     native_layer_norm_backward; host and device ms of the pair batch and
+     the steps; then each module of the model surface off the main path
+     (margins and heads, MagFace, iresnet34-200, GNAP, GDC, the attention,
+     CFA and AttnGAN modules) on the card against the CPU within 1e-4.
 Each kernel launches on at least one driven path, and on each path exactly
 the expected number of times. The last two lines are the `kernels` JSON
 line and the result line.
@@ -4213,6 +4228,353 @@ def lstm_phase(kernels) -> dict:
     return out
 
 
+# ------------------------------------- the text archs of bert_type --
+
+ARCHS = ("clip", "groupvit", "falva", "blip")
+
+
+def _ln_count(arch) -> int:
+    """The tower's LayerNorms a pass runs unfused: two a layer, the
+    embeddings' and the final one where the arch has them."""
+    return 2 * arch.layers + int(arch.emb_ln) + int(arch.final_ln)
+
+
+def _ln_inputs(encoder, run) -> list:
+    """(LayerNorm module, its input in the module's dtype) of every
+    LayerNorm of `encoder` in the forward of run()."""
+    from text_guided_face_recognition_tpu_torch.models.text_bert import (
+        LayerNorm)
+    seen, hooks = [], []
+
+    def grab(mod, inp):
+        seen.append((mod, inp[0].detach().to(mod.dtype).contiguous()))
+
+    for m in encoder.modules():
+        if isinstance(m, LayerNorm):
+            hooks.append(m.register_forward_pre_hook(grab))
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def _ln_hold(seen: list, gen, failures: list, tag: str) -> dict:
+    """K1 and K2 on each captured LayerNorm input against their plain
+    versions, in the step's bf16 and again in f32 (TOL; K2 with a
+    cotangent drawn from gen, `_close_scaled`), and the two kernels' device
+    ms at that shape (bf16, warm L2, a graph of 20 calls) beside the plain
+    version's, one PyTorch call's (F.layer_norm; native_layer_norm_backward)
+    and the bound. Launches made here are not counted on any path."""
+    import torch
+    import torch.nn.functional as F
+
+    from text_guided_face_recognition_tpu_torch.ops import layernorm as L
+    worst = {"bfloat16": [0.0, 0.0], "float32": [0.0, 0.0]}
+    for mod, x in seen:
+        g, b, eps = mod.weight.detach(), mod.bias.detach(), mod.eps
+        dy = torch.randn(x.shape, generator=gen).to(x.device)
+        for dt, tol in TOL.items():
+            xd, dyd = x.to(getattr(torch, dt)), dy.to(getattr(torch, dt))
+            e, ok = _close(L.layernorm_fused(xd, g, b, eps),
+                           L.layernorm_ref(xd, g, b, eps), tol)
+            worst[dt][0] = max(worst[dt][0], e)
+            if not ok:
+                failures.append(f"{tag}: K1 at {tuple(x.shape)} {dt} eps "
+                                f"{eps}: {e}")
+            for k, (o, r) in enumerate(zip(L.layernorm_bwd(dyd, xd, g, eps),
+                                           L.layernorm_bwd_ref(dyd, xd, g,
+                                                               eps))):
+                e, ok = _close_scaled(o, r, tol)
+                worst[dt][1] = max(worst[dt][1], e)
+                if not ok:
+                    failures.append(f"{tag}: K2 output {k} at "
+                                    f"{tuple(x.shape)} {dt}: {e}")
+    mod, x = seen[-1]
+    g, b, eps = mod.weight.detach(), mod.bias.detach(), mod.eps
+    x2 = x.reshape(-1, x.shape[-1]).bfloat16()
+    dy = torch.randn(x2.shape, generator=gen).to(x2.device).bfloat16()
+    rows, h = x2.shape
+    bg, bb = g.bfloat16(), b.bfloat16()
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x2, [h], bg, bb, eps)
+    times = {
+        "rows": rows, "h": h, "eps": eps,
+        "k1_ms": _graph_ms(lambda: L.layernorm_fused(x2, g, b, eps)),
+        "k1_plain_ms": _graph_ms(lambda: L.layernorm_ref(x2, g, b, eps)),
+        "k1_library_ms": _graph_ms(lambda: F.layer_norm(x2, (h,), bg, bb,
+                                                        eps)),
+        "k1_bound": _bound(2 * rows * h * 2 + 2 * h * 4, 8.0 * rows * h,
+                           "f32")["bound_ms"],
+        "k2_ms": _graph_ms(lambda: L.layernorm_bwd(dy, x2, g, eps)),
+        "k2_plain_ms": _graph_ms(lambda: L.layernorm_bwd_ref(dy, x2, g,
+                                                             eps)),
+        "k2_library_ms": _graph_ms(
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x2, [h], mean, rstd, bg, bb, [True, True, True])),
+        "k2_bound": _bound(3 * rows * h * 2 + 3 * h * 4, 12.0 * rows * h,
+                           "f32")["bound_ms"],
+        "max_abs_err": worst}
+    return times
+
+
+def _surface_on_card(failures: list) -> dict:
+    """Each module of the model surface off the main path (ops/margins.py,
+    models/{margins,magface,iresnet,irnet,layers,fusion,legacy_attention}
+    .py) built on the CPU from a seed, run there in f32, moved to the card
+    and run again on the same inputs: the largest |card - CPU| of each,
+    within 1e-4 + 1e-4 |CPU| (TF32 off)."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch import models as PM
+    from text_guided_face_recognition_tpu_torch.ops import margins as OM
+
+    gen = torch.Generator().manual_seed(11)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen) * scale
+
+    emb, lab = r(8, 64), torch.randint(0, 40, (8,), generator=gen)
+    big = r(8, 64, scale=3.0)
+    norms = emb.norm(dim=1, keepdim=True)
+    img = r(1, 3, 112, 112)
+    cases = {
+        "add_margin_logits": (lambda: OM.add_margin_logits, (emb, r(40, 64),
+                                                             lab)),
+        "sphere_margin_logits": (lambda: OM.sphere_margin_logits,
+                                 (emb, r(40, 64), lab, 5)),
+        "adaface_logits": (lambda: OM.adaface_logits,
+                           (emb / norms, r(64, 40), norms, lab,
+                            torch.tensor(20.0), torch.tensor(100.0))),
+        "mag_margin_logits": (lambda: lambda e, w: OM.mag_margin_logits(
+            e, w, OM.linear_margin_fn(0.45, 0.8, 10.0, 110.0)),
+            (big, r(64, 40))),
+        "AddMarginProduct": (lambda: PM.AddMarginProduct(64, 40), (emb, lab)),
+        "SphereProduct": (lambda: PM.SphereProduct(64, 40), (emb, lab)),
+        "AdaFaceHead": (lambda: PM.AdaFaceHead(64, 40),
+                        (emb / norms, norms, lab)),
+        "MagLinear": (lambda: PM.MagLinear(64, 40), (big,)),
+        "SoftmaxBuilder": (lambda: PM.SoftmaxBuilder(last_fc_size=40).eval(),
+                           (img,)),
+        "GNAP": (lambda: PM.GNAP(64).eval(), (r(2, 64, 7, 7),)),
+        "GDC": (lambda: PM.GDC(64, 32).eval(), (r(2, 64, 7, 7),)),
+        "ScaledDotProductAttention": (
+            lambda: PM.ScaledDotProductAttention(32),
+            (r(2, 5, 32), r(2, 7, 32), r(2, 7, 32))),
+        "DotProductAttention": (lambda: PM.DotProductAttention(),
+                                (r(2, 5, 32), r(2, 7, 32))),
+        "MultiHeadAttention": (lambda: PM.MultiHeadAttention(32, 4),
+                               (r(2, 5, 32), r(2, 7, 32), r(2, 7, 32))),
+        "TorchMultiheadAttention": (
+            lambda: PM.TorchMultiheadAttention(32, 4),
+            (r(2, 5, 32), r(2, 7, 32), r(2, 7, 32))),
+        "ParagraphLevelCFA": (lambda: PM.ParagraphLevelCFA(),
+                              (r(3, 512), r(3, 256))),
+        "ConcatAttention": (lambda: PM.ConcatAttention(),
+                            (r(3, 512), r(3, 256))),
+        "SpatialAttention": (lambda: PM.SpatialAttention(16, 24),
+                             (r(2, 16, 4, 4), r(2, 5, 24))),
+        "ChannelAttention": (lambda: PM.ChannelAttention(16, 24, 4, 4),
+                             (r(2, 16, 16), r(2, 5, 24))),
+    }
+    for arch in ("iresnet34", "iresnet50", "iresnet100", "iresnet200"):
+        cases[arch] = (lambda a=arch: PM.network_builder(a).eval(), (img,))
+    errs = {}
+    dev = torch.device("cuda")
+
+    def flat(out):
+        if isinstance(out, (tuple, list)):
+            return [t for o in out for t in flat(o)]
+        return [out]
+
+    def on(x, d):
+        return x.to(d) if torch.is_tensor(x) else x
+
+    for name, (make, inputs) in cases.items():
+        with torch.no_grad():
+            torch.manual_seed(0)
+            cpu = flat(make()(*inputs))
+            torch.manual_seed(0)       # the same weights, fresh margin state
+            mod = make()
+            if isinstance(mod, torch.nn.Module):
+                mod.to(dev)
+            card = flat(mod(*(on(x, dev) for x in inputs)))
+        err = max((c.cpu().float() - p.float()).abs().max().item()
+                  for c, p in zip(card, cpu))
+        errs[name] = err
+        if not all(_close(c.cpu(), p, 1e-4)[1] for c, p in zip(card, cpu)):
+            failures.append(f"surface {name}: card against CPU {err}")
+    with torch.no_grad():
+        c_pair, c_norm = PM.MagLinear(64, 40)(big)
+        loss = PM.mag_loss(c_pair, lab, c_norm)
+        g_pair, g_norm = PM.MagLinear(64, 40).to(dev)(big.to(dev))
+        errs["mag_loss"] = max(abs(float(a) - float(b)) for a, b in zip(
+            loss, PM.mag_loss(g_pair, lab.to(dev), g_norm)))
+    if errs["mag_loss"] > 1e-4 * (1 + abs(float(loss[0]))):
+        failures.append(f"surface mag_loss: {errs['mag_loss']}")
+    return errs
+
+
+def archs_phase(kernels) -> dict:
+    """The text archs of bert_type other than bert and align (`--only
+    archs`), each at full width (12 layers; clip 512 wide, 8 heads, vocab
+    49408, 77 positions; groupvit 256, 4 heads; falva and blip 768, blip's
+    heads 96 wide), random weights from manual_seed, synthetic data, bf16,
+    fused_ln, use_pallas and fused_block both, which none of them takes:
+    the unfused tower runs (the JAX package's rule), so K3-K8 launch 0
+    times. Per arch: one pair batch of 32 (cfg/test.yml; K1 on every
+    LayerNorm of both sides' towers); the stage-1 step (cfg/train_bert.yml,
+    B 32, 4500 classes) captured against eager bit for bit after 3 and 6
+    steps (`_captured_vs_eager`), one eager step counted (K1 and K2 once
+    per LayerNorm, K9 once); one stage-2 step (cfg/fusion_bert.yml, B 16,
+    FCFM; K1 and K2 once per LayerNorm); K1 and K2 on that stage-1 step's
+    own LayerNorm inputs (widths 256, 512, 768; eps 1e-5 and 1e-12)
+    against their plain versions (`_ln_hold`) and timed; host ms of the
+    pair batch and of each step (median of 5) and their device ms from the
+    profiler, with the card. Then each module of the model
+    surface off the main path once on the card against the CPU
+    (`_surface_on_card`). Returns {path: (counts, per call)} for the
+    kernels line: archs_{arch}_pair, archs_{arch}_stage1,
+    archs_{arch}_stage2."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.config import load_yaml
+    from text_guided_face_recognition_tpu_torch.engine import prepare as prep
+    from text_guided_face_recognition_tpu_torch.engine.evaluate import (
+        pair_scores)
+    from text_guided_face_recognition_tpu_torch.engine.stage1 import (
+        Stage1Trainer)
+    from text_guided_face_recognition_tpu_torch.engine.stage2 import (
+        FusionTrainer)
+    from text_guided_face_recognition_tpu_torch.models.text_bert import (
+        TEXT_ARCHS)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(7)
+    failures, out, report = [], {}, {}
+    common = dict(synthetic=True, checkpoints_path="", fused_block="both",
+                  fused_ln=True, use_pallas=True, compute_dtype="bfloat16")
+    cfg = {name: load_yaml(os.path.join(ROOT, "cfg", name)).replace(
+        **common) for name in ("test.yml", "train_bert.yml",
+                               "fusion_bert.yml")}
+    widths, epss = set(), set()
+    import warnings
+    for name in ARCHS:
+        arch = TEXT_ARCHS[name]
+        n_ln = _ln_count(arch)
+        rep = {"layernorms_a_pass": n_ln}
+        zero = {k: 0 for k in kernels}
+
+        def want(**kw):
+            return {**zero, **kw}
+
+        with warnings.catch_warnings():
+            # every arch here warns that it runs the unfused tower
+            warnings.simplefilter("ignore", UserWarning)
+            # a pair batch of 32
+            args = cfg["test.yml"].replace(bert_type=name, batch_size=32,
+                                           is_roc=False, is_ident=False,
+                                           eval_table_mode=False)
+            test_dl, _ = prep.prepare_dataloader(args, "test")
+            enc, head = prep.prepare_text_encoder(args, dev)
+            if enc.fused_block_effective != "none":
+                failures.append(f"{name}: fused_block in effect "
+                                f"{enc.fused_block_effective}")
+            mods = (prep.prepare_backbone(args, dev),
+                    prep.prepare_image_head(args, dev),
+                    prep.prepare_fusion_net(args, dev), enc, head)
+            b = next(iter(test_dl))
+            cols = [b[k] for k in ("img1", "img2", "cap1", "cap2", "mask1",
+                                   "mask2")]
+
+            def pair_batch():
+                return pair_scores(args, *mods, *cols)
+
+            _zero(kernels)
+            scores = pair_batch()
+            torch.cuda.synchronize()
+            counts = _counts(kernels)
+            out[f"archs_{name}_pair"] = (counts, dict(counts))
+            if counts != want(layernorm_fused=2 * n_ln):
+                failures.append(f"{name} pair batch: launches {counts}")
+            if scores.shape != (32,) or not bool(
+                    torch.isfinite(scores).all()):
+                failures.append(f"{name} pair batch: scores {scores}")
+            rep["pair_host_ms"] = _host_ms(pair_batch, reps=5)
+            rep["pair_device_ms"] = _profile(pair_batch).get(
+                "device_ms_per_call", "not measured")
+            del mods, enc, head, test_dl
+
+            # stage 1: captured against eager, then one counted eager step
+            s1 = cfg["train_bert.yml"].replace(bert_type=name)
+            eager, graphed, state, batch, cmp = _captured_vs_eager(
+                Stage1Trainer, s1, dev)
+            if not all(c["bitwise"] for c in cmp.values()):
+                failures.append(f"{name} stage 1: captured differs from "
+                                f"eager: {cmp}")
+            rep["stage1_captured_vs_eager"] = cmp
+            _zero(kernels)
+            seen = _ln_inputs(eager.model.text_encoder,
+                              lambda: eager.train_step(batch))
+            torch.cuda.synchronize()
+            counts = _counts(kernels)
+            out[f"archs_{name}_stage1"] = (counts, dict(counts))
+            if counts != want(layernorm_fused=n_ln, layernorm_bwd=n_ln,
+                              damsm_similarity=1) or len(seen) != n_ln:
+                failures.append(f"{name} stage 1: launches {counts}, "
+                                f"LayerNorm inputs {len(seen)}")
+            rep["stage1_eager_host_ms"] = _host_ms(
+                lambda: eager.train_step(batch), reps=5)
+            rep["stage1_captured_host_ms"] = _host_ms(
+                lambda: graphed.train_step(batch), reps=5)
+            prof = _profile(lambda: graphed.train_step(batch), what="step")
+            rep["stage1_captured_device_ms"] = prof.get(
+                "device_ms_per_call", "not measured")
+            rep["ln"] = _ln_hold(seen, gen, failures, name)
+            widths.update(x.shape[-1] for _, x in seen)
+            epss.update(m.eps for m, _ in seen)
+            del eager, graphed, state, batch, seen
+
+            # stage 2: one counted eager step
+            s2 = cfg["fusion_bert.yml"].replace(
+                bert_type=name, fused_block="tower", text_encoder_path="",
+                image_encoder_path="")
+            tr = FusionTrainer(s2, dev, eager=True)
+            batch = tr.to_device(next(iter(tr.train_dl)))
+            _zero(kernels)
+            loss = float(tr.train_step(batch)["loss"])
+            torch.cuda.synchronize()
+            counts = _counts(kernels)
+            out[f"archs_{name}_stage2"] = (counts, dict(counts))
+            if counts != want(layernorm_fused=n_ln, layernorm_bwd=n_ln) \
+                    or not math.isfinite(loss):
+                failures.append(f"{name} stage 2: launches {counts}, loss "
+                                f"{loss}")
+            rep["stage2_eager_host_ms"] = _host_ms(
+                lambda: tr.train_step(batch), reps=5)
+            rep["stage2_eager_device_ms"] = _profile(
+                lambda: tr.train_step(batch), what="step").get(
+                "device_ms_per_call", "not measured")
+            del tr, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        report[name] = rep
+        print(f"archs, {name}: " + json.dumps(rep), flush=True)
+    if widths != {256, 512, 768} or epss != {1e-5, 1e-12}:
+        failures.append(f"LayerNorm widths {widths}, eps {epss}")
+    t_surface = time.perf_counter()
+    surface = _surface_on_card(failures)
+    print(f"archs: the model surface on the card against the CPU, max "
+          f"|d| {json.dumps(surface)} ({time.perf_counter() - t_surface:.1f}"
+          f" s)", flush=True)
+    print(f"archs: phase {time.perf_counter() - t_phase:.1f} s; "
+          f"{card_line()}", flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 # ------------------------------------------- the stage options (PR 13) --
 
 # images of the synthetic train split for the frozen-feature cache's checks:
@@ -5248,7 +5610,7 @@ def main(argv=None) -> int:
                                        "prng", "serving", "train",
                                        "stage2", "step", "damsm",
                                        "weights", "lstm", "options",
-                                       "parallel"))
+                                       "parallel", "archs"))
     ap.add_argument("--dp_rank", choices=("gloo", "nccl1", "nccl2", "cli"),
                     help=argparse.SUPPRESS)     # a rank of the parallel phase
     ap.add_argument("--dp_parts", default="abc",
@@ -5279,6 +5641,7 @@ def main(argv=None) -> int:
     per_source = _cuda.build(
         ("layernorm", "ffn_block", "attn_block") if only == "launches"
         else ("damsm",) if only in ("damsm", "lstm")
+        else ("layernorm", "damsm") if only == "archs"
         else ("layernorm", "ffn_block", "attn_block", "damsm")
         if only == "weights" else _cuda.SOURCES
         if only in ("step", "options", "parallel")
@@ -5314,6 +5677,7 @@ def main(argv=None) -> int:
     options = options_phase(kernels) if only in (None, "options") else {}
     parallel = (parallel_phase(kernels, ns.dp_parts)
                 if only in (None, "parallel") else {})
+    archs = archs_phase(kernels) if only in (None, "archs") else {}
     # every path was driven with the counts zeroed just before it and read
     # just after; each phase held its path to the expected count per kernel
     paths = (("launches_prng", "launches_per_prng_check", prng),
@@ -5331,7 +5695,9 @@ def main(argv=None) -> int:
              *((f"launches_{k}", f"launches_per_{k}_step", v)
                for k, v in options.items()),
              *((f"launches_{k}", f"launches_per_{k}", v)
-               for k, v in parallel.items()))
+               for k, v in parallel.items()),
+             *((f"launches_{k}", f"launches_per_{k}", v)
+               for k, v in archs.items()))
     for r in rows:
         for key, per_key, got in paths:
             if got is not None:

@@ -20,6 +20,13 @@ from text_guided_face_recognition_tpu_torch.engine.from_jax import (
     state_dict_from_jax)
 from text_guided_face_recognition_tpu_torch.models import text_bert as ptb
 
+# The first call of ATen's vectorised exp in a process can be off by up to
+# 1.6e-4 relative on one OpenMP thread's chunk under contended cores
+# (tests/test_torch_ops.py); every later call is exact. Taken here, at
+# import, before any comparison.
+torch.exp(torch.linspace(-4.0, 4.0, 1 << 16))
+torch.erf(torch.linspace(-4.0, 4.0, 1 << 16))
+
 # Small post-LN BERT: d_head = 64, which the fused paths of both packages
 # require; 2 layers, intermediate 256; bert's vocabulary, which the
 # synthetic captions index.

@@ -279,10 +279,14 @@ def test_long_captions_refused_at_the_config_check(fused_block):
                            match=f"at most {serve} tokens in serving in "
                                  f"{dtype}"):
             pconfig.check_serving(at.replace(bert_words_num=serve + 1))
-    # unfused, any length
-    off = cfg.replace(fused_block="none", bert_words_num=600)
+    # unfused, any length the position table holds (bert-base: 512); a
+    # longer one is refused whatever the mode
+    off = cfg.replace(fused_block="none", bert_words_num=512)
     pconfig.check_stage1(off)
     pconfig.check_serving(off)
+    for check in (pconfig.check_stage1, pconfig.check_serving):
+        with pytest.raises(ValueError, match="has 512 positions"):
+            check(off.replace(bert_words_num=513))
 
 
 def test_long_captions_refused_before_the_first_step(monkeypatch, tmp_path):

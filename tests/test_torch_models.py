@@ -65,23 +65,69 @@ def test_text_encoder_and_heading_match_jax(tiny_arch, fused_block, fused_ln):
 
 
 def test_text_encoder_refuses_unported_archs():
-    # the whole-tower kernel is ported: `tower` constructs, with the tree of
-    # every other mode; heads of another width than 64 (blip: 96) still raise
+    # every arch of the JAX package's table builds, under every fused_block,
+    # with the mode in effect that the JAX package's rule gives: the block
+    # kernels for post-LN erf-GELU archs with heads 64 wide (bert, align),
+    # else the unfused tower, with the JAX package's warning
+    import dataclasses
+    import warnings
+
+    from text_guided_face_recognition_tpu.models import text_bert as jtb
+    from text_guided_face_recognition_tpu_torch.models import text_bert as ptb
+    assert set(ptb.TEXT_ARCHS) >= set(jtb.TEXT_ARCHS)
+    for name, ja in jtb.TEXT_ARCHS.items():
+        assert dataclasses.asdict(ptb.TEXT_ARCHS[name]) == \
+            dataclasses.asdict(ja), name
+        fused = ja.style == "postln" and ja.act == "gelu" and \
+            ja.hidden // ja.heads == 64
+        for mode in ("none", "ffn", "attn", "both", "tower"):
+            want = mode if fused else "none"
+            assert ptb.fused_block_in_effect(ptb.TEXT_ARCHS[name],
+                                             mode) == want, (name, mode)
     enc = PM.TextEncoder(bert_type="bert", fused_block="tower")
-    assert enc.model.fused_block == "tower"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PM.TextEncoder(bert_type="blip", fused_block="tower")
-    for arch in ("clip", "groupvit", "falva"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PM.TextEncoder(bert_type=arch)
+    assert enc.model.fused_block == enc.fused_block_effective == "tower"
+    for arch in ("clip", "groupvit", "falva", "blip"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")      # none asked: no warning
+            enc = PM.TextEncoder(bert_type=arch)
+        assert enc.fused_block_effective == "none"
+        assert (enc.model.final_ln is not None) == \
+            jtb.TEXT_ARCHS[arch].final_ln
+        assert (enc.model.emb_ln is not None) == jtb.TEXT_ARCHS[arch].emb_ln
+
+
+# heads 96 wide, as blip's, at a small size
+BLIP96 = dict(vocab_size=30524, hidden=192, layers=2, heads=2,
+              intermediate=256, max_positions=64, type_vocab=0, dropout=0.0)
 
 
 @pytest.mark.parametrize("fused_block", ["ffn", "attn", "both", "tower"])
-def test_fused_block_refuses_other_head_widths(fused_block):
-    # blip has 8 heads of 96: the kernels take heads of 64, and the port
-    # raises where the JAX package would quietly run the unfused tower
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_fused_block_refuses_other_head_widths(fused_block, monkeypatch):
+    # blip's heads are 96 wide: the kernels take heads of 64, and the port,
+    # as the JAX package, warns and runs the unfused tower, whose output
+    # is the JAX package's under the same mode
+    from text_guided_face_recognition_tpu.models import text_bert as jtb
+    from text_guided_face_recognition_tpu_torch.models import text_bert as ptb
+    monkeypatch.setitem(jtb.TEXT_ARCHS, "blip96", jtb.TextArch(**BLIP96))
+    monkeypatch.setitem(ptb.TEXT_ARCHS, "blip96", ptb.TextArch(**BLIP96))
+    msg = "falling back to the unfused path"
+    with pytest.warns(UserWarning, match=msg):
         PM.TextEncoder(bert_type="blip", fused_block=fused_block)
+    with pytest.warns(UserWarning, match=msg):
+        p_enc = PM.TextEncoder(bert_type="blip96", fused_block=fused_block)
+    assert p_enc.fused_block_effective == "none"
+    ids, mask = _captions()
+    j_enc = JM.TextEncoder(bert_type="blip96", fused_block=fused_block)
+    variables = JM.TextEncoder(bert_type="blip96").init(
+        jax.random.PRNGKey(0), jnp.asarray(ids), jnp.asarray(mask))
+    with pytest.warns(UserWarning, match=msg):
+        j_words, j_sent = j_enc.apply(variables, jnp.asarray(ids),
+                                      jnp.asarray(mask))
+    bridge(p_enc, variables)
+    with torch.no_grad():
+        p_words, p_sent = p_enc(t(ids), t(mask))
+    close(p_words, j_words, TOL, "words_emb")
+    close(p_sent, j_sent, TOL, "sent_emb")
 
 
 def _image(b=2, seed=0):

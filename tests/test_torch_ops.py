@@ -21,6 +21,17 @@ import torch
 
 from text_guided_face_recognition_tpu_torch.ops import block, layernorm
 
+# The first call of ATen's vectorised exp in a process (through torch.exp,
+# torch.erf, the softmax) can come back off by up to 1.6e-4 relative on one
+# OpenMP thread's chunk when the host's cores are contended, as under a
+# 6-worker xdist run: about one fresh process in 25, with no JAX in the
+# process; every later call is exact. The plain GELU's erf then moved the
+# f32 FFN block by 1.4e-4 against the 5e-5 it is held to. One parallel call
+# of each at import, before any test, takes the first call out of the
+# comparisons.
+torch.exp(torch.linspace(-4.0, 4.0, 1 << 16))
+torch.erf(torch.linspace(-4.0, 4.0, 1 << 16))
+
 B, T, H, HEADS = 4, 12, 256, 4        # d_head = 64, as the kernels require
 DTYPES = [("float32", torch.float32, 5e-5), ("bfloat16", torch.bfloat16, 2e-2)]
 

@@ -49,6 +49,11 @@ def parser(default_cfg: str, description: str) -> argparse.ArgumentParser:
                    help="run on synthetic images/captions")
     p.add_argument("--cpu", action="store_true", default=None,
                    help="run on the CPU instead of the CUDA card")
+    p.add_argument("--bert_type", type=str, default=None,
+                   choices=("bert", "align", "blip", "falva", "clip",
+                            "groupvit"),
+                   help="text arch of the BERT recipe (models/text_bert.py "
+                        "TEXT_ARCHS)")
     p.add_argument("--fused_block", type=str, default=None,
                    choices=("none", "ffn", "attn", "both", "tower"),
                    help="text tower through the CUDA kernels: half-layers "

@@ -33,10 +33,11 @@ with en_type GRU (the reference and the JAX package build the LSTM's
 fusion net for LSTM only and the BERT one otherwise, which takes no RNN
 words), and in stage 2 with en_type LSTM a `fusion_final_dim` other than
 768, the width of WordLevelCFA_LSTM's output that the margin head takes.
-Both, and `check_serving` at the serving entries, refuse a `fused_block` other
-than none with captions longer than the block kernels take
-(`check_caption_length`) and a backbone the port does not build
-(`check_backbone`: AdaFace takes 112 x 112 images only).
+Both, and `check_serving` at the serving entries, refuse captions longer
+than the text arch's position table or, with a `fused_block` in effect
+other than none, than the block kernels take (`check_caption_length`),
+and a backbone the port does not build (`check_backbone`: AdaFace takes
+112 x 112 images only).
 """
 
 from __future__ import annotations
@@ -280,26 +281,36 @@ class TGFRConfig:
 
 
 def check_caption_length(cfg: TGFRConfig, grad: bool) -> None:
-    """Refuse captions longer than the block kernels take, before any step.
-    With `fused_block` other than none the attention kernels (ops/block.py
-    `max_t`) take, in bf16, at most MAX_T_FWD (512, bert-base's position
-    table) tokens with a gradient and without one (K5's and K6's
-    tensor-core attention); in f32 and for the whole-tower kernels
-    (`tower`), at most MAX_T_BWD (64) tokens when a gradient is needed
-    (the f32 scalar tiles; K7's scalar tile with residuals and K8's sizing)
-    and MAX_T_FWD_SCALAR (128) without one. The JAX kernels have no such
-    limit; the limits still open are listed in ROADMAP.md, Queue 3. An
-    LSTM or GRU caption runs no block kernel."""
-    if cfg.fused_block == "none" or cfg.en_type != "BERT":
+    """Refuse, before any step, captions longer than the text arch or the
+    block kernels take. A caption longer than `bert_type`'s position table
+    (`max_positions`: 77 for clip and groupvit, 512 for the others) is
+    refused whatever the mode: the card's embedding lookup would stop on a
+    device-side assert (the JAX package reads NaN rows there). With the
+    `fused_block` mode in effect for the arch (models/text_bert.py
+    `fused_block_in_effect`: none for the archs the block kernels do not
+    take) other than none, the attention kernels (ops/block.py `max_t`)
+    take, in bf16, at most MAX_T_FWD (512, bert-base's position table)
+    tokens with a gradient and without one (K5's and K6's tensor-core
+    attention); in f32 and for the whole-tower kernels (`tower`), at most
+    MAX_T_BWD (64) tokens when a gradient is needed (the f32 scalar tiles;
+    K7's scalar tile with residuals and K8's sizing) and MAX_T_FWD_SCALAR
+    (128) without one. The JAX kernels have no such limit; the limits
+    still open are listed in ROADMAP.md, Queue 3. An LSTM or GRU caption
+    runs no block kernel."""
+    if cfg.en_type != "BERT":
         return
     import torch
 
+    from text_guided_face_recognition_tpu_torch.models.text_bert import (
+        TEXT_ARCHS, fused_block_in_effect)
     from text_guided_face_recognition_tpu_torch.ops.block import max_t
-    limit = max_t(getattr(torch, cfg.compute_dtype), grad,
-                  tower=cfg.fused_block == "tower")
-    if cfg.bert_words_num > limit:
+    arch = TEXT_ARCHS[cfg.bert_type]
+    fb = fused_block_in_effect(arch, cfg.fused_block)
+    limit = (max_t(getattr(torch, cfg.compute_dtype), grad,
+                   tower=fb == "tower") if fb != "none" else None)
+    if limit is not None and cfg.bert_words_num > limit:
         raise NotImplementedError(
-            f"fused_block={cfg.fused_block!r} with bert_words_num="
+            f"fused_block={fb!r} with bert_words_num="
             f"{cfg.bert_words_num}: the block kernels take captions of at "
             f"most {limit} tokens "
             + ("when a gradient is needed" if grad else "in serving")
@@ -307,6 +318,11 @@ def check_caption_length(cfg: TGFRConfig, grad: bool) -> None:
             "captions wait for the rework of the kernels named in "
             "ROADMAP.md, Queue 3. Use fused_block='none' or "
             f"bert_words_num <= {limit}.")
+    if cfg.bert_words_num > arch.max_positions:
+        raise ValueError(
+            f"bert_words_num={cfg.bert_words_num}: bert_type="
+            f"{cfg.bert_type!r} has {arch.max_positions} positions; use "
+            f"bert_words_num <= {arch.max_positions}.")
 
 
 def check_damsm(cfg: TGFRConfig) -> None:

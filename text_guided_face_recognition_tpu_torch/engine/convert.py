@@ -8,8 +8,9 @@ returns the flax tree the JAX package would build from it ({"params",
 engine/from_jax.state_dict_from_jax, lands it on a port module. The files:
 the frozen backbones (ArcFace arcface_ir18_ms1mv3.pth, AdaFace
 adaface_ir18_webface4m.ckpt, MagFace magface_iresnet18_casia_dp.pth), an HF
-torch BERT, the reference trainers' text, image-head and fusion bundles,
-and its LSTM/GRU caption encoder and LSTM fusion net.
+torch text model of every bert_type (BERT, CLIP, GroupViT, FLAVA), the
+reference trainers' text, image-head and fusion bundles, and its LSTM/GRU
+caption encoder and LSTM fusion net.
 
 Layout rules (the JAX package's):
   * conv kernels: OIHW -> HWIO
@@ -39,7 +40,8 @@ import numpy as np
 
 __all__ = ["strip_module", "npify", "load_torch_state_dict",
            "convert_iresnet", "convert_irbackbone", "convert_magface",
-           "convert_bert_encoder", "convert_hf_text_model",
+           "convert_bert_encoder", "convert_clip_text_encoder",
+           "convert_flava_text_encoder", "convert_hf_text_model",
            "convert_text_encoder_bundle", "convert_text_heading",
            "convert_image_heading", "convert_fcfm", "convert_linear_fusion",
            "convert_wordlevel_cfa", "convert_rnn_encoder"]
@@ -259,17 +261,82 @@ def convert_bert_encoder(sd: Dict[str, np.ndarray],
     return {"params": p}
 
 
+def _n_layers(sd, pattern: str) -> int:
+    return max(int(m.group(1)) for k in sd if (m := re.match(pattern, k))) + 1
+
+
+def convert_clip_text_encoder(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """HF torch CLIPTextModel / GroupViTTextModel state_dict (a
+    `text_model.` prefix is dropped) -> the pre-LN, causal TransformerEncoder's
+    params: embeddings.{token,position}_embedding, encoder.layers.N.
+    {self_attn.{q,k,v,out}_proj, layer_norm1, layer_norm2, mlp.fc{1,2}},
+    final_layer_norm. Keys the encoder does not hold (position_ids) are
+    ignored."""
+    sd = {re.sub(r"^text_model\.", "", k): v for k, v in sd.items()}
+    p: Dict[str, Any] = {
+        "tok_emb": {"embedding": sd["embeddings.token_embedding.weight"]},
+        "pos_emb": {"embedding": sd["embeddings.position_embedding.weight"]},
+        "final_ln": _ln(sd, "final_layer_norm"),
+    }
+    for i in range(_n_layers(sd, r"encoder\.layers\.(\d+)\.")):
+        t = f"encoder.layers.{i}"
+        p[f"layer_{i}"] = {
+            "attn": {
+                "qkv": _qkv_fused(sd, f"{t}.self_attn.q_proj",
+                                  f"{t}.self_attn.k_proj",
+                                  f"{t}.self_attn.v_proj"),
+                "out": _dense(sd, f"{t}.self_attn.out_proj"),
+            },
+            "attn_ln": _ln(sd, f"{t}.layer_norm1"),
+            "ffn_ln": _ln(sd, f"{t}.layer_norm2"),
+            "ffn_in": _dense(sd, f"{t}.mlp.fc1"),
+            "ffn_out": _dense(sd, f"{t}.mlp.fc2"),
+        }
+    return {"params": p}
+
+
+def convert_flava_text_encoder(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """HF torch FlavaTextModel state_dict -> the pre-LN TransformerEncoder's
+    params with emb_ln and final_ln: BERT's embeddings over ViT blocks
+    (encoder.layer.N.{attention.attention.{query,key,value},
+    attention.output.dense, layernorm_before, layernorm_after,
+    intermediate.dense, output.dense}) and a trailing `layernorm`. The
+    pooler is ignored."""
+    p: Dict[str, Any] = {
+        "tok_emb": {"embedding": sd["embeddings.word_embeddings.weight"]},
+        "pos_emb": {"embedding": sd["embeddings.position_embeddings.weight"]},
+        "type_emb": {"embedding":
+                     sd["embeddings.token_type_embeddings.weight"]},
+        "emb_ln": _ln(sd, "embeddings.LayerNorm"),
+        "final_ln": _ln(sd, "layernorm"),
+    }
+    for i in range(_n_layers(sd, r"encoder\.layer\.(\d+)\.")):
+        t = f"encoder.layer.{i}"
+        p[f"layer_{i}"] = {
+            "attn": {
+                "qkv": _qkv_fused(sd, f"{t}.attention.attention.query",
+                                  f"{t}.attention.attention.key",
+                                  f"{t}.attention.attention.value"),
+                "out": _dense(sd, f"{t}.attention.output.dense"),
+            },
+            "attn_ln": _ln(sd, f"{t}.layernorm_before"),
+            "ffn_ln": _ln(sd, f"{t}.layernorm_after"),
+            "ffn_in": _dense(sd, f"{t}.intermediate.dense"),
+            "ffn_out": _dense(sd, f"{t}.output.dense"),
+        }
+    return {"params": p}
+
+
 def convert_hf_text_model(sd: Dict[str, np.ndarray],
                           bert_type: str) -> Dict[str, Any]:
     """Raw HF torch text-model state_dict -> the TransformerEncoder's
-    params, by bert_type. The pre-LN archs (clip, groupvit, falva) are not
-    ported (models/text_bert.py) and raise."""
+    params, by bert_type (the reference's models/models.py:123-140)."""
     if bert_type in ("bert", "align", "blip"):
         return convert_bert_encoder(sd)
-    if bert_type in ("clip", "groupvit", "falva"):
-        raise NotImplementedError(
-            f"bert_type={bert_type!r}: the pre-LN text archs are not ported "
-            "yet (ROADMAP.md, Queue 1)")
+    if bert_type == "falva":
+        return convert_flava_text_encoder(sd)
+    if bert_type in ("clip", "groupvit"):
+        return convert_clip_text_encoder(sd)
     raise ValueError(f"unknown bert_type {bert_type!r}")
 
 

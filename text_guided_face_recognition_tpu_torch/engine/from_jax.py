@@ -10,6 +10,9 @@ transforms:
   LayerNorm / BatchNorm `scale` -> `weight`   (`bias` keeps its name)
   LayerNormCHW (H, W, C)        -> (C, H, W), scale and bias alike
   batch_stats `mean` / `var`    -> `running_mean` / `running_var`
+  margin_stats `iter`,
+  `batch_mean`, `batch_std`     -> the buffers of those names (the
+                                   SphereProduct and AdaFaceHead heads)
   PReLU `alpha`                 -> `alpha`
   a bare `weight` (the trainers'
   image_cls / text_cls /
@@ -59,6 +62,7 @@ _PARAM_LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight",
                "W": "W"}
 _MOMENTS = {"mu": "exp_avg", "nu": "exp_avg_sq", "trace": "momentum_buffer"}
 _STATS_LEAF = {"mean": "running_mean", "var": "running_var"}
+_MARGIN_LEAF = {k: k for k in ("iter", "batch_mean", "batch_std")}
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -106,21 +110,24 @@ def _tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 def state_dict_from_jax(params: Mapping,
                         batch_stats: Optional[Mapping] = None,
-                        module: Optional[nn.Module] = None
+                        module: Optional[nn.Module] = None,
+                        margin_stats: Optional[Mapping] = None
                         ) -> "OrderedDict[str, torch.Tensor]":
     """The `state_dict` of `module` holding the JAX variables.
 
-    params / batch_stats: the flax `params` and `batch_stats` collections as
-    nested dicts of numpy arrays. Raises KeyError when a JAX leaf has no
-    port key or a port parameter or buffer gets no JAX leaf, and ValueError
-    on a shape mismatch, so a bridge that loads is complete.
+    params / batch_stats / margin_stats: the flax `params`, `batch_stats`
+    and `margin_stats` collections as nested dicts of numpy arrays. Raises
+    KeyError when a JAX leaf has no port key or a port parameter or buffer
+    gets no JAX leaf, and ValueError on a shape mismatch, so a bridge that
+    loads is complete.
     """
     if module is None:
         raise ValueError("state_dict_from_jax needs the port module")
     owners = dict(module.named_modules())
     target = module.state_dict()
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    sources = [(params, _PARAM_LEAF), (batch_stats or {}, _STATS_LEAF)]
+    sources = [(params, _PARAM_LEAF), (batch_stats or {}, _STATS_LEAF),
+               (margin_stats or {}, _MARGIN_LEAF)]
     for tree, names in sources:
         for _, key, arr in _leaves(tree, names, owners, target):
             out[key] = _tensor(arr, target[key])

@@ -304,12 +304,19 @@ def prepare_backbone(args, device: torch.device) -> nn.Module:
 
 # ------------------------------------------------------------ text + heads --
 
-_WORDS = "embeddings.word_embeddings.weight"
+# The token-embedding key of each HF text model (the JAX package takes any
+# file that is not a {'model', 'head'} bundle for one; the port recognises
+# it by this key, so another file is refused naming both layouts).
+_HF_WORDS = {"clip": "embeddings.token_embedding.weight",
+             "groupvit": "embeddings.token_embedding.weight"}
+_BERT_WORDS = "embeddings.word_embeddings.weight"
 
 
-def _hf_bert(sd) -> bool:
-    """An HF BERT state_dict, under any prefix (`bert.`, `model.`)."""
-    return isinstance(sd, Mapping) and any(k.endswith(_WORDS) for k in sd)
+def _hf_text(sd, bert_type: str) -> bool:
+    """An HF text model state_dict of `bert_type`, under any prefix
+    (`bert.`, `text_model.`, `model.`)."""
+    words = _HF_WORDS.get(bert_type, _BERT_WORDS)
+    return isinstance(sd, Mapping) and any(k.endswith(words) for k in sd)
 
 
 def _rnn_state_dict(obj):
@@ -346,11 +353,13 @@ def prepare_rnn_encoder(args, device: torch.device) -> nn.Module:
 
 def prepare_text_encoder(args, device: torch.device
                          ) -> Tuple[nn.Module, Optional[nn.Module]]:
-    """The text encoder and its TextHeading: BERT's, or with en_type LSTM
-    or GRU the RNN encoder and None (it has no head). For BERT
+    """The text encoder of `bert_type` and its TextHeading, or with en_type
+    LSTM or GRU the RNN encoder and None (it has no head). For BERT
     `text_encoder_path` names the port's {"model", "head"} artifact, the
-    reference's {"model", "head"} bundle, or a raw HF BertModel state_dict
-    (the head then stays random, as in the JAX package)."""
+    reference's {"model", "head"} bundle, or a raw HF text model of
+    `bert_type` (BertModel, CLIPTextModel, GroupViTTextModel,
+    FlavaTextModel), told by its token-embedding key (`_HF_WORDS`); the
+    head then stays random, as in the JAX package."""
     if args.en_type != "BERT":
         return prepare_rnn_encoder(args, device), None
     dtype = compute_dtype(args)
@@ -363,28 +372,29 @@ def prepare_text_encoder(args, device: torch.device
                          dtype=dtype)
     both = random_init_(nn.ModuleDict({"model": enc, "head": head}),
                         args.manual_seed)
-    path = args.text_encoder_path
+    path, bt = args.text_encoder_path, args.bert_type
 
     def is_ref(obj) -> bool:
-        return _hf_bert(obj) or (isinstance(obj, Mapping) and "head" in obj
-                                 and _hf_bert(obj.get("model")))
+        return _hf_text(obj, bt) or (isinstance(obj, Mapping) and "head" in obj
+                                     and _hf_text(obj.get("model"), bt))
 
     def convert(obj) -> None:
-        if _hf_bert(obj):
+        if _hf_text(obj, bt):
             _land(enc, {"params": {"model": C.convert_hf_text_model(
-                C.npify(obj), args.bert_type)["params"]}})
+                C.npify(obj), bt)["params"]}})
             warnings.warn(f"text encoder: {path!r} is a raw HF text model; "
                           "the text head keeps its random init")
             return
-        _land(enc, C.convert_text_encoder_bundle(C.npify(obj["model"]),
-                                                 args.bert_type))
+        _land(enc, C.convert_text_encoder_bundle(C.npify(obj["model"]), bt))
         _land(head, C.convert_text_heading(C.npify(obj["head"])))
 
+    words = _HF_WORDS.get(bt, _BERT_WORDS)
     loaded = _load_trained(
         path, "text encoder", {"model": enc, "head": head},
         (is_ref, convert, "{'model': TextEncoder state_dict (keys "
-         f"'model.{_WORDS}', ...), 'head': TextHeading state_dict (keys "
-         "'bwm.convs1.0.weight', ...)} or a raw HF BertModel state_dict"))
+         f"'model.{words}', ...), 'head': TextHeading state_dict (keys "
+         "'bwm.convs1.0.weight', ...)} or a raw HF " + bt + " text model's "
+         "state_dict"))
     _finish(both, loaded, path, "text encoder", device)
     return enc, head
 

@@ -2,8 +2,9 @@
 
 Counterpart of text_guided_face_recognition_tpu/models/fusion.py: `FCFM`
 (the BERT-path fusion net), `WordLevelCFA_LSTM` (the LSTM path's) and
-`LinearFusion`. Word features arrive as (B, F, T), the text head's and the
-RNN encoder's layout.
+`LinearFusion`, and two modules no entry point uses, `ParagraphLevelCFA`
+and `ConcatAttention`. Word features arrive as (B, F, T), the text head's
+and the RNN encoder's layout.
 """
 
 from __future__ import annotations
@@ -20,9 +21,11 @@ from text_guided_face_recognition_tpu_torch.models.layers import (
     Dense,
     LayerNormCHW,
     SelfAttention2D,
+    TorchMultiheadAttention,
 )
 
-__all__ = ["LinearFusion", "FCFM", "WordLevelCFA_LSTM"]
+__all__ = ["LinearFusion", "FCFM", "WordLevelCFA_LSTM", "ParagraphLevelCFA",
+           "ConcatAttention"]
 
 
 class LinearFusion(nn.Module):
@@ -125,3 +128,38 @@ class WordLevelCFA_LSTM(nn.Module):
         iw = self.ln2(self.sa(img2, wmap))
         iw = F.avg_pool2d(iw, 8).flatten(1)                      # (B, 1024)
         return self.linear(iw)
+
+
+class ParagraphLevelCFA(nn.Module):
+    """Sentence-to-patch attention pooling: the (B, 512) image feature as
+    eight 64-d patches, the sentence's first 64-d slice as the query of a
+    one-head TorchMultiheadAttention (`mha`, embed_dim 64, the width of its
+    inputs, as in the JAX package; the reference declares 128 and could not
+    run). (img (B, 512), sent (B, 256)) -> (B, 64)."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.mha = TorchMultiheadAttention(64, 1, dtype)
+
+    def forward(self, img: torch.Tensor, sent_emb: torch.Tensor
+                ) -> torch.Tensor:
+        b = img.shape[0]
+        img_p = img.reshape(b, 8, 64)
+        sent_p = sent_emb.reshape(b, -1, 64)[:, :1]
+        return self.mha(sent_p, img_p, img_p).reshape(b, -1)
+
+
+class ConcatAttention(nn.Module):
+    """One-head TorchMultiheadAttention (`mha`, 256) over [img (512), sent
+    (256)] as three 256-d patches, then Dense 768 -> 512 (`linear`)."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.mha = TorchMultiheadAttention(256, 1, dtype)
+        self.linear = Dense(768, 512, dtype)
+
+    def forward(self, img: torch.Tensor, sent_emb: torch.Tensor
+                ) -> torch.Tensor:
+        b = img.shape[0]
+        patch = torch.cat([img, sent_emb], dim=1).reshape(b, 3, 256)
+        return self.linear(self.mha(patch, patch, patch).reshape(b, -1))

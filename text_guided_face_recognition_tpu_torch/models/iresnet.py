@@ -4,9 +4,11 @@ Counterpart of text_guided_face_recognition_tpu/models/iresnet.py:
 BN-conv-BN-PReLU-conv-BN residual blocks with a stride-2 first block per
 stage, a 3x3 stride-1 stem, and the dual output the pipeline relies on,
 (global 512-d feature, local 256-channel map taken after layer 3; 14x14 for
-112x112 input). The backbone is frozen: BatchNorm runs from its running
+112x112 input). As a frozen backbone, BatchNorm runs from its running
 statistics (flax momentum 0.9 is torch momentum 0.1; eps 1e-5). Convs run
-in `dtype`; fc and the scale-free `features` BN stay in f32.
+in `dtype`; fc and the scale-free `features` BN stay in f32. Depths 18,
+34, 50, 100 and 200 (`IRESNET_LAYERS`); BatchNorm takes the batch's
+statistics in train mode (MagFace's trainable SoftmaxBuilder).
 """
 
 from __future__ import annotations
@@ -20,22 +22,29 @@ from torch import nn
 from text_guided_face_recognition_tpu_torch.models.layers import (
     BatchNorm, Dense, PReLU)
 
-__all__ = ["IResNet", "iresnet18"]
+__all__ = ["IResNet", "IRESNET_LAYERS", "iresnet18", "iresnet34",
+           "iresnet50", "iresnet100", "iresnet200"]
+
+# blocks per stage of each depth (the JAX package's and the reference's)
+IRESNET_LAYERS = {"iresnet18": (2, 2, 2, 2), "iresnet34": (3, 4, 6, 3),
+                  "iresnet50": (3, 4, 14, 3), "iresnet100": (3, 13, 30, 3),
+                  "iresnet200": (6, 26, 60, 6)}
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d computing in `dtype` with its weight rounded at each use."""
+    """nn.Conv2d computing in `dtype` with its weight rounded at each use;
+    `groups` = cin gives a depthwise convolution."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: int = 0, bias: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, groups: int = 1):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding,
-                         bias=bias)
+                         bias=bias, groups=groups)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), None,
-                     self.stride, self.padding)
+                     self.stride, self.padding, 1, self.groups)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype).reshape(1, -1, 1, 1)
         return y
@@ -114,4 +123,20 @@ class IResNet(nn.Module):
 
 
 def iresnet18(**kw) -> IResNet:
-    return IResNet(layers=(2, 2, 2, 2), **kw)
+    return IResNet(layers=IRESNET_LAYERS["iresnet18"], **kw)
+
+
+def iresnet34(**kw) -> IResNet:
+    return IResNet(layers=IRESNET_LAYERS["iresnet34"], **kw)
+
+
+def iresnet50(**kw) -> IResNet:
+    return IResNet(layers=IRESNET_LAYERS["iresnet50"], **kw)
+
+
+def iresnet100(**kw) -> IResNet:
+    return IResNet(layers=IRESNET_LAYERS["iresnet100"], **kw)
+
+
+def iresnet200(**kw) -> IResNet:
+    return IResNet(layers=IRESNET_LAYERS["iresnet200"], **kw)

@@ -4,7 +4,8 @@ Counterpart of text_guided_face_recognition_tpu/models/irnet.py:
 BasicBlockIR (BN-conv-BN-PReLU-conv(stride)-BN with a MaxPool(1, stride)
 identity shortcut), BottleneckIR past 100 layers, optional SE modules, and
 the three outputs (l2-normalised global feature, local map at body index 5,
-feature norm). For ir_18 at 112x112 the local map is the end of the
+feature norm), and the GNAP and GDC pooling heads, which no backbone of the
+reference uses. For ir_18 at 112x112 the local map is the end of the
 256-channel stage, (B, 256, 14, 14). The backbone is frozen: BatchNorm runs
 from its running statistics and the output dropout is the identity. Convs
 run in `dtype`; output_fc and the affine-free output BN stay in f32.
@@ -22,7 +23,7 @@ from text_guided_face_recognition_tpu_torch.models.iresnet import Conv2d
 from text_guided_face_recognition_tpu_torch.models.layers import (
     BatchNorm, Dense, PReLU)
 
-__all__ = ["IRBackbone", "build_model", "SEModule"]
+__all__ = ["IRBackbone", "build_model", "SEModule", "GNAP", "GDC"]
 
 _BLOCK_SPECS = {
     18: [(64, 2), (128, 2), (256, 2), (512, 2)],
@@ -47,6 +48,47 @@ class SEModule(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean(dim=(2, 3), keepdim=True)
         return x * torch.sigmoid(self.fc2(torch.relu(self.fc1(s))))
+
+
+class GNAP(nn.Module):
+    """Global norm-aware pooling head over an NCHW map of `channels`: an
+    affine-free BN, each position weighted by the mean feature norm over
+    its own norm, the spatial mean, an affine-free f32 BN."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.bn1 = BatchNorm(channels, use_scale=False, use_bias=False,
+                             dtype=dtype)
+        self.bn2 = BatchNorm(channels, use_scale=False, use_bias=False,
+                             dtype=torch.float32)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.bn1(x)
+        x_norm = torch.linalg.vector_norm(x.float(), dim=1, keepdim=True)
+        weight = x_norm.mean() / x_norm.clamp_min(1e-12)
+        x = (x * weight.to(x.dtype)).mean(dim=(2, 3))
+        return self.bn2(x.float())
+
+
+class GDC(nn.Module):
+    """Global depthwise convolution head over a 7 x 7 NCHW map of
+    `channels`: a depthwise 7 x 7 conv and BN, the flatten, a bias-free f32
+    Dense to `embedding_size` and an affine-free f32 BN."""
+
+    def __init__(self, channels: int, embedding_size: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv_dw = Conv2d(channels, channels, 7, dtype=dtype,
+                              groups=channels)
+        self.bn_dw = BatchNorm(channels, dtype=dtype)
+        self.linear = Dense(channels, embedding_size, torch.float32,
+                            bias=False)
+        self.bn = BatchNorm(embedding_size, use_scale=False, use_bias=False,
+                            dtype=torch.float32)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.bn_dw(self.conv_dw(x)).flatten(1)
+        return self.bn(self.linear(x.float()))
 
 
 def _max_pool_stride(x: torch.Tensor, stride: int) -> torch.Tensor:

@@ -9,6 +9,7 @@ permute when they compare. Parameters are f32; each module computes in its
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,7 +20,9 @@ from text_guided_face_recognition_tpu_torch.parallel.contrastive import (
     sync_sum)
 
 __all__ = ["l2_normalize", "Dense", "PReLU", "BatchNorm", "ProjectionHead",
-           "LayerNormCHW", "SelfAttention2D"]
+           "LayerNormCHW", "SelfAttention2D", "ScaledDotProductAttention",
+           "DotProductAttention", "MultiHeadAttention",
+           "TorchMultiheadAttention"]
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
@@ -189,3 +192,101 @@ class SelfAttention2D(nn.Module):
         attn = torch.softmax(attn, dim=-1).to(v.dtype)
         out = torch.matmul(attn.float(), v.float()).to(x.dtype)   # (B, HW, C)
         return out.transpose(1, 2).reshape(b, self.channel_dim, h, w)
+
+
+def _attend(score: torch.Tensor, value: torch.Tensor) -> Tuple[
+        torch.Tensor, torch.Tensor]:
+    """Softmax of the scores in f32 over the last axis, rounded to the
+    value's dtype, and its product with the value: (context, attn). The
+    callers' scores are products in the inputs' dtype, scaled in f32 (the
+    JAX package divides by an f32 square root)."""
+    attn = torch.softmax(score.float(), dim=-1).to(value.dtype)
+    return torch.matmul(attn, value), attn
+
+
+class ScaledDotProductAttention(nn.Module):
+    """softmax(q k^T / sqrt(dim)) v over sequences (B, L, D); `mask` True
+    drops a (query, key) pair. Returns (context, attn)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, query, key, value, mask=None):
+        score = (torch.matmul(query, key.transpose(1, 2)).float()
+                 / math.sqrt(self.dim))
+        if mask is not None:
+            score = score.masked_fill(mask, -math.inf)
+        return _attend(score, value)
+
+
+class DotProductAttention(nn.Module):
+    """softmax(q v^T) v, unscaled. Returns (context, attn)."""
+
+    def forward(self, query, value):
+        return _attend(torch.matmul(query, value.transpose(1, 2)), value)
+
+
+class _Heads(nn.Module):
+    """Projections to `heads` heads of d_model / heads and the scaled
+    attention over them."""
+
+    def _split(self, x: torch.Tensor, proj: Dense, heads: int) -> torch.Tensor:
+        x = proj(x)
+        return x.reshape(x.shape[0], -1, heads,
+                         x.shape[-1] // heads).transpose(1, 2)
+
+    @staticmethod
+    def _merge(ctx: torch.Tensor) -> torch.Tensor:
+        b, h, t, d = ctx.shape
+        return ctx.transpose(1, 2).reshape(b, t, h * d)
+
+
+class MultiHeadAttention(_Heads):
+    """Multi-head attention over (B, L, d_model) sequences: query, key and
+    value projections (`query_proj`, `key_proj`, `value_proj`), no output
+    projection; `mask` (B, Lq, Lk) True drops a pair."""
+
+    def __init__(self, d_model: int = 32, num_heads: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if d_model % num_heads:
+            raise ValueError(f"d_model={d_model} is not a multiple of "
+                             f"num_heads={num_heads}")
+        self.num_heads = num_heads
+        self.query_proj = Dense(d_model, d_model, dtype)
+        self.key_proj = Dense(d_model, d_model, dtype)
+        self.value_proj = Dense(d_model, d_model, dtype)
+
+    def forward(self, query, key, value, mask=None):
+        h = self.num_heads
+        q = self._split(query, self.query_proj, h)
+        k = self._split(key, self.key_proj, h)
+        v = self._split(value, self.value_proj, h)
+        score = (torch.matmul(q, k.transpose(-1, -2)).float()
+                 / math.sqrt(q.shape[-1]))
+        if mask is not None:
+            score = score.masked_fill(mask[:, None], -math.inf)
+        return self._merge(_attend(score, v)[0])
+
+
+class TorchMultiheadAttention(_Heads):
+    """torch nn.MultiheadAttention's function with separate `q_proj`,
+    `k_proj`, `v_proj` and `out_proj` Dense layers over (B, L, embed_dim)
+    sequences (the layout of the JAX package's tree)."""
+
+    def __init__(self, embed_dim: int, num_heads: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            self.add_module(name, Dense(embed_dim, embed_dim, dtype))
+
+    def forward(self, query, key, value):
+        h = self.num_heads
+        q = self._split(query, self.q_proj, h)
+        k = self._split(key, self.k_proj, h)
+        v = self._split(value, self.v_proj, h)
+        score = (torch.matmul(q, k.transpose(-1, -2)).float()
+                 / math.sqrt(q.shape[-1]))
+        return self.out_proj(self._merge(_attend(score, v)[0]))

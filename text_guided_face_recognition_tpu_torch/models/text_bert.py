@@ -1,21 +1,30 @@
-"""BERT text encoder and the FCAM text head.
+"""Text encoders of every bert_type and the FCAM text head.
 
-Counterpart of text_guided_face_recognition_tpu/models/text_bert.py, for the
-post-LN, erf-GELU archs (bert, align, blip). Submodule and parameter names
-follow the JAX package's flax tree (engine/from_jax.py maps one onto the
-other); q|k|v are packed on the output axis of one `qkv` projection,
-head-major within each. Token-type ids are all zero.
+Counterpart of text_guided_face_recognition_tpu/models/text_bert.py: the
+whole `TextArch` table. bert and align are BERT-base; blip is the BERT
+layout with 8 heads of 96 and no token-type embeddings; falva (sic, the
+reference's key) puts BERT's embeddings under pre-LN blocks with a trailing
+LayerNorm; clip and groupvit are pre-LN, causal, quick-GELU towers with no
+embedding LayerNorm and a trailing one (eps 1e-5). Submodule and parameter
+names follow the JAX package's flax tree (engine/from_jax.py maps one onto
+the other); q|k|v are packed on the output axis of one `qkv` projection,
+head-major within each. Token-type ids are all zero. The sentence feature
+is hidden[:, 0] under the causal mask too, where token 0 sees only itself:
+the JAX package's contract, kept.
 
 `fused_block` routes the tower's half-layers through the hand-written CUDA
 kernels of ops/block.py ("attn", "ffn" or "both"), or all of its layers
 through the whole-tower kernels, one launch each way ("tower"); `fused_ln`
-routes the remaining LayerNorms through ops/layernorm.py. With both off the
-tower runs ordinary PyTorch modules, as the JAX package runs flax modules.
-The module tree and the state_dict keys are the same under every
-`fused_block`. The kernels at head widths other than 64 (blip under any
-fused_block), pre-LN blocks, causal masks and quick-GELU (the
-clip/groupvit/falva archs) are not ported yet and raise
-NotImplementedError.
+routes every LayerNorm the kernels do not hold through ops/layernorm.py.
+With both off the tower runs ordinary PyTorch modules, as the JAX package
+runs flax modules. The module tree and the state_dict keys are the same
+under every `fused_block`. The block kernels, as the JAX package's, take
+post-LN erf-GELU layers with heads 64 wide: for any other arch (blip's
+96-wide heads, the pre-LN archs) a `fused_block` other than none runs the
+unfused tower with the JAX package's UserWarning, a choice made from the
+arch before any module is built (`fused_block_in_effect`), never a fallback
+on a failed kernel. `fused_block_effective` holds the mode in effect, which
+every count of dropout bits and seeds reads.
 
 Dropout in train mode follows the JAX package's two modes. With
 `fused_dropout` (host mode) every site takes bits from the step's one flat
@@ -30,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import List, Optional, Tuple
 
 import torch
@@ -46,7 +56,8 @@ from text_guided_face_recognition_tpu_torch.ops.layernorm import (
     layernorm_fused)
 
 __all__ = ["TextArch", "TEXT_ARCHS", "TransformerEncoder", "TextEncoder",
-           "BertWordMapping", "TextHeading", "LayerNorm", "drop_elems"]
+           "BertWordMapping", "TextHeading", "LayerNorm", "drop_elems",
+           "fused_block_in_effect", "quick_gelu"]
 
 FUSED_BLOCK_MODES = ("none", "ffn", "attn", "both", "tower")
 
@@ -86,11 +97,38 @@ TEXT_ARCHS = {
 }
 
 
+def fused_block_in_effect(arch: TextArch, fused_block: str) -> str:
+    """The `fused_block` mode a tower of `arch` runs: the mode asked for,
+    or "none" where the block kernels do not take the arch (a pre-LN or
+    quick-GELU layer, heads other than 64 wide), as the JAX package's
+    TransformerEncoder decides it."""
+    if fused_block not in FUSED_BLOCK_MODES:
+        raise ValueError(f"fused_block={fused_block!r} is not one of "
+                         f"{FUSED_BLOCK_MODES}")
+    if fused_block != "none" and (arch.style != "postln"
+                                  or arch.act != "gelu"
+                                  or arch.hidden // arch.heads != D_HEAD):
+        return "none"
+    return fused_block
+
+
 def drop_elems(arch: TextArch, b: int, t: int, fused_block: str = "none",
                fused_dropout: bool = True) -> int:
     """Host dropout bits one training forward of the tower takes."""
+    fb = fused_block_in_effect(arch, fused_block)
     return total_elems(arch.hidden, arch.layers, arch.heads, b, t,
-                       prng_sites(fused_block, fused_dropout))
+                       prng_sites(fb, fused_dropout))
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The FFN activation `name` of an f32 tensor, in f32 (the caller
+    rounds once to the compute dtype)."""
+    return quick_gelu(x) if name == "quick_gelu" else gelu(x)
 
 
 class LayerNorm(nn.Module):
@@ -116,7 +154,8 @@ class LayerNorm(nn.Module):
 
 class SelfAttention(nn.Module):
     """Multi-head self-attention with one packed q|k|v projection; f32
-    scores, additive finfo(float32).min key mask, probabilities rounded to
+    scores, the causal mask (causal archs) and then the key mask, each
+    setting a score to finfo(float32).min, probabilities rounded to
     `dtype`, then dropped with bits_p (heads*B, T, T) when rate > 0, before
     P.V."""
 
@@ -136,6 +175,10 @@ class SelfAttention(nn.Module):
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         score = torch.matmul(q, k.transpose(-1, -2)) / (d ** 0.5)
         neg = torch.finfo(torch.float32).min
+        if a.causal:
+            causal = torch.ones(t, t, dtype=torch.bool,
+                                device=x.device).tril()
+            score = score.masked_fill(~causal, neg)
         score = score.masked_fill(~mask[:, None, None, :], neg)
         probs = torch.softmax(score, dim=-1).to(self.dtype)
         if rate > 0.0:   # bits in the kernels' (heads*B, T, T) layout
@@ -146,8 +189,10 @@ class SelfAttention(nn.Module):
 
 
 class Block(nn.Module):
-    """One post-LN layer: LN(x + drop(attn(x))), then
-    LN(y + drop(W2 gelu(W1 y)))."""
+    """One layer. Post-LN: y = LN(x + drop(attn(x))), then
+    LN(y + drop(W2 act(W1 y))); pre-LN: y = x + drop(attn(LN(x))), then
+    y + drop(W2 act(W1 LN(y))). `fused_block` is the mode in effect; the
+    kernels take post-LN layers only."""
 
     def __init__(self, arch: TextArch, dtype: torch.dtype, fused_ln: bool,
                  fused_block: str):
@@ -182,6 +227,8 @@ class Block(nn.Module):
             bits_p, bits_h, bits_f = (
                 None if drawn[half] is not None else plan.take(shape)
                 for half, shape in layer_sites(h, a.heads, b, t))
+        if a.style == "preln":
+            return self._preln(x, mask, rate, bits_p, bits_h, bits_f)
         if fused_attn:
             y = attn_block(
                 x.reshape(b * t, h).contiguous(), mask_i32,
@@ -200,34 +247,43 @@ class Block(nn.Module):
                 self.ffn_in.bias, self.ffn_out.weight.t(), self.ffn_out.bias,
                 self.ffn_ln.weight, self.ffn_ln.bias, rate, eps,
                 bits_f, seed_ffn).reshape(b, t, h)
-        f = self.ffn_out(gelu(self.ffn_in(y).float()).to(self.dtype))
+        f = self.ffn_out(_act(a.act, self.ffn_in(y).float()).to(self.dtype))
         if rate > 0.0:
             f = dropout(f, bits_f.view(b, t, h), rate)
         return self.ffn_ln(y + f)
 
+    def _preln(self, x, mask, rate, bits_p, bits_h, bits_f) -> torch.Tensor:
+        """The pre-LN layer, unfused; the residual stream stays in
+        `dtype`."""
+        a = self.arch
+        b, t, h = x.shape
+        att = self.attn(self.attn_ln(x), mask, bits_p, rate)
+        if rate > 0.0:
+            att = dropout(att, bits_h.view(b, t, h), rate)
+        x = x + att
+        f = self.ffn_out(_act(a.act, self.ffn_in(self.ffn_ln(x)).float()
+                              ).to(self.dtype))
+        if rate > 0.0:
+            f = dropout(f, bits_f.view(b, t, h), rate)
+        return x + f
+
 
 class TransformerEncoder(nn.Module):
-    """Post-LN BERT-style tower; returns the last hidden states (B, T, H)."""
+    """The text tower of `arch`; returns the last hidden states (B, T, H)."""
 
     def __init__(self, arch: TextArch, dtype: torch.dtype = torch.float32,
                  fused_ln: bool = False, fused_block: str = "none",
                  fused_dropout: bool = False):
         super().__init__()
-        if fused_block not in FUSED_BLOCK_MODES:
-            raise ValueError(f"fused_block={fused_block!r} is not one of "
-                             f"{FUSED_BLOCK_MODES}")
-        if arch.style != "postln" or arch.causal or arch.act != "gelu":
-            raise NotImplementedError(
-                f"text arch style={arch.style!r} causal={arch.causal} "
-                f"act={arch.act!r}: only post-LN erf-GELU archs (bert, align,"
-                " blip) are ported yet (ROADMAP.md, Queue 1)")
-        if fused_block != "none" and arch.hidden // arch.heads != D_HEAD:
-            raise NotImplementedError(
-                f"fused_block={fused_block!r}: the block kernels take "
-                f"heads of width {D_HEAD}, this arch has "
-                f"{arch.hidden // arch.heads} (blip); other head widths are "
-                "not ported yet (ROADMAP.md, Queue 1). Use fused_block='none'.")
+        fb = fused_block_in_effect(arch, fused_block)
+        if fb != fused_block:
+            warnings.warn(
+                f"fused_block={fused_block!r} supports post-LN gelu archs "
+                f"with d_head == {D_HEAD} only (bert/align); falling back to "
+                f"the unfused path for style={arch.style!r} "
+                f"act={arch.act!r} d_head={arch.hidden // arch.heads}")
         self.arch, self.dtype, self.fused_block = arch, dtype, fused_block
+        self.fused_block_effective = fb
         self.fused_dropout = fused_dropout
         h = arch.hidden
         self.tok_emb = nn.Embedding(arch.vocab_size, h)
@@ -237,8 +293,9 @@ class TransformerEncoder(nn.Module):
         self.emb_ln = (LayerNorm(h, arch.ln_eps, dtype, fused_ln)
                        if arch.emb_ln else None)
         for i in range(arch.layers):
-            self.add_module(f"layer_{i}",
-                            Block(arch, dtype, fused_ln, fused_block))
+            self.add_module(f"layer_{i}", Block(arch, dtype, fused_ln, fb))
+        self.final_ln = (LayerNorm(h, arch.ln_eps, dtype, fused_ln)
+                         if arch.final_ln else None)
 
     def drop_counts(self, b: int, t: int) -> Tuple[int, int]:
         """(host bits, kernel seeds) one training forward at (b, t) takes:
@@ -246,10 +303,10 @@ class TransformerEncoder(nn.Module):
         (tower) and the host bits of the other sites only."""
         if not self.arch.dropout:
             return 0, 0
-        sites = prng_sites(self.fused_block, self.fused_dropout)
-        seeds = (0 if not sites else
-                 1 if self.fused_block == "tower" else self.arch.layers)
-        return drop_elems(self.arch, b, t, self.fused_block,
+        fb = self.fused_block_effective
+        sites = prng_sites(fb, self.fused_dropout)
+        seeds = 0 if not sites else 1 if fb == "tower" else self.arch.layers
+        return drop_elems(self.arch, b, t, fb,
                           self.fused_dropout), seeds
 
     def local_bits(self, bits: torch.Tensor, b: int, t: int, rank: int,
@@ -263,7 +320,7 @@ class TransformerEncoder(nn.Module):
         a = self.arch
         h, bl = a.hidden, b // world
         rows = slice(rank * bl, (rank + 1) * bl)
-        in_kernel = prng_sites(self.fused_block, self.fused_dropout)
+        in_kernel = prng_sites(self.fused_block_effective, self.fused_dropout)
         plan = DropBits(bits)
         parts = [plan.take((b, t * h))[rows]]
         for _ in range(a.layers):
@@ -328,6 +385,10 @@ class TransformerEncoder(nn.Module):
         `drop_counts(B, T)` says (both ignored in eval mode)."""
         a, dt = self.arch, self.dtype
         b, t = input_ids.shape
+        if t > a.max_positions:
+            raise ValueError(
+                f"captions of {t} tokens: this text arch has "
+                f"{a.max_positions} positions (config.check_caption_length)")
         rate = float(a.dropout) if self.training else 0.0
         plan = seeds = None
         if rate > 0.0:
@@ -340,7 +401,8 @@ class TransformerEncoder(nn.Module):
             if got != k or (k and (drop_seeds.dim() != 1 or
                                    drop_seeds.dtype != torch.int32)):
                 raise ValueError(
-                    f"TransformerEncoder(fused_block={self.fused_block!r}, "
+                    "TransformerEncoder(fused_block="
+                    f"{self.fused_block_effective!r}, "
                     f"fused_dropout={self.fused_dropout}) in train mode "
                     f"takes {k} int32 drop_seeds (ops/dropout.draw_seeds)")
             plan = DropBits(drop_bits)
@@ -356,13 +418,16 @@ class TransformerEncoder(nn.Module):
             x = dropout(x, plan.take(x.shape), rate)
         mask = attention_mask.bool()
         mask_i32 = attention_mask.to(torch.int32).contiguous()
-        if self.fused_block == "tower":
-            return self._tower(x, mask_i32, plan, rate,
-                               None if seeds is None else seeds[:1])
-        for i in range(a.layers):
-            x = getattr(self, f"layer_{i}")(
-                x, mask, mask_i32, plan, rate,
-                None if seeds is None else seeds[i:i + 1])
+        if self.fused_block_effective == "tower":
+            x = self._tower(x, mask_i32, plan, rate,
+                            None if seeds is None else seeds[:1])
+        else:
+            for i in range(a.layers):
+                x = getattr(self, f"layer_{i}")(
+                    x, mask, mask_i32, plan, rate,
+                    None if seeds is None else seeds[i:i + 1])
+        if self.final_ln is not None:
+            x = self.final_ln(x)
         return x
 
 
@@ -376,6 +441,10 @@ class TextEncoder(nn.Module):
         super().__init__()
         self.model = TransformerEncoder(TEXT_ARCHS[bert_type], dtype,
                                         fused_ln, fused_block, fused_dropout)
+
+    @property
+    def fused_block_effective(self) -> str:
+        return self.model.fused_block_effective
 
     def drop_counts(self, b: int, t: int) -> Tuple[int, int]:
         return self.model.drop_counts(b, t)
