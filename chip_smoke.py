@@ -3,13 +3,17 @@
 
   python3 chip_smoke.py [--only kernels|launches|phases|prng|serving|train|
                                 stage2|step|damsm|weights|lstm|options|
-                                parallel|archs]
+                                parallel|archs|utils]
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases; any failure raises and the script exits non-zero:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel:
      six sources, twelve kernels, and the measurement build of the tower
-     kernels, `tower_block_phases`, used by the phase table alone);
+     kernels, `tower_block_phases`, used by the phase table alone). In the
+     whole run the two tower builds (minutes) go on while the phases that
+     launch no tower kernel (9, 10, 13, 14) run in a process of their own
+     (`--early_dir`, the other libraries loaded without the build lock,
+     ops/_cuda.py `load`); then 3-8, 11, 12 in this one;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main paths' shapes (R = 768 token rows of B = 32 captions x
      T = 24, H = 768, 12 heads, I = 3072; ragged key masks from the
@@ -255,7 +259,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      native_layer_norm_backward; host and device ms of the pair batch and
      the steps; then each module of the model surface off the main path
      (margins and heads, MagFace, iresnet34-200, GNAP, GDC, the attention,
-     CFA and AttnGAN modules) on the card against the CPU within 1e-4.
+     CFA and AttnGAN modules) on the card against the CPU within 1e-4;
+ 14. utils (`--only utils` runs it alone, building four sources, see
+     `utils_phase`): time_chained_steps on the captured stage-1 step
+     beside its host and device ms, maybe_profile over a window that
+     covers the capture (the replays' kernels must be in the trace), and
+     tools/profile_step for stage 1.
+In 12 the explicit shard_map steps of both stages and the class-sharded
+(partial-FC) stage-2 step also run: in (a) eager on the gloo ranks, kernels
+on against off, counted, the partial-FC step against the stage-2 shard_map
+step and the averaged BatchNorm statistics with a planted unaveraged twin
+that must fail (`_spmd_gloo`); in (b) and (c) captured against eager bit
+for bit, and in (b) the shard_map stage-1 step against the default step
+without a process group bit for bit (`_spmd_captured`).
 Each kernel launches on at least one driven path, and on each path exactly
 the expected number of times. The last two lines are the `kernels` JSON
 line and the result line.
@@ -3467,21 +3483,31 @@ def _time_modes(trainers, batch, reps: int = 5) -> dict:
     return out
 
 
-def _captured_vs_eager(cls, args, dev, make_batch=None) -> tuple:
+def _captured_vs_eager(cls, args, dev, make_batch=None, prepare=None,
+                       init=None) -> tuple:
     """An eager trainer and a captured one of `args` from the same weights,
     six steps each on one batch (the head's rate halved before the fifth):
     (eager, captured, the initial weights, the batch, {after 3 and after 6
     steps: bit for bit (parameters, BN statistics, moments, counts and the
     step's metrics), the largest difference and where}). The captured
     trainer's fourth step is its capture. The batch is the train loader's
-    first, or make_batch(eager trainer)."""
+    first, or make_batch(eager trainer). `init`: the eager trainer's
+    weights; `prepare(trainer)` puts each trainer into a mode of its step
+    (parallel/spmd.py, parallel/partial_fc.py) before the weights are
+    copied."""
     import torch
 
     eager = cls(args, dev, eager=True)
+    if init is not None:
+        eager.model.load_state_dict(init)
+    if prepare is not None:
+        prepare(eager)
     state = {k: v.clone() for k, v in eager.model.state_dict().items()}
     batch = (make_batch(eager) if make_batch is not None
              else eager.to_device(next(iter(eager.train_dl))))
     graphed = cls(args, dev)
+    if prepare is not None:
+        prepare(graphed)
     graphed.model.load_state_dict(state)
     cmp = {}
     for n in range(6):
@@ -5285,6 +5311,187 @@ def _dp_captured(cfg, dev) -> dict:
     return out
 
 
+# the explicit shard_map steps and the class-sharded step: (tag, stage)
+SPMD_MODES = (("shard_map_stage1", "stage1"), ("shard_map_stage2", "stage2"),
+              ("partial_fc", "stage2"))
+
+
+def _spmd_make(tag: str):
+    """The constructor of the step `tag` (parallel/spmd.py, parallel/
+    partial_fc.py): it puts a trainer into its mode."""
+    from text_guided_face_recognition_tpu_torch.parallel import (
+        make_partial_fc_fusion_step, make_shardmap_fusion_step,
+        make_shardmap_train_step)
+    return {"shard_map_stage1": make_shardmap_train_step,
+            "shard_map_stage2": make_shardmap_fusion_step,
+            "partial_fc": make_partial_fc_fusion_step}[tag]
+
+
+def _spmd_trainer_cls(stage: str):
+    from text_guided_face_recognition_tpu_torch.engine.stage1 import (
+        Stage1Trainer)
+    from text_guided_face_recognition_tpu_torch.engine.stage2 import (
+        FusionTrainer)
+    return Stage1Trainer if stage == "stage1" else FusionTrainer
+
+
+def _ranks_equal(tensors) -> bool:
+    """The tensors hold the same values on every rank (one gather)."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.parallel import mesh
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    rows = mesh.all_gather_rows(flat[None])
+    return bool((rows == rows[:1]).all())
+
+
+def _spmd_gloo(cfgs, dev, kernels, dp_counts: dict, failures: list) -> dict:
+    """(a) for the explicit shard_map steps of both stages and the
+    class-sharded stage-2 step on this gloo rank (eager, host mode, the
+    configs' bf16): one step of each with kernels on against its plain
+    versions (fused_block none, no fused_ln, no use_pallas; the same
+    weights, rows and bits) under ON_OFF_TOL per module (stage 2
+    ON_OFF_TOL_STAGE2); the on step's launch counts against the default
+    data-parallel step's of its stage on this rank (the same kernels a
+    step); the partial-FC step's gradients against the stage-2 shard_map
+    step's leaf for leaf (metric_fc: this rank's rows) under the rule the
+    phase holds a rank to one process (`_dp_grad_check`); after the stage-1
+    step the averaged BatchNorm statistics equal on both ranks, and the
+    planted fault (the plain twin's statistics left unaveraged) unequal.
+    A failed check is appended to `failures`."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.parallel import mesh
+    rank, world = mesh.rank(), mesh.world_size()
+    plain = dict(fused_block="none", fused_ln=False, use_pallas=False)
+    out, kept = {}, {}
+    for tag, stage in SPMD_MODES:
+        t0 = time.perf_counter()
+        args = cfgs[stage]
+        on = _spmd_trainer_cls(stage)(args, dev, eager=True)
+        state = {k: v.clone() for k, v in on.model.state_dict().items()}
+        off = _twin(on, state, **plain)
+        for tr in (on, off):
+            _spmd_make(tag)(tr)
+        batch = on.to_device(next(iter(on.train_dl)))
+        drop = on.draw_drop(*batch["caps"].shape)
+        tol = (ON_OFF_TOL_STAGE2 if stage == "stage2"
+               else ON_OFF_TOL)[args.compute_dtype]
+        _zero(kernels)
+        r = _on_off(on, off, batch, drop, drop, tol["floor"])
+        torch.cuda.synchronize()
+        counts = _counts(kernels)
+        ok = _on_off_ok(r, tol)
+        entry = {"rows": batch["caps"].shape[0], "counts": counts,
+                 "on_off_ok": ok, "loss_rel": r["loss_rel"],
+                 "modules": {m: (g["l2"], g["max"])
+                             for m, g in r["groups"].items()}}
+        if not ok:
+            failures.append(f"{tag}: kernels on against off: {r}")
+        if counts != dp_counts[stage]:
+            failures.append(f"{tag}: rank {rank} launches {counts}, the "
+                            f"default step {dp_counts[stage]}")
+        if tag == "partial_fc":
+            entry["classifier_rows"] = tuple(on.model.metric_fc.weight.shape)
+            sm_loss, sm_grads = kept.pop("shard_map_stage2")
+            rows = args.num_classes // world
+            ref = dict(sm_grads, **{"metric_fc.weight": sm_grads[
+                "metric_fc.weight"][rank * rows:(rank + 1) * rows]})
+            check = _dp_grad_check(_param_grads(on.model), ref, r["loss_on"],
+                                   sm_loss, args.compute_dtype, stage)
+            entry["against_shard_map_stage2"] = check
+            if not check["ok"] or entry["classifier_rows"][0] != rows:
+                failures.append(f"partial_fc against the stage-2 shard_map "
+                                f"step on rank {rank}: {check}, rows "
+                                f"{entry['classifier_rows']}")
+        elif tag == "shard_map_stage2":
+            kept[tag] = (r["loss_on"], _param_grads(on.model))
+        else:
+            on._optimizer_step()
+            entry["stats_equal_on_the_ranks"] = _ranks_equal(on._stats)
+            stats, off._stats = off._stats, []      # the planted fault
+            off._optimizer_step()
+            entry["planted_unaveraged_equal"] = _ranks_equal(stats)
+            if not entry["stats_equal_on_the_ranks"] or \
+                    entry["planted_unaveraged_equal"]:
+                failures.append(f"{tag}: BatchNorm statistics after the "
+                                f"step: {entry}")
+        del on, off, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        entry["seconds"] = time.perf_counter() - t0
+        out[tag] = entry
+    return out
+
+
+def _default_six(cfg, dev) -> tuple:
+    """The default stage-1 step (no process group) of `_captured_vs_eager`'s
+    six eager steps: (its initial weights, its snapshot after them)."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.engine.stage1 import (
+        Stage1Trainer)
+    tr = Stage1Trainer(cfg, dev, eager=True)
+    init = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    batch = tr.to_device(next(iter(tr.train_dl)))
+    for n in range(6):
+        if n == 4:
+            tr.lr["head"] *= 0.5
+            tr._apply_lrs()
+        tr.train_step(batch)
+    snap = _snapshot(tr)
+    del tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return init, snap
+
+
+def _spmd_captured(cfgs, dev, default=None) -> dict:
+    """(b) and (c) for the three steps on NCCL ranks: each captured
+    against eager steps bit for bit after 3 and 6 steps
+    (`_captured_vs_eager`), the collectives counted; with `default` (one
+    rank: `_default_six`'s initial weights and snapshot) the eager
+    shard_map stage-1 trainer against the default step bit for bit."""
+    import torch
+    out = {}
+    for tag, stage in SPMD_MODES:
+        t0 = time.perf_counter()
+        init = default[0] if default and stage == "stage1" else None
+        with _CollectiveClock() as clock:
+            eager, graphed, _, batch, cmp = _captured_vs_eager(
+                _spmd_trainer_cls(stage), cfgs[stage], dev,
+                prepare=_spmd_make(tag), init=init)
+        entry = {"captured_vs_eager": cmp,
+                 "collectives_in_capture": clock.captured}
+        if init is not None:
+            equal, worst, at = _max_diff(_snapshot(eager), default[1])
+            entry["default_step"] = {"bitwise": equal, "max_abs": worst,
+                                     "at": at}
+        graphed.close()
+        del eager, graphed, batch
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        entry["seconds"] = time.perf_counter() - t0
+        out[tag] = entry
+    return out
+
+
+def _spmd_failures(res: dict) -> list:
+    """The checks of `_spmd_captured`'s results."""
+    bad = []
+    for tag, e in res.get("spmd_captured", {}).items():
+        if not all(v["bitwise"] for v in e["captured_vs_eager"].values()):
+            bad.append(f"{tag}: captured against eager "
+                       f"{e['captured_vs_eager']}")
+        if not e["collectives_in_capture"]:
+            bad.append(f"{tag}: no collective in the captured step")
+        if "default_step" in e and not e["default_step"]["bitwise"]:
+            bad.append(f"{tag}: against the default step at world size 1 "
+                       f"{e['default_step']}")
+    return bad
+
+
 def dp_cli(out_dir: str) -> None:
     """One rank of the stage-1 entry point under the launcher's variables
     (`--dp_rank cli`): cli.train_encoders_bert.main through cli.run, as
@@ -5372,9 +5579,12 @@ def dp_rank(mode: str, out_dir: str) -> None:
     failures = []
     t0 = time.perf_counter()
     if mode == "nccl1":
+        default = _default_six(cfgs["stage1"], dev)
         mesh.init_group(dev, "nccl", 0, 1, "env://")
         res["backend"] = mesh.backend()
         res.update(_dp_captured(cfgs["stage1"], dev))
+        res["spmd_captured"] = _spmd_captured(cfgs, dev, default)
+        del default
     else:
         runs = [("stage1", Stage1Trainer, "bfloat16"),
                 ("stage1", Stage1Trainer, "float32")]
@@ -5411,6 +5621,11 @@ def dp_rank(mode: str, out_dir: str) -> None:
                 mode == "nccl2" and full, tag, full, failures)
         if mode == "nccl2":     # the captured DP step against eager DP
             res.update(_dp_captured(cfgs["stage1"], dev))
+            res["spmd_captured"] = _spmd_captured(cfgs, dev)
+        if mode == "gloo":      # the explicit shard_map and partial-FC steps
+            res["spmd"] = _spmd_gloo(cfgs, dev, kernels, {
+                tag: res[tag]["counts"] for tag in ("stage1", "stage2")},
+                failures)
         if mode == "gloo":
             preds, counts = _dp_pairs(cfgs["serving"], dev, kernels)
             diff = max(abs(a - b) for a, b in zip(preds, pairs_ref))
@@ -5428,6 +5643,7 @@ def dp_rank(mode: str, out_dir: str) -> None:
                 else:
                     failures.append("a captured step under gloo was made")
         mesh.barrier()
+    failures += _spmd_failures(res)
     if "captured_vs_eager" in res:
         if not all(v["bitwise"] for v in res["captured_vs_eager"].values()):
             failures.append(f"captured against eager "
@@ -5516,7 +5732,15 @@ def parallel_phase(kernels, parts: str = "abc") -> dict:
     against eager steps bit for bit, the device-time split of a rank's
     step and of one process's, the reduction against two other designs,
     and the entry point on both ranks. Host and device ms per step of each
-    rank (one shared card in (a): not a scaling result). `parts` picks
+    rank (one shared card in (a): not a scaling result). The explicit
+    shard_map steps of both stages and the class-sharded (partial-FC)
+    stage-2 step (parallel/spmd.py, parallel/partial_fc.py): in (a) one
+    eager step each on the gloo ranks, kernels on against off, their
+    launch counts, the partial-FC step against the stage-2 shard_map step
+    and the averaged BatchNorm statistics with a planted unaveraged fault
+    (`_spmd_gloo`); in (b) and (c) each captured against eager bit for
+    bit, and in (b) the shard_map stage-1 step against the default step
+    without a process group bit for bit (`_spmd_captured`). `parts` picks
     some of a, b, c. Returns {path: (counts, counts per call)} of rank 0
     in (a), bf16 ({} without (a))."""
     import torch
@@ -5541,10 +5765,21 @@ def parallel_phase(kernels, parts: str = "abc") -> dict:
               f"({card_line()}; not a scaling result), {ta:.1f} s; captured "
               f"step under gloo refused: {a[0]['captured_under_gloo']}",
               flush=True)
+        for tag, _ in SPMD_MODES:
+            if a[0]["spmd"][tag]["counts"] != a[1]["spmd"][tag]["counts"]:
+                raise AssertionError(f"parallel (a) {tag}: ranks launch "
+                                     f"{a[0]['spmd'][tag]['counts']} and "
+                                     f"{a[1]['spmd'][tag]['counts']}")
+            print(f"parallel (a) {tag} ({card_line()}): "
+                  + "; ".join(f"rank {r['rank']} {json.dumps(r['spmd'][tag])}"
+                              for r in a), flush=True)
         paths = {f"parallel_{tag}": (a[0][k]["counts"], a[0][k]["counts"])
                  for tag, k in (("stage1_step", "stage1"),
                                 ("stage2_step", "stage2"),
                                 ("pair_batch", "pairs"))}
+        paths.update({f"parallel_{tag}_step": (a[0]["spmd"][tag]["counts"],
+                                               a[0]["spmd"][tag]["counts"])
+                      for tag, _ in SPMD_MODES})
     if "b" in parts:
         t1 = time.perf_counter()
         b = _launch_ranks("nccl1", 1, os.path.join(base, "b"))[0]
@@ -5554,6 +5789,9 @@ def parallel_phase(kernels, parts: str = "abc") -> dict:
               f"thread: {b['collectives']}), NCCL kernels in a replay "
               f"{b['nccl_kernels_in_a_replay']}, "
               f"{time.perf_counter() - t1:.1f} s", flush=True)
+        for tag, e in b["spmd_captured"].items():
+            print(f"parallel (b) {tag} on one NCCL rank: {json.dumps(e)}",
+                  flush=True)
         t1 = time.perf_counter()
         line = _check_cli(_launch_ranks("cli", 1, os.path.join(base,
                                                                "b_cli")),
@@ -5567,6 +5805,10 @@ def parallel_phase(kernels, parts: str = "abc") -> dict:
               f"eager {json.dumps(c[0]['captured_vs_eager'])}, collectives "
               f"issued in the capture {c[0]['collectives_in_capture']}, "
               f"{time.perf_counter() - t2:.1f} s", flush=True)
+        for r in c:
+            for tag, e in r["spmd_captured"].items():
+                print(f"parallel (c) rank {r['rank']} {tag}: "
+                      f"{json.dumps(e)}", flush=True)
         for r in c:
             st = r["stage1"]
             print(f"parallel (c) rank {r['rank']} ({card_line()}): device "
@@ -5589,6 +5831,115 @@ def parallel_phase(kernels, parts: str = "abc") -> dict:
     return paths
 
 
+def utils_phase() -> dict:
+    """The port's utilities on the card (`--only utils`), at full width
+    (cfg/train_bert.yml: bert-base, B 32, 4500 classes, bf16, fused_block
+    both, fused_ln, use_pallas, prng mode): utils/benching.
+    time_chained_steps on the captured stage-1 step (k = 4 and 24 replays,
+    median of 3) beside the same step's host median of 10 synchronised
+    steps and its device ms from the profiler; utils/profiling.
+    maybe_profile through the trainer's epoch of six steps (the split grown
+    to 192 images, `_grow_split`) with the window steps 2-4
+    (profile_start 2, profile_steps 3), which covers the last warm-up step,
+    the capture at the fourth and a replay: the trace must hold K9's
+    kernel (one a step) three times, once for the eager step and once for
+    each replay; and tools/profile_step for stage 1, its total line."""
+    import contextlib
+    import io
+
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.config import load_yaml
+    from text_guided_face_recognition_tpu_torch.engine.stage1 import (
+        Stage1Trainer)
+    from text_guided_face_recognition_tpu_torch.tools import profile_step
+    from text_guided_face_recognition_tpu_torch.utils.benching import (
+        time_chained_steps)
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = load_yaml(os.path.join(ROOT, "cfg", "train_bert.yml")).replace(
+        synthetic=True, compute_dtype="bfloat16", fused_block="both",
+        fused_ln=True, use_pallas=True, batch_size=32, checkpoints_path="")
+    out = {}
+    tr = Stage1Trainer(cfg, dev)
+    batch = tr.to_device(next(iter(tr.train_dl)))
+    chained = time_chained_steps(
+        lambda t, key: (t, t.train_step(batch)["total_loss"]), tr, None,
+        ks=(4, 24), repeats=3)
+    host = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t1) * 1e3)
+    prof = _profile(lambda: tr.train_step(batch), reps=3, what="step")
+    out["time_chained_steps"] = {
+        "chained_ms": chained, "host_ms": statistics.median(host),
+        "host_ms_all": host,
+        "device_ms": prof.get("device_ms_per_call", "not measured"),
+        "replays": tr.graph_replays}
+    print(f"utils: stage-1 step ({card_line()}): time_chained_steps "
+          f"{chained:.4f} ms, host median {statistics.median(host):.4f} ms, "
+          f"device (profiler) {out['time_chained_steps']['device_ms']} ms",
+          flush=True)
+    if not math.isfinite(chained) or chained <= 0:
+        raise AssertionError(f"time_chained_steps gave {chained}")
+    tr.close()
+    del tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    trace_dir = os.path.join(ROOT, "checkpoints", "chip_smoke_profile")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    pcfg = cfg.replace(max_steps=6)
+    pcfg.extras.update(profile_dir=trace_dir, profile_start=2,
+                       profile_steps=3)
+    tr = Stage1Trainer(pcfg, dev)
+    _grow_split(tr.train_ds, 6 * 32)        # six batches of 32
+    tr.train_epoch(1)
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    if len(traces) != 1:
+        raise AssertionError(f"maybe_profile wrote {traces}")
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k9 = sum(1 for n in kern if "damsm_kernel" in n)
+    port = sum(1 for n in kern if any(w in n for w in (
+        "hl_gemm", "hl_bwd_gemm", "attention_", "layernorm_", "damsm_")))
+    out["maybe_profile"] = {"steps": tr.steps, "replays": tr.graph_replays,
+                            "kernel_events": len(kern),
+                            "port_kernel_events": port, "k9_events": k9}
+    print(f"utils: maybe_profile over steps 2-4 of a captured stage-1 epoch "
+          f"(the capture at step 3): {json.dumps(out['maybe_profile'])}",
+          flush=True)
+    if k9 != 3 or tr.graph_replays != 3:
+        raise AssertionError(f"maybe_profile's trace holds K9 {k9} times "
+                             "over an eager step and two replays")
+    tr.close()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = profile_step.main(["--stage", "1", "--k", "4",
+                                  "--fused_block", "both"])
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()
+             if x.startswith("{")]
+    if code != 0 or lines[0].get("metric") != "device_total_ms_per_step":
+        raise AssertionError(f"profile_step: {buf.getvalue()[-2000:]}")
+    out["profile_step"] = {"total": lines[0], "groups": [
+        x for x in lines if "group" in x]}
+    print(f"utils: tools/profile_step --stage 1 --k 4 --fused_block both "
+          f"({card_line()}): {json.dumps(out['profile_step'])}", flush=True)
+    print(f"utils: whole phase {time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _serving_modules(args, dev) -> tuple:
     """(backbone, image head, fusion net, text encoder) of `args` on `dev`,
     random from manual_seed (the same weights on every device)."""
@@ -5597,6 +5948,73 @@ def _serving_modules(args, dev) -> tuple:
             prep.prepare_image_head(args, dev),
             prep.prepare_fusion_net(args, dev),
             prep.prepare_text_encoder(args, dev)[0])
+
+
+# what the phases that launch no tower kernel build (weights, lstm, archs,
+# utils)
+EARLY_SOURCES = ("layernorm", "ffn_block", "attn_block", "damsm")
+EARLY_TIMEOUT = 900
+
+
+def _early_beside_build(first, later, t0: float) -> dict:
+    """The whole run's build, all sources at once, and while the tower's
+    (`later`, minutes) compile, once the others (`first`) are built, the
+    phases that launch no tower kernel (weights, lstm, archs, utils) in a
+    process of this script (`--early_dir`); returns their results (the
+    launch counts of their paths). They run in a process of their own so
+    that this one's profiler sessions (the kernel phase's
+    device-operation counts) start as fresh as before any step: after a
+    process has run captured train steps, the profiler has been seen to
+    lose every device record of a ctypes-launched kernel's session
+    (PERF.md §7). The child's output goes to this script's; it is
+    killed if it outlives EARLY_TIMEOUT."""
+    import threading
+
+    from text_guided_face_recognition_tpu_torch.ops import _cuda
+    res = {}
+
+    def build():
+        try:
+            res["seconds"] = _cuda.build(list(first) + list(later))
+        except Exception as e:      # raised in the main thread
+            res["error"] = e
+
+    compiling = threading.Thread(target=build)
+    compiling.start()
+    while compiling.is_alive() and not all(_cuda.built(n) for n in first):
+        time.sleep(0.5)
+    if not all(_cuda.built(n) for n in first):
+        compiling.join()
+        raise res.get("error") or RuntimeError(f"{first} were not built")
+    print(f"build: {', '.join(first)} in {time.perf_counter() - t0:.2f} s; "
+          f"{', '.join(later)} building beside the phases that launch no "
+          "tower kernel", flush=True)
+    out_dir = os.path.join(ROOT, "checkpoints", "chip_smoke_early")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    child = subprocess.Popen([sys.executable, os.path.join(
+        ROOT, "chip_smoke.py"), "--early_dir", out_dir], cwd=ROOT)
+    try:
+        compiling.join()
+        if "error" in res:
+            raise res["error"]
+        t1 = time.perf_counter()
+        print(f"build: {t1 - t0:.2f} s (" + ", ".join(
+            f"{k} {v:.2f} s" for k, v in res["seconds"].items()) + ")",
+            flush=True)
+        rc = child.wait(timeout=EARLY_TIMEOUT)
+        print(f"the phases that launch no tower kernel ended "
+              f"{time.perf_counter() - t1:.2f} s after the build "
+              f"(exit {rc})", flush=True)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise AssertionError(f"the phases weights, lstm, archs and utils "
+                             f"failed (exit {child.returncode})")
+    with open(os.path.join(out_dir, "early.json")) as f:
+        return json.load(f)
 
 
 def main(argv=None) -> int:
@@ -5610,7 +6028,7 @@ def main(argv=None) -> int:
                                        "prng", "serving", "train",
                                        "stage2", "step", "damsm",
                                        "weights", "lstm", "options",
-                                       "parallel", "archs"))
+                                       "parallel", "archs", "utils"))
     ap.add_argument("--dp_rank", choices=("gloo", "nccl1", "nccl2", "cli"),
                     help=argparse.SUPPRESS)     # a rank of the parallel phase
     ap.add_argument("--dp_parts", default="abc",
@@ -5618,6 +6036,9 @@ def main(argv=None) -> int:
                          "a (gloo ranks sharing a card), b (one NCCL rank), "
                          "c (two NCCL ranks on two cards)")
     ap.add_argument("--dp_dir", help=argparse.SUPPRESS)
+    # the phases that launch no tower kernel, in a process of their own
+    # while the whole run's main process builds the tower
+    ap.add_argument("--early_dir", help=argparse.SUPPRESS)
     ns = ap.parse_args(argv)
     only = ns.only
     sys.path.insert(0, ROOT)
@@ -5637,18 +6058,36 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    # the sources and the measurement build of the tower kernels, all at once
-    per_source = _cuda.build(
+    # the sources and the measurement build of the tower kernels, all at
+    # once; in the whole run the two tower builds (minutes) go on while
+    # the phases that launch no tower kernel run (`_early_beside_build`)
+    names = (
         ("layernorm", "ffn_block", "attn_block") if only == "launches"
         else ("damsm",) if only in ("damsm", "lstm")
         else ("layernorm", "damsm") if only == "archs"
         else ("layernorm", "ffn_block", "attn_block", "damsm")
+        if only == "utils"
+        else ("layernorm", "ffn_block", "attn_block", "damsm")
         if only == "weights" else _cuda.SOURCES
         if only in ("step", "options", "parallel")
         else _cuda.SOURCES + tuple(_cuda.VARIANTS))
-    print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"({', '.join(f'{k} {v:.2f} s' for k, v in per_source.items())})",
-          flush=True)
+    if ns.early_dir:
+        names = EARLY_SOURCES
+    later = tuple(n for n in names if n.startswith("tower_block")) \
+        if only is None and not ns.early_dir else ()
+    first = [n for n in names if n not in later]
+    early = {}
+    if later:
+        early = _early_beside_build(first, later, t0)
+    else:
+        if ns.early_dir:
+            _cuda.load(first)       # built by the main process
+            per_source = {}
+        else:
+            per_source = _cuda.build(first)
+        print(f"build: {time.perf_counter() - t0:.2f} s ("
+              + ", ".join(f"{k} {v:.2f} s" for k, v in per_source.items())
+              + ")", flush=True)
 
     args = load_yaml(os.path.join(ROOT, "cfg", "test.yml")).replace(
         synthetic=True, fused_block="both", fused_ln=True,
@@ -5656,28 +6095,53 @@ def main(argv=None) -> int:
         checkpoints_path="", eval_table_mode=False)
     kernels = kernel_fns()
 
+    def timed(name, fn, *a):
+        t1 = time.perf_counter()
+        out = fn(*a)
+        print(f"phase {name}: {time.perf_counter() - t1:.1f} s", flush=True)
+        return out
+
+    # the phases that launch no tower kernel; in the whole run they ran in
+    # their own process while the tower built (`_early_beside_build`)
+    if early:
+        weights, lstm, archs = early["weights"], early["lstm"], early["archs"]
+    else:
+        weights = (timed("weights", weights_phase, args, kernels)
+                   if only == "weights" or ns.early_dir else None)
+        lstm = (timed("lstm", lstm_phase, kernels)
+                if only == "lstm" or ns.early_dir else {})
+        archs = (timed("archs", archs_phase, kernels)
+                 if only == "archs" or ns.early_dir else {})
+        if only == "utils" or ns.early_dir:
+            timed("utils", utils_phase)
+    if ns.early_dir:
+        with open(os.path.join(ns.early_dir, "early.json"), "w") as f:
+            json.dump({"weights": weights, "lstm": lstm, "archs": archs}, f)
+        return 0
+
     if only == "phases":
         tower_phases(*_tower_inputs(args))
     if only == "launches":
         launches_phase(args)
     if only == "damsm":
         damsm_phase(args)
-    rows = kernel_phase(args) if only in (None, "kernels") else []
-    prng = prng_phase(args, kernels) if only in (None, "prng") else None
+    rows = timed("kernels", kernel_phase, args) if only in (
+        None, "kernels") else []
+    prng = (timed("prng", prng_phase, args, kernels)
+            if only in (None, "prng") else None)
     rows += [] if prng is None else prng[2]
-    serving = (slice_phase(args, kernels) if only in (None, "serving")
-               else None)
-    train = train_phase(kernels) if only in (None, "train") else None
-    stage2 = stage2_phase(kernels) if only in (None, "stage2") else None
+    serving = (timed("serving", slice_phase, args, kernels)
+               if only in (None, "serving") else None)
+    train = (timed("train", train_phase, kernels)
+             if only in (None, "train") else None)
+    stage2 = (timed("stage2", stage2_phase, kernels)
+              if only in (None, "stage2") else None)
     if only in (None, "step"):
-        step_phase(kernels)
-    weights = (weights_phase(args, kernels) if only in (None, "weights")
-               else None)
-    lstm = lstm_phase(kernels) if only in (None, "lstm") else {}
-    options = options_phase(kernels) if only in (None, "options") else {}
-    parallel = (parallel_phase(kernels, ns.dp_parts)
+        timed("step", step_phase, kernels)
+    options = (timed("options", options_phase, kernels)
+               if only in (None, "options") else {})
+    parallel = (timed("parallel", parallel_phase, kernels, ns.dp_parts)
                 if only in (None, "parallel") else {})
-    archs = archs_phase(kernels) if only in (None, "archs") else {}
     # every path was driven with the counts zeroed just before it and read
     # just after; each phase held its path to the expected count per kernel
     paths = (("launches_prng", "launches_per_prng_check", prng),

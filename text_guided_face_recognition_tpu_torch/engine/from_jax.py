@@ -41,7 +41,10 @@ nothing of JAX.
 port's grouped optimizer (engine/optim.py): per group its step count and,
 per parameter, Adam's `mu` / `nu` (`exp_avg` / `exp_avg_sq`) or SGD's
 `trace` (`momentum_buffer`), each moment through its parameter's leaf
-transform, in the optimizer's storage dtype.
+transform, in the optimizer's storage dtype. A rank of the class-sharded
+stage-2 step (parallel/partial_fc.py) takes an exported state through
+`shard_state_for_partial_fc` first, which cuts metric_fc's weight and its
+optimizer state to the rank's rows (engine/trainer.py `resume_from`).
 """
 
 from __future__ import annotations

@@ -452,6 +452,18 @@ class GroupedOptimizer:
     def state_dict(self) -> Dict[str, dict]:
         return {g: opt.state_dict() for g, opt in self.opts.items()}
 
+    def resize_state(self, state: Dict[str, dict]) -> None:
+        """Take each per-parameter state tensor whose shape `state` changes
+        (a class-sharded rank's rows of the classifier's state, parallel/
+        partial_fc.py) as a copy of the given one; the parameters must
+        have that shape already."""
+        for g, opt in self.opts.items():
+            for i, st in state[g]["state"].items():
+                for k, t in opt._param_state(int(i)).items():
+                    if k in st and tuple(st[k].shape) != tuple(t.shape):
+                        getattr(opt, k)[int(i)] = st[k].to(
+                            t.device, t.dtype).clone()
+
     def load_state_dict(self, state: Dict[str, dict]) -> None:
         for g, opt in self.opts.items():
             opt.load_state_dict(state[g])

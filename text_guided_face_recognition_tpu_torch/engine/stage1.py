@@ -45,11 +45,15 @@ Reference quirks kept as the JAX package keeps them: the text side trains
 by default (`compat_frozen_text: true` reproduces the reference's
 no-gradient text path), and no gradient clip by default
 (`apply_grad_clip`).
+
+The explicit shard_map step is a mode of this trainer (parallel/spmd.py,
+engine/trainer.py). Epochs are logged through utils/logging.MetricLogger
+and steps profiled through utils/profiling.maybe_profile, as the JAX
+trainer's are.
 """
 
 from __future__ import annotations
 
-import json
 import os
 import time
 from typing import Dict, Optional
@@ -72,6 +76,9 @@ from text_guided_face_recognition_tpu_torch.models.margins import (
 from text_guided_face_recognition_tpu_torch.models.text_bert import TEXT_ARCHS
 from text_guided_face_recognition_tpu_torch.parallel.contrastive import (
     gather_global_negatives)
+from text_guided_face_recognition_tpu_torch.utils.logging import MetricLogger
+from text_guided_face_recognition_tpu_torch.utils.profiling import (
+    maybe_profile)
 
 __all__ = ["ClassWeight", "CmpWeight", "Stage1Model", "Stage1Trainer"]
 
@@ -118,9 +125,11 @@ class Stage1Trainer(TrainerBase):
     POST_GATHER = ("image_cls", "text_cls", "cmp")
 
     def __init__(self, args, device: Optional[torch.device] = None,
-                 eager: bool = False):
+                 eager: bool = False,
+                 logger: Optional[MetricLogger] = None):
         check_stage1(args)
         self.args = args
+        self.logger = logger or MetricLogger(echo=True)
         self.device = device if device is not None else \
             prep.resolve_device(bool(args.cpu))
         dev = self.device
@@ -277,7 +286,8 @@ class Stage1Trainer(TrainerBase):
         self.refresh_features()       # inside the timed window
         acc = None
         for batch in self.train_dl:
-            acc = self.train_step(self.to_device(batch), acc=acc)
+            with maybe_profile(args, n):
+                acc = self.train_step(self.to_device(batch), acc=acc)
             n += 1
             if args.max_steps and n >= args.max_steps:
                 break
@@ -288,7 +298,7 @@ class Stage1Trainer(TrainerBase):
         out = {k: v / total_len for k, v in agg.items()}
         out.update(epoch=epoch, steps=n,
                    pairs_per_sec=total_len / dt if dt > 0 else 0.0)
-        self.say(json.dumps(out))
+        self.logger.log(out)
         return out
 
     def schedule_epoch_end(self, epoch: int) -> None:

@@ -39,12 +39,13 @@ BatchNorms on global-batch statistics) and gathers the embeddings and
 labels before metric_fc, so the margin logits and the focal loss's
 batch-mean quirk are the global batch's, as the JAX package's jit over a
 data mesh computes them (its parallel/spmd.py says why a per-rank focal
-would be wrong); metric_fc comes after the gather.
+would be wrong); metric_fc comes after the gather. The explicit shard_map step and the
+class-sharded (partial FC) step are modes of this trainer (parallel/
+spmd.py, parallel/partial_fc.py; engine/trainer.py).
 """
 
 from __future__ import annotations
 
-import json
 import os
 import time
 from typing import Dict, Optional
@@ -65,7 +66,12 @@ from text_guided_face_recognition_tpu_torch.models.margins import (
     ArcMarginProduct, xavier_uniform_)
 from text_guided_face_recognition_tpu_torch.models.text_bert import TEXT_ARCHS
 from text_guided_face_recognition_tpu_torch.parallel.contrastive import (
-    gather_global_negatives)
+    gather_global_negatives, psum_mean)
+from text_guided_face_recognition_tpu_torch.parallel.partial_fc import (
+    sharded_margin_ce)
+from text_guided_face_recognition_tpu_torch.utils.logging import MetricLogger
+from text_guided_face_recognition_tpu_torch.utils.profiling import (
+    maybe_profile)
 
 __all__ = ["FusionModel", "FusionTrainer"]
 
@@ -95,9 +101,11 @@ class FusionTrainer(TrainerBase):
     POST_GATHER = ("metric_fc",)
 
     def __init__(self, args, device: Optional[torch.device] = None,
-                 eager: bool = False):
+                 eager: bool = False,
+                 logger: Optional[MetricLogger] = None):
         check_stage2(args)
         self.args = args
+        self.logger = logger or MetricLogger(echo=True)
         self.device = device if device is not None else \
             prep.resolve_device(bool(args.cpu))
         dev = self.device
@@ -179,11 +187,22 @@ class FusionTrainer(TrainerBase):
         def loss_fn(batch, drop_bits=None, drop_seeds=None):
             label = batch["cls_id"].long()
             emb = embed_fn(batch, drop_bits, drop_seeds)
-            if self.dp:     # the global batch, on every rank
+            if self.mode == "partial_fc":     # W class-sharded over ranks
+                loss = sharded_margin_ce(
+                    emb, m.metric_fc.weight, label, head="arcface", s=30.0,
+                    m=0.5, easy_margin=bool(args.easy_margin),
+                    loss_kind="focal" if use_focal else "ce")
+                return loss, {"loss": loss}
+            if self.dp and self.mode == "data_parallel":
+                # the global batch, on every rank
                 emb, label = (gather_global_negatives(x) for x in (emb,
                                                                    label))
             logits = m.metric_fc(emb, label)
-            if use_focal:
+            if self.mode == "shard_map":      # the global mean CE
+                ce = psum_mean(ops.cross_entropy_rows(logits, label))
+                loss = (1.0 - torch.exp(-ce)) ** 2.0 * ce if use_focal \
+                    else ce
+            elif use_focal:
                 loss = ops.focal_loss(logits, label, gamma=2.0)
             else:
                 loss = ops.cross_entropy_rows(logits, label)
@@ -200,7 +219,8 @@ class FusionTrainer(TrainerBase):
         self.refresh_features()       # inside the timed window
         acc = None
         for batch in self.train_dl:
-            acc = self.train_step(self.to_device(batch), acc=acc)
+            with maybe_profile(args, n):
+                acc = self.train_step(self.to_device(batch), acc=acc)
             n += 1
             if args.max_steps and n >= args.max_steps:
                 break
@@ -210,7 +230,7 @@ class FusionTrainer(TrainerBase):
         out = {"epoch": epoch, "loss": total / max(n * args.batch_size, 1),
                "steps": n,
                "pairs_per_sec": n * args.batch_size / dt if dt > 0 else 0.0}
-        self.say(json.dumps(out))
+        self.logger.log(out)
         return out
 
     def schedule_epoch_end(self, epoch: int) -> None:

@@ -46,11 +46,33 @@ the rank (`fold_seeds`) so that no two ranks draw the same masks. Under
 NCCL the collectives are captured in the step's graph; gloo's cannot be,
 and a captured step under gloo raises (ask for eager=True). Rank 0 alone
 prints and writes checkpoints; every rank resumes from the same file.
+
+The modes of the step (`set_mode`, before the first step; parallel/spmd.py
+and parallel/partial_fc.py put a trainer into the other two):
+
+  data_parallel  the default above: global-batch BatchNorm, the summed
+                 buckets reduced in the parameters' dtype, the gradient
+                 cast in the optimizer;
+  shard_map      the JAX package's explicit shard_map steps (its parallel/
+                 spmd.py): each rank's BatchNorms normalise with its own
+                 rows' statistics (`sync` off) and the running statistics
+                 are averaged over the ranks after the step; the gradients
+                 are cast to `grads_dtype` before the collectives and, in
+                 bfloat16, summed in bfloat16; a stage-1 encoder clip
+                 (`apply_grad_clip`) is applied to the summed gradient;
+  partial_fc     the class-sharded stage-2 step (parallel/partial_fc.py):
+                 as shard_map, with the rows of the classifier that this
+                 rank holds kept out of every collective.
+
+The JAX steps average (pmean) the gradients of the modules after the
+gather and the metrics. Every rank evaluates the same loss on the same
+gathered values, so those are the same on every rank and their mean is
+their value: the port makes no collective for them (the tests hold the
+ranks equal).
 """
 
 from __future__ import annotations
 
-import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -65,11 +87,19 @@ from text_guided_face_recognition_tpu_torch.engine.feature_cache import (
     FrozenFeatureCache)
 from text_guided_face_recognition_tpu_torch.engine.from_jax import (
     optimizer_state_from_jax, state_dict_from_jax)
+from text_guided_face_recognition_tpu_torch.engine.optim import (
+    cast_grads, clip_grad_norm)
+from text_guided_face_recognition_tpu_torch.models.layers import BatchNorm
 from text_guided_face_recognition_tpu_torch.ops.dropout import (
     draw, draw_seeds)
 from text_guided_face_recognition_tpu_torch.parallel import mesh
+from text_guided_face_recognition_tpu_torch.parallel.partial_fc import (
+    gather_state_for_partial_fc, shard_state_for_partial_fc)
+from text_guided_face_recognition_tpu_torch.utils.profiling import nan_guard
 
-__all__ = ["TrainerBase", "fold_seeds", "nan_guard"]
+__all__ = ["TrainerBase", "fold_seeds", "nan_guard", "MODES"]
+
+MODES = ("data_parallel", "shard_map", "partial_fc")
 
 _FOLD = 0x9E3779B1    # odd; rank r's seeds are xored with r * _FOLD mod 2^31
 
@@ -81,13 +111,6 @@ def fold_seeds(seeds: torch.Tensor, rank: int,
     keeps the drawn ones (the JAX package folds the shard index into its
     dropout key, parallel/spmd.py); into `out` when given."""
     return torch.bitwise_xor(seeds, (rank * _FOLD) & 0x7FFFFFFF, out=out)
-
-
-def nan_guard(metrics: Dict[str, float], step: int) -> None:
-    for k, v in metrics.items():
-        if not math.isfinite(v):
-            raise FloatingPointError(
-                f"non-finite metric {k!r}={v} at step {step}")
 
 
 class TrainerBase:
@@ -156,11 +179,19 @@ class TrainerBase:
         self.dp = mesh.active()
         self.rank, self.world = mesh.rank(), mesh.world_size()
         self.rank0 = self.rank == 0
+        self.mode = "data_parallel"
+        self.reduce_clip = 0.0
+        self._stats: List[torch.Tensor] = []
+        self._make_buckets(post_gather)
+        if self.dp:
+            mesh.sync_batchnorm(self.model)
+
+    def _make_buckets(self, post_gather: Sequence[str]) -> None:
         self._buckets: List[Tuple[torch.Tensor, List[torch.Tensor],
                                   List[torch.Tensor]]] = []
+        self._staging: List[Optional[torch.Tensor]] = []
         if not self.dp:
             return
-        mesh.sync_batchnorm(self.model)
         after = {id(p) for name in post_gather
                  if getattr(self.model, name, None) is not None
                  for p in getattr(self.model, name).parameters()}
@@ -175,6 +206,31 @@ class TrainerBase:
                 views = [v.view_as(p) for v, p in zip(
                     flat.split([p.numel() for p in ps]), ps)]
                 self._buckets.append((flat, ps, views))
+        self._staging = [None] * len(self._buckets)
+
+    def set_mode(self, mode: str, post_gather: Sequence[str]) -> None:
+        """Put the trainer's step into `mode` (module docstring), the
+        gradients of the `post_gather` modules kept out of the summed
+        buckets; before its first step."""
+        if mode not in MODES:
+            raise ValueError(f"mode {mode!r}: one of {MODES}")
+        if self.steps or self._warm or self.graph is not None:
+            raise RuntimeError(f"{type(self).__name__}: the step's mode is "
+                               "set before the first step")
+        self.mode = mode
+        self._make_buckets(post_gather)
+        if not self.dp:
+            return
+        per_rank = mode != "data_parallel"
+        bns = [m for m in self.model.modules() if isinstance(m, BatchNorm)]
+        for m in bns:
+            m.sync = not per_rank
+        self._stats = ([t for m in bns for t in (m.running_mean,
+                                                 m.running_var)]
+                       if per_rank else [])
+        low = (per_rank and self.args.grads_dtype != "float32")
+        self._staging = [torch.empty_like(flat, dtype=torch.bfloat16)
+                         if low else None for flat, _, _ in self._buckets]
 
     def attach_buckets(self) -> None:
         """Before a backward: each bucket zeroed and its parameters'
@@ -193,9 +249,29 @@ class TrainerBase:
 
     def reduce_grads(self) -> None:
         """Sum the gradients below the gather over the ranks: one
-        all-reduce a bucket, in place."""
-        for flat, _, _ in self._buckets:
+        all-reduce a bucket, in place; with a bfloat16 staging buffer
+        (the shard_map modes' grads_dtype bfloat16) the sum is taken in
+        bfloat16."""
+        for (flat, _, _), low in zip(self._buckets, self._staging):
+            if low is None:
+                mesh.all_reduce_sum_(flat)
+            else:
+                low.copy_(flat)
+                mesh.all_reduce_sum_(low)
+                flat.copy_(low)
+
+    def average_stats(self) -> None:
+        """The per-rank modes: every trained BatchNorm's running statistics
+        averaged over the ranks (the JAX steps' pmean of batch_stats), one
+        all-reduce."""
+        if not self._stats:
+            return
+        with torch.no_grad():
+            flat = torch.cat([t.reshape(-1) for t in self._stats])
             mesh.all_reduce_sum_(flat)
+            flat.div_(self.world)
+            torch._foreach_copy_(self._stats, [v.view_as(t) for v, t in zip(
+                flat.split([t.numel() for t in self._stats]), self._stats)])
 
     def say(self, *args) -> None:
         """print, on rank 0 alone."""
@@ -213,8 +289,17 @@ class TrainerBase:
         if self.dp:
             self.attach_buckets()
         total.backward()
+        if self.mode != "data_parallel":
+            cast_grads(self.opt.all_params(), self.args.grads_dtype)
         if self.dp:
             self.reduce_grads()
+        if self.reduce_clip:
+            clip_grad_norm(self.opt.params["encoder"], self.reduce_clip,
+                           self.args.grads_dtype)
+
+    def _optimizer_step(self) -> None:
+        self.opt.step()
+        self.average_stats()
 
     @torch.no_grad()
     def image_features(self, img: torch.Tensor):
@@ -291,7 +376,7 @@ class TrainerBase:
 
     def _eager_step(self, batch, drop_bits, drop_seeds):
         _, metrics = self.compute_grads(batch, drop_bits, drop_seeds)
-        self.opt.step()
+        self._optimizer_step()
         return metrics
 
     def _replay(self, batch, drop_bits, drop_seeds):
@@ -345,7 +430,7 @@ class TrainerBase:
                                   capture_error_mode="thread_local"):
                 total, metrics = self.loss_fn(self._static, bits, seeds)
                 self._backward(total)
-                self.opt.step()
+                self._optimizer_step()
         except Exception as e:
             raise RuntimeError(
                 f"{type(self).__name__}: capturing the train step in a CUDA "
@@ -355,31 +440,51 @@ class TrainerBase:
         self._static_out = {k: v.detach() for k, v in metrics.items()}
         self.graph = graph
 
+    def train_state(self) -> dict:
+        """{"model", "optimizer"}: the state dicts of the whole train state.
+        In the partial_fc mode the classifier's rows are gathered from every
+        rank (a collective: every rank calls it), so the tree is the
+        replicated layout's (parallel/partial_fc.py)."""
+        tree = {"model": self.model.state_dict(),
+                "optimizer": self.opt.state_dict()}
+        if self.mode == "partial_fc":
+            tree = gather_state_for_partial_fc(tree, self.classifier_shape)
+        return tree
+
+    def _own_rows(self, tree):
+        """A whole train state's tree (the port's or an exported JAX one)
+        cut to this rank's classifier rows in the partial_fc mode."""
+        if self.mode != "partial_fc":
+            return tree
+        return shard_state_for_partial_fc(tree, self.classifier_shape)
+
     def save_state(self, save_dir: str, epoch: int) -> None:
         """The resumable third artifact: model, optimizer, epoch, LRs
         (rank 0 alone writes it)."""
+        tree = self.train_state()
         if not self.rank0:
             return
         save_checkpoint(f"{save_dir}/train_state_{epoch}", {
-            "model": self.model.state_dict(),
-            "optimizer": self.opt.state_dict(),
-            "meta": {"epoch": epoch, "lr": dict(self.lr)}})
+            **tree, "meta": {"epoch": epoch, "lr": dict(self.lr)}})
 
     def resume_from(self, path: str) -> None:
         """The model, optimizer, learning rates and epoch of a train state:
         the port's artifact, or a JAX package train state exported to
         `.npz` (its parameters, batch statistics and optimizer state
-        through engine/from_jax.py)."""
+        through engine/from_jax.py); in the partial_fc mode this rank's
+        rows of the classifier and of its optimizer state."""
         if is_jax_export(path):
             tree = load_jax_export(path)
+            own = self._own_rows(tree)
             self.model.load_state_dict(state_dict_from_jax(
-                tree["params"], tree.get("batch_stats"), module=self.model))
+                own["params"], own.get("batch_stats"), module=self.model))
             self.opt.load_state_dict(optimizer_state_from_jax(
-                tree.get("opt", {}), self.model, self.opt))
+                own.get("opt", {}), self.model, self.opt))
         else:
             tree = load_checkpoint(path, map_location=self.device)
-            self.model.load_state_dict(tree["model"])
-            self.opt.load_state_dict(tree["optimizer"])
+            own = self._own_rows(tree)
+            self.model.load_state_dict(own["model"])
+            self.opt.load_state_dict(own["optimizer"])
         self.lr = {k: float(v) for k, v in tree["meta"]["lr"].items()}
         self._apply_lrs()
         self.start_epoch = int(tree["meta"]["epoch"]) + 1

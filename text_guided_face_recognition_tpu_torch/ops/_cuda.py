@@ -33,8 +33,8 @@ from typing import Dict, Iterable, Sequence, Tuple
 
 import torch
 
-__all__ = ["SOURCES", "VARIANTS", "build", "function", "dtype_code",
-           "launch"]
+__all__ = ["SOURCES", "VARIANTS", "build", "built", "load", "function",
+           "dtype_code", "launch"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -115,6 +115,27 @@ def _build_locked(names: Iterable[str]) -> Dict[str, float]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds
+
+
+def built(name: str) -> bool:
+    """The library of `name` is built from the current sources (`build`
+    moves each library into place as its compile ends, in the order of
+    its names)."""
+    return _target(name).exists()
+
+
+def load(names: Iterable[str]) -> None:
+    """Load the named libraries, built before, so that their functions
+    (`function`) take no build lock: another thread may meanwhile hold it
+    to build other sources (chip_smoke.py runs the phases that need no
+    tower kernel while `tower_block.cu` compiles)."""
+    with _lock:
+        for name in names:
+            if name not in _libs:
+                path = _target(name)
+                if not path.exists():
+                    raise RuntimeError(f"{name}: not built ({path})")
+                _libs[name] = ctypes.CDLL(str(path))
 
 
 def function(lib: str, fn: str, argtypes: Sequence) -> ctypes._CFuncPtr:

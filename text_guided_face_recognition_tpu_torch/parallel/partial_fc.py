@@ -23,16 +23,28 @@ exact in value and gradient against the dense head:
     data-parallel step; the W shard's gradient is local and complete.
 
 Classes past `num_classes` (padding to a multiple of N) are masked out of
-the softmax; their rows take a zero gradient. A library function, as in
-the JAX package: no entry point calls it; the class-sharded stage-2 step
-around it is not ported yet (ROADMAP.md).
+the softmax; their rows take a zero gradient.
+
+The class-sharded stage-2 step around it (`make_partial_fc_fusion_step`,
+the JAX package's, whose entry point is a library call as there): each
+rank holds its C/N rows of `metric_fc.weight` and of their SGD state, the
+rows [rank C/N, (rank + 1) C/N) of the W that `manual_seed` initialises
+whole (so the starting state is the replicated layout's); the W shard's
+gradient stays local, every other gradient is summed over the ranks and
+the BatchNorm statistics are averaged (engine/trainer.py, mode
+partial_fc). A train state leaves and enters the trainer whole
+(`gather_state_for_partial_fc`, `shard_state_for_partial_fc`), so its
+checkpoint is the replicated layout's file, as the JAX package's global
+arrays make its checkpoint the same tree; `classifier_specs_for_state`
+names the leaves that are split.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Any, Callable, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -40,7 +52,9 @@ from text_guided_face_recognition_tpu_torch.parallel import mesh
 from text_guided_face_recognition_tpu_torch.parallel.contrastive import (
     gather_rows_summed, psum)
 
-__all__ = ["sharded_margin_ce"]
+__all__ = ["sharded_margin_ce", "classifier_specs_for_state",
+           "shard_state_for_partial_fc", "gather_state_for_partial_fc",
+           "make_partial_fc_fusion_step"]
 
 _NEG_INF = -1.0e30   # exp(x - row max) underflows to exactly 0.0 in f32
 
@@ -120,3 +134,100 @@ def sharded_margin_ce(emb_local: torch.Tensor, w_local: torch.Tensor,
         p = torch.exp(-ce)
         return (1.0 - p) ** gamma * ce
     return ce
+
+
+_CLS_PATH_KEYS = ("metric_fc", "cls")
+
+
+def _map(tree: Any, fn: Callable, path: tuple = ()) -> Any:
+    """fn(path, leaf) over a nested tree of mappings and lists; a mapping's
+    key joins the path split at its dots (a state dict's "metric_fc.weight"
+    is the path (metric_fc, weight), as a JAX tree's nested keys)."""
+    if isinstance(tree, Mapping):
+        return type(tree)((k, _map(v, fn, path + tuple(str(k).split("."))))
+                          for k, v in tree.items())
+    if isinstance(tree, list):
+        return [_map(v, fn, path) for v in tree]
+    return fn(path, tree)
+
+
+def _on_classifier(path, leaf, shape: tuple) -> bool:
+    """A 2-D tensor or array of `shape` under a `metric_fc` or `cls` key
+    (the classifier's weight, or its optimizer group's state); shape alone
+    could match another leaf."""
+    return (isinstance(leaf, (torch.Tensor, np.ndarray)) and leaf.ndim == 2
+            and tuple(leaf.shape) == shape
+            and any(k in _CLS_PATH_KEYS for k in path))
+
+
+def classifier_specs_for_state(state: Any,
+                               classifier_shape: Sequence[int]) -> Any:
+    """The tree of `state` with 0 (rows split over the ranks) at each leaf
+    of the class-sharded layout (every 2-D leaf of `classifier_shape`,
+    (num_classes, feat), under a `metric_fc` or `cls` key) and None
+    (replicated) elsewhere; the JAX package's P(axis, None) and P()."""
+    shape = tuple(classifier_shape)
+    return _map(state, lambda path, leaf: 0 if _on_classifier(
+        path, leaf, shape) else None)
+
+
+def shard_state_for_partial_fc(state: Any, classifier_shape: Sequence[int],
+                               rank: Optional[int] = None,
+                               world: Optional[int] = None) -> Any:
+    """A whole train state (torch tensors or numpy arrays: the port's
+    checkpoint tree or an exported JAX one) with each classifier leaf cut
+    to rank `rank`'s rows of `world` (this process's by default); the
+    other leaves are the given objects."""
+    shape = tuple(classifier_shape)
+    rank = mesh.rank() if rank is None else rank
+    world = mesh.world_size() if world is None else world
+    rows = shape[0] // world
+
+    def cut(path, leaf):
+        if not _on_classifier(path, leaf, shape):
+            return leaf
+        part = leaf[rank * rows:(rank + 1) * rows]
+        return part.clone() if torch.is_tensor(part) else part.copy()
+
+    return _map(state, cut)
+
+
+def gather_state_for_partial_fc(state: Any,
+                                classifier_shape: Sequence[int]) -> Any:
+    """The whole train state of a class-sharded rank: each classifier leaf
+    (this rank's (C/N, feat) rows) gathered over the ranks in rank order.
+    A collective: every rank calls it."""
+    c, d = tuple(classifier_shape)
+    local = (c // mesh.world_size(), d)
+    return _map(state, lambda path, leaf: mesh.all_gather_rows(leaf)
+                if _on_classifier(path, leaf, local) else leaf)
+
+
+def make_partial_fc_fusion_step(trainer):
+    """The stage-2 train step with metric_fc class-sharded over the
+    ranks: puts `trainer` (an engine/stage2.FusionTrainer built under the
+    process group, before its first step) into the partial_fc mode, cuts
+    its classifier and the classifier's optimizer state to this rank's
+    rows, and returns its train_step. The loss is `sharded_margin_ce`
+    (ArcFace, s 30, m 0.5, the focal loss for model_type arcface with loss
+    focal_loss, else cross-entropy); the W shard's gradient stays local,
+    every other gradient is summed over the ranks and the BatchNorm
+    statistics are averaged. num_classes must divide by the world size."""
+    args = trainer.args
+    n = mesh.world_size()
+    c = int(args.num_classes)
+    if c % n:
+        raise ValueError(
+            f"partial-FC requires num_classes ({c}) divisible by the mesh "
+            f"axis size ({n}); pad num_classes in the config — "
+            f"sharded_margin_ce(num_classes=...) masks the padded columns")
+    trainer.classifier_shape = (c, int(args.fusion_final_dim))
+    trainer.set_mode("partial_fc", post_gather=("metric_fc",))
+    own = shard_state_for_partial_fc(
+        {"model": trainer.model.state_dict(),
+         "optimizer": trainer.opt.state_dict()}, trainer.classifier_shape)
+    with torch.no_grad():
+        w = trainer.model.metric_fc.weight
+        w.data = own["model"]["metric_fc.weight"].to(w.device)
+    trainer.opt.resize_state(own["optimizer"])
+    return trainer.train_step
