@@ -2,8 +2,15 @@
 """On-card smoke run of the PyTorch/CUDA port (one NVIDIA GPU).
 
   python3 chip_smoke.py [--only kernels|launches|phases|prng|serving|train|
-                                stage2|step|damsm|weights|lstm|options|
-                                parallel|archs|utils]
+                                stage2|long|step|damsm|weights|lstm|
+                                options|parallel|archs|utils]
+                        [--save_outputs FILE]
+  python3 chip_smoke.py --compare_outputs A B
+
+--save_outputs keeps the flagship outputs of K7 and K8 (the kernel phase)
+and K9 (the damsm phase) in FILE; --compare_outputs holds two such files,
+from two trees' runs of one phase, to each other bit for bit (exit 1 where
+an output differs).
 
 Phases; any failure raises and the script exits non-zero:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
@@ -42,8 +49,9 @@ Phases; any failure raises and the script exits non-zero:
      native_layer_norm_backward, Tensor.sum: reference columns, used
      nowhere in the port; `--only launches` runs these tables alone); K5
      is held at T = 512 (two captions, padded keys) without residuals and
-     with them (p included), and K4 and K6 at T = 64, 65, 200 and 512 (two
-     captions; f32 up to its limit of 64) in host bits and prng mode. K3
+     with them (p included, to its row's scale), and K4 and K6 at T = 64,
+     65, 200 and 512 (two captions; bf16 and f32) in host bits and prng
+     mode. K3
      and K5 are
      held and timed twice: serving (rate 0, no residuals) and train mode
      (rate 0.1, the residuals the backward reads, `*_train` keys); K3-K6
@@ -53,8 +61,8 @@ Phases; any failure raises and the script exits non-zero:
      whole-tower kernels K7 and K8 (12 layers in one launch each way) are
      held in eval and train mode, bf16 and f32: K7 layer by layer, each
      layer's qkv, p, o and f against the plain version run from the
-     kernel's own input to that layer, element-wise like a half-layer,
-     and the residual sums r1 and r2, the layer's output z and all 12
+     kernel's own input to that layer, element-wise like a half-layer (p
+     to its row's scale: tol (|p| + the row's largest)), and the residual sums r1 and r2, the layer's output z and all 12
      layers end to end f32 element-wise, bf16 to the tolerance times the
      largest element (where an addend of r1 = x + h or r2 = y + g flipped
      one bf16 step and the other nearly cancels it, the sum is off by
@@ -148,6 +156,30 @@ Phases; any failure raises and the script exits non-zero:
      planted K7 forward fault (below); in host mode the bf16
      comparison and its all-keep fault in K8 as in stage 1; the three
      dropout modes as in stage 1, and the device-time split;
+  7b. long (`--only long` runs it alone, building the six sources):
+     captions of bert-base's 512 tokens through the whole-tower kernels
+     and K9 past the bounds it had. The kernels alone at t = 512 and
+     bert-base's widths: in bf16 (B 8, host bits) K7 (train, eval) layer
+     by layer as in 3 (p to its row's scale) and end to end, and K8,
+     against their plain versions, K7 against 12 x (K5, K3) bit for bit
+     (z and residuals; eval too), K8 at K7's residuals against
+     12 x (K4, K6) (dx scaled, weight gradients within one bf16 step); in
+     f32 (B 2) K5, K6, K7 and K8 against their plain versions at 1e-4;
+     each timed (CUDA events, warm and cold L2) beside its plain version,
+     its bound and, for K7/K8, the chain. K9 at D 768 and 1024 (the wide
+     path: D split over blocks) and at gamma1 -100 and 100 (its running
+     maximum; D 256), B 32, T 22, R 196, against its plain version at
+     1e-4 + 1e-4 |p| and 1e-5, twice bit for bit, timed, its plan's
+     shared memory equal to the launcher's. Serving: one pair batch of 8
+     pairs at bert_words_num 512 with fused_block tower against none (K7
+     twice, K1 twice), within the pair-score rule, the text encoder's
+     output within 2e-2 of its largest element and the fused embeddings
+     within 2e-2 of each row's norm. Training: one stage-1 step (use_pallas,
+     aux_feat_dim_per_granularity 768: K9 on its wide path) and one
+     stage-2 step, tower at T 512, B 8, in prng mode and in host mode,
+     against kernels off by the on/off rule (the text encoder's gradient
+     with the model after the tower on the same values; every other
+     module's end to end and so), launch counts held;
   8. step (`--only step` runs it alone, building the six sources): the
      compiled step for stage 1 (as in 6) and stage 2 (as in 7): an eager
      trainer and a captured one from the same weights, batch and drop_gen
@@ -390,8 +422,8 @@ TRAIN_STEPS = 20
 # eager warm-up steps, then the capture (stage 1: two epochs of two steps,
 # the schedule's rate edit between them; stage 2: one epoch of four)
 CLI_STEPS = 4
-# caption lengths of the long-caption checks of K4 and K6 (bf16 up to 512;
-# f32 up to its limit of 64): the edge of one key block and one past it
+# caption lengths of the long-caption checks of K4 and K6 (bf16 and f32):
+# the edge of one key block and one past it
 LONG_T = (64, 65, 200, 512)
 # K9's caption length at bert_words_num 512 (words without [CLS], [SEP])
 DAMSM_LONG_T = 510
@@ -450,6 +482,92 @@ def _close_scaled(a, b, tol: float):
     a, b = a.float(), b.float()
     err = (a - b).abs().max().item()
     return err, err <= tol * max(1.0, b.abs().max().item())
+
+
+def _close_rows(a, b, tol: float):
+    """(max |a - b|, whether |a - b| <= tol (|b| + max |b| of its row)
+    everywhere): attention probabilities, whose typical value over t keys
+    is about 1 / t, held to their row's scale rather than to 1."""
+    a, b = a.float(), b.float()
+    err = (a - b).abs()
+    lim = tol * (b.abs() + b.abs().amax(-1, keepdim=True))
+    return err.max().item(), bool((err <= lim).all())
+
+
+# `--save_outputs FILE`: the flagship outputs of K7 and K8 (the kernel
+# phase) and K9 (the damsm phase), kept on the host and saved at the end,
+# so that two trees' runs are held to each other bit for bit by
+# `--compare_outputs A B`
+OUTPUTS: dict | None = None
+
+
+def _keep(name: str, out) -> None:
+    """Keep `out` (a tensor or a tuple of them, Nones dropped) under
+    `name` when --save_outputs asks for it."""
+    if OUTPUTS is not None:
+        OUTPUTS[name] = [t.detach().cpu() for t in (
+            out if isinstance(out, (tuple, list)) else (out,))
+            if t is not None]
+
+
+def compare_outputs(a: str, b: str) -> bool:
+    """Prints `BITWISE <name> <equal>` for each output saved in both files
+    and `BITWISE_ALL <all equal, same names>`; returns the latter."""
+    import torch
+    da, db = torch.load(a), torch.load(b)
+    ok = set(da) == set(db)
+    for k in sorted(set(da) & set(db)):
+        eq = len(da[k]) == len(db[k]) and all(
+            torch.equal(p, q) for p, q in zip(da[k], db[k]))
+        ok &= eq
+        print(f"BITWISE {k} {eq}", flush=True)
+    print(f"BITWISE_ALL {ok}", flush=True)
+    return ok
+
+
+# K7's outputs: z and the stacked residuals its backward reads
+TOWER_FWD_OUT = ("z", "xin", "qkv", "p", "o", "r1", "f", "r2")
+
+
+def _hold_tower_layers(got, x, mask, lv, b, t, heads, bits, rate, eps,
+                       tol, what) -> float:
+    """K7's outputs `got` (z and its stacked residuals) layer by layer: each
+    layer against the plain version run from the kernel's own input to
+    that layer (`lv` the stacked leaves, bits[k][j] layer j's host bits or
+    Nones), so no rounding flip of an earlier layer is carried into the
+    comparison. qkv, o and f element-wise (tol + tol |ref|); p to its
+    row's scale (`_close_rows`); the two residual sums r1 = x + h and
+    r2 = y + g and the output z = LN(r2) element-wise in f32 and, in bf16,
+    to tol times the largest element: where an addend flipped one bf16
+    step (0.031 at a magnitude in [4, 8)) and the other nearly cancels it,
+    the sum is off by that step at an element near zero, and z by the step
+    over the row's deviation; twelve layers give such an element twelve
+    times the chances one half-layer's check has. Returns the largest
+    error; raises AssertionError naming the output and layer."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.ops import block
+    L, bf16 = got[1].shape[0], x.dtype == torch.bfloat16
+    worst, (err, ok) = 0.0, _close(got[1][0], x, tol)
+    if not ok:
+        raise AssertionError(f"{what}: xin of layer 0 differs from x ({err})")
+    for j in range(L):
+        ref = block.tower_block_fwd_ref(
+            got[1][j], mask, *(v[j:j + 1] for v in lv.values()), b, t, heads,
+            *(None if b_ is None else b_[j:j + 1] for b_ in bits), rate, eps)
+        pairs = [("z", got[0] if j == L - 1 else got[1][j + 1], ref[0])]
+        pairs += [(n, g[j], r[0]) for n, g, r in zip(TOWER_FWD_OUT[2:],
+                                                     got[2:], ref[2:])]
+        for name, a, c in pairs:
+            rule = (_close_rows if name == "p" else _close_scaled
+                    if bf16 and name in ("z", "r1", "r2") else _close)
+            err, ok = rule(a, c, tol)
+            worst = max(worst, err)
+            if not ok:
+                raise AssertionError(f"{what} output {name} of layer {j}: "
+                                     f"max |err| {err} over tolerance {tol}")
+        del ref
+    return worst
 
 
 def card_line() -> str:
@@ -658,7 +776,9 @@ def damsm_extras(dev, B, D, TW, RG, seed: int, flush,
 
 def damsm_phase(args) -> dict:
     """`--only damsm`: K9 at the flagship shapes against its plain version,
-    timed beside it and its yardsticks (`damsm_extras`), with its bounds."""
+    timed beside it and its yardsticks (`damsm_extras`), with its bounds;
+    its outputs (unmasked and with a ragged word mask) kept for
+    --save_outputs."""
     import torch
     import torch.nn.functional as F
 
@@ -672,6 +792,8 @@ def damsm_phase(args) -> dict:
         dev).contiguous()
     regions = F.normalize(torch.randn(B, D, RG, generator=gen), dim=1).to(
         dev).contiguous()
+    word_mask = (torch.arange(TW)[None] < torch.randint(
+        2, TW + 1, (B,), generator=gen)[:, None]).to(dev)
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
     def flush():
@@ -680,6 +802,9 @@ def damsm_phase(args) -> dict:
     flush_ms = _graph_ms(flush)
     run = (lambda: damsm.damsm_similarity_cuda(words, regions, 4.0, 5.0))
     ref = (lambda: attention.damsm_similarity(words, regions, 4.0, 5.0))
+    _keep("k9", run())
+    _keep("k9_masked", damsm.damsm_similarity_cuda(words, regions, 4.0, 5.0,
+                                                   word_mask))
     err, ok = _close(run(), ref(), DAMSM_ATOL, 0.0)
     if not ok:
         raise AssertionError(f"damsm_similarity: max |err| {err}")
@@ -1114,9 +1239,9 @@ def kernel_phase(args):
         rows[[r["name"] for r in rows].index(row)]["launch_breakdown"] = \
             launches
     # the bf16 attention forward without residuals takes captions up to
-    # MAX_T_FWD (bert-base's position table): K5 at that length, two
-    # captions with padded keys, against its plain version
-    t_long = block.MAX_T_FWD
+    # MAX_T (bert-base's position table): K5 at that length, two captions
+    # with padded keys, against its plain version
+    t_long = block.MAX_T
     long_gen = torch.Generator().manual_seed(args.manual_seed + 7)
     x_long = torch.randn(2 * t_long, H, generator=long_gen).to(
         dev, torch.bfloat16)
@@ -1136,7 +1261,7 @@ def kernel_phase(args):
         rows[[r["name"] for r in rows].index("attn_block")][
             f"max_abs_err_t{t_long}" + ("_prng" if kw["rate"] else "")] = err
     # with residuals (training) too, past 128 the tensor-core tile, its
-    # saved p included
+    # saved p included (to its row's scale: about 1 / t a probability)
     for kw in (dict(rate=0.0), dict(rate=RATE, seed=seed)):
         got = block.attn_block_fwd(x_long, mask_long, *attn_w, 2, t_long,
                                    heads, eps=eps, **kw)
@@ -1145,8 +1270,8 @@ def kernel_phase(args):
         torch.cuda.synchronize()
         errs = []
         for name, a, b in zip(("y", "qkv", "p", "o", "r"), got, want):
-            err, ok = (_close_scaled if name == "r" else _close)(
-                a, b, TOL["bfloat16"])
+            err, ok = {"r": _close_scaled, "p": _close_rows}.get(
+                name, _close)(a, b, TOL["bfloat16"])
             errs.append(err)
             if not ok:
                 raise AssertionError(f"attn_block with residuals at t = "
@@ -1194,7 +1319,8 @@ def long_backwards(dev, attn_w, ffn_w, H, heads, eps, seed) -> dict:
     """K4 and K6 at caption lengths past the T = 24 of the main checks: two
     captions of T in LONG_T (the second's keys padded past a third), from
     the plain forward's residuals, host bits and prng mode, against their
-    plain versions; in bf16 at every T, in f32 up to its limit of 64.
+    plain versions; in bf16 and f32 (the strip attention tiles) at every
+    T.
     Returns {kernel: {max_abs_err_t<T>[_prng][_f32]: err}}."""
     import torch
 
@@ -1214,8 +1340,6 @@ def long_backwards(dev, attn_w, ffn_w, H, heads, eps, seed) -> dict:
         bits_p = draw(heads * 2 * t * t, dgen, dev).view(heads * 2, t, t)
         bits_h = draw(2 * t * H, dgen, dev).view(2 * t, H)
         for dt in (torch.bfloat16, torch.float32):
-            if t > block.max_t(dt, True):
-                continue
             x, dy, tol = x32.to(dt), dy32.to(dt), TOL[str(dt)[6:]]
             for mode, akw, fkw in (
                     ("", dict(bits_p=bits_p, bits_h=bits_h),
@@ -1583,13 +1707,14 @@ def _event_ms(fn, calls: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def _event_times(fn, flush) -> tuple:
+def _event_times(fn, flush, calls: int = 20, reps: int = 5) -> tuple:
     """(warm-L2 ms, cold-L2 ms) per call of fn by `_event_ms`; the cold
     time is flush + call less the flush alone."""
     def cold():
         flush()
         fn()
-    return _event_ms(fn), _event_ms(cold) - _event_ms(flush)
+    return (_event_ms(fn, calls, reps), _event_ms(cold, calls, reps)
+            - _event_ms(flush, calls, reps))
 
 
 def _one_bf16_step(a, c) -> tuple:
@@ -1614,8 +1739,9 @@ def _ptxas(lib: str, pattern: str) -> list:
     whose mangled name holds `pattern`, from nvcc's -Xptxas -v report."""
     from text_guided_face_recognition_tpu_torch.ops import _cuda
     out, cur = [], None
-    log = _cuda._target(lib).with_suffix(".so.log")
-    for line in log.read_text().splitlines():
+    lines = [line for path, _ in _cuda._targets(lib)
+             for line in path.with_suffix(".so.log").read_text().splitlines()]
+    for line in lines:
         if "Compiling entry function" in line:
             cur = {"function": line.split("'")[1]}
             if pattern in cur["function"]:
@@ -1753,6 +1879,47 @@ def _tower_inputs(args) -> tuple:
             torch.Generator().manual_seed(args.manual_seed), seed)
 
 
+def _chain_fwd(m, x, mask, b, t, heads, bits, rate, eps, save=True):
+    """12 x (K5, K3), the half-layer chain of the tower, from the stacked
+    f32 masters m (weights (L, out, in)) and layer j's host bits
+    bits[k][j] (or Nones): (z, per layer (x, qkv, p, o, r1, y, f, act,
+    r2)); `save`: the forwards keep their residuals."""
+    from text_guided_face_recognition_tpu_torch.ops import block
+    res = []
+    for j in range(m["wqkv"].shape[0]):
+        bp, bh, bf = (None if b_ is None else b_[j] for b_ in bits)
+        y, qkv, p, o, r1 = block.attn_block_fwd(
+            x, mask, m["wqkv"][j].t(), m["bqkv"][j, 0], m["wo"][j].t(),
+            m["bo"][j, 0], m["g1"][j, 0], m["b1"][j, 0], b, t, heads, bp, bh,
+            rate, eps, save)
+        z, f, act, r2 = block.ffn_block_fwd(
+            y, m["w1"][j].t(), m["c1"][j, 0], m["w2"][j].t(), m["c2"][j, 0],
+            m["g2"][j, 0], m["b2"][j, 0], bf, rate, eps, save)
+        res.append((x, qkv, p, o, r1, y, f, act, r2))
+        x = z
+    return x, res
+
+
+def _chain_bwd(m, dz, mask, b, t, heads, res, bits, rate, eps):
+    """12 x (K4, K6) at the chain's residuals `res`: (dx, {leaf:
+    [per-layer f32 gradient]})."""
+    from text_guided_face_recognition_tpu_torch.ops import block
+    L = m["wqkv"].shape[0]
+    g = {k: [None] * L for k in block.TOWER_LEAVES}
+    for j in reversed(range(L)):
+        bp, bh, bf = (None if b_ is None else b_[j] for b_ in bits)
+        x, qkv, p, o, r1, y, f, act, r2 = res[j]
+        dy, g["w1"][j], g["c1"][j], g["w2"][j], g["c2"][j], g["g2"][j], \
+            g["b2"][j] = block.ffn_block_bwd(
+                dz, y, f, act, r2, m["w1"][j].t(), m["w2"][j].t(),
+                m["g2"][j, 0], bf, rate, eps)
+        dz, g["wqkv"][j], g["bqkv"][j], g["wo"][j], g["bo"][j], g["g1"][j], \
+            g["b1"][j] = block.attn_block_bwd(
+                dy, x, qkv, p, o, r1, m["wqkv"][j].t(), m["wo"][j].t(),
+                m["g1"][j, 0], b, t, heads, bp, bh, rate, eps)
+    return dz, g
+
+
 def tower_kernels(dev, B, T, H, heads, I, mask, x32, dz32, gen, flush,
                   seed):
     """K7 and K8 at the flagship tower (12 layers) against their plain
@@ -1791,36 +1958,10 @@ def tower_kernels(dev, B, T, H, heads, I, mask, x32, dz32, gen, flush,
                     else v.to(dt)) for k, v in m.items()}
 
     def chain_fwd(x, bt, rate):
-        """12 x (K5, K3) from the f32 masters: (z, per-layer residuals)."""
-        res = []
-        for j in range(L):
-            bp, bh, bf = (None if b_ is None else b_[j] for b_ in bt)
-            y, qkv, p, o, r1 = block.attn_block_fwd(
-                x, mask, m["wqkv"][j].t(), m["bqkv"][j, 0], m["wo"][j].t(),
-                m["bo"][j, 0], m["g1"][j, 0], m["b1"][j, 0], B, T, heads, bp,
-                bh, rate, eps)
-            z, f, act, r2 = block.ffn_block_fwd(
-                y, m["w1"][j].t(), m["c1"][j, 0], m["w2"][j].t(),
-                m["c2"][j, 0], m["g2"][j, 0], m["b2"][j, 0], bf, rate, eps)
-            res.append((x, qkv, p, o, r1, y, f, act, r2))
-            x = z
-        return x, res
+        return _chain_fwd(m, x, mask, B, T, heads, bt, rate, eps)
 
     def chain_bwd(dz, res, bt, rate):
-        """12 x (K4, K6): (dx, {leaf: [per-layer f32 gradient]})."""
-        g = {k: [None] * L for k in block.TOWER_LEAVES}
-        for j in reversed(range(L)):
-            bp, bh, bf = (None if b_ is None else b_[j] for b_ in bt)
-            x, qkv, p, o, r1, y, f, act, r2 = res[j]
-            dy, g["w1"][j], g["c1"][j], g["w2"][j], g["c2"][j], g["g2"][j], \
-                g["b2"][j] = block.ffn_block_bwd(
-                    dz, y, f, act, r2, m["w1"][j].t(), m["w2"][j].t(),
-                    m["g2"][j, 0], bf, rate, eps)
-            dz, g["wqkv"][j], g["bqkv"][j], g["wo"][j], g["bo"][j], \
-                g["g1"][j], g["b1"][j] = block.attn_block_bwd(
-                    dy, x, qkv, p, o, r1, m["wqkv"][j].t(), m["wo"][j].t(),
-                    m["g1"][j, 0], B, T, heads, bp, bh, rate, eps)
-        return dz, g
+        return _chain_bwd(m, dz, mask, B, T, heads, res, bt, rate, eps)
 
     shape = (L, B, T, H, heads, I, 2)
     bounds = _tower_bounds(*shape)
@@ -1842,54 +1983,26 @@ def tower_kernels(dev, B, T, H, heads, I, mask, x32, dz32, gen, flush,
                                      f"max |err| {err} over tolerance {tol}")
         row[key] = max(errs)
 
-    fwd_out = ("z", "xin", "qkv", "p", "o", "r1", "f", "r2")
     for dt in (torch.bfloat16, torch.float32):
         tag = "" if dt == torch.bfloat16 else "_f32"
         tol = TOL[str(dt)[6:]]
         x, dz = x32.to(dt), dz32.to(dt)
         lv = leaves(dt)
         args7 = (x, mask, *lv.values(), B, T, heads)
-        # K7 layer by layer: each layer of the kernel's output against the
-        # plain version run from the kernel's own input to that layer, so
-        # every layer is held element-wise like a half-layer kernel and no
-        # rounding flip of an earlier layer is carried into the comparison
-        def layerwise(got, bt, rate):
-            pairs, outs = [], []
-            for j in range(L):
-                ref = block.tower_block_fwd_ref(
-                    got[1][j], mask, *(v[j:j + 1] for v in lv.values()), B,
-                    T, heads, *(None if b_ is None else b_[j:j + 1]
-                                for b_ in bt), rate, eps)
-                outs.append((f"z of layer {j}",
-                             got[0] if j == L - 1 else got[1][j + 1],
-                             ref[0]))
-                for n, g, r in zip(fwd_out[2:], got[2:], ref[2:]):
-                    (outs if n in ("r1", "r2") else pairs).append(
-                        (f"{n} of layer {j}", g[j], r[0]))
-            pairs.append(("xin of layer 0", got[1][0], x))
-            return pairs, outs
 
+        # K7 layer by layer, each layer element-wise from its own input
         def hold_layers(key, what, got, bt, rate):
-            """qkv, p, o and f element-wise; the two residual sums r1 =
-            x + h and r2 = y + g and the output z = LN(r2), in bf16, to the
-            tolerance times the largest element: where an addend flipped
-            one bf16 step (0.031 at a magnitude in [4, 8)) and the other
-            nearly cancels it, the sum is off by that step at an element
-            near zero, and z by the step over the row's deviation. Twelve
-            layers give such an element twelve times the chances one
-            half-layer's check has."""
-            pairs, outs = layerwise(got, bt, rate)
-            hold(k7, key, what, pairs, tol, False)
-            resid = k7[key]
-            hold(k7, key, what, outs, tol, dt == torch.bfloat16)
-            k7[key] = max(resid, k7[key])
+            k7[key] = _hold_tower_layers(got, x, mask, lv, B, T, heads, bt,
+                                         rate, eps, tol,
+                                         f"{k7['name']} {what}")
 
         # eval mode (rate 0): with residuals for the layer-wise check, and
         # without, as serving calls it; the two outputs are the same bits
         got0 = block.tower_block_fwd(*args7, *none, 0.0, eps)
         hold_layers(f"max_abs_err{tag}", f"{dt}", got0, none, 0.0)
         k7[f"tolerance{tag}"] = {"rtol": tol, "atol": tol, "per": "layer",
-                                 "scaled": "r1, r2 and z in bf16 only"}
+                                 "scaled": "r1, r2 and z in bf16 only",
+                                 "p_atol": "tol x its row's largest"}
         z_k = block.tower_block_fwd(*args7, *none, 0.0, eps, save=False)
         if any(r is not None for r in z_k[1:]):
             raise AssertionError("tower_block kept residuals in eval mode")
@@ -1995,6 +2108,12 @@ def tower_kernels(dev, B, T, H, heads, I, mask, x32, dz32, gen, flush,
     saved_p = k7_prng()
     args8p = (*saved_p[1:], *(lv[k] for k in bwd_names), B, T, heads)
     _, chain_res = chain_fwd(x, bits, RATE)
+    _keep("k7_eval", k7_eval())
+    _keep("k7_train", saved)
+    _keep("k7_prng", saved_p)
+    _keep("k8", block.tower_block_bwd(dz, mask, *args8))
+    _keep("k8_prng", block.tower_block_bwd(dz, mask, *args8p, rate=RATE,
+                                           eps=eps, seed=seed))
     timed = [
         (k7, "", k7_eval,
          lambda: block.tower_block_fwd_ref(*args7, *none, 0.0, eps),
@@ -2179,10 +2298,10 @@ def _profile(step, reps: int = 3, what: str = "pair batch") -> dict:
     def group(name):
         for key in ("tower_fwd_kernel", "tower_bwd_kernel",
                     "hl_gemm_kernel", "gemm_kernel", "attention_mma",
-                    "attention_core_bwd", "attention_core",
+                    "attention_strip", "attention_core",
                     "layernorm_bwd_kernel", "layernorm_fwd_kernel",
                     "colsum",
-                    "damsm_kernel", "philox_dump"):
+                    "damsm_", "philox_dump"):
             if key in name:
                 return "port kernels: " + key
         return "other: " + name[:60]
@@ -2384,7 +2503,7 @@ def slice_phase(args, kernels):
 def long_captions(args, backbone, image_head, fusion_net, text_encoder,
                   text_head, kernels) -> float:
     """One pair batch of captions as long as bert-base's position table
-    (the synthetic split's ragged lengths up to block.MAX_T_FWD) through
+    (the synthetic split's ragged lengths up to block.MAX_T) through
     the serving path with fused_block=both, kernels on (K5's tensor-core
     attention) against off, the same weights; returns the largest score
     difference, which must stay within SCORE_TOL."""
@@ -2396,7 +2515,7 @@ def long_captions(args, backbone, image_head, fusion_net, text_encoder,
         pair_scores)
     from text_guided_face_recognition_tpu_torch.ops import block
 
-    long = args.replace(bert_words_num=block.MAX_T_FWD)
+    long = args.replace(bert_words_num=block.MAX_T)
     check_serving(long)
     dev = next(text_encoder.parameters()).device
     dl, _ = prep.prepare_dataloader(long, "test")
@@ -2415,16 +2534,16 @@ def long_captions(args, backbone, image_head, fusion_net, text_encoder,
         counts = _counts(kernels)
         want = 2 * te.model.arch.layers if cfg is long else 0
         if counts["attn_block"] != want or counts["ffn_block"] != want:
-            raise AssertionError(f"t = {block.MAX_T_FWD} pair batch: "
+            raise AssertionError(f"t = {block.MAX_T} pair batch: "
                                  f"launches {counts}, expected {want} of "
                                  "K3 and K5")
     diff = (scores[0] - scores[1]).abs().max().item()
-    print(f"serving, captions up to {block.MAX_T_FWD} tokens (longest "
+    print(f"serving, captions up to {block.MAX_T} tokens (longest "
           f"{int(batch['mask1'].sum(-1).max())}), one pair batch: kernels on "
           f"vs off max |score diff| {diff:.6g} (tolerance {SCORE_TOL})",
           flush=True)
     if not (diff <= SCORE_TOL and bool(torch.isfinite(scores[0]).all())):
-        raise AssertionError(f"t = {block.MAX_T_FWD}: kernels on/off scores "
+        raise AssertionError(f"t = {block.MAX_T}: kernels on/off scores "
                              f"differ by {diff}")
     return diff
 
@@ -3344,9 +3463,9 @@ def stage2_phase(kernels):
 
 PORT_KERNEL_KEYS = ("tower_fwd_kernel", "tower_bwd_kernel", "hl_gemm_kernel",
                     "hl_bwd_gemm_kernel", "gemm_kernel", "attention_mma",
-                    "attention_core_bwd", "attention_core",
+                    "attention_strip", "attention_core",
                     "layernorm_bwd_kernel", "layernorm_fwd_kernel", "colsum",
-                    "damsm_kernel", "philox_dump")
+                    "damsm_", "philox_dump")
 
 
 def _device_kernels(fn, reps: int) -> dict:
@@ -5021,7 +5140,8 @@ def _split(prof: dict) -> dict:
     (elementwise, reductions, norms)."""
     kinds = (("port kernels", ("tower_", "hl_gemm", "gemm_kernel",
                                "attention_mma", "attention_core",
-                               "layernorm_", "colsum", "damsm_kernel")),
+                               "attention_strip", "layernorm_", "colsum",
+                               "damsm_")),
              ("nccl", ("nccl",)),
              ("optimizer (multi-tensor)", ("multi_tensor", "foreach")),
              ("cuBLAS/CUTLASS GEMM", ("gemm", "xmma", "cutlass", "gemv",
@@ -5940,6 +6060,543 @@ def utils_phase() -> dict:
     return out
 
 
+# The long phase (`--only long`): bert-base's 512-token captions through
+# the whole-tower kernels, and K9 past the bounds it had (any D, any
+# gamma1). B of its steps and pair batch, and of its bf16 kernel checks;
+# B of its f32 kernel checks, where the plain (t, t) f32 tensors dominate;
+# K9's widths and gamma1 (B 32, T 22, R 196, the flagship's otherwise)
+LONG_CAPTION_B = 8
+LONG_CAPTION_B_F32 = 2
+WIDE_D = (768, 1024)
+WIDE_GAMMA1 = (-100.0, 100.0)
+# K9 there: beside 1e-4 + 1e-4 |p|, an absolute limit that fails a kernel
+# whose products lose the 3xTF32 split (the plain version at single TF32
+# reads 7.0e-5 off at the flagship, PERF.md K9)
+WIDE_DAMSM_ATOL = 1e-5
+
+
+def long_kernels(dev, gen, seed, flush) -> dict:
+    """K5-K8 at t = block.MAX_T (512) and bert-base's widths (12 layers):
+    in bf16 at B LONG_CAPTION_B with host bits, K7 (train and eval) layer
+    by layer (`_hold_tower_layers`) and end to end, and K8, against their
+    plain versions, K7 against the chain of 12 x (K5, K3) bit
+    for bit (with residuals and without), K8 at K7's residuals against the
+    chain of 12 x (K4, K6) (dx to the tolerance times its largest element,
+    each weight gradient within one bf16 step of the chain's f32 one); in
+    f32 at B LONG_CAPTION_B_F32, K5, K6, K7 and K8 against their plain
+    versions at 1e-4; each timed beside its plain version, its bound and,
+    for K7/K8, the chain. Returns {kernel name: {key: value}}, keys tagged
+    _t512 (and _f32)."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.ops import block
+    from text_guided_face_recognition_tpu_torch.ops.dropout import draw
+
+    L, H, heads, I, eps, T = 12, 768, 12, 3072, 1e-12, block.MAX_T
+    tag = f"_t{T}"
+    out = {k: {} for k in ("attn_block", "attn_block_bwd", "tower_block",
+                           "tower_block_bwd")}
+
+    def rn(*shape, std=1.0, mean=0.0):
+        return (mean + torch.randn(*shape, generator=gen) * std).to(dev)
+
+    m = dict(
+        wqkv=rn(L, 3 * H, H, std=H ** -0.5), bqkv=rn(L, 1, 3 * H, std=0.1),
+        wo=rn(L, H, H, std=H ** -0.5), bo=rn(L, 1, H, std=0.1),
+        g1=rn(L, 1, H, std=0.1, mean=1.0), b1=rn(L, 1, H, std=0.1),
+        w1=rn(L, I, H, std=H ** -0.5), c1=rn(L, 1, I, std=0.1),
+        w2=rn(L, H, I, std=I ** -0.5), c2=rn(L, 1, H, std=0.1),
+        g2=rn(L, 1, H, std=0.1, mean=1.0), b2=rn(L, 1, H, std=0.1))
+    bwd_names = ("wqkv", "wo", "g1", "b1", "w1", "w2", "g2")
+    dgen = torch.Generator(device=dev).manual_seed(seed)
+
+    def inputs(b):
+        """x, dz (f32), a mask with every caption but the first padded
+        past a third of its keys, the stacked host bits."""
+        x, dz = rn(b * T, H), rn(b * T, H)
+        mask = torch.ones(b, T, dtype=torch.int32, device=dev)
+        mask[1:, T // 3:] = 0
+        n_p, n_h = heads * b * T * T, b * T * H
+        flat = draw(L * (n_p + 2 * n_h), dgen, dev).view(L, n_p + 2 * n_h)
+        bits = (flat[:, :n_p].unflatten(1, (heads * b, T, T)),
+                flat[:, n_p:n_p + n_h].unflatten(1, (b * T, H)),
+                flat[:, n_p + n_h:].unflatten(1, (b * T, H)))
+        return x, dz, mask, bits
+
+    def leaves(dt):
+        return {k: (v.to(dt).transpose(1, 2) if k.startswith("w")
+                    else v.to(dt)) for k, v in m.items()}
+
+    def hold(row, key, what, pairs, tol, scaled):
+        errs = []
+        for name, a, c in pairs:
+            torch.cuda.synchronize()
+            err, ok = (_close_scaled if scaled else _close)(a, c, tol)
+            errs.append(err)
+            if not ok:
+                raise AssertionError(f"{what} output {name}: max |err| {err} "
+                                     f"over tolerance {tol}")
+        out[row][key] = max(errs)
+
+    def chain_fwd(x, mask, b, bt, save):
+        rate = RATE if bt[0] is not None else 0.0
+        return _chain_fwd(m, x, mask, b, T, heads, bt, rate, eps, save)
+
+    def chain_bwd(dz, mask, b, res, bt):
+        return _chain_bwd(m, dz, mask, b, T, heads, res, bt, RATE, eps)
+
+    # bf16 at B LONG_CAPTION_B
+    b = LONG_CAPTION_B
+    x32, dz32, mask, bits = inputs(b)
+    x, dz, lv = x32.bfloat16(), dz32.bfloat16(), leaves(torch.bfloat16)
+    none = (None, None, None)
+    args7 = (x, mask, *lv.values(), b, T, heads)
+    tol = TOL["bfloat16"]
+    got = block.tower_block_fwd(*args7, *bits, RATE, eps)
+    ref = block.tower_block_fwd_ref(*args7, *bits, RATE, eps)
+    # layer by layer, each layer from the kernel's own input to it (qkv, o
+    # and f element-wise, p to its row's scale), as the kernel phase holds
+    # K7; then all 12 layers end to end, z to the tolerance times its
+    # largest element (a flipped bf16 rounding is carried through the
+    # LayerNorms); eval (rate 0) likewise with residuals, and without them
+    # (as serving calls it) end to end
+    k7 = out["tower_block"]
+    k7["max_abs_err_train" + tag] = _hold_tower_layers(
+        got, x, mask, lv, b, T, heads, bits, RATE, eps, tol,
+        f"K7 train at t = {T}")
+    hold("tower_block", "max_abs_err_train_end_to_end" + tag, "K7 train",
+         [("z", got[0], ref[0])], tol, True)
+    got0 = block.tower_block_fwd(*args7, *none, 0.0, eps)
+    k7["max_abs_err" + tag] = _hold_tower_layers(
+        got0, x, mask, lv, b, T, heads, none, 0.0, eps, tol,
+        f"K7 eval at t = {T}")
+    del got0
+    z_eval = block.tower_block_fwd(*args7, *none, 0.0, eps, save=False)[0]
+    hold("tower_block", "max_abs_err_end_to_end" + tag, "K7 eval",
+         [("z", z_eval, block.tower_block_fwd_ref(*args7, *none, 0.0,
+                                                  eps)[0])], tol, True)
+    # the chains: K7 bit for bit, in train mode (K5 with residuals) and in
+    # eval (K5 without; past t = 128 both on the tensor-core tile)
+    z_c, res = chain_fwd(x, mask, b, bits, True)
+    z_ce = chain_fwd(x, mask, b, none, False)[0]
+    torch.cuda.synchronize()
+    for key, a, c in (("bitwise_vs_chain_train" + tag, got[0], z_c),
+                      ("bitwise_vs_chain" + tag, z_eval, z_ce)):
+        out["tower_block"][key] = bool(torch.equal(a, c))
+        out["tower_block"][key.replace("bitwise", "max_abs_err")] = float(
+            (a.float() - c.float()).abs().max())
+        if not out["tower_block"][key]:
+            raise AssertionError(f"K7 at t = {T}: z differs from the chain "
+                                 f"of half-layers ({key})")
+    resid_equal = all(torch.equal(got[1 + i][j], res[j][k])
+                      for j in range(L) for i, k in ((1, 1), (2, 2), (3, 3),
+                                                     (4, 4), (5, 6), (6, 8)))
+    out["tower_block"]["bitwise_residuals_vs_chain" + tag] = resid_equal
+    if not resid_equal:
+        raise AssertionError(f"K7 at t = {T}: residuals differ from the "
+                             "chain's")
+    # K8 at the plain residuals against its plain version, and at K7's
+    # own against the chain
+    w7 = [lv[k] for k in bwd_names]
+    args8 = (*ref[1:], *w7, b, T, heads, *bits, RATE, eps)
+    hold("tower_block_bwd", "max_abs_err" + tag, "K8",
+         zip(("dx",) + block.TOWER_LEAVES, block.tower_block_bwd(dz, mask,
+                                                                 *args8),
+             block.tower_block_bwd_ref(dz, mask, *args8)), tol, True)
+    own = block.tower_block_bwd(dz, mask, *got[1:], *w7, b, T, heads, *bits,
+                                RATE, eps)
+    dx_c, g_c = chain_bwd(dz, mask, b, res, bits)
+    hold("tower_block_bwd", "max_abs_err_vs_chain" + tag, "K8 vs chain",
+         [("dx", own[0], dx_c)], tol, True)
+    worst = 0.0
+    for name, a in zip(block.TOWER_LEAVES, own[1:]):
+        c = torch.stack(g_c[name])
+        rel, ok = _one_bf16_step(a, c if c.dim() == 3 else c[:, None])
+        if name in ("wqkv", "wo", "w1", "w2"):
+            worst = max(worst, rel)
+            if not ok:
+                raise AssertionError(f"K8 at t = {T}: d{name} more than one "
+                                     f"bf16 step from the chain's ({rel})")
+    out["tower_block_bwd"]["weight_grad_rel_vs_chain_f32" + tag] = worst
+    del own, g_c, dx_c
+    # times: K7 eval and train, K8; plain; the chains
+    timed = [
+        ("tower_block", "", lambda: block.tower_block_fwd(
+            *args7, *none, 0.0, eps, save=False),
+         lambda: block.tower_block_fwd_ref(*args7, *none, 0.0, eps),
+         lambda: chain_fwd(x, mask, b, none, False), "tower_block"),
+        ("tower_block", "_train", lambda: block.tower_block_fwd(
+            *args7, *bits, RATE, eps),
+         lambda: block.tower_block_fwd_ref(*args7, *bits, RATE, eps),
+         lambda: chain_fwd(x, mask, b, bits, True), "tower_block_train"),
+        ("tower_block_bwd", "", lambda: block.tower_block_bwd(dz, mask,
+                                                              *args8),
+         lambda: block.tower_block_bwd_ref(dz, mask, *args8),
+         lambda: chain_bwd(dz, mask, b, res, bits), "tower_block_bwd")]
+    bounds = _tower_bounds(L, b, T, H, heads, I, 2)
+    for row, key, run, plain, chain, bkey in timed:
+        r = out[row]
+        r[f"ms{key}{tag}"], r[f"ms{key}{tag}_cold_l2"] = _event_times(
+            run, flush, calls=5, reps=3)
+        r[f"plain_ms{key}{tag}"] = _event_ms(plain, calls=1, reps=3)
+        r[f"chain_ms{key}{tag}"] = _event_ms(chain, calls=2, reps=3)
+        r[f"bound_ms{key}{tag}"] = bounds[bkey]["bound_ms"]
+        r[f"bound_by{key}{tag}"] = bounds[bkey]["bound_by"]
+    for k, f in (("tower_block", block.tower_block_fwd),
+                 ("tower_block_bwd", block.tower_block_bwd)):
+        out[k]["grid" + tag] = dict(zip(("blocks", "per_sm", "smem_bytes"),
+                                        f.info))
+    del got, ref, res, z_c, z_ce, args8, bits, timed
+    torch.cuda.empty_cache()
+
+    # f32 at B LONG_CAPTION_B_F32: K5, K6 (layer 0's weights), K7, K8
+    b = LONG_CAPTION_B_F32
+    x, dz, mask, bits = inputs(b)
+    lv = leaves(torch.float32)
+    tol, tf = TOL["float32"], tag + "_f32"
+    aw = (m["wqkv"][0].t(), m["bqkv"][0, 0], m["wo"][0].t(), m["bo"][0, 0],
+          m["g1"][0, 0], m["b1"][0, 0])
+    a_args = (x, mask, *aw, b, T, heads, bits[0][0], bits[1][0])
+    res5 = block.attn_block_fwd_ref(*a_args, RATE, eps)
+    hold("attn_block", "max_abs_err_train" + tf, "K5 f32",
+         zip(("y", "qkv", "p", "o", "r"), block.attn_block_fwd(
+             *a_args, RATE, eps), res5), tol, False)
+    hold("attn_block", "max_abs_err" + tf, "K5 f32 eval",
+         [("y", block.attn_block_fwd(x, mask, *aw, b, T, heads, eps=eps,
+                                     save=False)[0],
+           block.attn_block_fwd_ref(x, mask, *aw, b, T, heads, eps=eps)[0])],
+         tol, False)
+    b6 = (dz, x, *res5[1:], aw[0], aw[2], aw[4], b, T, heads, bits[0][0],
+          bits[1][0], RATE, eps)
+    hold("attn_block_bwd", "max_abs_err" + tf, "K6 f32",
+         zip(("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dg", "db"),
+             block.attn_block_bwd(*b6), block.attn_block_bwd_ref(*b6)), tol,
+         True)
+    args7 = (x, mask, *lv.values(), b, T, heads)
+    got = block.tower_block_fwd(*args7, *bits, RATE, eps)
+    ref = block.tower_block_fwd_ref(*args7, *bits, RATE, eps)
+    hold("tower_block", "max_abs_err_train" + tf, "K7 f32",
+         zip(("z", "xin", "qkv", "p", "o", "r1", "f", "r2"), got, ref), tol,
+         False)
+    args8 = (*ref[1:], *(lv[k] for k in bwd_names), b, T, heads, *bits,
+             RATE, eps)
+    hold("tower_block_bwd", "max_abs_err" + tf, "K8 f32",
+         zip(("dx",) + block.TOWER_LEAVES, block.tower_block_bwd(dz, mask,
+                                                                 *args8),
+             block.tower_block_bwd_ref(dz, mask, *args8)), tol, True)
+    del got
+    h_bounds = _bounds(b, T, H, heads, I, 4, 256, 22, 196)
+    t_bounds = _tower_bounds(L, b, T, H, heads, I, 4)
+    for row, run, plain, bound in (
+            ("attn_block", lambda: block.attn_block_fwd(*a_args, RATE, eps),
+             lambda: block.attn_block_fwd_ref(*a_args, RATE, eps),
+             h_bounds["attn_block_train"]),
+            ("attn_block_bwd", lambda: block.attn_block_bwd(*b6),
+             lambda: block.attn_block_bwd_ref(*b6),
+             h_bounds["attn_block_bwd"]),
+            ("tower_block", lambda: block.tower_block_fwd(*args7, *bits, RATE,
+                                                          eps),
+             lambda: block.tower_block_fwd_ref(*args7, *bits, RATE, eps),
+             t_bounds["tower_block_train"]),
+            ("tower_block_bwd", lambda: block.tower_block_bwd(dz, mask,
+                                                              *args8),
+             lambda: block.tower_block_bwd_ref(dz, mask, *args8),
+             t_bounds["tower_block_bwd"])):
+        r = out[row]
+        r["ms" + tf] = _event_ms(run, calls=1, reps=3)
+        r["plain_ms" + tf] = _event_ms(plain, calls=1, reps=3)
+        # f32: the GEMMs on f32 FMA (the 989 TFLOP/s bf16 rate in
+        # `bound` is the tensor cores', not f32's)
+        fb = _bound(bound["bytes"], bound["flops"], "f32")
+        r["bound_ms" + tf], r["bound_by" + tf] = fb["bound_ms"], fb[
+            "bound_by"]
+    del ref, res5, args8, b6
+    torch.cuda.empty_cache()
+    for row, r in out.items():
+        print(f"long: kernel {row} at t = {T}: " + json.dumps(r), flush=True)
+    return out
+
+
+def long_damsm(dev, gen, flush, flush_ms) -> dict:
+    """K9 at the wide path's widths WIDE_D and at gamma1 in WIDE_GAMMA1 (D
+    256), B 32, T 22, R 196, l2-normalised inputs as the heads make them,
+    masked, against its plain version at 1e-4 (+ 1e-4 |p|) and at
+    WIDE_DAMSM_ATOL, timed beside it; and the plan's shared memory at each
+    against the launcher's layout (csrc/damsm.cu `tgfr_damsm_smem`)."""
+    import ctypes
+
+    import torch
+    import torch.nn.functional as F
+
+    from text_guided_face_recognition_tpu_torch.ops import (
+        _cuda, attention, damsm)
+
+    smem = _cuda.function("damsm", "tgfr_damsm_smem",
+                          (ctypes.c_int, ctypes.c_int))
+    B, TW, RG = 32, 22, 196
+    out = {}
+    lens = torch.randint(2, TW + 1, (B,), generator=gen)
+    mask = (torch.arange(TW)[None] < lens[:, None]).to(dev)
+    cases = [(f"_d{d}", d, 4.0) for d in WIDE_D] + [
+        (f"_gamma1_{g:g}", 256, g) for g in WIDE_GAMMA1]
+    for key, d, g1 in cases:
+        words = F.normalize(torch.randn(B, d, TW, generator=gen), dim=1).to(
+            dev).contiguous()
+        regions = F.normalize(torch.randn(B, d, RG, generator=gen),
+                              dim=1).to(dev).contiguous()
+        plan = damsm.damsm_plan(B, d, TW, RG)
+        if smem(plan["dp"], plan["n"]) != plan["smem"]:
+            raise AssertionError(f"damsm{key}: the plan's shared memory "
+                                 f"{plan['smem']} is not the launcher's "
+                                 f"{smem(plan['dp'], plan['n'])}")
+
+        def run():
+            return damsm.damsm_similarity_cuda(words, regions, g1, 5.0, mask)
+
+        def ref():
+            return attention.damsm_similarity(words, regions, g1, 5.0, mask)
+
+        got, want = run(), ref()
+        err, ok = _close(got, want, 1e-4)
+        if not (ok and err <= WIDE_DAMSM_ATOL
+                and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"damsm_similarity{key}: max |err| {err} "
+                                 f"over 1e-4 + 1e-4 |p| or {WIDE_DAMSM_ATOL}")
+        if not torch.equal(got, run()):
+            raise AssertionError(f"damsm_similarity{key}: two calls differ")
+        out[f"max_abs_err{key}"] = err
+        out[f"slices{key}"] = plan["slices"]
+        out[f"ms{key}"], out[f"ms{key}_cold_l2"] = _times(run, flush,
+                                                          flush_ms)
+        out[f"plain_ms{key}"] = _graph_ms(ref, calls=3, reps=3)
+        b_ = _damsm_bound(B, d, TW, RG, "tf32_3x")
+        out[f"bound_ms{key}"], out[f"bound_by{key}"] = (b_["bound_ms"],
+                                                        b_["bound_by"])
+    print("long: kernel damsm_similarity: " + json.dumps(out), flush=True)
+    return out
+
+
+def long_serving(kernels, dev=None) -> tuple:
+    """One pair batch of LONG_CAPTION_B pairs of captions as long as the
+    position table (the synthetic split's ragged lengths up to
+    block.MAX_T) through the serving path with fused_block=tower (K7 once
+    a side) against none, the same weights, within SCORE_TOL: the scores
+    are bf16 cosines, which move only where an embedding difference
+    crosses one of their roundings; so also the text encoder's output of
+    one side within the bf16 kernel rule (TOL times the largest element)
+    and its fused embeddings within TOL of each row's l2 norm (after the
+    text head's word maxima, which route some elements differently for a
+    rounding-level difference of the encoder's output: element-wise they
+    read 0.078 against 0.070, TOL times the largest, on an H100). Returns (launch counts of the tower side, the same:
+    one pair batch, the largest score difference)."""
+    import numpy as np
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.config import (
+        check_serving, load_yaml)
+    from text_guided_face_recognition_tpu_torch.engine import prepare as prep
+    from text_guided_face_recognition_tpu_torch.engine.evaluate import (
+        embed_batch, pair_scores)
+    from text_guided_face_recognition_tpu_torch.ops import block
+
+    args = load_yaml(os.path.join(ROOT, "cfg", "test.yml")).replace(
+        synthetic=True, fused_block="tower", fused_ln=True,
+        compute_dtype="bfloat16", batch_size=LONG_CAPTION_B, is_roc=False,
+        checkpoints_path="", eval_table_mode=False,
+        bert_words_num=block.MAX_T)
+    check_serving(args)
+    dev = dev or torch.device("cuda")
+    backbone, image_head, fusion_net, text_encoder = _serving_modules(args,
+                                                                      dev)
+    text_head = prep.prepare_text_encoder(args, dev)[1]
+    dl, _ = prep.prepare_dataloader(args, "test")
+    batch = next(iter(dl))
+    cols = [batch[k] for k in ("img1", "img2", "cap1", "cap2", "mask1",
+                               "mask2")]
+    caps, masks = (torch.as_tensor(np.asarray(batch[k])).to(dev)
+                   for k in ("cap1", "mask1"))
+    scores, counts, words, fused = [], [], [], []
+    for cfg in (args, args.replace(fused_block="none", fused_ln=False)):
+        te, th = prep.prepare_text_encoder(cfg, dev)
+        te.load_state_dict(text_encoder.state_dict())
+        th.load_state_dict(text_head.state_dict())
+        _zero(kernels)
+        scores.append(pair_scores(cfg, backbone, image_head, fusion_net, te,
+                                  th, *cols))
+        torch.cuda.synchronize()
+        counts.append(_counts(kernels))
+        # the text encoder's output and the fused embeddings of one side
+        with torch.inference_mode():
+            words.append(te(caps, masks)[0])
+        fused.append(embed_batch(cfg, backbone, image_head, fusion_net, te,
+                                 th, *cols[::2]))
+    want = {k: 0 for k in kernels}
+    want.update({"layernorm_fused": 2, "tower_block": 2})
+    if counts != [want, {k: 0 for k in kernels}]:
+        raise AssertionError(f"t = {block.MAX_T} tower pair batch: launches "
+                             f"{counts}, expected {want} and none")
+    diff = (scores[0].float() - scores[1].float()).abs().max().item()
+    tol = TOL["bfloat16"]
+    w_err, w_ok = _close_scaled(words[0], words[1], tol)
+    e_err = (fused[0].float() - fused[1].float()).abs().max().item()
+    e_rel = ((fused[0].float() - fused[1].float()).norm(dim=1)
+             / fused[1].float().norm(dim=1)).max().item()
+    e_ok = e_rel <= tol
+    print(f"long: serving, {LONG_CAPTION_B} pairs of captions up to "
+          f"{block.MAX_T} tokens (longest {int(batch['mask1'].sum(-1).max())}"
+          f"), fused_block tower vs none: max |score diff| {diff:.6g} "
+          f"(tolerance {SCORE_TOL}; scores {scores[0].dtype}, "
+          f"{scores[0].float().tolist()}), text encoder output max |diff| "
+          f"{w_err:.4g} of largest {words[1].float().abs().max().item():.4g},"
+          f" (limit {tol} x the largest), fused embeddings ("
+          f"{fused[0].dtype}) max |diff| {e_err:.4g} of largest "
+          f"{fused[1].float().abs().max().item():.4g}, largest row l2 "
+          f"|diff| / |e| {e_rel:.4g} (limit {tol}), launches {counts[0]}",
+          flush=True)
+    if not (diff <= SCORE_TOL and w_ok and e_ok
+            and bool(torch.isfinite(scores[0]).all())):
+        raise AssertionError(f"t = {block.MAX_T}: tower vs none differ: "
+                             f"scores by {diff}, the text encoder's output "
+                             f"by {w_err}, the fused embeddings by {e_rel} "
+                             "of a row's norm")
+    del backbone, image_head, fusion_net, text_encoder, te, th
+    torch.cuda.empty_cache()
+    return counts[0], counts[0], diff
+
+
+def long_steps(kernels, dev=None) -> dict:
+    """One stage-1 step (cfg/train_bert.yml with use_pallas and
+    aux_feat_dim_per_granularity WIDE_D[0]: K9 on its wide path) and one
+    stage-2 step (cfg/fusion_bert.yml), fused_block tower, bf16,
+    B LONG_CAPTION_B at bert_words_num block.MAX_T (the synthetic split's
+    ragged lengths), each in prng mode and in host mode (fused_dropout)
+    against kernels off (fused_block none, no fused LayerNorm, no K9), the
+    same weights and masks (the off twin fed the composed stream), by the
+    on/off rule: the loss end to end within its limit; the text tower's
+    output within the bf16 kernel rule (2e-2 times its largest element,
+    as K7 is held end to end); the gradients of every module but the text
+    encoder end to end within their limits; and the gradients of every
+    module with everything after the tower run on the same values (the
+    off tower hands on the on tower's output, its gradient still flowing
+    into the off tower). The text encoder's end-to-end gradient is
+    printed, not held: over 510 words the text head's maxima route a
+    gradient elsewhere for a rounding-level difference of the tower's
+    output (on the CPU at B 2 the plain versions read text_encoder l2 0.12
+    end to end, 0.011 split, with 2957 word maxima won by another
+    element), so it misses the l2 limit of 0.1 end to end and is held
+    split. Returns {stage: (launch counts of the prng-mode on step, the
+    same: one step, readings)}."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.config import load_yaml
+    from text_guided_face_recognition_tpu_torch.engine.stage1 import (
+        Stage1Trainer)
+    from text_guided_face_recognition_tpu_torch.engine.stage2 import (
+        FusionTrainer)
+    from text_guided_face_recognition_tpu_torch.ops import block
+    from text_guided_face_recognition_tpu_torch.ops.philox import (
+        compose_drop_bits)
+
+    dev = dev or torch.device("cuda")
+    common = dict(synthetic=True, fused_block="tower", fused_ln=True,
+                  compute_dtype="bfloat16", batch_size=LONG_CAPTION_B,
+                  bert_words_num=block.MAX_T, checkpoints_path="")
+    stages = {
+        "stage1": (Stage1Trainer, "train_bert.yml",
+                   dict(common, use_pallas=True,
+                        aux_feat_dim_per_granularity=WIDE_D[0]),
+                   ON_OFF_TOL, {"damsm_similarity": 1}),
+        "stage2": (FusionTrainer, "fusion_bert.yml", common,
+                   ON_OFF_TOL_STAGE2, {})}
+    res = {}
+    for stage, (cls, yml, changes, tols, extra) in stages.items():
+        args = load_yaml(os.path.join(ROOT, "cfg", yml)).replace(**changes)
+        on = cls(args, dev, eager=True)
+        state = {k: v.clone() for k, v in on.model.state_dict().items()}
+        batch = on.to_device(next(iter(on.train_dl)))
+        b, t = batch["caps"].shape
+        bits, seeds = on.draw_drop(b, t)
+        composed = compose_drop_bits(on.arch, b, t, "tower", bits, seeds)
+        off = _twin(on, state, fused_block="none", fused_ln=False,
+                    use_pallas=False)
+        host = _twin(on, state, fused_dropout=True)
+        floor = tols["bfloat16"]["floor"]
+        want = {k: 0 for k in kernels}
+        want.update({"layernorm_fused": 1, "layernorm_bwd": 1,
+                     "tower_block": 1, "tower_block_bwd": 1, **extra})
+        r, tol = {}, tols["bfloat16"]
+        for mode, tr, drop_on in (("prng", on, (bits, seeds)),
+                                  ("host", host, (composed, None))):
+            seen = {}
+            _zero(kernels)
+            e2e = _on_off(tr, off, batch, drop_on, (composed, None), floor,
+                          keep=seen)
+            torch.cuda.synchronize()
+            launches = _counts(kernels)
+            split = _on_off(tr, off, batch, drop_on, (composed, None), floor,
+                            same_tower_output=True)
+            err, tower_ok = _close_scaled(seen[("on", "text_encoder")],
+                                          seen[("off", "text_encoder")],
+                                          TOL["bfloat16"])
+            r[mode] = {"end_to_end": e2e, "after_the_tower": split,
+                       "tower_output_max_abs": err, "launches": launches}
+            for what, x in (("end to end, held but for the text encoder",
+                             e2e), ("held", split)):
+                _print_on_off(f"long: {stage} at t = {t}, tower vs off, "
+                              f"{what}", f"bfloat16, {mode} mode", x, tols)
+            print(f"long: {stage} {mode} mode: tower output max |diff| "
+                  f"{err:.4g} (limit {TOL['bfloat16']} x its largest "
+                  f"element), launches {launches}", flush=True)
+            if launches != want:
+                raise AssertionError(f"long {stage} {mode} step: launches "
+                                     f"{launches} != {want}")
+            def held(r, skip=()):
+                return all(g["l2"] <= _l2_tol(tol, m) and g["max"] <=
+                           tol["max"] for m, g in r["groups"].items()
+                           if m not in skip)
+
+            if not (e2e["loss_rel"] <= tol["loss"] and tower_ok
+                    and held(e2e, skip=("text_encoder",)) and held(split)):
+                raise AssertionError(f"long {stage} step at t = {t} "
+                                     f"({mode} mode): tower vs off "
+                                     "disagrees")
+        r["longest_caption"] = int(batch["mask"].sum(1).max())
+        res[stage] = (r["prng"]["launches"], r["prng"]["launches"], r)
+        del on, off, host, composed, bits
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def long_phase(kernels) -> dict:
+    """`--only long` (and in the whole run after stage2): captions of
+    bert-base's 512 tokens through the whole-tower kernels and K9 past the
+    bounds it had, at full width (`long_kernels`, `long_damsm`,
+    `long_serving`, `long_steps`). Returns {"kernels": {name: extra row
+    keys}, "paths": {path: (launch counts, per unit)}}."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(23)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    flush_ms = _graph_ms(flush)
+    rows = long_kernels(dev, gen, 29, flush)
+    rows["damsm_similarity"] = long_damsm(dev, gen, flush, flush_ms)
+    del flush_buf
+    torch.cuda.empty_cache()
+    serving = long_serving(kernels)
+    rows["pair_score_diff"] = serving[2]
+    steps = long_steps(kernels)
+    paths = {"long_pair_batch": serving[:2]}
+    paths.update({f"long_{k}_step": v[:2] for k, v in steps.items()})
+    return {"kernels": rows, "paths": paths,
+            "steps": {k: v[2] for k, v in steps.items()}}
+
+
 def _serving_modules(args, dev) -> tuple:
     """(backbone, image head, fusion net, text encoder) of `args` on `dev`,
     random from manual_seed (the same weights on every device)."""
@@ -6026,7 +6683,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "launches", "phases",
                                        "prng", "serving", "train",
-                                       "stage2", "step", "damsm",
+                                       "stage2", "long", "step", "damsm",
                                        "weights", "lstm", "options",
                                        "parallel", "archs", "utils"))
     ap.add_argument("--dp_rank", choices=("gloo", "nccl1", "nccl2", "cli"),
@@ -6039,8 +6696,19 @@ def main(argv=None) -> int:
     # the phases that launch no tower kernel, in a process of their own
     # while the whole run's main process builds the tower
     ap.add_argument("--early_dir", help=argparse.SUPPRESS)
+    ap.add_argument("--save_outputs", metavar="FILE",
+                    help="save the flagship outputs of K7, K8 (the kernel "
+                         "phase) and K9 (the damsm phase) to FILE")
+    ap.add_argument("--compare_outputs", nargs=2, metavar=("A", "B"),
+                    help="hold two --save_outputs files to each other bit "
+                         "for bit, and exit")
     ns = ap.parse_args(argv)
+    if ns.compare_outputs:
+        return 0 if compare_outputs(*ns.compare_outputs) else 1
     only = ns.only
+    if ns.save_outputs:
+        global OUTPUTS
+        OUTPUTS = {}
     sys.path.insert(0, ROOT)
     if ns.dp_rank == "cli":
         dp_cli(ns.dp_dir)
@@ -6069,7 +6737,7 @@ def main(argv=None) -> int:
         if only == "utils"
         else ("layernorm", "ffn_block", "attn_block", "damsm")
         if only == "weights" else _cuda.SOURCES
-        if only in ("step", "options", "parallel")
+        if only in ("step", "options", "parallel", "long")
         else _cuda.SOURCES + tuple(_cuda.VARIANTS))
     if ns.early_dir:
         names = EARLY_SOURCES
@@ -6136,6 +6804,12 @@ def main(argv=None) -> int:
              if only in (None, "train") else None)
     stage2 = (timed("stage2", stage2_phase, kernels)
               if only in (None, "stage2") else None)
+    long = (timed("long", long_phase, kernels)
+            if only in (None, "long") else {"kernels": {}, "paths": {}})
+    for r in rows:
+        r.update(long["kernels"].get(r["name"], {}))
+    if only == "long":
+        print("long: " + json.dumps(long), flush=True)
     if only in (None, "step"):
         timed("step", step_phase, kernels)
     options = (timed("options", options_phase, kernels)
@@ -6161,6 +6835,8 @@ def main(argv=None) -> int:
              *((f"launches_{k}", f"launches_per_{k}", v)
                for k, v in parallel.items()),
              *((f"launches_{k}", f"launches_per_{k}", v)
+               for k, v in long["paths"].items()),
+             *((f"launches_{k}", f"launches_per_{k}", v)
                for k, v in archs.items()))
     for r in rows:
         for key, per_key, got in paths:
@@ -6172,6 +6848,9 @@ def main(argv=None) -> int:
             raise AssertionError(f"{r['name']} never launched on a driven "
                                  "path")
 
+    if OUTPUTS is not None:
+        torch.save(OUTPUTS, ns.save_outputs)
+        print(f"saved {sorted(OUTPUTS)} to {ns.save_outputs}", flush=True)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

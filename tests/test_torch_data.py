@@ -254,33 +254,23 @@ def test_tokenizer_resolution_matches_jax(tmp_path, monkeypatch, jx):
 
 @pytest.mark.parametrize("fused_block", ["both", "tower", "ffn", "attn"])
 def test_long_captions_refused_at_the_config_check(fused_block):
-    """In bf16 the half-layer kernels take 512 tokens with a gradient and
-    without one (K5's and K6's tensor-core attention, bert-base's position
-    table); the whole-tower kernels 64 with a gradient and 128 without; in
-    f32 every fused block 64 with a gradient and 128 without. A longer
-    bert_words_num is refused where the configuration is checked, before
-    any step, and the message names the limit."""
+    """The block kernels, the half-layers and the whole tower, take every
+    caption the position table holds (bert-base: 512 tokens), with a
+    gradient and without one, in bf16 and in f32; a longer bert_words_num
+    is refused where the configuration is checked, before any step,
+    whatever the mode, and the message names the table."""
     cfg = PConfig().replace(fused_block=fused_block, bert_words_num=64)
     assert cfg.compute_dtype == "bfloat16"
     for dtype in ("bfloat16", "float32"):
-        at = cfg.replace(compute_dtype=dtype)
-        train = 512 if dtype == "bfloat16" and fused_block != "tower" else 64
-        serve = 512 if dtype == "bfloat16" and fused_block != "tower" else 128
-        pconfig.check_stage1(at.replace(bert_words_num=train))
-        pconfig.check_stage2(at.replace(fusion_type="fcfm",
-                                        bert_words_num=train))
-        for check in (pconfig.check_stage1, pconfig.check_stage2):
-            with pytest.raises(NotImplementedError,
-                               match=f"at most {train} tokens when a "
-                                     f"gradient is needed in {dtype}"):
-                check(at.replace(bert_words_num=train + 1))
-        pconfig.check_serving(at.replace(bert_words_num=serve))
-        with pytest.raises(NotImplementedError,
-                           match=f"at most {serve} tokens in serving in "
-                                 f"{dtype}"):
-            pconfig.check_serving(at.replace(bert_words_num=serve + 1))
-    # unfused, any length the position table holds (bert-base: 512); a
-    # longer one is refused whatever the mode
+        at = cfg.replace(compute_dtype=dtype, bert_words_num=512)
+        pconfig.check_stage1(at)
+        pconfig.check_stage2(at.replace(fusion_type="fcfm"))
+        pconfig.check_serving(at)
+        for check in (pconfig.check_stage1, pconfig.check_stage2,
+                      pconfig.check_serving):
+            with pytest.raises(ValueError, match="has 512 positions"):
+                check(at.replace(fusion_type="fcfm", bert_words_num=513))
+    # unfused, the same table
     off = cfg.replace(fused_block="none", bert_words_num=512)
     pconfig.check_stage1(off)
     pconfig.check_serving(off)
@@ -290,8 +280,9 @@ def test_long_captions_refused_at_the_config_check(fused_block):
 
 
 def test_long_captions_refused_before_the_first_step(monkeypatch, tmp_path):
-    """The serving entries refuse before they load data or build a
-    model."""
+    """The serving entries refuse a caption past the position table before
+    they load data or build a model; at the table's 512 tokens, `tower`
+    passes the check."""
     from text_guided_face_recognition_tpu_torch.cli import test as cli
     from text_guided_face_recognition_tpu_torch.engine import prepare
     from text_guided_face_recognition_tpu_torch.engine.extract import (
@@ -303,12 +294,14 @@ def test_long_captions_refused_before_the_first_step(monkeypatch, tmp_path):
     monkeypatch.setattr(prepare, "prepare_dataloader", no_data)
     cfg = tmp_path / "long.yml"
     cfg.write_text("bert_words_num: 513\nfused_block: both\n")
-    with pytest.raises(NotImplementedError, match="at most 512 tokens"):
+    with pytest.raises(ValueError, match="has 512 positions"):
         cli.main(["--cfg", str(cfg), "--synthetic", "--cpu"])
-    with pytest.raises(NotImplementedError, match="at most 128 tokens"):
+    with pytest.raises(ValueError, match="has 512 positions"):
         extract_embeddings(PConfig().replace(
-            fused_block="tower", bert_words_num=129, cpu=True,
+            fused_block="tower", bert_words_num=513, cpu=True,
             synthetic=True))
+    pconfig.check_serving(PConfig().replace(fused_block="tower",
+                                            bert_words_num=512))
 
 
 @pytest.mark.cuda

@@ -501,8 +501,8 @@ def test_cuda_attn_block_matches_plain_at_flagship_shapes(cuda, tdt, tol):
 def test_cuda_attn_block_takes_long_captions_in_bf16(cuda, t_len):
     """The bf16 forward at T up to 512, keys padded in every caption but the
     first, without residuals (serving) and with them (training: p included;
-    the tensor-core tile past 128); in f32 the limit stays 128, and 64 with
-    residuals."""
+    the tensor-core tile past 128); the f32 forward (the strip tile) at the
+    same T, with and without residuals, at the f32 tolerance."""
     p = _flagship(cuda, t=t_len, b=2, seed=t_len)
     x = p["x"].bfloat16()
     args = (p["mask"], p["wqkv"], p["bqkv"], p["wo"], p["bo"], p["g"],
@@ -515,12 +515,13 @@ def test_cuda_attn_block_takes_long_captions_in_bf16(cuda, t_len):
         for name, a, b in zip(("y", "qkv", "p", "o", "r"),
                               block.attn_block_fwd(x, *args, **kw), want):
             _hold(name, a, b, 2e-2, f"t={t_len} {kw['rate']} {name}")
-    if t_len > block.MAX_T_BWD:
-        with pytest.raises(ValueError, match=f"t <= {block.MAX_T_BWD}"):
-            block.attn_block_fwd(p["x"], *args)
-    if t_len > block.MAX_T_FWD_SCALAR:
-        with pytest.raises(ValueError, match="t <= 128"):
-            block.attn_block_fwd(p["x"], *args, save=False)
+    for save in (True, False):
+        want = block.attn_block_fwd_ref(p["x"], *args)
+        for name, a, b in zip(("y", "qkv", "p", "o", "r"),
+                              block.attn_block_fwd(p["x"], *args, save=save),
+                              want):
+            if a is not None:
+                _hold(name, a, b, 1e-4, f"f32 t={t_len} save={save} {name}")
 
 
 @pytest.mark.cuda

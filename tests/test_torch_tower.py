@@ -167,6 +167,40 @@ def test_tower_block_matches_jax_pallas(jx, jdt, tdt, tol, rate):
         close(gp, gj, tol, scaled=True, what=name)
 
 
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
+def test_tower_block_matches_jax_at_a_long_caption(jx, jdt, tdt, tol):
+    """The tower at T 160, past the 128 of the scalar forward tile and the
+    64 the tower kernels took before (B 2, a ragged mask, dropout 0.1 from
+    host bits): forward and jax.vjp of the JAX tower (interpret mode)
+    against the port's autograd Function, at the tolerances above."""
+    b, t_ = 2, 160
+    lv, d = _leaves(4), _data(4, b=b, t_=t_)
+    jnp = jx.jnp
+    jl = [jnp.asarray(lv[k], jdt) for k in block.TOWER_LEAVES]
+    jb = [jnp.asarray(d[k]) for k in ("bits_p", "bits_h", "bits_f")]
+
+    def jf(x_, *leaves):
+        return jx.bp.tower_block(x_, jnp.asarray(d["mask"]), *leaves, *jb,
+                                 jx.seed, b, t_, HEADS, RATE, 1e-12, False,
+                                 True)
+
+    z_j, g_j = jx.jax.jit(lambda x_, ls, dz: (
+        lambda z, vjp: (z, vjp(dz)))(*jx.jax.vjp(jf, x_, *ls)))(
+        jnp.asarray(d["x"], jdt), jl, jnp.asarray(d["dz"], jdt))
+    x = t(d["x"], tdt).requires_grad_(True)
+    pl = _port_leaves(lv, tdt)
+    pb = [bits(d[k]) for k in ("bits_p", "bits_h", "bits_f")]
+    z_p = block.tower_block(x, t(d["mask"]), *pl, b, t_, HEADS, RATE, 1e-12,
+                            *pb)
+    carried = tdt == torch.bfloat16
+    close(z_p, z_j, tol, scaled=carried, what="z")
+    g_p = torch.autograd.grad(z_p, [x] + pl, t(d["dz"], tdt))
+    close(g_p[0], g_j[0], tol, scaled=carried, what="dx")
+    for name, gp, gj in zip(block.TOWER_LEAVES, g_p[1:], g_j[1:]):
+        assert gp.dtype == tdt and tuple(gp.shape) == tuple(gj.shape), name
+        close(gp, gj, tol, scaled=True, what=name)
+
+
 @pytest.mark.parametrize("rate", [0.0, RATE])
 def test_tower_block_residuals_match_jax(jx, rate):
     """The residuals the forward saves, against the JAX kernel's."""
@@ -409,6 +443,42 @@ def test_cuda_tower_matches_plain(cuda, tdt, tol, rate):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t_len", [129, 512])
+@pytest.mark.parametrize("tdt,tol", CUDA_DTYPES)
+def test_cuda_tower_matches_plain_at_long_captions(cuda, tdt, tol, t_len):
+    """K7 and K8 at T past 128 and at bert-base's 512 (B 2, dropout from
+    host bits): the forward with and without residuals (bf16: the
+    tensor-core attention tile, f32: the strip tile) and the backward,
+    against their plain versions, as above; in bf16 the two residual sums
+    r1, r2 and the output z to the tolerance times their largest element,
+    as chip_smoke.py holds K7 (where the addends of r nearly cancel, a
+    flipped bf16 rounding of one addend is a step at an element near
+    zero, and layer 0's flips are carried into layer 1)."""
+    b = 2
+    lv, d = _leaves(5), _data(5, b=b, t_=t_len)
+    pl = [a.detach() for a in _port_leaves(lv, tdt, cuda)]
+    x, dz = t(d["x"], tdt).to(cuda), t(d["dz"], tdt).to(cuda)
+    mask = t(d["mask"]).to(cuda)
+    pb = [bits(d[k]).to(cuda) for k in ("bits_p", "bits_h", "bits_f")]
+    got = block.tower_block_fwd(x, mask, *pl, b, t_len, HEADS, *pb, RATE)
+    ref = block.tower_block_fwd_ref(x, mask, *pl, b, t_len, HEADS, *pb, RATE)
+    carried = tdt == torch.bfloat16
+    for name, a, b_ in zip(("z", "xin", "qkv", "p", "o", "r1", "f", "r2"),
+                           got, ref):
+        _close_cuda(a, b_, tol, carried and name in ("z", "r1", "r2"), name)
+    z_eval = block.tower_block_fwd(x, mask, *pl, b, t_len, HEADS, *pb, RATE,
+                                   save=False)[0]
+    _close_cuda(z_eval, ref[0], tol, carried, "z (no residuals)")
+    by = dict(zip(block.TOWER_LEAVES, pl))
+    args = (*ref[1:], *(by[k] for k in ("wqkv", "wo", "g1", "b1", "w1", "w2",
+                                        "g2")), b, t_len, HEADS, *pb, RATE)
+    grads = block.tower_block_bwd(dz, mask, *args)
+    want = block.tower_block_bwd_ref(dz, mask, *args)
+    for name, a, b_ in zip(("dx",) + block.TOWER_LEAVES, grads, want):
+        _close_cuda(a, b_, tol, True, name)
+
+
+@pytest.mark.cuda
 def test_cuda_tower_autograd_and_refusals(cuda):
     lv, d = _leaves(3), _data(3)
     pl = _port_leaves(lv, torch.float32, cuda)
@@ -426,8 +496,8 @@ def test_cuda_tower_autograd_and_refusals(cuda):
         bad = list(pl)
         bad[0] = pl[0].detach().contiguous()       # (L, in, out) storage
         block.tower_block_fwd(x.detach(), mask, *bad, B, T, HEADS)
-    with pytest.raises(ValueError, match="t <= 64"):
-        block.tower_block_fwd(torch.randn(2 * 96, H, device=cuda),
-                              torch.ones((2, 96), dtype=torch.int32,
+    with pytest.raises(ValueError, match=f"t <= {block.MAX_T}"):
+        block.tower_block_fwd(torch.randn(2 * 513, H, device=cuda),
+                              torch.ones((2, 513), dtype=torch.int32,
                                          device=cuda),
-                              *[a.detach() for a in pl], 2, 96, HEADS)
+                              *[a.detach() for a in pl], 2, 513, HEADS)

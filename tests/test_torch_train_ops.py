@@ -249,14 +249,16 @@ def test_attn_block_train_matches_jax(jx, jdt, tdt, tol, rate):
         close(a, b, tol, scaled=i > 0, what=f"grad {i}")
 
 
-@pytest.mark.parametrize("t_len", [72])
+@pytest.mark.parametrize("t_len", [72, 160])
 @pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
 def test_attn_block_train_matches_jax_at_a_long_caption(jx, jdt, tdt, tol,
                                                         t_len):
     """attn_block with its residuals and gradients at a caption longer
-    than the 64 tokens the bf16 training kernels took before (2 captions,
-    H 128, 2 heads, a ragged mask), host bits, against the JAX kernel in
-    Pallas interpret mode."""
+    than the 64 tokens the bf16 training kernels took before, and at 160,
+    past the 128 of the scalar forward tile and the f32 tiles of before
+    (2 captions, H 128, 2 heads, a ragged mask), host bits, against the JAX
+    kernel (`_attn_fwd`, `_attn_bwd` through its VJP) in Pallas interpret
+    mode."""
     b, h, heads = 2, 128, 2
     rng = np.random.default_rng(t_len)
     f = np.float32
@@ -376,6 +378,26 @@ def test_damsm_plain_matches_pallas_kernel_past_5120_pairs(jx, masked):
                                rtol=2e-5)
 
 
+@pytest.mark.parametrize("d,gamma1", [(640, 4.0), (32, 80.0), (32, -80.0)])
+def test_damsm_plain_matches_pallas_kernel_at_any_width_and_gamma1(
+        jx, d, gamma1):
+    """The plain version K9 is held to, against the JAX kernel (interpret
+    mode), past the kernel's bounds of before: D 640 (the wide path on the
+    card) and |GAMMA1| 80 (its running maximum), B 4, T 8, R 16, masked;
+    1e-4 (the JAX kernel subtracts the true maximum, the plain version
+    softmaxes)."""
+    from text_guided_face_recognition_tpu.ops.damsm_pallas import (
+        damsm_similarity_pallas)
+    words, regions, mask = _damsm_data(4, b=4, d=d, t_=8, r=16)
+    want = damsm_similarity_pallas(jx.a(words), jx.a(regions), gamma1, 5.0,
+                                   jx.jnp.asarray(mask), interpret=True)
+    got = attention.damsm_similarity(t(words), t(regions), gamma1, 5.0,
+                                     t(mask))
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+
+
 @pytest.mark.parametrize("d", [64, 256, 512])
 def test_damsm_plan_fits_and_takes_the_long_path_where_words_do_not_fit(d):
     """K9's launch plan for every caption length up to bert-base's 512
@@ -391,41 +413,71 @@ def test_damsm_plan_fits_and_takes_the_long_path_where_words_do_not_fit(d):
             assert p["smem"] <= damsm.SMEM_LIMIT, (d, r, t_, p)
             assert p["smem"] == damsm.damsm_smem(p["dp"], p["n"])
             assert p["long"] == (t_ > p["n"]), (d, r, t_, p)
+            assert p["slices"] == 1
             if p["long"]:
-                assert p["g"] == 1 and p["grid"] == (32, 32)
+                assert p["g"] == 1 and p["grid"] == (32, 32, 1)
                 assert (p["word_chunks"] - 1) * p["n"] < t_ <= \
                     p["word_chunks"] * p["n"]
             else:
                 assert 1 <= p["g"] and p["g"] * t_ <= p["n"]
                 assert p["grid"][0] * p["g"] >= 32 and p["grid"][1] == 32
                 assert p["g"] == 32 or (p["g"] + 1) * t_ > p["n"]
-    with pytest.raises(ValueError, match="D <= 512"):
-        damsm.damsm_plan(32, 513, 22, 196)
+    # one feature past the block's 512: the wide path, two slices
+    p = damsm.damsm_plan(32, 513, 22, 196)
+    assert p["slices"] == 2 and p["long"] and p["grid"] == (32, 32, 2)
     with pytest.raises(ValueError, match="empty"):
         damsm.damsm_plan(32, 256, 0, 196)
 
 
+@pytest.mark.parametrize("t_", [1, 22, 33, 510])
+def test_damsm_plan_takes_every_width_up_to_2048(t_):
+    """K9's plan for every feature width D from 1 to 2048 (B 32, R 196):
+    its shared memory fits a block and is the layout's (damsm_smem); up to
+    SLICE_D features a block holds the whole of D, past it D is split into
+    ceil(D / SLICE_D) slices of equal rounded rows that cover D, each a
+    block's (the wide path: one caption a block, in chunks of 32 words)."""
+    for d in range(1, 2049):
+        p = damsm.damsm_plan(32, d, t_, 196)
+        assert p["smem"] <= damsm.SMEM_LIMIT, (d, t_, p)
+        assert p["smem"] == damsm.damsm_smem(p["dp"], p["n"]), (d, p)
+        assert p["slices"] == -(-d // damsm.SLICE_D), (d, p)
+        assert p["dp"] % 16 == 0 and p["dp"] <= damsm.SLICE_D, (d, p)
+        assert (p["slices"] - 1) * p["dp"] < d <= p["slices"] * p["dp"]
+        assert p["grid"][1:] == (32, p["slices"]), (d, p)
+        if p["slices"] == 1:
+            assert p["dp"] == -(-d // 16) * 16
+            assert p["n"] == (96 if p["dp"] <= 256 else 32)
+        else:
+            assert p["dp"] > 256 and p["n"] == 32 and p["long"], (d, p)
+            assert p["g"] == 1 and p["grid"][0] == 32
+            assert p["word_chunks"] == -(-t_ // 32)
+
+
 def test_damsm_kernel_limits_refused_at_the_config_check():
-    """With use_pallas, a word-feature width above the kernel's MAX_D or
-    |GAMMA1| above MAX_GAMMA1 is refused by check_stage1, before any step;
-    at the limits, and without use_pallas, the check passes."""
+    """With use_pallas, K9 takes any word-feature width and any GAMMA1, as
+    the JAX kernel does: check_stage1 passes at D 513, 1024 and 2048 and
+    at GAMMA1 +-100 (past the 60 where the kernel's gamma1 softmax turns
+    to its running maximum), in bf16 and f32, with fused_block both and
+    tower, and with use_pallas off."""
     from text_guided_face_recognition_tpu_torch import config as pconfig
-    cfg = pconfig.TGFRConfig().replace(use_pallas=True)
-    smooth = cfg.TRAIN.SMOOTH
-    pconfig.check_stage1(cfg.replace(aux_feat_dim_per_granularity=512))
-    with pytest.raises(NotImplementedError, match="at most 512"):
-        pconfig.check_stage1(cfg.replace(aux_feat_dim_per_granularity=513))
-    for g1 in (60.0, -60.0):
-        train = pconfig.TrainCfg(SMOOTH=pconfig.TrainSmooth(
-            GAMMA1=g1, GAMMA2=smooth.GAMMA2, GAMMA3=smooth.GAMMA3))
-        pconfig.check_stage1(cfg.replace(TRAIN=train))
-        big = pconfig.TrainCfg(SMOOTH=pconfig.TrainSmooth(
-            GAMMA1=g1 * 1.01, GAMMA2=smooth.GAMMA2, GAMMA3=smooth.GAMMA3))
-        with pytest.raises(NotImplementedError, match="GAMMA1"):
-            pconfig.check_stage1(cfg.replace(TRAIN=big))
-        pconfig.check_stage1(cfg.replace(TRAIN=big, use_pallas=False))
-    pconfig.check_stage1(cfg.replace(aux_feat_dim_per_granularity=1024,
-                                     use_pallas=False))
+    base = pconfig.TGFRConfig().replace(use_pallas=True)
+    smooth = base.TRAIN.SMOOTH
+    for dtype in ("bfloat16", "float32"):
+        for fb in ("both", "tower"):
+            cfg = base.replace(compute_dtype=dtype, fused_block=fb)
+            for d in (512, 513, 1024, 2048):
+                pconfig.check_stage1(
+                    cfg.replace(aux_feat_dim_per_granularity=d))
+            for g1 in (60.0, -60.0, 100.0, -100.0):
+                train = pconfig.TrainCfg(SMOOTH=pconfig.TrainSmooth(
+                    GAMMA1=g1, GAMMA2=smooth.GAMMA2, GAMMA3=smooth.GAMMA3))
+                pconfig.check_stage1(cfg.replace(TRAIN=train))
+                pconfig.check_stage1(cfg.replace(
+                    TRAIN=train, aux_feat_dim_per_granularity=1024,
+                    bert_words_num=512))
+                pconfig.check_stage1(cfg.replace(TRAIN=train,
+                                                 use_pallas=False))
+    assert not hasattr(pconfig, "check_damsm")
 
 
 def test_damsm_gradient_matches_jax_custom_vjp(jx, monkeypatch):
@@ -805,18 +857,17 @@ def _long(dev, t_len, seed):
 def test_cuda_half_layer_bwds_at_caption_lengths(cuda, tdt, tol, t_len):
     """K4 and K6 against their plain versions at bert-base's widths and
     T from 24 to 512, host bits and prng mode, each from the plain
-    forward's residuals; f32 (the scalar attention tiles) up to its limit
-    of 64, past which K6 refuses it."""
+    forward's residuals, in bf16 and in f32 (the strip attention tiles);
+    past 512, the position table, K6 refuses."""
     p = _long(cuda, t_len, seed=t_len)
     x, dy = p["x"].to(tdt), p["dy"].to(tdt)
     aw = (p["wqkv"], p["bqkv"], p["wo"], p["bo"], p["g"], p["b"])
     fw = (p["w1"], p["c1"], p["w2"], p["c2"], p["g"], p["b"])
-    if t_len > block.max_t(tdt, True):
-        res = block.attn_block_fwd_ref(x, p["mask"], *aw, 2, t_len, 12)
-        with pytest.raises(ValueError, match=f"t <= {block.max_t(tdt, True)}"):
-            block.attn_block_bwd(dy, x, *res[1:], p["wqkv"], p["wo"],
-                                 p["g"], 2, t_len, 12)
-        return
+    if t_len == block.MAX_T:
+        past = torch.zeros(2 * (t_len + 1), 768, dtype=tdt, device=cuda)
+        with pytest.raises(ValueError, match=f"t <= {block.MAX_T}"):
+            block.attn_block_bwd(past, past, None, None, None, None,
+                                 p["wqkv"], p["wo"], p["g"], 2, t_len + 1, 12)
     for mode, akw, fkw in (
             ("host", dict(bits_p=p["bits_p"], bits_h=p["bits_h"]),
              dict(bits=p["bits_h"])),
@@ -898,18 +949,48 @@ def test_cuda_damsm_matches_plain_at_shapes(cuda, b, d, t_, r, gamma1,
     _damsm_held(record_property, w, rg, gamma1, m)
 
 
+# (b, d, t, r, gamma1, masked) past the kernel's bounds of before: the wide
+# path (D 513, 640, 768, 1024, 2048: two to four slices of D), the running
+# gamma1 maximum (|gamma1| 80 and 100: short, long and wide paths).
+# Tolerance: |k - p| <= 1e-4 + 1e-4 |p|, the f32 kernel rule: the wide
+# path's logits are f32 FMA sums over D in another order, and at |gamma1|
+# 100 the exponent's f32 rounding is scaled by gamma1 log2 e.
+WIDE_SHAPES = [(4, 513, 22, 49, 4.0, True), (4, 640, 22, 49, 4.0, False),
+               (3, 768, 22, 196, 4.0, True), (3, 1024, 40, 49, 4.0, True),
+               (2, 2048, 22, 49, 4.0, True), (4, 256, 22, 196, 100.0, True),
+               (4, 256, 22, 196, -100.0, False),
+               (3, 256, 150, 49, -80.0, True),
+               (3, 768, 22, 196, 100.0, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,t_,r,gamma1,masked", WIDE_SHAPES)
+def test_cuda_damsm_matches_plain_at_any_width_and_gamma1(
+        cuda, b, d, t_, r, gamma1, masked, record_property):
+    """K9 against its plain version at any D and gamma1."""
+    words, regions, mask = _damsm_data(d + t_, b=b, d=d, t_=t_, r=r)
+    w, rg = t(words).to(cuda), t(regions).to(cuda)
+    m = t(mask).to(cuda) if masked else None
+    got = damsm.damsm_similarity_cuda(w, rg, gamma1, 5.0, m)
+    want = attention.damsm_similarity(w, rg, gamma1, 5.0, m)
+    record_property("max_abs_err", (got - want).abs().max().item())
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.cuda
 def test_cuda_damsm_plan_smem_is_the_kernels_layout(cuda):
     """The plan's shared memory (damsm_smem, which the CPU plan test holds
     under the block's limit) is the layout the launcher takes
-    (csrc/damsm.cu `tgfr_damsm_smem`) at every width up to MAX_D; no tiling
-    takes another word-column count or a width past MAX_D."""
+    (csrc/damsm.cu `tgfr_damsm_smem`) at every width up to 2048 (past
+    SLICE_D a slice's); no tiling takes another word-column count or a
+    block of more than SLICE_D features."""
     import ctypes
 
     from text_guided_face_recognition_tpu_torch.ops import _cuda
     smem = _cuda.function("damsm", "tgfr_damsm_smem",
                           (ctypes.c_int, ctypes.c_int))
-    for d in range(1, damsm.MAX_D + 1):
+    for d in range(1, 2049):
         p = damsm.damsm_plan(32, d, 22, 196)
         assert smem(p["dp"], p["n"]) == p["smem"], (d, p)
     for dp, n in ((128, 32), (256, 32), (272, 96), (528, 32), (64, 64)):

@@ -34,10 +34,9 @@ fusion net for LSTM only and the BERT one otherwise, which takes no RNN
 words), and in stage 2 with en_type LSTM a `fusion_final_dim` other than
 768, the width of WordLevelCFA_LSTM's output that the margin head takes.
 Both, and `check_serving` at the serving entries, refuse captions longer
-than the text arch's position table or, with a `fused_block` in effect
-other than none, than the block kernels take (`check_caption_length`),
-and a backbone the port does not build (`check_backbone`: AdaFace takes
-112 x 112 images only).
+than the text arch's position table (`check_caption_length`; the block
+kernels take every length it holds), and a backbone the port does not
+build (`check_backbone`: AdaFace takes 112 x 112 images only).
 """
 
 from __future__ import annotations
@@ -52,7 +51,7 @@ import yaml
 
 __all__ = ["TGFRConfig", "TrainCfg", "TrainSmooth", "check_backbone",
            "check_caption_length", "check_fusion",
-           "check_damsm", "check_serving", "check_stage1", "check_stage2",
+           "check_serving", "check_stage1", "check_stage2",
            "check_world",
            "load_yaml", "merge_args_yaml"]
 
@@ -280,70 +279,24 @@ class TGFRConfig:
         return d
 
 
-def check_caption_length(cfg: TGFRConfig, grad: bool) -> None:
-    """Refuse, before any step, captions longer than the text arch or the
-    block kernels take. A caption longer than `bert_type`'s position table
-    (`max_positions`: 77 for clip and groupvit, 512 for the others) is
-    refused whatever the mode: the card's embedding lookup would stop on a
-    device-side assert (the JAX package reads NaN rows there). With the
-    `fused_block` mode in effect for the arch (models/text_bert.py
-    `fused_block_in_effect`: none for the archs the block kernels do not
-    take) other than none, the attention kernels (ops/block.py `max_t`)
-    take, in bf16, at most MAX_T_FWD (512, bert-base's position table)
-    tokens with a gradient and without one (K5's and K6's tensor-core
-    attention); in f32 and for the whole-tower kernels (`tower`), at most
-    MAX_T_BWD (64) tokens when a gradient is needed (the f32 scalar tiles;
-    K7's scalar tile with residuals and K8's sizing) and MAX_T_FWD_SCALAR
-    (128) without one. The JAX kernels have no such limit; the limits
-    still open are listed in ROADMAP.md, Queue 3. An LSTM or GRU caption
-    runs no block kernel."""
+def check_caption_length(cfg: TGFRConfig) -> None:
+    """Refuse, before any step, captions longer than `bert_type`'s position
+    table (`max_positions`: 77 for clip and groupvit, 512 for the others),
+    whatever the mode: the card's embedding lookup would stop on a
+    device-side assert (the JAX package reads NaN rows there). The block
+    kernels (`fused_block`, ops/block.py) take every length the table
+    holds, serving and training, bf16 and f32. An LSTM or GRU caption has
+    no position table."""
     if cfg.en_type != "BERT":
         return
-    import torch
-
     from text_guided_face_recognition_tpu_torch.models.text_bert import (
-        TEXT_ARCHS, fused_block_in_effect)
-    from text_guided_face_recognition_tpu_torch.ops.block import max_t
+        TEXT_ARCHS)
     arch = TEXT_ARCHS[cfg.bert_type]
-    fb = fused_block_in_effect(arch, cfg.fused_block)
-    limit = (max_t(getattr(torch, cfg.compute_dtype), grad,
-                   tower=fb == "tower") if fb != "none" else None)
-    if limit is not None and cfg.bert_words_num > limit:
-        raise NotImplementedError(
-            f"fused_block={fb!r} with bert_words_num="
-            f"{cfg.bert_words_num}: the block kernels take captions of at "
-            f"most {limit} tokens "
-            + ("when a gradient is needed" if grad else "in serving")
-            + f" in {cfg.compute_dtype} (ops/block.py max_t); longer "
-            "captions wait for the rework of the kernels named in "
-            "ROADMAP.md, Queue 3. Use fused_block='none' or "
-            f"bert_words_num <= {limit}.")
     if cfg.bert_words_num > arch.max_positions:
         raise ValueError(
             f"bert_words_num={cfg.bert_words_num}: bert_type="
             f"{cfg.bert_type!r} has {arch.max_positions} positions; use "
             f"bert_words_num <= {arch.max_positions}.")
-
-
-def check_damsm(cfg: TGFRConfig) -> None:
-    """Refuse, before any step, the DAMSM shapes the K9 kernel does not take
-    (`use_pallas`): a word-feature width (aux_feat_dim_per_granularity)
-    above ops/damsm.py MAX_D, whose context sums a thread holds in
-    registers, and |GAMMA1| above MAX_GAMMA1, past which the kernel's fixed
-    gamma1 offset would let the softmax terms underflow. The plain path
-    takes both; the limits are listed in ROADMAP.md, Queue 3."""
-    if not (cfg.use_pallas and cfg.is_DAMSM):
-        return
-    from text_guided_face_recognition_tpu_torch.ops.damsm import (
-        MAX_D, MAX_GAMMA1)
-    gamma1 = cfg.TRAIN.SMOOTH.GAMMA1
-    if cfg.aux_feat_dim_per_granularity > MAX_D or abs(gamma1) > MAX_GAMMA1:
-        raise NotImplementedError(
-            f"use_pallas with aux_feat_dim_per_granularity="
-            f"{cfg.aux_feat_dim_per_granularity} and GAMMA1={gamma1}: the "
-            f"DAMSM kernel takes a feature width of at most {MAX_D} and "
-            f"|GAMMA1| <= {MAX_GAMMA1} (ops/damsm.py); use use_pallas: "
-            "false (ROADMAP.md, Queue 3).")
 
 
 def check_backbone(cfg: TGFRConfig) -> None:
@@ -408,7 +361,7 @@ def check_serving(cfg: TGFRConfig) -> None:
     and embedding extraction)."""
     check_world(cfg, batch=False)
     check_backbone(cfg)
-    check_caption_length(cfg, grad=False)
+    check_caption_length(cfg)
     check_fusion(cfg, train=False)
 
 
@@ -416,15 +369,14 @@ def check_stage1(cfg: TGFRConfig) -> None:
     """Refuse the stage-1 options the port does not run yet."""
     check_world(cfg)
     check_backbone(cfg)
-    check_caption_length(cfg, grad=True)
-    check_damsm(cfg)
+    check_caption_length(cfg)
 
 
 def check_stage2(cfg: TGFRConfig) -> None:
     """Refuse the stage-2 options the port does not run yet."""
     check_world(cfg)
     check_backbone(cfg)
-    check_caption_length(cfg, grad=True)
+    check_caption_length(cfg)
     if cfg.fusion_type == "concat":
         raise ValueError("stage-2 training requires fusion_type linear|fcfm")
     check_fusion(cfg, train=True)

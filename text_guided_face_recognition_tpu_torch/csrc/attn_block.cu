@@ -24,14 +24,15 @@
 //       2 pairs a block at T <= 32, a warp's 16 query rows against keys in
 //       blocks of 64 from shared memory in two passes, the row maxima and
 //       sums, then the probabilities (saved when the backward needs them)
-//       and P.V), so T goes to 512; with residuals up to t = 128 and in f32
-//       (T <= 128) one block per (caption, head) with q, k, v and the
-//       scores in shared memory as f32, the tile the whole-tower kernel K7
-//       runs, so that the chain of half-layers the training checks hold
-//       against K7 adds the same values (K7 with the tensor-core tile ran
-//       18 % slower in all, every phase of it, in development runs on the
-//       H100; K7 takes t <= 128, so no chain needs the scalar tile past
-//       it);
+//       and P.V), so T goes to 512; with residuals up to t = 128 one block
+//       per (caption, head) with q, k, v and the scores in shared memory as
+//       f32, the tile the whole-tower kernel K7 runs there, so that the
+//       chain of half-layers the training checks hold against K7 adds the
+//       same values (K7 with the tensor-core tile ran 18 % slower in all,
+//       every phase of it, in development runs on the H100; past t = 128
+//       K7 runs the tensor-core tile too); in f32 the strip tile
+//       (attention_strip_kernel: one block per (caption, head), queries
+//       and keys in strips of 64, f32 FMA), T up to 512 as well;
 //   (c) r = x + drop(o . Wo + bo), dropout and the residual fused into the
 //       GEMM epilogue.
 // Dropout bits: host-drawn (bits_p, bits_h), or (prng mode) the stream of
@@ -59,8 +60,9 @@
 //       TPU kernel's rounding points: in bf16 on tensor cores
 //       (attention_bwd_mma_kernel, keys and queries in blocks of 64, so T
 //       goes to 512; the whole-tower kernel K8 runs the same tile), in f32
-//       the scalar tile (one block per (caption, head), everything in
-//       shared memory as f32, T <= 64);
+//       the strip tile (attention_strip_bwd_kernel: one block per (caption,
+//       head), queries and keys in strips of 64, p read back from its
+//       residual; K8 in f32 runs it too), T up to 512;
 //   (5) dWqkv = dqkv^T . x, f32, with dbqkv = the column sums of dqkv in
 //       the same launch (second stream);
 //   (6) dx = r(dr + r(dqkv . Wqkv)).
@@ -87,20 +89,25 @@ int run_fwd(const void* x, const int* mask, const float* wqkv,
   constexpr bool kRoute = std::is_same<T, __nv_bfloat16>::value;
   const int rows = b * t;
   const float inv = 1.0f / sqrtf(static_cast<float>(tgfr::kDHead));
-  if (t > (kRoute ? tgfr::kAttnMaxT : tgfr::kAttnScalarMaxT))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (t > tgfr::kAttnMaxT) return static_cast<int>(cudaErrorInvalidValue);
   tgfr::GemmArgs proj = tgfr::gemm_args(x, wqkv, qkv, rows, 3 * h, h);
   proj.bias = bqkv;
   cudaError_t err = tgfr::launch_forward_gemm<T, tgfr::kEpiBias>(proj, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  // the scalar tile with residuals up to t = 128 (training, which the
-  // whole-tower kernel's chain must equal) and in f32; the tensor-core
-  // tile without them (serving) and with them past 128, t up to 512
-  bool scalar = true;
+  // bf16: the scalar tile with residuals up to t = 128 (training, which
+  // the whole-tower kernel's chain must equal); the tensor-core tile
+  // without them (serving) and with them past 128. f32: the strip tile.
   if constexpr (kRoute) {
-    if (!p || t > tgfr::kAttnScalarMaxT) {
-      scalar = false;
+    if (p && t <= tgfr::kAttnScalarT) {
+      const size_t smem = tgfr::attn_fwd_smem_bytes(t);
+      err = set_smem(tgfr::attention_core_kernel<T>, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      tgfr::attention_core_kernel<T>
+          <<<dim3(b, heads), tgfr::kAttnThreads, smem, s>>>(
+          static_cast<const T*>(qkv), mask, drop_p, thr, scale,
+          static_cast<T*>(p), static_cast<T*>(ctx), b, t, h, inv);
+    } else {
       const int pairs = tgfr::attn_pairs_per_block(t);
       const size_t smem = tgfr::attn_mma_smem_bytes(t, pairs);
       const auto kernel = p ? tgfr::attention_mma_kernel<true>
@@ -112,15 +119,14 @@ int run_fwd(const void* x, const int* mask, const float* wqkv,
                     static_cast<T*>(p), static_cast<T*>(ctx), b, t, h, inv,
                     pairs);
     }
-  }
-  if (scalar) {
-    const size_t smem = tgfr::attn_fwd_smem_bytes(t);
-    err = set_smem(tgfr::attention_core_kernel<T>, smem);
+  } else {
+    const size_t smem = tgfr::attn_strip_fwd_smem_bytes();
+    err = set_smem(tgfr::attention_strip_kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    tgfr::attention_core_kernel<T>
-        <<<dim3(b, heads), tgfr::kAttnThreads, smem, s>>>(
-        static_cast<const T*>(qkv), mask, drop_p, thr, scale,
-        static_cast<T*>(p), static_cast<T*>(ctx), b, t, h, inv);
+    tgfr::attention_strip_kernel<<<dim3(b, heads), tgfr::kAttnThreads, smem,
+                                   s>>>(
+        static_cast<const float*>(qkv), mask, drop_p, thr, scale,
+        static_cast<float*>(p), static_cast<float*>(ctx), b, t, h, inv);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -139,8 +145,8 @@ int run_fwd(const void* x, const int* mask, const float* wqkv,
   return static_cast<int>(err);
 }
 
-// The per-head backward: bf16 on tensor cores (attention_bwd_mma_kernel,
-// t up to 512), f32 the scalar tile (t up to 64: its shared memory).
+// The per-head backward: bf16 on tensor cores (attention_bwd_mma_kernel),
+// f32 the strip tile, t up to 512 either way.
 template <typename T>
 cudaError_t launch_attention_bwd(const T* qkv, const T* p, const T* dout,
                                  const tgfr::DropSrc& drop_p, unsigned thr,
@@ -148,9 +154,9 @@ cudaError_t launch_attention_bwd(const T* qkv, const T* p, const T* dout,
                                  cudaStream_t s) {
   const float inv = 1.0f / sqrtf(static_cast<float>(tgfr::kDHead));
   const int heads = h / tgfr::kDHead;
+  if (t > tgfr::kAttnMaxT) return cudaErrorInvalidValue;
   cudaError_t err;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (t > tgfr::kAttnMaxT) return cudaErrorInvalidValue;
     const int pairs = tgfr::attn_bwd_pairs_per_block(t);
     const size_t smem = tgfr::attn_bwd_mma_smem_bytes(t, pairs);
     err = set_smem(tgfr::attention_bwd_mma_kernel, smem);
@@ -159,12 +165,11 @@ cudaError_t launch_attention_bwd(const T* qkv, const T* p, const T* dout,
                                      tgfr::kAttnThreads, smem, s>>>(
         qkv, p, dout, drop_p, thr, scale, dqkv, b, t, h, inv, pairs);
   } else {
-    if (t > tgfr::kAttnScalarBwdMaxT) return cudaErrorInvalidValue;
-    const size_t smem = tgfr::attn_bwd_smem_bytes(t);
-    err = set_smem(tgfr::attention_core_bwd_kernel<T>, smem);
+    const size_t smem = tgfr::attn_strip_bwd_smem_bytes(t);
+    err = set_smem(tgfr::attention_strip_bwd_kernel, smem);
     if (err != cudaSuccess) return err;
-    tgfr::attention_core_bwd_kernel<T>
-        <<<dim3(b, heads), tgfr::kAttnThreads, smem, s>>>(
+    tgfr::attention_strip_bwd_kernel<<<dim3(b, heads), tgfr::kAttnThreads,
+                                       smem, s>>>(
         qkv, p, dout, drop_p, thr, scale, dqkv, b, t, h, inv);
   }
   return cudaGetLastError();

@@ -2581,9 +2581,11 @@ cudaError_t launch_weight_grad(const void* g, const void* x, float* dw,
 // ---------------------------------------------------------------------------
 // Multi-head self-attention, one block of work per (caption, head), heads of
 // width 64, everything of the head in shared memory as f32 (block_pallas.py
-// `_attn_heads_fwd`, `_attn_heads_bwd`). qkv is (B t, 3 h) with q | k | v
-// packed on the output axis, head-major within each; probabilities and their
-// dropout bits are (heads * B, t, t).
+// `_attn_heads_fwd`): the scalar forward tile of bf16 K5 with residuals and
+// of bf16 K7, up to t = kAttnScalarT (3 (t, 65) + (t, t) f32: 165 KB at
+// t = 128). qkv is (B t, 3 h) with q | k | v packed on the output axis,
+// head-major within each; probabilities and their dropout bits are
+// (heads * B, t, t).
 // ---------------------------------------------------------------------------
 
 constexpr int kDHead = 64;
@@ -2700,10 +2702,11 @@ attention_core_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
 // - Several pairs a block where the queries are few: 4 warps, and 4, 2 or
 //   1 pairs a block (T <= 16, <= 32, longer), each pair's query tiles
 //   spread over its warps.
-// The whole-tower kernel K7 keeps the scalar tile above (in development
-// runs on the H100 this tile inside it slowed every phase of K7, 18 % in
-// all), and so does K5 with residuals, so that the training chain of
-// half-layers equals K7 bit for bit.
+// Up to t = kAttnScalarT the whole-tower kernel K7 keeps the scalar tile
+// above (in development runs on the H100 this tile inside it slowed every
+// phase of K7, 18 % in all), and so does K5 with residuals, so that the
+// training chain of half-layers equals K7 bit for bit; past it both run
+// this tile, K7 in an instantiation of its own (csrc/tower_block.cu).
 // Keys past t score -inf (no weight); a masked key scores
 // s + finfo(float32).min, as the plain version adds it.
 // ---------------------------------------------------------------------------
@@ -2713,8 +2716,9 @@ __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); 
 constexpr int kAttnKeys = 64;           // keys a block of the two passes
 constexpr int kAttnLd = kDHead + 8;     // bf16 row stride in shared memory
 constexpr int kAttnMaxT = 512;          // this tile's t
-constexpr int kAttnScalarMaxT = 128;    // the scalar tile's (shared memory)
-constexpr int kAttnScalarBwdMaxT = 64;  // the scalar backward tile's
+// bf16 with residuals (K5, K7): the scalar tile above up to this t, so that
+// the training chain of half-layers equals K7 bit for bit; this tile past it
+constexpr int kAttnScalarT = 128;
 
 // Pairs a block of the kernel, from t: a pair's 16-row query tiles fill
 // its share of the block's 4 warps.
@@ -3015,111 +3019,388 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
                              nb * (h / kDHead), attn_mma_sm);
 }
 
-// Shared memory of the backward block: q, k, v, do (t, 65), p and dp (t, t).
-inline __host__ __device__ size_t attn_bwd_smem_bytes(int t) {
-  return (size_t)(4 * t * kQkvLd + 2 * t * t) * sizeof(float);
+// ---------------------------------------------------------------------------
+// The f32 attention, forward and backward (K5, K6, K7 and K8 in f32, the
+// parity dtype; block_pallas.py `_attn_heads_fwd`, `_attn_heads_bwd`): f32
+// FMA, one block of kAttnThreads a (caption, head) pair, the queries and
+// the keys walked in strips of 64 rows, so that shared memory holds a few
+// (64, 65) f32 strips and tiles whatever t: t goes to 512 (bert-base's
+// position table) and past it. Bound on the H100: operations, f32 FMA at
+// 67 TFLOP/s (2 t^2 64 a product); the design keeps it simple, as f32 is
+// checked, not served: a thread holds a 4 x 8 block of each 64 x 64
+// product (its rows 4 rg .. 4 rg + 3, its columns cg + 8 c), so a feature
+// step reads 12 values of shared memory for 32 FMAs, free of bank
+// conflicts (row stride 65).
+// - Forward, per strip of 64 queries: pass 1 walks the key strips for each
+//   row's maximum and its sum of exp(s - max) (rescaled as the maximum
+//   grows, the 8 lanes of a row combined by shuffles); pass 2 recomputes
+//   the same scores, forms p = exp(s - max) / sum (saved before dropout
+//   when the backward needs it), drops it into a (64, 65) tile and adds
+//   P.V into the thread's 32 context sums.
+// - Backward, from p (the saved residual, read back from device memory)
+//   and do: per strip of 64 queries, the row sums dot_i = sum_j dp p over
+//   the key strips, then ds = p (dp - dot) / sqrt(64) tile by tile and
+//   dq += ds . k; then per strip of 64 keys, over the query strips, ds and
+//   the dropped p again, dk += ds^T . q and dv += p_drop^T . do. dp is
+//   do . v^T dropped like the probabilities; a probability's bit is read
+//   where it is used.
+// ---------------------------------------------------------------------------
+
+constexpr int kStrip = 64;            // rows of a query or key strip
+constexpr int kStripLd = kDHead + 1;  // f32 row stride of a strip or tile
+constexpr int kStripEl = kStrip * kStripLd;
+
+// Shared memory of the forward tile: the q, k and v strips, the
+// probability tile and the key strip's additive biases, f32.
+inline __host__ __device__ size_t attn_strip_fwd_smem_bytes() {
+  return (size_t)(4 * kStripEl + kStrip) * sizeof(float);
 }
 
-// Caption b, head `head`: the per-head backward of block_pallas.py
-// `_attn_heads_bwd`, from p (rounded, before dropout) and do = d(context),
-// into that head's slices of dqkv. With dropout each probability's bit is
-// read once: the dropped probabilities go into the dp buffer first (a
-// dropped one as -1, since p >= 0), where dv reads them and dp its mask.
+// Shared memory of the backward tile: the q, k, v and do strips, the ds
+// and dropped-p tiles, and each query row's dot (t rounded up to 64), f32.
+inline __host__ __device__ size_t attn_strip_bwd_smem_bytes(int t) {
+  return (size_t)(6 * kStripEl + (t + kStrip - 1) / kStrip * kStrip) *
+         sizeof(float);
+}
+
+// Rows r0 .. r0 + 63 of a head's (t, 64) slice at src (row stride ld) into
+// a strip; rows at or past t zero.
 template <typename T>
+__device__ __forceinline__ void load_strip(float* dst, const T* src,
+                                           size_t ld, int r0, int t) {
+  for (int i = threadIdx.x; i < kStrip * kDHead; i += kAttnThreads) {
+    const int r = i / kDHead, d = i % kDHead;
+    dst[r * kStripLd + d] =
+        r0 + r < t ? to_f32(src[(size_t)(r0 + r) * ld + d]) : 0.f;
+  }
+}
+
+// acc[a][c] = sum_d A[4 rg + a][d] B[cg + 8 c][d]: the thread's block of
+// the 64 x 64 product A B^T of two strips.
+__device__ __forceinline__ void strip_abt(float (&acc)[4][8], const float* A,
+                                          const float* B, int rg, int cg) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < kDHead; ++d) {
+    float av[4], bv[8];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) av[a] = A[(4 * rg + a) * kStripLd + d];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) bv[c] = B[(cg + 8 * c) * kStripLd + d];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
+  }
+}
+
+// acc[a][c] += sum_{j < n} P[4 rg + a][j] V[j][cg + 8 c] (kT: P[j][4 rg + a],
+// the product P^T V): the thread's block of a tile times a strip.
+template <bool kT>
+__device__ __forceinline__ void strip_ab(float (&acc)[4][8], const float* P,
+                                         const float* V, int n, int rg,
+                                         int cg) {
+#pragma unroll 4
+  for (int j = 0; j < n; ++j) {
+    float pv[4], vv[8];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      pv[a] = kT ? P[j * kStripLd + 4 * rg + a]
+                 : P[(4 * rg + a) * kStripLd + j];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) vv[c] = V[j * kStripLd + cg + 8 * c];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[a][c] = fmaf(pv[a], vv[c], acc[a][c]);
+  }
+}
+
+// The thread's block of a strip's rows r0 + 4 rg + a (< t), features
+// cg + 8 c, into dst (row stride ld).
+__device__ __forceinline__ void store_strip(float* dst, size_t ld,
+                                            const float (&acc)[4][8], int r0,
+                                            int t, int rg, int cg) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = r0 + 4 * rg + a;
+    if (r < t) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) dst[(size_t)r * ld + cg + 8 * c] = acc[a][c];
+    }
+  }
+}
+
+// v reduced over the 8 lanes that share a row group (lane bits 0-2).
+__device__ __forceinline__ float row8_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+}
+
+__device__ __forceinline__ float row8_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v + __shfl_xor_sync(0xffffffffu, v, 4);
+}
+
+// Caption b, head `head`, f32: scores, softmax, the probabilities' dropout
+// (bits of element [head*B + b, i, j]) and P.V; p_out (or null) takes the
+// probabilities before dropout. smem: attn_strip_fwd_smem_bytes().
 __device__ __forceinline__ void
-attention_core_bwd_tile(const T* qkv, const T* p, const T* dout,
-                        const DropSrc& drop_p, unsigned thr, float scale,
-                        T* dqkv, int nb, int t, int h, float inv, int b,
-                        int head, float* sm) {
-  float* q = sm;
-  float* k = q + t * kQkvLd;
-  float* v = k + t * kQkvLd;
-  float* g = v + t * kQkvLd;   // do
-  float* ps = g + t * kQkvLd;  // (t, t) p
-  float* s = ps + t * t;       // (t, t) dp, then ds
-  const int tid = threadIdx.x;
-  const size_t row0 = (size_t)b * t;
-  const size_t pofs = ((size_t)head * nb + b) * t * t;
-
-  for (int i = tid; i < t * kDHead; i += kAttnThreads) {
-    const int r = i / kDHead, d = i % kDHead;
-    const T* src = qkv + (row0 + r) * 3 * h + head * kDHead + d;
-    q[r * kQkvLd + d] = to_f32(src[0]);
-    k[r * kQkvLd + d] = to_f32(src[h]);
-    v[r * kQkvLd + d] = to_f32(src[2 * h]);
-    g[r * kQkvLd + d] = to_f32(dout[(row0 + r) * h + head * kDHead + d]);
-  }
-  for (int i = tid; i < t * t; i += kAttnThreads)
-    ps[i] = to_f32(p[pofs + i]);
-  __syncthreads();
-  const bool drop = drop_p.on();
-  if (drop) {
-    const float sc = round_to<T>(scale);
-    for (int i = tid; i < t * t; i += kAttnThreads)
-      s[i] = drop_p.bit(pofs + i) >= thr ? round_to<T>(ps[i] * sc) : -1.f;
-    __syncthreads();
-  }
-
-  // dv[j] = sum_i p_drop[i, j] do[i]
-  for (int i = tid; i < t * kDHead; i += kAttnThreads) {
-    const int j = i / kDHead, d = i % kDHead;
-    float acc = 0.f;
-    for (int r = 0; r < t; ++r) {
-      const float pd = drop ? fmaxf(s[r * t + j], 0.f) : ps[r * t + j];
-      acc = fmaf(pd, g[r * kQkvLd + d], acc);
+attention_strip_tile(const float* qkv, const int* __restrict__ mask,
+                     const DropSrc& drop_p, unsigned thr, float scale,
+                     float* p_out, float* ctx, int nb, int t, int h,
+                     float inv, int b, int head, float* sm) {
+  float* qs = sm;
+  float* ks = qs + kStripEl;
+  float* vs = ks + kStripEl;
+  float* ps = vs + kStripEl;   // (64, 65) dropped probabilities
+  float* kb = ps + kStripEl;   // (64) the key strip's biases
+  const int rg = threadIdx.x / 8, cg = threadIdx.x % 8;
+  const size_t row0 = (size_t)b * t, ld = 3 * (size_t)h;
+  const float* q = qkv + row0 * ld + head * kDHead;
+  const size_t pofs = ((size_t)head * nb + b) * t * t;   // [head*B + b]
+  // key strip k0 (and its values): the additive bias of a key is 0, or
+  // finfo(float32).min where masked, -inf past t (no weight)
+  auto load_keys = [&](int k0, bool values) {
+    load_strip(ks, q + h, ld, k0, t);
+    if (values) load_strip(vs, q + 2 * h, ld, k0, t);
+    for (int j = threadIdx.x; j < kStrip; j += kAttnThreads)
+      kb[j] = k0 + j >= t ? neg_inf()
+              : (mask[row0 + k0 + j] != 0 ? 0.f : -FLT_MAX);
+  };
+  // the thread's scores of query strip q0 against the staged key strip
+  auto scores = [&](float (&s)[4][8]) {
+    strip_abt(s, qs, ks, rg, cg);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) s[a][c] = s[a][c] * inv + kb[cg + 8 * c];
+  };
+  for (int q0 = 0; q0 < t; q0 += kStrip) {
+    __syncthreads();   // the previous strip is done with every buffer
+    load_strip(qs, q, ld, q0, t);
+    // pass 1: each row's maximum and its sum of exp(s - max)
+    float mx[4], sum[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      mx[a] = neg_inf();
+      sum[a] = 0.f;
     }
-    dqkv[(row0 + j) * 3 * h + 2 * h + head * kDHead + d] =
-        from_f32<T>(acc);
-  }
-  if (drop) __syncthreads();   // s is overwritten with dp below
-  // dp[i, j] = do[i] . v[j], masked like the probabilities (f32 scale)
-  for (int i = tid; i < t * t; i += kAttnThreads) {
-    const int qi = i / t, kj = i % t;
-    float acc = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < kDHead; ++d)
-      acc = fmaf(g[qi * kQkvLd + d], v[kj * kQkvLd + d], acc);
-    if (drop) acc = s[i] >= 0.f ? acc * scale : 0.f;
-    s[i] = acc;
-  }
-  __syncthreads();
-
-  // ds = r(p (dp - sum_j dp p) / sqrt(d)), one warp per query row
-  const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < t; r += kAttnThreads / 32) {
-    float* sr = s + r * t;
-    const float* pr = ps + r * t;
-    float dot = 0.f;
-    for (int j = lane; j < t; j += 32) dot += sr[j] * pr[j];
-    dot = warp_sum(dot);
-    for (int j = lane; j < t; j += 32)
-      sr[j] = round_to<T>(pr[j] * (sr[j] - dot) * inv);
-  }
-  __syncthreads();
-
-  // dq[i] = sum_j ds[i, j] k[j];  dk[j] = sum_i ds[i, j] q[i]
-  for (int i = tid; i < t * kDHead; i += kAttnThreads) {
-    const int r = i / kDHead, d = i % kDHead;
-    float aq = 0.f, ak = 0.f;
-    for (int j = 0; j < t; ++j) {
-      aq = fmaf(s[r * t + j], k[j * kQkvLd + d], aq);
-      ak = fmaf(s[j * t + r], q[j * kQkvLd + d], ak);
+    for (int k0 = 0; k0 < t; k0 += kStrip) {
+      __syncthreads();
+      load_keys(k0, false);
+      __syncthreads();
+      float s[4][8];
+      scores(s);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        float m = neg_inf();
+#pragma unroll
+        for (int c = 0; c < 8; ++c) m = fmaxf(m, s[a][c]);
+        const float mn = fmaxf(mx[a], row8_max(m));
+        float add = 0.f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) add += expf(s[a][c] - mn);
+        sum[a] = sum[a] * expf(mx[a] - mn) + row8_sum(add);
+        mx[a] = mn;
+      }
     }
-    T* dst = dqkv + (row0 + r) * 3 * h + head * kDHead + d;
-    dst[0] = from_f32<T>(aq);
-    dst[h] = from_f32<T>(ak);
+    // pass 2: p = exp(s - max) / sum, saved, dropped; o += P.V
+    float o[4][8];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) o[a][c] = 0.f;
+    for (int k0 = 0; k0 < t; k0 += kStrip) {
+      __syncthreads();
+      load_keys(k0, true);
+      __syncthreads();
+      float s[4][8];
+      scores(s);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int row = q0 + 4 * rg + a;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int key = k0 + cg + 8 * c;
+          float pv = 0.f;
+          if (row < t && key < t) {
+            const size_t at = pofs + (size_t)row * t + key;
+            pv = expf(s[a][c] - mx[a]) / sum[a];
+            if (p_out) p_out[at] = pv;
+            if (drop_p.on())
+              pv = drop_to<float>(pv, drop_p.bit(at), thr, scale);
+          }
+          ps[(4 * rg + a) * kStripLd + cg + 8 * c] = pv;
+        }
+      }
+      __syncthreads();
+      strip_ab<false>(o, ps, vs, min(kStrip, t - k0), rg, cg);
+    }
+    store_strip(ctx + row0 * h + head * kDHead, h, o, q0, t, rg, cg);
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kAttnThreads)
-attention_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
-                          const T* __restrict__ dout, DropSrc drop_p,
-                          unsigned thr, float scale, T* __restrict__ dqkv,
-                          int nb, int t, int h, float inv) {
-  extern __shared__ float attn_sm[];
-  attention_core_bwd_tile<T>(qkv, p, dout, drop_p, thr, scale, dqkv, nb, t, h,
-                             inv, blockIdx.x, blockIdx.y, attn_sm);
+attention_strip_kernel(const float* __restrict__ qkv,
+                       const int* __restrict__ mask, DropSrc drop_p,
+                       unsigned thr, float scale, float* __restrict__ p_out,
+                       float* __restrict__ ctx, int nb, int t, int h,
+                       float inv) {
+  extern __shared__ float attn_strip_sm[];
+  attention_strip_tile(qkv, mask, drop_p, thr, scale, p_out, ctx, nb, t, h,
+                       inv, blockIdx.x, blockIdx.y, attn_strip_sm);
+}
+
+// Caption b, head `head`, f32: the per-head backward from p (before
+// dropout) and do = d(context), into that head's slices of dqkv. smem:
+// attn_strip_bwd_smem_bytes(t).
+__device__ __forceinline__ void
+attention_strip_bwd_tile(const float* qkv, const float* p, const float* dout,
+                         const DropSrc& drop_p, unsigned thr, float scale,
+                         float* dqkv, int nb, int t, int h, float inv, int b,
+                         int head, float* sm) {
+  float* qs = sm;
+  float* ks = qs + kStripEl;
+  float* vs = ks + kStripEl;
+  float* gs = vs + kStripEl;   // do
+  float* ds = gs + kStripEl;   // (64, 65) ds, query rows by key columns
+  float* pd = ds + kStripEl;   // (64, 65) the dropped probabilities
+  float* dot = pd + kStripEl;  // (t) sum_j dp p of each query row
+  const int rg = threadIdx.x / 8, cg = threadIdx.x % 8;
+  const size_t row0 = (size_t)b * t, ld = 3 * (size_t)h;
+  const float* q = qkv + row0 * ld + head * kDHead;
+  const float* g = dout + row0 * h + head * kDHead;
+  float* dq = dqkv + row0 * ld + head * kDHead;
+  const size_t pofs = ((size_t)head * nb + b) * t * t;
+  const bool drop = drop_p.on();
+  // element (i, j): p, whether it is kept, and dp (the thread's do . v^T
+  // value a), dropped like the probabilities (f32 scale)
+  auto prob = [&](int i, int j, float a, float& pr, bool& keep, float& dp) {
+    const size_t at = pofs + (size_t)i * t + j;
+    pr = p[at];
+    keep = !drop || drop_p.bit(at) >= thr;
+    dp = drop ? (keep ? a * scale : 0.f) : a;
+  };
+  // phase A, per query strip: the row sums, then ds and dq = ds . k
+  for (int i0 = 0; i0 < t; i0 += kStrip) {
+    __syncthreads();
+    load_strip(gs, g, h, i0, t);
+    float dotr[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int j0 = 0; j0 < t; j0 += kStrip) {
+      __syncthreads();
+      load_strip(vs, q + 2 * h, ld, j0, t);
+      __syncthreads();
+      float a[4][8];
+      strip_abt(a, gs, vs, rg, cg);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int i = i0 + 4 * rg + r, j = j0 + cg + 8 * c;
+          if (i < t && j < t) {
+            float pr, dp;
+            bool keep;
+            prob(i, j, a[r][c], pr, keep, dp);
+            dotr[r] += dp * pr;
+          }
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      dotr[r] = row8_sum(dotr[r]);
+      if (cg == 0) dot[i0 + 4 * rg + r] = dotr[r];
+    }
+    float acc[4][8];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+    for (int j0 = 0; j0 < t; j0 += kStrip) {
+      __syncthreads();
+      load_strip(vs, q + 2 * h, ld, j0, t);
+      load_strip(ks, q + h, ld, j0, t);
+      __syncthreads();
+      float a[4][8];
+      strip_abt(a, gs, vs, rg, cg);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int i = i0 + 4 * rg + r, j = j0 + cg + 8 * c;
+          float s = 0.f;
+          if (i < t && j < t) {
+            float pr, dp;
+            bool keep;
+            prob(i, j, a[r][c], pr, keep, dp);
+            s = pr * (dp - dotr[r]) * inv;
+          }
+          ds[(4 * rg + r) * kStripLd + cg + 8 * c] = s;
+        }
+      __syncthreads();
+      strip_ab<false>(acc, ds, ks, min(kStrip, t - j0), rg, cg);
+    }
+    store_strip(dq, ld, acc, i0, t, rg, cg);
+  }
+  // phase B, per key strip: dk = ds^T . q and dv = p_drop^T . do over the
+  // query strips
+  for (int j0 = 0; j0 < t; j0 += kStrip) {
+    __syncthreads();
+    load_strip(ks, q + h, ld, j0, t);
+    load_strip(vs, q + 2 * h, ld, j0, t);
+    float ak[4][8], av[4][8];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) ak[r][c] = av[r][c] = 0.f;
+    for (int i0 = 0; i0 < t; i0 += kStrip) {
+      __syncthreads();
+      load_strip(qs, q, ld, i0, t);
+      load_strip(gs, g, h, i0, t);
+      __syncthreads();
+      float a[4][8];
+      strip_abt(a, gs, vs, rg, cg);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int i = i0 + 4 * rg + r, j = j0 + cg + 8 * c;
+          float s = 0.f, pdv = 0.f;
+          if (i < t && j < t) {
+            float pr, dp;
+            bool keep;
+            prob(i, j, a[r][c], pr, keep, dp);
+            s = pr * (dp - dot[i]) * inv;
+            pdv = keep ? (drop ? pr * scale : pr) : 0.f;
+          }
+          ds[(4 * rg + r) * kStripLd + cg + 8 * c] = s;
+          pd[(4 * rg + r) * kStripLd + cg + 8 * c] = pdv;
+        }
+      __syncthreads();
+      const int n = min(kStrip, t - i0);
+      strip_ab<true>(ak, ds, qs, n, rg, cg);
+      strip_ab<true>(av, pd, gs, n, rg, cg);
+    }
+    store_strip(dq + h, ld, ak, j0, t, rg, cg);
+    store_strip(dq + 2 * h, ld, av, j0, t, rg, cg);
+  }
+}
+
+__global__ void __launch_bounds__(kAttnThreads)
+attention_strip_bwd_kernel(const float* __restrict__ qkv,
+                           const float* __restrict__ p,
+                           const float* __restrict__ dout, DropSrc drop_p,
+                           unsigned thr, float scale,
+                           float* __restrict__ dqkv, int nb, int t, int h,
+                           float inv) {
+  extern __shared__ float attn_strip_sm[];
+  attention_strip_bwd_tile(qkv, p, dout, drop_p, thr, scale, dqkv, nb, t, h,
+                           inv, blockIdx.x, blockIdx.y, attn_strip_sm);
 }
 
 // ---------------------------------------------------------------------------
@@ -3133,10 +3414,10 @@ attention_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ p,
 // each rounded into the pair's slices of dqkv (B t, 3 h).
 //
 // Bound on the H100: bytes. At B 32, T 24, 12 heads: 0.11 GFLOP against
-// 5.2 MB of q, k, v, do, p and dqkv; the scalar tile (f32 FMA, everything
-// staged as f32, one block a pair) took 32 us on the H100, a quarter of K6
-// (PERF.md), and held 4 (t, 64) + 2 (t, t) f32, so training stopped at
-// t = 64.
+// 5.2 MB of q, k, v, do, p and dqkv; the scalar tile it replaced in bf16
+// (f32 FMA, everything staged as f32, one block a pair) took 32 us on the
+// H100, a quarter of K6 (PERF.md), and held 4 (t, 64) + 2 (t, t) f32, so
+// training stopped at t = 64.
 //
 // This design (mma.sync m16n8k16, bf16 in, f32 accumulation; the fragment
 // and ldmatrix scheme of attention_mma_tile above):

@@ -41,14 +41,23 @@
 //   the tensor core ignores the low 13 bits of a TF32 operand.
 // - Image j's regions are read once a block from L2 (256 blocks at the
 //   flagship: 51 MB, where one block per pair read 410 MB).
-// - The gamma1 softmax over streamed regions subtracts the fixed bound
-//   max(gamma1, 0) of gamma1 p (p is a softmax over words, in [0, 1]), so
-//   the context accumulator needs no rescaling; the sums S are divided out
-//   once, at the end. Every term is at least exp(-|gamma1|), a normal f32
-//   number while |gamma1| <= 60 (the wrapper refuses more), so the sums
-//   cannot underflow, and the plain version's eps clamp on them (a sum of
-//   at least 1) never acts. S rides on the tensor cores too: a row of ones
-//   times E (mma.sync).
+// - The gamma1 softmax over streamed regions subtracts an offset from
+//   gamma1 p (p is a softmax over words, in [0, 1]); the sums S are divided
+//   out once, at the end. While |gamma1| <= kFixedGamma1 (60) the offset is
+//   the fixed bound max(gamma1, 0): every term is at least exp(-|gamma1|),
+//   a normal f32 number, so the sums cannot underflow and the context
+//   accumulator needs no rescaling. Past it (ONLINE, an instantiation of
+//   its own, so that the fixed offset's keeps its registers free of
+//   spills: in one kernel the flagship took 9 % longer) the offset of a word
+//   column is the running maximum of gamma1 p over the region blocks seen,
+//   as an online softmax keeps it: each block's exponents first go to E
+//   raw, the column maxima over the block's regions raise the running
+//   ones, and where a maximum rises the column's context sums and S are
+//   scaled by exp of the rise before the block's products; so the largest
+//   term of every column is 1 and no sum underflows at any gamma1 (the TPU
+//   kernel subtracts the true maximum). Either way the plain version's eps
+//   clamp on the sums (a sum of at least 1) never acts. S rides on the
+//   tensor cores too: a row of ones times E (mma.sync).
 // - No limit on regions x words: the logit tiles are 32 x N whatever R and
 //   T. Where one caption's T words do not fit in N columns (the long
 //   path), a block takes one caption in chunks of N words: a first pass
@@ -62,6 +71,27 @@
 // - The softmax works in base 2 (exp2 of v log2 e), a lane's words of a
 //   segment in registers; the cosine partials are summed over a warp's
 //   lanes by a transpose-reduce (7 exchanges for 6 values).
+// - Any feature width D. Up to 512 features a block holds the whole of D:
+//   its word tile (D x N) and the region ring (2 x D x 32) are what grow,
+//   and the context sums a thread holds in registers (N 96 up to D 256,
+//   N 32 up to 512). Past 512 (the wide path) D is split into `slices` of
+//   at most 512 rows, the blocks of one launch a slice: the logits
+//   need the whole of D before the softmax over words, but the cosine's
+//   three sums (word . context, |word|^2, |context|^2) add over D. So a
+//   first kernel (damsm_logits_kernel, f32 FMA, 32 regions by 32 words a
+//   tile) writes the long path's scratch, every pair's masked logits and
+//   each region's softmax statistics over words, over the whole of D;
+//   then the long path's second pass runs on each slice of D, a launch a
+//   slice (its words and regions rows, the logits read back, the same
+//   tiling as D 512), each block writing its three cosine sums per word
+//   (`wpart`); a last
+//   kernel (damsm_finish_kernel) adds the slices' sums in order and takes
+//   the cosines and the gamma2 log-sum-exp. Fewer word columns a block
+//   would have kept D in one block only to a bound (the ring alone is
+//   256 KB at D 1024), and a cluster would hold the slices' partial sums in
+//   distributed shared memory only while a cluster's blocks fit the card;
+//   the split over blocks takes any D at the cost of the logits' scratch
+//   (4 B B R T, the long path's) and a region block read once a slice.
 // Deterministic: no float atomics; every sum runs in a fixed order.
 // The launch plan (path, captions a block, shared memory) comes from
 // ops/damsm.py `damsm_plan`; the launcher checks only that a tiling takes
@@ -77,14 +107,22 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRC = 32;          // regions a block of the ring
 constexpr float kBig = 1e30f;    // masking without -inf, as the TPU kernel
 constexpr float kLog2e = 1.4426950408889634f;   // exp(x) = exp2(x log2 e)
+// the largest |gamma1| whose gamma1 softmax takes the fixed offset
+// max(gamma1, 0): exp(-60) ~ 8.8e-27 is a normal f32 number
+constexpr float kFixedGamma1 = 60.f;
+constexpr int kMaxSliceD = 512;  // features a block holds (the wide path's slice)
 
 struct Shape {
-  int b, d, t, r;   // words (b, d, t), regions (b, d, r)
-  int dp;           // d rounded up to a multiple of 16
+  int b, d, t, r;   // words (b, d, t), regions (b, d, r); on the wide path
+                    // d is the rows of the block's slice
+  int dld;          // the features of a caption or image (the long path's
+                    // row stride; the short path's is d)
+  int dp;           // d rounded up to a multiple of 16 (wide: the slice's)
   int g;            // captions a block (short path); 1 on the long path
   int lng;          // 1: the long path
   int vec;          // 1: regions copied 16 bytes at a time; 2: words 8
   int tp;           // long path: t rounded up to 8, a kept logits row
+  int slices;       // slices of D (the wide path: more than 1)
   float gamma1, gamma2, eps, off1;   // off1 = max(gamma1, 0)
 };
 
@@ -259,7 +297,8 @@ __device__ void load_words(float* ws, float* cm, const float* words,
     for (int h = 0; h < 2; ++h) {
       const int n = 2 * (lane + 32 * k) + h;
       const int i = LNG ? i0 : i0 + n / s.t, tt = LNG ? c0 + n : n % s.t;
-      off[k][h] = n < ncols ? (long long)i * s.d * s.t + tt : -1;
+      off[k][h] = n < ncols ? (long long)i * (LNG ? s.dld : s.d) * s.t + tt
+                            : -1;
     }
   for (int dd = warp; dd < s.dp; dd += kWarps) {
     const bool row = dd < s.d;
@@ -391,12 +430,20 @@ __device__ __forceinline__ float group_sum(float v, int k) {
 // ctx' (dp x N) runs on wgmma, a warpgroup's 64 feature rows (and 256 more
 // for MTW = 2) by N / WN columns: warp w has row tiles w % WM (+ 16), column
 // tiles (w / WM) NTW + l, l < NTW, in wgmma's accumulator layout.
-template <int MTW, int NTW, int WN, bool LNG>
+// On the wide path (s.slices > 1, the long path) a launch takes one slice
+// of D (words and regions at the slice's first row, s.d its rows) and runs
+// the second pass alone, from the logits and statistics of
+// damsm_logits_kernel, writing its cosine sums to the slice's wpart.
+// ONLINE: the gamma1 offset is each column's running maximum (|gamma1|
+// past kFixedGamma1), an instantiation of its own, so that the fixed
+// offset's keeps its registers (48 context sums a thread) free of spills.
+template <int MTW, int NTW, int WN, bool LNG, bool ONLINE>
 __global__ void __launch_bounds__(kThreads, 1)
 damsm_kernel(const float* __restrict__ words,
              const float* __restrict__ regions,
              const float* __restrict__ mask, float* __restrict__ sim,
-             float* __restrict__ stats, float* __restrict__ kept, Shape s) {
+             float* __restrict__ stats, float* __restrict__ kept,
+             float* __restrict__ wpart, Shape s) {
   constexpr int N = 8 * NTW * WN, NW = N / WN, LDL = N + 4, WM = kWarps / WN;
   constexpr int OT = (N / 8 + kWarps - 1) / kWarps;  // ones tiles a warp
   extern __shared__ __align__(128) unsigned char dsm[];
@@ -412,7 +459,10 @@ damsm_kernel(const float* __restrict__ words,
   float* S = l1 + kRC * LDL;            // (N) gamma1 sums per word
   float* cm = S + N;                    // (N) word mask, 0 for padding
   float* zs = cm + N;                   // (N) smoothed cosines
+  float* gm = zs + N;                   // (N) online: running gamma1 maxima
+  float* gf = gm + N;                   // (N) online: their rescale factors
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bool wide = LNG && s.slices > 1;
   const int gid = lane / 4, tig = lane % 4;
   const int wm = warp % WM, wn = warp / WM;
   const int j = blockIdx.y;
@@ -420,14 +470,14 @@ damsm_kernel(const float* __restrict__ words,
   const int gcount = LNG ? 1 : min(s.g, s.b - i0);
   const int nwc = LNG ? (s.t + N - 1) / N : 1;
   const int nrc = (s.r + kRC - 1) / kRC;
-  const float* rj = regions + (size_t)j * s.d * s.r;
+  const float* rj = regions + (size_t)j * (LNG ? s.dld : s.d) * s.r;
   float* st = LNG ? stats + ((size_t)j * s.b + i0) * s.r * 2 : nullptr;
   float* lgp = LNG ? kept + ((size_t)j * s.b + i0) * s.r * s.tp : nullptr;
   float zmax = -FLT_MAX, zsum = 0.f;    // the long path's online LSE
 
   // pass 0: the long path's softmax statistics over words, per region;
   // pass 1: the context, the cosines and the log-sum-exp
-  for (int pass = LNG ? 0 : 1; pass < 2; ++pass) {
+  for (int pass = LNG && !wide ? 0 : 1; pass < 2; ++pass) {
     for (int wc = 0; wc < nwc; ++wc) {
       const int c0 = wc * N;
       const int ncols = LNG ? min(N, s.t - c0) : gcount * s.t;
@@ -441,6 +491,8 @@ damsm_kernel(const float* __restrict__ words,
       const bool reread = LNG && pass == 1;
       __syncthreads();   // the previous chunk is done with every buffer
       load_words<N, LNG>(ws, cm, words, mask, s, i0, c0, ncols, ncp);
+      if constexpr (ONLINE)
+        for (int n = tid; n < N; n += kThreads) gm[n] = -FLT_MAX;
       load_regions(rg, rj, s, 0);
       if (reread) load_logits(l0, lgp, s, 0, min(kRC, s.r), c0, ncp, LDL);
       float acc[MTW][4 * NTW], sacc[OT][4];
@@ -539,16 +591,41 @@ damsm_kernel(const float* __restrict__ words,
           for (int u = 0; u < kPerLane; ++u) {
             const int n = sl + u * sk;
             if (n < slen) {
-              const float e = exp2f(g1 * (v[u] * inv) - o1);
-              unsigned hi, lo;
-              split(e, hi, lo);
-              const int at = eix(g * slen + n, rr);
-              E[at] = __uint_as_float(hi);
-              E[N * kRC + at] = __uint_as_float(lo);
+              if constexpr (ONLINE) {     // the exponent, raw, until the offset
+                E[eix(g * slen + n, rr)] = g1 * (v[u] * inv);
+              } else {
+                const float e = exp2f(g1 * (v[u] * inv) - o1);
+                unsigned hi, lo;
+                split(e, hi, lo);
+                const int at = eix(g * slen + n, rr);
+                E[at] = __uint_as_float(hi);
+                E[N * kRC + at] = __uint_as_float(lo);
+              }
             }
           }
         }
         if (pass == 0) continue;
+        if constexpr (ONLINE) {
+          // each column's maximum over the block's regions raises its
+          // running one (the rise's factor kept for the sums); then the
+          // terms exp2(x - max), split
+          __syncthreads();
+          for (int n = tid; n < ncols; n += kThreads) {
+            float m = -FLT_MAX;
+            for (int q = 0; q < rows; ++q) m = fmaxf(m, E[eix(n, q)]);
+            const float mo = gm[n], mn = fmaxf(mo, m);
+            gm[n] = mn;
+            gf[n] = exp2f(mo - mn);
+          }
+          __syncthreads();
+          for (int e = tid; e < rows * ncols; e += kThreads) {
+            const int n = e % ncols, at = eix(n, e / ncols);
+            unsigned hi, lo;
+            split(exp2f(E[at] - gm[n]), hi, lo);
+            E[at] = __uint_as_float(hi);
+            E[N * kRC + at] = __uint_as_float(lo);
+          }
+        }
         // regions past the last one weigh nothing
         const int kp = (rows + 7) / 8 * 8;
         for (int e = tid; e < (kp - rows) * N; e += kThreads) {
@@ -558,6 +635,32 @@ damsm_kernel(const float* __restrict__ words,
         }
         tgfr::fence_proxy_async();   // E, to wgmma's proxy
         __syncthreads();
+        if constexpr (ONLINE) {
+          // the context sums and S of a column whose maximum rose, scaled
+          // (accumulator layouts: acc columns (wn NTW + l) 8 + 2 tig + h,
+          // sacc columns (warp + 16 o) 8 + 2 tig + h)
+#pragma unroll
+          for (int l = 0; l < NTW; ++l)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int n = (wn * NTW + l) * 8 + 2 * tig + h;
+              const float f = n < ncols ? gf[n] : 1.f;
+#pragma unroll
+              for (int mi = 0; mi < MTW; ++mi) {
+                acc[mi][4 * l + h] *= f;
+                acc[mi][4 * l + 2 + h] *= f;
+              }
+            }
+#pragma unroll
+          for (int o = 0; o < OT; ++o)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int n = (warp + kWarps * o) * 8 + 2 * tig + h;
+              const float f = n < ncols ? gf[n] : 1.f;
+              sacc[o][h] *= f;
+              sacc[o][2 + h] *= f;
+            }
+        }
         // ctx' (dp x N) += regions_block (dp x 32) . E (32 x N), 3xTF32 on
         // wgmma, k-step by k-step: the A fragment (the warp's rows, a row
         // tile past dp reading the last one's rows, never read; regions
@@ -679,11 +782,19 @@ damsm_kernel(const float* __restrict__ words,
           nw += part[(kWarps + ww) * N + n];
           nc += part[(2 * kWarps + ww) * N + n];
         }
+        if (wide) {   // the slice's three sums, for damsm_finish_kernel
+          float* o = wpart + (((size_t)j * s.b + i0) * s.tp + c0 + n) * 3;
+          o[0] = num;
+          o[1] = nw;
+          o[2] = nc;
+          continue;
+        }
         const float cs = num / fmaxf(sqrtf(nw) * sqrtf(nc), s.eps);
         zs[n] = cs * s.gamma2 + (cm[n] - 1.f) * kBig;
       }
       __syncthreads();
       // gamma2 log-sum-exp over each caption's words
+      if (wide) continue;
       if (LNG) {
         if (warp == 0) {
           float mx = -FLT_MAX;
@@ -715,6 +826,131 @@ damsm_kernel(const float* __restrict__ words,
   }
 }
 
+// The wide path's first kernel: for pair (image j, caption i) and regions
+// r0 .. r0 + 31 (blockIdx x, y, z = region block, caption, image), the
+// logits over the whole of D, f32 FMA, words in tiles of 32 (a thread: 4
+// regions by 2 words, D in chunks of 32 rows through shared memory),
+// masked and in base 2 as the long path's first pass keeps them (`kept`),
+// and each region's maximum and sum of exp2 over the words, merged over
+// the word tiles as that pass merges its chunks (`stats`).
+constexpr int kLgThreads = 128, kLgR = 32, kLgW = 32, kLgD = 32;
+
+__global__ void __launch_bounds__(kLgThreads)
+damsm_logits_kernel(const float* __restrict__ words,
+                    const float* __restrict__ regions,
+                    const float* __restrict__ mask, float* __restrict__ stats,
+                    float* __restrict__ kept, Shape s) {
+  __shared__ float rs[kLgD][kLgR];
+  __shared__ float wt[kLgD][kLgW];
+  const int tid = threadIdx.x, rg = tid / 16, cg = tid % 16;
+  const int r0 = blockIdx.x * kLgR, i = blockIdx.y, j = blockIdx.z;
+  const float* rj = regions + (size_t)j * s.dld * s.r;
+  const float* wi = words + (size_t)i * s.dld * s.t;
+  const size_t pair = (size_t)j * s.b + i;
+  float mx[4], sum[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    mx[a] = -FLT_MAX;
+    sum[a] = 0.f;
+  }
+  for (int w0 = 0; w0 < s.t; w0 += kLgW) {
+    float acc[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+    for (int d0 = 0; d0 < s.dld; d0 += kLgD) {
+      __syncthreads();   // the previous chunk is read
+      for (int e = tid; e < kLgD * kLgR; e += kLgThreads) {
+        const int dd = d0 + e / kLgR, rr = r0 + e % kLgR;
+        rs[e / kLgR][e % kLgR] =
+            dd < s.dld && rr < s.r ? rj[(size_t)dd * s.r + rr] : 0.f;
+      }
+      for (int e = tid; e < kLgD * kLgW; e += kLgThreads) {
+        const int dd = d0 + e / kLgW, ww = w0 + e % kLgW;
+        wt[e / kLgW][e % kLgW] =
+            dd < s.dld && ww < s.t ? wi[(size_t)dd * s.t + ww] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int dd = 0; dd < kLgD; ++dd) {
+        float rv[4], wv[2];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) rv[a] = rs[dd][4 * rg + a];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) wv[c] = wt[dd][cg + 16 * c];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) acc[a][c] = fmaf(rv[a], wv[c], acc[a][c]);
+      }
+    }
+    // masked, base 2; kept; the tile's maximum and sum merged per region
+    // (the 16 lanes of a region group: lane bits 0-3)
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int rr = r0 + 4 * rg + a;
+      float v[2], m = -FLT_MAX;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int ww = w0 + cg + 16 * c;
+        v[c] = -FLT_MAX;
+        if (ww < s.t) {
+          const float mk = mask ? mask[(size_t)i * s.t + ww] : 1.f;
+          v[c] = (acc[a][c] + (mk - 1.f) * kBig) * kLog2e;
+          if (rr < s.r) kept[(pair * s.r + rr) * s.tp + ww] = v[c];
+        }
+        m = fmaxf(m, v[c]);
+      }
+      for (int o = 1; o < 16; o *= 2)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      float add = exp2f(v[0] - m) + exp2f(v[1] - m);
+      for (int o = 1; o < 16; o *= 2)
+        add += __shfl_xor_sync(0xffffffffu, add, o);
+      const float mn = fmaxf(mx[a], m);
+      sum[a] = sum[a] * exp2f(mx[a] - mn) + add * exp2f(m - mn);
+      mx[a] = mn;
+    }
+  }
+  if (cg == 0) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int rr = r0 + 4 * rg + a;
+      if (rr < s.r) {
+        stats[(pair * s.r + rr) * 2] = mx[a];
+        stats[(pair * s.r + rr) * 2 + 1] = sum[a];
+      }
+    }
+  }
+}
+
+// The wide path's last kernel: pair (image j = blockIdx.y, caption
+// i = blockIdx.x), one warp: each word's three sums added over the slices
+// in order, its cosine, and the gamma2 log-sum-exp over the words.
+__global__ void __launch_bounds__(32)
+damsm_finish_kernel(const float* __restrict__ wpart,
+                    const float* __restrict__ mask, float* __restrict__ sim,
+                    Shape s) {
+  const int i = blockIdx.x, j = blockIdx.y, lane = threadIdx.x;
+  const size_t slice = (size_t)s.b * s.b * s.tp * 3;
+  const float* p = wpart + ((size_t)j * s.b + i) * s.tp * 3;
+  auto z = [&](int n) {
+    float num = 0.f, nw = 0.f, nc = 0.f;
+    for (int k = 0; k < s.slices; ++k) {
+      const float* o = p + k * slice + (size_t)n * 3;
+      num += o[0];
+      nw += o[1];
+      nc += o[2];
+    }
+    const float cs = num / fmaxf(sqrtf(nw) * sqrtf(nc), s.eps);
+    const float mk = mask ? mask[(size_t)i * s.t + n] : 1.f;
+    return cs * s.gamma2 + (mk - 1.f) * kBig;
+  };
+  float mx = -FLT_MAX;
+  for (int n = lane; n < s.t; n += 32) mx = fmaxf(mx, z(n));
+  mx = tgfr::warp_max(mx);
+  float sum = 0.f;
+  for (int n = lane; n < s.t; n += 32) sum += expf(z(n) - mx);
+  sum = tgfr::warp_sum(sum);
+  if (lane == 0) sim[(size_t)j * s.b + i] = logf(fmaxf(sum, 1e-38f)) + mx;
+}
+
 // The tiling that takes dp features and n word columns: 0 (N 96, two
 // warps a column tile), 1 (N 96), 2 (N 32, two 64-row context tiles a
 // warpgroup), or -1 where none does
@@ -725,19 +961,32 @@ int tiling(int dp, int n) {
                                              : -1;
 }
 
+// One launch, or on the wide path one a slice of D: its words and regions
+// from the slice's first row, its rows in s.d, its share of wpart.
 template <int MTW, int NTW, int WN>
 cudaError_t launch(const float* words, const float* regions,
                    const float* mask, float* sim, float* stats, float* kept,
-                   const Shape& s, size_t smem, cudaStream_t stream) {
-  auto* k = s.lng ? damsm_kernel<MTW, NTW, WN, true>
-                  : damsm_kernel<MTW, NTW, WN, false>;
-  const cudaError_t err = cudaFuncSetAttribute(
+                   float* wpart, const Shape& s, size_t smem,
+                   cudaStream_t stream) {
+  const bool online = fabsf(s.gamma1) > kFixedGamma1;
+  auto* k = s.lng ? (online ? damsm_kernel<MTW, NTW, WN, true, true>
+                            : damsm_kernel<MTW, NTW, WN, true, false>)
+                  : (online ? damsm_kernel<MTW, NTW, WN, false, true>
+                            : damsm_kernel<MTW, NTW, WN, false, false>);
+  cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(s.lng ? s.b : (s.b + s.g - 1) / s.g, s.b);
-  k<<<grid, kThreads, smem, stream>>>(words, regions, mask, sim, stats, kept,
-                                      s);
-  return cudaGetLastError();
+  for (int z = 0; z < s.slices && err == cudaSuccess; ++z) {
+    Shape sz = s;
+    sz.d = s.slices > 1 ? std::min(s.dp, s.d - z * s.dp) : s.d;
+    k<<<grid, kThreads, smem, stream>>>(
+        words + (size_t)z * s.dp * s.t, regions + (size_t)z * s.dp * s.r,
+        mask, sim, stats, kept,
+        wpart ? wpart + (size_t)z * s.b * s.b * s.tp * 3 : nullptr, sz);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 }  // namespace
@@ -745,53 +994,71 @@ cudaError_t launch(const float* words, const float* regions,
 // Shared memory of a block, in bytes, as the kernel lays it out: 1024 to
 // align E for wgmma, E's hi and lo tiles, the word tile, the region ring
 // (reused by the cosine partials), the two logit tiles, and per word column
-// its sum, mask and cosine; 0 where no tiling takes (dp, n). ops/damsm.py
-// `damsm_smem` is its copy for the CPU tests; a card test holds the two
-// equal.
+// its sum, mask, cosine, running gamma1 maximum and rescale factor; 0
+// where no tiling takes (dp, n). ops/damsm.py `damsm_smem` is its copy for
+// the CPU tests; a card test holds the two equal.
 TGFR_API int tgfr_damsm_smem(int dp, int n) {
   if (dp < 16 || dp % 16 != 0 || tiling(dp, n) < 0) return 0;
   const int ring = std::max(2 * dp * kRC, 3 * kWarps * n);
   return 1024 + static_cast<int>(sizeof(float)) *
-                    (2 * n * kRC + dp * n + ring + 2 * kRC * (n + 4) + 3 * n);
+                    (2 * n * kRC + dp * n + ring + 2 * kRC * (n + 4) + 5 * n);
 }
 
 // words (b, d, t), regions (b, d, r), mask (b, t) f32 (1 = valid word) or
 // null (all valid); sim (b, b), sim[j, i] for image j and caption i; on
 // the long path f32 scratch stats (b, b, r, 2) and kept (b, b, r, t
-// rounded up to 8), else null. The plan (n: a block's word columns; g:
-// captions a block; lng: the long path; smem) is ops/damsm.py
-// `damsm_plan`, which holds its rules; this checks only that a tiling takes
-// it and that its blocks stay inside their buffers.
+// rounded up to 8), else null; on the wide path (slices > 1) also wpart
+// (slices, b, b, t rounded up to 8, 3), else null. The plan (n: a block's
+// word columns; g: captions a block; lng: the long path; slices: of D;
+// smem) is ops/damsm.py `damsm_plan`, which holds its rules; this checks
+// only that a tiling takes it and that its blocks stay inside their
+// buffers.
 TGFR_API int tgfr_damsm_similarity(const void* words, const void* regions,
                                    const void* mask, void* sim, void* stats,
-                                   void* kept, int b, int d, int t, int r,
-                                   int n, int g, int lng, long long smem,
-                                   float gamma1, float gamma2, float eps,
-                                   void* stream) {
-  const int dp = (d + 15) / 16 * 16;
+                                   void* kept, void* wpart, int b, int d,
+                                   int t, int r, int n, int g, int lng,
+                                   int slices, long long smem, float gamma1,
+                                   float gamma2, float eps, void* stream) {
+  if (slices < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // the rows of a slice of D (all of D where slices is 1)
+  const int dp = ((d + slices - 1) / slices + 15) / 16 * 16;
   const int tile = tiling(dp, n);
-  const bool ok = b >= 1 && d >= 1 && t >= 1 && r >= 1 && tile >= 0 &&
+  const bool wide = slices > 1;
+  const bool ok = b >= 1 && t >= 1 && r >= 1 && tile >= 0 &&
                   (lng ? g == 1 && stats != nullptr && kept != nullptr
                        : g >= 1 && g * t <= n) &&
+                  (!wide || (lng && wpart != nullptr &&
+                             (slices - 1) * dp < d && dp <= kMaxSliceD)) &&
                   smem == tgfr_damsm_smem(dp, n);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  Shape s{b, d, t, r, dp, g, lng,
+  Shape s{b, d, t, r, d, dp, g, lng,
           (r % 4 == 0 && reinterpret_cast<uintptr_t>(regions) % 16 == 0) |
               (t % 2 == 0 && reinterpret_cast<uintptr_t>(words) % 8 == 0) << 1,
-          (t + 7) / 8 * 8, gamma1, gamma2, eps, fmaxf(gamma1, 0.f)};
+          (t + 7) / 8 * 8, slices, gamma1, gamma2, eps, fmaxf(gamma1, 0.f)};
   const auto* w = static_cast<const float*>(words);
   const auto* rg = static_cast<const float*>(regions);
   const auto* m = static_cast<const float*>(mask);
   auto* out = static_cast<float*>(sim);
   auto* st = static_cast<float*>(stats);
   auto* kp = static_cast<float*>(kept);
+  auto* wp = static_cast<float*>(wpart);
   const auto strm = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  if (wide) {
+    damsm_logits_kernel<<<dim3((r + kLgR - 1) / kLgR, b, b), kLgThreads, 0,
+                          strm>>>(w, rg, m, st, kp, s);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+  }
   if (tile == 0)
-    err = launch<1, 6, 2>(w, rg, m, out, st, kp, s, smem, strm);
+    err = launch<1, 6, 2>(w, rg, m, out, st, kp, wp, s, smem, strm);
   else if (tile == 1)
-    err = launch<1, 12, 1>(w, rg, m, out, st, kp, s, smem, strm);
+    err = launch<1, 12, 1>(w, rg, m, out, st, kp, wp, s, smem, strm);
   else
-    err = launch<2, 4, 1>(w, rg, m, out, st, kp, s, smem, strm);
+    err = launch<2, 4, 1>(w, rg, m, out, st, kp, wp, s, smem, strm);
+  if (err == cudaSuccess && wide) {
+    damsm_finish_kernel<<<dim3(b, b), 32, 0, strm>>>(wp, m, out, s);
+    err = cudaGetLastError();
+  }
   return static_cast<int>(err);
 }

@@ -12,8 +12,10 @@
 //
 // Design. One launch per pass: a persistent cooperative kernel whose grid
 // fills the card (the occupancy of this kernel x SM count, asked of the
-// runtime at launch: 3 blocks a SM in bf16, so the 384 caption-head items
-// of the attention phase at B 32 take one round), launched with
+// runtime at launch for the shared memory that launch's t needs: 3 blocks
+// a SM in bf16 at T 24, so the 384 caption-head items of the attention
+// phase at B 32 take one round; 1 at T 512, where the attention tiles take
+// 150 KB forward and 210 KB backward), launched with
 // cudaLaunchCooperativeKernel. The blocks take the work items of the
 // current phase (the `*_tile` device functions of common.cuh, the same ones
 // the half-layer kernels K1-K6 launch one per block) from a counter and
@@ -31,7 +33,12 @@
 //
 // Forward, 7 phases and barriers a layer:
 //   (1) qkv = x . Wqkv + bqkv;  (2) per (caption, head): softmax, the
-//   probabilities' dropout, P.V -> o;  (3) r1 = x + drop(o . Wo + bo);
+//   probabilities' dropout, P.V -> o, on the tile the half-layer kernel K5
+//   runs at the same t with residuals (bf16: common.cuh's scalar tile up
+//   to t = 128; past it the tensor-core tile, in an instantiation of its
+//   own (kLong), so that the short one keeps the code and the time it had;
+//   f32: the strip tile), so that the chain of half-layers adds the same
+//   values;  (3) r1 = x + drop(o . Wo + bo);
 //   (4) y = LN(r1);  (5) f = y . W1 + c1, a = gelu(f);
 //   (6) r2 = y + drop(a . W2 + c2);  (7) z = LN(r2), written straight into
 //   the next layer's input slot (or the output), so no tile reads a row that
@@ -58,8 +65,8 @@
 //   (4) LN1 backward rows from r1: dr1, dh = drop(dr1), partials;
 //   (5) the partials summed; dWo = dh^T . o; do = r(dh . Wo);
 //   (6) per (caption, head): the attention backward -> dqkv (bf16: the
-//       tensor-core tile of common.cuh that K6 runs too; f32: the scalar
-//       tile);
+//       tensor-core tile of common.cuh that K6 runs too; f32: the strip
+//       tile, K6's too), t up to 512;
 //   (7) dx = r(dr1 + r(dqkv . Wqkv)); dWqkv = dqkv^T . x; dbqkv.
 // Sums over rows are per-tile f32 partials reduced in a second phase in a
 // fixed order: no float atomics, the result is deterministic. Every
@@ -80,6 +87,20 @@
 
 #include <cooperative_groups.h>
 
+// TGFR_TOWER_PART 1 compiles the forward (K7), 2 the backward (K8): ops/
+// _cuda.py `PARTS` builds each as a shared library of its own, the two at
+// once, each minutes of compile; without it, both in one.
+#if !defined(TGFR_TOWER_PART) || TGFR_TOWER_PART == 1
+#define TGFR_TOWER_FWD 1
+#else
+#define TGFR_TOWER_FWD 0
+#endif
+#if !defined(TGFR_TOWER_PART) || TGFR_TOWER_PART == 2
+#define TGFR_TOWER_BWD 1
+#else
+#define TGFR_TOWER_BWD 0
+#endif
+
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -94,6 +115,8 @@ constexpr int kLnRed = 3 * kWarps * kLnMaxWidth;  // floats: the LN tiles' sums
 // Blocks a SM the compiler sizes registers for: bf16 three (the attention
 // phase's 384 caption-head items at B 32 take one round on 396 blocks, and
 // the GEMM ring is sized for three), f32 one (its checks need no speed).
+// How many are resident is the runtime's answer for the launch's shared
+// memory (`launch`): fewer at long t.
 template <typename T> constexpr int kMinBlocks = 3;
 template <> constexpr int kMinBlocks<float> = 1;
 static_assert(kThreads == kGemmThreads && kThreads == kAttnThreads, "");
@@ -214,14 +237,34 @@ __device__ __forceinline__ void gemm_item(const GemmArgs& g, int tile,
   gemm_tile<T, EPI, AL, BL>(g, tile, smem);
 }
 
-template <typename T>
+// The attention forward of pair w (= b heads + head), on K5's tile for the
+// same t with residuals: bf16 the scalar tile (t <= kAttnScalarT) or, in
+// the kLong instantiation, the tensor-core tile, one pair an item
+// (attn_pairs_per_block past 32), saving p where p is given; f32 the strip
+// tile.
+template <typename T, bool kLong>
 __device__ __forceinline__ void attn_fwd_item(const T* qkv, const int* mask,
                                            const DropSrc& drop, unsigned thr,
                                            float scale, T* p, T* o, int nb,
-                                           int t, int h, float inv, int b,
-                                           int head, unsigned char* smem) {
-  attention_core_tile<T>(qkv, mask, drop, thr, scale, p, o, nb, t, h, inv, b,
-                         head, reinterpret_cast<float*>(smem));
+                                           int t, int h, float inv, int w,
+                                           unsigned char* smem) {
+  const int heads = h / kDHead;
+  if constexpr (!std::is_same<T, __nv_bfloat16>::value) {
+    attention_strip_tile(qkv, mask, drop, thr, scale, p, o, nb, t, h, inv,
+                         w / heads, w % heads,
+                         reinterpret_cast<float*>(smem));
+  } else if constexpr (kLong) {
+    if (p)
+      attention_mma_tile<true>(qkv, mask, drop, thr, scale, p, o, nb, t, h,
+                               inv, w, 1, nb * heads, smem);
+    else
+      attention_mma_tile<false>(qkv, mask, drop, thr, scale, p, o, nb, t, h,
+                                inv, w, 1, nb * heads, smem);
+  } else {
+    attention_core_tile<T>(qkv, mask, drop, thr, scale, p, o, nb, t, h, inv,
+                           w / heads, w % heads,
+                           reinterpret_cast<float*>(smem));
+  }
 }
 
 // Pairs (caption, head) a work item of the attention backward: in bf16 as
@@ -235,7 +278,7 @@ template <typename T> __host__ __device__ int attn_bwd_pairs(int t) {
 // The attention backward of item w: in bf16 the tensor-core tile the
 // half-layer backward K6 runs, so that the chain of half-layers adds the
 // same values (a pair's sums do not depend on the pairs beside it); in f32
-// the scalar tile of pair w (= b heads + head).
+// the strip tile of pair w (= b heads + head).
 template <typename T>
 __device__ __forceinline__ void attn_bwd_item(const T* qkv, const T* p,
                                            const T* dout, const DropSrc& drop,
@@ -248,9 +291,9 @@ __device__ __forceinline__ void attn_bwd_item(const T* qkv, const T* p,
     attention_bwd_mma_tile(qkv, p, dout, drop, thr, scale, dqkv, nb, t, h,
                            inv, w * pairs, pairs, nb * heads, smem);
   } else {
-    attention_core_bwd_tile<T>(qkv, p, dout, drop, thr, scale, dqkv, nb, t,
-                               h, inv, w / heads, w % heads,
-                               reinterpret_cast<float*>(smem));
+    attention_strip_bwd_tile(qkv, p, dout, drop, thr, scale, dqkv, nb, t, h,
+                             inv, w / heads, w % heads,
+                             reinterpret_cast<float*>(smem));
   }
 }
 
@@ -353,7 +396,8 @@ __device__ __forceinline__ void phase_sync(cg::grid_group& grid, int& n) {
   ++n;
 }
 
-template <typename T>
+#if TGFR_TOWER_FWD
+template <typename T, bool kLong>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
 tower_fwd_kernel(TowerArgs a) {
   extern __shared__ __align__(32) unsigned char smem[];
@@ -417,9 +461,9 @@ tower_fwd_kernel(TowerArgs a) {
     phase_sync<0>(grid, ns);
     // (2) attention per (caption, head)
     for_items(items + ns, a.b * a.heads, &slot, [&](int w) {
-      attn_fwd_item<T>(QKV(), mask, LD().p, a.thr, a.scale,
-                       at<T>(a.p[F_P], slot_j * p_el), O(), a.b, a.t, h, inv,
-                       w / a.heads, w % a.heads, smem);
+      attn_fwd_item<T, kLong>(QKV(), mask, LD().p, a.thr, a.scale,
+                              at<T>(a.p[F_P], slot_j * p_el), O(), a.b, a.t,
+                              h, inv, w, smem);
     });
     phase_sync<0>(grid, ns);
     // (3) r1 = x + drop(o . Wo + bo)
@@ -483,6 +527,8 @@ tower_fwd_kernel(TowerArgs a) {
   phase_arrive<0>(ns);
 }
 
+#endif  // TGFR_TOWER_FWD
+#if TGFR_TOWER_BWD
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
 tower_bwd_kernel(TowerArgs a) {
@@ -651,6 +697,7 @@ tower_bwd_kernel(TowerArgs a) {
   phase_arrive<1>(ns);
 }
 
+#endif  // TGFR_TOWER_BWD
 // Launch `kernel` cooperatively on the grid that fills the card: as many
 // blocks as are resident at once. info[0] = the grid, info[1] = blocks per
 // SM, info[2] = the dynamic shared memory in bytes.
@@ -715,7 +762,8 @@ int fill(TowerArgs& a, void* const* ptrs, int count, const long long* strides,
   a.scale = scale;
   a.eps = eps;
   if (a.h != a.heads * kDHead || a.h > kLnMaxWidth || a.h % 64 ||
-      a.inter % 64 || a.layers < 1 || 7 * a.layers > kMaxPhases)
+      a.inter % 64 || a.layers < 1 || 7 * a.layers > kMaxPhases ||
+      a.t < 1 || a.t > kAttnMaxT)
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
@@ -723,6 +771,7 @@ int fill(TowerArgs& a, void* const* ptrs, int count, const long long* strides,
 
 }  // namespace
 
+#if TGFR_TOWER_FWD
 // ptrs: F_COUNT device pointers in FwdPtr order (null where absent): x
 // (b t, h), mask (b, t) int32, the 12 stacked leaves of type T with weights
 // (L, out, in), bits p / h / f (layer 0's, uint32; null without dropout or
@@ -738,23 +787,32 @@ TGFR_API int tgfr_tower_fwd(void* const* ptrs, const long long* strides,
   TowerArgs a{};
   if (int e = fill(a, ptrs, F_COUNT, strides, dims, thr, scale, eps)) return e;
   const auto s = static_cast<cudaStream_t>(stream);
-  const size_t extra = tgfr::attn_fwd_smem_bytes(a.t);
+  using bf16 = __nv_bfloat16;
+  const size_t gemm_ln = std::max(tgfr::gemm_smem_bytes<bf16>(),
+                                  tgfr::ln_tile_stage_bytes<bf16, kWarps>());
+  // the shared memory of this launch's t: the scalar tile's grows as t^2,
+  // the tensor-core tile's as t (150 KB at t = 512)
+  if (dtype == tgfr::kBF16 && a.t <= tgfr::kAttnScalarT)
+    return launch(tower_fwd_kernel<bf16, false>, a,
+                  std::max(gemm_ln, tgfr::attn_fwd_smem_bytes(a.t)),
+                  kMinBlocks<bf16>, info, s);
+#ifndef TGFR_PHASE_TIMES  // the measurement build times bf16 at short t
   if (dtype == tgfr::kBF16)
-    return launch(tower_fwd_kernel<__nv_bfloat16>, a,
-                  std::max({tgfr::gemm_smem_bytes<__nv_bfloat16>(), extra,
-                            tgfr::ln_tile_stage_bytes<__nv_bfloat16,
-                                                      kWarps>()}),
-                  kMinBlocks<__nv_bfloat16>, info, s);
-#ifndef TGFR_PHASE_TIMES  // the measurement build times bf16 alone
+    return launch(tower_fwd_kernel<bf16, true>, a,
+                  std::max(gemm_ln, tgfr::attn_mma_smem_bytes(a.t, 1)),
+                  kMinBlocks<bf16>, info, s);
   if (dtype == tgfr::kF32)
-    return launch(tower_fwd_kernel<float>, a,
-                  std::max({tgfr::gemm_smem_bytes<float>(), extra,
+    return launch(tower_fwd_kernel<float, false>, a,
+                  std::max({tgfr::gemm_smem_bytes<float>(),
+                            tgfr::attn_strip_fwd_smem_bytes(),
                             tgfr::ln_tile_stage_bytes<float, kWarps>()}),
                   kMinBlocks<float>, info, s);
 #endif
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+#endif  // TGFR_TOWER_FWD
+#if TGFR_TOWER_BWD
 // ptrs: B_COUNT device pointers in BwdPtr order: dz (b t, h), mask, the
 // saved residuals xin, qkv, p, o, r1, f, r2 (L, ...), the stacked leaves
 // wqkv, wo, g1, b1, w1, w2, g2 of type T, bits p / h / f, seed; outputs dx
@@ -775,7 +833,7 @@ TGFR_API int tgfr_tower_bwd(void* const* ptrs, const long long* strides,
       dtype == tgfr::kBF16
           ? tgfr::attn_bwd_mma_smem_bytes(
                 a.t, attn_bwd_pairs<__nv_bfloat16>(a.t))
-          : tgfr::attn_bwd_smem_bytes(a.t);
+          : tgfr::attn_strip_bwd_smem_bytes(a.t);
   if (dtype == tgfr::kBF16)
     return launch(tower_bwd_kernel<__nv_bfloat16>, a,
                   std::max({tgfr::gemm_smem_bytes<__nv_bfloat16>(), attn,
@@ -792,6 +850,7 @@ TGFR_API int tgfr_tower_bwd(void* const* ptrs, const long long* strides,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+#endif  // TGFR_TOWER_BWD
 #ifdef TGFR_PHASE_TIMES
 // Measurement build: zero the stamps of both passes.
 TGFR_API int tgfr_tower_phase_reset(void* stream) {

@@ -12,7 +12,10 @@ under a file lock in `_build/`, so that the ranks of a data-parallel run
 first builds, the others wait and load.
 A variant (`VARIANTS`) is a source built with extra flags into a library
 of its own name: the measurement build of the tower kernels, which only
-chip_smoke.py loads.
+chip_smoke.py loads. A library of `PARTS` is a shared library a part,
+each compiled from the source with its own flags, all at once beside the
+other sources (the whole-tower kernels' forward and backward, minutes
+each); `function` finds a C function in whichever part has it.
 
 Nothing here runs at import time: this module imports on hosts with no CUDA
 toolchain, where the kernels' plain versions serve CPU tensors.
@@ -29,12 +32,12 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import torch
 
-__all__ = ["SOURCES", "VARIANTS", "build", "built", "load", "function",
-           "dtype_code", "launch"]
+__all__ = ["SOURCES", "VARIANTS", "PARTS", "build", "built", "load",
+           "function", "dtype_code", "launch"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -47,9 +50,12 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # name: (source, extra flags). The tower kernels with %globaltimer stamps
 # at every grid barrier (csrc/tower_block.cu, TGFR_PHASE_TIMES).
 VARIANTS = {"tower_block_phases": ("tower_block", ("-DTGFR_PHASE_TIMES",))}
+# name: the extra flags of each part (csrc/tower_block.cu TGFR_TOWER_PART:
+# the forward, the backward)
+PARTS = {"tower_block": (("-DTGFR_TOWER_PART=1",), ("-DTGFR_TOWER_PART=2",))}
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[str, List[ctypes.CDLL]] = {}
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -67,13 +73,20 @@ def _source(name: str) -> Tuple[Path, Tuple[str, ...]]:
     return _CSRC / f"{src}.cu", _FLAGS + tuple(extra)
 
 
-def _target(name: str) -> Path:
+def _targets(name: str) -> List[Tuple[Path, Tuple[str, ...]]]:
+    """[(a shared library of `name`, its compile flags)]: one, or one a
+    part, each named by a digest of its sources and flags."""
     src, flags = _source(name)
-    h = hashlib.sha1()
-    for part in (src, _CSRC / "common.cuh"):
-        h.update(part.read_bytes())
-    h.update(" ".join(flags).encode())
-    return _BUILD / f"{name}-{h.hexdigest()[:16]}.so"
+    out = []
+    for i, extra in enumerate(PARTS.get(name, ((),))):
+        h = hashlib.sha1()
+        for part in (src, _CSRC / "common.cuh"):
+            h.update(part.read_bytes())
+        h.update(" ".join(flags + extra).encode())
+        stem = name if name not in PARTS else f"{name}.{i}"
+        out.append((_BUILD / f"{stem}-{h.hexdigest()[:16]}.so",
+                    flags + extra))
+    return out
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
@@ -93,25 +106,28 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 def _build_locked(names: Iterable[str]) -> Dict[str, float]:
     jobs = {}
     for name in names:
-        out = _target(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        src, flags = _source(name)
-        cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, tmp, out, time.perf_counter())
+        src = _source(name)[0]
+        for out, flags in _targets(name):
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [_nvcc(), *flags, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs.setdefault(name, []).append(
+                (proc, tmp, out, time.perf_counter()))
     seconds, failed = {}, []
-    for name, (proc, tmp, out, t0) in jobs.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        out.with_suffix(".so.log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name} "
-                          f"({_source(name)[0].name}):\n{log}")
-            continue
-        os.replace(tmp, out)
+    for name, parts in jobs.items():
+        for proc, tmp, out, t0 in parts:
+            log, _ = proc.communicate()
+            seconds[name] = max(seconds.get(name, 0.0),
+                                time.perf_counter() - t0)
+            out.with_suffix(".so.log").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {out.name} "
+                              f"({_source(name)[0].name}):\n{log}")
+                continue
+            os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds
@@ -121,7 +137,7 @@ def built(name: str) -> bool:
     """The library of `name` is built from the current sources (`build`
     moves each library into place as its compile ends, in the order of
     its names)."""
-    return _target(name).exists()
+    return all(out.exists() for out, _ in _targets(name))
 
 
 def load(names: Iterable[str]) -> None:
@@ -132,23 +148,28 @@ def load(names: Iterable[str]) -> None:
     with _lock:
         for name in names:
             if name not in _libs:
-                path = _target(name)
-                if not path.exists():
-                    raise RuntimeError(f"{name}: not built ({path})")
-                _libs[name] = ctypes.CDLL(str(path))
+                for path, _ in _targets(name):
+                    if not path.exists():
+                        raise RuntimeError(f"{name}: not built ({path})")
+                _libs[name] = [ctypes.CDLL(str(p)) for p, _ in
+                               _targets(name)]
 
 
 def function(lib: str, fn: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """The C function `fn` of library `lib`, built and loaded on first use,
-    with its argument types set (pointers as c_void_p, so ctypes passes all
-    64 bits) and an int return: the launch's cudaError_t."""
+    """The C function `fn` of library `lib` (of the part that has it),
+    built and loaded on first use, with its argument types set (pointers as
+    c_void_p, so ctypes passes all 64 bits) and an int return: the launch's
+    cudaError_t."""
     key = f"{lib}:{fn}"
     with _lock:
         if key not in _fns:
             if lib not in _libs:
                 build([lib])
-                _libs[lib] = ctypes.CDLL(str(_target(lib)))
-            f = getattr(_libs[lib], fn)
+                _libs[lib] = [ctypes.CDLL(str(p)) for p, _ in _targets(lib)]
+            having = [d for d in _libs[lib] if hasattr(d, fn)]
+            if not having:
+                raise AttributeError(f"{lib}: no C function {fn}")
+            f = getattr(having[0], fn)
             f.argtypes = list(argtypes)
             f.restype = ctypes.c_int
             _fns[key] = f

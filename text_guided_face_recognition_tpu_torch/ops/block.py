@@ -107,17 +107,14 @@ D_HEAD = 64
 # the tower's stacked leaves, in the JAX package's `_BlockP` order
 TOWER_LEAVES = ("wqkv", "bqkv", "wo", "bo", "g1", "b1", "w1", "c1", "w2",
                 "c2", "g2", "b2")
-# The longest caption (t) the attention kernels take: the tensor-core
-# tiles (bf16: K5, K6 and K8's attention phase) hold two or four (T, 64)
-# bf16 rows of a pair and walk the keys in blocks (csrc/common.cuh
-# kAttnMaxT: bert-base's position table); the scalar forward tile (f32, K5
-# with residuals up to 128, and the whole-tower kernel K7) holds
-# 3 (T, 64) + (T, T) f32; the scalar backward tile (f32) 4 (T, 64) +
-# 2 (T, T) f32. The tower keeps the training limit of MAX_T_BWD: K7's
-# scalar tile with residuals and K8's sizing are not widened.
-MAX_T_BWD = 64
-MAX_T_FWD = 512
-MAX_T_FWD_SCALAR = 128
+# The longest caption (t) the attention kernels take, forward and
+# backward, bf16 and f32, the half-layers and the tower: bert-base's
+# position table (csrc/common.cuh kAttnMaxT). The tensor-core tiles (bf16)
+# hold two or four (T, 64) bf16 rows of a pair and walk the keys in blocks
+# of 64; the f32 strip tiles walk queries and keys in strips of 64; the
+# bf16 scalar tile (K5 with residuals and K7, up to t = 128) holds
+# 3 (T, 64) + (T, T) f32.
+MAX_T = 512
 # The library the tower wrappers launch from: `tower_block`, or its
 # measurement build `tower_block_phases` (ops/_cuda.py VARIANTS), which
 # chip_smoke.py's phase table switches to around its own calls.
@@ -168,16 +165,6 @@ def _ln_bwd_rounded(dy, r, gamma, eps):
     dt = dy.dtype
     dr, dg, db = ln_bwd_f32(dy.float(), r.float(), gamma.to(dt).float(), eps)
     return dr.to(dt), dg, db
-
-
-def max_t(dtype: torch.dtype, grad: bool, tower: bool = False) -> int:
-    """The longest caption the attention kernels take in `dtype`, with a
-    gradient or without: K5/K6, or with `tower` K7/K8. bf16 K5/K6 take
-    MAX_T_FWD either way; f32 and the tower MAX_T_BWD with a gradient and
-    MAX_T_FWD_SCALAR without (the tower in bf16 too)."""
-    if dtype == torch.bfloat16 and not tower:
-        return MAX_T_FWD
-    return MAX_T_BWD if grad else MAX_T_FWD_SCALAR
 
 
 def _maybe_drop(x, bits, rate):
@@ -644,11 +631,9 @@ def attn_block_fwd(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
     if h != heads * D_HEAD:
         raise ValueError(f"{name}: the kernel takes heads of width {D_HEAD}; "
                          f"got H={h}, heads={heads}")
-    t_max = max_t(x.dtype, save)
-    if not 0 < t <= t_max:
-        raise ValueError(f"{name}: the kernel takes 1 <= t <= {t_max}"
-                         f"{' when training' if save else ''} in {x.dtype}, "
-                         f"got {t}")
+    if not 0 < t <= MAX_T:
+        raise ValueError(f"{name}: the kernel takes 1 <= t <= {MAX_T}, got "
+                         f"{t}")
     if tuple(mask.shape) != (b, t) or mask.dtype != torch.int32 or \
             mask.device != dev or not mask.is_contiguous():
         raise ValueError(f"{name}: mask must be a contiguous int32 ({b}, {t})"
@@ -697,10 +682,9 @@ def attn_block_bwd(dy, x, qkv, p, o, r, wqkv, wo, gamma, b: int, t: int,
     _check_act(name, x, (x.shape[-1],))
     rows, h = x.shape
     dev = x.device
-    t_max = max_t(x.dtype, True)
-    if rows != b * t or h != heads * D_HEAD or not 0 < t <= t_max:
+    if rows != b * t or h != heads * D_HEAD or not 0 < t <= MAX_T:
         raise ValueError(f"{name}: the kernel takes x (b*t, heads*{D_HEAD}) "
-                         f"with 1 <= t <= {t_max}; got {tuple(x.shape)}, "
+                         f"with 1 <= t <= {MAX_T}; got {tuple(x.shape)}, "
                          f"b={b}, t={t}, heads={heads}")
     for what, a, shape in (("dy", dy, (rows, h)), ("o", o, (rows, h)),
                            ("r", r, (rows, h)), ("qkv", qkv, (rows, 3 * h))):
@@ -777,9 +761,8 @@ def attn_block(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
     all float32 masters. When rate > 0, one dropout source: bits_p
     (heads*b, t, t) and bits_h (R, H) int32, or seed (1,) int32, the layer
     seed (ops/philox.py). The kernels take heads of width 64
-    (H = 64 * heads), H <= 1024, t <= 512 in bf16, and in f32 t <= 128
-    (64 when a gradient is needed; `max_t`), and wqkv, wo as .t() views of
-    contiguous (out, in) tensors.
+    (H = 64 * heads), H <= 1024, t <= MAX_T (512), and wqkv, wo as .t()
+    views of contiguous (out, in) tensors.
     Returns y: (R, H).
     """
     _check_rate("attn_block", rate, (bits_p, bits_h), seed)
@@ -792,8 +775,7 @@ def attn_block(x, mask, wqkv, bqkv, wo, bo, gamma, beta, b: int, t: int,
 
 # -------------------------------------------------------- tower kernels --
 
-def _check_tower(name, x, mask, leaves, b, t, heads, bits, seed, rate,
-                 t_max):
+def _check_tower(name, x, mask, leaves, b, t, heads, bits, seed, rate):
     """The tower kernels' contract; returns (L, rows, h, inter)."""
     _check_rate(name, rate, bits, seed)
     wqkv, w1 = leaves["wqkv"], leaves["w1"]
@@ -802,9 +784,9 @@ def _check_tower(name, x, mask, leaves, b, t, heads, bits, seed, rate,
     rows, h = x.shape
     dev = x.device
     n_layers = wqkv.shape[0]
-    if rows != b * t or h != heads * D_HEAD or not 0 < t <= t_max:
+    if rows != b * t or h != heads * D_HEAD or not 0 < t <= MAX_T:
         raise ValueError(f"{name}: the kernel takes x (b*t, heads*{D_HEAD}) "
-                         f"with 1 <= t <= {t_max}; got {tuple(x.shape)}, "
+                         f"with 1 <= t <= {MAX_T}; got {tuple(x.shape)}, "
                          f"b={b}, t={t}, heads={heads}")
     if tuple(mask.shape) != (b, t) or mask.dtype != torch.int32 or \
             mask.device != dev or not mask.is_contiguous():
@@ -875,8 +857,7 @@ def tower_block_fwd(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2,
                                    *bits, rate, eps, seed)
     *bits, seed = _sources("tower_block", rate, bits, seed, x.device)
     n, rows, h, inter = _check_tower("tower_block", x, mask, leaves, b, t,
-                                     heads, bits, seed, rate,
-                                     max_t(x.dtype, save, tower=True))
+                                     heads, bits, seed, rate)
 
     def buf(*shape):
         return torch.empty(shape, dtype=x.dtype, device=x.device)
@@ -919,7 +900,7 @@ def tower_block_bwd(dz, mask, xin, qkv, p, o, r1, f, r2, wqkv, wo, g1, b1,
     *bits, seed = _sources(name, rate, bits, seed, dz.device)
     leaves = dict(wqkv=wqkv, wo=wo, g1=g1, b1=b1, w1=w1, w2=w2, g2=g2)
     n, rows, h, inter = _check_tower(name, dz, mask, leaves, b, t, heads,
-                                     bits, seed, rate, MAX_T_BWD)
+                                     bits, seed, rate)
     for what, a, shape in (("xin", xin, (rows, h)), ("qkv", qkv,
                                                      (rows, 3 * h)),
                            ("p", p, (heads * b, t, t)), ("o", o, (rows, h)),
@@ -990,9 +971,8 @@ def tower_block(x, mask, wqkv, bqkv, wo, bo, g1, b1, w1, c1, w2, c2, g2, b2,
     bo, c2, g1, b1, g2, b2 (L, 1, H). When rate > 0, one dropout source:
     bits_p (L, heads*b, t, t), bits_h and bits_f (L, R, H) int32, or seed
     (1,) int32, the tower's seed (ops/philox.py). The kernels take heads of
-    width 64, H <= 1024, H and I multiples of 64, t <= 128 (t <= 64 when a
-    gradient is needed). Returns z: (R, H); gradients arrive in the leaves'
-    dtype.
+    width 64, H <= 1024, H and I multiples of 64, t <= MAX_T (512). Returns
+    z: (R, H); gradients arrive in the leaves' dtype.
     """
     _check_rate("tower_block", rate, (bits_p, bits_h, bits_f), seed)
     if rate <= 0.0:

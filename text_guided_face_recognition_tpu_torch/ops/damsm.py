@@ -17,18 +17,21 @@ the norms. Inputs and output are f32 on both.
 kernel for a CUDA tensor; it never falls back from one to the other. Each
 kernel call adds one to `damsm_similarity_cuda.launches`.
 
-The kernel takes any B, T and R. Its launch plan is `damsm_plan`, computed
-here so that the CPU tests can check every plan: a block takes one image
-and a group of captions whose words fit in its N word columns (the short
-path), or one caption in chunks of N words (the long path: a first pass
-for each region's softmax statistics over words and the logits, kept in
-(B, B, R, 2) and (B, B, R, T rounded up to 8) f32 scratch, 410 MB at
-B 32, R 196, T 510, which the second pass reads back). Two bounds remain,
-both checked here and by `config.check_stage1` before the first step:
-D <= MAX_D (the context accumulator lives in registers) and
-|gamma1| <= MAX_GAMMA1 (the gamma1
-softmax subtracts the fixed bound max(gamma1, 0) of gamma1 p, so every
-term is at least exp(-|gamma1|), which must stay a normal f32 number).
+The kernel takes any B, D, T, R and gamma1. Its launch plan is
+`damsm_plan`, computed here so that the CPU tests can check every plan: a
+block takes one image and a group of captions whose words fit in its N
+word columns (the short path), or one caption in chunks of N words (the
+long path: a first pass for each region's softmax statistics over words
+and the logits, kept in (B, B, R, 2) and (B, B, R, T rounded up to 8) f32
+scratch, 410 MB at B 32, R 196, T 510, which the second pass reads back).
+Past D = 512 (the wide path) D is split into slices of at most 512 rows:
+a first kernel writes the long path's scratch over the whole of D, the
+long path's second pass runs on each slice (a launch a slice) and writes
+its three cosine sums per word to (slices, B, B, T rounded up to 8, 3)
+f32 scratch, and a last kernel adds them (csrc/damsm.cu). The gamma1 softmax
+over regions subtracts the fixed bound max(gamma1, 0) while
+|gamma1| <= 60, and each word's running maximum past it, so no term
+underflows at any gamma1.
 """
 
 from __future__ import annotations
@@ -43,13 +46,11 @@ from text_guided_face_recognition_tpu_torch.ops.attention import (
     damsm_similarity)
 
 __all__ = ["damsm_similarity_cuda", "damsm_similarity_fused", "damsm_plan",
-           "damsm_smem", "MAX_D", "MAX_GAMMA1", "SMEM_LIMIT"]
+           "damsm_smem", "SLICE_D", "SMEM_LIMIT"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-             ctypes.c_longlong, _F, _F, _F, _P)
-MAX_D = 512          # csrc/damsm.cu: two 64-row wgmma tiles a warpgroup
-MAX_GAMMA1 = 60.0    # exp(-60) ~ 8.8e-27: the least gamma1 term stays normal
+_ARGTYPES = (_P,) * 7 + (_I,) * 8 + (ctypes.c_longlong, _F, _F, _F, _P)
+SLICE_D = 512        # csrc/damsm.cu kMaxSliceD: the features a block holds
 SMEM_LIMIT = 232448  # shared memory a block can have on the H100
 _WARPS = 16          # csrc/damsm.cu kThreads / 32
 _RC = 32             # csrc/damsm.cu kRC: regions a block of the ring
@@ -61,35 +62,37 @@ def damsm_smem(dp: int, n: int) -> int:
     and lo); the (dp, n) word tile; two (dp, 32) region slots, which the
     warps' three cosine partials per word column reuse at the end; two
     (32, n + 4) logit tiles (the feature sum's two halves); and per word
-    column its sum, mask and cosine. A copy, for the CPU tests, of
-    csrc/damsm.cu `tgfr_damsm_smem`; a card test holds the two equal."""
+    column its sum, mask, cosine, running gamma1 maximum and rescale
+    factor. A copy, for the CPU tests, of csrc/damsm.cu `tgfr_damsm_smem`;
+    a card test holds the two equal."""
     ring = max(2 * dp * _RC, 3 * _WARPS * n)
     return 1024 + 4 * (2 * n * _RC + dp * n + ring + 2 * _RC * (n + 4)
-                       + 3 * n)
+                       + 5 * n)
 
 
 def damsm_plan(b: int, d: int, t: int, r: int) -> dict:
     """K9's launch plan for words (b, d, t) and regions (b, d, r).
 
-    dp: d rounded up to 16; n: the word columns of a block, 96 for dp up
-    to 256 and 32 up to 512 (a thread holds 48, or 32, context sums);
-    long: a caption's t words do not fit in n columns; g: captions a block
-    (1 on the long path); word_chunks: n-word chunks a caption takes;
-    grid: (caption groups, images)."""
+    slices: the slices of D a block takes one of (1 up to SLICE_D
+    features, else ceil(d / SLICE_D): the wide path); dp: the rows of a
+    slice (all of d where slices is 1) rounded up to 16; n: the word
+    columns of a block, 96 for dp up to 256 and 32 past it (a thread holds
+    48, or 32, context sums); long: a caption's t words do not fit in n
+    columns, or the wide path; g: captions a block (1 on the long path);
+    word_chunks: n-word chunks a caption takes; grid: (caption groups,
+    images) a launch, and the slices' launches."""
     if min(b, d, t, r) < 1:
         raise ValueError(f"damsm_plan: empty shape b {b}, d {d}, t {t}, "
                          f"r {r}")
-    if d > MAX_D:
-        raise ValueError(f"damsm_plan: the kernel takes D <= {MAX_D}, got "
-                         f"{d}")
-    dp = -(-d // 16) * 16
+    slices = -(-d // SLICE_D)
+    dp = -(-(-(-d // slices)) // 16) * 16
     n = 96 if dp <= 256 else 32
-    long = t > n
+    long = t > n or slices > 1
     g = 1 if long else min(b, n // t)
-    return {"dp": dp, "n": n, "long": long, "g": g,
+    return {"dp": dp, "n": n, "long": long, "g": g, "slices": slices,
             "smem": damsm_smem(dp, n),
             "word_chunks": -(-t // n) if long else 1,
-            "grid": (b if long else -(-b // g), b)}
+            "grid": (b if long else -(-b // g), b, slices)}
 
 
 def damsm_similarity_cuda(words: torch.Tensor, regions: torch.Tensor,
@@ -99,8 +102,7 @@ def damsm_similarity_cuda(words: torch.Tensor, regions: torch.Tensor,
     """K9: sim (B, B), sim[j, i] for image j and caption i.
 
     words (B, D, T), regions (B, D, R), f32 and contiguous; word_mask
-    optional (B, T) bool. The kernel takes D <= MAX_D and
-    |gamma1| <= MAX_GAMMA1.
+    optional (B, T) bool. Any B, D, T, R and gamma1.
     """
     if words.device.type == "cpu":
         return damsm_similarity(words, regions, gamma1, gamma2, word_mask,
@@ -118,9 +120,6 @@ def damsm_similarity_cuda(words: torch.Tensor, regions: torch.Tensor,
                 a.device != words.device or not a.is_contiguous():
             raise ValueError(f"{name}: {what} must be a contiguous float32 "
                              f"{shape} tensor on {words.device}")
-    if abs(gamma1) > MAX_GAMMA1:
-        raise ValueError(f"{name}: the kernel takes |gamma1| <= "
-                         f"{MAX_GAMMA1}, got {gamma1}")
     plan = damsm_plan(b, d, t, r)
     mask = None
     if word_mask is not None:
@@ -129,19 +128,21 @@ def damsm_similarity_cuda(words: torch.Tensor, regions: torch.Tensor,
             raise ValueError(f"{name}: word_mask must be ({b}, {t}) on "
                              f"{words.device}")
         mask = word_mask.to(torch.float32).contiguous()
-    sim = torch.empty((b, b), dtype=torch.float32, device=words.device)
-    stats = kept = None
+    f32 = dict(dtype=torch.float32, device=words.device)
+    sim = torch.empty((b, b), **f32)
+    stats = kept = wpart = None
+    tp = -(-t // 8) * 8
     if plan["long"]:
-        stats = torch.empty((b, b, r, 2), dtype=torch.float32,
-                            device=words.device)
-        kept = torch.empty((b, b, r, -(-t // 8) * 8), dtype=torch.float32,
-                           device=words.device)
+        stats = torch.empty((b, b, r, 2), **f32)
+        kept = torch.empty((b, b, r, tp), **f32)
+    if plan["slices"] > 1:
+        wpart = torch.empty((plan["slices"], b, b, tp, 3), **f32)
     fn = _cuda.function("damsm", "tgfr_damsm_similarity", _ARGTYPES)
     _cuda.launch(fn, words.data_ptr(), regions.data_ptr(),
                  None if mask is None else mask.data_ptr(), sim.data_ptr(),
-                 None if stats is None else stats.data_ptr(),
-                 None if kept is None else kept.data_ptr(), b, d, t, r,
-                 plan["n"], plan["g"], int(plan["long"]),
+                 *(None if a is None else a.data_ptr()
+                   for a in (stats, kept, wpart)), b, d, t, r,
+                 plan["n"], plan["g"], int(plan["long"]), plan["slices"],
                  plan["smem"], float(gamma1), float(gamma2), float(eps))
     damsm_similarity_cuda.launches += 1
     return sim

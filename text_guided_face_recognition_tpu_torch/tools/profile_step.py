@@ -42,7 +42,8 @@ import torch
 
 GROUPS = (
     (("tower_", "hl_gemm", "hl_bwd_gemm", "attention_mma", "attention_core",
-      "layernorm_", "colsum", "damsm_kernel", "philox"), "port kernels"),
+      "attention_strip", "layernorm_", "colsum", "damsm_", "philox"),
+     "port kernels"),
     (("nccl",), "collective"),
     (("multi_tensor", "foreach"), "optimizer"),
     (("gemm", "xmma", "cutlass", "gemv", "sm90_", "sm80_", "matmul", "mm",
