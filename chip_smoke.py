@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (one NVIDIA GPU).
 
-  python3 chip_smoke.py [--only kernels|launches|phases|prng|serving|train|
-                                stage2|long|step|damsm|weights|lstm|
+  python3 chip_smoke.py [--only kernels|launches|phases|prng|dumps|serving|
+                                train|stage2|long|step|damsm|weights|lstm|
                                 options|parallel|archs|utils]
                         [--save_outputs FILE]
   python3 chip_smoke.py --compare_outputs A B
+
+--only dumps builds csrc/philox.cu alone and runs K10-K12 as the prng phase
+does after its check (`dump_rows`).
 
 --save_outputs keeps the flagship outputs of K7 and K8 (the kernel phase)
 and K9 (the damsm phase) in FILE; --compare_outputs holds two such files,
@@ -98,7 +101,12 @@ Phases; any failure raises and the script exits non-zero:
      fed the dumps of K10-K12 (values and every gradient, bit for bit), a
      wrong-seed backward that differs, each site's kept share within 5
      sigma of 1 - rate; then K10-K12 against their plain versions bit for
-     bit, timed beside torch.randint of the same count;
+     bit, timed beside torch.randint of the same count and beside the
+     floor of a kernel node (an empty kernel in the same CUDA graphs); bit
+     for bit at rows of 1, 2, 3, 5 and 4k + 1..3 words and at 2 and 12
+     layers from a seed whose seed + j wraps past 2^31 - 1; one device
+     operation a K11 call (the nodes of a CUDA graph of one call; `--only
+     dumps` runs this part alone);
   5. serving at full width in bf16 (bert-base 12 layers, iresnet18 at
      112x112, ImageHeading, FCFM 640; random weights from manual_seed;
      synthetic test split; batch 32; fused_block=both, fused_ln=true):
@@ -388,8 +396,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit). The data
 # sheet gives no 32-bit integer rate, so the Philox words a call draws (20
-# integer operations a word: 10 rounds of two 32 x 32 products and 4 xors
-# a 4-word block) enter no bound: K10-K12 are bound by the bytes they write.
+# integer operations a word: a 4-word Philox4x32-10 block is 10 rounds of
+# two 32 x 32 products, each a high and a low half, and four xors; the key
+# schedule is once a thread, not a word) enter no bound: K10-K12 are bound
+# by the bytes they write (csrc/philox.cu gives the same account).
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bf16_tensor": 989e12, "tf32_tensor": 495e12, "f32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
@@ -2184,12 +2194,11 @@ def prng_phase(args, kernels):
     """The in-kernel dropout check at full width (the port's
     tools/verify_block_prng: K3-K8 in prng mode, f32 and bf16, against
     their host mode fed the dumps of K10-K12), with the counts zeroed
-    before and read after; then K10-K12 against their plain versions bit
-    for bit and timed. Returns (launch counts of the check, the same per
-    check, the three dump rows)."""
+    before and read after; then K10-K12 alone (`dump_rows`). Returns
+    (launch counts of the check, the same per check, the three dump
+    rows)."""
     import torch
 
-    from text_guided_face_recognition_tpu_torch.ops import philox
     from text_guided_face_recognition_tpu_torch.tools.verify_block_prng \
         import verify
 
@@ -2212,7 +2221,37 @@ def prng_phase(args, kernels):
                            "tower_stream_bits") if counts[k] < 1]
     if missing:
         raise AssertionError(f"the prng check never launched {missing}")
+    return counts, counts, dump_rows(args)
 
+
+# Dump shapes whose rows end inside a Philox block (tests/test_torch_prng.py
+# holds the same on the card): the FFN dump's (rows, h), rows of 1, 2, 3, 5,
+# 21, 22 and 15 words; the attention and tower dumps' (b, t, h, heads),
+# rows of 2, 3, 5, 15, 8 (attention) and 3, 5, 9, 21, 14 words (tower, at
+# 2 and 12 layers); the seed's seed + j wraps past 2^31 - 1 from layer 2
+DUMP_FFN_ODD = ((1, 1), (1, 2), (1, 3), (1, 5), (3, 7), (2, 11), (5, 3))
+DUMP_BLOCK_ODD = ((1, 1, 1, 1), (1, 1, 2, 1), (1, 1, 4, 1), (1, 3, 2, 1),
+                  (2, 1, 3, 1))
+DUMP_TOP = 0x7FFFFFFE
+
+
+def dump_rows(args) -> list:
+    """K10-K12 at the prng check's full width (B 32, T, H 768, 12 heads, 12
+    layers): against their plain versions bit for bit, then timed, warm and
+    cold L2, beside the floor of a kernel node in the same harness (an empty
+    kernel, csrc/philox.cu `tgfr_empty_kernel`, before the dumps and after
+    them); the nodes of a CUDA graph of one K11 call (one kernel: the FFN
+    site's xor is the kernel's); the dumps at DUMP_FFN_ODD and
+    DUMP_BLOCK_ODD, the tower at 2 and 12 layers, from DUMP_TOP, bit for
+    bit. Returns the rows."""
+    import torch
+
+    from text_guided_face_recognition_tpu_torch.ops import _cuda, philox
+    from text_guided_face_recognition_tpu_torch.utils.benching import (
+        graph_nodes)
+
+    dev = torch.device("cuda")
+    B, T, H, heads, L = 32, args.bert_words_num, 768, 12, 12
     R = B * T
     n_p, n_h = heads * B * T * T, R * H
     seed = torch.tensor([args.manual_seed + 5], dtype=torch.int32,
@@ -2223,6 +2262,12 @@ def prng_phase(args, kernels):
         flush_buf.zero_()
 
     flush_ms = _graph_ms(flush)
+    extra_s = time.perf_counter()
+    empty = _cuda.function("philox", "tgfr_empty_kernel", ())
+    floor_ms = _graph_ms(lambda: _cuda.launch(empty))
+    print(f"dumps: floor of a kernel node (an empty kernel in a CUDA graph "
+          f"of 20) {floor_ms:.6f} ms", flush=True)
+    extra_s = time.perf_counter() - extra_s
     where = "tools/verify_block_prng.py:"
     specs = [
         ("attn_stream_bits", "156",
@@ -2250,6 +2295,7 @@ def prng_phase(args, kernels):
                "tolerance": "bit for bit"}
         row["ms"], row["ms_cold_l2"] = _times(run, flush, flush_ms)
         row["kernel_ms"] = row["ms"]
+        row["floor_ms"] = floor_ms
         row["plain_ms"], row["plain_ms_cold_l2"] = _times(ref, flush,
                                                           flush_ms)
         row["library_ms"], row["library_ms_cold_l2"] = _times(
@@ -2258,14 +2304,52 @@ def prng_phase(args, kernels):
             flush, flush_ms)
         row["library_call"] = ("torch.randint of the same count: "
                                "comparable, not the same bits")
-        # writes the words, reads the seed
+        # writes the words, reads the seed; the 20 integer operations a
+        # word enter no bound (see PEAK_BYTES)
         row.update(_bound(4.0 * words + 4, 0.0, "f32"))
+        row["int_ops"] = 20 * words
         rows.append(row)
-        print(f"kernel {name}: {words} words bit for bit; {row['ms']:.4f} ms,"
-              f" cold L2 {row['ms_cold_l2']:.4f} (plain {row['plain_ms']:.4f},"
-              f" torch.randint {row['library_ms']:.4f}, bound "
-              f"{row['bound_ms']:.4f} by {row['bound_by']})", flush=True)
-    return counts, counts, rows
+        print(f"kernel {name}: {words} words bit for bit; {row['ms']:.6f} "
+              f"ms, cold L2 {row['ms_cold_l2']:.6f} (floor {floor_ms:.6f}, "
+              f"plain {row['plain_ms']:.4f}, torch.randint "
+              f"{row['library_ms']:.6f}, bound {row['bound_ms']:.6f} by "
+              f"{row['bound_by']})", flush=True)
+    t0 = time.perf_counter()
+    # the device operations of one K11 call
+    k11_nodes = graph_nodes(lambda: philox.ffn_stream_bits(seed, R, H))
+    rows[1]["kernels_per_call"] = len(k11_nodes)
+    print(f"dumps: K11 a call: {len(k11_nodes)} graph nodes, types "
+          f"{k11_nodes} (0: a kernel)", flush=True)
+    if k11_nodes != [0]:
+        raise AssertionError(f"ffn_stream_bits: graph nodes {k11_nodes} a "
+                             "call, not one kernel")
+    # the floor again after the dumps: a reading that moved between the
+    # two is the harness's, not the kernels'
+    floor_after = _graph_ms(lambda: _cuda.launch(empty))
+    for row in rows:
+        row["floor_ms_after"] = floor_after
+    print(f"dumps: floor of a kernel node after the dumps {floor_after:.6f} "
+          f"ms", flush=True)
+    s = torch.tensor([DUMP_TOP], dtype=torch.int32, device=dev)
+    cases = [((philox.ffn_stream_bits(s, r, h),),
+              (philox.ffn_stream_bits_ref(s, r, h),), ("ffn", r, h))
+             for r, h in DUMP_FFN_ODD]
+    for shape in DUMP_BLOCK_ODD:
+        cases.append((philox.attn_stream_bits(s, *shape),
+                      philox.attn_stream_bits_ref(s, *shape),
+                      ("attn",) + shape))
+        cases += [(philox.tower_stream_bits(s, layers, *shape),
+                   philox.tower_stream_bits_ref(s, layers, *shape),
+                   ("tower", layers) + shape) for layers in (2, 12)]
+    for got, want, what in cases:
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, want)):
+            raise AssertionError(f"dump {what} from seed {DUMP_TOP}: the "
+                                 "kernel differs from its plain version")
+    extra_s += time.perf_counter() - t0
+    print(f"dumps: {len(cases)} odd-length and layer cases from seed "
+          f"{DUMP_TOP} bit for bit; the floor, these and K11's count in "
+          f"{extra_s:.2f} s", flush=True)
+    return rows
 
 
 def _profile(step, reps: int = 3, what: str = "pair batch") -> dict:
@@ -6321,7 +6405,8 @@ def long_damsm(dev, gen, flush, flush_ms) -> dict:
     """K9 at the wide path's widths WIDE_D and at gamma1 in WIDE_GAMMA1 (D
     256), B 32, T 22, R 196, l2-normalised inputs as the heads make them,
     masked, against its plain version at 1e-4 (+ 1e-4 |p|) and at
-    WIDE_DAMSM_ATOL, timed beside it; and the plan's shared memory at each
+    WIDE_DAMSM_ATOL, timed beside it and beside the two contractions as f32
+    torch.bmm (`library_ms*`); and the plan's shared memory at each
     against the launcher's layout (csrc/damsm.cu `tgfr_damsm_smem`)."""
     import ctypes
 
@@ -6369,6 +6454,17 @@ def long_damsm(dev, gen, flush, flush_ms) -> dict:
         out[f"ms{key}"], out[f"ms{key}_cold_l2"] = _times(run, flush,
                                                           flush_ms)
         out[f"plain_ms{key}"] = _graph_ms(ref, calls=3, reps=3)
+        # the yardstick of damsm_extras at this D: the two contractions
+        # alone as f32 torch.bmm (used nowhere in the port), their sum
+        reg_t = regions.transpose(1, 2).contiguous()
+        w_all = words.permute(1, 0, 2).reshape(d, B * TW).expand(
+            B, d, B * TW)
+        att_w = torch.softmax(torch.randn(
+            B, B * TW, RG, generator=torch.Generator().manual_seed(d)),
+            -1).to(dev).contiguous()
+        out[f"library_ms{key}"] = (
+            _graph_ms(lambda: torch.bmm(reg_t, w_all))
+            + _graph_ms(lambda: torch.bmm(att_w, reg_t)))
         b_ = _damsm_bound(B, d, TW, RG, "tf32_3x")
         out[f"bound_ms{key}"], out[f"bound_by{key}"] = (b_["bound_ms"],
                                                         b_["bound_by"])
@@ -6682,7 +6778,7 @@ def main(argv=None) -> int:
         return 1
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "launches", "phases",
-                                       "prng", "serving", "train",
+                                       "prng", "dumps", "serving", "train",
                                        "stage2", "long", "step", "damsm",
                                        "weights", "lstm", "options",
                                        "parallel", "archs", "utils"))
@@ -6730,7 +6826,8 @@ def main(argv=None) -> int:
     # once; in the whole run the two tower builds (minutes) go on while
     # the phases that launch no tower kernel run (`_early_beside_build`)
     names = (
-        ("layernorm", "ffn_block", "attn_block") if only == "launches"
+        ("philox",) if only == "dumps"
+        else ("layernorm", "ffn_block", "attn_block") if only == "launches"
         else ("damsm",) if only in ("damsm", "lstm")
         else ("layernorm", "damsm") if only == "archs"
         else ("layernorm", "ffn_block", "attn_block", "damsm")
@@ -6795,6 +6892,8 @@ def main(argv=None) -> int:
         damsm_phase(args)
     rows = timed("kernels", kernel_phase, args) if only in (
         None, "kernels") else []
+    if only == "dumps":
+        rows = timed("dumps", dump_rows, args)
     prng = (timed("prng", prng_phase, args, kernels)
             if only in (None, "prng") else None)
     rows += [] if prng is None else prng[2]

@@ -39,6 +39,7 @@ import torch
 from text_guided_face_recognition_tpu_torch.models import text_bert as ptb
 from text_guided_face_recognition_tpu_torch.ops import block, philox
 from text_guided_face_recognition_tpu_torch.ops.dropout import total_elems
+from text_guided_face_recognition_tpu_torch.utils.benching import graph_nodes
 
 L, B, T, H, HEADS, I = 2, 3, 12, 256, 4, 1024    # d_head = 64
 R = B * T
@@ -176,6 +177,61 @@ def test_kept_share_and_seed_range():
     seeds = draw_seeds(1000, torch.Generator().manual_seed(0), "cpu")
     assert seeds.dtype == torch.int32 and seeds.shape == (1000,)
     assert 0 <= seeds.min() and seeds.max() < 2 ** 31 - 1
+
+
+# Dump shapes whose rows are not whole Philox blocks (the kernel's vector
+# and word-by-word stores): the FFN dump's (rows, h), rows of 1, 2, 3, 5,
+# 21, 22 and 15 words; the attention and tower dumps' (b, t, h, heads),
+# rows of n_p + n_h = 2, 3, 5, 15, 8 and n_p + 2 n_h = 3, 5, 9, 21, 14 words
+FFN_ODD = [(1, 1), (1, 2), (1, 3), (1, 5), (3, 7), (2, 11), (5, 3)]
+BLOCK_ODD = [(1, 1, 1, 1), (1, 1, 2, 1), (1, 1, 4, 1), (1, 3, 2, 1),
+             (2, 1, 3, 1)]
+TOP = 0x7FFFFFFE            # seed + j wraps past 2^31 - 1 from layer 2
+
+
+def _words(seed: int, n: int) -> torch.Tensor:
+    return torch.from_numpy(_py_words(seed, n, 0))
+
+
+@pytest.mark.parametrize("rows,h", FFN_ODD)
+def test_plain_ffn_dump_at_odd_lengths(rows, h):
+    """K11's plain version at rows that end inside a Philox block: the
+    stream seed ^ 0x5BD1E995, against the pure-Python Philox."""
+    for s in (SEED, TOP):
+        got = philox.ffn_stream_bits_ref(seed_t(s), rows, h)
+        assert got.shape == (rows, h)
+        assert torch.equal(got.reshape(-1), _words(s ^ 0x5BD1E995, rows * h))
+
+
+@pytest.mark.parametrize("layers", [1, 2, 12])
+@pytest.mark.parametrize("shape", BLOCK_ODD)
+def test_plain_block_dumps_at_odd_lengths_and_layers(shape, layers):
+    """K10's and K12's plain versions at odd row lengths, and K12 at 2 and
+    12 layers from a seed whose seed + j wraps past 2^31 - 1: layer j is
+    stream (seed + j) mod 2^32, against the pure-Python Philox."""
+    b, t, h, heads = shape
+    n_p, n_h = heads * b * t * t, b * t * h
+    ap, ah = philox.attn_stream_bits_ref(seed_t(TOP), b, t, h, heads)
+    assert torch.equal(torch.cat([ap.reshape(-1), ah.reshape(-1)]),
+                       _words(TOP, n_p + n_h))
+    tp, th, tf = philox.tower_stream_bits_ref(seed_t(TOP), layers, b, t, h,
+                                              heads)
+    assert tp.shape == (layers, heads * b, t, t) and tf.shape == (
+        layers, b * t, h)
+    for j in range(layers):
+        row = torch.cat([tp[j].reshape(-1), th[j].reshape(-1),
+                         tf[j].reshape(-1)])
+        assert torch.equal(row, _words((TOP + j) & _M, n_p + 2 * n_h)), j
+
+
+@pytest.mark.parametrize("layers,per", [(0, 4), (65536, 4), (1, 0),
+                                        (1, 4 * _M + 1)])
+def test_dump_refuses_what_the_kernel_cannot_index(layers, per):
+    """The kernel's rows are its grid's y dimension (at most 65535) and a
+    row's Philox blocks a 32-bit counter: the wrapper refuses the rest
+    before it launches anything."""
+    with pytest.raises(ValueError, match="65535 rows"):
+        philox._dump("dump", seed_t(), layers, per)
 
 
 # -------------------------------------------------- kernels against JAX --
@@ -600,8 +656,12 @@ def _close_cuda(a, b_, tol, scaled, what=""):
 
 @pytest.mark.cuda
 def test_cuda_dumps_equal_plain(cuda):
-    """K10-K12 against their plain versions, bit for bit, with counters."""
-    s = seed_t(0x7FFFFFFE, cuda)
+    """K10-K12 against their plain versions, bit for bit, with counters: at
+    this file's shapes, at the odd row lengths (the last block's word by
+    word stores), at 2 and 12 layers from a seed whose seed + j wraps past
+    2^31 - 1, and at the full-width prng shapes (B 32, T 24, H 768, 12
+    heads); and the kernel itself at 1, 2 and 12 rows."""
+    s = seed_t(TOP, cuda)
     n = [philox.attn_stream_bits.launches, philox.ffn_stream_bits.launches,
          philox.tower_stream_bits.launches]
     for got, want in (
@@ -615,9 +675,38 @@ def test_cuda_dumps_equal_plain(cuda):
             assert a.is_cuda and torch.equal(a, b_)
     assert [philox.attn_stream_bits.launches, philox.ffn_stream_bits.launches,
             philox.tower_stream_bits.launches] == [v + 1 for v in n]
-    # a length that is not a multiple of 4 takes the scalar stores
-    odd = philox.ffn_stream_bits(s, 3, 5)
-    assert torch.equal(odd, philox.ffn_stream_bits_ref(s, 3, 5))
+    for rows, h in FFN_ODD + [(32 * 24, 768)]:
+        assert torch.equal(philox.ffn_stream_bits(s, rows, h),
+                           philox.ffn_stream_bits_ref(s, rows, h)), (rows, h)
+    for shape in BLOCK_ODD + [(32, 24, 768, 12)]:
+        pairs = [(philox.attn_stream_bits(s, *shape),
+                  philox.attn_stream_bits_ref(s, *shape))]
+        pairs += [(philox.tower_stream_bits(s, layers, *shape),
+                   philox.tower_stream_bits_ref(s, layers, *shape))
+                  for layers in (2, 12)]
+        for got, want in pairs:
+            for a, b_ in zip(got, want):
+                assert torch.equal(a, b_), shape
+    # the kernel itself: row j is stream (seed ^ key_xor) + j
+    for layers, per, key_xor in ((1, 1, 0), (1, 5, philox.FFN_XOR),
+                                 (2, 21, 0), (12, 15, 0),
+                                 (1, 32 * 24 * 768, philox.FFN_XOR),
+                                 (12, 12 * 32 * 24 * 24 + 2 * 32 * 24 * 768,
+                                  0)):
+        want = torch.stack([philox.stream_bits(torch.tensor(
+            [((TOP ^ key_xor) + j) & _M], device=cuda), per)
+            for j in range(layers)])
+        got = philox._dump("dump", s, layers, per, key_xor)
+        assert torch.equal(got, want), (layers, per, key_xor)
+
+
+@pytest.mark.cuda
+def test_cuda_ffn_dump_is_one_kernel(cuda):
+    """A call of K11 enqueues one device operation, the dump (the FFN
+    site's xor is the kernel's): a CUDA graph of one call holds one node,
+    a kernel (type 0)."""
+    s = seed_t(SEED, cuda)
+    assert graph_nodes(lambda: philox.ffn_stream_bits(s, R, H)) == [0]
 
 
 def _on(dev, p):

@@ -40,9 +40,10 @@ K10 `attn_stream_bits`, K11 `ffn_stream_bits`, K12 `tower_stream_bits`
 return exactly the tensors the host-bits mode of `attn_block`,
 `ffn_block` and `tower_block` (ops/block.py) takes, as int32-held uint32
 patterns. Each runs its plain version for a CPU seed and the dump kernel
-for a CUDA seed (never falling back), counting its launches in
-`<wrapper>.launches`. `compose_drop_bits` lays the dumps of a prng-mode
-step out with its host bits as one host-mode draw.
+for a CUDA seed (never falling back), one launch a call (K11's xor of the
+seed is the kernel's), counting its launches in `<wrapper>.launches`.
+`compose_drop_bits` lays the dumps of a prng-mode step out with its host
+bits as one host-mode draw.
 """
 
 from __future__ import annotations
@@ -181,15 +182,20 @@ def check_seed(name: str, seed: torch.Tensor, device) -> None:
                          f"tensor on {device}")
 
 
-def _dump(name: str, seed: torch.Tensor, layers: int, per: int
-          ) -> torch.Tensor:
-    """(layers, per) int32: row j is words [0, per) of stream seed + j."""
+def _dump(name: str, seed: torch.Tensor, layers: int, per: int,
+          key_xor: int = 0) -> torch.Tensor:
+    """(layers, per) int32: row j is words [0, per) of stream (seed ^
+    key_xor) + j, in one launch of csrc/philox.cu."""
     check_seed(name, seed, seed.device)
+    if not 1 <= layers <= 65535 or not 1 <= per <= 4 * _MASK:
+        raise ValueError(f"{name}: {layers} rows of {per} words; the kernel "
+                         f"takes 1 to 65535 rows of at most 2^32 - 1 Philox "
+                         f"blocks (4 words each)")
     out = torch.empty((layers, per), dtype=torch.int32, device=seed.device)
     fn = _cuda.function("philox", "tgfr_philox_dump",
-                        (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                         ctypes.c_void_p))
-    _cuda.launch(fn, seed.data_ptr(), layers, per, out.data_ptr())
+                        (ctypes.c_void_p, ctypes.c_uint, ctypes.c_int,
+                         ctypes.c_longlong, ctypes.c_void_p))
+    _cuda.launch(fn, seed.data_ptr(), key_xor, layers, per, out.data_ptr())
     return out
 
 
@@ -206,10 +212,11 @@ def attn_stream_bits(seed: torch.Tensor, b: int, t: int, h: int, heads: int):
 
 def ffn_stream_bits(seed: torch.Tensor, rows: int, h: int) -> torch.Tensor:
     """K11: the FFN half-layer's bits (rows, h) of layer seed `seed` (its
-    stream seed ^ 0x5BD1E995), for `ffn_block`'s host mode."""
+    stream seed ^ 0x5BD1E995, applied to the key in the kernel), for
+    `ffn_block`'s host mode."""
     if seed.device.type == "cpu":
         return ffn_stream_bits_ref(seed, rows, h)
-    w = _dump("ffn_stream_bits", ffn_seed(seed), 1, rows * h)[0]
+    w = _dump("ffn_stream_bits", seed, 1, rows * h, FFN_XOR)[0]
     ffn_stream_bits.launches += 1
     return w.view(rows, h)
 

@@ -30,7 +30,8 @@ from typing import Any, Callable, Sequence, Tuple
 
 import torch
 
-__all__ = ["chain_steps", "time_chained_steps", "time_chained_forward"]
+__all__ = ["chain_steps", "time_chained_steps", "time_chained_forward",
+           "graph_nodes"]
 
 WARMUP = 3          # eager iterations on the capture stream before capture
 
@@ -122,6 +123,46 @@ def _capture(fn: Callable[[], Any]) -> torch.cuda.CUDAGraph:
         raise RuntimeError(f"the step could not be captured in a CUDA graph "
                            f"(it is not timed eagerly instead): {e}") from e
     return graph
+
+
+def graph_nodes(fn: Callable[[], Any]) -> list:
+    """The node types of a CUDA graph of one call of fn (captured on a side
+    stream after a warm-up call there), read with libcuda's cuGraphGetNodes
+    and cuGraphNodeGetType (type 0: a kernel). Unlike torch.profiler's
+    records, which a profiling run may lose, the capture holds every device
+    operation the call enqueues."""
+    import ctypes
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("graph_nodes captures a CUDA graph, and CUDA is "
+                           "not available")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    drv = ctypes.CDLL("libcuda.so.1")
+    drv.cuGraphGetNodes.argtypes = [ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_void_p),
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    drv.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_int)]
+    g, n = graph.raw_cuda_graph(), ctypes.c_size_t(0)
+    if drv.cuGraphGetNodes(g, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and drv.cuGraphGetNodes(g, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if drv.cuGraphNodeGetType(node, ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    return kinds
 
 
 def _is_trainer(state) -> bool:
